@@ -15,12 +15,23 @@ Phases, in order (any failure exits non-zero and prints no result):
    the kernel alone also NaN in every unreadable row), with
    device times beside the plain version, one library call and the
    card's lower bound;
-4. serving: ``gpt2_small`` at full width and depth (random weights from a
+4. flash: K1 (forward), K3a (fused backward) and K3b (the streaming
+   dK/dV and dQ passes) against their plain versions in fp32 and bf16
+   at the training shape, non-causal, at head_dim 128, and on the
+   long-context route (S 8320, through ``F.scaled_dot_product_attention``
+   and ``.backward()``, whose launch counters must show the streaming
+   pair and not the fused kernel), with the same timings;
+5. serving: ``gpt2_small`` at full width and depth (random weights from a
    seed) serves 16 requests through ``ServingEngine`` on the card; the
    kernels' launch counters must equal what the engine's own chunk and
    step counts imply, and every greedy token must equal the argmax of a
    teacher-forced no-cache forward (near-ties counted, not failed);
-5. the ``kernels`` JSON line, then the ``ok`` line.
+6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
+   ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
+   ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
+   exact launch counts per step, and an fp32 forward on the card equal
+   to the same forward on the CPU; tokens/s, step p50 and MFU;
+7. the ``kernels`` JSON line, then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -44,6 +55,13 @@ PEAK_FLOPS = {"float32": 67e12,      # fp32 on the CUDA cores
 # version evaluated in fp32 on the same bf16 values, because the bf16
 # plain version itself rounds logits and P to bf16 at other places.
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# flash kernels, relative to max(1, max |plain|) of each output. fp32:
+# summation order over up to 8320 keys or queries, and the fused dQ's
+# fp32 atomics, whose order changes from run to run. bf16: one rounding
+# of each output to bf16, plus P and dS, which both sides round to bf16
+# at the same places but from logits that differ in the last fp32 bits.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def fail(msg: str):
@@ -153,7 +171,7 @@ def layer_norm_phase(torch, timer, rows):
     g = torch.Generator(device="cuda").manual_seed(11)
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for R, C in ((8, 768), (128, 768)):
+        for R, C in ((8, 768), (128, 768), (16384, 768)):
             x32 = torch.randn(R, C, device="cuda", generator=g) * 2 + 0.5
             w32 = 1 + 0.1 * torch.randn(C, device="cuda", generator=g)
             b32 = 0.1 * torch.randn(C, device="cuda", generator=g)
@@ -316,6 +334,156 @@ def chunk_phase(torch, timer, rows):
                             [s, start, H, D, bs, bp], nbytes, flops)
 
 
+# (B, S, H, D, causal): the training shape, non-causal, head_dim 128; the
+# long-context route (S > 8192) runs through the public functional
+FLASH_CASES = [(16, 1024, 12, 64, True), (2, 1024, 12, 64, False),
+               (2, 1024, 6, 128, True)]
+FLASH_LONG = (1, 8320, 2, 64, True)
+
+
+def _rel_err(out, ref) -> float:
+    return _err(out, ref) / max(1.0, float(ref.float().abs().max()))
+
+
+def _flash_inputs(torch, B, S, H, D, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
+            for _ in range(4)]      # q, k, v, dO
+
+
+def _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
+                errs):
+    """Time K1, K3a and the K3b pair at one shape (inputs as given) and
+    record one row each; ``errs`` maps kernel id to its checked error."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, S, H, D = q.shape
+    sz = q.element_size()
+    n = B * S * H * D * sz            # bytes of one (B, S, H, D) tensor
+    vec = B * H * S * 4               # bytes of lse or delta
+    flops = 4 * B * H * S * S * D / (2 if causal else 1)
+    o, lse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, lse, delta, scale, causal)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    ql, kl, vl = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+
+    def library_fwd_bwd():
+        out = TF.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        torch.autograd.grad(out, (ql, kl, vl), dot)
+
+    plain_bwd = timer(lambda: fa.flash_bwd_ref(*bwd), n=10)
+    library_bwd = timer(library_fwd_bwd, n=10)
+    for kid, fn, plain, library, nbytes, kflops in (
+            ("K1", lambda: fa.flash_fwd(q, k, v, scale, causal),
+             timer(lambda: fa.flash_fwd_ref(q, k, v, scale, causal), n=10),
+             timer(lambda: TF.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal), n=10),
+             4 * n + vec, flops),
+            ("K3a", lambda: fa.flash_bwd_fused(*bwd), plain_bwd, library_bwd,
+             7 * n + 2 * vec, 2.5 * flops),
+            ("K3b-dkv", lambda: fa.flash_bwd_dkv(*bwd), plain_bwd,
+             library_bwd, 6 * n + 2 * vec, 2.0 * flops),
+            ("K3b-dq", lambda: fa.flash_bwd_dq(*bwd), plain_bwd, library_bwd,
+             5 * n + 2 * vec, 1.5 * flops)):
+        bound_ms, bound_by = _bound(nbytes, kflops, dn)
+        row = {"kernel": kid, "dtype": dn, "shape": shape,
+               "max_abs_err": errs[kid][0], "rel_err": errs[kid][1],
+               "tol": FLASH_TOL[dn], "kernel_ms": timer(fn, n=10),
+               "plain_ms": plain, "library_ms": library,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append(row)
+        print("  " + json.dumps(row), flush=True)
+
+
+def _flash_check(torch, dn, shape, pairs):
+    """Worst (max |err|, relative err) over ``pairs`` (name -> (kernel,
+    plain)); fails on a non-finite value or an error past FLASH_TOL."""
+    worst = (0.0, 0.0)
+    for name, (a, b) in pairs.items():
+        check(bool(torch.isfinite(a.float()).all()),
+              f"flash {dn} {shape}: non-finite {name}")
+        e = (_err(a, b), _rel_err(a, b))
+        check(e[1] <= FLASH_TOL[dn], f"flash {dn} {shape}: {name} relative "
+              f"error {e[1]} > {FLASH_TOL[dn]}")
+        worst = max(worst, e, key=lambda t: t[1])
+    return worst
+
+
+def _grads(prefix, got, want):
+    return {f"{prefix}{n}": (a, b)
+            for n, a, b in zip(("dQ", "dK", "dV"), got, want)}
+
+
+def flash_phase(torch, timer, rows):
+    """K1, K3a, K3b against their plain versions; returns the launch
+    counts of the long-context route's public call (bf16)."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    long_launches = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for ci, (B, S, H, D, causal) in enumerate(FLASH_CASES):
+            shape = [B, S, H, D, causal]
+            q, k, v, do = _flash_inputs(torch, B, S, H, D, dtype, 41 + ci)
+            scale = 1.0 / D ** 0.5
+            o, lse = fa.flash_fwd(q, k, v, scale, causal)
+            ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+            delta = (do.float() * ro.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            bwd = (q, k, v, do, rlse, delta, scale, causal)
+            want = fa.flash_bwd_ref(*bwd)
+            fused = fa.flash_bwd_fused(*bwd)
+            split = (fa.flash_bwd_dq(*bwd),) + tuple(fa.flash_bwd_dkv(*bwd))
+            torch.cuda.synchronize()
+            e_fwd = _flash_check(torch, dn, shape, {"O": (o, ro),
+                                                    "lse": (lse, rlse)})
+            e_fused = _flash_check(torch, dn, shape,
+                                   _grads("fused ", fused, want))
+            e_split = _flash_check(torch, dn, shape,
+                                   _grads("split ", split, want))
+            errs = {"K1": e_fwd, "K3a": e_fused, "K3b-dkv": e_split,
+                    "K3b-dq": e_split}
+            _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale,
+                        causal, errs)
+
+        # the long-context route, through the public functional: the
+        # counters must show the streaming pair and not the fused kernel
+        B, S, H, D, causal = FLASH_LONG
+        shape = [B, S, H, D, causal]
+        q, k, v, do = _flash_inputs(torch, B, S, H, D, dtype, 47)
+        ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+        fa.reset_launches()
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        out.backward(do)
+        torch.cuda.synchronize()
+        got = dict(fa.launches)
+        print(f"long-context route {dn} {shape}: launches {got}", flush=True)
+        check(got == {"fwd": 1, "bwd_fused": 0, "bwd_dkv": 1, "bwd_dq": 1},
+              f"long-context route launched {got}: expected the forward "
+              "and the streaming dK/dV and dQ kernels once, the fused "
+              "backward never")
+        if dtype == torch.bfloat16:
+            long_launches = got
+        scale = 1.0 / D ** 0.5
+        ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+        delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
+        want = fa.flash_bwd_ref(q, k, v, do, rlse, delta, scale, causal)
+        e_fwd = _flash_check(torch, dn, shape, {"O": (out.detach(), ro)})
+        e_split = _flash_check(torch, dn, shape, _grads(
+            "split ", (ql.grad, kl.grad, vl.grad), want))
+        fused = fa.flash_bwd_fused(q, k, v, do, rlse, delta, scale, causal)
+        torch.cuda.synchronize()
+        e_fused = _flash_check(torch, dn, shape, _grads("fused ", fused, want))
+        _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
+                    {"K1": e_fwd, "K3a": e_fused, "K3b-dkv": e_split,
+                     "K3b-dq": e_split})
+    return long_launches
+
+
 def serving_phase(torch, card):
     from paddle_tpu_torch.inference import Request, ServingEngine
     from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
@@ -323,10 +491,8 @@ def serving_phase(torch, card):
     from paddle_tpu_torch.ops.kernels import layer_norm as k2
     from paddle_tpu_torch.ops.kernels import paged_attention as k4
 
-    # fp32 end to end, and no TF32 in any product: the greedy check
-    # below compares two fp32 computations of the same logits
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # fp32 end to end (no TF32, set in main): the greedy check below
+    # compares two fp32 computations of the same logits
     cfg = gpt2_small()
     # GPT's initialisers from a seeded generator: normal(0, 0.02), the
     # residual output projections scaled by 1/sqrt(2 * layers)
@@ -383,8 +549,9 @@ def serving_phase(torch, card):
     # greedy consistency: a teacher-forced no-cache forward of prompt +
     # tokens[:-1] must put its argmax on every emitted token, except at a
     # near-tie (top-2 gap < 1e-3). The no-cache forward is off the
-    # serving path: until the flash kernel K1 is ported its attention is
-    # the plain _sdpa math on every device.
+    # serving path; its attention takes the flash kernel K1 wherever the
+    # gate of _local_attention allows (length >= 128 that tiles into
+    # blocks of >= 64) and the plain _sdpa math elsewhere.
     near_ties = checked = 0
     with torch.inference_mode():
         for r in reqs:
@@ -412,19 +579,133 @@ def serving_phase(torch, card):
     return launches
 
 
+def training_phase(torch, card):
+    """``bench.py``'s training run on the port: returns the launch counts
+    of the 10 timed steps."""
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt2_small()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    batch, seq, warm, steps = 16, 1024, 2, 10
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    ids_np = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                              (batch, seq))
+    ids = torch.from_numpy(ids_np).cuda()
+
+    # fp32 (amp off) loss of the first 2 rows on the card, through the
+    # kernels, against the same weights on the CPU through the plain
+    # versions; both sides fp32 with no TF32, differing in summation order
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=0)
+    cpu.set_state_dict({n: t.detach().cpu().numpy()
+                        for n, t in model.state_dict().items()})
+    with torch.no_grad():
+        card_loss = float(model(ids[:2], ids[:2]))
+        cpu_loss = float(cpu(ids[:2].cpu(), ids[:2].cpu()))
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"fp32 2-row loss: card {card_loss!r}, cpu {cpu_loss!r}, "
+          f"relative difference {rel:.3g} (limit 1e-4)", flush=True)
+    check(rel <= 1e-4, f"card fp32 loss {card_loss} != cpu {cpu_loss}")
+    del cpu
+
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01)
+    trainer = ShardedTrainer(model, opt, None, amp=True)
+    losses = [trainer.train_step(ids, ids) for _ in range(warm)]
+    torch.cuda.synchronize()
+    for m in (fa, k2):
+        m.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    for start, end in ev:
+        start.record()
+        losses.append(trainer.train_step(ids, ids))
+        end.record()
+    torch.cuda.synchronize()
+    launches = {"K1": fa.launches["fwd"], "K3a": fa.launches["bwd_fused"],
+                "K3b-dkv": fa.launches["bwd_dkv"],
+                "K3b-dq": fa.launches["bwd_dq"], "K2": k2.launches}
+    step_ms = [s.elapsed_time(e) for s, e in ev]
+    total_ms = ev[0][0].elapsed_time(ev[-1][1])
+    vals = [float(x) for x in losses]
+    print(f"training losses: {vals}", flush=True)
+    check(all(np.isfinite(vals)), "non-finite training loss")
+    check(vals[-1] < vals[0], f"loss did not fall: {vals[0]} -> {vals[-1]}")
+    L = cfg.num_layers
+    want = {"K1": L * steps, "K3a": L * steps, "K3b-dkv": 0, "K3b-dq": 0,
+            "K2": (2 * L + 1) * steps}
+    check(launches == want, f"training launch counts {launches} != {want} "
+          f"for {steps} steps")
+    tokens_per_s = batch * seq * steps / (total_ms / 1e3)
+    mfu = tokens_per_s * 6 * cfg.num_params() / PEAK_FLOPS["bfloat16"]
+    print(f"training on {card}: {tokens_per_s:.1f} tokens/s, step p50 "
+          f"{float(np.median(step_ms)):.2f} ms (min {min(step_ms):.2f}, max "
+          f"{max(step_ms):.2f}), MFU {mfu:.4f} (6 x {cfg.num_params()} "
+          f"params / 989 TFLOP/s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches over {steps} steps {launches}", flush=True)
+    _profile_step(torch, trainer, ids, float(np.median(step_ms)))
+    return launches
+
+
+def _profile_step(torch, trainer, ids, step_ms):
+    """Device time of one more training step by kernel, from
+    ``torch.profiler`` (CUPTI): the largest kernels, and the device's
+    busy share of the timed step p50."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(ids, ids)
+        torch.cuda.synchronize()
+    # device-side events only: an operator's own entry repeats the device
+    # time of the kernels it launched
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in kernels)
+    print(f"profiled step: device busy {busy:.2f} ms = "
+          f"{busy / step_ms:.3f} of the step p50 {step_ms:.2f} ms; by "
+          "kernel (ms, launches):", flush=True)
+    for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:15]:
+        print(f"  {ms:9.3f} {n:6d}  {name[:90]}", flush=True)
+
+
+_FA = "paddle_tpu/ops/pallas/flash_attention.py"
 KERNELS = {
+    "K1": ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd.cu",
+           f"{_FA}:54, {_FA}:108"),
     "K2": ("layer_norm", "paddle_tpu_torch/csrc/layer_norm.cu",
            "paddle_tpu/ops/pallas/layer_norm.py:31"),
+    "K3a": ("flash_bwd_fused", "paddle_tpu_torch/csrc/flash_bwd.cu",
+            f"{_FA}:362"),
+    "K3b-dkv": ("flash_bwd_dkv", "paddle_tpu_torch/csrc/flash_bwd.cu",
+                f"{_FA}:162"),
+    "K3b-dq": ("flash_bwd_dq", "paddle_tpu_torch/csrc/flash_bwd.cu",
+               f"{_FA}:215"),
     "K4": ("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
            "paddle_tpu/ops/pallas/paged_attention.py:103"),
     "K5": ("chunk_prefill", "paddle_tpu_torch/csrc/chunk_prefill.cu",
            "paddle_tpu/ops/pallas/chunk_prefill.py:93"),
 }
-# the row each kernel reports in the kernels line: fp32 (the serving
-# phase's dtype) at the decode shape for K2 and K4, and the deepest
-# prefix for K5
-HEADLINE = {"K2": [8, 768], "K4": [8, 1, 12, 64, 16, 64],
-            "K5": [128, 517, 12, 64, 16, 64]}
+# the row each kernel reports in the kernels line: for K2, K4 and K5
+# fp32 (the serving phase's dtype) at the decode shape for K2 and K4,
+# and the deepest prefix for K5; for the flash kernels bf16 (the training
+# phase's dtype under AMP) at the shape of the path that launches them
+HEADLINE = {"K1": ("bfloat16", list(FLASH_CASES[0])),
+            "K2": ("float32", [8, 768]),
+            "K3a": ("bfloat16", list(FLASH_CASES[0])),
+            "K3b-dkv": ("bfloat16", list(FLASH_LONG)),
+            "K3b-dq": ("bfloat16", list(FLASH_LONG)),
+            "K4": ("float32", [8, 1, 12, 64, 16, 64]),
+            "K5": ("float32", [128, 517, 12, 64, 16, 64])}
 
 
 def main():
@@ -434,6 +715,10 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs the "
              "port on an NVIDIA card")
+    # fp32 products in full fp32 everywhere: the fp32 comparisons hold
+    # two fp32 computations of the same function to each other
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_phase(torch)
     build_phase()
     timer = Timer(torch)
@@ -442,13 +727,17 @@ def main():
     layer_norm_phase(torch, timer, rows)
     paged_phase(torch, timer, rows)
     chunk_phase(torch, timer, rows)
+    long_launches = flash_phase(torch, timer, rows)
     launches = serving_phase(torch, card)
+    train_launches = training_phase(torch, card)
+    launches.update({"K1": train_launches["K1"], "K3a": train_launches["K3a"],
+                     "K3b-dkv": long_launches["bwd_dkv"],
+                     "K3b-dq": long_launches["bwd_dq"]})
 
     out = []
     for kid, (name, src, replaces) in KERNELS.items():
         row = next(r for r in rows if r["kernel"] == kid
-                   and r["dtype"] == "float32"
-                   and r["shape"] == HEADLINE[kid])
+                   and [r["dtype"], r["shape"]] == list(HEADLINE[kid]))
         check(launches[kid] > 0, f"{kid} was never launched on the path")
         out.append({"name": f"{kid} {name}", "route": "cuda",
                     "source": src, "replaces": replaces,

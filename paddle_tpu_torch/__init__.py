@@ -14,6 +14,10 @@ Entry points run on ``device="cuda"`` unless the caller passes
 
 Slice 1 ports paged GPT serving: ``ServingEngine`` over the paged KV
 block pool with the LayerNorm, paged-decode and chunk-prefill kernels.
+Slice 2 ports GPT training on one card: ``GPTForCausalLM(ids, labels)``,
+paddle's AMP (``amp``), ``Adam``/``AdamW`` (``optimizer``) and
+``distributed.ShardedTrainer``, with the flash-attention forward and
+backward kernels.
 """
 
 from paddle_tpu_torch.core.place import resolve_device

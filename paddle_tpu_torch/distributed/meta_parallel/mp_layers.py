@@ -22,18 +22,25 @@ __all__ = ["ColumnParallelLinear", "RowParallelLinear",
 
 
 class _DenseLinear(Linear):
+    _op_name: str   # the op name AMP decides by
+
     def __init__(self, in_features: int, out_features: int,
                  has_bias: bool = True, device=None, dtype=torch.float32):
         super().__init__(in_features, out_features, bias=has_bias,
                          device=device, dtype=dtype)
 
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias, op_name=self._op_name)
+
 
 class ColumnParallelLinear(_DenseLinear):
     """Weight (in, out); the reference splits the OUT columns over 'mp'."""
+    _op_name = "column_parallel_linear"
 
 
 class RowParallelLinear(_DenseLinear):
     """Weight (in, out); the reference splits the IN rows over 'mp'."""
+    _op_name = "row_parallel_linear"
 
 
 class VocabParallelEmbedding(Layer):

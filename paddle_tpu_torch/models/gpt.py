@@ -7,10 +7,15 @@ and the LM head tied to the token embedding (``gpt.py:637``). Weights are
 paddle's (in, out) layout, so ``set_state_dict`` copies a ``paddle_tpu``
 model's arrays by name with no transposes.
 
-Two forward modes in this slice:
+Forward modes:
 
-- no cache: plain causal attention over the whole sequence (the flash
-  kernel K1 is not ported yet; see ``nn/functional/attention.py``);
+- no cache: causal attention over the whole sequence through
+  ``F.scaled_dot_product_attention``, whose gate sends the shapes the
+  JAX package sends to flash to the flash kernels (K1 forward, K3
+  backward) and the rest to the plain attention. With ``labels`` the
+  model returns the mean next-token loss through the fused chunked head
+  and cross entropy (``F.linear_cross_entropy``, ``gpt.py:605-632``):
+  the training path;
 - the PAGED full-precision cache (``gpt.py:284-359``): per layer a
   ``(k_pool, v_pool, table, t)`` tuple — pools ``(num_blocks,
   block_size, H, D)``, an int32 block table ``(b, blocks_per_slot)`` and
@@ -32,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.amp.auto_cast import maybe_cast_inputs
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.core.random import generator as make_generator
 from paddle_tpu_torch.distributed.meta_parallel import (ColumnParallelLinear,
@@ -45,6 +51,9 @@ from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt2_small"]
+
+_INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.int32,
+               torch.int64)
 
 
 @dataclass
@@ -64,6 +73,12 @@ class GPTConfig:
     @property
     def ffn_size(self) -> int:
         return self.intermediate_size or 4 * self.hidden_size
+
+    def num_params(self) -> int:
+        """Parameter count of the tied model (``gpt.py:75``)."""
+        h, l, v = self.hidden_size, self.num_layers, self.vocab_size
+        return v * h + self.max_position_embeddings * h + l * (
+            4 * h * h + 2 * h * self.ffn_size + 13 * h) + 2 * h
 
 
 def _paged_write_rows(table, t, s: int, block_size: int):
@@ -258,12 +273,36 @@ class GPTForCausalLM(Layer):
                 blk.mlp.fc_in.weight.normal_(0.0, std, generator=gen)
                 blk.mlp.fc_out.weight.normal_(0.0, out_std, generator=gen)
 
-    def forward(self, input_ids, position_ids=None, caches=None):
+    def forward(self, input_ids, labels=None, position_ids=None,
+                caches=None):
+        """Logits, or ``(logits, new_caches)`` with ``caches``; with
+        ``labels`` (integer ids of ``input_ids``' shape) the mean
+        next-token loss instead, through the fused chunked head and
+        cross entropy — the (N, vocab) logits never exist at once."""
+        if labels is not None and (
+                tuple(labels.shape) != tuple(input_ids.shape)
+                or labels.dtype not in _INT_DTYPES):
+            raise TypeError(
+                "labels must be integer ids with input_ids' shape — got "
+                f"shape {tuple(labels.shape)}; if you meant position_ids, "
+                "pass it by keyword (forward(input_ids, labels=None, "
+                "position_ids=None, caches=None))")
         out = self.gpt(input_ids, position_ids, caches)
         hidden = out if caches is None else out[0]
-        # tied head: hidden @ wte^T
-        logits = torch.matmul(hidden, self.gpt.wte.weight.t())
+        if labels is not None:
+            return F.linear_cross_entropy(
+                hidden[:, :-1], self.gpt.wte.weight, labels[:, 1:],
+                reduction="mean", w_vocab_major=True)
+        # tied head: hidden @ wte^T, the white-listed op "matmul"
+        h, w = maybe_cast_inputs("matmul", (hidden, self.gpt.wte.weight))
+        logits = torch.matmul(h, w.t())
         return logits if caches is None else (logits, out[1])
+
+    @staticmethod
+    def loss(logits, labels):
+        """Functional LM loss (``gpt.py:656``): shift-by-one causal CE."""
+        return F.cross_entropy(logits[:, :-1], labels[:, 1:],
+                               reduction="mean")
 
     def kv_cache_spec(self) -> dict:
         """Cache geometry the serving engine sizes its pools from."""

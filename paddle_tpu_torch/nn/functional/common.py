@@ -5,12 +5,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as TF
 
+from paddle_tpu_torch.amp.auto_cast import maybe_cast_inputs
+
 __all__ = ["linear", "embedding", "dropout"]
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, op_name: str = "linear"):
     """y = x @ W + b with paddle's (in, out) weight layout — NOT torch's
-    (out, in) ``F.linear``."""
+    (out, in) ``F.linear``. Under AMP the inputs are cast as the op
+    ``op_name`` dictates: the tensor-parallel layers dispatch as
+    ``column_parallel_linear`` / ``row_parallel_linear``, as in the JAX
+    package."""
+    x, weight, bias = maybe_cast_inputs(op_name, (x, weight, bias))
     out = torch.matmul(x, weight)
     if bias is not None:
         out = out + bias

@@ -35,12 +35,20 @@ _LIB_NAME = "paddle_tpu_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_float)
+# the flash kernels' tail: B, H, Sq, Sk, D; q and kv strides on (B, S,
+# H); scale, causal, dtype, stream
+_FLASH = [_I] * 5 + [_L] * 6 + [_F, _I, _I, _VP]
 # C signature of every entry point (all return a cudaError_t as int)
 _SIGNATURES = {
     "ptt_layer_norm_fwd": [_VP] * 6 + [_I, _I, _F, _I, _VP],
     "ptt_paged_attention_fwd": [_VP] * 6 + [_I] * 6 + [_F, _I, _VP],
     "ptt_chunk_prefill_fwd": [_VP] * 6 + [_I] * 7 + [_F, _I, _VP],
+    "ptt_flash_fwd": [_VP] * 5 + _FLASH,
+    "ptt_flash_bwd_fused": [_VP] * 9 + _FLASH,
+    "ptt_flash_bwd_dkv": [_VP] * 8 + _FLASH,
+    "ptt_flash_bwd_dq": [_VP] * 7 + _FLASH,
 }
 
 _lock = threading.Lock()

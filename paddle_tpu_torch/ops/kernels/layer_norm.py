@@ -9,6 +9,11 @@ bounds it on the H100 and how the design answers that.
 :func:`layer_norm_ref` (the plain version, same arithmetic in fp32); a
 CUDA tensor launches the kernel or raises. ``launches`` counts kernel
 launches and nothing else.
+
+:class:`LayerNormFn` is the autograd Function of ``_fused_layer_norm``
+(``layer_norm.py:91-117``): its forward is K2 and saves K2's fp32
+``(mean, rstd)``; its backward is ``_fused_ln_bwd`` (:102-114) in plain
+torch, because the JAX backward is XLA, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -16,10 +21,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from paddle_tpu_torch.ops.kernels import _build
 
-__all__ = ["layer_norm_fwd", "layer_norm_ref", "launches", "reset_launches"]
+__all__ = ["layer_norm_fwd", "layer_norm_ref", "LayerNormFn", "launches",
+           "reset_launches"]
 
 launches = 0
 
@@ -87,3 +94,28 @@ def layer_norm_fwd(x2: torch.Tensor, weight: Optional[torch.Tensor],
     global launches
     launches += 1
     return y, mean, rstd
+
+
+class LayerNormFn(torch.autograd.Function):
+    """LayerNorm over the last axis of (R, C) ``x2``; ``weight`` and
+    ``bias`` may be None."""
+
+    @staticmethod
+    def forward(ctx, x2, weight, bias, eps: float):
+        y, mean, rstd = layer_norm_fwd(x2, weight, bias, eps)
+        ctx.save_for_backward(x2, weight, bias, mean, rstd)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x2, w, b, mean, rstd = ctx.saved_tensors
+        g = dy.float()
+        xhat = (x2.float() - mean) * rstd          # mean, rstd are (R, 1)
+        gw = g * w.float()[None, :] if w is not None else g
+        m1 = gw.mean(dim=-1, keepdim=True)
+        m2 = (gw * xhat).mean(dim=-1, keepdim=True)
+        dx = (rstd * (gw - m1 - xhat * m2)).to(x2.dtype)
+        dw = (g * xhat).sum(dim=0).to(w.dtype) if w is not None else None
+        db = g.sum(dim=0).to(b.dtype) if b is not None else None
+        return dx, dw, db, None
