@@ -7,14 +7,19 @@ and PyTorch built for CUDA; it imports nothing of JAX or ``paddle_tpu``.
 Phases, in order (any failure exits non-zero and prints no result):
 
 1. card: the ``nvidia-smi`` name and power limit, the capability;
-2. build: ``csrc/*.cu`` -> ``build/kernels/`` with ``nvcc`` for sm_90a;
+2. build: ``csrc/*.cu`` -> ``build/kernels/`` with ``nvcc`` for sm_90a,
+   then the registers and spills of every K4/K5 instantiation
+   (``-Xptxas -v``);
 3. kernels: K2 LayerNorm, K4 paged decode and K5 chunk prefill, each
    against its plain PyTorch version in fp32 and bf16 at the serving
    path's shapes, on pools poisoned where no query may read (1e9 in
    unreadable rows of mapped blocks, NaN in blocks no table names; for
    the kernel alone also NaN in every unreadable row), with
    device times beside the plain version, one library call and the
-   card's lower bound;
+   card's lower bound; then the int8 branches of K4 and K5 on int8 code
+   pools with (block, head) scales, poisoned with saturated codes (127)
+   in every row no query may read and a 1e7 scale in every block no
+   table names (NaN scales there for the kernel alone);
 4. flash: K1 (forward), K3a (fused backward) and K3b (the streaming
    dK/dV and dQ passes) against their plain versions in fp32 and bf16
    at the training shape, non-causal, at head_dim 128, and on the
@@ -26,6 +31,13 @@ Phases, in order (any failure exits non-zero and prints no result):
    kernels' launch counters must equal what the engine's own chunk and
    step counts imply, and every greedy token must equal the argmax of a
    teacher-forced no-cache forward (near-ties counted, not failed);
+5b. int8 serving with the prefix cache: the same model behind
+   ``ServingEngine(kv_dtype="int8", prefix_cache=PrefixCache(...))``
+   serves 16 requests that share a 512-token system prompt; the int8
+   kernels' counters must equal the chunk and step counts (the fp ones
+   stay 0), the trie must hold every block left in use, the greedy
+   tokens must equal a run of the same trace with the cache off, and
+   their agreement with the fp32 teacher-forced argmax must reach 0.9;
 6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
    ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
@@ -37,6 +49,7 @@ Phases, in order (any failure exits non-zero and prints no result):
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -80,7 +93,10 @@ class Timer:
     around each one. All launches of a measurement are enqueued behind a
     spin kernel, so the host's own overhead never shows as device time;
     a 64 MB write between launches evicts the 50 MB L2, so every launch
-    finds its inputs cold, as one layer's pools are in a real step."""
+    finds its inputs cold, as one layer's pools are in a real step. A
+    call that launches many kernels gets fewer calls per measurement:
+    a stream holds ~1024 pending launches, and past that the host
+    blocks in the launch until the device drains the queue."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -108,8 +124,9 @@ class Timer:
             if ahead:
                 return float(np.median([s.elapsed_time(e) for s, e in ev]))
             self.cycles *= 4
+            n = max(10, n // 2)
             check(self.cycles < 8_000_000_000,
-                  "could not enqueue 50 launches ahead of the device")
+                  f"could not enqueue {n} calls ahead of the device")
 
 
 # --------------------------------------------------------------- phases
@@ -139,6 +156,43 @@ def build_phase():
     print(f"build: {secs:.2f} s ({how}) from "
           f"{', '.join(p.name for p in _build.sources())} into "
           f"{_build.build_dir()}", flush=True)
+
+
+_PTXAS_NAME = re.compile(r"paged_attn_kernelI(f|13__nv_bfloat16)(f|a|S\d*_)"
+                         r"Li(\d+)ELi\d+ELi\d+E")
+
+
+def ptxas_phase():
+    """Registers and spills of every K4/K5 instantiation (q type, pool
+    type, head dim), from ``nvcc -Xptxas -v`` on their two sources."""
+    import tempfile
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    srcs = [p for p in _build.sources()
+            if p.name in ("paged_attention.cu", "chunk_prefill.cu")]
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             str(src), "-o", f"{tmp}/{src.stem}.o"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in srcs]
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    for src, proc, out in zip(srcs, procs, outs):
+        check(proc.returncode == 0, f"nvcc -Xptxas -v {src.name}:\n{out}")
+        name = None
+        for line in out.splitlines():
+            if "Compiling entry function" in line:
+                name = _PTXAS_NAME.search(line)
+            elif name is not None and "spill" in line:
+                spill = line.split(",", 1)[1].strip()
+            elif name is not None and "Used" in line:
+                tq = "fp32" if name.group(1) == "f" else "bf16"
+                tp = "int8" if name.group(2) == "a" else tq
+                regs = line.split("Used", 1)[1].split(",")[0].strip()
+                print(f"ptxas {src.name}: q {tq}, pool {tp}, D "
+                      f"{name.group(3)}: {regs}, {spill}", flush=True)
+                name = None
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
@@ -282,6 +336,155 @@ def _attention_case(torch, timer, rows, name, kernel_fn, ref_fn, q, kp, vp,
             lambda: TF.scaled_dot_product_attention(qd, kd, vd,
                                                     attn_mask=mask),
             nbytes=nbytes, flops=flops)
+
+
+def _pool_case_q(torch, rs, nslots, bp, bs, H, D, spare=16):
+    """int8 pools of random codes with (block, head) scales of a
+    quantized commit's size (absmax / 127 of unit-normal rows), and a
+    table of distinct blocks as :func:`_pool_case` draws it."""
+    nblk = 1 + nslots * bp + spare
+    table = (1 + rs.permutation(nblk - 1)[:nslots * bp]).reshape(
+        nslots, bp).astype(np.int32)
+    codes = [torch.from_numpy(rs.randint(-127, 128, (nblk, bs, H, D)).astype(
+        np.int8)).cuda() for _ in range(2)]
+    scales = [torch.from_numpy((0.02 + 0.01 * np.abs(rs.randn(nblk, H))
+                                ).astype(np.float32)).cuda()
+              for _ in range(2)]
+    return codes, scales, torch.from_numpy(table).cuda(), table
+
+
+def _poison_q(torch, codes, scales, table, reach, dead_scale=1e7):
+    """Saturated codes (127) in every pool row no (slot, table entry) can
+    read under ``col <= reach[slot]``; ``dead_scale`` in every scale row
+    of a block no table names (NaN only for the kernel alone: the plain
+    version gathers named blocks only, but a block no table names is
+    never read by either)."""
+    nblk, bs = codes[0].shape[0], codes[0].shape[1]
+    readable = np.zeros((nblk, bs), bool)
+    named = np.zeros((nblk,), bool)
+    cols = np.arange(table.shape[1] * bs)
+    for o in range(table.shape[0]):
+        named[table[o]] = True
+        ok = cols <= reach[o]
+        readable[table[o][cols[ok] // bs], cols[ok] % bs] = True
+    rows_dead = torch.from_numpy(~readable).cuda()
+    unnamed = torch.from_numpy(~named).cuda()
+    codes = [c.clone() for c in codes]
+    scales = [x.clone() for x in scales]
+    for c, x in zip(codes, scales):
+        c[rows_dead] = 127
+        x[unnamed] = dead_scale
+    return codes, scales
+
+
+def _attention_case_q(torch, timer, rows, name, kernel_fn, ref_fn, q, codes,
+                      scales, table_t, table, t, reach, dn, shape, nbytes,
+                      flops):
+    """The int8 branch of K4/K5 against its plain version: clean pools,
+    poisoned pools (1e7 scales), and the kernel alone with NaN scales in
+    every block no table names."""
+    import torch.nn.functional as TF
+
+    def kern(c, x):
+        return kernel_fn(q, c[0], c[1], table_t, t, k_scale=x[0],
+                         v_scale=x[1])
+
+    def plain(c, x):
+        return ref_fn(q, c[0], c[1], table_t, t, k_scale=x[0], v_scale=x[1])
+
+    out, ref = kern(codes, scales), plain(codes, scales)
+    pc, px = _poison_q(torch, codes, scales, table, reach)
+    out_p, ref_p = kern(pc, px), plain(pc, px)
+    nc, nx = _poison_q(torch, codes, scales, table, reach,
+                       dead_scale=float("nan"))
+    out_n = kern(nc, nx)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_p).all() and torch.isfinite(out_n).all()),
+          f"{name} {dn} {shape}: non-finite output on a poisoned pool")
+    # bf16: relative to max(1, max |plain|); the plain version casts the
+    # dequantized view to bf16 (the reference's order), the kernel keeps
+    # it in fp32 (the Pallas kernel's)
+    err = max(_err(out, ref), _err(out_p, ref_p), _err(out_p, out),
+              _err(out_n, out))
+    norm = max(1.0, float(ref.float().abs().max())) \
+        if dn == "bfloat16" else 1.0
+    check(err / norm <= ATOL[dn], f"{name} {dn} {shape}: max |kernel - "
+          f"plain| {err} (/ {norm}) > {ATOL[dn]} (clean, poisoned, or "
+          "poisoned vs clean)")
+    # library yardstick: SDPA over the dense view dequantized beforehand
+    # (neither the gather nor the dequant is timed)
+    b, s = q.shape[0], q.shape[1]
+    nrows = min(int(max(reach)) + 1, table.shape[1] * codes[0].shape[1])
+    kp, vp = ((c.float() * x[:, None, :, None]).to(q.dtype)
+              for c, x in zip(codes, scales))
+    kd, vd = _dense_view(torch, kp, vp, table_t, nrows)
+    qd = q.transpose(1, 2).contiguous()
+    tt = torch.as_tensor(t, device="cuda").reshape(-1, 1, 1, 1)
+    mask = (torch.arange(nrows, device="cuda")[None, None, None, :]
+            <= tt + torch.arange(s, device="cuda")[None, None, :, None])
+    _record(rows, name, dn, shape, err, timer, lambda: kern(codes, scales),
+            lambda: plain(codes, scales),
+            lambda: TF.scaled_dot_product_attention(qd, kd, vd,
+                                                    attn_mask=mask),
+            nbytes=nbytes, flops=flops)
+
+
+def _q_bytes(H, D, bs, rows_read, blocks_read, q_rows, sz, table_nbytes):
+    """Bytes an int8 case must move: the codes of the rows it reads (1
+    byte an element, K and V), one fp32 scale per (block, head) read,
+    q in and out at q's size, the table."""
+    return (rows_read * H * D * 2 + blocks_read * H * 4 * 2
+            + 2 * q_rows * H * D * sz + table_nbytes)
+
+
+def paged_q_phase(torch, timer, rows):
+    from paddle_tpu_torch.ops.kernels import paged_attention as k4
+
+    b, s, H, D, bs, bp = 8, 1, 12, 64, 16, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        rs = np.random.RandomState(22)
+        codes, scales, table_t, table = _pool_case_q(torch, rs, b, bp, bs,
+                                                     H, D)
+        t_np = np.linspace(0, 1000, b).round().astype(np.int32)
+        rs.shuffle(t_np)
+        t = torch.from_numpy(t_np).cuda()
+        q = torch.from_numpy(rs.randn(b, s, H, D).astype(np.float32)).to(
+            "cuda", dtype)
+        keys = t_np + s
+        nbytes = _q_bytes(H, D, bs, int(keys.sum()),
+                          int(((keys - 1) // bs + 1).sum()), b * s,
+                          q.element_size(), table.nbytes + 4 * b)
+        flops = 4 * s * int(keys.sum()) * H * D
+        _attention_case_q(torch, timer, rows, "K4-int8", k4.paged_attention,
+                          k4.paged_attention_ref, q, codes, scales, table_t,
+                          table, t, t_np + s - 1, dn, [b, s, H, D, bs, bp],
+                          nbytes, flops)
+
+
+def chunk_q_phase(torch, timer, rows):
+    from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
+
+    H, D, bs, bp = 12, 64, 16, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for s, start in ((128, 0), (128, 517)):
+            rs = np.random.RandomState(32 + start + s)
+            codes, scales, table_t, table = _pool_case_q(torch, rs, 1, bp,
+                                                         bs, H, D)
+            q = torch.from_numpy(rs.randn(1, s, H, D).astype(
+                np.float32)).to("cuda", dtype)
+            t = torch.tensor(start, dtype=torch.int32, device="cuda")
+            keys = min(start + s, bp * bs)
+            nbytes = _q_bytes(H, D, bs, keys, (keys - 1) // bs + 1, s,
+                              q.element_size(), table.nbytes)
+            flops = 4 * H * D * sum(min(start + i + 1, keys)
+                                    for i in range(s))
+            _attention_case_q(torch, timer, rows, "K5-int8",
+                              k5.chunk_prefill, k5.chunk_prefill_ref, q,
+                              codes, scales, table_t, table, t,
+                              [start + s - 1], dn, [s, start, H, D, bs, bp],
+                              nbytes, flops)
 
 
 def paged_phase(torch, timer, rows):
@@ -528,6 +731,8 @@ def serving_phase(torch, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"K2": k2.launches, "K4": k4.launches, "K5": k5.launches}
+    check(k4.launches_q == k5.launches_q == 0,
+          "fp32 pools launched an int8 kernel")
 
     chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
     L = cfg.num_layers
@@ -574,8 +779,131 @@ def serving_phase(torch, card):
           "near-tie mismatches (top-2 gap < 1e-3)", flush=True)
     print(f"serving perf on {card}: {agg['aggregate_tokens_per_s']:.1f} "
           f"tokens/s, TTFT p50 {agg['ttft_p50_s'] * 1e3:.1f} ms, decode "
-          f"step p50 {agg['decode_step_ms_p50']:.2f} ms, wall {wall:.2f} s",
+          f"step p50 {agg['decode_step_ms_p50']:.2f} ms, wall {wall:.2f} s, "
+          f"kv_bytes_in_use_peak {int(agg['kv_bytes_in_use_peak'])}",
           flush=True)
+    return launches, model, agg
+
+
+def _shared_prefix_trace(vocab):
+    """16 requests from ``RandomState(1)``: one 512-token system prompt,
+    then a 24-300-token suffix each; 32-64 new tokens; 12 greedy, 4 at
+    temperature 0.8 / top-p 0.9. Returned as Request keyword dicts."""
+    rs = np.random.RandomState(1)
+    system = rs.randint(0, vocab, 512).tolist()
+    sampled = set(rs.choice(16, 4, replace=False).tolist())
+    out = []
+    for i in range(16):
+        suffix = rs.randint(0, vocab, int(rs.randint(24, 301))).tolist()
+        kw = (dict(temperature=0.8, top_p=0.9) if i in sampled
+              else dict(greedy=True))
+        out.append(dict(prompt=system + suffix,
+                        max_new_tokens=int(rs.randint(32, 65)), **kw))
+    return out
+
+
+def _serve_q(torch, model, trace, cache):
+    """One int8 run of ``trace`` (after a warm-up request): the requests,
+    their streams, the aggregate, the wall seconds and the launch counts
+    of the run (every counter set to 0 just before it)."""
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.ops.kernels import paged_attention as k4
+
+    eng = ServingEngine(model, max_batch_slots=8, max_len=1024,
+                        block_size=16, prefill_chunk=128, seed=0,
+                        kv_dtype="int8", prefix_cache=cache, device="cuda")
+    eng.submit(Request(prompt=[1, 2, 3], max_new_tokens=4, greedy=True))
+    eng.run()
+    streamed = {}
+    reqs = [eng.submit(Request(on_token=lambda r, tok, done: streamed.
+                               setdefault(r.id, []).append((tok, bool(done))),
+                               **kw)) for kw in trace]
+    torch.cuda.synchronize()
+    for m in (k2, k4, k5):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    agg = eng.run().aggregate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K2": k2.launches, "K4": k4.launches, "K5": k5.launches,
+                "K4-int8": k4.launches_q, "K5-int8": k5.launches_q}
+    return eng, reqs, streamed, agg, wall, launches
+
+
+def serving_q_phase(torch, card, model, fp_agg):
+    """Phase 5b: int8 pools and the prefix cache on the same model;
+    returns the int8 kernels' launch counts."""
+    from paddle_tpu_torch.inference import PrefixCache
+
+    cfg = model.config
+    L = cfg.num_layers
+    trace = _shared_prefix_trace(cfg.vocab_size)
+    cache = PrefixCache(chunk_tokens=128, max_bytes=1 << 30)
+    eng, reqs, streamed, agg, wall, launches = _serve_q(torch, model, trace,
+                                                        cache)
+    # the warm-up prompt is shorter than a chunk: it cached nothing and
+    # hit nothing, so the trie's counter is the run's
+    chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+    hits = int(agg["prefix_hit_tokens"])
+    print(f"int8 + prefix cache: {int(agg['completed'])} requests, {chunks} "
+          f"prefill chunks, {steps} decode steps, "
+          f"{int(agg['preemptions'])} preemptions, prefix hit tokens "
+          f"{hits} (rate {agg['prefix_hit_rate']:.3f}), evictions "
+          f"{int(agg['evictions'])}, launches {launches}", flush=True)
+    for r in reqs:
+        check(r.status == "done" and r.finish_reason in ("length", "eos"),
+              f"int8 request {r.id} ended {r.status}/{r.finish_reason}")
+        check([tk for tk, _ in streamed[r.id]] == r.tokens
+              and streamed[r.id][-1][1],
+              f"int8 request {r.id}: the stream differs from its tokens")
+    want = {"K2": (2 * L + 1) * (chunks + steps), "K4": 0, "K5": 0,
+            "K4-int8": L * steps, "K5-int8": L * chunks}
+    check(launches == want, f"int8 launch counts {launches} != {want} "
+          f"implied by {chunks} chunks and {steps} steps")
+    check(hits > 0 and hits == cache.hit_tokens,
+          f"prefix hit tokens {hits}, the trie's {cache.hit_tokens}")
+    held = {b for n in cache.iter_nodes() for b in n.blocks}
+    check(eng._alloc.blocks_in_use() == len(held),
+          f"{eng._alloc.blocks_in_use()} blocks in use after the run, the "
+          f"trie holds {len(held)}")
+
+    # the same trace with the cache off, on int8 pools: token-exact for
+    # the greedy requests (chunk_tokens == prefill_chunk, so a spliced
+    # prefix holds the codes a cold prefill commits)
+    _, cold, _, cold_agg, _, _ = _serve_q(torch, model, trace, None)
+    for r, c in zip(reqs, cold):
+        if r.greedy:
+            check(r.tokens == c.tokens, f"int8 request {r.id}: cache on "
+                  f"{r.tokens[:8]}... != cache off {c.tokens[:8]}...")
+    print(f"cache on vs off (int8): greedy tokens equal; prefill chunks "
+          f"{chunks} vs {int(cold_agg['prefill_chunks'])}", flush=True)
+
+    # agreement with the fp32 teacher-forced no-cache argmax; the limit
+    # is the reference's int8 contract (test_paged_kv.py:502)
+    agree = total = 0
+    with torch.inference_mode():
+        for r in reqs:
+            if not r.greedy:
+                continue
+            ids = torch.tensor([list(r.prompt) + r.tokens[:-1]],
+                               device="cuda")
+            arg = model(ids)[0, len(r.prompt) - 1:].argmax(-1).cpu().numpy()
+            agree += int((arg == np.asarray(r.tokens)).sum())
+            total += len(r.tokens)
+    rate = agree / total
+    print(f"int8 greedy agreement with the fp32 argmax: {agree}/{total} = "
+          f"{rate:.4f} (limit 0.9)", flush=True)
+    check(rate >= 0.9, f"int8 greedy agreement {rate} < 0.9")
+    print(f"int8 serving perf on {card}: {agg['aggregate_tokens_per_s']:.1f} "
+          f"tokens/s, TTFT p50 {agg['ttft_p50_s'] * 1e3:.1f} ms, decode "
+          f"step p50 {agg['decode_step_ms_p50']:.2f} ms, wall {wall:.2f} s, "
+          f"kv_bytes_in_use_peak {int(agg['kv_bytes_in_use_peak'])} (phase 5, "
+          f"fp32: {int(fp_agg['kv_bytes_in_use_peak'])}); cache off: "
+          f"{cold_agg['aggregate_tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{cold_agg['ttft_p50_s'] * 1e3:.1f} ms, kv_bytes_in_use_peak "
+          f"{int(cold_agg['kv_bytes_in_use_peak'])}", flush=True)
     return launches
 
 
@@ -694,6 +1022,10 @@ KERNELS = {
            "paddle_tpu/ops/pallas/paged_attention.py:103"),
     "K5": ("chunk_prefill", "paddle_tpu_torch/csrc/chunk_prefill.cu",
            "paddle_tpu/ops/pallas/chunk_prefill.py:93"),
+    "K4-int8": ("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:134"),
+    "K5-int8": ("chunk_prefill", "paddle_tpu_torch/csrc/chunk_prefill.cu",
+                "paddle_tpu/ops/pallas/chunk_prefill.py:126"),
 }
 # the row each kernel reports in the kernels line: for K2, K4 and K5
 # fp32 (the serving phase's dtype) at the decode shape for K2 and K4,
@@ -705,7 +1037,9 @@ HEADLINE = {"K1": ("bfloat16", list(FLASH_CASES[0])),
             "K3b-dkv": ("bfloat16", list(FLASH_LONG)),
             "K3b-dq": ("bfloat16", list(FLASH_LONG)),
             "K4": ("float32", [8, 1, 12, 64, 16, 64]),
-            "K5": ("float32", [128, 517, 12, 64, 16, 64])}
+            "K5": ("float32", [128, 517, 12, 64, 16, 64]),
+            "K4-int8": ("float32", [8, 1, 12, 64, 16, 64]),
+            "K5-int8": ("float32", [128, 517, 12, 64, 16, 64])}
 
 
 def main():
@@ -721,14 +1055,20 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = card_phase(torch)
     build_phase()
+    ptxas_phase()
     timer = Timer(torch)
     rows = []
     print("kernels vs plain versions (device ms, cold L2):", flush=True)
     layer_norm_phase(torch, timer, rows)
     paged_phase(torch, timer, rows)
     chunk_phase(torch, timer, rows)
+    paged_q_phase(torch, timer, rows)
+    chunk_q_phase(torch, timer, rows)
     long_launches = flash_phase(torch, timer, rows)
-    launches = serving_phase(torch, card)
+    launches, model, fp_agg = serving_phase(torch, card)
+    q_launches = serving_q_phase(torch, card, model, fp_agg)
+    launches.update({k: q_launches[k] for k in ("K4-int8", "K5-int8")})
+    del model
     train_launches = training_phase(torch, card)
     launches.update({"K1": train_launches["K1"], "K3a": train_launches["K3a"],
                      "K3b-dkv": long_launches["bwd_dkv"],

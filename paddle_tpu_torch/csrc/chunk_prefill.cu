@@ -1,11 +1,12 @@
 // K5: chunk-prefill attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/chunk_prefill.py
-// (_chunk_kernel, reached through chunk_prefill_pallas), full-precision
-// branch. A prompt chunk q (b, s, H, D) at start offset t (b,; the
-// wrapper broadcasts the engine's scalar) attends the paged pool: row i
-// reads cols <= start + i — causal inside the chunk, full attention over
-// the committed prefix.
+// (_chunk_kernel, reached through chunk_prefill_pallas), both branches:
+// full-precision pools, and int8 code pools with (num_blocks, H) scales
+// (:126-128; the dequant design is in paged_common.cuh). A prompt chunk
+// q (b, s, H, D) at start offset t (b,; the wrapper broadcasts the
+// engine's scalar) attends the paged pool: row i reads cols <= start + i
+// — causal inside the chunk, full attention over the committed prefix.
 //
 // Bound on the H100: for a 128-row chunk over a prefix of a few hundred
 // rows the kernel moves ~(start+s)*H*D*2 elements and does
@@ -29,44 +30,64 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 64;
 
-template <typename T>
+template <typename TQ, typename TP>
 cudaError_t by_dim(const void* q, const void* kp, const void* vp,
-                   const int* table, const int* t, void* out, int b, int s,
-                   int qbs, int H, int D, int bs, int bp, float scale,
-                   cudaStream_t st) {
+                   const float* ks, const float* vs, const int* table,
+                   const int* t, void* out, int b, int s, int qbs, int H,
+                   int D, int bs, int bp, float scale, cudaStream_t st) {
   const int nq = s / qbs;
   if (D == 64)
-    return ptt::launch_paged<T, 64, kThreads, kMaxRows>(
-        q, kp, vp, table, t, out, b * nq, H, s, qbs, nq, bs, bp, scale, st);
+    return ptt::launch_paged<TQ, TP, 64, kThreads, kMaxRows>(
+        q, kp, vp, ks, vs, table, t, out, b * nq, H, s, qbs, nq, bs, bp,
+        scale, st);
   if (D == 128)
-    return ptt::launch_paged<T, 128, kThreads, kMaxRows>(
-        q, kp, vp, table, t, out, b * nq, H, s, qbs, nq, bs, bp, scale, st);
+    return ptt::launch_paged<TQ, TP, 128, kThreads, kMaxRows>(
+        q, kp, vp, ks, vs, table, t, out, b * nq, H, s, qbs, nq, bs, bp,
+        scale, st);
   return cudaErrorInvalidValue;
+}
+
+// Full-precision pools share q's type; int8 pools carry their scales.
+template <typename TQ>
+cudaError_t by_pool(int pool, const void* q, const void* kp, const void* vp,
+                    const float* ks, const float* vs, const int* table,
+                    const int* t, void* out, int b, int s, int qbs, int H,
+                    int D, int bs, int bp, float scale, cudaStream_t st) {
+  if (pool == ptt::kInt8)
+    return by_dim<TQ, int8_t>(q, kp, vp, ks, vs, table, t, out, b, s, qbs, H,
+                              D, bs, bp, scale, st);
+  return by_dim<TQ, TQ>(q, kp, vp, nullptr, nullptr, table, t, out, b, s,
+                        qbs, H, D, bs, bp, scale, st);
 }
 
 }  // namespace
 
-// Returns the launch's cudaError_t (0 = launched).
+// Returns the launch's cudaError_t (0 = launched). `dtype` is q's type
+// code, `pool` the pools' (equal to dtype, or kInt8 with both scales).
 extern "C" int ptt_chunk_prefill_fwd(const void* q, const void* k_pool,
-                                     const void* v_pool, const void* table,
+                                     const void* v_pool, const void* k_scale,
+                                     const void* v_scale, const void* table,
                                      const void* t, void* out, int b, int s,
                                      int qbs, int H, int D, int bs, int bp,
-                                     float scale, int dtype, void* stream) {
+                                     float scale, int dtype, int pool,
+                                     void* stream) {
   if (b < 1 || s < 1 || qbs < 1 || qbs > kMaxRows || s % qbs != 0 ||
-      H < 1 || bs < 1 || bp < 1)
+      H < 1 || bs < 1 || bp < 1 || (pool != dtype && pool != ptt::kInt8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   const int* tbl = static_cast<const int*>(table);
   const int* tv = static_cast<const int*>(t);
   switch (dtype) {
     case ptt::kFloat32:
-      return static_cast<int>(by_dim<float>(q, k_pool, v_pool, tbl, tv, out,
-                                            b, s, qbs, H, D, bs, bp, scale,
-                                            st));
+      return static_cast<int>(by_pool<float>(pool, q, k_pool, v_pool, ks, vs,
+                                             tbl, tv, out, b, s, qbs, H, D,
+                                             bs, bp, scale, st));
     case ptt::kBFloat16:
-      return static_cast<int>(by_dim<__nv_bfloat16>(
-          q, k_pool, v_pool, tbl, tv, out, b, s, qbs, H, D, bs, bp, scale,
-          st));
+      return static_cast<int>(by_pool<__nv_bfloat16>(
+          pool, q, k_pool, v_pool, ks, vs, tbl, tv, out, b, s, qbs, H, D, bs,
+          bp, scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,18 +1,24 @@
 // Shared helpers for the port's hand-written Hopper kernels: fp32/bf16
 // load-store conversions and the dtype codes the Python wrappers pass
-// (0 = float32, 1 = bfloat16). Every kernel computes in fp32.
+// (0 = float32, 1 = bfloat16, 2 = int8 codes of a quantized KV pool).
+// Every kernel computes in fp32.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ptt {
 
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>

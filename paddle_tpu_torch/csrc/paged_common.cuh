@@ -6,8 +6,20 @@
 //   q, out   (b, s, H, D)             query row r of slot n at (n*s + r)
 //   k/v pool (num_blocks, bs, H, D)   one block of one head is bs rows
 //                                     strided by H*D, never a dense tile
+//   k/v scale (num_blocks, H) fp32    quantized pools only: the absmax
+//                                     scale of each (block, head)
 //   table    (b, bp) int32            logical block j -> physical block
 //   t        (b,) int32               absolute position of q row 0
+//
+// The pool type TP is q's type TQ for full-precision pools, or int8_t
+// for quantized ones (the int8 branch of the TPU kernels,
+// paged_attention.py:134-136 and chunk_prefill.py:126-128). The Pallas
+// kernels dequantize a whole (bs, D) block in VMEM by its scale. Here a
+// thread loads int8 codes (a quarter of the fp32 bytes, which is where
+// the memory-bound decode wins) and, with each row, that row's (block,
+// h) scale; the code x scale product is formed where the tile converts
+// to fp32 shared memory, so everything after the store (QK^T, online
+// softmax, P.V) is the full-precision body unchanged.
 //
 // The Pallas kernels run their key-block axis as a sequential grid
 // dimension carrying (m, l, acc) in VMEM scratch. Hopper runs CTAs in
@@ -29,8 +41,9 @@
 //    masked logits are -1e30, never -inf (paged_attention.py:55), so
 //    exp() and max() stay NaN-free;
 //  - no row past the CTA's reach, min(base+rows-1, bp*bs-1), is ever
-//    loaded: tile rows beyond it are zero-filled in shared memory (their
-//    logits are masked and their p is 0), so a poisoned pool proves it;
+//    loaded, nor its scale: tile rows beyond it are zero-filled in
+//    shared memory (their logits are masked and their p is 0), so a
+//    poisoned pool proves it;
 //  - row independence (chunk_prefill.py:30-43): no state crosses query
 //    rows, masking uses absolute positions, and only rows committed
 //    before the launch are read.
@@ -61,38 +74,67 @@ inline size_t paged_smem_bytes(int rows, int D, int KT) {
           + 3 * static_cast<size_t>(rows));     // m, l, alpha per row
 }
 
+template <typename TP>
+struct IsCode {  // int8 codes of a quantized pool
+  static constexpr bool value = false;
+};
+template <>
+struct IsCode<int8_t> {
+  static constexpr bool value = true;
+};
+
 // The share of one key tile a thread stages: LD elements of K and of V,
 // key rows c0, c0 + CP, ... of the tile, head dim d. They are held in
 // the pool's own type: converting right after each load would make the
-// thread wait for it, and serialise the tile's loads.
-template <typename T, int D, int NT, int KT>
+// thread wait for it, and serialise the tile's loads. A quantized pool
+// also stages each element's row scale (LD floats per tensor; a row's
+// block, and so its scale, changes every bs rows, which is a run-time
+// size).
+template <typename TP, int D, int NT, int KT>
 struct TileRegs {
   static constexpr int LD = KT * D / NT;  // elements of each tensor
   static constexpr int CP = NT / D;       // key rows covered per step
-  T k[LD], v[LD];
+  static constexpr int LS = IsCode<TP>::value ? LD : 1;
+  TP k[LD], v[LD];
+  float ksc[LS], vsc[LS];
 };
 
 // Issue the loads of logical rows [j0, j0+KT) of one head into `r`.
-// Rows past `reach` stay 0 and are never loaded. The block of a row
-// steps along with it (one division per tile, not per element).
-template <typename T, int D, int NT, int KT>
+// Rows past `reach` stay 0 (and their scales 0) and are never loaded.
+// The block of a row steps along with it (one division per tile, not
+// per element).
+template <typename TP, int D, int NT, int KT>
 __device__ __forceinline__ void load_tile(
-    TileRegs<T, D, NT, KT>& r, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int* __restrict__ trow, int j0,
-    int reach, int bs, int64_t rs, int h) {
-  using R = TileRegs<T, D, NT, KT>;
+    TileRegs<TP, D, NT, KT>& r, const TP* __restrict__ kp,
+    const TP* __restrict__ vp, const float* __restrict__ ksp,
+    const float* __restrict__ vsp, const int* __restrict__ trow, int j0,
+    int reach, int bs, int H, int h) {
+  using R = TileRegs<TP, D, NT, KT>;
+  constexpr bool kCode = IsCode<TP>::value;
+  const int64_t rs = static_cast<int64_t>(H) * D;
   const int d = threadIdx.x % D;
   int col = j0 + threadIdx.x / D;
   int jb = col / bs, rb = col % bs;
 #pragma unroll
   for (int u = 0; u < R::LD; ++u) {
-    r.k[u] = from_f<T>(0.f);
-    r.v[u] = from_f<T>(0.f);
+    if constexpr (kCode) {
+      r.k[u] = 0;
+      r.v[u] = 0;
+      r.ksc[u] = 0.f;
+      r.vsc[u] = 0.f;
+    } else {
+      r.k[u] = from_f<TP>(0.f);
+      r.v[u] = from_f<TP>(0.f);
+    }
     if (col <= reach) {
-      const int64_t off =
-          (static_cast<int64_t>(trow[jb]) * bs + rb) * rs + h * D + d;
+      const int64_t blk = trow[jb];
+      const int64_t off = (blk * bs + rb) * rs + h * D + d;
       r.k[u] = kp[off];
       r.v[u] = vp[off];
+      if constexpr (kCode) {
+        r.ksc[u] = ksp[blk * H + h];
+        r.vsc[u] = vsp[blk * H + h];
+      }
     }
     col += R::CP;
     for (rb += R::CP; rb >= bs; rb -= bs) ++jb;
@@ -100,28 +142,38 @@ __device__ __forceinline__ void load_tile(
 }
 
 // Store a loaded tile into shared memory as fp32 (K rows padded to
-// STRIDE floats, V rows dense).
-template <int STRIDE, typename T, int D, int NT, int KT>
-__device__ __forceinline__ void store_tile(const TileRegs<T, D, NT, KT>& r,
+// STRIDE floats, V rows dense); int8 codes are dequantized here, code
+// times its row's scale, as the plain version's codes.float() * scale.
+template <int STRIDE, typename TP, int D, int NT, int KT>
+__device__ __forceinline__ void store_tile(const TileRegs<TP, D, NT, KT>& r,
                                            float* __restrict__ ks,
                                            float* __restrict__ vs) {
-  using R = TileRegs<T, D, NT, KT>;
+  using R = TileRegs<TP, D, NT, KT>;
   const int d = threadIdx.x % D, c0 = threadIdx.x / D;
 #pragma unroll
   for (int u = 0; u < R::LD; ++u) {
     const int c = c0 + u * R::CP;
-    ks[c * STRIDE + d] = to_f(r.k[u]);
-    vs[c * D + d] = to_f(r.v[u]);
+    if constexpr (IsCode<TP>::value) {
+      ks[c * STRIDE + d] = to_f(r.k[u]) * r.ksc[u];
+      vs[c * D + d] = to_f(r.v[u]) * r.vsc[u];
+    } else {
+      ks[c * STRIDE + d] = to_f(r.k[u]);
+      vs[c * D + d] = to_f(r.v[u]);
+    }
   }
 }
 
-// NT threads, at most MAXROWS query rows per CTA.
-template <typename T, int D, int NT, int MAXROWS>
+// NT threads, at most MAXROWS query rows per CTA. q and out are TQ,
+// the pools TP (TQ, or int8_t with the scale pools ksp/vsp, which are
+// null on the full-precision path).
+template <typename TQ, typename TP, int D, int NT, int MAXROWS>
 __global__ void __launch_bounds__(NT)
-    paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                      const T* __restrict__ vp,
+    paged_attn_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
+                      const TP* __restrict__ vp,
+                      const float* __restrict__ ksp,
+                      const float* __restrict__ vsp,
                       const int* __restrict__ table,
-                      const int* __restrict__ tv, T* __restrict__ out,
+                      const int* __restrict__ tv, TQ* __restrict__ out,
                       int s, int rows, int nq, int H, int bs, int bp,
                       float scale) {
   constexpr int KT = KeyTile<D>::value;
@@ -168,13 +220,13 @@ __global__ void __launch_bounds__(NT)
 
   // software pipeline: the next tile's loads are in flight while this
   // tile is computed, and land in shared memory after its last read
-  TileRegs<T, D, NT, KT> regs;
-  load_tile(regs, kp, vp, trow, 0, reach, bs, rs, h);
+  TileRegs<TP, D, NT, KT> regs;
+  load_tile(regs, kp, vp, ksp, vsp, trow, 0, reach, bs, H, h);
   for (int j0 = 0; j0 <= reach; j0 += KT) {
     store_tile<KP>(regs, ks, vs);
     __syncthreads();
     if (j0 + KT <= reach)
-      load_tile(regs, kp, vp, trow, j0 + KT, reach, bs, rs, h);
+      load_tile(regs, kp, vp, ksp, vsp, trow, j0 + KT, reach, bs, H, h);
     if (gq < rows) {  // logits of this tile
       // four partial sums per row (one per float4 lane): short
       // dependency chains even when a thread owns a single row
@@ -262,18 +314,21 @@ __global__ void __launch_bounds__(NT)
   for (int k = 0; k < RP; ++k) {
     const int i = gp + k * PG;
     if (i < rows)
-      out[(q_row0 + i) * rs + h * D + d_own] = from_f<T>(acc[k] / ls[i]);
+      out[(q_row0 + i) * rs + h * D + d_own] = from_f<TQ>(acc[k] / ls[i]);
   }
 }
 
 // Launch with dynamic shared memory, raising the per-kernel limit past
 // the default 48 KB when the tile needs it.
-template <typename T, int D, int NT, int MAXROWS>
+template <typename TQ, typename TP, int D, int NT, int MAXROWS>
 cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
+                         const float* ksp, const float* vsp,
                          const int* table, const int* tv, void* out,
                          int grid_x, int H, int s, int rows, int nq, int bs,
                          int bp, float scale, cudaStream_t stream) {
-  auto kern = paged_attn_kernel<T, D, NT, MAXROWS>;
+  if (IsCode<TP>::value && (ksp == nullptr || vsp == nullptr))
+    return cudaErrorInvalidValue;
+  auto kern = paged_attn_kernel<TQ, TP, D, NT, MAXROWS>;
   const size_t smem = paged_smem_bytes(rows, D, KeyTile<D>::value);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -283,9 +338,9 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
   }
   dim3 grid(grid_x, H);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, tv, static_cast<T*>(out), s, rows,
-      nq, H, bs, bp, scale);
+      static_cast<const TQ*>(q), static_cast<const TP*>(kp),
+      static_cast<const TP*>(vp), ksp, vsp, table, tv, static_cast<TQ*>(out),
+      s, rows, nq, H, bs, bp, scale);
   return cudaGetLastError();
 }
 

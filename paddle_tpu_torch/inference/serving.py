@@ -5,7 +5,10 @@ Two layers, as in the JAX package:
 
 - :class:`DecodeEngine` — the device substrate. Each layer's K/V lives
   in ONE block pool ``(num_blocks, block_size, H, D)`` addressed through
-  an int32 block table ``(slots, max_len // block_size)``. Prompts
+  an int32 block table ``(slots, max_len // block_size)`` — at the
+  model's dtype, or (``kv_dtype="int8"``) as int8 codes with fp32
+  ``(num_blocks, H)`` absmax scales per layer, quantized on commit
+  (``models/gpt.py`` ``_upd_paged_q``) and dequantized inside K4/K5. Prompts
   prefill one slot at a time in fixed-size chunks (``prefill_chunk``
   tokens at a scalar offset: the chunk-prefill kernel K5), and decode
   steps every slot in lockstep (per-slot offsets: the paged-decode
@@ -19,7 +22,11 @@ Two layers, as in the JAX package:
   committed lengths cross block boundaries, preemption of the
   newest-admitted request when the pool runs dry (it resumes by
   re-prefilling prompt + committed tokens), retirement at EOS or
-  length, ``on_token`` streaming, and counted metrics.
+  length, ``on_token`` streaming, and counted metrics. With a
+  :class:`~paddle_tpu_torch.inference.prefix_cache.PrefixCache` a
+  prompt's cached full chunks are spliced into the slot's table
+  zero-copy (one block reference each) and only its suffix prefills;
+  its new full chunks join the trie when the prompt is committed.
 
 Lockstep garbage (as in the JAX package's ``serving.py`` docstring):
 idle slots keep computing with an all-zero table row and offset 0, so
@@ -40,10 +47,10 @@ The overlapped tick of the JAX engine is kept: a decode step is
 launched asynchronously, the next tick's admissions run while the card
 computes, and only then are the tokens read back.
 
-Out of this slice (each queued in ROADMAP.md): the dense arena, int8
-pools, the prefix cache, speculative decoding, meshes and replicas,
-telemetry and resilience, the host tier, the front door and fleet,
-LoRA, constraints, score/embed, ``generate()``.
+Out of the port so far (each queued in ROADMAP.md): the dense arena,
+speculative decoding, meshes and replicas, telemetry and resilience,
+the host tier, the front door and fleet, LoRA, constraints,
+score/embed, ``generate()``.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from paddle_tpu_torch.core.place import get_device, resolve_device
 from paddle_tpu_torch.core.random import request_generator
 from paddle_tpu_torch.inference.block_pool import BlockAllocator
 from paddle_tpu_torch.inference.frontend.scheduler import FifoScheduler
+from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 
 __all__ = ["DecodeEngine", "ServingEngine", "Request", "ServingMetrics",
            "apply_topk_topp"]
@@ -92,27 +100,52 @@ def apply_topk_topp(logits, topks, topps):
                        torch.full_like(logits, float("-inf")), logits)
 
 
+def _is_int8(kv_dtype) -> bool:
+    """Whether ``kv_dtype`` names int8 (``"int8"``, ``np.int8`` or
+    ``torch.int8``)."""
+    if kv_dtype is torch.int8:
+        return True
+    try:
+        return np.dtype(kv_dtype) == np.int8
+    except TypeError:
+        return False
+
+
 class DecodeEngine:
     """Per-slot paged decode over one KV block pool per layer.
 
     ``model`` exposes ``kv_cache_spec()`` and the paged-cache forward
     ``model(ids, caches=[(k_pool, v_pool, table, t), ...]) -> (logits,
-    caches)`` (:class:`~paddle_tpu_torch.models.gpt.GPTForCausalLM`).
-    The engine runs on the model's device. ``block_size`` must divide
-    ``max_len``; ``num_blocks`` counts the scratch block 0 and defaults
-    to the dense-equivalent ``slots * max_len / block_size + 1``.
-    ``top_k`` is the static top-k filter of every draw."""
+    caches)`` (:class:`~paddle_tpu_torch.models.gpt.GPTForCausalLM`),
+    whose quantized caches are ``(k_pool, v_pool, k_scale, v_scale,
+    table, t, cl)``. The engine runs on the model's device.
+    ``block_size`` must divide ``max_len``; ``num_blocks`` counts the
+    scratch block 0 and defaults to the dense-equivalent ``slots *
+    max_len / block_size + 1``. ``top_k`` is the static top-k filter of
+    every draw. ``kv_dtype="int8"`` stores the pools as int8 codes with
+    per-(block, head) fp32 absmax scales."""
 
     def __init__(self, model, max_batch_slots: int, max_len: int,
                  top_k: Optional[int] = None, prefill_chunk: int = 128,
                  block_size: Optional[int] = None,
-                 num_blocks: Optional[int] = None):
+                 num_blocks: Optional[int] = None, kv_dtype=None):
         spec = model.kv_cache_spec()
         mpe = spec.get("max_position_embeddings")
         if mpe is not None and max_len > mpe:
             raise ValueError(
                 f"max_len {max_len} exceeds the model's "
                 f"max_position_embeddings {mpe}")
+        if kv_dtype is not None and not _is_int8(kv_dtype):
+            raise ValueError(
+                f"kv_dtype {kv_dtype!r} is not supported: the quantized "
+                "KV pool stores int8 codes with per-block absmax scales "
+                "(pass kv_dtype='int8') or full precision (leave unset)")
+        self.quantized = kv_dtype is not None
+        if self.quantized and block_size is None:
+            raise ValueError(
+                "kv_dtype='int8' quantizes the PAGED block pools (the "
+                "scale is per block); pass block_size= to enable the "
+                "paged arena")
         if block_size is None:
             raise NotImplementedError(
                 "the dense KV arena (block_size=None) is not ported yet — "
@@ -131,6 +164,8 @@ class DecodeEngine:
         self.heads = int(spec["num_heads"])
         self.head_dim = int(spec["head_dim"])
         self.dtype = spec["dtype"]
+        # pool storage: int8 codes when quantized, else the model's dtype
+        self.pool_dtype = torch.int8 if self.quantized else self.dtype
         bs = int(block_size)
         if bs < 1 or self.max_len % bs:
             raise ValueError(
@@ -145,25 +180,37 @@ class DecodeEngine:
             raise ValueError(
                 f"num_blocks {self.num_blocks} leaves no allocatable "
                 "block after the reserved scratch block 0")
-        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        # what one block pins across all layers: K + V rows at the pool
+        # dtype, plus the two scale rows of every layer when quantized —
+        # the unit of every kv_bytes metric
+        itemsize = torch.empty((), dtype=self.pool_dtype).element_size()
         row_nbytes = 2 * self.L * self.heads * self.head_dim * itemsize
-        self.allocator = BlockAllocator(self.num_blocks, bs,
-                                        block_nbytes=bs * row_nbytes)
+        scale_nbytes = 2 * self.L * self.heads * 4 if self.quantized else 0
+        self.allocator = BlockAllocator(
+            self.num_blocks, bs, block_nbytes=bs * row_nbytes + scale_nbytes)
         # host mirror of the block table; entries past a slot's mapped
         # count stay 0 = the scratch sink
         self.table = np.zeros((self.b, self.blocks_per_slot), np.int32)
         self.kbufs: Optional[List[torch.Tensor]] = None
         self.vbufs: Optional[List[torch.Tensor]] = None
+        self.kscales: Optional[List[torch.Tensor]] = None
+        self.vscales: Optional[List[torch.Tensor]] = None
 
     def reset(self):
-        """Zero the pools (the table and allocator belong to the
-        scheduler and are left alone)."""
+        """Zero the pools and, when quantized, their scales (the table
+        and allocator belong to the scheduler and are left alone)."""
         shape = (self.num_blocks, self.block_size, self.heads,
                  self.head_dim)
-        self.kbufs = [torch.zeros(shape, dtype=self.dtype,
-                                  device=self.device) for _ in range(self.L)]
-        self.vbufs = [torch.zeros(shape, dtype=self.dtype,
-                                  device=self.device) for _ in range(self.L)]
+
+        def zeros(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=self.device)
+                    for _ in range(self.L)]
+
+        self.kbufs = zeros(shape, self.pool_dtype)
+        self.vbufs = zeros(shape, self.pool_dtype)
+        if self.quantized:
+            self.kscales = zeros((self.num_blocks, self.heads), torch.float32)
+            self.vscales = zeros((self.num_blocks, self.heads), torch.float32)
 
     def _ensure_buffers(self):
         if self.kbufs is None:
@@ -181,7 +228,12 @@ class DecodeEngine:
         finally:
             self.model.train(was)
 
-    def _caches(self, table, t):
+    def _caches(self, table, t, cl: int):
+        """Per-layer cache tuples; ``cl`` is the commit's count of REAL
+        rows, which bounds the quantizer's absmax (``gpt.py:125-135``)."""
+        if self.quantized:
+            return [(self.kbufs[i], self.vbufs[i], self.kscales[i],
+                     self.vscales[i], table, t, cl) for i in range(self.L)]
         return [(self.kbufs[i], self.vbufs[i], table, t)
                 for i in range(self.L)]
 
@@ -255,7 +307,10 @@ class DecodeEngine:
         t = torch.tensor(int(start), dtype=torch.int32, device=self.device)
         args = self._sampler_args(temps, greedy, uniforms, topks, topps)
         with self._eval_mode():
-            logits, _ = self.model(ids, caches=self._caches(table, t))
+            # last_idx + 1 real rows: the pad tail of a short final
+            # chunk never shapes a block scale
+            logits, _ = self.model(
+                ids, caches=self._caches(table, t, int(last_idx) + 1))
             tok = self._sample_dev(logits[:, int(last_idx)].float(), args)
         return tok[:, None]
 
@@ -270,7 +325,8 @@ class DecodeEngine:
         tv = self._vec(t, torch.int32)
         args = self._sampler_args(temps, greedy, uniforms, topks, topps)
         with self._eval_mode():
-            logits, _ = self.model(ids, caches=self._caches(table, tv))
+            logits, _ = self.model(
+                ids, caches=self._caches(table, tv, ids.shape[1]))
             tok = self._sample_dev(logits[:, -1].float(), args)
         return tok[:, None]
 
@@ -311,9 +367,12 @@ class Request:
 class ServingMetrics:
     """Per-request records and per-tick samples of one ``run()`` window;
     :meth:`aggregate` folds them into the reference's headline keys
-    (``serving.py:2475``)."""
+    (``serving.py:2475``), with the prefix cache's counted economics
+    (``prefix_hit_tokens``, ``prefix_hit_rate``, ``evictions``) when
+    ``cache`` is given."""
 
     def __init__(self, max_batch_slots: int,
+                 cache: Optional[PrefixCache] = None,
                  allocator: Optional[BlockAllocator] = None):
         self.slots = max_batch_slots
         self.records: List[Dict[str, Any]] = []
@@ -323,7 +382,10 @@ class ServingMetrics:
         self.t_last: Optional[float] = None
         self.prefill_chunks = 0
         self.prompt_tokens = 0
+        self.prefix_hit_tokens = 0
         self.preemptions = 0
+        self._cache = cache
+        self._evict_base = cache.evictions if cache is not None else 0
         self._alloc = allocator
         self._alloc_base = (allocator.allocs, allocator.freed) \
             if allocator is not None else (0, 0)
@@ -338,6 +400,9 @@ class ServingMetrics:
         # admission semantics: a preempted request's re-prefill counts
         # again, so prefill_tokens_computed charges the redone work
         self.prompt_tokens += int(n)
+
+    def count_prefix_hit_tokens(self, n: int):
+        self.prefix_hit_tokens += int(n)
 
     def record_preemption(self):
         self.preemptions += 1
@@ -432,7 +497,16 @@ class ServingMetrics:
             out["prefill_chunk_dispatches_per_request"] = float(
                 self.prefill_chunks / len(self.records))
         out["prompt_tokens"] = float(self.prompt_tokens)
-        out["prefill_tokens_computed"] = float(self.prompt_tokens)
+        out["prefix_hit_tokens"] = float(self.prefix_hit_tokens)
+        out["prefix_hit_rate"] = (
+            self.prefix_hit_tokens / self.prompt_tokens
+            if self.prompt_tokens else 0.0)
+        # spliced prefix rows were committed without running the model
+        out["prefill_tokens_computed"] = float(
+            self.prompt_tokens - self.prefix_hit_tokens)
+        if self._cache is not None:
+            out["evictions"] = float(self._cache.evictions
+                                     - self._evict_base)
         return out
 
 
@@ -444,7 +518,10 @@ class ServingEngine:
     admit -> prefill-chunk + decode-step -> retire loop until the queue
     drains (or ``max_steps`` ticks). The engine runs on ``device``
     (default ``"cuda"``; the model must already live there — nothing is
-    moved). ``seed`` seeds every request that does not pin its own."""
+    moved). ``seed`` seeds every request that does not pin its own.
+    ``kv_dtype="int8"`` quantizes the block pools; ``prefix_cache`` (a
+    :class:`PrefixCache` whose ``chunk_tokens`` is a multiple of
+    ``block_size``) shares prompt prefixes across requests zero-copy."""
 
     def __init__(self, model, max_batch_slots: int = 8, max_len: int = 256,
                  top_k: Optional[int] = None, eos_id: Optional[int] = None,
@@ -452,6 +529,7 @@ class ServingEngine:
                  clock: Callable[[], float] = time.perf_counter,
                  block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None, scheduler=None,
+                 kv_dtype=None, prefix_cache: Optional[PrefixCache] = None,
                  device=None):
         dev = resolve_device(device)
         mdev = get_device(model)
@@ -462,8 +540,18 @@ class ServingEngine:
         self.engine = DecodeEngine(model, max_batch_slots, max_len,
                                    top_k=top_k, prefill_chunk=prefill_chunk,
                                    block_size=block_size,
-                                   num_blocks=num_blocks)
+                                   num_blocks=num_blocks, kv_dtype=kv_dtype)
         self._alloc = self.engine.allocator
+        self.quantized = self.engine.quantized
+        self._cache = prefix_cache
+        if prefix_cache is not None:
+            if prefix_cache.chunk_tokens > self.engine.max_len:
+                raise ValueError(
+                    f"prefix cache chunk {prefix_cache.chunk_tokens} "
+                    f"exceeds the {self.engine.max_len}-row KV arena")
+            # zero-copy sharing: trie nodes hold ref-counted block ids of
+            # this pool (validates the chunk/block alignment)
+            prefix_cache.bind_block_allocator(self._alloc)
         self.b = self.engine.b
         self.max_len = self.engine.max_len
         # one row of every slot is reserved for a generated token
@@ -498,7 +586,7 @@ class ServingEngine:
         # memo of the last blocked admission: (request id, allocator
         # free counter) — retried only once capacity could have grown
         self._adm_blocked: Optional[tuple] = None
-        self.metrics = ServingMetrics(self.b, self._alloc)
+        self.metrics = ServingMetrics(self.b, self._cache, self._alloc)
 
     # -- submission ---------------------------------------------------------
     def submit(self, req: Request) -> Request:
@@ -565,17 +653,38 @@ class ServingEngine:
 
     def _admit(self, req: Request) -> bool:
         """Admit ``req`` into a free slot if the pool can back its
-        prompt; False leaves it queued. A preempted request resumes here
-        and re-prefills prompt + committed tokens."""
+        prompt beyond its cached prefix; False leaves it queued. A
+        preempted request resumes here and re-prefills prompt +
+        committed tokens (riding the prefix cache where present)."""
         ids = np.asarray(list(req.prompt) + req.tokens, np.int64)
         plen = int(ids.shape[0])
-        need = (plen - 1) // self.engine.block_size + 1
-        fresh = self._alloc.alloc(need)
-        if fresh is None:
-            # re-trying every tick while nothing freed would only burn
-            # host work: remember the failure against the free counter
-            self._adm_blocked = (req.id, self._alloc.freed)
-            return False
+        nodes, hit = [], 0
+        if self._cache is not None:
+            nodes, hit = self._cache.lookup(ids)
+        # admission is gated on free BLOCKS behind rows [hit, plen): the
+        # spliced prefix brings its own. A fault in here drops the
+        # lookup's trie refs before propagating.
+        try:
+            bs = self.engine.block_size
+            need = (plen - 1) // bs + 1 - hit // bs
+            if self._alloc.free_count() < need and self._cache is not None:
+                # trie-held blocks are reclaimable capacity: evict cold
+                # unreferenced leaves first
+                self._cache.evict_for_blocks(need)
+            fresh = self._alloc.alloc(need)
+            if fresh is None:
+                if nodes:
+                    self._cache.release(nodes)
+                    nodes = []
+                # re-trying every tick while nothing freed would only
+                # burn host work (and count phantom trie lookups):
+                # remember the failure against the free counter
+                self._adm_blocked = (req.id, self._alloc.freed)
+                return False
+        except BaseException:
+            if nodes:
+                self._cache.release(nodes)
+            raise
         slot = self._free.pop()
         self._temps[slot] = max(float(req.temperature), 1e-6)
         self._greedy[slot] = bool(req.greedy)
@@ -586,7 +695,8 @@ class ServingEngine:
         if req._gen is None:
             req._gen = request_generator(self.seed, req.id, req.seed)
         self._slots[slot] = req
-        self._pf[slot] = {"ids": ids, "pos": 0, "seq": req.id}
+        self._pf[slot] = st = {"ids": ids, "pos": 0, "nodes": nodes,
+                               "seq": req.id}
         self._seq[slot] = self._adm_seq
         self._adm_seq += 1
         req.status = "running"
@@ -602,13 +712,29 @@ class ServingEngine:
         self._times[req.id] = tm if tm is not None else \
             {"arrival": req.arrival_time, "admitted": self._now()}
         # park the slot's lockstep decode garbage at plen-1, a row the
-        # FINAL prefill chunk rewrites before the slot's first decode
+        # FINAL prefill chunk rewrites before the slot's first decode and
+        # one no spliced prefix covers (hit <= plen-1)
         self._t[slot] = plen - 1
         self._toks[slot, 0] = 0
         self.metrics.count_prompt_tokens(plen)
-        self.engine.table[slot, :need] = fresh
-        self._nblocks[slot] = need
+        self._seed_slot_storage(slot, st, nodes, fresh)
         return True
+
+    def _seed_slot_storage(self, slot: int, st, nodes, fresh):
+        """Wire the admitted slot's storage: splice the trie hit's block
+        ids into its table (ZERO-COPY: one allocator reference per
+        block, no device work — the shared rows are committed the moment
+        the table points at them), then place the fresh grant. The
+        prefill starts at the hit."""
+        nb = 0
+        for node in nodes:
+            self._alloc.ref(node.blocks)
+            self.engine.table[slot, nb:nb + len(node.blocks)] = node.blocks
+            nb += len(node.blocks)
+            st["pos"] += self._cache.chunk_tokens
+            self.metrics.count_prefix_hit_tokens(self._cache.chunk_tokens)
+        self.engine.table[slot, nb:nb + len(fresh)] = fresh
+        self._nblocks[slot] = nb + len(fresh)
 
     def _admit_ready(self):
         while self._free:
@@ -652,11 +778,36 @@ class ServingEngine:
             self._finish_prefill(slot)
 
     def _finish_prefill(self, slot: int):
-        """Prompt committed: read its first token (the one host sync of
-        the whole prefill = TTFT) and move the slot into the decode
-        cohort."""
+        """Prompt committed: hand its new full chunks to the prefix cache
+        and release the trie refs held since admission, then read its
+        first token (the one host sync of the whole prefill = TTFT) and
+        move the slot into the decode cohort."""
         req = self._slots[slot]
         st = self._pf[slot]
+        if self._cache is not None:
+            cc = self._cache.chunk_tokens
+            bpc = cc // self.engine.block_size
+            ids = st["ids"]
+            path, st["nodes"] = list(st["nodes"]), []
+            try:
+                for j in range(len(path), len(ids) // cc):
+                    parent = path[-1] if path else None
+                    key = ids[j * cc:(j + 1) * cc]
+                    # another request with this prefix may have finished
+                    # first: reuse its node
+                    node = self._cache.acquire_child(parent, key)
+                    if node is None:
+                        # ZERO-COPY insert: the trie takes references to
+                        # the very blocks the slot prefilled into
+                        node = self._cache.insert_blocks(
+                            parent, key,
+                            self.engine.table[slot,
+                                              j * bpc:(j + 1) * bpc].tolist())
+                    path.append(node)
+            finally:
+                # held refs drop even if an insert raises: pinned nodes
+                # would shrink the evictable budget for good
+                self._cache.release(path)
         first = int(st["tok"][0, 0])
         self._pf[slot] = None
         self._adm_blocked = None
@@ -682,12 +833,20 @@ class ServingEngine:
             if done and self._slots[slot] is req:
                 self._retire(slot, "eos" if done_eos else "length")
 
+    def _release_held_nodes(self, slot: int):
+        """A slot torn down while still prefilling must not leave its
+        admission refs pinning trie nodes."""
+        st = self._pf[slot]
+        if st is not None and st["nodes"]:
+            self._cache.release(st["nodes"])
+        self._pf[slot] = None
+
     def _retire(self, slot: int, reason: str):
         req = self._slots[slot]
         req.status = "done"
         req.finish_reason = reason
         self._slots[slot] = None
-        self._pf[slot] = None
+        self._release_held_nodes(slot)
         self._free.append(slot)
         self._release_blocks(slot)
         self._adm_blocked = None   # retire changes the free capacity
@@ -719,7 +878,7 @@ class ServingEngine:
         left off (greedy decoding makes that token-exact; a sampled
         request keeps its private stream)."""
         req = self._slots[slot]
-        self._pf[slot] = None
+        self._release_held_nodes(slot)
         self._release_blocks(slot)
         self._slots[slot] = None
         self._free.append(slot)
@@ -743,8 +902,9 @@ class ServingEngine:
         """Lazy block growth before a decode step: every live slot needs
         storage behind row ``t``, the row this tick writes. Oldest slots
         are served first; when the pool is dry the newest-admitted
-        request is preempted (repeatedly if needed) — submit()'s
-        alone-fit check guarantees this converges."""
+        request is preempted (repeatedly if needed), after the prefix
+        cache's cold leaves — submit()'s alone-fit check guarantees this
+        converges."""
         bs = self.engine.block_size
         order = sorted((i for i, r in enumerate(self._slots)
                         if r is not None and self._pf[i] is None),
@@ -755,6 +915,9 @@ class ServingEngine:
                 need = target - int(self._nblocks[slot])
                 if need <= 0:
                     break
+                if self._alloc.free_count() < need and \
+                        self._cache is not None:
+                    self._cache.evict_for_blocks(need)
                 got = self._alloc.alloc(need)
                 if got is None:
                     self._preempt(self._select_victim())
@@ -840,7 +1003,7 @@ class ServingEngine:
         metrics window and clock anchor for ``arrival_time``."""
         if not self.active_count():
             self._t0 = self.clock()
-            self.metrics = ServingMetrics(self.b, self._alloc)
+            self.metrics = ServingMetrics(self.b, self._cache, self._alloc)
             self._ptimes.clear()
         self._now()
         steps = 0

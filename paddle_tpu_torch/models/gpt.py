@@ -16,17 +16,20 @@ Forward modes:
   model returns the mean next-token loss through the fused chunked head
   and cross entropy (``F.linear_cross_entropy``, ``gpt.py:605-632``):
   the training path;
-- the PAGED full-precision cache (``gpt.py:284-359``): per layer a
-  ``(k_pool, v_pool, table, t)`` tuple — pools ``(num_blocks,
-  block_size, H, D)``, an int32 block table ``(b, blocks_per_slot)`` and
-  the write offset ``t``, a 0-dim tensor for single-slot chunk prefill
-  or ``(b,)`` per-slot offsets for lockstep decode. New K/V rows commit
-  into the pools IN PLACE (JAX donates the buffers instead), then
-  attention reads back through the table: a query chunk (s > 1) at a
-  scalar offset runs the chunk-prefill kernel K5, everything else the
+- the PAGED cache (``gpt.py:284-359``): per layer a ``(k_pool, v_pool,
+  table, t)`` tuple — pools ``(num_blocks, block_size, H, D)``, an int32
+  block table ``(b, blocks_per_slot)`` and the write offset ``t``, a
+  0-dim tensor for single-slot chunk prefill or ``(b,)`` per-slot
+  offsets for lockstep decode — or the QUANTIZED 7-tuple ``(k_pool,
+  v_pool, k_scale, v_scale, table, t, cl)``: int8 code pools, fp32
+  ``(num_blocks, H)`` absmax scales, and ``cl``, the count of real rows
+  in this commit. New K/V rows commit into the pools IN PLACE (JAX
+  donates the buffers instead; :func:`_upd_paged`, :func:`_upd_paged_q`),
+  then attention reads back through the table: a query chunk (s > 1) at
+  a scalar offset runs the chunk-prefill kernel K5, everything else the
   paged decode kernel K4 — the routing of ``gpt.py:350-357``.
 
-The dense static arena and the int8 pools are later slices.
+The dense static arena is a later slice.
 """
 
 from __future__ import annotations
@@ -117,6 +120,94 @@ def _upd_paged(kp, vp, kn, vn, tbl, tv, rows=None):
     return kp, vp
 
 
+class _QuantPlan:
+    """Where a quantized commit of ``s`` new rows per slot lands — shared
+    by every layer of one forward (they share the table and offsets),
+    so the one host sync (the selection of touched blocks) happens once
+    per forward. Mirrors the index arithmetic of ``_upd_paged_q``
+    (``gpt.py:144-199``): a window of ``W = min(B, ceil((bs-1+s)/bs))``
+    logical blocks per slot starting at the block of ``t``."""
+
+    def __init__(self, table, t, cl, s: int, bs: int):
+        nb, B = table.shape
+        dev = table.device
+        rows = B * bs
+        W = min(B, (s + bs - 2) // bs + 1)
+        self.nb, self.W, self.bs = nb, W, bs
+        wrows = W * bs
+        tvv = t.reshape(-1).long().expand(nb)
+        pos = tvv[:, None] + torch.arange(s, device=dev)       # (nb, s)
+        first = tvv // bs
+        last = pos[:, -1].clamp(max=rows - 1) // bs
+        wj = first[:, None] + torch.arange(W, device=dev)      # (nb, W)
+        # physical blocks of the window; lanes past the table repeat its
+        # last block, are never touched and are never written back
+        self.wtbl = torch.gather(table.long(), 1, wj.clamp(max=B - 1))
+        # window-local row of each new row; rows past the table's reach
+        # go to an extra row past the window that is cut off, never to
+        # the pool (the JAX commit drops them with a past-the-end index)
+        lpos = torch.where(pos < rows, pos - (first * bs)[:, None],
+                           torch.full_like(pos, wrows))
+        self.new_idx = (torch.arange(nb, device=dev)[:, None] * (wrows + 1)
+                        + lpos).reshape(-1)
+        # absmax over rows below the REAL committed end t + cl only
+        self.valid = ((first * bs)[:, None]
+                      + torch.arange(wrows, device=dev)
+                      < (tvv + cl)[:, None])[:, :, None, None]
+        # blocks whose first row predates this write keep their scale as
+        # a floor; the touched blocks are [first, last]
+        self.keep = ((wj * bs) < tvv[:, None])[:, :, None]
+        touched = wj <= last[:, None]
+        self.touched = touched[:, :, None]
+        self.sel = touched.reshape(-1).nonzero().squeeze(1)    # host sync
+        self.dest = self.wtbl.reshape(-1).index_select(0, self.sel)
+
+
+def _upd_paged_q(kp, vp, ksc, vsc, kn, vn, tbl, tv, cl, plan=None):
+    """Quantized commit into int8 code pools and their ``(nblk, H)``
+    absmax scales, IN PLACE — ``gpt.py:111`` as plain torch ops, with
+    ``cl`` the commit's count of real rows (``plan``, the
+    :class:`_QuantPlan` of ``tbl``/``tv``/``cl``, is shared by the
+    layers of one forward). The W-block window is gathered and
+    dequantized, the new fp rows land in it, the touched blocks are
+    requantized and ONLY they are written back: untouched blocks
+    (prefix-spliced shared ones included) are never rewritten. The
+    scale discipline is the
+    reference's: the absmax covers rows below ``t + cl`` only
+    (multiplied by the mask, as ``gpt.py:190-193`` does, so a NaN in a
+    stale row of the window still reaches the absmax); a block that
+    predates the write keeps its scale as a floor; an all-zero block
+    gets scale 1.0. ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    if plan is None:
+        plan = _QuantPlan(tbl, tv, cl, kn.shape[1], kp.shape[1])
+    nb, W, bs = plan.nb, plan.W, plan.bs
+    tail = tuple(kp.shape[2:])
+    for pool, sc, new in ((kp, ksc, kn), (vp, vsc, vn)):
+        code = pool[plan.wtbl]                        # (nb, W, bs, H, D)
+        old = sc[plan.wtbl]                           # (nb, W, H)
+        view = torch.empty((nb, W * bs + 1) + tail, dtype=torch.float32,
+                           device=pool.device)
+        view[:, :W * bs] = (code.float() * old[:, :, None, :, None]
+                            ).reshape((nb, W * bs) + tail)
+        view.view((-1,) + tail).index_copy_(
+            0, plan.new_idx, new.reshape((-1,) + tail).float())
+        view = view[:, :W * bs]
+        amax = (view.abs() * plan.valid).reshape(
+            (nb, W, bs) + tail).amax(dim=(2, 4))      # (nb, W, H)
+        scale = torch.maximum(torch.where(plan.keep, old, 0.0),
+                              amax / 127.0)
+        scale = torch.where(scale > 0, scale, 1.0)
+        scale = torch.where(plan.touched, scale, old)
+        q = torch.round(view.reshape((nb, W, bs) + tail)
+                        / scale[:, :, None, :, None]).clamp(-127, 127)
+        pool.index_copy_(0, plan.dest, q.to(torch.int8).reshape(
+            (nb * W, bs) + tail).index_select(0, plan.sel))
+        sc.index_copy_(0, plan.dest,
+                       scale.reshape(nb * W, -1).index_select(0, plan.sel))
+    return kp, vp, ksc, vsc
+
+
 class GPTAttention(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
         super().__init__()
@@ -137,19 +228,27 @@ class GPTAttention(Layer):
                                        3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
         if cache is not None:
-            if len(cache) != 4:
+            if len(cache) not in (4, 7):
                 raise NotImplementedError(
-                    "only the paged full-precision cache (k_pool, v_pool, "
-                    "table, t) is ported; the dense arena and int8 pools "
-                    "are later slices")
-            k_pool, v_pool, table, t = cache
-            _upd_paged(k_pool, v_pool, k, v, table, t, rows=write_rows)
-            q = q.contiguous()
-            if s > 1 and t.dim() == 0:
-                out = chunk_prefill(q, k_pool, v_pool, table, t)
+                    "only the paged caches (k_pool, v_pool, table, t) and "
+                    "(k_pool, v_pool, k_scale, v_scale, table, t, cl) are "
+                    "ported; the dense arena is a later slice")
+            quantized = len(cache) == 7
+            if quantized:
+                k_pool, v_pool, k_sc, v_sc, table, t, cl = cache
+                _upd_paged_q(k_pool, v_pool, k_sc, v_sc, k, v, table, t, cl,
+                             plan=write_rows)
             else:
-                out = paged_attention(q, k_pool, v_pool, table, t)
-            cache = (k_pool, v_pool, table, t + s)
+                k_pool, v_pool, table, t = cache
+                k_sc = v_sc = None
+                _upd_paged(k_pool, v_pool, k, v, table, t, rows=write_rows)
+            q = q.contiguous()
+            attend = chunk_prefill if s > 1 and t.dim() == 0 \
+                else paged_attention
+            out = attend(q, k_pool, v_pool, table, t, k_scale=k_sc,
+                         v_scale=v_sc)
+            cache = (k_pool, v_pool, k_sc, v_sc, table, t + s, cl) \
+                if quantized else (k_pool, v_pool, table, t + s)
         else:
             out = F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, dropout_p=self.attn_dropout_p,
@@ -217,9 +316,10 @@ class GPTModel(Layer):
             if caches is None:
                 position_ids = steps
             else:
-                # the offset is the last element of each cache tuple: a
-                # scalar start (chunk prefill) or (b,) per-slot starts
-                t = caches[0][-1]
+                # a scalar start (chunk prefill) or (b,) per-slot
+                # starts: the 4th of 4 or the 6th of 7 cache elements
+                # (never the last: in the quantized tuple that is cl)
+                t = caches[0][5] if len(caches[0]) == 7 else caches[0][3]
                 position_ids = t + steps if t.dim() == 0 \
                     else t.reshape(-1, 1) + steps
         # the pad tail of a final prefill chunk can run past the position
@@ -232,8 +332,11 @@ class GPTModel(Layer):
             for block in self.h:
                 x = block(x)
             return self.ln_f(x)
-        k_pool, _, table, t = caches[0]
-        rows = _paged_write_rows(table, t, s, k_pool.shape[1])
+        c0 = caches[0]
+        if len(c0) == 7:
+            rows = _QuantPlan(c0[4], c0[5], c0[6], s, c0[0].shape[1])
+        else:
+            rows = _paged_write_rows(c0[2], c0[3], s, c0[0].shape[1])
         new_caches = []
         for block, cache in zip(self.h, caches):
             x, c = block(x, cache=cache, write_rows=rows)

@@ -43,8 +43,10 @@ _FLASH = [_I] * 5 + [_L] * 6 + [_F, _I, _I, _VP]
 # C signature of every entry point (all return a cudaError_t as int)
 _SIGNATURES = {
     "ptt_layer_norm_fwd": [_VP] * 6 + [_I, _I, _F, _I, _VP],
-    "ptt_paged_attention_fwd": [_VP] * 6 + [_I] * 6 + [_F, _I, _VP],
-    "ptt_chunk_prefill_fwd": [_VP] * 6 + [_I] * 7 + [_F, _I, _VP],
+    # q, k/v pools, k/v scales (null at full precision), table, t, out;
+    # the sizes; scale, q's type code, the pools' type code, stream
+    "ptt_paged_attention_fwd": [_VP] * 8 + [_I] * 6 + [_F, _I, _I, _VP],
+    "ptt_chunk_prefill_fwd": [_VP] * 8 + [_I] * 7 + [_F, _I, _I, _VP],
     "ptt_flash_fwd": [_VP] * 5 + _FLASH,
     "ptt_flash_bwd_fused": [_VP] * 9 + _FLASH,
     "ptt_flash_bwd_dkv": [_VP] * 8 + _FLASH,

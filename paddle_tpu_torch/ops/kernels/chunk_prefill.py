@@ -1,7 +1,9 @@
 """K5: chunk-prefill attention — CUDA kernel, plain version, counter.
 
 Replaces ``paddle_tpu/ops/pallas/chunk_prefill.py`` (``_chunk_kernel``
-via ``chunk_prefill_pallas``), full-precision pools. The kernel is
+via ``chunk_prefill_pallas``) in both of its branches: full-precision
+pools, and int8 code pools with ``(num_blocks, H)`` fp32 scales
+(``chunk_prefill.py:126-128``). The kernel is
 ``paddle_tpu_torch/csrc/chunk_prefill.cu``; its header note says what
 bounds it on the H100 and how the design answers that.
 
@@ -9,8 +11,8 @@ bounds it on the H100 and how the design answers that.
 :func:`chunk_prefill_ref`, which DELEGATES to the K4 plain version
 exactly as ``chunk_prefill_xla`` delegates to ``paged_attention_xla`` —
 row i of the chunk attends ``cols <= start + i``. A CUDA tensor launches
-the kernel or raises. ``launches`` counts kernel launches and nothing
-else.
+the kernel or raises. ``launches`` counts launches over full-precision
+pools, ``launches_q`` over int8 pools, and nothing else.
 
 The kernel keeps the row-independence contract of
 ``chunk_prefill.py:30-43``: no state crosses query rows, masking uses
@@ -26,12 +28,14 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels.paged_attention import (
-    _DTYPES, broadcast_offsets, check_paged_args, paged_attention_ref)
+    _DTYPES, _INT8, broadcast_offsets, check_paged_args,
+    paged_attention_ref, scale_ptrs)
 
 __all__ = ["chunk_prefill", "chunk_prefill_ref", "pick_qbs", "launches",
-           "reset_launches", "MAX_QBS"]
+           "launches_q", "reset_launches", "MAX_QBS"]
 
-launches = 0
+launches = 0      # launches over full-precision pools
+launches_q = 0    # launches over int8 code pools
 
 # q-block cap: a 64-row q tile and the 64-row logit tile fit one CTA's
 # shared memory, and 64*D/256 fp32 accumulators per thread its
@@ -40,8 +44,8 @@ MAX_QBS = 64
 
 
 def reset_launches():
-    global launches
-    launches = 0
+    global launches, launches_q
+    launches = launches_q = 0
 
 
 def pick_qbs(s: int) -> int:
@@ -55,21 +59,27 @@ def pick_qbs(s: int) -> int:
 
 
 def chunk_prefill_ref(q, k_pool, v_pool, table, start,
-                      scale: Optional[float] = None):
+                      scale: Optional[float] = None, k_scale=None,
+                      v_scale=None):
     """Plain chunk-prefill attention: the K4 plain version at a scalar
     (or per-slot) start offset."""
-    return paged_attention_ref(q, k_pool, v_pool, table, start, scale)
+    return paged_attention_ref(q, k_pool, v_pool, table, start, scale,
+                               k_scale, v_scale)
 
 
 def chunk_prefill(q, k_pool, v_pool, table, start,
-                  scale: Optional[float] = None):
+                  scale: Optional[float] = None, k_scale=None,
+                  v_scale=None):
     """Chunk-prefill attention over ``(b, s, H, D)`` chunk queries at a
-    scalar (or per-slot) start offset."""
+    scalar (or per-slot) start offset; int8 pools come with their
+    ``(num_blocks, H)`` fp32 scales."""
     if q.device.type == "cpu":
-        return chunk_prefill_ref(q, k_pool, v_pool, table, start, scale)
+        return chunk_prefill_ref(q, k_pool, v_pool, table, start, scale,
+                                 k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"chunk_prefill: unsupported device {q.device}")
-    check_paged_args("chunk_prefill", q, k_pool, v_pool, table)
+    pool = check_paged_args("chunk_prefill", q, k_pool, v_pool, table,
+                            k_scale, v_scale)
     b, s, h, d = q.shape
     qbs = pick_qbs(s)
     if scale is None:
@@ -79,10 +89,14 @@ def chunk_prefill(q, k_pool, v_pool, table, start,
     lib = _build.load_library()
     err = lib.ptt_chunk_prefill_fwd(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), tv.data_ptr(), out.data_ptr(), b, s, qbs, h, d,
-        k_pool.shape[1], table.shape[1], float(scale), _DTYPES[q.dtype],
+        *scale_ptrs(k_scale, v_scale), table.data_ptr(), tv.data_ptr(),
+        out.data_ptr(), b, s, qbs, h, d, k_pool.shape[1], table.shape[1],
+        float(scale), _DTYPES[q.dtype], pool,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "chunk_prefill kernel")
-    global launches
-    launches += 1
+    global launches, launches_q
+    if pool == _INT8:
+        launches_q += 1
+    else:
+        launches += 1
     return out
