@@ -8,8 +8,9 @@ Phases, in order (any failure exits non-zero and prints no result):
 
 1. card: the ``nvidia-smi`` name and power limit, the capability;
 2. build: ``csrc/*.cu`` -> ``build/kernels/`` with ``nvcc`` for sm_90a,
-   then the registers and spills of every K4/K5 instantiation
-   (``-Xptxas -v``);
+   then the registers and spills of every K1/K4/K5 instantiation
+   (``-Xptxas -v``; a bf16 K1 that spills fails the run) and the bf16
+   K1's shared memory and CTAs per SM from the CUDA runtime;
 3. kernels: K2 LayerNorm, K4 paged decode and K5 chunk prefill, each
    against its plain PyTorch version in fp32 and bf16 at the serving
    path's shapes, on pools poisoned where no query may read (1e9 in
@@ -25,7 +26,12 @@ Phases, in order (any failure exits non-zero and prints no result):
    at the training shape, non-causal, at head_dim 128, and on the
    long-context route (S 8320, through ``F.scaled_dot_product_attention``
    and ``.backward()``, whose launch counters must show the streaming
-   pair and not the fused kernel), with the same timings;
+   pair and not the fused kernel), with the same timings; K1 also on
+   ragged lengths, Sq != Sk, GPT's per-head qkv views (taken without a
+   copy), a view misaligned by one element (copied for bf16) and inputs
+   with NaN past S, and a misaligned pointer that its C entry point must
+   refuse; every K1 case is held to FLASH_TOL and to K1_TOL (lse
+   absolutely, O element by element);
 5. serving: ``gpt2_small`` at full width and depth (random weights from a
    seed) serves 16 requests through ``ServingEngine`` on the card; the
    kernels' launch counters must equal what the engine's own chunk and
@@ -75,6 +81,20 @@ ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # of each output to bf16, plus P and dS, which both sides round to bf16
 # at the same places but from logits that differ in the last fp32 bits.
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+# K1 is held to more than FLASH_TOL: lse on its own, absolutely, and O
+# element by element, |O - plain| <= atol + rtol * |plain|. Under causal
+# masking |O| falls from |v[0]| in row 0 to ~0.07 past row 500 (S 1000),
+# so a limit relative to max |plain| lets a late row lose a whole key
+# tile; these do not. bf16 O differs by one rounding of each side to
+# bf16 (rtol) plus P rounded at another running max (atol); lse and fp32
+# O differ in summation order only. Over every K1 case of this script on
+# an H100 the sound kernel's worst errors are lse 1.9e-6 (both dtypes),
+# bf16 O 1.06e-3 + 1e-2 |plain|, fp32 O 6.8e-7 + 1e-5 |plain|
+# (k1_fault_check.py, PERF.md); the limits sit 3-5x above them, and that
+# script shows each planted fault that changes an output failing them.
+K1_TOL = {"float32": {"lse": 1e-5, "atol": 3e-6, "rtol": 1e-5},
+          "bfloat16": {"lse": 1e-5, "atol": 3e-3, "rtol": 1e-2}}
 
 
 def fail(msg: str):
@@ -158,19 +178,50 @@ def build_phase():
           f"{_build.build_dir()}", flush=True)
 
 
-_PTXAS_NAME = re.compile(r"paged_attn_kernelI(f|13__nv_bfloat16)(f|a|S\d*_)"
-                         r"Li(\d+)ELi\d+ELi\d+E")
+_PTXAS_PAGED = re.compile(r"paged_attn_kernelI(f|13__nv_bfloat16)"
+                          r"(f|a|S\d*_)Li(\d+)ELi\d+ELi\d+E")
+_PTXAS_FLASH = re.compile(r"flash_fwd_(mma_)?kernelI(f)?Li(\d+)E")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def _k1_occupancy(D: int) -> str:
+    """The bf16 K1's shared memory and the CTAs of it an SM holds, as
+    the CUDA runtime computes them for the built kernel."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    ctas, smem = ctypes.c_int(), ctypes.c_int()
+    err = _build.load_library().ptt_flash_fwd_occupancy(
+        D, ctypes.byref(ctas), ctypes.byref(smem))
+    check(err == 0, f"K1 occupancy query failed (cudaError {err})")
+    return (f", {smem.value} bytes shared memory, {ctas.value} CTAs per SM "
+            "(CUDA runtime)")
+
+
+def _ptxas_label(src: str, name):
+    """What a matched kernel name is, and whether it is a bf16 K1."""
+    if src == "flash_fwd.cu":
+        bf16 = name.group(1) is not None
+        return (f"K1 {'bf16 mma.sync' if bf16 else 'fp32 CUDA cores'}, D "
+                f"{name.group(3)}", bf16)
+    tq = "fp32" if name.group(1) == "f" else "bf16"
+    tp = "int8" if name.group(2) == "a" else tq
+    return f"q {tq}, pool {tp}, D {name.group(3)}", False
 
 
 def ptxas_phase():
-    """Registers and spills of every K4/K5 instantiation (q type, pool
-    type, head dim), from ``nvcc -Xptxas -v`` on their two sources."""
+    """Registers and spills of every K1, K4 and K5 instantiation, from
+    ``nvcc -Xptxas -v`` on their sources; a bf16 K1 that spills fails
+    the run. For the bf16 K1 also its shared memory and the CTAs an SM
+    holds."""
     import tempfile
 
     from paddle_tpu_torch.ops.kernels import _build
 
-    srcs = [p for p in _build.sources()
-            if p.name in ("paged_attention.cu", "chunk_prefill.cu")]
+    pats = {"paged_attention.cu": _PTXAS_PAGED,
+            "chunk_prefill.cu": _PTXAS_PAGED, "flash_fwd.cu": _PTXAS_FLASH}
+    srcs = [p for p in _build.sources() if p.name in pats]
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
@@ -178,21 +229,31 @@ def ptxas_phase():
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src in srcs]
         outs = [p.communicate(timeout=600)[0] for p in procs]
+    k1_seen = 0
     for src, proc, out in zip(srcs, procs, outs):
         check(proc.returncode == 0, f"nvcc -Xptxas -v {src.name}:\n{out}")
-        name = None
+        name = spill = None
         for line in out.splitlines():
             if "Compiling entry function" in line:
-                name = _PTXAS_NAME.search(line)
+                name = pats[src.name].search(line)
             elif name is not None and "spill" in line:
-                spill = line.split(",", 1)[1].strip()
+                spill = _SPILL.search(line)
             elif name is not None and "Used" in line:
-                tq = "fp32" if name.group(1) == "f" else "bf16"
-                tp = "int8" if name.group(2) == "a" else tq
-                regs = line.split("Used", 1)[1].split(",")[0].strip()
-                print(f"ptxas {src.name}: q {tq}, pool {tp}, D "
-                      f"{name.group(3)}: {regs}, {spill}", flush=True)
+                label, mma = _ptxas_label(src.name, name)
+                regs = int(line.split("Used", 1)[1].split()[0])
+                stores, loads = int(spill.group(1)), int(spill.group(2))
+                extra = ""
+                if mma:
+                    k1_seen += 1
+                    extra = _k1_occupancy(int(name.group(3)))
+                    check(stores == loads == 0, f"ptxas: {label} spills "
+                          f"{stores} bytes stored, {loads} loaded")
+                print(f"ptxas {src.name}: {label}: {regs} registers, "
+                      f"{stores} bytes spill stores, {loads} bytes spill "
+                      f"loads{extra}", flush=True)
                 name = None
+    check(k1_seen == 2, f"ptxas: {k1_seen} bf16 K1 instantiations seen, "
+          "expected D 64 and D 128")
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
@@ -597,6 +658,9 @@ def _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
                "tol": FLASH_TOL[dn], "kernel_ms": timer(fn, n=10),
                "plain_ms": plain, "library_ms": library,
                "bound_ms": bound_ms, "bound_by": bound_by}
+        if kid == "K1":
+            row.update(lse_err=errs[kid][2], o_limit_share=errs[kid][3],
+                       k1_tol=K1_TOL[dn])
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
 
@@ -620,6 +684,121 @@ def _grads(prefix, got, want):
             for n, a, b in zip(("dQ", "dK", "dV"), got, want)}
 
 
+def k1_errors(dn, o, ro, lse, rlse):
+    """K1's own measures against its plain version: lse's max |err|, and
+    the largest |O - plain| / (atol + rtol * |plain|) of any element
+    (NaN if any O is not finite)."""
+    tol = K1_TOL[dn]
+    ro = ro.float()
+    ratio = (o.float() - ro).abs() / (tol["atol"] + tol["rtol"] * ro.abs())
+    return _err(lse, rlse), float(ratio.max())
+
+
+def k1_passes(dn, o, ro, lse, rlse) -> bool:
+    e_lse, ratio = k1_errors(dn, o, ro, lse, rlse)
+    return e_lse <= K1_TOL[dn]["lse"] and ratio <= 1.0
+
+
+def _k1_check(torch, dn, shape, o, ro, lse, rlse):
+    """FLASH_TOL on O and lse, then K1's own limits; returns (max |err|,
+    relative err, lse's max |err|, O's largest share of its limit)."""
+    worst = _flash_check(torch, dn, shape, {"O": (o, ro), "lse": (lse, rlse)})
+    e_lse, ratio = k1_errors(dn, o, ro, lse, rlse)
+    check(e_lse <= K1_TOL[dn]["lse"], f"K1 {dn} {shape}: max |lse - plain| "
+          f"{e_lse} > {K1_TOL[dn]['lse']}")
+    check(ratio <= 1.0, f"K1 {dn} {shape}: an element of O is off by "
+          f"{ratio} x (atol {K1_TOL[dn]['atol']} + rtol "
+          f"{K1_TOL[dn]['rtol']} |plain|)")
+    return worst + (e_lse, ratio)
+
+
+def k1_case_inputs(torch, dtype):
+    """(name, (q, k, v), causal, layout) of every K1 case beyond the timed
+    shapes: ragged lengths, Sq != Sk, GPT's strided per-head views
+    (``layout`` "kept": the gate takes them without a copy), a view
+    misaligned by one element ("copied" for bf16), and inputs sliced from
+    a buffer whose rows past S hold NaN."""
+    g = torch.Generator(device="cuda").manual_seed(53)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    # ragged: the public gate sends S 1000 to flash (_pick_block(1000,
+    # 256) = 250); neither length is a multiple of a 64- or 128-row tile
+    for S, D, causal in ((1000, 64, True), (200, 128, False)):
+        yield (f"ragged S {S} D {D} causal {causal}",
+               (rand(2, S, 4, D), rand(2, S, 4, D), rand(2, S, 4, D)),
+               causal, None)
+    for causal in (True, False):
+        yield (f"Sq 256 Sk 1024 causal {causal}",
+               (rand(2, 256, 4, 64), rand(2, 1024, 4, 64),
+                rand(2, 1024, 4, 64)), causal, None)
+    # GPT's views (models/gpt.py: qkv.split(head_dim, -1) per head)
+    B, S, H, D = 2, 1024, 12, 64
+    yield ("GPT qkv views", rand(B, S, H, 3 * D).split(D, dim=-1), True,
+           "kept")
+    # one element past an aligned base
+    n = B * S * H * D
+    yield ("misaligned view",
+           tuple(rand(n + 1)[1:].view(B, S, H, D) for _ in range(3)), True,
+           "copied" if dtype == torch.bfloat16 else "kept")
+    # NaN past S: a CTA whose tile runs past S must not read those rows
+    S, pad = 1000, 64
+    bufs = []
+    for _ in range(3):
+        buf = torch.full((B, S + pad, H, D), float("nan"), device="cuda",
+                         dtype=dtype)
+        buf[:, :S] = rand(B, S, H, D)
+        bufs.append(buf[:, :S])
+    for causal in (True, False):
+        yield f"NaN past S {S} causal {causal}", tuple(bufs), causal, None
+
+
+def k1_cases(torch, dtype):
+    """Every case of :func:`k1_case_inputs` through the public wrapper
+    against the plain version on the same views, with the layout gate's
+    verdict checked; then a misaligned pointer handed to the C entry
+    point, which must refuse it."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    dn = str(dtype).split(".")[1]
+    for name, qkv, causal, layout in k1_case_inputs(torch, dtype):
+        if layout is not None:
+            got = fa.kernel_layout(*qkv, cp_async=True)
+            kept = [t.data_ptr() for t in got] == [t.data_ptr() for t in qkv]
+            check(kept == (layout == "kept"), f"K1 {dn} {name}: the layout "
+                  f"gate's views were not {layout}")
+            check(dtype != torch.bfloat16 or all(
+                t.data_ptr() % 16 == 0 for t in got),
+                f"K1 bf16 {name}: the layout gate passed a misaligned view")
+        scale = 1.0 / qkv[0].shape[-1] ** 0.5
+        o, lse = fa.flash_fwd(*qkv, scale, causal)
+        ro, rlse = fa.flash_fwd_ref(*qkv, scale, causal)
+        torch.cuda.synchronize()
+        err = _k1_check(torch, dn, name, o, ro, lse, rlse)
+        print(f"  K1 {dn} {name}: max |err| {err[0]:.3g}, relative "
+              f"{err[1]:.3g}, lse {err[2]:.3g}, O at {err[3]:.3g} of its "
+              "limit", flush=True)
+    # a misaligned pointer that reaches the entry point: refused
+    # (cudaErrorInvalidValue = 1) for bf16, and the wrapper's check raises
+    if dtype == torch.bfloat16:
+        q = torch.zeros(1, 128, 1, 64, device="cuda", dtype=dtype)
+        o = torch.empty_like(q)
+        lse = torch.empty(1, 1, 128, device="cuda")
+        err = _build.load_library().ptt_flash_fwd(
+            q.data_ptr() + 2, q.data_ptr(), q.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), *fa._tail(q, q, 0.125, True))
+        check(err == 1, f"K1 bf16 took a misaligned pointer (returned {err})")
+        try:
+            _build.check(err, "flash forward kernel")
+            fail("a refused K1 launch did not raise")
+        except RuntimeError:
+            pass
+        print("  K1 bf16 misaligned pointer: refused at the entry point "
+              f"(cudaError {err}), the wrapper raises", flush=True)
+
+
 def flash_phase(torch, timer, rows):
     """K1, K3a, K3b against their plain versions; returns the launch
     counts of the long-context route's public call (bf16)."""
@@ -629,6 +808,7 @@ def flash_phase(torch, timer, rows):
     long_launches = None
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
+        k1_cases(torch, dtype)
         for ci, (B, S, H, D, causal) in enumerate(FLASH_CASES):
             shape = [B, S, H, D, causal]
             q, k, v, do = _flash_inputs(torch, B, S, H, D, dtype, 41 + ci)
@@ -637,13 +817,13 @@ def flash_phase(torch, timer, rows):
             ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
             delta = (do.float() * ro.float()).sum(-1).transpose(
                 1, 2).contiguous()
-            bwd = (q, k, v, do, rlse, delta, scale, causal)
-            want = fa.flash_bwd_ref(*bwd)
+            want = fa.flash_bwd_ref(q, k, v, do, rlse, delta, scale, causal)
+            # the backward kernels recompute P from K1's lse, as in training
+            bwd = (q, k, v, do, lse, delta, scale, causal)
             fused = fa.flash_bwd_fused(*bwd)
             split = (fa.flash_bwd_dq(*bwd),) + tuple(fa.flash_bwd_dkv(*bwd))
             torch.cuda.synchronize()
-            e_fwd = _flash_check(torch, dn, shape, {"O": (o, ro),
-                                                    "lse": (lse, rlse)})
+            e_fwd = _k1_check(torch, dn, shape, o, ro, lse, rlse)
             e_fused = _flash_check(torch, dn, shape,
                                    _grads("fused ", fused, want))
             e_split = _flash_check(torch, dn, shape,
@@ -675,7 +855,9 @@ def flash_phase(torch, timer, rows):
         ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
         delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
         want = fa.flash_bwd_ref(q, k, v, do, rlse, delta, scale, causal)
-        e_fwd = _flash_check(torch, dn, shape, {"O": (out.detach(), ro)})
+        # lse from the same kernel on the same inputs, outside the count
+        lse = fa.flash_fwd(q, k, v, scale, causal)[1]
+        e_fwd = _k1_check(torch, dn, shape, out.detach(), ro, lse, rlse)
         e_split = _flash_check(torch, dn, shape, _grads(
             "split ", (ql.grad, kl.grad, vl.grad), want))
         fused = fa.flash_bwd_fused(q, k, v, do, rlse, delta, scale, causal)

@@ -7,17 +7,20 @@
 // strides. O, dO, dQ, dK and dV are contiguous (B, S, H, D); lse and
 // delta are fp32 (B, H, Sq).
 //
-// Tiles. Every kernel works on 64-row query tiles against 64-row key
-// tiles of one (batch, head), staged in shared memory as fp32 (bf16
-// converts at the shared-memory store, never right after its load, so
-// a thread's loads are all in flight together). A CTA has 256 threads
-// in a 16 x 16 grid (ty, tx). In a score tile (query rows x key rows)
-// thread (ty, tx) owns rows ty + 16i and columns tx + 16j, i, j < 4;
-// in an output tile (rows x head dim) it owns rows ty + 16i and dims
-// tx + 16j, j < D/16. Products run on the CUDA cores in fp32 (float4
-// shared-memory reads, K and Q rows padded to D + 4 floats so eight
-// threads reading eight rows hit 32 distinct banks). Tensor cores
-// (mma / wgmma) and TMA staging are later work.
+// Tiles of the CUDA-core kernels (the backward kernels, and the forward
+// in fp32): 64-row query tiles against 64-row key tiles of one (batch,
+// head), staged in shared memory as fp32 (bf16 converts at the
+// shared-memory store, never right after its load, so a thread's loads
+// are all in flight together). A CTA has 256 threads in a 16 x 16 grid
+// (ty, tx). In a score tile (query rows x key rows) thread (ty, tx)
+// owns rows ty + 16i and columns tx + 16j, i, j < 4; in an output tile
+// (rows x head dim) it owns rows ty + 16i and dims tx + 16j, j < D/16.
+// Products run on the CUDA cores in fp32 (float4 shared-memory reads, K
+// and Q rows padded to D + 4 floats so eight threads reading eight rows
+// hit 32 distinct banks). The bf16 forward runs on the tensor cores
+// instead (mma.sync fed by ldmatrix and cp.async, flash_mma.cuh; its
+// design is in flash_fwd.cu); the backward's move to them, reusing
+// flash_mma.cuh, and wgmma with TMA staging are later work.
 //
 // Contracts kept from paddle_tpu/ops/pallas/flash_attention.py:
 //  - the causal mask is TOP-LEFT aligned, rows >= cols (:74-79);
@@ -134,16 +137,22 @@ __device__ __forceinline__ bool visible(const Args& a, int row, int col) {
 }
 
 // Raise the kernel's dynamic shared-memory limit when it needs more than
-// the default 48 KB, then launch it on `grid` x kThreads.
+// the default 48 KB.
+template <typename K>
+cudaError_t allow_smem(K kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Launch the kernel on `grid` x kThreads with `smem` bytes of dynamic
+// shared memory.
 template <typename K>
 cudaError_t launch(K kern, dim3 grid, size_t smem, cudaStream_t stream,
                    const Args& a) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
   kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "ptt_paged_attention_fwd": [_VP] * 8 + [_I] * 6 + [_F, _I, _I, _VP],
     "ptt_chunk_prefill_fwd": [_VP] * 8 + [_I] * 7 + [_F, _I, _I, _VP],
     "ptt_flash_fwd": [_VP] * 5 + _FLASH,
+    # head dim; out: CTAs per SM and shared-memory bytes of the bf16 K1
+    "ptt_flash_fwd_occupancy": [_I, _VP, _VP],
     "ptt_flash_bwd_fused": [_VP] * 9 + _FLASH,
     "ptt_flash_bwd_dkv": [_VP] * 8 + _FLASH,
     "ptt_flash_bwd_dq": [_VP] * 7 + _FLASH,

@@ -2,7 +2,8 @@
 
 Replaces ``paddle_tpu/ops/pallas/flash_attention.py``: the forward
 kernels ``_fwd_kernel`` (:54) and ``_fwd_stream_kernel`` (:108), which
-on Hopper are one kernel (``csrc/flash_fwd.cu``), the fused backward
+on Hopper are one entry point (``csrc/flash_fwd.cu``: a tensor-core
+kernel for bf16, a CUDA-core one for fp32), the fused backward
 ``_bwd_fused_kernel`` (:362) and the streaming pair
 ``_bwd_dkv_stream_kernel`` (:162) / ``_bwd_dq_stream_kernel`` (:215)
 (``csrc/flash_bwd.cu``). The kernels' header notes say what bounds each
@@ -11,8 +12,11 @@ on the H100 and how the design answers that.
 Each wrapper takes paddle's (B, S, H, D) layout: a CPU tensor runs the
 plain version (``flash_fwd_ref`` / ``flash_bwd_ref``, the same
 arithmetic in fp32 with the same bf16 rounding points); a CUDA tensor
-launches the kernel or raises. ``launches`` counts kernel launches, per
-kernel, and nothing else.
+launches the kernel or raises. A view the kernels cannot take (a head
+dim that is not contiguous, k and v with unequal strides; for the bf16
+forward also a base pointer not 16-byte aligned or a stride not a
+multiple of 8) is copied first by :func:`kernel_layout`. ``launches``
+counts kernel launches, per kernel, and nothing else.
 
 :class:`FlashAttentionFn` is the autograd Function: its forward saves
 ``(o, lse)``; its backward computes ``delta = rowsum(dO * O)`` in torch
@@ -30,8 +34,8 @@ from torch.autograd.function import once_differentiable
 from paddle_tpu_torch.ops.kernels import _build
 
 __all__ = ["flash_fwd", "flash_fwd_ref", "flash_bwd_fused", "flash_bwd_dkv",
-           "flash_bwd_dq", "flash_bwd_ref", "FlashAttentionFn", "launches",
-           "reset_launches"]
+           "flash_bwd_dq", "flash_bwd_ref", "FlashAttentionFn", "kernel_layout",
+           "launches", "reset_launches"]
 
 # beyond this sequence length the JAX package streams K/V and splits the
 # backward in two (flash_attention.py:38); the port keeps the same route
@@ -105,10 +109,9 @@ def flash_bwd_ref(q, k, v, do, lse, delta, scale: float, causal: bool):
 
 
 # ------------------------------------------------------------------ kernels
-def _cuda_args(name: str, q, k, v):
-    """Check what the kernels take and return q, k, v with a contiguous
-    head dim, k and v sharing strides (views are kept where they
-    already do: GPT's per-head slices of one qkv projection)."""
+def _cuda_args(name: str, q, k, v, cp_async: bool = False):
+    """Check what the kernels take and return q, k, v in their layout
+    (:func:`kernel_layout`)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -125,10 +128,36 @@ def _cuda_args(name: str, q, k, v):
                          f"the CUDA kernels (one of {_HEAD_DIMS})")
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError(f"{name}: batch * heads must be <= 65535")
-    if q.stride(-1) != 1:
-        q = q.contiguous()
-    if k.stride(-1) != 1 or k.stride() != v.stride():
-        k, v = k.contiguous(), v.contiguous()
+    return kernel_layout(q, k, v, cp_async)
+
+
+def _fits_kernel(t, cp_async: bool) -> bool:
+    if t.stride(-1) != 1:
+        return False
+    if not cp_async or t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def kernel_layout(q, k, v, cp_async: bool = False):
+    """q, k, v in the layout the flash kernels take, on any device: the
+    head dim contiguous and k and v sharing strides. ``cp_async`` (the
+    bf16 forward, which stages 16-byte chunks by cp.async) adds, for
+    bf16, every base pointer 16-byte aligned and every stride on
+    (B, S, H) a multiple of 8 elements. Views that already fit are
+    returned as they are (GPT's per-head slices of one qkv projection:
+    strides 3HD, 3D, 1 at element offsets 0, D, 2D); the others are
+    copied into fresh contiguous tensors, a layout copy that never
+    changes the route. ``clone`` and not ``contiguous``: a contiguous
+    view at a misaligned offset would come back as itself."""
+    def fresh(t):
+        return t.clone(memory_format=torch.contiguous_format)
+
+    if not _fits_kernel(q, cp_async):
+        q = fresh(q)
+    if not (_fits_kernel(k, cp_async) and _fits_kernel(v, cp_async)) \
+            or k.stride() != v.stride():
+        k, v = fresh(k), fresh(v)
     return q, k, v
 
 
@@ -155,7 +184,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool
     """Flash forward (K1, both routes): ``(O, lse)``."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, scale, causal)
-    q, k, v = _cuda_args("flash_fwd", q, k, v)
+    q, k, v = _cuda_args("flash_fwd", q, k, v, cp_async=True)
     B, Sq, H, D = q.shape
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)

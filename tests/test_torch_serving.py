@@ -299,10 +299,11 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(where, tmp_path):
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    """Every file of paddle_tpu_torch/ and chip_smoke.py: no import of
-    jax or paddle_tpu (the card's host has no JAX)."""
+    """Every file of paddle_tpu_torch/, chip_smoke.py and
+    k1_fault_check.py: no import of jax or paddle_tpu (the card's host
+    has no JAX)."""
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "k1_fault_check.py"]
     assert len(files) > 10
     bad = []
     for f in files:
