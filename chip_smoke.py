@@ -8,9 +8,12 @@ Phases, in order (any failure exits non-zero and prints no result):
 
 1. card: the ``nvidia-smi`` name and power limit, the capability;
 2. build: ``csrc/*.cu`` -> ``build/kernels/`` with ``nvcc`` for sm_90a,
-   then the registers and spills of every K1/K4/K5 instantiation
-   (``-Xptxas -v``; a bf16 K1 that spills fails the run) and the bf16
-   K1's shared memory and CTAs per SM from the CUDA runtime;
+   then the registers and spills of every K1/K3/K4/K5 instantiation
+   (``-Xptxas -v``; a bf16 K1, K3a or K3b-dkv that spills fails the
+   run), the tensor-core instructions (HMMA) that ``cuobjdump -sass``
+   finds in each bf16 K3a/K3b-dkv body (none fails the run), and the
+   bf16 K1's and K3 bodies' shared memory and CTAs per SM from the CUDA
+   runtime;
 3. kernels: K2 LayerNorm, K4 paged decode and K5 chunk prefill, each
    against its plain PyTorch version in fp32 and bf16 at the serving
    path's shapes, on pools poisoned where no query may read (1e9 in
@@ -31,7 +34,12 @@ Phases, in order (any failure exits non-zero and prints no result):
    copy), a view misaligned by one element (copied for bf16) and inputs
    with NaN past S, and a misaligned pointer that its C entry point must
    refuse; every K1 case is held to FLASH_TOL and to K1_TOL (lse
-   absolutely, O element by element);
+   absolutely, O element by element); K3a and K3b-dkv on the same
+   cases (with a dO, lse from K1 as in training), on the timed shapes
+   and at S 8320, each held to FLASH_TOL and to K3_TOL (dQ, dK, dV
+   element by element), and misaligned pointers their C entry points
+   must refuse; SDPA's backward alone (and its forward + backward) is
+   the K3 rows' yardstick;
 5. serving: ``gpt2_small`` at full width and depth (random weights from a
    seed) serves 16 requests through ``ServingEngine`` on the card; the
    kernels' launch counters must equal what the engine's own chunk and
@@ -95,6 +103,21 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # script shows each planted fault that changes an output failing them.
 K1_TOL = {"float32": {"lse": 1e-5, "atol": 3e-6, "rtol": 1e-5},
           "bfloat16": {"lse": 1e-5, "atol": 3e-3, "rtol": 1e-2}}
+
+# K3a and K3b-dkv are held to more than FLASH_TOL too: each of dQ, dK
+# and dV element by element, |out - plain| <= atol + rtol * |plain|, so a
+# dropped query tile or a lost warp of dQ atomics cannot hide under a
+# limit relative to the largest gradient. bf16 differs by one rounding of
+# each side to bf16 (rtol) plus P and dS rounded to bf16 from logits that
+# differ in the last fp32 bits (atol; dV sums P, the largest such term);
+# fp32 differs in summation order, and dQ also in the order of its fp32
+# atomics, which changes from run to run. The limits sit 3-5x above the
+# sound kernel's worst errors over every K3 case of this script on an
+# H100, over several runs (k3_fault_check.py, PERF.md).
+K3_TOL = {"float32": {"rtol": 1e-5,
+                      "atol": {"dQ": 8e-6, "dK": 5e-6, "dV": 4e-6}},
+          "bfloat16": {"rtol": 1e-2,
+                       "atol": {"dQ": 4e-3, "dK": 4e-3, "dV": 1.5e-2}}}
 
 
 def fail(msg: str):
@@ -181,46 +204,94 @@ def build_phase():
 _PTXAS_PAGED = re.compile(r"paged_attn_kernelI(f|13__nv_bfloat16)"
                           r"(f|a|S\d*_)Li(\d+)ELi\d+ELi\d+E")
 _PTXAS_FLASH = re.compile(r"flash_fwd_(mma_)?kernelI(f)?Li(\d+)E")
+_PTXAS_BWD = re.compile(r"flash_(bwd_mma|dkv|dq)_kernelI(f|13__nv_bfloat16)?"
+                        r"Li(\d+)E(?:Lb(\d)E)?")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
-def _k1_occupancy(D: int) -> str:
-    """The bf16 K1's shared memory and the CTAs of it an SM holds, as
-    the CUDA runtime computes them for the built kernel."""
+def _occupancy(fn, *args) -> str:
+    """A tensor-core body's shared memory and the CTAs of it an SM holds,
+    as the CUDA runtime computes them for the built kernel, through the
+    occupancy entry point ``fn`` (``ptt_flash_fwd_occupancy`` or
+    ``ptt_flash_bwd_occupancy``)."""
     import ctypes
 
     from paddle_tpu_torch.ops.kernels import _build
 
     ctas, smem = ctypes.c_int(), ctypes.c_int()
-    err = _build.load_library().ptt_flash_fwd_occupancy(
-        D, ctypes.byref(ctas), ctypes.byref(smem))
-    check(err == 0, f"K1 occupancy query failed (cudaError {err})")
+    err = getattr(_build.load_library(), fn)(*args, ctypes.byref(ctas),
+                                             ctypes.byref(smem))
+    check(err == 0, f"{fn}{args} failed (cudaError {err})")
     return (f", {smem.value} bytes shared memory, {ctas.value} CTAs per SM "
             "(CUDA runtime)")
 
 
 def _ptxas_label(src: str, name):
-    """What a matched kernel name is, and whether it is a bf16 K1."""
+    """What a matched kernel name is, whether it is a tensor-core body
+    that must not spill, and its occupancy query's (function, args)."""
     if src == "flash_fwd.cu":
         bf16 = name.group(1) is not None
+        D = int(name.group(3))
         return (f"K1 {'bf16 mma.sync' if bf16 else 'fp32 CUDA cores'}, D "
-                f"{name.group(3)}", bf16)
+                f"{D}", bf16, ("ptt_flash_fwd_occupancy", D))
+    if src == "flash_bwd.cu":
+        kind, D = name.group(1), int(name.group(3))
+        fused = name.group(4) == "1"
+        if kind == "dq":
+            tq = "fp32" if name.group(2) == "f" else "bf16"
+            return f"K3b-dq {tq} CUDA cores, D {D}", False, None
+        what = "K3a" if fused else "K3b-dkv"
+        if kind == "dkv":
+            return f"{what} fp32 CUDA cores, D {D}", False, None
+        return (f"{what} bf16 mma.sync, D {D}", True,
+                ("ptt_flash_bwd_occupancy", D, int(fused)))
     tq = "fp32" if name.group(1) == "f" else "bf16"
     tp = "int8" if name.group(2) == "a" else tq
-    return f"q {tq}, pool {tp}, D {name.group(3)}", False
+    return f"q {tq}, pool {tp}, D {name.group(3)}", False, None
+
+
+def _sass_ops(obj: str, ops=("HMMA", "RED", "ATOM")):
+    """Per kernel of an object file, how many SASS instructions of each
+    family of ``ops`` ``cuobjdump -sass`` lists (HMMA: tensor-core
+    products; RED, ATOM and their global forms REDG, ATOMG: the fused
+    dQ's atomics)."""
+    import shutil
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).parent / "cuobjdump")
+    out = subprocess.run([tool, "-sass", obj], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {obj}: {out.stderr}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            m = re.search(r"\s(" + "|".join(ops) + r")G?[.\s]", line)
+            if m:
+                counts[fn][m.group(1)] += 1
+    return counts
 
 
 def ptxas_phase():
-    """Registers and spills of every K1, K4 and K5 instantiation, from
-    ``nvcc -Xptxas -v`` on their sources; a bf16 K1 that spills fails
-    the run. For the bf16 K1 also its shared memory and the CTAs an SM
-    holds."""
+    """Registers and spills of every K1, K3, K4 and K5 instantiation, from
+    ``nvcc -Xptxas -v`` on their sources; a bf16 K1, K3a or K3b-dkv (the
+    tensor-core bodies) that spills fails the run. For those bodies also
+    their shared memory and the CTAs an SM holds, and for the bf16 K3
+    bodies the tensor-core products (HMMA) and atomics in their SASS: a
+    body without HMMA, or a K3a without atomics, fails."""
     import tempfile
 
     from paddle_tpu_torch.ops.kernels import _build
 
     pats = {"paged_attention.cu": _PTXAS_PAGED,
-            "chunk_prefill.cu": _PTXAS_PAGED, "flash_fwd.cu": _PTXAS_FLASH}
+            "chunk_prefill.cu": _PTXAS_PAGED, "flash_fwd.cu": _PTXAS_FLASH,
+            "flash_bwd.cu": _PTXAS_BWD}
     srcs = [p for p in _build.sources() if p.name in pats]
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
@@ -229,31 +300,44 @@ def ptxas_phase():
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src in srcs]
         outs = [p.communicate(timeout=600)[0] for p in procs]
-    k1_seen = 0
-    for src, proc, out in zip(srcs, procs, outs):
-        check(proc.returncode == 0, f"nvcc -Xptxas -v {src.name}:\n{out}")
+        check(all(p.returncode == 0 for p in procs),
+              "nvcc -Xptxas -v failed:\n" + "\n".join(
+                  o for p, o in zip(procs, outs) if p.returncode))
+        sass = _sass_ops(f"{tmp}/flash_bwd.o")
+    seen = {"K1": 0, "K3": 0}
+    for src, out in zip(srcs, outs):
         name = spill = None
         for line in out.splitlines():
             if "Compiling entry function" in line:
                 name = pats[src.name].search(line)
+                full = line.split("'")[1] if "'" in line else ""
             elif name is not None and "spill" in line:
                 spill = _SPILL.search(line)
             elif name is not None and "Used" in line:
-                label, mma = _ptxas_label(src.name, name)
+                label, mma, occ = _ptxas_label(src.name, name)
                 regs = int(line.split("Used", 1)[1].split()[0])
                 stores, loads = int(spill.group(1)), int(spill.group(2))
                 extra = ""
                 if mma:
-                    k1_seen += 1
-                    extra = _k1_occupancy(int(name.group(3)))
+                    seen[label[:2]] += 1
+                    extra = _occupancy(*occ)
                     check(stores == loads == 0, f"ptxas: {label} spills "
                           f"{stores} bytes stored, {loads} loaded")
+                if mma and src.name == "flash_bwd.cu":
+                    ops = sass.get(full)
+                    check(ops is not None and ops["HMMA"] > 0,
+                          f"SASS: {label} has no HMMA ({ops})")
+                    check(not label.startswith("K3a")
+                          or ops["RED"] + ops["ATOM"] > 0,
+                          f"SASS: {label} has no atomics for dQ ({ops})")
+                    extra += (f", SASS {ops['HMMA']} HMMA, {ops['RED']} "
+                              f"RED, {ops['ATOM']} ATOM")
                 print(f"ptxas {src.name}: {label}: {regs} registers, "
                       f"{stores} bytes spill stores, {loads} bytes spill "
                       f"loads{extra}", flush=True)
                 name = None
-    check(k1_seen == 2, f"ptxas: {k1_seen} bf16 K1 instantiations seen, "
-          "expected D 64 and D 128")
+    check(seen == {"K1": 2, "K3": 4}, f"ptxas: tensor-core bodies seen "
+          f"{seen}, expected K1 at D 64 and 128, K3a and K3b-dkv at both")
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
@@ -618,7 +702,10 @@ def _flash_inputs(torch, B, S, H, D, dtype, seed):
 def _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
                 errs):
     """Time K1, K3a and the K3b pair at one shape (inputs as given) and
-    record one row each; ``errs`` maps kernel id to its checked error."""
+    record one row each; ``errs`` maps kernel id to its checked error
+    (for K3a and K3b-dkv also the largest share of K3_TOL). The K3 rows'
+    library call is SDPA's backward alone (its forward run once outside
+    the events), with its forward + backward beside it."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -638,8 +725,12 @@ def _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
         out = TF.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
         torch.autograd.grad(out, (ql, kl, vl), dot)
 
+    out_l = TF.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
     plain_bwd = timer(lambda: fa.flash_bwd_ref(*bwd), n=10)
-    library_bwd = timer(library_fwd_bwd, n=10)
+    library_bwd = timer(lambda: torch.autograd.grad(
+        out_l, (ql, kl, vl), dot, retain_graph=True), n=10)
+    library_both = timer(library_fwd_bwd, n=10)
+    del out_l
     for kid, fn, plain, library, nbytes, kflops in (
             ("K1", lambda: fa.flash_fwd(q, k, v, scale, causal),
              timer(lambda: fa.flash_fwd_ref(q, k, v, scale, causal), n=10),
@@ -661,6 +752,10 @@ def _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
         if kid == "K1":
             row.update(lse_err=errs[kid][2], o_limit_share=errs[kid][3],
                        k1_tol=K1_TOL[dn])
+        else:
+            row["library_fwd_bwd_ms"] = library_both
+        if kid in ("K3a", "K3b-dkv"):
+            row.update(k3_limit_share=errs[kid][2], k3_tol=K3_TOL[dn])
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
 
@@ -710,6 +805,111 @@ def _k1_check(torch, dn, shape, o, ro, lse, rlse):
           f"{ratio} x (atol {K1_TOL[dn]['atol']} + rtol "
           f"{K1_TOL[dn]['rtol']} |plain|)")
     return worst + (e_lse, ratio)
+
+
+def k3_errors(dn, got, want):
+    """K3's own measure against the plain version: per output (dQ, dK,
+    dV, whichever ``got`` holds; ``want`` is the plain (dQ, dK, dV)), the
+    largest |out - plain| / (atol + rtol * |plain|) of any element (NaN
+    if any element is not finite)."""
+    tol = K3_TOL[dn]
+    names = ("dQ", "dK", "dV")[3 - len(got):]
+    out = {}
+    for name, a, b in zip(names, got, want[3 - len(got):]):
+        b = b.float()
+        ratio = (a.float() - b).abs() / (tol["atol"][name]
+                                         + tol["rtol"] * b.abs())
+        out[name] = float(ratio.max())
+    return out
+
+
+def k3_passes(dn, got, want) -> bool:
+    return all(r <= 1.0 for r in k3_errors(dn, got, want).values())
+
+
+def _k3_check(torch, dn, shape, kid, got, want):
+    """FLASH_TOL on each gradient, then K3's own limits; returns (max
+    |err|, relative err, the largest share of K3_TOL)."""
+    names = ("dQ", "dK", "dV")[3 - len(got):]
+    worst = _flash_check(torch, dn, shape, {
+        f"{kid} {n}": (a, b) for n, a, b in zip(names, got,
+                                                want[3 - len(got):])})
+    shares = k3_errors(dn, got, want)
+    for name, r in shares.items():
+        check(r <= 1.0, f"{kid} {dn} {shape}: an element of {name} is off "
+              f"by {r} x (atol {K3_TOL[dn]['atol'][name]} + rtol "
+              f"{K3_TOL[dn]['rtol']} |plain|)")
+    return worst + (max(shares.values()),)
+
+
+def k3_grads(torch, q, k, v, do, causal):
+    """The plain gradients, K3a's (dQ, dK, dV) and K3b-dkv's (dK, dV)
+    computed, as in training, from K1's lse (delta from the plain O), and
+    the kernels' arguments."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    scale = 1.0 / q.shape[-1] ** 0.5
+    lse = fa.flash_fwd(q, k, v, scale, causal)[1]
+    ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
+    want = fa.flash_bwd_ref(q, k, v, do, rlse, delta, scale, causal)
+    bwd = (q, k, v, do, lse, delta, scale, causal)
+    return want, {"K3a": fa.flash_bwd_fused(*bwd),
+                  "K3b-dkv": fa.flash_bwd_dkv(*bwd)}, bwd
+
+
+def k3_case_inputs(torch, dtype):
+    """(name, (q, k, v, dO), causal) of every K3 case beyond the timed
+    shapes: the K1 cases of :func:`k1_case_inputs`, each with a dO of q's
+    layout (for the NaN-past-S cases a view of a NaN-padded buffer too)."""
+    g = torch.Generator(device="cuda").manual_seed(59)
+    for name, qkv, causal, _ in k1_case_inputs(torch, dtype):
+        q = qkv[0]
+        do = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
+        if name.startswith("NaN past S"):
+            buf = torch.full((q.shape[0], q.shape[1] + 64, *q.shape[2:]),
+                             float("nan"), device="cuda", dtype=dtype)
+            buf[:, :q.shape[1]] = do
+            do = buf[:, :q.shape[1]]
+        yield name, (*qkv, do), causal
+
+
+def k3_cases(torch, dtype):
+    """Every case of :func:`k3_case_inputs` through K3a and K3b-dkv
+    against the plain version, both gates; then misaligned pointers
+    handed to their C entry points, which must refuse them for bf16."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    dn = str(dtype).split(".")[1]
+    for name, (q, k, v, do), causal in k3_case_inputs(torch, dtype):
+        want, got, _ = k3_grads(torch, q, k, v, do, causal)
+        torch.cuda.synchronize()
+        for kid, grads in got.items():
+            err = _k3_check(torch, dn, name, kid, grads, want)
+            print(f"  {kid} {dn} {name}: max |err| {err[0]:.3g}, relative "
+                  f"{err[1]:.3g}, at {err[2]:.3g} of K3_TOL", flush=True)
+    if dtype != torch.bfloat16:
+        return
+    lib = _build.load_library()
+    q = torch.zeros(1, 128, 1, 64, device="cuda", dtype=dtype)
+    vec = torch.zeros(1, 1, 128, device="cuda")
+    acc = torch.zeros(1, 128, 1, 64, device="cuda")
+    grads = [torch.empty_like(q) for _ in range(2)]
+    p = [t.data_ptr() for t in (q, q, q, q, vec, vec)]
+    tail = fa._tail(q, q, 0.125, True)
+    for bad in (0, 3):    # q, then dO, 2 bytes past a 16-byte boundary
+        args = list(p)
+        args[bad] += 2
+        errs = (lib.ptt_flash_bwd_fused(*args, acc.data_ptr(),
+                                        *[t.data_ptr() for t in grads],
+                                        *tail),
+                lib.ptt_flash_bwd_dkv(*args, *[t.data_ptr() for t in grads],
+                                      *tail))
+        check(errs == (1, 1), f"K3 bf16 took a misaligned "
+              f"{'q' if bad == 0 else 'dO'} pointer (returned {errs})")
+    print("  K3a, K3b-dkv bf16 misaligned q or dO pointer: refused at the "
+          "entry points (cudaError 1)", flush=True)
 
 
 def k1_case_inputs(torch, dtype):
@@ -809,6 +1009,7 @@ def flash_phase(torch, timer, rows):
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         k1_cases(torch, dtype)
+        k3_cases(torch, dtype)
         for ci, (B, S, H, D, causal) in enumerate(FLASH_CASES):
             shape = [B, S, H, D, causal]
             q, k, v, do = _flash_inputs(torch, B, S, H, D, dtype, 41 + ci)
@@ -824,11 +1025,11 @@ def flash_phase(torch, timer, rows):
             split = (fa.flash_bwd_dq(*bwd),) + tuple(fa.flash_bwd_dkv(*bwd))
             torch.cuda.synchronize()
             e_fwd = _k1_check(torch, dn, shape, o, ro, lse, rlse)
-            e_fused = _flash_check(torch, dn, shape,
-                                   _grads("fused ", fused, want))
+            e_fused = _k3_check(torch, dn, shape, "K3a", fused, want)
+            e_dkv = _k3_check(torch, dn, shape, "K3b-dkv", split[1:], want)
             e_split = _flash_check(torch, dn, shape,
                                    _grads("split ", split, want))
-            errs = {"K1": e_fwd, "K3a": e_fused, "K3b-dkv": e_split,
+            errs = {"K1": e_fwd, "K3a": e_fused, "K3b-dkv": e_dkv,
                     "K3b-dq": e_split}
             _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale,
                         causal, errs)
@@ -860,11 +1061,13 @@ def flash_phase(torch, timer, rows):
         e_fwd = _k1_check(torch, dn, shape, out.detach(), ro, lse, rlse)
         e_split = _flash_check(torch, dn, shape, _grads(
             "split ", (ql.grad, kl.grad, vl.grad), want))
-        fused = fa.flash_bwd_fused(q, k, v, do, rlse, delta, scale, causal)
+        e_dkv = _k3_check(torch, dn, shape, "K3b-dkv", (kl.grad, vl.grad),
+                          want)
+        fused = fa.flash_bwd_fused(q, k, v, do, lse, delta, scale, causal)
         torch.cuda.synchronize()
-        e_fused = _flash_check(torch, dn, shape, _grads("fused ", fused, want))
+        e_fused = _k3_check(torch, dn, shape, "K3a", fused, want)
         _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
-                    {"K1": e_fwd, "K3a": e_fused, "K3b-dkv": e_split,
+                    {"K1": e_fwd, "K3a": e_fused, "K3b-dkv": e_dkv,
                      "K3b-dq": e_split})
     return long_launches
 
@@ -1236,8 +1439,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_phase(torch)
+    mark = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - mark[0]:.1f} s wall", flush=True)
+        mark[0] = now
+
     build_phase()
     ptxas_phase()
+    lap("build + ptxas")
     timer = Timer(torch)
     rows = []
     print("kernels vs plain versions (device ms, cold L2):", flush=True)
@@ -1246,12 +1457,17 @@ def main():
     chunk_phase(torch, timer, rows)
     paged_q_phase(torch, timer, rows)
     chunk_q_phase(torch, timer, rows)
+    lap("K2, K4, K5")
     long_launches = flash_phase(torch, timer, rows)
+    lap("flash")
     launches, model, fp_agg = serving_phase(torch, card)
+    lap("serving")
     q_launches = serving_q_phase(torch, card, model, fp_agg)
+    lap("int8 serving")
     launches.update({k: q_launches[k] for k in ("K4-int8", "K5-int8")})
     del model
     train_launches = training_phase(torch, card)
+    lap("training")
     launches.update({"K1": train_launches["K1"], "K3a": train_launches["K3a"],
                      "K3b-dkv": long_launches["bwd_dkv"],
                      "K3b-dq": long_launches["bwd_dq"]})

@@ -21,7 +21,8 @@ rtol of ``RTOLS`` would need), and one summary line per kernel. It exits
 non-zero if the sound kernel fails a gate, or if a fault changes some
 output and K1's gate catches it in no case. A fault whose outputs are
 bitwise those of the sound kernel in every case (a race that did not
-fire) is reported as such.
+fire) is reported as such. ``k3_fault_check.py`` drives K3's faults
+through the same copy-plant-run loop (:func:`drive`).
 """
 
 from __future__ import annotations
@@ -126,23 +127,33 @@ def child(dtypes, sound_out, sound_in):
         torch.save(saved, sound_out)
 
 
-def _copy(root: Path, dst: Path, fault):
+def copy_patched(root: Path, dst: Path, script: Path, source: str,
+                 patches):
+    """The port, ``chip_smoke.py``, this file and ``script`` into ``dst``,
+    with each (text, replacement) of ``patches`` applied to the copy's
+    ``csrc/<source>``; a text not in it exactly once stops the run."""
     shutil.copytree(root / "paddle_tpu_torch", dst / "paddle_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    for name in ("chip_smoke.py", Path(__file__).name):
+    for name in {"chip_smoke.py", Path(__file__).name, script.name}:
         shutil.copy(root / name, dst / name)
-    if fault is not None:
-        src = dst / "paddle_tpu_torch" / "csrc" / "flash_fwd.cu"
-        text = src.read_text()
-        old, new = FAULTS[fault]
+    src = dst / "paddle_tpu_torch" / "csrc" / source
+    text = src.read_text()
+    for old, new in patches:
         if text.count(old) != 1:
-            raise SystemExit(f"k1_fault_check: the text of fault {fault!r} "
-                             "is not in flash_fwd.cu exactly once")
-        src.write_text(text.replace(old, new))
+            raise SystemExit(f"{script.name}: a patched text is not in "
+                             f"{source} exactly once:\n{old}")
+        text = text.replace(old, new)
+    src.write_text(text)
 
 
-def main():
-    root = Path(__file__).resolve().parent
+def drive(script: Path, source: str, faults, gate: str):
+    """For the sound kernel and then each of ``faults`` (name -> (text,
+    replacement) in ``csrc/<source>``): a fresh copy, ``script --child``
+    run in it (fp32 and bf16 for the sound kernel, bf16 for a fault), its
+    JSON rows echoed and summed up. Exits non-zero if the sound kernel
+    fails the flash gate or ``gate``, or if a fault changes an output and
+    ``gate`` catches it in no case."""
+    root = script.parent
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -150,10 +161,11 @@ def main():
     bad = []
     with tempfile.TemporaryDirectory() as tmp:
         sound = Path(tmp) / "sound.pt"
-        for i, fault in enumerate([None, *FAULTS]):
+        for i, fault in enumerate([None, *faults]):
             dst = Path(tmp) / f"copy{i}"
-            _copy(root, dst, fault)
-            cmd = [sys.executable, str(dst / Path(__file__).name), "--child"]
+            copy_patched(root, dst, script, source,
+                         [] if fault is None else [faults[fault]])
+            cmd = [sys.executable, str(dst / script.name), "--child"]
             cmd += (["--dtypes", "float32", "bfloat16", "--sound-out",
                      str(sound)] if fault is None
                     else ["--dtypes", "bfloat16", "--sound-in", str(sound)])
@@ -172,18 +184,22 @@ def main():
                 "kernel": label, "cases": len(rows),
                 "changed": sum(r.get("changed", False) for r in rows),
                 "flash_gate_failed": sum(not r["flash_gate"] for r in rows),
-                "k1_gate_failed": sum(not r["k1_gate"] for r in rows)}
+                f"{gate}_failed": sum(not r[gate] for r in rows)}
             print("summary " + json.dumps(summary), flush=True)
             if fault is None and (summary["flash_gate_failed"]
-                                  or summary["k1_gate_failed"]):
+                                  or summary[f"{gate}_failed"]):
                 bad.append("the sound kernel fails a gate")
             if fault is not None and summary["changed"] \
-                    and not summary["k1_gate_failed"]:
-                bad.append(f"{fault}: outputs changed, K1's gate passed")
+                    and not summary[f"{gate}_failed"]:
+                bad.append(f"{fault}: outputs changed, {gate} passed")
     if bad:
-        print("k1_fault_check: FAIL: " + "; ".join(bad), file=sys.stderr)
+        print(f"{script.name}: FAIL: " + "; ".join(bad), file=sys.stderr)
         sys.exit(1)
-    print("k1_fault_check: ok", flush=True)
+    print(f"{script.name}: ok", flush=True)
+
+
+def main():
+    drive(Path(__file__).resolve(), "flash_fwd.cu", FAULTS, "k1_gate")
 
 
 if __name__ == "__main__":

@@ -7,20 +7,21 @@
 // strides. O, dO, dQ, dK and dV are contiguous (B, S, H, D); lse and
 // delta are fp32 (B, H, Sq).
 //
-// Tiles of the CUDA-core kernels (the backward kernels, and the forward
-// in fp32): 64-row query tiles against 64-row key tiles of one (batch,
-// head), staged in shared memory as fp32 (bf16 converts at the
-// shared-memory store, never right after its load, so a thread's loads
-// are all in flight together). A CTA has 256 threads in a 16 x 16 grid
-// (ty, tx). In a score tile (query rows x key rows) thread (ty, tx)
+// Tiles of the CUDA-core kernels (the fp32 kernels, and the bf16 dQ
+// pass of the streaming backward): 64-row query tiles against 64-row
+// key tiles of one (batch, head), staged in shared memory as fp32 (bf16
+// converts at the shared-memory store, never right after its load, so a
+// thread's loads are all in flight together). A CTA has 256 threads in
+// a 16 x 16 grid (ty, tx). In a score tile (query rows x key rows) thread (ty, tx)
 // owns rows ty + 16i and columns tx + 16j, i, j < 4; in an output tile
 // (rows x head dim) it owns rows ty + 16i and dims tx + 16j, j < D/16.
 // Products run on the CUDA cores in fp32 (float4 shared-memory reads, K
 // and Q rows padded to D + 4 floats so eight threads reading eight rows
-// hit 32 distinct banks). The bf16 forward runs on the tensor cores
-// instead (mma.sync fed by ldmatrix and cp.async, flash_mma.cuh; its
-// design is in flash_fwd.cu); the backward's move to them, reusing
-// flash_mma.cuh, and wgmma with TMA staging are later work.
+// hit 32 distinct banks). The bf16 forward and the bf16 dK/dV backward
+// body (K3a, K3b's first pass) run on the tensor cores instead (mma.sync
+// fed by ldmatrix and cp.async, flash_mma.cuh; their designs are in
+// flash_fwd.cu and flash_bwd.cu); the bf16 dQ pass's move to them and
+// wgmma with TMA staging are later work.
 //
 // Contracts kept from paddle_tpu/ops/pallas/flash_attention.py:
 //  - the causal mask is TOP-LEFT aligned, rows >= cols (:74-79);
@@ -146,14 +147,14 @@ cudaError_t allow_smem(K kern, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// Launch the kernel on `grid` x kThreads with `smem` bytes of dynamic
+// Launch the kernel on `grid` x `threads` with `smem` bytes of dynamic
 // shared memory.
 template <typename K>
 cudaError_t launch(K kern, dim3 grid, size_t smem, cudaStream_t stream,
-                   const Args& a) {
+                   const Args& a, int threads = kThreads) {
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<grid, kThreads, smem, stream>>>(a);
+  kern<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -185,6 +186,17 @@ inline Args make_args(const void* q, const void* k, const void* v, int B,
 inline bool valid_args(const Args& a, int D) {
   return a.B >= 1 && a.H >= 1 && a.Sq >= 1 && a.Sk >= 1 &&
          (D == 64 || D == 128) && static_cast<int64_t>(a.B) * a.H <= 65535;
+}
+
+// The tensor-core kernels stage 16-byte chunks by cp.async: q, k, v and
+// `extra` (the forward's O, the backward's dO) 16-byte aligned, and
+// every stride on (B, S, H) a multiple of 8 bf16 elements.
+inline bool mma_aligned(const Args& a, const void* extra) {
+  const auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return al(a.q) && al(a.k) && al(a.v) && al(extra) &&
+         (a.q_sb | a.q_ss | a.q_sh | a.kv_sb | a.kv_ss | a.kv_sh) % 8 == 0;
 }
 
 }  // namespace flash

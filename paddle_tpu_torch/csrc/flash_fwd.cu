@@ -395,16 +395,6 @@ cudaError_t bf16_occupancy(int* ctas, int* smem) {
       ctas, flash_fwd_mma_kernel<D>, kThreads, bf16_smem<D>());
 }
 
-// cp.async moves 16-byte chunks: every base pointer 16-byte aligned and
-// every stride on (B, S, H) a multiple of 8 bf16 elements
-bool mma_aligned(const Args& a) {
-  const auto al = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  return al(a.q) && al(a.k) && al(a.v) && al(a.out) &&
-         (a.q_sb | a.q_ss | a.q_sh | a.kv_sb | a.kv_ss | a.kv_sh) % 8 == 0;
-}
-
 }  // namespace
 
 // q, k, v (B, S, H, D) with strides (sb, ss, sh, 1), k and v sharing
@@ -427,7 +417,8 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
       return static_cast<int>(D == 64 ? fwd_f32<64>(a, st)
                                       : fwd_f32<128>(a, st));
     case ptt::kBFloat16:
-      if (!mma_aligned(a)) return static_cast<int>(cudaErrorInvalidValue);
+      if (!mma_aligned(a, a.out))
+        return static_cast<int>(cudaErrorInvalidValue);
       return static_cast<int>(D == 64 ? fwd_bf16<64>(a, st)
                                       : fwd_bf16<128>(a, st));
     default:

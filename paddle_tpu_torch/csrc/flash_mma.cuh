@@ -1,8 +1,8 @@
 // Warp-level tensor-core building blocks for the flash kernels on Hopper
 // (sm_90a): cp.async staging, ldmatrix fragment loads and the bf16
 // mma.sync.m16n8k16 product, each as inline PTX. The bf16 forward
-// (flash_fwd.cu) is built from them; the tensor-core redesigns of the
-// backward kernels are meant to reuse them unchanged.
+// (flash_fwd.cu) and the bf16 dK/dV backward body (flash_bwd.cu) are
+// built from them.
 //
 // Fragment layouts, as the PTX ISA fixes them for
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, with
@@ -22,8 +22,10 @@
 // and 2(l % 4) + 1 of each matrix: an A fragment of a row-major tile, or
 // a B fragment of a tile stored n-major (K rows for Q.K^T: a K row is a
 // column of K^T). With .trans it receives rows 2(l % 4), 2(l % 4) + 1 of
-// column l / 4: a B fragment of a tile stored k-major (V rows for P.V).
-// The address patterns for the three uses are a_x4, b_x4 and bt_x4.
+// column l / 4: a B fragment of a tile stored k-major (V rows for P.V),
+// or an A fragment of a tile stored column-major (the backward's dS^T
+// tile, key rows, read as the A operand of dQ = dS.K). The address
+// patterns for the four uses are a_x4, b_x4, bt_x4 and at_x4.
 //
 // Two n8 accumulator tiles side by side are, once rounded to bf16, one
 // k16 A fragment of the next product (pack_a): P = softmax(Q.K^T) goes
@@ -58,6 +60,17 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes (one fp32 value) from global to shared memory, asynchronously
+// (.ca: the .cg form takes 16 bytes only); zero-filled when !valid, with
+// `src` clamped by the caller as for cp_async_16.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -119,7 +132,12 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[4],
 //  b_x4:  B fragments (b0, b1) of n8 tiles n0 and n0 + 8 at k [c0, c0 +
 //         16), the tile stored n-major (row n holds k contiguous);
 //  bt_x4: with .trans, B fragments (b0, b1) of n8 tiles c0 and c0 + 8 at
-//         k [r0, r0 + 16), the tile stored k-major (row k holds n).
+//         k [r0, r0 + 16), the tile stored k-major (row k holds n);
+//  at_x4: with .trans, the A fragment of rows [r0, r0 + 16) x cols
+//         [c0, c0 + 16), the tile stored column-major (storage row c
+//         holds column c of A, its rows contiguous). Matrix l / 8 is
+//         A's 8 x 8 block (rows r0 + 8 ((l / 8) % 2), cols c0 + 8 (l /
+//         16)), so the four land in a0..a3's order.
 template <int LDS>
 __device__ __forceinline__ const bf16* a_x4(const bf16* s, int r0, int c0,
                                             int lane) {
@@ -136,6 +154,13 @@ __device__ __forceinline__ const bf16* bt_x4(const bf16* s, int r0, int c0,
                                              int lane) {
   return s + (r0 + ((lane / 8) % 2) * 8 + lane % 8) * LDS + c0 +
          (lane / 16) * 8;
+}
+
+template <int LDS>
+__device__ __forceinline__ const bf16* at_x4(const bf16* s, int r0, int c0,
+                                             int lane) {
+  return s + (c0 + (lane / 16) * 8 + lane % 8) * LDS + r0 +
+         ((lane / 8) % 2) * 8;
 }
 
 // Stage rows [r0, r0 + ROWS) of one (batch, head) of a bf16 (B, S, H, D)
@@ -157,6 +182,17 @@ __device__ __forceinline__ void tile_async(bf16* __restrict__ dst,
                 src + static_cast<int64_t>(min(row, S - 1)) * ss + c * 8,
                 row < S);
   }
+}
+
+// Rows [r0, r0 + ROWS) of one fp32 row vector (the backward's lse and
+// delta) into `dst`, one value a thread; rows at or past S are
+// zero-filled and never read.
+template <int ROWS>
+__device__ __forceinline__ void rows_async(float* __restrict__ dst,
+                                           const float* __restrict__ src,
+                                           int r0, int S) {
+  const int i = threadIdx.x, row = r0 + i;
+  if (i < ROWS) cp_async_4(dst + i, src + min(row, S - 1), row < S);
 }
 
 }  // namespace mma

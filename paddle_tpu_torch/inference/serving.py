@@ -65,6 +65,7 @@ import torch
 
 from paddle_tpu_torch.core.place import get_device, resolve_device
 from paddle_tpu_torch.core.random import request_generator
+from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.inference.block_pool import BlockAllocator
 from paddle_tpu_torch.inference.frontend.scheduler import FifoScheduler
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
@@ -123,12 +124,24 @@ class DecodeEngine:
     scratch block 0 and defaults to the dense-equivalent ``slots *
     max_len / block_size + 1``. ``top_k`` is the static top-k filter of
     every draw. ``kv_dtype="int8"`` stores the pools as int8 codes with
-    per-(block, head) fp32 absmax scales."""
+    per-(block, head) fp32 absmax scales. The reference's ``ids_dtype``,
+    ``mesh``, ``logit_guard``, ``host_tier_blocks``, ``seq_parallel``
+    and ``adapter_pool`` are accepted at their defaults only."""
 
     def __init__(self, model, max_batch_slots: int, max_len: int,
-                 top_k: Optional[int] = None, prefill_chunk: int = 128,
+                 top_k: Optional[int] = None, ids_dtype=None,
+                 prefill_chunk: int = 128,
                  block_size: Optional[int] = None,
-                 num_blocks: Optional[int] = None, kv_dtype=None):
+                 num_blocks: Optional[int] = None, kv_dtype=None, mesh=None,
+                 logit_guard: bool = False,
+                 host_tier_blocks: Optional[int] = None,
+                 seq_parallel: bool = False, adapter_pool=None):
+        refuse_unported(
+            "DecodeEngine", ids_dtype=(ids_dtype, None), mesh=(mesh, None),
+            logit_guard=(logit_guard, False),
+            host_tier_blocks=(host_tier_blocks, None),
+            seq_parallel=(seq_parallel, False),
+            adapter_pool=(adapter_pool, None))
         spec = model.kv_cache_spec()
         mpe = spec.get("max_position_embeddings")
         if mpe is not None and max_len > mpe:
@@ -342,7 +355,9 @@ class Request:
     of :meth:`ServingEngine.run` (0 = already queued). ``seed`` pins the
     request's private sample stream; unset, it derives from the engine
     seed and the request id. ``top_k``/``top_p`` are per-request
-    filters."""
+    filters. The fields keep the reference's order; its ``sampling``,
+    ``deadline``, ``tenant``, ``priority``, ``adapter``, ``kind`` and
+    ``response_format`` are accepted at their defaults only."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 32
@@ -350,18 +365,34 @@ class Request:
     greedy: bool = False
     top_k: Optional[int] = None
     top_p: Optional[float] = None
+    sampling: Optional[Any] = None
     eos_id: Optional[int] = None
     seed: Optional[int] = None
     on_token: Optional[Callable[["Request", int, bool], None]] = None
     on_finish: Optional[Callable[["Request"], None]] = None
     arrival_time: float = 0.0
+    deadline: Optional[float] = None
+    tenant: str = "default"
+    priority: Optional[int] = None
+    adapter: Optional[str] = None
+    kind: str = "generate"
+    response_format: Optional[Any] = None
 
     # engine-owned
     id: int = -1
     tokens: List[int] = field(default_factory=list)
     status: str = "new"          # new -> queued -> running -> done
     finish_reason: Optional[str] = None
-    _gen: Optional[torch.Generator] = field(default=None, repr=False)
+    _gen: Optional[torch.Generator] = field(default=None, repr=False,
+                                            kw_only=True)
+
+    def __post_init__(self):
+        refuse_unported(
+            "Request", sampling=(self.sampling, None),
+            deadline=(self.deadline, None), tenant=(self.tenant, "default"),
+            priority=(self.priority, None), adapter=(self.adapter, None),
+            kind=(self.kind, "generate"),
+            response_format=(self.response_format, None))
 
 
 class ServingMetrics:
@@ -521,16 +552,42 @@ class ServingEngine:
     moved). ``seed`` seeds every request that does not pin its own.
     ``kv_dtype="int8"`` quantizes the block pools; ``prefix_cache`` (a
     :class:`PrefixCache` whose ``chunk_tokens`` is a multiple of
-    ``block_size``) shares prompt prefixes across requests zero-copy."""
+    ``block_size``) shares prompt prefixes across requests zero-copy.
+    The parameters keep the reference's order; its ``spec``,
+    ``telemetry``, ``mesh``, ``quarantine``, ``logit_guard``,
+    ``dispatch_retries``, ``dispatch_stall_s``,
+    ``engine_failure_threshold``, ``overlap``, ``host_tier_blocks``,
+    ``swap_min_tokens``, ``profile``, ``seq_parallel``, ``adaptive`` and
+    ``adapter_pool`` are accepted at their defaults only."""
 
     def __init__(self, model, max_batch_slots: int = 8, max_len: int = 256,
                  top_k: Optional[int] = None, eos_id: Optional[int] = None,
                  prefill_chunk: int = 128, seed: int = 0,
-                 clock: Callable[[], float] = time.perf_counter,
+                 clock: Callable[[], float] = time.perf_counter, spec=None,
+                 prefix_cache: Optional[PrefixCache] = None,
                  block_size: Optional[int] = None,
-                 num_blocks: Optional[int] = None, scheduler=None,
-                 kv_dtype=None, prefix_cache: Optional[PrefixCache] = None,
-                 device=None):
+                 num_blocks: Optional[int] = None, kv_dtype=None,
+                 telemetry=None, scheduler=None, mesh=None,
+                 quarantine: bool = True, logit_guard: bool = False,
+                 dispatch_retries: int = 2,
+                 dispatch_stall_s: Optional[float] = None,
+                 engine_failure_threshold: int = 3, overlap: bool = True,
+                 host_tier_blocks: Optional[int] = None,
+                 swap_min_tokens: Optional[int] = None, profile: bool = False,
+                 seq_parallel: bool = False, adaptive=None,
+                 adapter_pool=None, *, device=None):
+        refuse_unported(
+            "ServingEngine", spec=(spec, None),
+            telemetry=(telemetry, None), mesh=(mesh, None),
+            quarantine=(quarantine, True), logit_guard=(logit_guard, False),
+            dispatch_retries=(dispatch_retries, 2),
+            dispatch_stall_s=(dispatch_stall_s, None),
+            engine_failure_threshold=(engine_failure_threshold, 3),
+            overlap=(overlap, True),
+            host_tier_blocks=(host_tier_blocks, None),
+            swap_min_tokens=(swap_min_tokens, None),
+            profile=(profile, False), seq_parallel=(seq_parallel, False),
+            adaptive=(adaptive, None), adapter_pool=(adapter_pool, None))
         dev = resolve_device(device)
         mdev = get_device(model)
         if mdev.type != dev.type:

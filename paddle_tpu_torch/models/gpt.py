@@ -43,6 +43,7 @@ import torch
 from paddle_tpu_torch.amp.auto_cast import maybe_cast_inputs
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.core.random import generator as make_generator
+from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.distributed.meta_parallel import (ColumnParallelLinear,
                                                         RowParallelLinear,
                                                         VocabParallelEmbedding)
@@ -209,7 +210,8 @@ def _upd_paged_q(kp, vp, ksc, vsc, kn, vn, tbl, tv, cl, plan=None):
 
 
 class GPTAttention(Layer):
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         h = config.hidden_size
         self.num_heads = config.num_heads
@@ -259,7 +261,8 @@ class GPTAttention(Layer):
 
 
 class GPTMLP(Layer):
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         h, ffn = config.hidden_size, config.ffn_size
         self.fc_in = ColumnParallelLinear(h, ffn, device=device, dtype=dtype)
@@ -272,8 +275,10 @@ class GPTMLP(Layer):
 
 
 class GPTBlock(Layer):
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, use_moe: bool = False, *,
+                 device=None, dtype=torch.float32):
         super().__init__()
+        refuse_unported("GPTBlock", use_moe=(use_moe, False))
         eps = config.layer_norm_epsilon
         self.ln_1 = LayerNorm(config.hidden_size, epsilon=eps, device=device,
                               dtype=dtype)
@@ -294,7 +299,8 @@ class GPTBlock(Layer):
 
 
 class GPTModel(Layer):
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.config = config
         self.wte = VocabParallelEmbedding(config.vocab_size,
@@ -352,7 +358,7 @@ class GPTForCausalLM(Layer):
     1/sqrt(2 * num_layers), biases 0, LayerNorm 1/0 — the JAX package's
     initialisers, though not its random numbers."""
 
-    def __init__(self, config: GPTConfig, device=None, seed: int = 0,
+    def __init__(self, config: GPTConfig, *, device=None, seed: int = 0,
                  dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)

@@ -6,6 +6,7 @@ import torch
 import torch.nn.functional as TF
 
 from paddle_tpu_torch.amp.auto_cast import maybe_cast_inputs
+from paddle_tpu_torch.core.unported import refuse_unported
 
 __all__ = ["linear", "embedding", "dropout"]
 
@@ -28,8 +29,13 @@ def embedding(x, weight):
     return TF.embedding(x, weight)
 
 
-def dropout(x, p: float = 0.5, training: bool = True):
-    """upscale_in_train dropout (identity in eval or at p = 0)."""
+def dropout(x, p: float = 0.5, axis=None, training: bool = True,
+            mode: str = "upscale_in_train", name=None):
+    """upscale_in_train dropout over every element (identity in eval or
+    at p = 0); the reference's ``axis``, ``mode`` and ``name`` are
+    accepted at their defaults only."""
+    refuse_unported("dropout", axis=(axis, None),
+                    mode=(mode, "upscale_in_train"), name=(name, None))
     if not training or p == 0.0:
         return x
     return TF.dropout(x, p=p, training=True)

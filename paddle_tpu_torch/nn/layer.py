@@ -15,27 +15,34 @@ import numpy as np
 import torch
 from torch import nn
 
+from paddle_tpu_torch.core.unported import refuse_unported
+
 __all__ = ["Layer"]
 
 
 class Layer(nn.Module):
     """Base class of the port's layers."""
 
-    def set_state_dict(self, state: Mapping[str, np.ndarray]) -> None:
-        """Copy ``state`` (name -> array) into this layer's parameters
-        and persistent buffers, on their device and dtype. Raises on a
-        missing name, an unexpected name or a shape mismatch; nothing is
-        copied unless every entry checks out."""
+    def set_state_dict(self, state_dict: Mapping[str, np.ndarray],
+                       use_structured_name: bool = True) -> None:
+        """Copy ``state_dict`` (structured name -> array) into this
+        layer's parameters and persistent buffers, on their device and
+        dtype. Raises on a missing name, an unexpected name or a shape
+        mismatch; nothing is copied unless every entry checks out.
+        ``use_structured_name=False`` (keys by parameter name) is not
+        ported."""
+        refuse_unported("set_state_dict",
+                        use_structured_name=(use_structured_name, True))
         own: Dict[str, torch.Tensor] = dict(self.named_parameters())
         own.update(self.named_buffers())
-        missing = sorted(set(own) - set(state))
-        unexpected = sorted(set(state) - set(own))
+        missing = sorted(set(own) - set(state_dict))
+        unexpected = sorted(set(state_dict) - set(own))
         if missing or unexpected:
             raise KeyError(f"set_state_dict: missing {missing}, "
                            f"unexpected {unexpected}")
         arrays = {}
         for name, tensor in own.items():
-            arr = np.asarray(state[name])
+            arr = np.asarray(state_dict[name])
             if tuple(arr.shape) != tuple(tensor.shape):
                 raise ValueError(
                     f"set_state_dict: {name} has shape {tuple(arr.shape)}, "

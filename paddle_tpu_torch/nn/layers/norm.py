@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Layer
 
@@ -13,11 +14,16 @@ __all__ = ["LayerNorm"]
 
 class LayerNorm(Layer):
     """LayerNorm over the last axis, weight 1 and bias 0 at birth; runs
-    through :func:`~paddle_tpu_torch.nn.functional.layer_norm` (K2)."""
+    through :func:`~paddle_tpu_torch.nn.functional.layer_norm` (K2). The
+    reference's ``weight_attr``, ``bias_attr`` and ``name`` are accepted
+    at their defaults only."""
 
     def __init__(self, normalized_shape: int, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, name=None, *,
                  device=None, dtype=torch.float32):
         super().__init__()
+        refuse_unported("LayerNorm", weight_attr=(weight_attr, None),
+                        bias_attr=(bias_attr, None), name=(name, None))
         self.normalized_shape = int(normalized_shape)
         self.epsilon = float(epsilon)
         self.weight = nn.Parameter(torch.ones(

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "ptt_flash_bwd_fused": [_VP] * 9 + _FLASH,
     "ptt_flash_bwd_dkv": [_VP] * 8 + _FLASH,
     "ptt_flash_bwd_dq": [_VP] * 7 + _FLASH,
+    # head dim, fused (1) or dK/dV only (0); out: CTAs per SM and
+    # shared-memory bytes of the bf16 dK/dV body
+    "ptt_flash_bwd_occupancy": [_I, _I, _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -6,17 +6,19 @@ on Hopper are one entry point (``csrc/flash_fwd.cu``: a tensor-core
 kernel for bf16, a CUDA-core one for fp32), the fused backward
 ``_bwd_fused_kernel`` (:362) and the streaming pair
 ``_bwd_dkv_stream_kernel`` (:162) / ``_bwd_dq_stream_kernel`` (:215)
-(``csrc/flash_bwd.cu``). The kernels' header notes say what bounds each
-on the H100 and how the design answers that.
+(``csrc/flash_bwd.cu``: the fused kernel and the dK/dV pass are one
+body, on the tensor cores for bf16). The kernels' header notes say what
+bounds each on the H100 and how the design answers that.
 
 Each wrapper takes paddle's (B, S, H, D) layout: a CPU tensor runs the
 plain version (``flash_fwd_ref`` / ``flash_bwd_ref``, the same
 arithmetic in fp32 with the same bf16 rounding points); a CUDA tensor
 launches the kernel or raises. A view the kernels cannot take (a head
 dim that is not contiguous, k and v with unequal strides; for the bf16
-forward also a base pointer not 16-byte aligned or a stride not a
-multiple of 8) is copied first by :func:`kernel_layout`. ``launches``
-counts kernel launches, per kernel, and nothing else.
+tensor-core kernels, the forward and the dK/dV body, also a base
+pointer not 16-byte aligned or a stride not a multiple of 8) is copied
+first by :func:`kernel_layout`. ``launches`` counts kernel launches, per
+kernel, and nothing else.
 
 :class:`FlashAttentionFn` is the autograd Function: its forward saves
 ``(o, lse)``; its backward computes ``delta = rowsum(dO * O)`` in torch
@@ -142,7 +144,8 @@ def _fits_kernel(t, cp_async: bool) -> bool:
 def kernel_layout(q, k, v, cp_async: bool = False):
     """q, k, v in the layout the flash kernels take, on any device: the
     head dim contiguous and k and v sharing strides. ``cp_async`` (the
-    bf16 forward, which stages 16-byte chunks by cp.async) adds, for
+    bf16 tensor-core kernels, the forward and the dK/dV body, which
+    stage 16-byte chunks by cp.async) adds, for
     bf16, every base pointer 16-byte aligned and every stride on
     (B, S, H) a multiple of 8 elements. Views that already fit are
     returned as they are (GPT's per-head slices of one qkv projection:
@@ -168,15 +171,22 @@ def _tail(q, k, scale: float, causal: bool):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _grad_args(name: str, q, k, v, do, lse, delta):
-    q, k, v = _cuda_args(name, q, k, v)
+def _grad_args(name: str, q, k, v, do, lse, delta, cp_async: bool):
+    """The backward kernels' inputs in their layout: q, k, v by
+    :func:`kernel_layout`; dO, lse and delta contiguous, and under
+    ``cp_async`` (the bf16 dK/dV body) a bf16 dO at a 16-byte aligned
+    base (a contiguous view at a misaligned offset is copied)."""
+    q, k, v = _cuda_args(name, q, k, v, cp_async)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"{name}: dO must match q's shape and dtype")
     for t, what in ((lse, "lse"), (delta, "delta")):
         if t.dtype != torch.float32 or tuple(t.shape) != (
                 q.shape[0], q.shape[2], q.shape[1]):
             raise ValueError(f"{name}: {what} must be fp32 (B, H, Sq)")
-    return q, k, v, do.contiguous(), lse.contiguous(), delta.contiguous()
+    do = do.contiguous()
+    if not _fits_kernel(do, cp_async):
+        do = do.clone()
+    return q, k, v, do, lse.contiguous(), delta.contiguous()
 
 
 def flash_fwd(q, k, v, scale: float, causal: bool
@@ -202,7 +212,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, scale: float, causal: bool):
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, do, lse, delta, scale, causal)
     q, k, v, do, lse, delta = _grad_args("flash_bwd_fused", q, k, v, do,
-                                         lse, delta)
+                                         lse, delta, cp_async=True)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -220,7 +230,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, do, lse, delta, scale, causal)[1:]
     q, k, v, do, lse, delta = _grad_args("flash_bwd_dkv", q, k, v, do, lse,
-                                         delta)
+                                         delta, cp_async=True)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     err = _build.load_library().ptt_flash_bwd_dkv(
@@ -237,7 +247,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, do, lse, delta, scale, causal)[0]
     q, k, v, do, lse, delta = _grad_args("flash_bwd_dq", q, k, v, do, lse,
-                                         delta)
+                                         delta, cp_async=False)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = _build.load_library().ptt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

@@ -2,16 +2,17 @@
 
 ``kernel_layout`` (``paddle_tpu_torch/ops/kernels/flash_attention.py``)
 decides, on any device, whether q, k and v reach the flash kernels as
-they are or as fresh contiguous copies: the bf16 forward stages 16-byte
-chunks by ``cp.async`` (``cp_async=True``), so for it every bf16 base
-pointer must be 16-byte aligned and every stride on (B, S, H) a
-multiple of 8 elements; the CUDA-core backward kernels take such views
-as they are. These tests hold the gate to that contract on CPU
+they are or as fresh contiguous copies: the bf16 tensor-core kernels
+(the forward and the backward's dK/dV body) stage 16-byte chunks by
+``cp.async`` (``cp_async=True``), so for them every bf16 base pointer
+must be 16-byte aligned and every stride on (B, S, H) a multiple of 8
+elements; the CUDA-core kernels (fp32, and the bf16 dQ pass) take such
+views as they are. These tests hold the gate to that contract on CPU
 tensors: GPT's per-head qkv views pass without a copy (from the
 model's own forward at ``gpt_tiny`` scale, under bf16 AMP), a view
-misaligned by one element or with an odd stride is copied for the bf16
-forward only, and k and v with unequal strides are copied together. A
-copy changes the layout, never the values.
+misaligned by one element or with an odd stride is copied for the
+tensor-core kernels only, and k and v with unequal strides are copied
+together. A copy changes the layout, never the values.
 
 ``_SIGNATURES`` (``_build.py``) declares the ctypes argument types of
 every C entry point; the last test parses every ``extern "C"``
