@@ -9,11 +9,12 @@ Phases, in order (any failure exits non-zero and prints no result):
 1. card: the ``nvidia-smi`` name and power limit, the capability;
 2. build: ``csrc/*.cu`` -> ``build/kernels/`` with ``nvcc`` for sm_90a,
    then the registers and spills of every K1/K3/K4/K5 instantiation
-   (``-Xptxas -v``; a bf16 K1, K3a or K3b-dkv that spills fails the
-   run), the tensor-core instructions (HMMA) that ``cuobjdump -sass``
-   finds in each bf16 K3a/K3b-dkv body (none fails the run), and the
-   bf16 K1's and K3 bodies' shared memory and CTAs per SM from the CUDA
-   runtime;
+   (``-Xptxas -v``; a bf16 K1, K3a, K3b-dkv or K3b-dq that spills fails
+   the run), the tensor-core instructions (HMMA) and atomics (RED,
+   ATOM) that ``cuobjdump -sass`` finds in each bf16 K3 body (no HMMA
+   fails the run, and so do atomics in the K3b-dq body, whose dQ is
+   written once), and the bf16 K1's and K3 bodies' shared memory and
+   CTAs per SM from the CUDA runtime;
 3. kernels: K2 LayerNorm, K4 paged decode and K5 chunk prefill, each
    against its plain PyTorch version in fp32 and bf16 at the serving
    path's shapes, on pools poisoned where no query may read (1e9 in
@@ -34,10 +35,10 @@ Phases, in order (any failure exits non-zero and prints no result):
    copy), a view misaligned by one element (copied for bf16) and inputs
    with NaN past S, and a misaligned pointer that its C entry point must
    refuse; every K1 case is held to FLASH_TOL and to K1_TOL (lse
-   absolutely, O element by element); K3a and K3b-dkv on the same
-   cases (with a dO, lse from K1 as in training), on the timed shapes
-   and at S 8320, each held to FLASH_TOL and to K3_TOL (dQ, dK, dV
-   element by element), and misaligned pointers their C entry points
+   absolutely, O element by element); K3a, K3b-dkv and K3b-dq on the
+   same cases (with a dO, lse from K1 as in training), on the timed
+   shapes and at S 8320, each held to FLASH_TOL and to K3_TOL (dQ, dK,
+   dV element by element), and misaligned pointers their C entry points
    must refuse; SDPA's backward alone (and its forward + backward) is
    the K3 rows' yardstick;
 5. serving: ``gpt2_small`` at full width and depth (random weights from a
@@ -104,16 +105,19 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 K1_TOL = {"float32": {"lse": 1e-5, "atol": 3e-6, "rtol": 1e-5},
           "bfloat16": {"lse": 1e-5, "atol": 3e-3, "rtol": 1e-2}}
 
-# K3a and K3b-dkv are held to more than FLASH_TOL too: each of dQ, dK
-# and dV element by element, |out - plain| <= atol + rtol * |plain|, so a
-# dropped query tile or a lost warp of dQ atomics cannot hide under a
-# limit relative to the largest gradient. bf16 differs by one rounding of
-# each side to bf16 (rtol) plus P and dS rounded to bf16 from logits that
-# differ in the last fp32 bits (atol; dV sums P, the largest such term);
-# fp32 differs in summation order, and dQ also in the order of its fp32
-# atomics, which changes from run to run. The limits sit 3-5x above the
-# sound kernel's worst errors over every K3 case of this script on an
-# H100, over several runs (k3_fault_check.py, PERF.md).
+# The K3 kernels (K3a, K3b-dkv, K3b-dq) are held to more than FLASH_TOL
+# too: each of dQ, dK and dV element by element, |out - plain| <= atol +
+# rtol * |plain|, so a dropped query or key tile or a lost warp of dQ
+# cannot hide under a limit relative to the largest gradient. bf16
+# differs by one rounding of each side to bf16 (rtol) plus P and dS
+# rounded to bf16 from logits that differ in the last fp32 bits (atol; dV
+# sums P, the largest such term); fp32 differs in summation order, and
+# K3a's dQ also in the order of its fp32 atomics, which changes from run
+# to run (K3b-dq writes dQ once: its spread is 0). The limits sit 3-5x
+# above the sound kernels' worst errors over every K3 case of this script
+# on an H100, over several runs (k3_fault_check.py, PERF.md); K3b-dq's
+# worst dQ (bf16 8.9e-4, fp32 2.0e-6) is K3a's, so one dQ limit holds
+# both, at 4.5x and 4.0x.
 K3_TOL = {"float32": {"rtol": 1e-5,
                       "atol": {"dQ": 8e-6, "dK": 5e-6, "dV": 4e-6}},
           "bfloat16": {"rtol": 1e-2,
@@ -204,8 +208,8 @@ def build_phase():
 _PTXAS_PAGED = re.compile(r"paged_attn_kernelI(f|13__nv_bfloat16)"
                           r"(f|a|S\d*_)Li(\d+)ELi\d+ELi\d+E")
 _PTXAS_FLASH = re.compile(r"flash_fwd_(mma_)?kernelI(f)?Li(\d+)E")
-_PTXAS_BWD = re.compile(r"flash_(bwd_mma|dkv|dq)_kernelI(f|13__nv_bfloat16)?"
-                        r"Li(\d+)E(?:Lb(\d)E)?")
+_PTXAS_BWD = re.compile(r"flash_(bwd_mma|dq_mma|dkv|dq)_kernelILi(\d+)E"
+                        r"(?:Lb(\d)E)?")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
@@ -235,11 +239,13 @@ def _ptxas_label(src: str, name):
         return (f"K1 {'bf16 mma.sync' if bf16 else 'fp32 CUDA cores'}, D "
                 f"{D}", bf16, ("ptt_flash_fwd_occupancy", D))
     if src == "flash_bwd.cu":
-        kind, D = name.group(1), int(name.group(3))
-        fused = name.group(4) == "1"
+        kind, D = name.group(1), int(name.group(2))
+        fused = name.group(3) == "1"
         if kind == "dq":
-            tq = "fp32" if name.group(2) == "f" else "bf16"
-            return f"K3b-dq {tq} CUDA cores, D {D}", False, None
+            return f"K3b-dq fp32 CUDA cores, D {D}", False, None
+        if kind == "dq_mma":
+            return (f"K3b-dq bf16 mma.sync, D {D}", True,
+                    ("ptt_flash_bwd_dq_occupancy", D))
         what = "K3a" if fused else "K3b-dkv"
         if kind == "dkv":
             return f"{what} fp32 CUDA cores, D {D}", False, None
@@ -280,11 +286,12 @@ def _sass_ops(obj: str, ops=("HMMA", "RED", "ATOM")):
 
 def ptxas_phase():
     """Registers and spills of every K1, K3, K4 and K5 instantiation, from
-    ``nvcc -Xptxas -v`` on their sources; a bf16 K1, K3a or K3b-dkv (the
-    tensor-core bodies) that spills fails the run. For those bodies also
-    their shared memory and the CTAs an SM holds, and for the bf16 K3
-    bodies the tensor-core products (HMMA) and atomics in their SASS: a
-    body without HMMA, or a K3a without atomics, fails."""
+    ``nvcc -Xptxas -v`` on their sources; a bf16 K1, K3a, K3b-dkv or
+    K3b-dq (the tensor-core bodies) that spills fails the run. For those
+    bodies also their shared memory and the CTAs an SM holds, and for the
+    bf16 K3 bodies the tensor-core products (HMMA) and atomics in their
+    SASS: a body without HMMA, a K3a without atomics, or a K3b-dq with
+    any, fails."""
     import tempfile
 
     from paddle_tpu_torch.ops.kernels import _build
@@ -330,14 +337,19 @@ def ptxas_phase():
                     check(not label.startswith("K3a")
                           or ops["RED"] + ops["ATOM"] > 0,
                           f"SASS: {label} has no atomics for dQ ({ops})")
+                    check(not label.startswith("K3b-dq")
+                          or ops["RED"] + ops["ATOM"] == 0,
+                          f"SASS: {label} has atomics, but writes dQ "
+                          f"once ({ops})")
                     extra += (f", SASS {ops['HMMA']} HMMA, {ops['RED']} "
                               f"RED, {ops['ATOM']} ATOM")
                 print(f"ptxas {src.name}: {label}: {regs} registers, "
                       f"{stores} bytes spill stores, {loads} bytes spill "
                       f"loads{extra}", flush=True)
                 name = None
-    check(seen == {"K1": 2, "K3": 4}, f"ptxas: tensor-core bodies seen "
-          f"{seen}, expected K1 at D 64 and 128, K3a and K3b-dkv at both")
+    check(seen == {"K1": 2, "K3": 6}, f"ptxas: tensor-core bodies seen "
+          f"{seen}, expected K1 at D 64 and 128, K3a, K3b-dkv and K3b-dq "
+          "at both")
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
@@ -703,7 +715,7 @@ def _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
                 errs):
     """Time K1, K3a and the K3b pair at one shape (inputs as given) and
     record one row each; ``errs`` maps kernel id to its checked error
-    (for K3a and K3b-dkv also the largest share of K3_TOL). The K3 rows'
+    (for the K3 kernels also the largest share of K3_TOL). The K3 rows'
     library call is SDPA's backward alone (its forward run once outside
     the events), with its forward + backward beside it."""
     import torch.nn.functional as TF
@@ -754,7 +766,7 @@ def _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
                        k1_tol=K1_TOL[dn])
         else:
             row["library_fwd_bwd_ms"] = library_both
-        if kid in ("K3a", "K3b-dkv"):
+        if kid != "K1":
             row.update(k3_limit_share=errs[kid][2], k3_tol=K3_TOL[dn])
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
@@ -774,9 +786,14 @@ def _flash_check(torch, dn, shape, pairs):
     return worst
 
 
+# the backward's outputs by name: a K3 kernel's gradients and the plain
+# ones are dicts over (some of) these
+GRADS = ("dQ", "dK", "dV")
+
+
 def _grads(prefix, got, want):
-    return {f"{prefix}{n}": (a, b)
-            for n, a, b in zip(("dQ", "dK", "dV"), got, want)}
+    """(kernel, plain) pairs for :func:`_flash_check`, by output name."""
+    return {f"{prefix}{n}": (a, want[n]) for n, a in got.items()}
 
 
 def k1_errors(dn, o, ro, lse, rlse):
@@ -808,15 +825,14 @@ def _k1_check(torch, dn, shape, o, ro, lse, rlse):
 
 
 def k3_errors(dn, got, want):
-    """K3's own measure against the plain version: per output (dQ, dK,
-    dV, whichever ``got`` holds; ``want`` is the plain (dQ, dK, dV)), the
-    largest |out - plain| / (atol + rtol * |plain|) of any element (NaN
-    if any element is not finite)."""
+    """K3's own measure against the plain version: per output of ``got``
+    (name -> gradient, whichever of GRADS the kernel computes; ``want``
+    holds the plain three), the largest |out - plain| / (atol + rtol *
+    |plain|) of any element (NaN if any element is not finite)."""
     tol = K3_TOL[dn]
-    names = ("dQ", "dK", "dV")[3 - len(got):]
     out = {}
-    for name, a, b in zip(names, got, want[3 - len(got):]):
-        b = b.float()
+    for name, a in got.items():
+        b = want[name].float()
         ratio = (a.float() - b).abs() / (tol["atol"][name]
                                          + tol["rtol"] * b.abs())
         out[name] = float(ratio.max())
@@ -830,10 +846,7 @@ def k3_passes(dn, got, want) -> bool:
 def _k3_check(torch, dn, shape, kid, got, want):
     """FLASH_TOL on each gradient, then K3's own limits; returns (max
     |err|, relative err, the largest share of K3_TOL)."""
-    names = ("dQ", "dK", "dV")[3 - len(got):]
-    worst = _flash_check(torch, dn, shape, {
-        f"{kid} {n}": (a, b) for n, a, b in zip(names, got,
-                                                want[3 - len(got):])})
+    worst = _flash_check(torch, dn, shape, _grads(f"{kid} ", got, want))
     shares = k3_errors(dn, got, want)
     for name, r in shares.items():
         check(r <= 1.0, f"{kid} {dn} {shape}: an element of {name} is off "
@@ -843,19 +856,22 @@ def _k3_check(torch, dn, shape, kid, got, want):
 
 
 def k3_grads(torch, q, k, v, do, causal):
-    """The plain gradients, K3a's (dQ, dK, dV) and K3b-dkv's (dK, dV)
-    computed, as in training, from K1's lse (delta from the plain O), and
-    the kernels' arguments."""
+    """The plain gradients and each K3 kernel's (K3a's dQ, dK, dV,
+    K3b-dkv's dK, dV, K3b-dq's dQ; dicts by name) computed, as in
+    training, from K1's lse (delta from the plain O), and the kernels'
+    arguments."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     scale = 1.0 / q.shape[-1] ** 0.5
     lse = fa.flash_fwd(q, k, v, scale, causal)[1]
     ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
     delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
-    want = fa.flash_bwd_ref(q, k, v, do, rlse, delta, scale, causal)
+    want = dict(zip(GRADS, fa.flash_bwd_ref(q, k, v, do, rlse, delta, scale,
+                                            causal)))
     bwd = (q, k, v, do, lse, delta, scale, causal)
-    return want, {"K3a": fa.flash_bwd_fused(*bwd),
-                  "K3b-dkv": fa.flash_bwd_dkv(*bwd)}, bwd
+    return want, {"K3a": dict(zip(GRADS, fa.flash_bwd_fused(*bwd))),
+                  "K3b-dkv": dict(zip(GRADS[1:], fa.flash_bwd_dkv(*bwd))),
+                  "K3b-dq": {"dQ": fa.flash_bwd_dq(*bwd)}}, bwd
 
 
 def k3_case_inputs(torch, dtype):
@@ -875,9 +891,10 @@ def k3_case_inputs(torch, dtype):
 
 
 def k3_cases(torch, dtype):
-    """Every case of :func:`k3_case_inputs` through K3a and K3b-dkv
-    against the plain version, both gates; then misaligned pointers
-    handed to their C entry points, which must refuse them for bf16."""
+    """Every case of :func:`k3_case_inputs` through K3a, K3b-dkv and
+    K3b-dq against the plain version, both gates; then misaligned
+    pointers handed to their C entry points, which must refuse them for
+    bf16."""
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -905,11 +922,12 @@ def k3_cases(torch, dtype):
                                         *[t.data_ptr() for t in grads],
                                         *tail),
                 lib.ptt_flash_bwd_dkv(*args, *[t.data_ptr() for t in grads],
-                                      *tail))
-        check(errs == (1, 1), f"K3 bf16 took a misaligned "
+                                      *tail),
+                lib.ptt_flash_bwd_dq(*args, grads[0].data_ptr(), *tail))
+        check(errs == (1, 1, 1), f"K3 bf16 took a misaligned "
               f"{'q' if bad == 0 else 'dO'} pointer (returned {errs})")
-    print("  K3a, K3b-dkv bf16 misaligned q or dO pointer: refused at the "
-          "entry points (cudaError 1)", flush=True)
+    print("  K3a, K3b-dkv, K3b-dq bf16 misaligned q or dO pointer: refused "
+          "at the entry points (cudaError 1)", flush=True)
 
 
 def k1_case_inputs(torch, dtype):
@@ -965,7 +983,7 @@ def k1_cases(torch, dtype):
     dn = str(dtype).split(".")[1]
     for name, qkv, causal, layout in k1_case_inputs(torch, dtype):
         if layout is not None:
-            got = fa.kernel_layout(*qkv, cp_async=True)
+            got = fa.kernel_layout(*qkv)
             kept = [t.data_ptr() for t in got] == [t.data_ptr() for t in qkv]
             check(kept == (layout == "kept"), f"K1 {dn} {name}: the layout "
                   f"gate's views were not {layout}")
@@ -1018,19 +1036,23 @@ def flash_phase(torch, timer, rows):
             ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
             delta = (do.float() * ro.float()).sum(-1).transpose(
                 1, 2).contiguous()
-            want = fa.flash_bwd_ref(q, k, v, do, rlse, delta, scale, causal)
+            want = dict(zip(GRADS, fa.flash_bwd_ref(q, k, v, do, rlse, delta,
+                                                    scale, causal)))
             # the backward kernels recompute P from K1's lse, as in training
             bwd = (q, k, v, do, lse, delta, scale, causal)
-            fused = fa.flash_bwd_fused(*bwd)
-            split = (fa.flash_bwd_dq(*bwd),) + tuple(fa.flash_bwd_dkv(*bwd))
+            fused = dict(zip(GRADS, fa.flash_bwd_fused(*bwd)))
+            split = dict(zip(GRADS, (fa.flash_bwd_dq(*bwd),
+                                     *fa.flash_bwd_dkv(*bwd))))
             torch.cuda.synchronize()
             e_fwd = _k1_check(torch, dn, shape, o, ro, lse, rlse)
             e_fused = _k3_check(torch, dn, shape, "K3a", fused, want)
-            e_dkv = _k3_check(torch, dn, shape, "K3b-dkv", split[1:], want)
-            e_split = _flash_check(torch, dn, shape,
-                                   _grads("split ", split, want))
+            e_dkv = _k3_check(torch, dn, shape, "K3b-dkv",
+                              {n: split[n] for n in GRADS[1:]}, want)
+            e_dq = _k3_check(torch, dn, shape, "K3b-dq", {"dQ": split["dQ"]},
+                             want)
+            _flash_check(torch, dn, shape, _grads("split ", split, want))
             errs = {"K1": e_fwd, "K3a": e_fused, "K3b-dkv": e_dkv,
-                    "K3b-dq": e_split}
+                    "K3b-dq": e_dq}
             _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale,
                         causal, errs)
 
@@ -1055,20 +1077,23 @@ def flash_phase(torch, timer, rows):
         scale = 1.0 / D ** 0.5
         ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
         delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
-        want = fa.flash_bwd_ref(q, k, v, do, rlse, delta, scale, causal)
+        want = dict(zip(GRADS, fa.flash_bwd_ref(q, k, v, do, rlse, delta,
+                                                scale, causal)))
         # lse from the same kernel on the same inputs, outside the count
         lse = fa.flash_fwd(q, k, v, scale, causal)[1]
         e_fwd = _k1_check(torch, dn, shape, out.detach(), ro, lse, rlse)
-        e_split = _flash_check(torch, dn, shape, _grads(
-            "split ", (ql.grad, kl.grad, vl.grad), want))
-        e_dkv = _k3_check(torch, dn, shape, "K3b-dkv", (kl.grad, vl.grad),
-                          want)
-        fused = fa.flash_bwd_fused(q, k, v, do, lse, delta, scale, causal)
+        _flash_check(torch, dn, shape, _grads("split ", dict(zip(
+            GRADS, (ql.grad, kl.grad, vl.grad))), want))
+        e_dkv = _k3_check(torch, dn, shape, "K3b-dkv",
+                          {"dK": kl.grad, "dV": vl.grad}, want)
+        e_dq = _k3_check(torch, dn, shape, "K3b-dq", {"dQ": ql.grad}, want)
+        fused = dict(zip(GRADS, fa.flash_bwd_fused(q, k, v, do, lse, delta,
+                                                   scale, causal)))
         torch.cuda.synchronize()
         e_fused = _k3_check(torch, dn, shape, "K3a", fused, want)
         _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
                     {"K1": e_fwd, "K3a": e_fused, "K3b-dkv": e_dkv,
-                     "K3b-dq": e_split})
+                     "K3b-dq": e_dq})
     return long_launches
 
 

@@ -1,31 +1,33 @@
 #!/usr/bin/env python3
-"""Planted faults in K3's bf16 dK/dV body, held to chip_smoke.py's K3 gates.
+"""Planted faults in K3's bf16 bodies, held to chip_smoke.py's K3 gates.
 
 Run from the root of a checkout on one Hopper card (``nvcc`` and
 PyTorch built for CUDA): ``python3 k3_fault_check.py``. For the sound
-kernel and then for each fault of ``FAULTS``, it copies
-``paddle_tpu_torch/``, ``chip_smoke.py``, ``k1_fault_check.py`` and
-itself into a fresh temporary directory, plants the fault in the copy's
+kernel and then for each fault of ``FAULTS`` (in the dK/dV body, K3a and
+K3b-dkv, or in the dQ body, K3b-dq), it copies ``paddle_tpu_torch/``,
+``chip_smoke.py``, ``k1_fault_check.py`` and itself into a fresh
+temporary directory, plants the fault in the copy's
 ``csrc/flash_bwd.cu`` (the checkout is never edited), builds that copy's
-kernels and runs every K3a and K3b-dkv case of ``chip_smoke.py`` (the
-cases of ``k3_case_inputs``, the timed shapes and the long-context
-shape, with lse from K1 as in training) against the plain version
-through two gates:
+kernels and runs every K3a, K3b-dkv and K3b-dq case of
+``chip_smoke.py`` (the cases of ``k3_case_inputs``, the timed shapes and
+the long-context shape, with lse from K1 as in training) against the
+plain version through two gates:
 
 - the flash gate: each gradient within ``FLASH_TOL`` relative to
   max(1, max |plain|), the limit every flash kernel is held to;
 - K3's own gate, ``K3_TOL``: dQ, dK and dV element by element.
 
-It prints the card, one JSON line per (kernel, case, K3a or K3b-dkv)
-with both verdicts and the errors they read (for the sound kernel also
-the atol that each rtol of ``RTOLS`` would need, and the run-to-run
-spread of the fused dQ over three runs), and one summary line per
-kernel. It exits non-zero if the sound kernel fails a gate, or if a
-fault changes some output and K3's gate catches it in no case. A fault
-changes an output where dK or dV differ from the sound kernel's in any
-bit, or dQ by more than its atomics can explain: 4x the sound kernel's
-spread plus one unit in the last place of the dtype (a rounding of the
-fp32 sum that the atomics' order flips). The copy-plant-run loop is
+It prints the card, one JSON line per (kernel, case, K3 kernel) with
+both verdicts and the errors they read (for the sound kernel also the
+atol that each rtol of ``RTOLS`` would need, and the run-to-run spread
+of each output over three runs), and one summary line per kernel. It exits
+non-zero if the sound kernel fails a gate, or if a fault changes some
+output and K3's gate catches it in no case. A fault changes an output
+where dK, dV or K3b-dq's dQ (written once, no atomics) differ from the
+sound kernel's in any bit beyond 4x their spread, or K3a's dQ by more
+than its atomics can explain: 4x the sound kernel's spread plus one
+unit in the last place of the dtype (a rounding of the fp32 sum that
+the atomics' order flips). The copy-plant-run loop is
 ``k1_fault_check.drive``.
 """
 
@@ -75,6 +77,43 @@ FAULTS = {
         "          if (row >= a.Sq) continue;\n          float* dqr = dq_acc +",
         "          if (row >= a.Sq || warp == 3) continue;\n"
         "          float* dqr = dq_acc +"),
+    # the dQ body (K3b-dq): every CTA skips the last key tile of its
+    # sweep, the causal diagonal
+    "dQ: diagonal key tile dropped": (
+        "  for (int j = 0; j < n_tiles; ++j) {\n"
+        "    const int k0 = j * kTile, st = j & 1;\n",
+        "  for (int j = 0; j < n_tiles - 1; ++j) {\n"
+        "    const int k0 = j * kTile, st = j & 1;\n"),
+    # S and dS K read K from the stage tile j + 1's copies fill
+    "dQ: K read from the other ring stage": (
+        "    const bf16* kt = ks + st * TILE;\n",
+        "    const bf16* kt = ks + (st ^ 1) * TILE;\n"),
+    # tile j's K and V copies may still be in flight during its math
+    "dQ: key tile not waited for": (
+        "    mma::cp_async_wait<0>();\n    __syncthreads();\n"
+        "    if (j + 1 < n_tiles) stage_kv(j + 1);\n",
+        "    mma::cp_async_wait<1>();\n    __syncthreads();\n"
+        "    if (j + 1 < n_tiles) stage_kv(j + 1);\n"),
+    # no barrier between a stage's last read and the copies refilling it
+    "dQ: no barrier before the ring's refill": (
+        "    mma::cp_async_wait<0>();\n    __syncthreads();\n"
+        "    if (j + 1 < n_tiles) stage_kv(j + 1);\n",
+        "    mma::cp_async_wait<0>();\n"
+        "    if (j + 1 < n_tiles) stage_kv(j + 1);\n"),
+    # the causal mask hides the diagonal, each row's own key
+    "dQ: diagonal key masked": (
+        "            if (key >= a.Sk || (a.causal && row < key)) p = 0.f;\n",
+        "            if (key >= a.Sk || (a.causal && row <= key)) p = 0.f;\n"),
+    # zero-filled keys past Sk keep p = exp(0 - lse), but meet K = 0 in
+    # dS K
+    "dQ: keys past Sk not masked": (
+        "            if (key >= a.Sk || (a.causal && row < key)) p = 0.f;\n",
+        "            if (a.causal && row < key) p = 0.f;\n"),
+    # the last warp's 16 dQ rows are never stored
+    "dQ: one warp's store skipped": (
+        "    const int row = w0 + g + 8 * i;\n    if (row >= a.Sq) continue;\n",
+        "    const int row = w0 + g + 8 * i;\n"
+        "    if (row >= a.Sq || warp == 3) continue;\n"),
 }
 
 # for the sound kernel: the atol each rtol would need, per gradient
@@ -99,7 +138,7 @@ def _cases(torch, cs, dtype):
 
 def child(dtypes, sound_out, sound_in):
     """Every K3 case of this copy's kernel through both gates, one JSON
-    line per (case, kernel); the sound run saves its outputs and dQ's
+    line per (case, kernel); the sound run saves its outputs and their
     spread, a fault's run compares with them."""
     import torch
 
@@ -114,18 +153,20 @@ def child(dtypes, sound_out, sound_in):
         for name, (q, k, v, do), causal in _cases(torch, cs,
                                                   getattr(torch, dn)):
             want, got, _ = cs.k3_grads(torch, q, k, v, do, causal)
-            spread = 0.0
-            if sound is None:    # the fused dQ's atomics, run to run
+            # each output's largest change over two more runs
+            spreads = {kid: dict.fromkeys(grads, 0.0)
+                       for kid, grads in got.items()}
+            if sound is None:
                 for _ in range(2):
                     again = cs.k3_grads(torch, q, k, v, do, causal)[1]
-                    spread = max(spread, cs._err(again["K3a"][0],
-                                                 got["K3a"][0]))
+                    for kid, grads in got.items():
+                        for n, g in grads.items():
+                            spreads[kid][n] = max(spreads[kid][n],
+                                                  cs._err(again[kid][n], g))
             for kid, grads in got.items():
-                names = ("dQ", "dK", "dV")[3 - len(grads):]
-                plain = want[3 - len(grads):]
                 finite = all(bool(torch.isfinite(g.float()).all())
-                             for g in grads)
-                rel = max(cs._rel_err(g, w) for g, w in zip(grads, plain))
+                             for g in grads.values())
+                rel = max(cs._rel_err(g, want[n]) for n, g in grads.items())
                 shares = cs.k3_errors(dn, grads, want)
                 row = {"dtype": dn, "case": name, "k3": kid,
                        "flash_gate_rel_err": rel,
@@ -134,26 +175,26 @@ def child(dtypes, sound_out, sound_in):
                        "k3_gate": finite and cs.k3_passes(dn, grads, want)}
                 key = f"{dn} {name} {kid}"
                 if sound is None:
-                    saved[key] = ([g.cpu() for g in grads], spread)
-                    row["dq_spread"] = spread
+                    saved[key] = ({n: g.cpu() for n, g in grads.items()},
+                                  spreads[kid])
+                    row["spread"] = spreads[kid]
                     row["atol_needed"] = {}
-                    for n, g, w in zip(names, grads, plain):
-                        err, mag = (g.float() - w.float()).abs(), \
-                            w.float().abs()
+                    for n, g in grads.items():
+                        w = want[n].float()
+                        err, mag = (g.float() - w).abs(), w.abs()
                         row["atol_needed"][n] = {
                             str(r): max(0.0, float((err - r * mag).max()))
                             for r in RTOLS[dn]}
                 else:
                     ref, spread = sound[key]
                     moved = []
-                    for n, g, r in zip(names, grads, ref):
-                        g, r = g.cpu().float(), r.float()
-                        if n == "dQ":
-                            lim = 4 * spread + EPS[dn] * r.abs()
-                            moved.append(not bool(((g - r).abs()
-                                                   <= lim).all()))
-                        else:
-                            moved.append(not torch.equal(g, r))
+                    for n, g in grads.items():
+                        g, r = g.cpu().float(), ref[n].float()
+                        # K3a's dQ: a rounding its atomics' order flips
+                        ulp = EPS[dn] * r.abs() if kid == "K3a" and n == "dQ" \
+                            else 0.0
+                        moved.append(not bool(((g - r).abs()
+                                               <= 4 * spread[n] + ulp).all()))
                     row["changed"] = any(moved)
                 print(json.dumps(row), flush=True)
     if sound_out:

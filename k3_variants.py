@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Design variants of K3's bf16 dK/dV body, timed side by side on one card.
+"""Design variants of K3's bf16 bodies, timed side by side on one card.
 
 Run from the root of a checkout on one Hopper card (``nvcc`` and
-PyTorch built for CUDA): ``python3 k3_variants.py``. Each variant of
-``VARIANTS`` is a set of text patches on ``csrc/flash_bwd.cu``: the
-body as built, and the choices its design rejected. For each one it
+PyTorch built for CUDA): ``python3 k3_variants.py [NAME ...]`` (the
+named variants of ``VARIANTS``, by default all). Each variant is a set
+of text patches on ``csrc/flash_bwd.cu``: the bodies as built, and the
+choices their designs rejected (for the dK/dV body, K3a and K3b-dkv, and
+for the dQ body, K3b-dq, whose names start with "dQ:"). For each one it
 copies the port into a fresh temporary directory and patches the copy
 (``k1_fault_check.copy_patched``; the checkout is never edited), builds
 every copy at once, then prints per variant
 
-- ``nvcc -Xptxas -v``'s registers and spills of each bf16 K3a / K3b-dkv
-  instantiation (``flash_bwd_mma_kernel<D, WITH_DQ>``);
+- ``nvcc -Xptxas -v``'s registers and spills of each bf16 K3
+  instantiation (``flash_bwd_mma_kernel<D, WITH_DQ>``,
+  ``flash_dq_mma_kernel<D>``);
 - one JSON line per timed shape of ``chip_smoke.py`` (``FLASH_CASES``
-  and ``FLASH_LONG``, bf16, lse from K1): K3a's and K3b-dkv's device
-  time (``chip_smoke.Timer``: median of single launches, cold L2) and
-  their largest share of ``K3_TOL``.
+  and ``FLASH_LONG``, bf16, lse from K1): K3a's, K3b-dkv's and K3b-dq's
+  device time (``chip_smoke.Timer``: median of single launches, cold
+  L2) and their largest share of ``K3_TOL``; then K3b-dkv's and
+  K3b-dq's time, unchecked, on the streaming route at ``ROUTE_SHAPE``.
 
 The variants run one after another in one process each, so their times
 compare within the call. It exits non-zero if a variant's run fails.
@@ -35,8 +39,10 @@ VARIANTS = {
     "as built": [],
     # a register cap of 168 (3 CTAs an SM)
     "D 64 at 3 CTAs an SM": [(
-        "__global__ void __launch_bounds__(kMmaThreads, 2)",
-        "__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 2)")],
+        "__global__ void __launch_bounds__(kMmaThreads, 2)\n"
+        "    flash_bwd_mma_kernel(",
+        "__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 2)\n"
+        "    flash_bwd_mma_kernel(")],
     "D 128 chunk loop unrolled": [(
         "#pragma unroll(D == 64 ? kTile / QC : 1)", "#pragma unroll")],
     # the grid's axes swapped: every head's key tile 0 (the longest
@@ -50,14 +56,58 @@ VARIANTS = {
          "  return fused ? launch(flash_bwd_mma_kernel",
          "  const dim3 grid(a.B * a.H, (a.Sk + kTile - 1) / kTile);\n"
          "  return fused ? launch(flash_bwd_mma_kernel")],
+    # the dQ body's CTAs in query-tile order (the shortest causal sweep
+    # first)
+    "dQ: natural grid order": [(
+        "  const int tile = a.causal ? gridDim.x - 1 - blockIdx.x : "
+        "blockIdx.x;\n",
+        "  const int tile = blockIdx.x;\n")],
+    # with a chunk narrower than a tile, a warp skips the diagonal
+    # tile's chunks whose keys all lie past its rows
+    "dQ: 32 keys per chunk": [
+        ("  constexpr int KC = 64;           // keys per chunk of a key tile\n",
+         "  constexpr int KC = 32;           // keys per chunk of a key tile\n"),
+        ("      // S = Q_w K^T and dP = dO_w V^T over this chunk's keys\n",
+         "      if (a.causal && k0 + c > w0 + 15) continue;\n"
+         "      // S = Q_w K^T and dP = dO_w V^T over this chunk's keys\n")],
+    # Q and dO fragments loaded from shared memory at each use (the
+    # registers freed, the loads repeated per key chunk)
+    "dQ: fragments re-read": [
+        ("  uint32_t qf[KD][4], df[KD][4];\n#pragma unroll\n"
+         "  for (int kd = 0; kd < KD; ++kd) {\n"
+         "    mma::ldsm_x4(qf[kd], mma::a_x4<LDS>(qs, warp * 16, kd * 16, "
+         "lane));\n"
+         "    mma::ldsm_x4(df[kd], mma::a_x4<LDS>(dos, warp * 16, kd * 16, "
+         "lane));\n  }\n",
+         "  uint32_t qf[KD][4], df[KD][4];\n"),
+        ("      for (int kd = 0; kd < KD; ++kd) {\n#pragma unroll\n"
+         "        for (int n = 0; n < NC; n += 2) {\n"
+         "          uint32_t bk[4], bv[4];\n",
+         "      for (int kd = 0; kd < KD; ++kd) {\n"
+         "        mma::ldsm_x4(qf[kd], mma::a_x4<LDS>(qs, warp * 16, kd * 16, "
+         "lane));\n"
+         "        mma::ldsm_x4(df[kd], mma::a_x4<LDS>(dos, warp * 16, kd * 16, "
+         "lane));\n#pragma unroll\n"
+         "        for (int n = 0; n < NC; n += 2) {\n"
+         "          uint32_t bk[4], bv[4];\n")],
 }
 
-_MMA = re.compile(r"flash_bwd_mma_kernelILi(\d+)ELb(\d)E")
+# (B, S, H, D): gpt2_small's 12 heads at a 16k context, causal; many
+# waves of CTAs where chip_smoke.py's S 8320 (B 1, H 2) is one
+ROUTE_SHAPE = (1, 16384, 12, 64)
+
+_MMA = re.compile(r"flash_(bwd|dq)_mma_kernelILi(\d+)E(?:Lb(\d)E)?")
+
+
+def _label(m) -> str:
+    if m.group(1) == "dq":
+        return f"K3b-dq D {m.group(2)}"
+    return f"{'K3a' if m.group(3) == '1' else 'K3b-dkv'} D {m.group(2)}"
 
 
 def child(build_only: bool):
-    """Build this copy's kernels; unless ``build_only``, time K3a and
-    K3b-dkv at each timed shape, one JSON line each."""
+    """Build this copy's kernels; unless ``build_only``, time K3a,
+    K3b-dkv and K3b-dq at each timed shape, one JSON line each."""
     import torch
 
     import chip_smoke as cs
@@ -78,9 +128,22 @@ def child(build_only: bool):
             "shape": [B, S, H, D, causal],
             "k3a_ms": timer(lambda: fa.flash_bwd_fused(*bwd), n=10),
             "k3b_dkv_ms": timer(lambda: fa.flash_bwd_dkv(*bwd), n=10),
+            "k3b_dq_ms": timer(lambda: fa.flash_bwd_dq(*bwd), n=10),
             "k3_limit_share": max(
                 max(cs.k3_errors("bfloat16", g, want).values())
                 for g in got.values())}), flush=True)
+    # the streaming route as gpt2_small would take it, timed only: its
+    # plain backward would need 13 GB for one fp32 score tensor
+    B, S, H, D = ROUTE_SHAPE
+    q, k, v, do = cs._flash_inputs(torch, B, S, H, D, torch.bfloat16, 61)
+    o, lse = fa.flash_fwd(q, k, v, D ** -0.5, True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, lse, delta, D ** -0.5, True)
+    print(json.dumps({
+        "shape": [B, S, H, D, True], "timed only": True,
+        "k3b_dkv_ms": timer(lambda: fa.flash_bwd_dkv(*bwd), n=10),
+        "k3b_dq_ms": timer(lambda: fa.flash_bwd_dq(*bwd), n=10)}),
+        flush=True)
 
 
 def _ptxas(nvcc, flags, src: Path, obj: Path):
@@ -89,7 +152,7 @@ def _ptxas(nvcc, flags, src: Path, obj: Path):
                             stderr=subprocess.STDOUT, text=True)
 
 
-def main():
+def main(names):
     import k1_fault_check
     from paddle_tpu_torch.ops.kernels import _build
 
@@ -101,7 +164,12 @@ def main():
     bad = []
     with tempfile.TemporaryDirectory() as tmp:
         dirs = {}
+        unknown = set(names) - set(VARIANTS)
+        if unknown:
+            raise SystemExit(f"k3_variants: no variant {sorted(unknown)}")
         for i, (name, patches) in enumerate(VARIANTS.items()):
+            if names and name not in names:
+                continue
             dirs[name] = Path(tmp) / f"v{i}"
             k1_fault_check.copy_patched(root, dirs[name],
                                         Path(__file__).resolve(),
@@ -124,8 +192,7 @@ def main():
             for line in out.splitlines():
                 if "Compiling entry function" in line:
                     m = _MMA.search(line)
-                    label = m and (f"{'K3a' if m.group(2) == '1' else 'K3b-dkv'}"
-                                   f" D {m.group(1)}")
+                    label = m and _label(m)
                 elif label and "spill stores" in line:
                     regs[n].append([label, line.strip()])
                 elif label and "Used" in line:
@@ -155,10 +222,11 @@ def main():
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("names", nargs="*", help="variants to run (default all)")
     ap.add_argument("--child", action="store_true")
     ap.add_argument("--build-only", action="store_true")
     args = ap.parse_args()
     if args.child:
         child(args.build_only)
     else:
-        main()
+        main(args.names)

@@ -6,7 +6,7 @@
 //    8192): ptt_flash_bwd_fused, the dK/dV body with dQ;
 //  - K3b _bwd_dkv_stream_kernel (:162) and _bwd_dq_stream_kernel (:215)
 //    (via _flash_bwd_stream :436, beyond 8192): ptt_flash_bwd_dkv, the
-//    dK/dV body without dQ, and ptt_flash_bwd_dq, flash_dq_kernel.
+//    dK/dV body without dQ, and ptt_flash_bwd_dq, the dQ body.
 // The wrapper keeps JAX's route (_use_streaming, 8192), so each TPU
 // kernel's counterpart runs where JAX runs it. On the H100 the choice is
 // between fp32 atomics (fused) and a deterministic two-pass split
@@ -25,14 +25,18 @@
 // (B, Sq, H, D) buffer by atomics (the wrapper casts it): K3a's fp32 dQ
 // output, which on the TPU stayed resident across the key-block grid
 // axis. The atomics make dQ's last bits differ from run to run.
-// flash_dq_kernel owns one 64-row query tile and sweeps the key tiles up
-// to the diagonal with dQ in fp32 registers, written once.
+// The dQ bodies own one 64-row query tile and sweep the key tiles up to
+// the diagonal with dQ in fp32 registers, written once (no atomics: the
+// streaming dQ is the same from run to run).
 //
 // Bound on the H100: operations. The backward does 2.5x the forward's
 // products (64.4 GFLOP per layer at the training shape: B 16, S 1024,
 // H 12, D 64, causal) over about twice its bytes: 65 us at the bf16
 // tensor-core peak against ~30 us of bytes; in fp32 on the CUDA cores
-// ~0.96 ms at 67 TFLOP/s.
+// ~0.96 ms at 67 TFLOP/s. The dQ pass alone does 1.5x the forward's
+// products (S, dP and dS K) over 5 tensors' bytes, also bound by
+// operations: 26.6 GFLOP at S 8320 (B 1, H 2, D 64, causal), 27 us at
+// 989 TFLOP/s against 3 us for its 10.6 MB.
 //
 // bf16 dK/dV body, flash_bwd_mma_kernel<D, WITH_DQ>: every product on
 // the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate;
@@ -66,9 +70,34 @@
 // warp reads the whole Q and dO tile, twice: as is and transposed), and
 // with dQ the atomics.
 //
-// fp32 (and the bf16 dQ pass): the CUDA-core bodies, products in fp32
-// on register micro-tiles fed by float4 shared-memory reads (no TF32:
-// the fp32 contract is 1e-4 of the plain version).
+// bf16 dQ body, flash_dq_mma_kernel<D>: the dK/dV body's mirror, in the
+// natural orientation (queries on the accumulator rows). A CTA of 4
+// warps owns 64 queries of one (batch, head), 16 per warp; two CTAs
+// share an SM (at S 8320, B 1, H 2: 260 CTAs on 264 slots, one wave).
+// Q and dO are staged once by cp.async, and each warp then holds its 16
+// rows of both as A fragments for the whole sweep (at D 128, beside the
+// 64 dQ accumulators, that takes 254 registers, no spill, and still
+// beats re-reading them from shared memory at each use: k3_variants.py).
+// Each lane reads the lse and delta of its two rows once into registers.
+// K and V stream through a two-stage cp.async ring, key tile j + 1
+// issued before tile j's math, one barrier a tile. Per key tile a warp
+// computes S = Q_w K^T and dP = dO_w V^T (K and V rows by ldmatrix as B
+// fragments), P = exp2(S scale log2 e - lse log2 e) and dS = P (dP -
+// delta) scale on the accumulators (the mask test only on the diagonal
+// and Sk-edge tiles), and dQ_w += dS K with dS rounded to bf16 and
+// packed as the k16 A fragment (pack_a; K by ldmatrix.trans).
+// No shared dS tile, no atomics: the warp writes its 16 dQ rows once as
+// bf16 pairs. Under causal masking the CTAs of the longest sweeps launch
+// first. Rows past Sq or Sk are zero-filled by cp.async, never read; keys
+// past Sk are masked, rows past Sq never stored. Against the bound: the
+// three products run at tensor-core rates, each K and V byte moves once
+// per query tile in 16-byte chunks; what is left is latency at 8 warps an
+// SM and the shared-memory reads of the K and V fragments (each warp
+// reads K twice, as is and transposed, and V once).
+//
+// fp32: the CUDA-core bodies, products in fp32 on register micro-tiles
+// fed by float4 shared-memory reads (no TF32: the fp32 contract is 1e-4
+// of the plain version).
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
@@ -77,10 +106,9 @@ namespace {
 using namespace ptt;
 using namespace ptt::flash;
 
-// P and dS of one (query tile q0, key tile k0) pair into shared memory,
-// both rounded to T where the Pallas kernels round them. Thread (ty, tx)
-// computes rows ty + 16i, keys tx + 16j.
-template <typename T, int D, int LDS>
+// P and dS (fp32) of one (query tile q0, key tile k0) pair into shared
+// memory. Thread (ty, tx) computes rows ty + 16i, keys tx + 16j.
+template <int D, int LDS>
 __device__ __forceinline__ void p_and_ds(const Args& a, const float* qs,
                                          const float* dos, const float* ks,
                                          const float* vs, const float* lse_s,
@@ -100,8 +128,8 @@ __device__ __forceinline__ void p_and_ds(const Args& a, const float* qs,
       const float p =
           visible(a, q0 + r, k0 + c) ? expf(s[i][j] * a.scale - lse) : 0.f;
       const float ds = p * (dp[i][j] - delta) * a.scale;
-      if (ps != nullptr) ps[r * kPS + c] = round_t<T>(p);
-      dss[r * kPS + c] = round_t<T>(ds);
+      if (ps != nullptr) ps[r * kPS + c] = p;
+      dss[r * kPS + c] = ds;
     }
   }
 }
@@ -152,10 +180,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
   const float* dout = static_cast<const float*>(a.dout);
   const int64_t o_ss = static_cast<int64_t>(a.H) * D;  // dO is contiguous
 
-  load_tile<float, D, LDS>(ks, static_cast<const float*>(a.k), b, h, k0,
-                           a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
-  load_tile<float, D, LDS>(vs, static_cast<const float*>(a.v), b, h, k0,
-                           a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
+  load_tile<D, LDS>(ks, static_cast<const float*>(a.k), b, h, k0, a.Sk,
+                    a.kv_sb, a.kv_ss, a.kv_sh);
+  load_tile<D, LDS>(vs, static_cast<const float*>(a.v), b, h, k0, a.Sk,
+                    a.kv_sb, a.kv_ss, a.kv_sh);
   // keys ty + 16i, dims tx + 16j
   float dk[4][DJ], dv[4][DJ];
 #pragma unroll
@@ -167,13 +195,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
   // and key tiles are the same height, so the sweep starts at tile k0/64
   const int nq = (a.Sq + kTile - 1) / kTile;
   for (int q0 = a.causal ? k0 : 0; q0 < nq * kTile; q0 += kTile) {
-    load_tile<float, D, LDS>(qs, q, b, h, q0, a.Sq, a.q_sb, a.q_ss, a.q_sh);
-    load_tile<float, D, LDS>(dos, dout, b, h, q0, a.Sq, a.Sq * o_ss, o_ss, D);
+    load_tile<D, LDS>(qs, q, b, h, q0, a.Sq, a.q_sb, a.q_ss, a.q_sh);
+    load_tile<D, LDS>(dos, dout, b, h, q0, a.Sq, a.Sq * o_ss, o_ss, D);
     load_rows(lse_s, a.lse, bh, q0, a.Sq);
     load_rows(delta_s, a.delta, bh, q0, a.Sq);
     __syncthreads();
-    p_and_ds<float, D, LDS>(a, qs, dos, ks, vs, lse_s, delta_s, ps, dss, q0,
-                            k0, ty, tx);
+    p_and_ds<D, LDS>(a, qs, dos, ks, vs, lse_s, delta_s, ps, dss, q0, k0, ty,
+                     tx);
     __syncthreads();
     // dV += P^T dO, dK += dS^T Q over this tile's 64 query rows
 #pragma unroll 4
@@ -233,7 +261,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
   }
 }
 
-constexpr int kMmaThreads = 128;  // bf16 dK/dV body: 4 warps x 16 keys
+constexpr int kMmaThreads = 128;  // bf16 K3 bodies: 4 warps x 16 rows
 constexpr float kLog2e = 1.4426950408889634f;
 
 // the bf16 body's shared memory: K, V, two ring stages of Q and dO (rows
@@ -485,7 +513,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   }
 }
 
-template <typename T, int D>
+// fp32 dQ pass on the CUDA cores.
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
   constexpr int LDS = D + 4;
   constexpr int DJ = D / 16;
@@ -501,14 +530,14 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
   const int64_t o_ss = static_cast<int64_t>(a.H) * D;
 
-  load_tile<T, D, LDS>(qs, static_cast<const T*>(a.q), b, h, q0, a.Sq,
-                       a.q_sb, a.q_ss, a.q_sh);
-  load_tile<T, D, LDS>(dos, static_cast<const T*>(a.dout), b, h, q0, a.Sq,
-                       a.Sq * o_ss, o_ss, D);
+  load_tile<D, LDS>(qs, static_cast<const float*>(a.q), b, h, q0, a.Sq,
+                    a.q_sb, a.q_ss, a.q_sh);
+  load_tile<D, LDS>(dos, static_cast<const float*>(a.dout), b, h, q0, a.Sq,
+                    a.Sq * o_ss, o_ss, D);
   load_rows(lse_s, a.lse, bh, q0, a.Sq);
   load_rows(delta_s, a.delta, bh, q0, a.Sq);
   float dq[4][DJ];
@@ -519,36 +548,206 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
 
   const int k_end = a.causal ? min(q0 + kTile, a.Sk) : a.Sk;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    load_tile<T, D, LDS>(ks, k, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
-    load_tile<T, D, LDS>(vs, v, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
+    load_tile<D, LDS>(ks, k, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
+    load_tile<D, LDS>(vs, v, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
     __syncthreads();
-    p_and_ds<T, D, LDS>(a, qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0,
-                        k0, ty, tx);
+    p_and_ds<D, LDS>(a, qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0,
+                     k0, ty, tx);
     __syncthreads();
     add_ds_k<D, LDS>(dq, dss, ks, ty, tx);
     __syncthreads();
   }
 
-  T* dq_out = static_cast<T*>(a.out);
+  float* dq_out = static_cast<float*>(a.out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= a.Sq) continue;
-    T* dqr = dq_out + ((static_cast<int64_t>(b) * a.Sq + row) * a.H + h) * D;
+    float* dqr = dq_out + ((static_cast<int64_t>(b) * a.Sq + row) * a.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dqr[tx + 16 * j] = from_f<T>(dq[i][j]);
+    for (int j = 0; j < DJ; ++j) dqr[tx + 16 * j] = dq[i][j];
+  }
+}
+
+// the bf16 dQ body's shared memory: Q and dO, and two ring stages of K
+// and V, rows of D + 8 bf16
+template <int D>
+constexpr size_t dq_mma_smem() {
+  return sizeof(__nv_bfloat16) * 6 * kTile * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_dq_mma_kernel(const Args a) {
+  using mma::bf16;
+  constexpr int LDS = D + 8;       // row stride of Q, dO, K, V
+  constexpr int TILE = kTile * LDS;
+  constexpr int KD = D / 16;       // k16 steps over the head dim
+  constexpr int ND = D / 8;        // n8 tiles over the head dim
+  constexpr int KC = 64;           // keys per chunk of a key tile
+  constexpr int NC = KC / 8;       // n8 tiles over a chunk's keys
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);
+  bf16* dos = qs + TILE;
+  bf16* ks = dos + TILE;     // 2 stages
+  bf16* vs = ks + 2 * TILE;  // 2 stages
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // causal: the last query tiles sweep the most keys; launch them first
+  const int tile = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = tile * kTile, w0 = q0 + warp * 16;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.kv_sb + h * a.kv_sh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.kv_sb + h * a.kv_sh;
+  const int64_t o_ss = static_cast<int64_t>(a.H) * D;  // dO is contiguous
+  const bf16* dout = static_cast<const bf16*>(a.dout) +
+                     static_cast<int64_t>(b) * a.Sq * o_ss + h * D;
+  // causal (top-left): keys past the tile's last row are dead
+  const int k_end = a.causal ? min(q0 + kTile, a.Sk) : a.Sk;
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+  const float scale_l2 = a.scale * kLog2e;
+
+  // one commit group: key tile j's K and V into stage j % 2
+  const auto stage_kv = [&](int j) {
+    const int st = j & 1;
+    mma::tile_async<kTile, D, LDS, kMmaThreads>(ks + st * TILE, k, j * kTile,
+                                                a.Sk, a.kv_ss);
+    mma::tile_async<kTile, D, LDS, kMmaThreads>(vs + st * TILE, v, j * kTile,
+                                                a.Sk, a.kv_ss);
+    mma::cp_async_commit();
+  };
+
+  // groups in flight: Q and dO, then key tile 0
+  mma::tile_async<kTile, D, LDS, kMmaThreads>(qs, q, q0, a.Sq, a.q_ss);
+  mma::tile_async<kTile, D, LDS, kMmaThreads>(dos, dout, q0, a.Sq, o_ss);
+  mma::cp_async_commit();
+  stage_kv(0);
+  // this lane's rows, w0 + g (accumulator entries 0, 1) and w0 + g + 8
+  // (2, 3), never change: their lse (times log2 e) and delta are read
+  // once (a row past Sq reads row Sq - 1 and is never stored)
+  const float* lse = a.lse + static_cast<int64_t>(bh) * a.Sq;
+  const float* delta = a.delta + static_cast<int64_t>(bh) * a.Sq;
+  float lse_l2[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = min(w0 + g + 8 * i, a.Sq - 1);
+    lse_l2[i] = lse[row] * kLog2e;
+    delta_r[i] = delta[row];
+  }
+  mma::cp_async_wait<1>();
+  __syncthreads();
+  // this warp's 16 rows of Q and dO as A fragments, for the whole sweep
+  uint32_t qf[KD][4], df[KD][4];
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd) {
+    mma::ldsm_x4(qf[kd], mma::a_x4<LDS>(qs, warp * 16, kd * 16, lane));
+    mma::ldsm_x4(df[kd], mma::a_x4<LDS>(dos, warp * 16, kd * 16, lane));
+  }
+
+  // dims n * 8 + 2t (+1) of this lane's two rows
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kTile, st = j & 1;
+    const bf16* kt = ks + st * TILE;
+    const bf16* vt = vs + st * TILE;
+    // key tile j has landed; every warp is done with tile j - 1, whose
+    // stage tile j + 1's copies now refill
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < n_tiles) stage_kv(j + 1);
+    // the causal diagonal and the Sk edge take the mask test
+    const bool edge =
+        (a.causal && k0 + kTile - 1 > w0) || k0 + kTile > a.Sk;
+#pragma unroll
+    for (int c = 0; c < kTile; c += KC) {
+      // S = Q_w K^T and dP = dO_w V^T over this chunk's keys
+      float s[NC][4], dp[NC][4];
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+        for (int n = 0; n < NC; n += 2) {
+          uint32_t bk[4], bv[4];
+          mma::ldsm_x4(bk, mma::b_x4<LDS>(kt, c + n * 8, kd * 16, lane));
+          mma::mma_bf16(s[n], qf[kd], bk[0], bk[1]);
+          mma::mma_bf16(s[n + 1], qf[kd], bk[2], bk[3]);
+          mma::ldsm_x4(bv, mma::b_x4<LDS>(vt, c + n * 8, kd * 16, lane));
+          mma::mma_bf16(dp[n], df[kd], bv[0], bv[1]);
+          mma::mma_bf16(dp[n + 1], df[kd], bv[2], bv[3]);
+        }
+      }
+      // P = exp(S scale - lse) and dS = P (dP - delta) scale on the
+      // accumulators: row w0 + g + 8 (e / 2), key k0 + c + 8n + 2t + e % 2
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(s[n][e] * scale_l2 - lse_l2[e / 2]);
+          if (edge) {
+            const int row = w0 + g + (e / 2) * 8;
+            const int key = k0 + c + n * 8 + 2 * t + e % 2;
+            if (key >= a.Sk || (a.causal && row < key)) p = 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - delta_r[e / 2]) * a.scale;
+        }
+      // dQ_w += dS K: two n8 tiles of dS, rounded to bf16 (K's dtype,
+      // :255), are one k16 A fragment; K by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NC / 2; ++kk) {
+        uint32_t sa[4];
+        mma::pack_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t bf[4];
+          mma::ldsm_x4_trans(bf, mma::bt_x4<LDS>(kt, c + kk * 16, n * 8, lane));
+          mma::mma_bf16(dq[n], sa, bf[0], bf[1]);
+          mma::mma_bf16(dq[n + 1], sa, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // dQ in bf16 pairs, each row written once by its lane quad
+  bf16* dq_out = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w0 + g + 8 * i;
+    if (row >= a.Sq) continue;
+    const int64_t off =
+        ((static_cast<int64_t>(b) * a.Sq + row) * a.H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(dq_out + off + n * 8) =
+          mma::pack_bf16(dq[n][2 * i], dq[n][2 * i + 1]);
   }
 }
 
 enum class Kind { kFused, kDkv, kDq };
 
-template <typename T, int D>
-cudaError_t dq_pass(const Args& a, cudaStream_t st) {
+template <int D>
+cudaError_t dq_f32(const Args& a, cudaStream_t st) {
   constexpr int LDS = D + 4;
   const size_t smem =
       sizeof(float) * (4 * kTile * LDS + kTile * kPS + 2 * kTile);
   const dim3 grid((a.Sq + kTile - 1) / kTile, a.B * a.H);
-  return launch(flash_dq_kernel<T, D>, grid, smem, st, a);
+  return launch(flash_dq_kernel<D>, grid, smem, st, a);
+}
+
+template <int D>
+cudaError_t dq_bf16(const Args& a, cudaStream_t st) {
+  const dim3 grid((a.Sq + kTile - 1) / kTile, a.B * a.H);
+  return launch(flash_dq_mma_kernel<D>, grid, dq_mma_smem<D>(), st, a,
+                kMmaThreads);
 }
 
 template <int D>
@@ -573,15 +772,14 @@ cudaError_t dkv_bf16(const Args& a, bool fused, cudaStream_t st) {
 cudaError_t dispatch(const Args& a, int D, int dtype, Kind kind,
                      cudaStream_t st) {
   const bool d64 = D == 64;
-  if (kind == Kind::kDq)
-    return dtype == kFloat32
-               ? (d64 ? dq_pass<float, 64>(a, st) : dq_pass<float, 128>(a, st))
-               : (d64 ? dq_pass<__nv_bfloat16, 64>(a, st)
-                      : dq_pass<__nv_bfloat16, 128>(a, st));
-  const bool fused = kind == Kind::kFused;
-  if (dtype == kFloat32)
+  if (dtype == kFloat32) {
+    if (kind == Kind::kDq) return d64 ? dq_f32<64>(a, st) : dq_f32<128>(a, st);
+    const bool fused = kind == Kind::kFused;
     return d64 ? dkv_f32<64>(a, fused, st) : dkv_f32<128>(a, fused, st);
+  }
   if (!mma_aligned(a, a.dout)) return cudaErrorInvalidValue;
+  if (kind == Kind::kDq) return d64 ? dq_bf16<64>(a, st) : dq_bf16<128>(a, st);
+  const bool fused = kind == Kind::kFused;
   return d64 ? dkv_bf16<64>(a, fused, st) : dkv_bf16<128>(a, fused, st);
 }
 
@@ -592,14 +790,17 @@ int run(const Args& a, int D, int dtype, Kind kind, void* stream) {
       dispatch(a, D, dtype, kind, static_cast<cudaStream_t>(stream)));
 }
 
-template <int D, bool WITH_DQ>
-cudaError_t mma_occupancy(int* ctas, int* smem) {
-  constexpr size_t bytes = mma_smem<D, WITH_DQ>();
+// How many CTAs of a tensor-core body of kMmaThreads threads and `bytes`
+// of dynamic shared memory one SM holds, as the CUDA runtime computes it
+// from the kernel's registers and shared memory, into *ctas, and the
+// bytes into *smem.
+template <typename K>
+cudaError_t mma_occupancy(K kern, size_t bytes, int* ctas, int* smem) {
   *smem = static_cast<int>(bytes);
-  cudaError_t e = allow_smem(flash_bwd_mma_kernel<D, WITH_DQ>, bytes);
+  cudaError_t e = allow_smem(kern, bytes);
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, flash_bwd_mma_kernel<D, WITH_DQ>, kMmaThreads, bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern,
+                                                       kMmaThreads, bytes);
 }
 
 }  // namespace
@@ -662,10 +863,25 @@ extern "C" int ptt_flash_bwd_occupancy(int D, int fused, int* ctas,
                                        int* smem) {
   cudaError_t e = cudaErrorInvalidValue;
   if (D == 64)
-    e = fused ? mma_occupancy<64, true>(ctas, smem)
-              : mma_occupancy<64, false>(ctas, smem);
+    e = fused ? mma_occupancy(flash_bwd_mma_kernel<64, true>,
+                              mma_smem<64, true>(), ctas, smem)
+              : mma_occupancy(flash_bwd_mma_kernel<64, false>,
+                              mma_smem<64, false>(), ctas, smem);
   else if (D == 128)
-    e = fused ? mma_occupancy<128, true>(ctas, smem)
-              : mma_occupancy<128, false>(ctas, smem);
+    e = fused ? mma_occupancy(flash_bwd_mma_kernel<128, true>,
+                              mma_smem<128, true>(), ctas, smem)
+              : mma_occupancy(flash_bwd_mma_kernel<128, false>,
+                              mma_smem<128, false>(), ctas, smem);
+  return static_cast<int>(e);
+}
+
+// The same for the bf16 dQ body (K3b's second pass) at head dim D.
+extern "C" int ptt_flash_bwd_dq_occupancy(int D, int* ctas, int* smem) {
+  cudaError_t e = cudaErrorInvalidValue;
+  if (D == 64)
+    e = mma_occupancy(flash_dq_mma_kernel<64>, dq_mma_smem<64>(), ctas, smem);
+  else if (D == 128)
+    e = mma_occupancy(flash_dq_mma_kernel<128>, dq_mma_smem<128>(), ctas,
+                      smem);
   return static_cast<int>(e);
 }

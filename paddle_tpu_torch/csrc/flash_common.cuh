@@ -7,21 +7,19 @@
 // strides. O, dO, dQ, dK and dV are contiguous (B, S, H, D); lse and
 // delta are fp32 (B, H, Sq).
 //
-// Tiles of the CUDA-core kernels (the fp32 kernels, and the bf16 dQ
-// pass of the streaming backward): 64-row query tiles against 64-row
-// key tiles of one (batch, head), staged in shared memory as fp32 (bf16
-// converts at the shared-memory store, never right after its load, so a
-// thread's loads are all in flight together). A CTA has 256 threads in
-// a 16 x 16 grid (ty, tx). In a score tile (query rows x key rows) thread (ty, tx)
-// owns rows ty + 16i and columns tx + 16j, i, j < 4; in an output tile
-// (rows x head dim) it owns rows ty + 16i and dims tx + 16j, j < D/16.
-// Products run on the CUDA cores in fp32 (float4 shared-memory reads, K
-// and Q rows padded to D + 4 floats so eight threads reading eight rows
-// hit 32 distinct banks). The bf16 forward and the bf16 dK/dV backward
-// body (K3a, K3b's first pass) run on the tensor cores instead (mma.sync
-// fed by ldmatrix and cp.async, flash_mma.cuh; their designs are in
-// flash_fwd.cu and flash_bwd.cu); the bf16 dQ pass's move to them and
-// wgmma with TMA staging are later work.
+// Tiles of the CUDA-core kernels (the fp32 kernels): 64-row query tiles
+// against 64-row key tiles of one (batch, head), staged in shared memory.
+// A CTA has 256 threads in a 16 x 16 grid (ty, tx). In a score tile
+// (query rows x key rows) thread (ty, tx) owns rows ty + 16i and columns
+// tx + 16j, i, j < 4; in an output tile (rows x head dim) it owns rows
+// ty + 16i and dims tx + 16j, j < D/16. Products run on the CUDA cores
+// in fp32 (float4 shared-memory reads, K and Q rows padded to D + 4
+// floats so eight threads reading eight rows hit 32 distinct banks).
+// Every bf16 kernel runs on the tensor cores instead (mma.sync fed by
+// ldmatrix and cp.async, flash_mma.cuh): the forward, the dK/dV body
+// (K3a, K3b's first pass) and the dQ body (K3b's second pass); their
+// designs are in flash_fwd.cu and flash_bwd.cu. wgmma with TMA staging
+// is later work.
 //
 // Contracts kept from paddle_tpu/ops/pallas/flash_attention.py:
 //  - the causal mask is TOP-LEFT aligned, rows >= cols (:74-79);
@@ -65,33 +63,27 @@ struct Args {
   int causal;
 };
 
-// x rounded to T and back: where the Pallas kernels cast to the input
-// dtype before a product.
-template <typename T>
-__device__ __forceinline__ float round_t(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// Stage rows [r0, r0 + kTile) of head h, batch b of a (B, S, H, D)
-// tensor with strides (sb, ss, sh, 1) into `dst` as fp32, row stride
-// LDS. Rows at or past S are zero and never read from memory.
-template <typename T, int D, int LDS>
+// Stage rows [r0, r0 + kTile) of head h, batch b of a fp32 (B, S, H, D)
+// tensor with strides (sb, ss, sh, 1) into `dst`, row stride LDS. Rows
+// at or past S are zero and never read from memory. Every load is issued
+// before the first store, so a thread's loads are in flight together.
+template <int D, int LDS>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src, int b,
-                                          int h, int r0, int S, int64_t sb,
-                                          int64_t ss, int64_t sh) {
+                                          const float* __restrict__ src,
+                                          int b, int h, int r0, int S,
+                                          int64_t sb, int64_t ss, int64_t sh) {
   constexpr int N = kTile * D / kThreads;  // elements per thread
   constexpr int RP = kThreads / D;         // rows covered per step
   const int d = threadIdx.x % D, r = threadIdx.x / D;
-  const T* base = src + b * sb + h * sh + d;
-  T reg[N];
+  const float* base = src + b * sb + h * sh + d;
+  float reg[N];
 #pragma unroll
   for (int u = 0; u < N; ++u) {
     const int row = r0 + r + u * RP;
-    reg[u] = row < S ? base[row * ss] : from_f<T>(0.f);
+    reg[u] = row < S ? base[row * ss] : 0.f;
   }
 #pragma unroll
-  for (int u = 0; u < N; ++u) dst[(r + u * RP) * LDS + d] = to_f(reg[u]);
+  for (int u = 0; u < N; ++u) dst[(r + u * RP) * LDS + d] = reg[u];
 }
 
 // Rows [r0, r0 + kTile) of a (B, H, S) fp32 vector (lse, delta).

@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
 
-  load_tile<float, D, LDS>(qs, q, b, h, q0, a.Sq, a.q_sb, a.q_ss, a.q_sh);
+  load_tile<D, LDS>(qs, q, b, h, q0, a.Sq, a.q_sb, a.q_ss, a.q_sh);
   // rows warp + 8r (r < 8) belong to this warp in the softmax step
   float m_row[8], l_row[8];
 #pragma unroll
@@ -87,10 +87,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   // causal: the tile's last row is q0 + 63, so keys past it are dead
   const int k_end = a.causal ? min(q0 + kTile, a.Sk) : a.Sk;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    load_tile<float, D, LDS>(ks, k, b, h, k0, a.Sk, a.kv_sb, a.kv_ss,
-                             a.kv_sh);
-    load_tile<float, D, LDS>(vs, v, b, h, k0, a.Sk, a.kv_sb, a.kv_ss,
-                             a.kv_sh);
+    load_tile<D, LDS>(ks, k, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
+    load_tile<D, LDS>(vs, v, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
     __syncthreads();
     float s[4][4];
     dot_tile<D, LDS>(s, qs, ks, ty, tx);

@@ -1,8 +1,8 @@
 // Warp-level tensor-core building blocks for the flash kernels on Hopper
 // (sm_90a): cp.async staging, ldmatrix fragment loads and the bf16
 // mma.sync.m16n8k16 product, each as inline PTX. The bf16 forward
-// (flash_fwd.cu) and the bf16 dK/dV backward body (flash_bwd.cu) are
-// built from them.
+// (flash_fwd.cu) and the bf16 dK/dV and dQ backward bodies (flash_bwd.cu)
+// are built from them.
 //
 // Fragment layouts, as the PTX ISA fixes them for
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, with

@@ -56,6 +56,8 @@ _SIGNATURES = {
     # head dim, fused (1) or dK/dV only (0); out: CTAs per SM and
     # shared-memory bytes of the bf16 dK/dV body
     "ptt_flash_bwd_occupancy": [_I, _I, _VP, _VP],
+    # head dim; out: the same for the bf16 dQ body
+    "ptt_flash_bwd_dq_occupancy": [_I, _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -7,17 +7,18 @@ kernel for bf16, a CUDA-core one for fp32), the fused backward
 ``_bwd_fused_kernel`` (:362) and the streaming pair
 ``_bwd_dkv_stream_kernel`` (:162) / ``_bwd_dq_stream_kernel`` (:215)
 (``csrc/flash_bwd.cu``: the fused kernel and the dK/dV pass are one
-body, on the tensor cores for bf16). The kernels' header notes say what
-bounds each on the H100 and how the design answers that.
+body, the dQ pass another, both on the tensor cores for bf16). The
+kernels' header notes say what bounds each on the H100 and how the
+design answers that.
 
 Each wrapper takes paddle's (B, S, H, D) layout: a CPU tensor runs the
 plain version (``flash_fwd_ref`` / ``flash_bwd_ref``, the same
 arithmetic in fp32 with the same bf16 rounding points); a CUDA tensor
 launches the kernel or raises. A view the kernels cannot take (a head
-dim that is not contiguous, k and v with unequal strides; for the bf16
-tensor-core kernels, the forward and the dK/dV body, also a base
-pointer not 16-byte aligned or a stride not a multiple of 8) is copied
-first by :func:`kernel_layout`. ``launches`` counts kernel launches, per
+dim that is not contiguous, k and v with unequal strides; in bf16, where
+every kernel runs on the tensor cores, also a base pointer not 16-byte
+aligned or a stride not a multiple of 8) is copied first by
+:func:`kernel_layout`. ``launches`` counts kernel launches, per
 kernel, and nothing else.
 
 :class:`FlashAttentionFn` is the autograd Function: its forward saves
@@ -111,7 +112,7 @@ def flash_bwd_ref(q, k, v, do, lse, delta, scale: float, causal: bool):
 
 
 # ------------------------------------------------------------------ kernels
-def _cuda_args(name: str, q, k, v, cp_async: bool = False):
+def _cuda_args(name: str, q, k, v):
     """Check what the kernels take and return q, k, v in their layout
     (:func:`kernel_layout`)."""
     if q.device.type != "cuda":
@@ -130,24 +131,23 @@ def _cuda_args(name: str, q, k, v, cp_async: bool = False):
                          f"the CUDA kernels (one of {_HEAD_DIMS})")
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError(f"{name}: batch * heads must be <= 65535")
-    return kernel_layout(q, k, v, cp_async)
+    return kernel_layout(q, k, v)
 
 
-def _fits_kernel(t, cp_async: bool) -> bool:
+def _fits_kernel(t) -> bool:
     if t.stride(-1) != 1:
         return False
-    if not cp_async or t.dtype != torch.bfloat16:
+    if t.dtype != torch.bfloat16:
         return True
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
 
 
-def kernel_layout(q, k, v, cp_async: bool = False):
+def kernel_layout(q, k, v):
     """q, k, v in the layout the flash kernels take, on any device: the
-    head dim contiguous and k and v sharing strides. ``cp_async`` (the
-    bf16 tensor-core kernels, the forward and the dK/dV body, which
-    stage 16-byte chunks by cp.async) adds, for
-    bf16, every base pointer 16-byte aligned and every stride on
-    (B, S, H) a multiple of 8 elements. Views that already fit are
+    head dim contiguous and k and v sharing strides; in bf16 also every
+    base pointer 16-byte aligned and every stride on (B, S, H) a multiple
+    of 8 elements, since every bf16 kernel runs on the tensor cores and
+    stages 16-byte chunks by cp.async. Views that already fit are
     returned as they are (GPT's per-head slices of one qkv projection:
     strides 3HD, 3D, 1 at element offsets 0, D, 2D); the others are
     copied into fresh contiguous tensors, a layout copy that never
@@ -156,10 +156,9 @@ def kernel_layout(q, k, v, cp_async: bool = False):
     def fresh(t):
         return t.clone(memory_format=torch.contiguous_format)
 
-    if not _fits_kernel(q, cp_async):
+    if not _fits_kernel(q):
         q = fresh(q)
-    if not (_fits_kernel(k, cp_async) and _fits_kernel(v, cp_async)) \
-            or k.stride() != v.stride():
+    if not (_fits_kernel(k) and _fits_kernel(v)) or k.stride() != v.stride():
         k, v = fresh(k), fresh(v)
     return q, k, v
 
@@ -171,12 +170,12 @@ def _tail(q, k, scale: float, causal: bool):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _grad_args(name: str, q, k, v, do, lse, delta, cp_async: bool):
+def _grad_args(name: str, q, k, v, do, lse, delta):
     """The backward kernels' inputs in their layout: q, k, v by
-    :func:`kernel_layout`; dO, lse and delta contiguous, and under
-    ``cp_async`` (the bf16 dK/dV body) a bf16 dO at a 16-byte aligned
-    base (a contiguous view at a misaligned offset is copied)."""
-    q, k, v = _cuda_args(name, q, k, v, cp_async)
+    :func:`kernel_layout`; dO, lse and delta contiguous, and a bf16 dO at
+    a 16-byte aligned base (a contiguous view at a misaligned offset is
+    copied)."""
+    q, k, v = _cuda_args(name, q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"{name}: dO must match q's shape and dtype")
     for t, what in ((lse, "lse"), (delta, "delta")):
@@ -184,7 +183,7 @@ def _grad_args(name: str, q, k, v, do, lse, delta, cp_async: bool):
                 q.shape[0], q.shape[2], q.shape[1]):
             raise ValueError(f"{name}: {what} must be fp32 (B, H, Sq)")
     do = do.contiguous()
-    if not _fits_kernel(do, cp_async):
+    if not _fits_kernel(do):
         do = do.clone()
     return q, k, v, do, lse.contiguous(), delta.contiguous()
 
@@ -194,7 +193,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool
     """Flash forward (K1, both routes): ``(O, lse)``."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, scale, causal)
-    q, k, v = _cuda_args("flash_fwd", q, k, v, cp_async=True)
+    q, k, v = _cuda_args("flash_fwd", q, k, v)
     B, Sq, H, D = q.shape
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -212,7 +211,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, scale: float, causal: bool):
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, do, lse, delta, scale, causal)
     q, k, v, do, lse, delta = _grad_args("flash_bwd_fused", q, k, v, do,
-                                         lse, delta, cp_async=True)
+                                         lse, delta)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -230,7 +229,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, do, lse, delta, scale, causal)[1:]
     q, k, v, do, lse, delta = _grad_args("flash_bwd_dkv", q, k, v, do, lse,
-                                         delta, cp_async=True)
+                                         delta)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     err = _build.load_library().ptt_flash_bwd_dkv(
@@ -243,11 +242,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
-    """K3b, second pass: dQ, accumulated in registers and written once."""
+    """K3b, second pass: dQ, accumulated in registers and written once
+    (the same from run to run: no atomics)."""
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, do, lse, delta, scale, causal)[0]
     q, k, v, do, lse, delta = _grad_args("flash_bwd_dq", q, k, v, do, lse,
-                                         delta, cp_async=False)
+                                         delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = _build.load_library().ptt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

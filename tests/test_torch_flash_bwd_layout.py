@@ -1,22 +1,27 @@
 """The bf16 flash backward's tensor-core dataflow, rehearsed on the CPU.
 
-``csrc/flash_bwd.cu``'s dK/dV body (``flash_bwd_mma_kernel``, K3a with
-dQ and K3b's first pass without) runs every product as
-``mma.sync.m16n8k16`` fed by ``ldmatrix``, with lane address patterns
-from ``csrc/flash_mma.cuh``. No card is needed to check that dataflow:
-this file emulates both instructions lane by lane in numpy, following
-the fragment maps written in the header of ``flash_mma.cuh`` (the PTX
-ISA's), and runs
+``csrc/flash_bwd.cu``'s two bf16 bodies, the dK/dV body
+(``flash_bwd_mma_kernel``, K3a with dQ and K3b's first pass without)
+and the dQ body (``flash_dq_mma_kernel``, K3b's second pass), run every
+product as ``mma.sync.m16n8k16`` fed by ``ldmatrix``, with lane address
+patterns from ``csrc/flash_mma.cuh``. No card is needed to check that
+dataflow: this file emulates both instructions lane by lane in numpy,
+following the fragment maps written in the header of ``flash_mma.cuh``
+(the PTX ISA's), and runs
 
 - each address pattern (``a_x4``, ``b_x4``, ``bt_x4``, ``at_x4``; their
   expressions are parsed from the header, so the test follows the
   source) against the operand fragment it is meant to load;
-- every CTA of the new body, step by step as the kernel takes them
+- every CTA of the dK/dV body, step by step as the kernel takes them
   (K/V and the ring stages in shared memory at the kernel's row
   strides, S^T and dP^T on the accumulators, P^T and dS^T packed into A
   fragments, the dS^T tile, the dQ pass and its atomics, the bf16
   stores), on ragged causal and non-causal cases, against the plain
-  version ``flash_bwd_ref``.
+  version ``flash_bwd_ref``;
+- every CTA of the dQ body the same way (Q and dO staged once, K and V
+  through the ring, S and dP on the accumulators, dS packed into the A
+  fragment of dS K, the bf16 stores), in the grid order and with the
+  key chunk that the kernel's source sets (both parsed from it).
 
 The emulated kernel and the plain version differ in summation order and
 in ``exp2`` against ``exp``; P and dS are rounded to bf16 on both sides,
@@ -36,8 +41,8 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import flash_attention as port_fa
 
-MMA_CUH = (Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
-           / "flash_mma.cuh")
+CSRC = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
+MMA_CUH = CSRC / "flash_mma.cuh"
 
 LANES = np.arange(32)
 G, T = LANES // 4, LANES % 4      # the group and the lane in it
@@ -351,3 +356,134 @@ def test_emulated_body_matches_the_plain_backward(Sq, Sk, D, causal,
         worst = np.max(np.abs(out - ref) / (ATOL + RTOL * np.abs(ref)))
         assert worst <= 1.0, (name, worst)
         assert np.abs(ref).max() > 0.5, name   # the case has real gradients
+
+
+# ------------------------------------------------------------ the dQ body
+def _dq_body_source():
+    src = (CSRC / "flash_bwd.cu").read_text()
+    start = src.index("flash_dq_mma_kernel(const Args a) {")
+    return src[start:src.index("\n}\n", start)]
+
+
+def _dq_grid_order():
+    """f(n_tiles, block, causal) -> the query tile that CTA ``block`` of
+    the dQ body owns, parsed from the kernel's ``tile`` expression."""
+    expr = re.search(r"const int tile = (.*?);", _dq_body_source()).group(1)
+    m = re.fullmatch(r"a\.causal \? (.*) : (.*)", expr)
+    branches = m.groups() if m else (expr, expr)
+    py = [b.replace("gridDim.x", "nx").replace("blockIdx.x", "bx")
+          for b in branches]
+    return eval(f"lambda nx, bx, causal: ({py[0]}) if causal else ({py[1]})")
+
+
+DQ_TILE = _dq_grid_order()
+DQ_KC = int(re.search(r"constexpr int KC = (\d+);", _dq_body_source())
+            .group(1))
+
+
+def emulate_dq_cta(q, k, v, do, lse, delta, scale, causal, block, dq_out):
+    """CTA ``block`` of ``flash_dq_mma_kernel`` for one (batch, head): q,
+    do (Sq, D), k, v (Sk, D) bf16 values in fp32; lse, delta (Sq,) fp32.
+    Writes its dQ rows in bf16."""
+    Sq, D = q.shape
+    Sk = k.shape[0]
+    LDS = D + 8
+    TILE = TILE_ROWS * LDS
+    KD, ND, NC = D // 16, D // 8, DQ_KC // 8
+    smem = np.zeros(6 * TILE, np.float32)
+    qs, dos, ks, vs = 0, TILE, 2 * TILE, 4 * TILE
+
+    def stage(dst, src, r0, S):   # cp.async, zero-filled past S
+        for r in range(TILE_ROWS):
+            smem[dst + r * LDS:dst + r * LDS + D] = (
+                src[r0 + r] if r0 + r < S else 0.0)
+
+    q0 = DQ_TILE(-(-Sq // TILE_ROWS), block, causal) * TILE_ROWS
+    stage(qs, q, q0, Sq)
+    stage(dos, do, q0, Sq)
+    k_end = min(q0 + TILE_ROWS, Sk) if causal else Sk
+    n_tiles = -(-k_end // TILE_ROWS)
+    scale_l2 = np.float32(scale) * LOG2E
+    # each lane's rows w0 + G and w0 + G + 8, clamped to Sq - 1
+    rows = [[np.minimum(q0 + 16 * w + G + 8 * i, Sq - 1) for i in range(2)]
+            for w in range(WARPS)]
+    lse_l2 = [[lse[r] * LOG2E for r in rw] for rw in rows]
+    delta_r = [[delta[r] for r in rw] for rw in rows]
+    dq = np.zeros((WARPS, ND, 32, 4), np.float32)
+    for j in range(n_tiles):
+        k0, st = j * TILE_ROWS, j & 1
+        kt, vt = ks + st * TILE, vs + st * TILE
+        stage(kt, k, k0, Sk)
+        stage(vt, v, k0, Sk)
+        for w in range(WARPS):
+            w0 = q0 + 16 * w
+            edge = (causal and k0 + TILE_ROWS - 1 > w0) or k0 + TILE_ROWS > Sk
+            for c in range(0, TILE_ROWS, DQ_KC):
+                s = np.zeros((NC, 32, 4), np.float32)
+                dp = np.zeros((NC, 32, 4), np.float32)
+                for kd in range(KD):
+                    qa = ldsm(smem, _at("a_x4", qs, LDS, 16 * w, 16 * kd))
+                    da = ldsm(smem, _at("a_x4", dos, LDS, 16 * w, 16 * kd))
+                    for n in range(0, NC, 2):
+                        bk = ldsm(smem, _at("b_x4", kt, LDS, c + 8 * n,
+                                            16 * kd))
+                        mma(s[n], qa, bk[:, 0], bk[:, 1])
+                        mma(s[n + 1], qa, bk[:, 2], bk[:, 3])
+                        bv = ldsm(smem, _at("b_x4", vt, LDS, c + 8 * n,
+                                            16 * kd))
+                        mma(dp[n], da, bv[:, 0], bv[:, 1])
+                        mma(dp[n + 1], da, bv[:, 2], bv[:, 3])
+                for n in range(NC):
+                    for e in range(4):
+                        p = np.exp2(s[n][:, e] * scale_l2
+                                    - lse_l2[w][e // 2])
+                        if edge:
+                            row = w0 + G + 8 * (e // 2)
+                            key = k0 + c + 8 * n + 2 * T + e % 2
+                            hide = key >= Sk
+                            if causal:
+                                hide |= row < key
+                            p = np.where(hide, np.float32(0), p)
+                        dp[n][:, e] = p * (dp[n][:, e] - delta_r[w][e // 2]
+                                           ) * np.float32(scale)
+                for kk in range(NC // 2):
+                    sa = pack_a(dp[2 * kk], dp[2 * kk + 1])
+                    for n in range(0, ND, 2):
+                        bf = ldsm(smem, _at("bt_x4", kt, LDS, c + 16 * kk,
+                                            8 * n), trans=True)
+                        mma(dq[w][n], sa, bf[:, 0], bf[:, 1])
+                        mma(dq[w][n + 1], sa, bf[:, 2], bf[:, 3])
+    for w in range(WARPS):
+        for i in range(2):
+            row = q0 + 16 * w + G + 8 * i
+            ok = row < Sq
+            for n in range(ND):
+                cols = 8 * n + 2 * T
+                dq_out[row[ok], cols[ok]] = _bf16(dq[w][n][ok, 2 * i])
+                dq_out[row[ok], cols[ok] + 1] = _bf16(dq[w][n][ok, 2 * i + 1])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_tiles", [1, 5, 130])
+def test_dq_grid_owns_every_query_tile_once(n_tiles, causal):
+    order = [DQ_TILE(n_tiles, bx, causal) for bx in range(n_tiles)]
+    assert sorted(order) == list(range(n_tiles))
+
+
+# the dK/dV body's cases, and D 128 causal with Sq not a multiple of 64:
+# under the causal grid order the last, partial query tile launches first
+DQ_CASES = CASES + [(330, 330, 128, True)]
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal", DQ_CASES)
+def test_emulated_dq_body_matches_the_plain_backward(Sq, Sk, D, causal):
+    q, k, v, do = _inputs(Sq, Sk, D, seed=Sq + Sk + D + 1)
+    scale = 1.0 / np.sqrt(D)
+    lse, delta, (rdq, _, _) = _plain(q, k, v, do, scale, causal)
+    dq = np.full((Sq, D), np.nan, np.float32)
+    for block in range(-(-Sq // TILE_ROWS)):
+        emulate_dq_cta(q, k, v, do, lse, delta, scale, causal, block, dq)
+    assert np.isfinite(dq).all()
+    worst = np.max(np.abs(dq - rdq) / (ATOL + RTOL * np.abs(rdq)))
+    assert worst <= 1.0, worst
+    assert np.abs(rdq).max() > 0.5   # the case has real gradients

@@ -2,12 +2,12 @@
 
 ``kernel_layout`` (``paddle_tpu_torch/ops/kernels/flash_attention.py``)
 decides, on any device, whether q, k and v reach the flash kernels as
-they are or as fresh contiguous copies: the bf16 tensor-core kernels
-(the forward and the backward's dK/dV body) stage 16-byte chunks by
-``cp.async`` (``cp_async=True``), so for them every bf16 base pointer
-must be 16-byte aligned and every stride on (B, S, H) a multiple of 8
-elements; the CUDA-core kernels (fp32, and the bf16 dQ pass) take such
-views as they are. These tests hold the gate to that contract on CPU
+they are or as fresh contiguous copies: every bf16 kernel (the forward,
+the backward's dK/dV body and its dQ body) runs on the tensor cores and
+stages 16-byte chunks by ``cp.async``, so every bf16 base pointer must
+be 16-byte aligned and every stride on (B, S, H) a multiple of 8
+elements; the fp32 kernels, on the CUDA cores, take such views as they
+are. These tests hold the gate to that contract on CPU
 tensors: GPT's per-head qkv views pass without a copy (from the
 model's own forward at ``gpt_tiny`` scale, under bf16 AMP), a view
 misaligned by one element or with an odd stride is copied for the
@@ -58,7 +58,7 @@ def test_gate_passes_qkv_split_views_without_a_copy(D):
     (3SHD, 3HD, 3D, 1) at element offsets 0, D and 2D."""
     B, S, H = 2, 128, 4
     q, k, v = _randn(B, S, H, 3 * D).split(D, dim=-1)
-    got = port_fa.kernel_layout(q, k, v, cp_async=True)
+    got = port_fa.kernel_layout(q, k, v)
     assert _ptrs(got) == _ptrs((q, k, v))
     assert [t.stride() for t in got] == [(S * H * 3 * D, H * 3 * D, 3 * D,
                                           1)] * 3
@@ -73,7 +73,7 @@ def test_gate_sees_gpt_views_in_the_model_forward(monkeypatch):
     real = port_fa.flash_fwd
 
     def spy(q, k, v, scale, causal):
-        got = port_fa.kernel_layout(q, k, v, cp_async=True)
+        got = port_fa.kernel_layout(q, k, v)
         seen.append((q.dtype, _ptrs(got) == _ptrs((q, k, v)), q.stride()))
         return real(q, k, v, scale, causal)
 
@@ -89,46 +89,40 @@ def test_gate_sees_gpt_views_in_the_model_forward(monkeypatch):
                      (S * H * 3 * D, H * 3 * D, 3 * D, 1))] * cfg.num_layers
 
 
-@pytest.mark.parametrize("cp_async", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_gate_copies_a_view_misaligned_by_one_element(dtype, cp_async):
+def test_gate_copies_a_view_misaligned_by_one_element(dtype):
     B, S, H, D = 2, 64, 2, 64
     n = B * S * H * D
     q, k, v = (_randn(n + 1, dtype=dtype, seed=i)[1:].view(B, S, H, D)
                for i in range(3))
     # contiguous, so .contiguous() would hand back the same view
     assert q.is_contiguous() and q.data_ptr() % 16 != 0
-    got = port_fa.kernel_layout(q, k, v, cp_async=cp_async)
-    if dtype == torch.bfloat16 and cp_async:
+    got = port_fa.kernel_layout(q, k, v)
+    if dtype == torch.bfloat16:
         _assert_copied_equal(got, (q, k, v))
-    else:   # the fp32 kernel and the backward load elements
+    else:   # the fp32 kernels load elements
         assert _ptrs(got) == _ptrs((q, k, v))
 
 
-@pytest.mark.parametrize("cp_async", [True, False])
-def test_gate_copies_a_bf16_stride_off_the_16_byte_grid(cp_async):
+def test_gate_copies_a_bf16_stride_off_the_16_byte_grid():
     """(B, S, H, D + 1)[..., :D]: the head dim is contiguous, but the
     strides on (B, S, H) are not multiples of 8."""
     B, S, H, D = 2, 64, 2, 64
     q, k, v = (_randn(B, S, H, D + 1, seed=i)[..., :D] for i in range(3))
     assert q.stride(2) == D + 1
-    got = port_fa.kernel_layout(q, k, v, cp_async=cp_async)
-    if cp_async:
-        _assert_copied_equal(got, (q, k, v))
-    else:
-        assert _ptrs(got) == _ptrs((q, k, v))
+    got = port_fa.kernel_layout(q, k, v)
+    _assert_copied_equal(got, (q, k, v))
 
 
-@pytest.mark.parametrize("cp_async", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_gate_copies_k_and_v_with_unequal_strides(dtype, cp_async):
+def test_gate_copies_k_and_v_with_unequal_strides(dtype):
     """The kernels take one stride triple for k and v together."""
     B, S, H, D = 2, 64, 2, 64
     q = _randn(B, S, H, D, dtype=dtype)
     k = _randn(B, S, H, D, dtype=dtype, seed=1)
     v = _randn(B, H, S, D, dtype=dtype, seed=2).transpose(1, 2)
     assert k.stride() != v.stride()
-    got = port_fa.kernel_layout(q, k, v, cp_async=cp_async)
+    got = port_fa.kernel_layout(q, k, v)
     assert got[0].data_ptr() == q.data_ptr()
     assert got[1].stride() == got[2].stride()
     _assert_copied_equal(got[1:], (k, v))
