@@ -9,12 +9,12 @@ Phases, in order (any failure exits non-zero and prints no result):
 1. card: the ``nvidia-smi`` name and power limit, the capability;
 2. build: ``csrc/*.cu`` -> ``build/kernels/`` with ``nvcc`` for sm_90a,
    then the registers and spills of every K1/K3/K4/K5 instantiation
-   (``-Xptxas -v``; a bf16 K1, K3a, K3b-dkv or K3b-dq that spills fails
-   the run), the tensor-core instructions (HMMA) and atomics (RED,
-   ATOM) that ``cuobjdump -sass`` finds in each bf16 K3 body (no HMMA
-   fails the run, and so do atomics in the K3b-dq body, whose dQ is
-   written once), and the bf16 K1's and K3 bodies' shared memory and
-   CTAs per SM from the CUDA runtime;
+   (``-Xptxas -v``; a bf16 K1, K3a, K3b-dkv, K3b-dq or K5 body that
+   spills fails the run), the tensor-core instructions (HMMA) and
+   atomics (RED, ATOM) that ``cuobjdump -sass`` finds in each bf16 K3
+   and K5 body (no HMMA fails the run, and so do atomics in the K3b-dq
+   body, whose dQ is written once), and the bf16 K1's, K3 and K5 bodies'
+   shared memory and CTAs per SM from the CUDA runtime;
 3. kernels: K2 LayerNorm, K4 paged decode and K5 chunk prefill, each
    against its plain PyTorch version in fp32 and bf16 at the serving
    path's shapes, on pools poisoned where no query may read (1e9 in
@@ -24,7 +24,11 @@ Phases, in order (any failure exits non-zero and prints no result):
    card's lower bound; then the int8 branches of K4 and K5 on int8 code
    pools with (block, head) scales, poisoned with saturated codes (127)
    in every row no query may read and a 1e7 scale in every block no
-   table names (NaN scales there for the kernel alone);
+   table names (NaN scales there for the kernel alone). K5 also on a
+   chunk running off a table of 5 blocks, and with bf16 q (its
+   tensor-core body) on three slots at their own starts, every bf16 case
+   held to K5_TOL as well, element by element, and a bf16 q misaligned
+   for cp.async that its C entry point must refuse;
 4. flash: K1 (forward), K3a (fused backward) and K3b (the streaming
    dK/dV and dQ passes) against their plain versions in fp32 and bf16
    at the training shape, non-causal, at head_dim 128, and on the
@@ -53,6 +57,11 @@ Phases, in order (any failure exits non-zero and prints no result):
    stay 0), the trie must hold every block left in use, the greedy
    tokens must equal a run of the same trace with the cache off, and
    their agreement with the fp32 teacher-forced argmax must reach 0.9;
+5c. bf16 serving: ``gpt2_small`` in bf16 (full width and depth) serves
+   phase 5's first 8 greedy requests on bf16 pools, then on int8 pools,
+   so that prefill runs K5's tensor-core body end to end: exact launch
+   counts, and greedy agreement with the bf16 teacher-forced argmax of
+   at least 0.9;
 6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
    ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
@@ -122,6 +131,23 @@ K3_TOL = {"float32": {"rtol": 1e-5,
                       "atol": {"dQ": 8e-6, "dK": 5e-6, "dV": 4e-6}},
           "bfloat16": {"rtol": 1e-2,
                        "atol": {"dQ": 4e-3, "dK": 4e-3, "dV": 1.5e-2}}}
+
+
+# K5's bf16 body (q bf16; bf16 pools, or int8 codes with their scales)
+# is held to more than ATOL too: element by element, |out - plain| <=
+# atol + rtol |plain|, against the plain version evaluated in fp32 on the
+# same values (int8 codes dequantized in fp32, as the kernel folds the
+# scales), on clean, poisoned and NaN-poisoned pools. The two differ by
+# one rounding of the output to bf16 (rtol) and by P rounded before P.V
+# (atol): to bf16 over bf16 pools, to fp16 over int8 pools, whose values
+# reach the blocks' absmax. Over every K5 case of this script on an
+# H100 the sound body's worst errors are 1.88e-3 + 1e-2 |plain| over
+# bf16 pools and 6.0e-4 + 1e-2 |plain| over int8 pools
+# (k5_fault_check.py, PERF.md); the limits sit 3.2x and 3.3x above them,
+# and that script shows each planted fault that changes an output
+# failing them.
+K5_TOL = {"bf16": {"atol": 6e-3, "rtol": 1e-2},
+          "int8": {"atol": 2e-3, "rtol": 1e-2}}
 
 
 def fail(msg: str):
@@ -207,6 +233,7 @@ def build_phase():
 
 _PTXAS_PAGED = re.compile(r"paged_attn_kernelI(f|13__nv_bfloat16)"
                           r"(f|a|S\d*_)Li(\d+)ELi\d+ELi\d+E")
+_PTXAS_K5 = re.compile(r"chunk_prefill_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
 _PTXAS_FLASH = re.compile(r"flash_fwd_(mma_)?kernelI(f)?Li(\d+)E")
 _PTXAS_BWD = re.compile(r"flash_(bwd_mma|dq_mma|dkv|dq)_kernelILi(\d+)E"
                         r"(?:Lb(\d)E)?")
@@ -251,6 +278,11 @@ def _ptxas_label(src: str, name):
             return f"{what} fp32 CUDA cores, D {D}", False, None
         return (f"{what} bf16 mma.sync, D {D}", True,
                 ("ptt_flash_bwd_occupancy", D, int(fused)))
+    if name.re is _PTXAS_K5:
+        D, int8 = int(name.group(1)), name.group(2) == "a"
+        return (f"K5 bf16 mma.sync, pool {'int8' if int8 else 'bf16'}, D "
+                f"{D}", True, ("ptt_chunk_prefill_occupancy", D,
+                               2 if int8 else 1))
     tq = "fp32" if name.group(1) == "f" else "bf16"
     tp = "int8" if name.group(2) == "a" else tq
     return f"q {tq}, pool {tp}, D {name.group(3)}", False, None
@@ -286,19 +318,19 @@ def _sass_ops(obj: str, ops=("HMMA", "RED", "ATOM")):
 
 def ptxas_phase():
     """Registers and spills of every K1, K3, K4 and K5 instantiation, from
-    ``nvcc -Xptxas -v`` on their sources; a bf16 K1, K3a, K3b-dkv or
-    K3b-dq (the tensor-core bodies) that spills fails the run. For those
+    ``nvcc -Xptxas -v`` on their sources; a bf16 K1, K3a, K3b-dkv, K3b-dq
+    or K5 (the tensor-core bodies) that spills fails the run. For those
     bodies also their shared memory and the CTAs an SM holds, and for the
-    bf16 K3 bodies the tensor-core products (HMMA) and atomics in their
-    SASS: a body without HMMA, a K3a without atomics, or a K3b-dq with
-    any, fails."""
+    bf16 K3 and K5 bodies the tensor-core products (HMMA) and atomics in
+    their SASS: a body without HMMA, a K3a without atomics, or a K3b-dq
+    with any, fails."""
     import tempfile
 
     from paddle_tpu_torch.ops.kernels import _build
 
-    pats = {"paged_attention.cu": _PTXAS_PAGED,
-            "chunk_prefill.cu": _PTXAS_PAGED, "flash_fwd.cu": _PTXAS_FLASH,
-            "flash_bwd.cu": _PTXAS_BWD}
+    pats = {"paged_attention.cu": (_PTXAS_PAGED,),
+            "chunk_prefill.cu": (_PTXAS_K5, _PTXAS_PAGED),
+            "flash_fwd.cu": (_PTXAS_FLASH,), "flash_bwd.cu": (_PTXAS_BWD,)}
     srcs = [p for p in _build.sources() if p.name in pats]
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
@@ -310,13 +342,16 @@ def ptxas_phase():
         check(all(p.returncode == 0 for p in procs),
               "nvcc -Xptxas -v failed:\n" + "\n".join(
                   o for p, o in zip(procs, outs) if p.returncode))
-        sass = _sass_ops(f"{tmp}/flash_bwd.o")
-    seen = {"K1": 0, "K3": 0}
+        sass = {**_sass_ops(f"{tmp}/flash_bwd.o"),
+                **_sass_ops(f"{tmp}/chunk_prefill.o")}
+    seen = {"K1": 0, "K3": 0, "K5": 0}
     for src, out in zip(srcs, outs):
         name = spill = None
         for line in out.splitlines():
             if "Compiling entry function" in line:
-                name = pats[src.name].search(line)
+                name = next((m for m in (p.search(line)
+                                         for p in pats[src.name]) if m),
+                            None)
                 full = line.split("'")[1] if "'" in line else ""
             elif name is not None and "spill" in line:
                 spill = _SPILL.search(line)
@@ -330,7 +365,7 @@ def ptxas_phase():
                     extra = _occupancy(*occ)
                     check(stores == loads == 0, f"ptxas: {label} spills "
                           f"{stores} bytes stored, {loads} loaded")
-                if mma and src.name == "flash_bwd.cu":
+                if mma and src.name in ("flash_bwd.cu", "chunk_prefill.cu"):
                     ops = sass.get(full)
                     check(ops is not None and ops["HMMA"] > 0,
                           f"SASS: {label} has no HMMA ({ops})")
@@ -347,9 +382,9 @@ def ptxas_phase():
                       f"{stores} bytes spill stores, {loads} bytes spill "
                       f"loads{extra}", flush=True)
                 name = None
-    check(seen == {"K1": 2, "K3": 6}, f"ptxas: tensor-core bodies seen "
-          f"{seen}, expected K1 at D 64 and 128, K3a, K3b-dkv and K3b-dq "
-          "at both")
+    check(seen == {"K1": 2, "K3": 6, "K5": 4}, f"ptxas: tensor-core bodies "
+          f"seen {seen}, expected K1 at D 64 and 128, K3a, K3b-dkv and "
+          "K3b-dq at both, K5 over bf16 and int8 pools at both")
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
@@ -363,13 +398,13 @@ def _err(out, ref) -> float:
 
 
 def _record(rows, name, dtype, shape, err, timer, kernel, plain, library,
-            nbytes, flops):
+            nbytes, flops, **extra):
     bound_ms, bound_by = _bound(nbytes, flops, dtype)
     row = {"kernel": name, "dtype": dtype, "shape": shape,
            "max_abs_err": err, "kernel_ms": timer(kernel),
            "plain_ms": timer(plain),
            "library_ms": timer(library), "bound_ms": bound_ms,
-           "bound_by": bound_by}
+           "bound_by": bound_by, **extra}
     rows.append(row)
     print("  " + json.dumps(row), flush=True)
 
@@ -460,8 +495,6 @@ def _dense_view(torch, kp, vp, table_t, nrows):
 
 def _attention_case(torch, timer, rows, name, kernel_fn, ref_fn, q, kp, vp,
                     table_t, table, t, reach, dn, shape, nbytes, flops):
-    import torch.nn.functional as TF
-
     out = kernel_fn(q, kp, vp, table_t, t)
     ref = ref_fn(q.float(), kp.float(), vp.float(), table_t, t)
     kpp, vpp = _poison(torch, kp, vp, table, reach)
@@ -478,21 +511,28 @@ def _attention_case(torch, timer, rows, name, kernel_fn, ref_fn, q, kp, vp,
               _err(out_n, out))
     check(err <= ATOL[dn], f"{name} {dn} {shape}: max |kernel - plain| "
           f"{err} > {ATOL[dn]} (clean, poisoned, or poisoned vs clean)")
-    # library yardstick: SDPA over the pre-gathered dense view (gather
-    # not timed), masked col <= t + i
-    b, s = q.shape[0], q.shape[1]
+    _record(rows, name, dn, shape, err, timer,
+            lambda: kernel_fn(q, kp, vp, table_t, t),
+            lambda: ref_fn(q, kp, vp, table_t, t),
+            _sdpa_yardstick(torch, q, kp, vp, table_t, table, t, reach),
+            nbytes=nbytes, flops=flops)
+
+
+def _sdpa_yardstick(torch, q, kp, vp, table_t, table, t, reach):
+    """The library call of a K4/K5 row: SDPA over the slots' dense view,
+    gathered from full-precision pools beforehand (the gather not timed),
+    masked col <= t + i."""
+    import torch.nn.functional as TF
+
+    s = q.shape[1]
     nrows = min(int(max(reach)) + 1, table.shape[1] * kp.shape[1])
     kd, vd = _dense_view(torch, kp, vp, table_t, nrows)
     qd = q.transpose(1, 2).contiguous()
     tt = torch.as_tensor(t, device="cuda").reshape(-1, 1, 1, 1)
     mask = (torch.arange(nrows, device="cuda")[None, None, None, :]
             <= tt + torch.arange(s, device="cuda")[None, None, :, None])
-    _record(rows, name, dn, shape, err, timer,
-            lambda: kernel_fn(q, kp, vp, table_t, t),
-            lambda: ref_fn(q, kp, vp, table_t, t),
-            lambda: TF.scaled_dot_product_attention(qd, kd, vd,
-                                                    attn_mask=mask),
-            nbytes=nbytes, flops=flops)
+    return lambda: TF.scaled_dot_product_attention(qd, kd, vd,
+                                                   attn_mask=mask)
 
 
 def _pool_case_q(torch, rs, nslots, bp, bs, H, D, spare=16):
@@ -537,10 +577,9 @@ def _poison_q(torch, codes, scales, table, reach, dead_scale=1e7):
 def _attention_case_q(torch, timer, rows, name, kernel_fn, ref_fn, q, codes,
                       scales, table_t, table, t, reach, dn, shape, nbytes,
                       flops):
-    """The int8 branch of K4/K5 against its plain version: clean pools,
+    """The int8 branch of K4 against its plain version: clean pools,
     poisoned pools (1e7 scales), and the kernel alone with NaN scales in
     every block no table names."""
-    import torch.nn.functional as TF
 
     def kern(c, x):
         return kernel_fn(q, c[0], c[1], table_t, t, k_scale=x[0],
@@ -570,19 +609,11 @@ def _attention_case_q(torch, timer, rows, name, kernel_fn, ref_fn, q, codes,
           "poisoned vs clean)")
     # library yardstick: SDPA over the dense view dequantized beforehand
     # (neither the gather nor the dequant is timed)
-    b, s = q.shape[0], q.shape[1]
-    nrows = min(int(max(reach)) + 1, table.shape[1] * codes[0].shape[1])
     kp, vp = ((c.float() * x[:, None, :, None]).to(q.dtype)
               for c, x in zip(codes, scales))
-    kd, vd = _dense_view(torch, kp, vp, table_t, nrows)
-    qd = q.transpose(1, 2).contiguous()
-    tt = torch.as_tensor(t, device="cuda").reshape(-1, 1, 1, 1)
-    mask = (torch.arange(nrows, device="cuda")[None, None, None, :]
-            <= tt + torch.arange(s, device="cuda")[None, None, :, None])
     _record(rows, name, dn, shape, err, timer, lambda: kern(codes, scales),
             lambda: plain(codes, scales),
-            lambda: TF.scaled_dot_product_attention(qd, kd, vd,
-                                                    attn_mask=mask),
+            _sdpa_yardstick(torch, q, kp, vp, table_t, table, t, reach),
             nbytes=nbytes, flops=flops)
 
 
@@ -619,31 +650,6 @@ def paged_q_phase(torch, timer, rows):
                           nbytes, flops)
 
 
-def chunk_q_phase(torch, timer, rows):
-    from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
-
-    H, D, bs, bp = 12, 64, 16, 64
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[1]
-        for s, start in ((128, 0), (128, 517)):
-            rs = np.random.RandomState(32 + start + s)
-            codes, scales, table_t, table = _pool_case_q(torch, rs, 1, bp,
-                                                         bs, H, D)
-            q = torch.from_numpy(rs.randn(1, s, H, D).astype(
-                np.float32)).to("cuda", dtype)
-            t = torch.tensor(start, dtype=torch.int32, device="cuda")
-            keys = min(start + s, bp * bs)
-            nbytes = _q_bytes(H, D, bs, keys, (keys - 1) // bs + 1, s,
-                              q.element_size(), table.nbytes)
-            flops = 4 * H * D * sum(min(start + i + 1, keys)
-                                    for i in range(s))
-            _attention_case_q(torch, timer, rows, "K5-int8",
-                              k5.chunk_prefill, k5.chunk_prefill_ref, q,
-                              codes, scales, table_t, table, t,
-                              [start + s - 1], dn, [s, start, H, D, bs, bp],
-                              nbytes, flops)
-
-
 def paged_phase(torch, timer, rows):
     from paddle_tpu_torch.ops.kernels import paged_attention as k4
 
@@ -668,30 +674,215 @@ def paged_phase(torch, timer, rows):
                         flops)
 
 
-def chunk_phase(torch, timer, rows):
+# K5's cases (s, start): a prompt's first chunk, its second, a chunk over
+# the serving path's deepest prefix, a chunk length of no power of two,
+# and a chunk whose pad tail runs past the table's end; the int8 pools at
+# the first and the deepest. Both pools also: a chunk running off a
+# table of 5 blocks (80 rows, no multiple of a 64-key tile), whose last
+# key tile holds 48 zero-filled rows past the reach that its 24 pad
+# rows' positions would admit (unmasked, they would take a tenth or more
+# of those rows' softmax); and for bf16 q three slots at their own
+# starts (the kernel takes a start per slot).
+K5_SHAPES = ((128, 0), (128, 128), (128, 517), (100, 300), (64, 1000))
+K5_Q_SHAPES = ((128, 0), (128, 517))
+K5_OFF_TABLE = (64, 40, 5)              # s, start, bp
+K5_SLOTS = (128, (0, 517, 260))
+K5_GEOMETRY = (12, 64, 16, 64)          # H, D, bs, bp: gpt2_small's
+
+
+def k5_case_inputs(torch, dtype, int8, shapes=None):
+    """Every K5 case of phase 3 at q's ``dtype`` (or the single-slot
+    (s, start) ``shapes``), over fp pools (q's dtype) or int8 code pools:
+    dicts of the inputs, the shape label and the bytes and operations a
+    case must move and do."""
+    H, D, bs, bp0 = K5_GEOMETRY
+    if shapes is not None:
+        cases = [(1, s, (start,), bp0) for s, start in shapes]
+    else:
+        cases = [(1, s, (start,), bp0) for s, start in
+                 (K5_Q_SHAPES if int8 else K5_SHAPES)]
+        cases.append((1, K5_OFF_TABLE[0], (K5_OFF_TABLE[1],),
+                      K5_OFF_TABLE[2]))
+        if dtype == torch.bfloat16:
+            cases.append((len(K5_SLOTS[1]), K5_SLOTS[0], K5_SLOTS[1], bp0))
+    for b, s, starts, bp in cases:
+        rs = np.random.RandomState((32 if int8 else 31) + starts[0] + s
+                                   + 1000 * (b - 1))
+        if int8:
+            codes, scales, table_t, table = _pool_case_q(torch, rs, b, bp,
+                                                         bs, H, D)
+            pools = (codes, scales)
+        else:
+            kp, vp, table_t, table = _pool_case(torch, rs, b, bp, bs, H, D,
+                                                dtype)
+            pools = (kp, vp)
+        q = torch.from_numpy(rs.randn(b, s, H, D).astype(np.float32)).to(
+            "cuda", dtype)
+        t_np = np.asarray(starts, np.int32)
+        t = (torch.tensor(starts[0], dtype=torch.int32, device="cuda")
+             if b == 1 else torch.from_numpy(t_np).cuda())
+        sz = q.element_size()
+        keys = np.minimum(t_np + s, bp * bs)     # rows the table can hold
+        if int8:
+            nbytes = _q_bytes(H, D, bs, int(keys.sum()),
+                              int(((keys - 1) // bs + 1).sum()), b * s, sz,
+                              table.nbytes + (4 * b if b > 1 else 0))
+        else:
+            nbytes = (int(keys.sum()) * H * D * 2 * sz + 2 * b * s * H * D * sz
+                      + table.nbytes + (4 * b if b > 1 else 0))
+        flops = 4 * H * D * sum(min(st + i + 1, k) for st, k in
+                                zip(t_np, keys) for i in range(s))
+        shape = [s, starts[0], H, D, bs, bp] if b == 1 else \
+            [b, s, list(starts), H, D, bs, bp]
+        yield dict(q=q, pools=pools, table_t=table_t, table=table, t=t,
+                   reach=t_np + s - 1, int8=int8, shape=shape,
+                   nbytes=nbytes, flops=flops)
+
+
+def k5_run(torch, case):
+    """K5 on one case: the kernel's outputs on clean pools, on pools
+    poisoned where no query may read (1e9 rows or saturated codes, 1e7
+    scales in blocks no table names) and on pools with NaN there; the
+    plain version in q's dtype (the shared gate's, the reference's order:
+    int8 codes dequantized to q's dtype) and in fp32 (K5_TOL's), clean
+    and poisoned."""
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
 
-    H, D, bs, bp = 12, 64, 16, 64
+    q, table_t, t = case["q"], case["table_t"], case["t"]
+
+    def kern(a, b, sc=(None, None)):
+        return k5.chunk_prefill(q, a, b, table_t, t, k_scale=sc[0],
+                                v_scale=sc[1])
+
+    def plain(qq, a, b, sc=(None, None)):
+        return k5.chunk_prefill_ref(qq, a, b, table_t, t, k_scale=sc[0],
+                                    v_scale=sc[1])
+
+    if case["int8"]:
+        codes, scales = case["pools"]
+        pc, px = _poison_q(torch, codes, scales, case["table"], case["reach"])
+        nc, nx = _poison_q(torch, codes, scales, case["table"], case["reach"],
+                           dead_scale=float("nan"))
+        outs = (kern(*codes, scales), kern(*pc, px), kern(*nc, nx))
+        shared = (plain(q, *codes, scales), plain(q, *pc, px))
+        exact = (plain(q.float(), *codes, scales), plain(q.float(), *pc, px))
+    else:
+        kp, vp = case["pools"]
+        kpp, vpp = _poison(torch, kp, vp, case["table"], case["reach"])
+        kpn, vpn = _poison(torch, kp, vp, case["table"], case["reach"],
+                           dead=float("nan"))
+        outs = (kern(kp, vp), kern(kpp, vpp), kern(kpn, vpn))
+        exact = (plain(q.float(), kp.float(), vp.float()),
+                 plain(q.float(), kpp.float(), vpp.float()))
+        shared = exact
+    torch.cuda.synchronize()
+    return outs, shared, exact
+
+
+def k5_shared_error(dn, int8, outs, shared):
+    """The gate every K4/K5 case is held to: the largest |kernel - plain|
+    over clean, poisoned, poisoned against clean and NaN-poisoned against
+    clean, relative to max(1, max |plain|) for bf16 q over int8 pools
+    (whose plain version rounds the dequantized view to bf16), else
+    absolute."""
+    out, out_p, out_n = outs
+    ref, ref_p = shared
+    err = max(_err(out, ref), _err(out_p, ref_p), _err(out_p, out),
+              _err(out_n, out))
+    norm = max(1.0, float(ref.float().abs().max())) \
+        if int8 and dn == "bfloat16" else 1.0
+    return err, err / norm
+
+
+def k5_share(int8, outs, exact) -> float:
+    """K5's own measure of bf16 q: the largest |out - plain| / (atol +
+    rtol |plain|) of any element, against the fp32 plain version, over
+    clean, poisoned and NaN-poisoned pools (NaN if any is not finite)."""
+    tol = K5_TOL["int8" if int8 else "bf16"]
+    worst = 0.0
+    for out, ref in zip(outs, (exact[0], exact[1], exact[0])):
+        ref = ref.float()
+        ratio = (out.float() - ref).abs() / (tol["atol"]
+                                             + tol["rtol"] * ref.abs())
+        if not _finite(ratio):
+            return float("nan")
+        worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def _finite(x) -> bool:
+    return bool(x.isfinite().all())
+
+
+def chunk_phase(torch, timer, rows, int8):
+    """K5 (``int8``: K5-int8) on every case, fp32 and bf16: the shared
+    gate, and for bf16 q K5_TOL; timed beside its plain version and SDPA
+    over the dense view gathered (and dequantized) beforehand."""
+    from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
+
+    name = "K5-int8" if int8 else "K5"
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        # (64, 1000): a chunk whose pad tail runs past the table's end
-        for s, start in ((128, 0), (128, 128), (128, 517), (100, 300),
-                         (64, 1000)):
-            rs = np.random.RandomState(31 + start + s)
-            kp, vp, table_t, table = _pool_case(torch, rs, 1, bp, bs, H, D,
-                                                dtype)
-            q = torch.from_numpy(rs.randn(1, s, H, D).astype(
-                np.float32)).to("cuda", dtype)
-            t = torch.tensor(start, dtype=torch.int32, device="cuda")
-            sz = q.element_size()
-            keys = min(start + s, bp * bs)     # rows the table can hold
-            nbytes = keys * H * D * 2 * sz + 2 * s * H * D * sz + table.nbytes
-            flops = 4 * H * D * sum(min(start + i + 1, keys)
-                                    for i in range(s))
-            _attention_case(torch, timer, rows, "K5", k5.chunk_prefill,
-                            k5.chunk_prefill_ref, q, kp, vp, table_t, table,
-                            t, [start + s - 1], dn,
-                            [s, start, H, D, bs, bp], nbytes, flops)
+        for case in k5_case_inputs(torch, dtype, int8):
+            shape = case["shape"]
+            outs, shared, exact = k5_run(torch, case)
+            check(all(_finite(o) for o in outs),
+                  f"{name} {dn} {shape}: non-finite output on a poisoned "
+                  "pool")
+            err, rel = k5_shared_error(dn, int8, outs, shared)
+            check(rel <= ATOL[dn], f"{name} {dn} {shape}: max |kernel - "
+                  f"plain| {err} (relative {rel}) > {ATOL[dn]} (clean, "
+                  "poisoned, or poisoned vs clean)")
+            extra = {}
+            if dn == "bfloat16":
+                share = k5_share(int8, outs, exact)
+                tol = K5_TOL["int8" if int8 else "bf16"]
+                check(share <= 1.0, f"{name} {dn} {shape}: an element is "
+                      f"off by {share} x (atol {tol['atol']} + rtol "
+                      f"{tol['rtol']} |plain|)")
+                extra = {"k5_limit_share": share, "k5_tol": tol}
+            q, table_t, t = case["q"], case["table_t"], case["t"]
+            if int8:    # the library's view is dequantized beforehand
+                (kc, vc), sc = case["pools"]
+                kd, vd = ((c.float() * x[:, None, :, None]).to(q.dtype)
+                          for c, x in zip((kc, vc), sc))
+            else:
+                (kc, vc), sc = case["pools"], (None, None)
+                kd, vd = kc, vc
+            _record(rows, name, dn, shape, err, timer,
+                    lambda: k5.chunk_prefill(q, kc, vc, table_t, t,
+                                             k_scale=sc[0], v_scale=sc[1]),
+                    lambda: k5.chunk_prefill_ref(q, kc, vc, table_t, t,
+                                                 k_scale=sc[0],
+                                                 v_scale=sc[1]),
+                    _sdpa_yardstick(torch, q, kd, vd, table_t, case["table"],
+                                    t, case["reach"]),
+                    nbytes=case["nbytes"], flops=case["flops"], **extra)
+        if dtype == torch.bfloat16 and not int8:
+            _k5_refuses_misaligned(torch, k5)
+
+
+def _k5_refuses_misaligned(torch, k5):
+    """A bf16 q one element past a 16-byte boundary reaches the C entry,
+    which must refuse it (cudaErrorInvalidValue = 1): cp.async takes
+    16-byte chunks. Nothing is launched or counted."""
+    case = next(k5_case_inputs(torch, torch.bfloat16, False))
+    q = case["q"]
+    buf = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
+    qm = buf[1:q.numel() + 1].view(q.shape)
+    qm.copy_(q)
+    check(qm.is_contiguous() and qm.data_ptr() % 16 != 0,
+          "the misaligned K5 case is not misaligned")
+    before = k5.launches
+    try:
+        k5.chunk_prefill(qm, *case["pools"], case["table_t"], case["t"])
+    except RuntimeError as e:
+        check("CUDA error 1 " in str(e), f"K5 misaligned q: {e}")
+    else:
+        fail("K5 launched on a bf16 q misaligned for cp.async")
+    check(k5.launches == before, "K5 counted a refused launch")
+    print("  K5 bfloat16: a q misaligned by one element is refused by the C "
+          "entry", flush=True)
 
 
 # (B, S, H, D, causal): the training shape, non-causal, head_dim 128; the
@@ -1097,12 +1288,100 @@ def flash_phase(torch, timer, rows):
     return long_launches
 
 
-def serving_phase(torch, card):
+def _serving_trace(vocab):
+    """Phase 5's 16 requests from ``RandomState(0)``: prompts of 24-700
+    tokens, 32-64 new, 12 greedy and 4 at temperature 0.8 / top-p 0.9.
+    Returned as Request keyword dicts."""
+    rs = np.random.RandomState(0)
+    sampled = set(rs.choice(16, 4, replace=False).tolist())
+    out = []
+    for i in range(16):
+        plen = int(rs.randint(24, 701))
+        n = int(rs.randint(32, 65))
+        prompt = rs.randint(0, vocab, plen).tolist()
+        kw = (dict(temperature=0.8, top_p=0.9) if i in sampled
+              else dict(greedy=True))
+        out.append(dict(prompt=prompt, max_new_tokens=n, **kw))
+    return out
+
+
+def _serve(torch, model, trace, **engine_kw):
+    """One run of ``trace`` through ``ServingEngine(model, 8 slots, max_len
+    1024, blocks of 16, chunks of 128, **engine_kw)`` on the card, after a
+    warm-up request (cuBLAS handles, the allocator) outside the counted
+    run: the engine, the requests, their streams, the aggregate, the wall
+    seconds and the launch counts of the run (every counter set to 0 just
+    before it)."""
     from paddle_tpu_torch.inference import Request, ServingEngine
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
     from paddle_tpu_torch.ops.kernels import layer_norm as k2
     from paddle_tpu_torch.ops.kernels import paged_attention as k4
+
+    eng = ServingEngine(model, max_batch_slots=8, max_len=1024,
+                        block_size=16, prefill_chunk=128, seed=0,
+                        device="cuda", **engine_kw)
+    eng.submit(Request(prompt=[1, 2, 3], max_new_tokens=4, greedy=True))
+    eng.run()
+    streamed = {}
+    reqs = [eng.submit(Request(on_token=lambda r, tok, done: streamed.
+                               setdefault(r.id, []).append((tok, bool(done))),
+                               **kw)) for kw in trace]
+    torch.cuda.synchronize()
+    for m in (k2, k4, k5):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    agg = eng.run().aggregate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K2": k2.launches, "K4": k4.launches, "K5": k5.launches,
+                "K4-int8": k4.launches_q, "K5-int8": k5.launches_q}
+    for r in reqs:
+        check(r.status == "done" and r.finish_reason in ("length", "eos"),
+              f"request {r.id} ended {r.status}/{r.finish_reason}")
+        check([tk for tk, _ in streamed[r.id]] == r.tokens
+              and streamed[r.id][-1][1],
+              f"request {r.id}: the stream differs from its tokens")
+    return eng, reqs, agg, wall, launches
+
+
+def _check_launches(what, launches, L, chunks, steps, int8):
+    """The kernels' counters against the engine's own chunk and step
+    counts: K2 twice a layer and once at the end of every forward, K4 a
+    layer a decode step, K5 a layer a prefill chunk (int8 pools: their
+    int8 counters, the fp ones 0)."""
+    q = "-int8" if int8 else ""
+    want = {"K2": (2 * L + 1) * (chunks + steps), "K4": 0, "K5": 0,
+            "K4-int8": 0, "K5-int8": 0}
+    want.update({f"K4{q}": L * steps, f"K5{q}": L * chunks})
+    check(launches == want, f"{what}: launch counts {launches} != {want} "
+          f"implied by {chunks} chunks and {steps} steps")
+
+
+def _agreement(torch, model, reqs):
+    """Greedy tokens equal to the argmax of a teacher-forced no-cache
+    forward of prompt + tokens[:-1]: (agreeing, checked)."""
+    agree = total = 0
+    with torch.inference_mode():
+        for r in reqs:
+            if not r.greedy:
+                continue
+            ids = torch.tensor([list(r.prompt) + r.tokens[:-1]],
+                               device="cuda")
+            arg = model(ids)[0, len(r.prompt) - 1:].argmax(-1).cpu().numpy()
+            agree += int((arg == np.asarray(r.tokens)).sum())
+            total += len(r.tokens)
+    return agree, total
+
+
+def _perf_line(what, card, agg, wall):
+    return (f"{what} perf on {card}: {agg['aggregate_tokens_per_s']:.1f} "
+            f"tokens/s, TTFT p50 {agg['ttft_p50_s'] * 1e3:.1f} ms, decode "
+            f"step p50 {agg['decode_step_ms_p50']:.2f} ms, wall {wall:.2f} s, "
+            f"kv_bytes_in_use_peak {int(agg['kv_bytes_in_use_peak'])}")
+
+
+def serving_phase(torch, card):
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
 
     # fp32 end to end (no TF32, set in main): the greedy check below
     # compares two fp32 computations of the same logits
@@ -1111,55 +1390,15 @@ def serving_phase(torch, card):
     # residual output projections scaled by 1/sqrt(2 * layers)
     model = GPTForCausalLM(cfg, device="cuda", seed=0)
     model.eval()
-    eng = ServingEngine(model, max_batch_slots=8, max_len=1024,
-                        block_size=16, prefill_chunk=128, seed=0,
-                        device="cuda")
-    # warm-up (cuBLAS handles, allocator), outside the counted run
-    eng.submit(Request(prompt=[1, 2, 3], max_new_tokens=4, greedy=True))
-    eng.run()
-
-    rs = np.random.RandomState(0)
-    reqs, streamed = [], {}
-    sampled = set(rs.choice(16, 4, replace=False).tolist())
-    for i in range(16):
-        plen = int(rs.randint(24, 701))
-        n = int(rs.randint(32, 65))
-        prompt = rs.randint(0, cfg.vocab_size, plen).tolist()
-        kw = (dict(temperature=0.8, top_p=0.9) if i in sampled
-              else dict(greedy=True))
-        reqs.append(Request(
-            prompt=prompt, max_new_tokens=n,
-            on_token=lambda r, tok, done: streamed.setdefault(
-                r.id, []).append((tok, bool(done))), **kw))
-    for r in reqs:
-        eng.submit(r)
-
-    for m in (k2, k4, k5):
-        m.reset_launches()
-    t0 = time.perf_counter()
-    agg = eng.run().aggregate()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"K2": k2.launches, "K4": k4.launches, "K5": k5.launches}
-    check(k4.launches_q == k5.launches_q == 0,
-          "fp32 pools launched an int8 kernel")
-
+    _, reqs, agg, wall, launches = _serve(torch, model,
+                                          _serving_trace(cfg.vocab_size))
     chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
-    L = cfg.num_layers
     print(f"serving: {int(agg['completed'])} requests, {chunks} prefill "
           f"chunks, {steps} decode steps, {int(agg['preemptions'])} "
           f"preemptions, blocks peak {int(agg['blocks_in_use_peak'])}, "
           f"launches {launches}", flush=True)
-    for r in reqs:
-        check(r.status == "done" and r.finish_reason in ("length", "eos"),
-              f"request {r.id} ended {r.status}/{r.finish_reason}")
-        check([tk for tk, _ in streamed[r.id]] == r.tokens
-              and streamed[r.id][-1][1],
-              f"request {r.id}: the stream differs from its tokens")
-    want = {"K2": (2 * L + 1) * (chunks + steps), "K4": L * steps,
-            "K5": L * chunks}
-    check(launches == want, f"launch counts {launches} != {want} implied "
-          f"by {chunks} chunks and {steps} steps")
+    _check_launches("fp32 serving", launches, cfg.num_layers, chunks, steps,
+                    int8=False)
 
     # greedy consistency: a teacher-forced no-cache forward of prompt +
     # tokens[:-1] must put its argmax on every emitted token, except at a
@@ -1187,11 +1426,7 @@ def serving_phase(torch, card):
                     near_ties += 1
     print(f"greedy consistency: {checked} tokens checked, {near_ties} "
           "near-tie mismatches (top-2 gap < 1e-3)", flush=True)
-    print(f"serving perf on {card}: {agg['aggregate_tokens_per_s']:.1f} "
-          f"tokens/s, TTFT p50 {agg['ttft_p50_s'] * 1e3:.1f} ms, decode "
-          f"step p50 {agg['decode_step_ms_p50']:.2f} ms, wall {wall:.2f} s, "
-          f"kv_bytes_in_use_peak {int(agg['kv_bytes_in_use_peak'])}",
-          flush=True)
+    print(_perf_line("serving", card, agg, wall), flush=True)
     return launches, model, agg
 
 
@@ -1212,47 +1447,17 @@ def _shared_prefix_trace(vocab):
     return out
 
 
-def _serve_q(torch, model, trace, cache):
-    """One int8 run of ``trace`` (after a warm-up request): the requests,
-    their streams, the aggregate, the wall seconds and the launch counts
-    of the run (every counter set to 0 just before it)."""
-    from paddle_tpu_torch.inference import Request, ServingEngine
-    from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
-    from paddle_tpu_torch.ops.kernels import layer_norm as k2
-    from paddle_tpu_torch.ops.kernels import paged_attention as k4
-
-    eng = ServingEngine(model, max_batch_slots=8, max_len=1024,
-                        block_size=16, prefill_chunk=128, seed=0,
-                        kv_dtype="int8", prefix_cache=cache, device="cuda")
-    eng.submit(Request(prompt=[1, 2, 3], max_new_tokens=4, greedy=True))
-    eng.run()
-    streamed = {}
-    reqs = [eng.submit(Request(on_token=lambda r, tok, done: streamed.
-                               setdefault(r.id, []).append((tok, bool(done))),
-                               **kw)) for kw in trace]
-    torch.cuda.synchronize()
-    for m in (k2, k4, k5):
-        m.reset_launches()
-    t0 = time.perf_counter()
-    agg = eng.run().aggregate()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"K2": k2.launches, "K4": k4.launches, "K5": k5.launches,
-                "K4-int8": k4.launches_q, "K5-int8": k5.launches_q}
-    return eng, reqs, streamed, agg, wall, launches
-
-
 def serving_q_phase(torch, card, model, fp_agg):
     """Phase 5b: int8 pools and the prefix cache on the same model;
     returns the int8 kernels' launch counts."""
     from paddle_tpu_torch.inference import PrefixCache
 
     cfg = model.config
-    L = cfg.num_layers
     trace = _shared_prefix_trace(cfg.vocab_size)
     cache = PrefixCache(chunk_tokens=128, max_bytes=1 << 30)
-    eng, reqs, streamed, agg, wall, launches = _serve_q(torch, model, trace,
-                                                        cache)
+    eng, reqs, agg, wall, launches = _serve(torch, model, trace,
+                                            kv_dtype="int8",
+                                            prefix_cache=cache)
     # the warm-up prompt is shorter than a chunk: it cached nothing and
     # hit nothing, so the trie's counter is the run's
     chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
@@ -1262,16 +1467,8 @@ def serving_q_phase(torch, card, model, fp_agg):
           f"{int(agg['preemptions'])} preemptions, prefix hit tokens "
           f"{hits} (rate {agg['prefix_hit_rate']:.3f}), evictions "
           f"{int(agg['evictions'])}, launches {launches}", flush=True)
-    for r in reqs:
-        check(r.status == "done" and r.finish_reason in ("length", "eos"),
-              f"int8 request {r.id} ended {r.status}/{r.finish_reason}")
-        check([tk for tk, _ in streamed[r.id]] == r.tokens
-              and streamed[r.id][-1][1],
-              f"int8 request {r.id}: the stream differs from its tokens")
-    want = {"K2": (2 * L + 1) * (chunks + steps), "K4": 0, "K5": 0,
-            "K4-int8": L * steps, "K5-int8": L * chunks}
-    check(launches == want, f"int8 launch counts {launches} != {want} "
-          f"implied by {chunks} chunks and {steps} steps")
+    _check_launches("int8 serving", launches, cfg.num_layers, chunks, steps,
+                    int8=True)
     check(hits > 0 and hits == cache.hit_tokens,
           f"prefix hit tokens {hits}, the trie's {cache.hit_tokens}")
     held = {b for n in cache.iter_nodes() for b in n.blocks}
@@ -1282,7 +1479,7 @@ def serving_q_phase(torch, card, model, fp_agg):
     # the same trace with the cache off, on int8 pools: token-exact for
     # the greedy requests (chunk_tokens == prefill_chunk, so a spliced
     # prefix holds the codes a cold prefill commits)
-    _, cold, _, cold_agg, _, _ = _serve_q(torch, model, trace, None)
+    _, cold, cold_agg, _, _ = _serve(torch, model, trace, kv_dtype="int8")
     for r, c in zip(reqs, cold):
         if r.greedy:
             check(r.tokens == c.tokens, f"int8 request {r.id}: cache on "
@@ -1292,29 +1489,52 @@ def serving_q_phase(torch, card, model, fp_agg):
 
     # agreement with the fp32 teacher-forced no-cache argmax; the limit
     # is the reference's int8 contract (test_paged_kv.py:502)
-    agree = total = 0
-    with torch.inference_mode():
-        for r in reqs:
-            if not r.greedy:
-                continue
-            ids = torch.tensor([list(r.prompt) + r.tokens[:-1]],
-                               device="cuda")
-            arg = model(ids)[0, len(r.prompt) - 1:].argmax(-1).cpu().numpy()
-            agree += int((arg == np.asarray(r.tokens)).sum())
-            total += len(r.tokens)
+    agree, total = _agreement(torch, model, reqs)
     rate = agree / total
     print(f"int8 greedy agreement with the fp32 argmax: {agree}/{total} = "
           f"{rate:.4f} (limit 0.9)", flush=True)
     check(rate >= 0.9, f"int8 greedy agreement {rate} < 0.9")
-    print(f"int8 serving perf on {card}: {agg['aggregate_tokens_per_s']:.1f} "
-          f"tokens/s, TTFT p50 {agg['ttft_p50_s'] * 1e3:.1f} ms, decode "
-          f"step p50 {agg['decode_step_ms_p50']:.2f} ms, wall {wall:.2f} s, "
-          f"kv_bytes_in_use_peak {int(agg['kv_bytes_in_use_peak'])} (phase 5, "
-          f"fp32: {int(fp_agg['kv_bytes_in_use_peak'])}); cache off: "
+    print(_perf_line("int8 serving", card, agg, wall) + f" (phase 5, fp32: "
+          f"{int(fp_agg['kv_bytes_in_use_peak'])}); cache off: "
           f"{cold_agg['aggregate_tokens_per_s']:.1f} tokens/s, TTFT p50 "
           f"{cold_agg['ttft_p50_s'] * 1e3:.1f} ms, kv_bytes_in_use_peak "
           f"{int(cold_agg['kv_bytes_in_use_peak'])}", flush=True)
     return launches
+
+
+def serving_bf16_phase(torch, card):
+    """Phase 5c: ``gpt2_small`` in bf16 at full width and depth, whose
+    chunk prefill launches K5's tensor-core body, serves phase 5's first 8
+    greedy requests on bf16 pools, then on int8 pools: exact launch
+    counts, every request done, and greedy agreement with the bf16
+    teacher-forced argmax >= 0.9 (5b's limit, test_paged_kv.py:502).
+    Returns the launch counts of the bf16-pool and the int8-pool run."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+
+    cfg = gpt2_small()
+    model = GPTForCausalLM(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
+    model.eval()
+    trace = [kw for kw in _serving_trace(cfg.vocab_size)
+             if kw.get("greedy")][:8]
+    out = {}
+    for kv in (None, "int8"):
+        what = f"bf16 serving{', int8 pools' if kv else ''}"
+        _, reqs, agg, wall, launches = _serve(torch, model, trace,
+                                              kv_dtype=kv)
+        chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+        print(f"{what}: {int(agg['completed'])} requests, {chunks} prefill "
+              f"chunks, {steps} decode steps, launches {launches}",
+              flush=True)
+        _check_launches(what, launches, cfg.num_layers, chunks, steps,
+                        int8=kv is not None)
+        agree, total = _agreement(torch, model, reqs)
+        rate = agree / total
+        print(f"{what}: greedy agreement with the bf16 argmax {agree}/"
+              f"{total} = {rate:.4f} (limit 0.9)", flush=True)
+        check(rate >= 0.9, f"{what}: greedy agreement {rate} < 0.9")
+        print(_perf_line(what, card, agg, wall), flush=True)
+        out[kv] = launches
+    return out[None], out["int8"]
 
 
 def training_phase(torch, card):
@@ -1436,20 +1656,31 @@ KERNELS = {
                 "paddle_tpu/ops/pallas/paged_attention.py:134"),
     "K5-int8": ("chunk_prefill", "paddle_tpu_torch/csrc/chunk_prefill.cu",
                 "paddle_tpu/ops/pallas/chunk_prefill.py:126"),
+    "K5-bf16": ("chunk_prefill (bf16 mma.sync body)",
+                "paddle_tpu_torch/csrc/chunk_prefill.cu",
+                "paddle_tpu/ops/pallas/chunk_prefill.py:93"),
+    "K5-int8-bf16": ("chunk_prefill (bf16 mma.sync body, int8 pools)",
+                     "paddle_tpu_torch/csrc/chunk_prefill.cu",
+                     "paddle_tpu/ops/pallas/chunk_prefill.py:126"),
 }
 # the row each kernel reports in the kernels line: for K2, K4 and K5
 # fp32 (the serving phase's dtype) at the decode shape for K2 and K4,
-# and the deepest prefix for K5; for the flash kernels bf16 (the training
-# phase's dtype under AMP) at the shape of the path that launches them
-HEADLINE = {"K1": ("bfloat16", list(FLASH_CASES[0])),
-            "K2": ("float32", [8, 768]),
-            "K3a": ("bfloat16", list(FLASH_CASES[0])),
-            "K3b-dkv": ("bfloat16", list(FLASH_LONG)),
-            "K3b-dq": ("bfloat16", list(FLASH_LONG)),
-            "K4": ("float32", [8, 1, 12, 64, 16, 64]),
-            "K5": ("float32", [128, 517, 12, 64, 16, 64]),
-            "K4-int8": ("float32", [8, 1, 12, 64, 16, 64]),
-            "K5-int8": ("float32", [128, 517, 12, 64, 16, 64])}
+# and the deepest prefix for K5; for K5's bf16 body (phase 5c's) bf16 at
+# the deepest prefix; for the flash kernels bf16 (the training phase's
+# dtype under AMP) at the shape of the path that launches them.
+# id -> (row's kernel, dtype, shape)
+_K5_DEEP = [128, 517, 12, 64, 16, 64]
+HEADLINE = {"K1": ("K1", "bfloat16", list(FLASH_CASES[0])),
+            "K2": ("K2", "float32", [8, 768]),
+            "K3a": ("K3a", "bfloat16", list(FLASH_CASES[0])),
+            "K3b-dkv": ("K3b-dkv", "bfloat16", list(FLASH_LONG)),
+            "K3b-dq": ("K3b-dq", "bfloat16", list(FLASH_LONG)),
+            "K4": ("K4", "float32", [8, 1, 12, 64, 16, 64]),
+            "K5": ("K5", "float32", _K5_DEEP),
+            "K4-int8": ("K4-int8", "float32", [8, 1, 12, 64, 16, 64]),
+            "K5-int8": ("K5-int8", "float32", _K5_DEEP),
+            "K5-bf16": ("K5", "bfloat16", _K5_DEEP),
+            "K5-int8-bf16": ("K5-int8", "bfloat16", _K5_DEEP)}
 
 
 def main():
@@ -1479,9 +1710,9 @@ def main():
     print("kernels vs plain versions (device ms, cold L2):", flush=True)
     layer_norm_phase(torch, timer, rows)
     paged_phase(torch, timer, rows)
-    chunk_phase(torch, timer, rows)
+    chunk_phase(torch, timer, rows, int8=False)
     paged_q_phase(torch, timer, rows)
-    chunk_q_phase(torch, timer, rows)
+    chunk_phase(torch, timer, rows, int8=True)
     lap("K2, K4, K5")
     long_launches = flash_phase(torch, timer, rows)
     lap("flash")
@@ -1491,6 +1722,10 @@ def main():
     lap("int8 serving")
     launches.update({k: q_launches[k] for k in ("K4-int8", "K5-int8")})
     del model
+    bf16_launches, bf16_q_launches = serving_bf16_phase(torch, card)
+    lap("bf16 serving")
+    launches.update({"K5-bf16": bf16_launches["K5"],
+                     "K5-int8-bf16": bf16_q_launches["K5-int8"]})
     train_launches = training_phase(torch, card)
     lap("training")
     launches.update({"K1": train_launches["K1"], "K3a": train_launches["K3a"],
@@ -1499,8 +1734,8 @@ def main():
 
     out = []
     for kid, (name, src, replaces) in KERNELS.items():
-        row = next(r for r in rows if r["kernel"] == kid
-                   and [r["dtype"], r["shape"]] == list(HEADLINE[kid]))
+        row = next(r for r in rows if [r["kernel"], r["dtype"], r["shape"]]
+                   == list(HEADLINE[kid]))
         check(launches[kid] > 0, f"{kid} was never launched on the path")
         out.append({"name": f"{kid} {name}", "route": "cuda",
                     "source": src, "replaces": replaces,

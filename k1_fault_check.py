@@ -146,13 +146,14 @@ def copy_patched(root: Path, dst: Path, script: Path, source: str,
     src.write_text(text)
 
 
-def drive(script: Path, source: str, faults, gate: str):
+def drive(script: Path, source: str, faults, gate: str,
+          shared: str = "flash_gate"):
     """For the sound kernel and then each of ``faults`` (name -> (text,
     replacement) in ``csrc/<source>``): a fresh copy, ``script --child``
     run in it (fp32 and bf16 for the sound kernel, bf16 for a fault), its
     JSON rows echoed and summed up. Exits non-zero if the sound kernel
-    fails the flash gate or ``gate``, or if a fault changes an output and
-    ``gate`` catches it in no case."""
+    fails the shared gate (the rows' ``shared`` verdict) or ``gate``, or
+    if a fault changes an output and ``gate`` catches it in no case."""
     root = script.parent
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -183,10 +184,10 @@ def drive(script: Path, source: str, faults, gate: str):
             summary = {
                 "kernel": label, "cases": len(rows),
                 "changed": sum(r.get("changed", False) for r in rows),
-                "flash_gate_failed": sum(not r["flash_gate"] for r in rows),
+                f"{shared}_failed": sum(not r[shared] for r in rows),
                 f"{gate}_failed": sum(not r[gate] for r in rows)}
             print("summary " + json.dumps(summary), flush=True)
-            if fault is None and (summary["flash_gate_failed"]
+            if fault is None and (summary[f"{shared}_failed"]
                                   or summary[f"{gate}_failed"]):
                 bad.append("the sound kernel fails a gate")
             if fault is not None and summary["changed"] \

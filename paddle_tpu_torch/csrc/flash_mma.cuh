@@ -1,8 +1,9 @@
-// Warp-level tensor-core building blocks for the flash kernels on Hopper
-// (sm_90a): cp.async staging, ldmatrix fragment loads and the bf16
-// mma.sync.m16n8k16 product, each as inline PTX. The bf16 forward
-// (flash_fwd.cu) and the bf16 dK/dV and dQ backward bodies (flash_bwd.cu)
-// are built from them.
+// Warp-level tensor-core building blocks for the attention kernels on
+// Hopper (sm_90a): cp.async staging, ldmatrix fragment loads and the
+// bf16 (and fp16) mma.sync.m16n8k16 product, each as inline PTX. The
+// bf16 forward (flash_fwd.cu), the bf16 dK/dV and dQ backward bodies
+// (flash_bwd.cu) and the bf16 chunk prefill (chunk_prefill.cu) are built
+// from them. The fp16 fragments have the bf16 ones' layout.
 //
 // Fragment layouts, as the PTX ISA fixes them for
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, with
@@ -41,6 +42,7 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace ptt {
 namespace mma {
@@ -111,6 +113,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a . b with fp16 operands, fp32 accumulate (K5's int8 body: P
+// and the V codes, which fp16 holds exactly).
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to fp16 (to nearest even), lo in the lower half.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // (lo, hi) rounded to bf16 (to nearest even), lo in the lower half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __float22bfloat162_rn(make_float2(lo, hi));
@@ -125,6 +144,16 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[4],
   a[1] = pack_bf16(c[2], c[3]);
   a[2] = pack_bf16(c8[0], c8[1]);
   a[3] = pack_bf16(c8[2], c8[3]);
+}
+
+// pack_a, rounded to fp16.
+__device__ __forceinline__ void pack_a_f16(uint32_t (&a)[4],
+                                           const float (&c)[4],
+                                           const float (&c8)[4]) {
+  a[0] = pack_f16(c[0], c[1]);
+  a[1] = pack_f16(c[2], c[3]);
+  a[2] = pack_f16(c8[0], c8[1]);
+  a[3] = pack_f16(c8[2], c8[3]);
 }
 
 // Lane addresses for ldmatrix.x4 in a tile of row stride LDS elements:

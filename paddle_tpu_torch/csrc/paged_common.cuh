@@ -1,6 +1,7 @@
 // The attention body K4 (paged decode/verify) and K5 (chunk prefill)
-// share: one CTA owns `rows` consecutive query rows of one slot and one
-// head, and walks that slot's KV through the block table.
+// with fp32 queries share (K5's bf16 queries have their tensor-core body
+// in chunk_prefill.cu): one CTA owns `rows` consecutive query rows of one
+// slot and one head, and walks that slot's KV through the block table.
 //
 // Layouts (all contiguous, checked by the Python wrappers):
 //   q, out   (b, s, H, D)             query row r of slot n at (n*s + r)

@@ -47,6 +47,9 @@ _SIGNATURES = {
     # the sizes; scale, q's type code, the pools' type code, stream
     "ptt_paged_attention_fwd": [_VP] * 8 + [_I] * 6 + [_F, _I, _I, _VP],
     "ptt_chunk_prefill_fwd": [_VP] * 8 + [_I] * 7 + [_F, _I, _I, _VP],
+    # head dim, the pools' type code (bf16 or int8); out: CTAs per SM and
+    # shared-memory bytes of the bf16 K5 body
+    "ptt_chunk_prefill_occupancy": [_I, _I, _VP, _VP],
     "ptt_flash_fwd": [_VP] * 5 + _FLASH,
     # head dim; out: CTAs per SM and shared-memory bytes of the bf16 K1
     "ptt_flash_fwd_occupancy": [_I, _VP, _VP],

@@ -5,7 +5,11 @@ via ``chunk_prefill_pallas``) in both of its branches: full-precision
 pools, and int8 code pools with ``(num_blocks, H)`` fp32 scales
 (``chunk_prefill.py:126-128``). The kernel is
 ``paddle_tpu_torch/csrc/chunk_prefill.cu``; its header note says what
-bounds it on the H100 and how the design answers that.
+bounds it on the H100 and how the design answers that. bf16 q runs its
+tensor-core body (``mma.sync``) in 64-row tiles of the chunk, over bf16
+or int8 pools; fp32 q runs K4's body on the CUDA cores in q-blocks of
+:func:`pick_qbs` rows. A bf16 pointer or row that ``cp.async`` cannot
+take (16 bytes) is refused by the C entry, and the wrapper raises.
 
 :func:`chunk_prefill` is the wrapper: a CPU tensor takes
 :func:`chunk_prefill_ref`, which DELEGATES to the K4 plain version
@@ -37,9 +41,9 @@ __all__ = ["chunk_prefill", "chunk_prefill_ref", "pick_qbs", "launches",
 launches = 0      # launches over full-precision pools
 launches_q = 0    # launches over int8 code pools
 
-# q-block cap: a 64-row q tile and the 64-row logit tile fit one CTA's
-# shared memory, and 64*D/256 fp32 accumulators per thread its
-# registers; larger q-blocks would need the tensor-core rewrite
+# q-block cap of the fp32 body: a 64-row q tile and the 64-row logit
+# tile fit one CTA's shared memory, and 64*D/256 fp32 accumulators per
+# thread its registers (the bf16 body tiles by 64 rows whatever it gets)
 MAX_QBS = 64
 
 

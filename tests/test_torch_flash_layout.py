@@ -15,9 +15,10 @@ tensor-core kernels only, and k and v with unequal strides are copied
 together. A copy changes the layout, never the values.
 
 ``_SIGNATURES`` (``_build.py``) declares the ctypes argument types of
-every C entry point; the last test parses every ``extern "C"``
-definition in ``csrc/*.cu`` and requires the two to agree, name for
-name and argument for argument.
+every C entry point; the last tests parse every ``extern "C"``
+definition in ``csrc/*.cu`` and require the two to agree, name for name
+and argument for argument, and every entry point that a script at the
+root of the checkout names to be declared.
 """
 
 import ctypes
@@ -155,3 +156,18 @@ def test_signatures_match_the_c_entry_points():
     assert set(entry) == set(_build._SIGNATURES)
     for name, types in entry.items():
         assert _build._SIGNATURES[name] == types, name
+
+
+SCRIPTS = ["chip_smoke.py", "k1_fault_check.py", "k3_fault_check.py",
+           "k3_variants.py", "k5_fault_check.py", "k5_variants.py"]
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_scripts_name_only_declared_entry_points(script):
+    """Every C entry point a script at the root names (the occupancy
+    queries of chip_smoke.py's phase 2) has its ctypes signature in
+    ``_SIGNATURES``; an undeclared one would be called with 32-bit
+    arguments."""
+    text = (CSRC.parents[1] / script).read_text()
+    named = set(re.findall(r"\bptt_\w+", text))
+    assert named <= set(_build._SIGNATURES), named - set(_build._SIGNATURES)

@@ -299,12 +299,13 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(where, tmp_path):
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    """Every file of paddle_tpu_torch/, chip_smoke.py and the fault
-    checkers: no import of jax or paddle_tpu (the card's host has no
-    JAX)."""
+    """Every file of paddle_tpu_torch/, chip_smoke.py, the fault
+    checkers and the variant scripts: no import of jax or paddle_tpu (the
+    card's host has no JAX)."""
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "k1_fault_check.py",
-              REPO / "k3_fault_check.py", REPO / "k3_variants.py"]
+              REPO / "k3_fault_check.py", REPO / "k3_variants.py",
+              REPO / "k5_fault_check.py", REPO / "k5_variants.py"]
     assert len(files) > 10
     bad = []
     for f in files:
