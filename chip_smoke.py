@@ -9,12 +9,13 @@ Phases, in order (any failure exits non-zero and prints no result):
 1. card: the ``nvidia-smi`` name and power limit, the capability;
 2. build: ``csrc/*.cu`` -> ``build/kernels/`` with ``nvcc`` for sm_90a,
    then the registers and spills of every K1/K3/K4/K5 instantiation
-   (``-Xptxas -v``; a bf16 K1, K3a, K3b-dkv, K3b-dq or K5 body that
+   (``-Xptxas -v``; a bf16 K1, K3a, K3b-dkv, K3b-dq, K4 or K5 body that
    spills fails the run), the tensor-core instructions (HMMA) and
-   atomics (RED, ATOM) that ``cuobjdump -sass`` finds in each bf16 K3
-   and K5 body (no HMMA fails the run, and so do atomics in the K3b-dq
-   body, whose dQ is written once), and the bf16 K1's, K3 and K5 bodies'
-   shared memory and CTAs per SM from the CUDA runtime;
+   atomics (RED, ATOM) that ``cuobjdump -sass`` finds in each bf16 K3,
+   K4 and K5 body (no HMMA fails the run, and so do atomics in the
+   K3b-dq body, whose dQ is written once), and the bf16 K1's, K3 and K5
+   bodies' shared memory and CTAs per SM from the CUDA runtime (K4's:
+   the clusters the card holds at once);
 3. kernels: K2 LayerNorm, K4 paged decode and K5 chunk prefill, each
    against its plain PyTorch version in fp32 and bf16 at the serving
    path's shapes, on pools poisoned where no query may read (1e9 in
@@ -24,11 +25,15 @@ Phases, in order (any failure exits non-zero and prints no result):
    card's lower bound; then the int8 branches of K4 and K5 on int8 code
    pools with (block, head) scales, poisoned with saturated codes (127)
    in every row no query may read and a 1e7 scale in every block no
-   table names (NaN scales there for the kernel alone). K5 also on a
-   chunk running off a table of 5 blocks, and with bf16 q (its
-   tensor-core body) on three slots at their own starts, every bf16 case
-   held to K5_TOL as well, element by element, and a bf16 q misaligned
-   for cp.async that its C entry point must refuse;
+   table names (NaN scales there for the kernel alone). K4 at the decode
+   step (8 slots), a lone request at t 1000, a verify of 4 drafts (s 5)
+   and slots running off tables of 5 blocks of 16 rows (s 5) and 3 of 11
+   (s 16), over both pools; K5 also
+   on a chunk running off a table of 5 blocks, and with bf16 q (its
+   tensor-core body) on three slots at their own starts. Every bf16 K4
+   case is held to K4_TOL and every bf16 K5 case to K5_TOL as well,
+   element by element, and a bf16 q misaligned for cp.async must be
+   refused by K4's and by K5's C entry point;
 4. flash: K1 (forward), K3a (fused backward) and K3b (the streaming
    dK/dV and dQ passes) against their plain versions in fp32 and bf16
    at the training shape, non-causal, at head_dim 128, and on the
@@ -59,9 +64,9 @@ Phases, in order (any failure exits non-zero and prints no result):
    their agreement with the fp32 teacher-forced argmax must reach 0.9;
 5c. bf16 serving: ``gpt2_small`` in bf16 (full width and depth) serves
    phase 5's first 8 greedy requests on bf16 pools, then on int8 pools,
-   so that prefill runs K5's tensor-core body end to end: exact launch
-   counts, and greedy agreement with the bf16 teacher-forced argmax of
-   at least 0.9;
+   so that prefill runs K5's and decode K4's tensor-core bodies end to
+   end: exact launch counts, and greedy agreement with the bf16
+   teacher-forced argmax of at least 0.9;
 6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
    ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
@@ -149,6 +154,20 @@ K3_TOL = {"float32": {"rtol": 1e-5,
 K5_TOL = {"bf16": {"atol": 6e-3, "rtol": 1e-2},
           "int8": {"atol": 2e-3, "rtol": 1e-2}}
 
+# K4's bf16 body (q bf16; bf16 pools, or int8 codes with their scales;
+# the key walk split across a cluster) is held to its own gate the same
+# way, against the fp32 plain version on clean, poisoned and
+# NaN-poisoned pools: one rounding of the output to bf16 (rtol), and P
+# rounded to bf16 (fp16 over int8 pools) before P.V (atol). The splits'
+# and warps' partials are merged in fp32. Over every bf16 K4 case of
+# this script on an H100 the sound body's worst errors are 1.96e-3 +
+# 1e-2 |plain| over bf16 pools and 4.13e-4 + 1e-2 |plain| over int8
+# pools (k4_fault_check.py, PERF.md); the limits sit 3.1x and 3.6x above
+# them, and that script shows each planted fault that changes an output
+# failing them.
+K4_TOL = {"bf16": {"atol": 6e-3, "rtol": 1e-2},
+          "int8": {"atol": 1.5e-3, "rtol": 1e-2}}
+
 
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -169,7 +188,10 @@ class Timer:
     finds its inputs cold, as one layer's pools are in a real step. A
     call that launches many kernels gets fewer calls per measurement:
     a stream holds ~1024 pending launches, and past that the host
-    blocks in the launch until the device drains the queue."""
+    blocks in the launch until the device drains the queue. Each
+    measurement starts from the shortest spin and lengthens it only for
+    itself, so the retries of a call with many launches do not add up
+    over a run of measurements."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -181,10 +203,11 @@ class Timer:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
+        cycles = self.cycles
         while True:
             ev = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True)) for _ in range(n)]
-            torch.cuda._sleep(self.cycles)
+            torch.cuda._sleep(cycles)
             for start, end in ev:
                 self.flush.zero_()
                 start.record()
@@ -196,9 +219,9 @@ class Timer:
             torch.cuda.synchronize()
             if ahead:
                 return float(np.median([s.elapsed_time(e) for s, e in ev]))
-            self.cycles *= 4
+            cycles *= 4
             n = max(10, n // 2)
-            check(self.cycles < 8_000_000_000,
+            check(cycles < 8_000_000_000,
                   f"could not enqueue {n} calls ahead of the device")
 
 
@@ -234,6 +257,7 @@ def build_phase():
 _PTXAS_PAGED = re.compile(r"paged_attn_kernelI(f|13__nv_bfloat16)"
                           r"(f|a|S\d*_)Li(\d+)ELi\d+ELi\d+E")
 _PTXAS_K5 = re.compile(r"chunk_prefill_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
+_PTXAS_K4 = re.compile(r"paged_decode_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
 _PTXAS_FLASH = re.compile(r"flash_fwd_(mma_)?kernelI(f)?Li(\d+)E")
 _PTXAS_BWD = re.compile(r"flash_(bwd_mma|dq_mma|dkv|dq)_kernelILi(\d+)E"
                         r"(?:Lb(\d)E)?")
@@ -241,10 +265,11 @@ _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
 def _occupancy(fn, *args) -> str:
-    """A tensor-core body's shared memory and the CTAs of it an SM holds,
-    as the CUDA runtime computes them for the built kernel, through the
-    occupancy entry point ``fn`` (``ptt_flash_fwd_occupancy`` or
-    ``ptt_flash_bwd_occupancy``)."""
+    """A tensor-core body's shared memory and the CTAs of it an SM holds
+    (for K4's cluster body: the clusters the card holds at once), as the
+    CUDA runtime computes them for the built kernel, through the
+    occupancy entry point ``fn`` (``ptt_flash_fwd_occupancy``,
+    ``ptt_paged_decode_occupancy``, ...)."""
     import ctypes
 
     from paddle_tpu_torch.ops.kernels import _build
@@ -253,7 +278,9 @@ def _occupancy(fn, *args) -> str:
     err = getattr(_build.load_library(), fn)(*args, ctypes.byref(ctas),
                                              ctypes.byref(smem))
     check(err == 0, f"{fn}{args} failed (cudaError {err})")
-    return (f", {smem.value} bytes shared memory, {ctas.value} CTAs per SM "
+    unit = ("clusters on the card" if fn == "ptt_paged_decode_occupancy"
+            else "CTAs per SM")
+    return (f", {smem.value} bytes shared memory, {ctas.value} {unit} "
             "(CUDA runtime)")
 
 
@@ -283,6 +310,11 @@ def _ptxas_label(src: str, name):
         return (f"K5 bf16 mma.sync, pool {'int8' if int8 else 'bf16'}, D "
                 f"{D}", True, ("ptt_chunk_prefill_occupancy", D,
                                2 if int8 else 1))
+    if name.re is _PTXAS_K4:
+        D, int8 = int(name.group(1)), name.group(2) == "a"
+        return (f"K4 bf16 mma.sync, clusters, pool "
+                f"{'int8' if int8 else 'bf16'}, D {D}", True,
+                ("ptt_paged_decode_occupancy", D, 2 if int8 else 1))
     tq = "fp32" if name.group(1) == "f" else "bf16"
     tp = "int8" if name.group(2) == "a" else tq
     return f"q {tq}, pool {tp}, D {name.group(3)}", False, None
@@ -318,17 +350,17 @@ def _sass_ops(obj: str, ops=("HMMA", "RED", "ATOM")):
 
 def ptxas_phase():
     """Registers and spills of every K1, K3, K4 and K5 instantiation, from
-    ``nvcc -Xptxas -v`` on their sources; a bf16 K1, K3a, K3b-dkv, K3b-dq
-    or K5 (the tensor-core bodies) that spills fails the run. For those
-    bodies also their shared memory and the CTAs an SM holds, and for the
-    bf16 K3 and K5 bodies the tensor-core products (HMMA) and atomics in
-    their SASS: a body without HMMA, a K3a without atomics, or a K3b-dq
-    with any, fails."""
+    ``nvcc -Xptxas -v`` on their sources; a bf16 K1, K3a, K3b-dkv, K3b-dq,
+    K4 or K5 (the tensor-core bodies) that spills fails the run. For those
+    bodies also their shared memory and the CTAs an SM holds (K4: the
+    clusters the card holds), and for the bf16 K3, K4 and K5 bodies the
+    tensor-core products (HMMA) and atomics in their SASS: a body without
+    HMMA, a K3a without atomics, or a K3b-dq with any, fails."""
     import tempfile
 
     from paddle_tpu_torch.ops.kernels import _build
 
-    pats = {"paged_attention.cu": (_PTXAS_PAGED,),
+    pats = {"paged_attention.cu": (_PTXAS_K4, _PTXAS_PAGED),
             "chunk_prefill.cu": (_PTXAS_K5, _PTXAS_PAGED),
             "flash_fwd.cu": (_PTXAS_FLASH,), "flash_bwd.cu": (_PTXAS_BWD,)}
     srcs = [p for p in _build.sources() if p.name in pats]
@@ -343,8 +375,9 @@ def ptxas_phase():
               "nvcc -Xptxas -v failed:\n" + "\n".join(
                   o for p, o in zip(procs, outs) if p.returncode))
         sass = {**_sass_ops(f"{tmp}/flash_bwd.o"),
-                **_sass_ops(f"{tmp}/chunk_prefill.o")}
-    seen = {"K1": 0, "K3": 0, "K5": 0}
+                **_sass_ops(f"{tmp}/chunk_prefill.o"),
+                **_sass_ops(f"{tmp}/paged_attention.o")}
+    seen = {"K1": 0, "K3": 0, "K4": 0, "K5": 0}
     for src, out in zip(srcs, outs):
         name = spill = None
         for line in out.splitlines():
@@ -365,7 +398,8 @@ def ptxas_phase():
                     extra = _occupancy(*occ)
                     check(stores == loads == 0, f"ptxas: {label} spills "
                           f"{stores} bytes stored, {loads} loaded")
-                if mma and src.name in ("flash_bwd.cu", "chunk_prefill.cu"):
+                if mma and src.name in ("flash_bwd.cu", "chunk_prefill.cu",
+                                        "paged_attention.cu"):
                     ops = sass.get(full)
                     check(ops is not None and ops["HMMA"] > 0,
                           f"SASS: {label} has no HMMA ({ops})")
@@ -382,9 +416,10 @@ def ptxas_phase():
                       f"{stores} bytes spill stores, {loads} bytes spill "
                       f"loads{extra}", flush=True)
                 name = None
-    check(seen == {"K1": 2, "K3": 6, "K5": 4}, f"ptxas: tensor-core bodies "
-          f"seen {seen}, expected K1 at D 64 and 128, K3a, K3b-dkv and "
-          "K3b-dq at both, K5 over bf16 and int8 pools at both")
+    check(seen == {"K1": 2, "K3": 6, "K4": 4, "K5": 4}, f"ptxas: "
+          f"tensor-core bodies seen {seen}, expected K1 at D 64 and 128, "
+          "K3a, K3b-dkv and K3b-dq at both, K4 and K5 over bf16 and int8 "
+          "pools at both")
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
@@ -493,31 +528,6 @@ def _dense_view(torch, kp, vp, table_t, nrows):
     return (k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
 
 
-def _attention_case(torch, timer, rows, name, kernel_fn, ref_fn, q, kp, vp,
-                    table_t, table, t, reach, dn, shape, nbytes, flops):
-    out = kernel_fn(q, kp, vp, table_t, t)
-    ref = ref_fn(q.float(), kp.float(), vp.float(), table_t, t)
-    kpp, vpp = _poison(torch, kp, vp, table, reach)
-    out_p = kernel_fn(q, kpp, vpp, table_t, t)
-    ref_p = ref_fn(q.float(), kpp.float(), vpp.float(), table_t, t)
-    # the kernel alone: NaN in EVERY unreadable row, so one stray read
-    # of any row past a CTA's reach would turn the output NaN
-    kpn, vpn = _poison(torch, kp, vp, table, reach, dead=float("nan"))
-    out_n = kernel_fn(q, kpn, vpn, table_t, t)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(out_p).all() and torch.isfinite(out_n).all()),
-          f"{name} {dn} {shape}: non-finite output on a poisoned pool")
-    err = max(_err(out, ref), _err(out_p, ref_p), _err(out_p, out),
-              _err(out_n, out))
-    check(err <= ATOL[dn], f"{name} {dn} {shape}: max |kernel - plain| "
-          f"{err} > {ATOL[dn]} (clean, poisoned, or poisoned vs clean)")
-    _record(rows, name, dn, shape, err, timer,
-            lambda: kernel_fn(q, kp, vp, table_t, t),
-            lambda: ref_fn(q, kp, vp, table_t, t),
-            _sdpa_yardstick(torch, q, kp, vp, table_t, table, t, reach),
-            nbytes=nbytes, flops=flops)
-
-
 def _sdpa_yardstick(torch, q, kp, vp, table_t, table, t, reach):
     """The library call of a K4/K5 row: SDPA over the slots' dense view,
     gathered from full-precision pools beforehand (the gather not timed),
@@ -574,49 +584,6 @@ def _poison_q(torch, codes, scales, table, reach, dead_scale=1e7):
     return codes, scales
 
 
-def _attention_case_q(torch, timer, rows, name, kernel_fn, ref_fn, q, codes,
-                      scales, table_t, table, t, reach, dn, shape, nbytes,
-                      flops):
-    """The int8 branch of K4 against its plain version: clean pools,
-    poisoned pools (1e7 scales), and the kernel alone with NaN scales in
-    every block no table names."""
-
-    def kern(c, x):
-        return kernel_fn(q, c[0], c[1], table_t, t, k_scale=x[0],
-                         v_scale=x[1])
-
-    def plain(c, x):
-        return ref_fn(q, c[0], c[1], table_t, t, k_scale=x[0], v_scale=x[1])
-
-    out, ref = kern(codes, scales), plain(codes, scales)
-    pc, px = _poison_q(torch, codes, scales, table, reach)
-    out_p, ref_p = kern(pc, px), plain(pc, px)
-    nc, nx = _poison_q(torch, codes, scales, table, reach,
-                       dead_scale=float("nan"))
-    out_n = kern(nc, nx)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(out_p).all() and torch.isfinite(out_n).all()),
-          f"{name} {dn} {shape}: non-finite output on a poisoned pool")
-    # bf16: relative to max(1, max |plain|); the plain version casts the
-    # dequantized view to bf16 (the reference's order), the kernel keeps
-    # it in fp32 (the Pallas kernel's)
-    err = max(_err(out, ref), _err(out_p, ref_p), _err(out_p, out),
-              _err(out_n, out))
-    norm = max(1.0, float(ref.float().abs().max())) \
-        if dn == "bfloat16" else 1.0
-    check(err / norm <= ATOL[dn], f"{name} {dn} {shape}: max |kernel - "
-          f"plain| {err} (/ {norm}) > {ATOL[dn]} (clean, poisoned, or "
-          "poisoned vs clean)")
-    # library yardstick: SDPA over the dense view dequantized beforehand
-    # (neither the gather nor the dequant is timed)
-    kp, vp = ((c.float() * x[:, None, :, None]).to(q.dtype)
-              for c, x in zip(codes, scales))
-    _record(rows, name, dn, shape, err, timer, lambda: kern(codes, scales),
-            lambda: plain(codes, scales),
-            _sdpa_yardstick(torch, q, kp, vp, table_t, table, t, reach),
-            nbytes=nbytes, flops=flops)
-
-
 def _q_bytes(H, D, bs, rows_read, blocks_read, q_rows, sz, table_nbytes):
     """Bytes an int8 case must move: the codes of the rows it reads (1
     byte an element, K and V), one fp32 scale per (block, head) read,
@@ -625,53 +592,103 @@ def _q_bytes(H, D, bs, rows_read, blocks_read, q_rows, sz, table_nbytes):
             + 2 * q_rows * H * D * sz + table_nbytes)
 
 
-def paged_q_phase(torch, timer, rows):
-    from paddle_tpu_torch.ops.kernels import paged_attention as k4
-
-    b, s, H, D, bs, bp = 8, 1, 12, 64, 16, 64
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[1]
-        rs = np.random.RandomState(22)
-        codes, scales, table_t, table = _pool_case_q(torch, rs, b, bp, bs,
-                                                     H, D)
-        t_np = np.linspace(0, 1000, b).round().astype(np.int32)
-        rs.shuffle(t_np)
-        t = torch.from_numpy(t_np).cuda()
-        q = torch.from_numpy(rs.randn(b, s, H, D).astype(np.float32)).to(
-            "cuda", dtype)
-        keys = t_np + s
+def _paged_cost(H, D, bs, bp, t_np, s, sz, int8, index_nbytes):
+    """Bytes and operations a K4/K5 case must move and do: each slot's
+    rows up to its last query's position that the table holds, read once
+    (K and V; int8 codes with a scale a block), q in and out at its size
+    ``sz``, the table and offsets (``index_nbytes``); 4 flops a query
+    row, key and element."""
+    b = len(t_np)
+    keys = np.minimum(t_np + s, bp * bs)         # rows the table can hold
+    if int8:
         nbytes = _q_bytes(H, D, bs, int(keys.sum()),
-                          int(((keys - 1) // bs + 1).sum()), b * s,
-                          q.element_size(), table.nbytes + 4 * b)
-        flops = 4 * s * int(keys.sum()) * H * D
-        _attention_case_q(torch, timer, rows, "K4-int8", k4.paged_attention,
-                          k4.paged_attention_ref, q, codes, scales, table_t,
-                          table, t, t_np + s - 1, dn, [b, s, H, D, bs, bp],
-                          nbytes, flops)
+                          int(((keys - 1) // bs + 1).sum()), b * s, sz,
+                          index_nbytes)
+    else:
+        nbytes = (int(keys.sum()) * H * D * 2 * sz + 2 * b * s * H * D * sz
+                  + index_nbytes)
+    flops = 4 * H * D * sum(min(st + i + 1, k) for st, k in zip(t_np, keys)
+                            for i in range(s))
+    return nbytes, flops
 
 
-def paged_phase(torch, timer, rows):
-    from paddle_tpu_torch.ops.kernels import paged_attention as k4
+# K4's cases (b, s, offsets, bp, bs) at gpt2_small's heads: the serving
+# decode step (8 slots at shuffled offsets 0-1000, the headline row); a
+# lone request at t 1000 (12 CTAs a head-walk without the cluster split,
+# 16 key tiles); a speculative verify of 4 drafts (s 5) at the decode
+# step's offsets; a slot whose reach runs off a table of 5 blocks (80
+# rows, no multiple of a 64-key tile); and a verify of 15 drafts (s 16)
+# off a table of 3 blocks of 11 rows (33 rows, one past a warp's 16
+# keys), whose last warp slice holds one key and 15 zero-filled ones
+# that rows 1-15's positions would admit (with 16-row blocks the table's
+# end is always a slice's, and the reach mask has nothing to mask).
+K4_CASES = ((8, 1, None, 64, 16), (1, 1, (1000,), 64, 16),
+            (8, 5, None, 64, 16), (2, 5, (78, 30), 5, 16),
+            (1, 16, (32,), 3, 11))
+K4_GEOMETRY = (12, 64)                  # H, D: gpt2_small's
 
-    b, s, H, D, bs, bp = 8, 1, 12, 64, 16, 64
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[1]
-        rs = np.random.RandomState(21)
-        kp, vp, table_t, table = _pool_case(torch, rs, b, bp, bs, H, D,
-                                            dtype)
-        t_np = np.linspace(0, 1000, b).round().astype(np.int32)
-        rs.shuffle(t_np)
+
+def k4_case_inputs(torch, dtype, int8):
+    """Every K4 case of phase 3 at q's ``dtype`` over fp pools (q's dtype)
+    or int8 code pools, as dicts like :func:`k5_case_inputs`'. The decode
+    step's offsets are ``linspace(0, 1000, b)`` shuffled; its inputs at s
+    1 are drawn as they were before the other cases existed (seed 21, 22
+    over int8 pools: pools, then offsets, then q)."""
+    H, D = K4_GEOMETRY
+    for ci, (b, s, starts, bp, bs) in enumerate(K4_CASES):
+        rs = np.random.RandomState((22 if int8 else 21) + 100 * ci)
+        if int8:
+            codes, scales, table_t, table = _pool_case_q(torch, rs, b, bp,
+                                                         bs, H, D)
+            pools = (codes, scales)
+        else:
+            kp, vp, table_t, table = _pool_case(torch, rs, b, bp, bs, H, D,
+                                                dtype)
+            pools = (kp, vp)
+        if starts is None:
+            t_np = np.linspace(0, 1000, b).round().astype(np.int32)
+            rs.shuffle(t_np)
+        else:
+            t_np = np.asarray(starts, np.int32)
         t = torch.from_numpy(t_np).cuda()
         q = torch.from_numpy(rs.randn(b, s, H, D).astype(np.float32)).to(
             "cuda", dtype)
-        sz = q.element_size()
-        nbytes = (int((t_np + s).sum()) * H * D * 2 * sz
-                  + 2 * b * s * H * D * sz + table.nbytes + 4 * b)
-        flops = 4 * s * int((t_np + s).sum()) * H * D
-        _attention_case(torch, timer, rows, "K4", k4.paged_attention,
-                        k4.paged_attention_ref, q, kp, vp, table_t, table,
-                        t, t_np + s - 1, dn, [b, s, H, D, bs, bp], nbytes,
-                        flops)
+        nbytes, flops = _paged_cost(H, D, bs, bp, t_np, s, q.element_size(),
+                                    int8, table.nbytes + 4 * b)
+        shape = [b, s, H, D, bs, bp] if starts is None else \
+            [b, s, list(starts), H, D, bs, bp]
+        yield dict(q=q, pools=pools, table_t=table_t, table=table, t=t,
+                   reach=t_np + s - 1, int8=int8, shape=shape,
+                   nbytes=nbytes, flops=flops)
+
+
+def k4_run(torch, case):
+    """K4 on one case, as :func:`k5_run` runs K5."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as k4
+
+    return _paged_run(torch, case, k4.paged_attention, k4.paged_attention_ref)
+
+
+def k4_share(int8, outs, exact) -> float:
+    """K4's own measure of bf16 q, against ``K4_TOL``, as :func:`k5_share`
+    measures K5 against ``K5_TOL``."""
+    return limit_share(K4_TOL["int8" if int8 else "bf16"], outs, exact)
+
+
+def decode_phase(torch, timer, rows, int8):
+    """K4 (``int8``: K4-int8) on every case, fp32 and bf16: the shared
+    gate, and for bf16 q K4_TOL; timed beside its plain version and SDPA
+    over the dense view gathered (and dequantized) beforehand; then a bf16
+    q its C entry must refuse."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as k4
+
+    _paged_phase(torch, timer, rows, "K4-int8" if int8 else "K4",
+                 k4_case_inputs, k4_run, K4_TOL, "k4", int8,
+                 k4.paged_attention, k4.paged_attention_ref)
+    if not int8:
+        _refuses_misaligned(torch, "K4", k4, k4.paged_attention,
+                            next(k4_case_inputs(torch, torch.bfloat16,
+                                                False)))
 
 
 # K5's cases (s, start): a prompt's first chunk, its second, a chunk over
@@ -721,17 +738,9 @@ def k5_case_inputs(torch, dtype, int8, shapes=None):
         t_np = np.asarray(starts, np.int32)
         t = (torch.tensor(starts[0], dtype=torch.int32, device="cuda")
              if b == 1 else torch.from_numpy(t_np).cuda())
-        sz = q.element_size()
-        keys = np.minimum(t_np + s, bp * bs)     # rows the table can hold
-        if int8:
-            nbytes = _q_bytes(H, D, bs, int(keys.sum()),
-                              int(((keys - 1) // bs + 1).sum()), b * s, sz,
-                              table.nbytes + (4 * b if b > 1 else 0))
-        else:
-            nbytes = (int(keys.sum()) * H * D * 2 * sz + 2 * b * s * H * D * sz
-                      + table.nbytes + (4 * b if b > 1 else 0))
-        flops = 4 * H * D * sum(min(st + i + 1, k) for st, k in
-                                zip(t_np, keys) for i in range(s))
+        nbytes, flops = _paged_cost(H, D, bs, bp, t_np, s, q.element_size(),
+                                    int8,
+                                    table.nbytes + (4 * b if b > 1 else 0))
         shape = [s, starts[0], H, D, bs, bp] if b == 1 else \
             [b, s, list(starts), H, D, bs, bp]
         yield dict(q=q, pools=pools, table_t=table_t, table=table, t=t,
@@ -740,23 +749,26 @@ def k5_case_inputs(torch, dtype, int8, shapes=None):
 
 
 def k5_run(torch, case):
-    """K5 on one case: the kernel's outputs on clean pools, on pools
-    poisoned where no query may read (1e9 rows or saturated codes, 1e7
-    scales in blocks no table names) and on pools with NaN there; the
-    plain version in q's dtype (the shared gate's, the reference's order:
-    int8 codes dequantized to q's dtype) and in fp32 (K5_TOL's), clean
-    and poisoned."""
+    """K5 on one case (:func:`_paged_run`)."""
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
 
+    return _paged_run(torch, case, k5.chunk_prefill, k5.chunk_prefill_ref)
+
+
+def _paged_run(torch, case, kernel_fn, ref_fn):
+    """K4 or K5 (``kernel_fn``, its plain version ``ref_fn``) on one case:
+    the kernel's outputs on clean pools, on pools poisoned where no query
+    may read (1e9 rows or saturated codes, 1e7 scales in blocks no table
+    names) and on pools with NaN there; the plain version in q's dtype
+    (the shared gate's, the reference's order: int8 codes dequantized to
+    q's dtype) and in fp32 (the own gates'), clean and poisoned."""
     q, table_t, t = case["q"], case["table_t"], case["t"]
 
     def kern(a, b, sc=(None, None)):
-        return k5.chunk_prefill(q, a, b, table_t, t, k_scale=sc[0],
-                                v_scale=sc[1])
+        return kernel_fn(q, a, b, table_t, t, k_scale=sc[0], v_scale=sc[1])
 
     def plain(qq, a, b, sc=(None, None)):
-        return k5.chunk_prefill_ref(qq, a, b, table_t, t, k_scale=sc[0],
-                                    v_scale=sc[1])
+        return ref_fn(qq, a, b, table_t, t, k_scale=sc[0], v_scale=sc[1])
 
     if case["int8"]:
         codes, scales = case["pools"]
@@ -779,7 +791,7 @@ def k5_run(torch, case):
     return outs, shared, exact
 
 
-def k5_shared_error(dn, int8, outs, shared):
+def paged_shared_error(dn, int8, outs, shared):
     """The gate every K4/K5 case is held to: the largest |kernel - plain|
     over clean, poisoned, poisoned against clean and NaN-poisoned against
     clean, relative to max(1, max |plain|) for bf16 q over int8 pools
@@ -795,10 +807,15 @@ def k5_shared_error(dn, int8, outs, shared):
 
 
 def k5_share(int8, outs, exact) -> float:
-    """K5's own measure of bf16 q: the largest |out - plain| / (atol +
-    rtol |plain|) of any element, against the fp32 plain version, over
-    clean, poisoned and NaN-poisoned pools (NaN if any is not finite)."""
-    tol = K5_TOL["int8" if int8 else "bf16"]
+    """K5's own measure of bf16 q (:func:`limit_share` of ``K5_TOL``)."""
+    return limit_share(K5_TOL["int8" if int8 else "bf16"], outs, exact)
+
+
+def limit_share(tol, outs, exact) -> float:
+    """A redesigned body's own measure of bf16 q: the largest |out -
+    plain| / (atol + rtol |plain|) of any element, against the fp32 plain
+    version, over clean, poisoned and NaN-poisoned pools (NaN if any is
+    not finite)."""
     worst = 0.0
     for out, ref in zip(outs, (exact[0], exact[1], exact[0])):
         ref = ref.float()
@@ -817,30 +834,47 @@ def _finite(x) -> bool:
 def chunk_phase(torch, timer, rows, int8):
     """K5 (``int8``: K5-int8) on every case, fp32 and bf16: the shared
     gate, and for bf16 q K5_TOL; timed beside its plain version and SDPA
-    over the dense view gathered (and dequantized) beforehand."""
+    over the dense view gathered (and dequantized) beforehand; then a bf16
+    q its C entry must refuse."""
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
 
-    name = "K5-int8" if int8 else "K5"
+    _paged_phase(torch, timer, rows, "K5-int8" if int8 else "K5",
+                 k5_case_inputs, k5_run, K5_TOL, "k5", int8,
+                 k5.chunk_prefill, k5.chunk_prefill_ref)
+    if not int8:
+        _refuses_misaligned(torch, "K5", k5, k5.chunk_prefill,
+                            next(k5_case_inputs(torch, torch.bfloat16,
+                                                False)))
+
+
+def _paged_phase(torch, timer, rows, name, cases, run, tols, kid, int8,
+                 kernel_fn, ref_fn):
+    """Every case of ``cases`` (K4's or K5's generator), fp32 and bf16 q:
+    ``run`` on it, the shared gate, for bf16 q the kernel's own gate
+    (:func:`limit_share` against ``tols``, reported as
+    ``<kid>_limit_share``),
+    and the row timed beside its plain version and SDPA over the dense
+    view gathered (and dequantized) beforehand."""
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for case in k5_case_inputs(torch, dtype, int8):
+        for case in cases(torch, dtype, int8):
             shape = case["shape"]
-            outs, shared, exact = k5_run(torch, case)
+            outs, shared, exact = run(torch, case)
             check(all(_finite(o) for o in outs),
                   f"{name} {dn} {shape}: non-finite output on a poisoned "
                   "pool")
-            err, rel = k5_shared_error(dn, int8, outs, shared)
+            err, rel = paged_shared_error(dn, int8, outs, shared)
             check(rel <= ATOL[dn], f"{name} {dn} {shape}: max |kernel - "
                   f"plain| {err} (relative {rel}) > {ATOL[dn]} (clean, "
                   "poisoned, or poisoned vs clean)")
             extra = {}
             if dn == "bfloat16":
-                share = k5_share(int8, outs, exact)
-                tol = K5_TOL["int8" if int8 else "bf16"]
+                tol = tols["int8" if int8 else "bf16"]
+                share = limit_share(tol, outs, exact)
                 check(share <= 1.0, f"{name} {dn} {shape}: an element is "
                       f"off by {share} x (atol {tol['atol']} + rtol "
                       f"{tol['rtol']} |plain|)")
-                extra = {"k5_limit_share": share, "k5_tol": tol}
+                extra = {f"{kid}_limit_share": share, f"{kid}_tol": tol}
             q, table_t, t = case["q"], case["table_t"], case["t"]
             if int8:    # the library's view is dequantized beforehand
                 (kc, vc), sc = case["pools"]
@@ -850,39 +884,35 @@ def chunk_phase(torch, timer, rows, int8):
                 (kc, vc), sc = case["pools"], (None, None)
                 kd, vd = kc, vc
             _record(rows, name, dn, shape, err, timer,
-                    lambda: k5.chunk_prefill(q, kc, vc, table_t, t,
-                                             k_scale=sc[0], v_scale=sc[1]),
-                    lambda: k5.chunk_prefill_ref(q, kc, vc, table_t, t,
-                                                 k_scale=sc[0],
-                                                 v_scale=sc[1]),
+                    lambda: kernel_fn(q, kc, vc, table_t, t, k_scale=sc[0],
+                                      v_scale=sc[1]),
+                    lambda: ref_fn(q, kc, vc, table_t, t, k_scale=sc[0],
+                                   v_scale=sc[1]),
                     _sdpa_yardstick(torch, q, kd, vd, table_t, case["table"],
                                     t, case["reach"]),
                     nbytes=case["nbytes"], flops=case["flops"], **extra)
-        if dtype == torch.bfloat16 and not int8:
-            _k5_refuses_misaligned(torch, k5)
 
 
-def _k5_refuses_misaligned(torch, k5):
+def _refuses_misaligned(torch, name, mod, kernel_fn, case):
     """A bf16 q one element past a 16-byte boundary reaches the C entry,
     which must refuse it (cudaErrorInvalidValue = 1): cp.async takes
     16-byte chunks. Nothing is launched or counted."""
-    case = next(k5_case_inputs(torch, torch.bfloat16, False))
     q = case["q"]
     buf = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
     qm = buf[1:q.numel() + 1].view(q.shape)
     qm.copy_(q)
     check(qm.is_contiguous() and qm.data_ptr() % 16 != 0,
-          "the misaligned K5 case is not misaligned")
-    before = k5.launches
+          f"the misaligned {name} case is not misaligned")
+    before = mod.launches
     try:
-        k5.chunk_prefill(qm, *case["pools"], case["table_t"], case["t"])
+        kernel_fn(qm, *case["pools"], case["table_t"], case["t"])
     except RuntimeError as e:
-        check("CUDA error 1 " in str(e), f"K5 misaligned q: {e}")
+        check("CUDA error 1 " in str(e), f"{name} misaligned q: {e}")
     else:
-        fail("K5 launched on a bf16 q misaligned for cp.async")
-    check(k5.launches == before, "K5 counted a refused launch")
-    print("  K5 bfloat16: a q misaligned by one element is refused by the C "
-          "entry", flush=True)
+        fail(f"{name} launched on a bf16 q misaligned for cp.async")
+    check(mod.launches == before, f"{name} counted a refused launch")
+    print(f"  {name} bfloat16: a q misaligned by one element is refused by "
+          "the C entry", flush=True)
 
 
 # (B, S, H, D, causal): the training shape, non-causal, head_dim 128; the
@@ -1504,7 +1534,8 @@ def serving_q_phase(torch, card, model, fp_agg):
 
 def serving_bf16_phase(torch, card):
     """Phase 5c: ``gpt2_small`` in bf16 at full width and depth, whose
-    chunk prefill launches K5's tensor-core body, serves phase 5's first 8
+    chunk prefill launches K5's and whose decode steps launch K4's
+    tensor-core body, serves phase 5's first 8
     greedy requests on bf16 pools, then on int8 pools: exact launch
     counts, every request done, and greedy agreement with the bf16
     teacher-forced argmax >= 0.9 (5b's limit, test_paged_kv.py:502).
@@ -1662,12 +1693,19 @@ KERNELS = {
     "K5-int8-bf16": ("chunk_prefill (bf16 mma.sync body, int8 pools)",
                      "paddle_tpu_torch/csrc/chunk_prefill.cu",
                      "paddle_tpu/ops/pallas/chunk_prefill.py:126"),
+    "K4-bf16": ("paged_attention (bf16 mma.sync cluster body)",
+                "paddle_tpu_torch/csrc/paged_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:103"),
+    "K4-int8-bf16": ("paged_attention (bf16 mma.sync cluster body, int8 "
+                     "pools)", "paddle_tpu_torch/csrc/paged_attention.cu",
+                     "paddle_tpu/ops/pallas/paged_attention.py:134"),
 }
 # the row each kernel reports in the kernels line: for K2, K4 and K5
 # fp32 (the serving phase's dtype) at the decode shape for K2 and K4,
-# and the deepest prefix for K5; for K5's bf16 body (phase 5c's) bf16 at
-# the deepest prefix; for the flash kernels bf16 (the training phase's
-# dtype under AMP) at the shape of the path that launches them.
+# and the deepest prefix for K5; for K4's and K5's bf16 bodies (phase
+# 5c's) bf16 at the decode shape and the deepest prefix; for the flash
+# kernels bf16 (the training phase's dtype under AMP) at the shape of the
+# path that launches them.
 # id -> (row's kernel, dtype, shape)
 _K5_DEEP = [128, 517, 12, 64, 16, 64]
 HEADLINE = {"K1": ("K1", "bfloat16", list(FLASH_CASES[0])),
@@ -1680,7 +1718,9 @@ HEADLINE = {"K1": ("K1", "bfloat16", list(FLASH_CASES[0])),
             "K4-int8": ("K4-int8", "float32", [8, 1, 12, 64, 16, 64]),
             "K5-int8": ("K5-int8", "float32", _K5_DEEP),
             "K5-bf16": ("K5", "bfloat16", _K5_DEEP),
-            "K5-int8-bf16": ("K5-int8", "bfloat16", _K5_DEEP)}
+            "K5-int8-bf16": ("K5-int8", "bfloat16", _K5_DEEP),
+            "K4-bf16": ("K4", "bfloat16", [8, 1, 12, 64, 16, 64]),
+            "K4-int8-bf16": ("K4-int8", "bfloat16", [8, 1, 12, 64, 16, 64])}
 
 
 def main():
@@ -1709,9 +1749,9 @@ def main():
     rows = []
     print("kernels vs plain versions (device ms, cold L2):", flush=True)
     layer_norm_phase(torch, timer, rows)
-    paged_phase(torch, timer, rows)
+    decode_phase(torch, timer, rows, int8=False)
     chunk_phase(torch, timer, rows, int8=False)
-    paged_q_phase(torch, timer, rows)
+    decode_phase(torch, timer, rows, int8=True)
     chunk_phase(torch, timer, rows, int8=True)
     lap("K2, K4, K5")
     long_launches = flash_phase(torch, timer, rows)
@@ -1725,7 +1765,9 @@ def main():
     bf16_launches, bf16_q_launches = serving_bf16_phase(torch, card)
     lap("bf16 serving")
     launches.update({"K5-bf16": bf16_launches["K5"],
-                     "K5-int8-bf16": bf16_q_launches["K5-int8"]})
+                     "K5-int8-bf16": bf16_q_launches["K5-int8"],
+                     "K4-bf16": bf16_launches["K4"],
+                     "K4-int8-bf16": bf16_q_launches["K4-int8"]})
     train_launches = training_phase(torch, card)
     lap("training")
     launches.update({"K1": train_launches["K1"], "K3a": train_launches["K3a"],

@@ -97,7 +97,7 @@ def child(dtypes, sound_out, sound_in):
         for case in cs.k5_case_inputs(torch, torch.bfloat16, int8):
             outs, shared, exact = cs.k5_run(torch, case)
             finite = all(cs._finite(o) for o in outs)
-            err, rel = cs.k5_shared_error("bfloat16", int8, outs, shared)
+            err, rel = cs.paged_shared_error("bfloat16", int8, outs, shared)
             share = cs.k5_share(int8, outs, exact)
             pools = "int8" if int8 else "bf16"
             row = {"dtype": "bfloat16", "pools": pools,

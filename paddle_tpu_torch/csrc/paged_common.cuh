@@ -1,7 +1,9 @@
-// The attention body K4 (paged decode/verify) and K5 (chunk prefill)
-// with fp32 queries share (K5's bf16 queries have their tensor-core body
-// in chunk_prefill.cu): one CTA owns `rows` consecutive query rows of one
-// slot and one head, and walks that slot's KV through the block table.
+// The CUDA-core attention body that K4 (paged decode/verify) and K5
+// (chunk prefill) run for fp32 queries. bf16 queries run tensor-core
+// bodies instead: K4's cluster-split paged_decode_mma_kernel in
+// paged_attention.cu, K5's chunk_prefill_mma_kernel in chunk_prefill.cu.
+// Here one CTA owns `rows` consecutive query rows of one slot and one
+// head, and walks that slot's KV through the block table.
 //
 // Layouts (all contiguous, checked by the Python wrappers):
 //   q, out   (b, s, H, D)             query row r of slot n at (n*s + r)

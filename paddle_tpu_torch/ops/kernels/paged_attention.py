@@ -3,9 +3,15 @@
 Replaces ``paddle_tpu/ops/pallas/paged_attention.py`` (``_paged_kernel``
 via ``paged_attention_pallas``) in both of its branches: full-precision
 pools, and int8 code pools dequantized by ``(num_blocks, H)`` fp32
-absmax scales (``paged_attention.py:134-136``). The kernel is
-``paddle_tpu_torch/csrc/paged_attention.cu``; its header note says what
-bounds it on the H100 and how the design answers that.
+absmax scales (``paged_attention.py:134-136``). The kernels are in
+``paddle_tpu_torch/csrc/paged_attention.cu``, whose header note says what
+bounds them on the H100 and how the designs answer that: bf16 q runs a
+tensor-core body (``mma.sync``) whose key walk is split across a
+thread-block cluster and merged through distributed shared memory, over
+bf16 or int8 pools (C entry ``ptt_paged_decode_fwd``; a pointer or pool
+row that ``cp.async`` cannot take, 16 bytes, is refused and the wrapper
+raises); fp32 q runs the CUDA-core body that K5's fp32 q shares
+(``ptt_paged_attention_fwd``).
 
 :func:`paged_attention` is the wrapper: a CPU tensor takes
 :func:`paged_attention_ref` — the counterpart of ``paged_attention_xla``,
@@ -170,12 +176,16 @@ def paged_attention(q, k_pool, v_pool, table, t,
     tv = broadcast_offsets(t, b, q.device)
     out = torch.empty_like(q)
     lib = _build.load_library()
-    err = lib.ptt_paged_attention_fwd(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        *scale_ptrs(k_scale, v_scale), table.data_ptr(), tv.data_ptr(),
-        out.data_ptr(), b, s, h, d, k_pool.shape[1], table.shape[1],
-        float(scale), _DTYPES[q.dtype], pool,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            *scale_ptrs(k_scale, v_scale), table.data_ptr(), tv.data_ptr(),
+            out.data_ptr(), b, s, h, d, k_pool.shape[1], table.shape[1],
+            float(scale))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        err = lib.ptt_paged_decode_fwd(*args, pool, stream)
+    else:
+        err = lib.ptt_paged_attention_fwd(*args, _DTYPES[q.dtype], pool,
+                                          stream)
     _build.check(err, "paged_attention kernel")
     global launches, launches_q
     if pool == _INT8:
