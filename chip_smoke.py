@@ -9,14 +9,18 @@ Phases, in order (any failure exits non-zero and prints no result):
 1. card: the ``nvidia-smi`` name and power limit, the capability;
 2. build: ``csrc/*.cu`` -> ``build/kernels/`` with ``nvcc`` for sm_90a,
    then the registers and spills of every K1/K3/K4/K5 instantiation
-   (``-Xptxas -v``; a bf16 K1, K3a, K3b-dkv, K3b-dq, K4 or K5 body that
-   spills fails the run), the tensor-core instructions (HMMA) and
-   atomics (RED, ATOM) that ``cuobjdump -sass`` finds in each bf16 K3,
-   K4 and K5 body (no HMMA fails the run, and so do atomics in the
-   K3b-dq body, whose dQ is written once), and the bf16 K1's, K3 and K5
-   bodies' shared memory and CTAs per SM from the CUDA runtime (K4's:
-   the clusters the card holds at once);
-3. kernels: K2 LayerNorm, K4 paged decode and K5 chunk prefill, each
+   (``-Xptxas -v``; a bf16 K1, K3a, K3b-dkv, K3b-dq, K4 or K5 body, or an
+   instantiation of the fp32 paged body, that spills fails the run), the
+   tensor-core instructions (HMMA) and atomics (RED, ATOM) that
+   ``cuobjdump -sass`` finds in each bf16 K3, K4 and K5 body and in the
+   fp32 paged body (no HMMA in a bf16 body fails the run, and so do
+   atomics in the K3b-dq body, whose dQ is written once, and any HMMA in
+   the fp32 body), and the bf16 K1's, K3 and K5 bodies' shared memory and
+   CTAs per SM from the CUDA runtime (K4's: the clusters the card holds
+   at once);
+3. kernels: K2 LayerNorm (also at a large mean, an odd C and on an
+   offset view, with and without w and b, each held to K2_TOL as well),
+   K4 paged decode and K5 chunk prefill, each
    against its plain PyTorch version in fp32 and bf16 at the serving
    path's shapes, on pools poisoned where no query may read (1e9 in
    unreadable rows of mapped blocks, NaN in blocks no table names; for
@@ -31,9 +35,10 @@ Phases, in order (any failure exits non-zero and prints no result):
    (s 16), over both pools; K5 also
    on a chunk running off a table of 5 blocks, and with bf16 q (its
    tensor-core body) on three slots at their own starts. Every bf16 K4
-   case is held to K4_TOL and every bf16 K5 case to K5_TOL as well,
-   element by element, and a bf16 q misaligned for cp.async must be
-   refused by K4's and by K5's C entry point;
+   case is held to K4_TOL, every bf16 K5 case to K5_TOL and every fp32
+   K4 and K5 case to F32_PAGED_TOL as well, element by element, and a
+   bf16 q, or an fp32 q's K pool, misaligned for cp.async must be refused
+   by K4's and by K5's C entry point;
 4. flash: K1 (forward), K3a (fused backward) and K3b (the streaming
    dK/dV and dQ passes) against their plain versions in fp32 and bf16
    at the training shape, non-causal, at head_dim 128, and on the
@@ -168,6 +173,43 @@ K5_TOL = {"bf16": {"atol": 6e-3, "rtol": 1e-2},
 K4_TOL = {"bf16": {"atol": 6e-3, "rtol": 1e-2},
           "int8": {"atol": 1.5e-3, "rtol": 1e-2}}
 
+# K2 is held to the shared gate against its plain version in fp32
+# (layer_norm_ref): y within ATOL, mean and rstd within 2e-5. At a large
+# mean (1e3 + 2 randn) the plain version in fp32 is itself off, since it
+# rounds its mean once more, which moves every y by up to ~1e-4; there
+# ATOL holds y against the plain formula evaluated in fp64. On top of it
+# K2 is held to its own gate, element by element, |out - exact| <= atol
+# + rtol |exact|, for y (in x's dtype), mean and rstd (fp32), against
+# the plain formula in fp64, in every case. fp32 y differs by a few
+# fp32 roundings and rsqrtf's error (rtol), bf16 y by its one rounding to
+# bf16 (rtol 2**-8); the mean by one fp32 rounding of a value up to 1e3
+# (rtol), rstd by rsqrtf's. Over the K2 cases of this script at C <= 771
+# on an H100 the sound kernels' worst errors are fp32 y 7.5e-8 + 1e-6
+# |exact|, bf16 y 5.7e-8 + 2**-8 |exact| (half a bf16 ulp), mean 9.2e-8
+# + 1.2e-7 |exact|, rstd 3.4e-8 + 1e-7 |exact| (k2_fault_check.py,
+# PERF.md): the limits sit 3-4x above them. The wide bf16 rows (C 2048,
+# 65536) reach 0.43 and 0.52 of the limits, their means' fp32 sums
+# erring by up to 1.5e-7 + 1.2e-7 |exact|. k2_fault_check.py shows each
+# planted fault that changes an output failing them.
+K2_TOL = {"float32": {"atol": 3e-7, "rtol": 4e-6},
+          "bfloat16": {"atol": 2e-7, "rtol": 1.2e-2},
+          "mean": {"atol": 4e-7, "rtol": 4.8e-7},
+          "rstd": {"atol": 1.4e-7, "rtol": 4e-7}}
+
+# The fp32 paged body (K4 and K5 with fp32 q, over fp32 pools or int8
+# codes with their scales; its key walk split across a cluster) is held
+# to its own gate on top of ATOL, element by element against the fp32
+# plain version on clean, poisoned and NaN-poisoned pools: the two differ
+# in summation order only (the online softmax over split key tiles, exp2
+# of log2-scaled logits, the merge in fp32). Over every fp32 K4 and K5
+# case of this script on an H100 the sound body's worst errors are 4.9e-7
+# + 1e-5 |plain| over fp32 pools and 5.4e-6 + 1e-5 |plain| over int8
+# pools, whose values reach the blocks' absmax (k45_f32_fault_check.py,
+# PERF.md); the limits sit 3.7-4x above them, and that script shows each
+# planted fault that changes an output failing them.
+F32_PAGED_TOL = {"fp32": {"atol": 2e-6, "rtol": 4e-5},
+                 "int8": {"atol": 2e-5, "rtol": 4e-5}}
+
 
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -254,8 +296,7 @@ def build_phase():
           f"{_build.build_dir()}", flush=True)
 
 
-_PTXAS_PAGED = re.compile(r"paged_attn_kernelI(f|13__nv_bfloat16)"
-                          r"(f|a|S\d*_)Li(\d+)ELi\d+ELi\d+E")
+_PTXAS_F32 = re.compile(r"paged_f32_kernelI(f|a)Li(\d+)ELi(\d+)E")
 _PTXAS_K5 = re.compile(r"chunk_prefill_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
 _PTXAS_K4 = re.compile(r"paged_decode_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
 _PTXAS_FLASH = re.compile(r"flash_fwd_(mma_)?kernelI(f)?Li(\d+)E")
@@ -315,9 +356,8 @@ def _ptxas_label(src: str, name):
         return (f"K4 bf16 mma.sync, clusters, pool "
                 f"{'int8' if int8 else 'bf16'}, D {D}", True,
                 ("ptt_paged_decode_occupancy", D, 2 if int8 else 1))
-    tq = "fp32" if name.group(1) == "f" else "bf16"
-    tp = "int8" if name.group(2) == "a" else tq
-    return f"q {tq}, pool {tp}, D {name.group(3)}", False, None
+    return (f"K4/K5 fp32 body, pool {'int8' if name.group(1) == 'a' else 'fp32'}"
+            f", D {name.group(2)}, {name.group(3)}-row tiles", False, None)
 
 
 def _sass_ops(obj: str, ops=("HMMA", "RED", "ATOM")):
@@ -351,17 +391,19 @@ def _sass_ops(obj: str, ops=("HMMA", "RED", "ATOM")):
 def ptxas_phase():
     """Registers and spills of every K1, K3, K4 and K5 instantiation, from
     ``nvcc -Xptxas -v`` on their sources; a bf16 K1, K3a, K3b-dkv, K3b-dq,
-    K4 or K5 (the tensor-core bodies) that spills fails the run. For those
-    bodies also their shared memory and the CTAs an SM holds (K4: the
-    clusters the card holds), and for the bf16 K3, K4 and K5 bodies the
-    tensor-core products (HMMA) and atomics in their SASS: a body without
-    HMMA, a K3a without atomics, or a K3b-dq with any, fails."""
+    K4 or K5 (the tensor-core bodies) or an instantiation of the fp32
+    paged body that spills fails the run. For the tensor-core bodies also
+    their shared memory and the CTAs an SM holds (K4: the clusters the
+    card holds), and for the bf16 K3, K4 and K5 bodies the tensor-core
+    products (HMMA) and atomics in their SASS: a body without HMMA, a K3a
+    without atomics, or a K3b-dq with any, fails; so does an fp32 paged
+    body with any HMMA (fp32 stays on the CUDA cores)."""
     import tempfile
 
     from paddle_tpu_torch.ops.kernels import _build
 
-    pats = {"paged_attention.cu": (_PTXAS_K4, _PTXAS_PAGED),
-            "chunk_prefill.cu": (_PTXAS_K5, _PTXAS_PAGED),
+    pats = {"paged_attention.cu": (_PTXAS_K4, _PTXAS_F32),
+            "chunk_prefill.cu": (_PTXAS_K5, _PTXAS_F32),
             "flash_fwd.cu": (_PTXAS_FLASH,), "flash_bwd.cu": (_PTXAS_BWD,)}
     srcs = [p for p in _build.sources() if p.name in pats]
     with tempfile.TemporaryDirectory() as tmp:
@@ -377,7 +419,7 @@ def ptxas_phase():
         sass = {**_sass_ops(f"{tmp}/flash_bwd.o"),
                 **_sass_ops(f"{tmp}/chunk_prefill.o"),
                 **_sass_ops(f"{tmp}/paged_attention.o")}
-    seen = {"K1": 0, "K3": 0, "K4": 0, "K5": 0}
+    seen = {"K1": 0, "K3": 0, "K4": 0, "K5": 0, "F32": 0}
     for src, out in zip(srcs, outs):
         name = spill = None
         for line in out.splitlines():
@@ -393,6 +435,15 @@ def ptxas_phase():
                 regs = int(line.split("Used", 1)[1].split()[0])
                 stores, loads = int(spill.group(1)), int(spill.group(2))
                 extra = ""
+                if name.re is _PTXAS_F32:
+                    # fp32 on the CUDA cores: no TF32 or bf16 products
+                    ops = sass.get(full)
+                    seen["F32"] += 1
+                    check(stores == loads == 0, f"ptxas: {label} spills "
+                          f"{stores} bytes stored, {loads} loaded")
+                    check(ops is not None and ops["HMMA"] == 0,
+                          f"SASS: {label} has tensor-core products ({ops})")
+                    extra = f", SASS {ops['HMMA']} HMMA"
                 if mma:
                     seen[label[:2]] += 1
                     extra = _occupancy(*occ)
@@ -416,10 +467,11 @@ def ptxas_phase():
                       f"{stores} bytes spill stores, {loads} bytes spill "
                       f"loads{extra}", flush=True)
                 name = None
-    check(seen == {"K1": 2, "K3": 6, "K4": 4, "K5": 4}, f"ptxas: "
-          f"tensor-core bodies seen {seen}, expected K1 at D 64 and 128, "
-          "K3a, K3b-dkv and K3b-dq at both, K4 and K5 over bf16 and int8 "
-          "pools at both")
+    check(seen == {"K1": 2, "K3": 6, "K4": 4, "K5": 4, "F32": 16}, f"ptxas: "
+          f"bodies seen {seen}, expected the tensor-core K1 at D 64 and "
+          "128, K3a, K3b-dkv and K3b-dq at both, K4 and K5 over bf16 and "
+          "int8 pools at both, and the fp32 body over fp32 and int8 pools "
+          "at both: K4's 16-row tiles, K5's 16, 32 and 64")
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
@@ -444,43 +496,146 @@ def _record(rows, name, dtype, shape, err, timer, kernel, plain, library,
     print("  " + json.dumps(row), flush=True)
 
 
+# K2's cases: the timed shapes (R, C), serving's decode step and chunk
+# (8 and 128 rows) and training's 16 x 1024 rows, in both dtypes; then
+# rows of large mean (1e3 + 2 randn, fp32 only: bf16 keeps 8 bits of
+# 1e3), where E[x^2] - mean^2 would lose ~1% of the variance; an odd C
+# (771: no whole 16-byte vectors) and an offset view (x one element past
+# an aligned base), which take the row kernel; and the wide rows of
+# K2_WIDE: C 2048 (bf16: the warp kernel at its cap of 8 vectors a
+# lane; fp32: the row kernel staged by 16-byte vectors), 16384 (staged
+# past 48 KB of shared memory) and 65536 (fp32: past what one CTA's
+# shared memory holds, read from global memory on each pass)
+K2_TIMED = ((8, 768), (128, 768), (16384, 768))
+K2_WIDE = ((64, 2048), (16, 16384), (4, 65536))
+
+
+def k2_case_inputs(torch, dtype):
+    """Every K2 case at ``dtype``: dicts of x, w, b, the shape label and
+    whether it is timed."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def affine(C):
+        w = 1 + 0.1 * torch.randn(C, device="cuda", generator=g)
+        b = 0.1 * torch.randn(C, device="cuda", generator=g)
+        return w.to(dtype), b.to(dtype)
+
+    for R, C in K2_TIMED:
+        x = (torch.randn(R, C, device="cuda", generator=g) * 2 + 0.5)
+        yield dict(x=x.to(dtype), wb=affine(C), shape=[R, C], timed=True)
+    if dtype == torch.float32:
+        x = torch.randn(128, 768, device="cuda", generator=g) * 2 + 1e3
+        yield dict(x=x, wb=affine(768), shape=["large mean", 128, 768],
+                   timed=False, plain_sound=False)
+    x = torch.randn(64, 771, device="cuda", generator=g) * 2 + 0.5
+    yield dict(x=x.to(dtype), wb=affine(771), shape=["odd C", 64, 771],
+               timed=False)
+    buf = torch.randn(64 * 768 + 8, device="cuda", generator=g) * 2 + 0.5
+    x = buf.to(dtype)[1:64 * 768 + 1].view(64, 768)
+    yield dict(x=x, wb=affine(768), shape=["offset view", 64, 768],
+               timed=False)
+    for R, C in K2_WIDE:
+        x = torch.randn(R, C, device="cuda", generator=g) * 2 + 0.5
+        yield dict(x=x.to(dtype), wb=affine(C), shape=["wide", R, C],
+                   timed=False)
+
+
+def _ln_exact(torch, x, w, b, eps):
+    """The plain version's formula (layer_norm_ref's) in fp64: y, mean,
+    rstd."""
+    xd = x.double()
+    mean = xd.mean(dim=-1, keepdim=True)
+    xc = xd - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    y = xc * rstd
+    if w is not None:
+        y = y * w.double()
+    if b is not None:
+        y = y + b.double()
+    return y, mean, rstd
+
+
+def k2_run(torch, case):
+    """K2 on one case with w and b, w only, b only and neither: the
+    kernel's (y, mean, rstd), the plain version's on x, w and b in fp32,
+    and the exact ones of each. Before each launch a NaN tensor of y's
+    size is freed, so that an output row the kernel leaves unwritten
+    reads NaN, not an earlier call's values."""
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+
+    x, (w, b) = case["x"], case["wb"]
+    f32 = (lambda t: None if t is None else t.float())
+    outs, plain, exact = [], [], []
+    for wi, bi in ((w, b), (w, None), (None, b), (None, None)):
+        torch.full_like(x, float("nan"))
+        outs.append(k2.layer_norm_fwd(x, wi, bi, 1e-5))
+        plain.append(k2.layer_norm_ref(f32(x), f32(wi), f32(bi), 1e-5))
+        exact.append(_ln_exact(torch, x, wi, bi, 1e-5))
+    torch.cuda.synchronize()
+    return outs, plain, exact
+
+
+def k2_errors(dn, case, outs, plain, exact):
+    """K2's measures: for the shared gate, the largest |y - plain| (ATOL;
+    against the exact y where the fp32 plain version is not sound, as at
+    a large mean) and the largest |mean - plain| and |rstd - plain|
+    (2e-5; 0 where the plain version is not sound); and K2's own, the
+    largest |out - exact| / (atol + rtol |exact|) of any element of y,
+    mean or rstd against ``K2_TOL`` (NaN if any is not finite)."""
+    sound = case.get("plain_sound", True)
+    err, stat_err, share = 0.0, 0.0, 0.0
+    for out, pl, ref in zip(outs, plain, exact):
+        if sound:
+            err = max(err, _err(out[0], pl[0]))
+            stat_err = max(stat_err, _err(out[1], pl[1]),
+                           _err(out[2], pl[2]))
+        else:
+            err = max(err, float((out[0].double() - ref[0]).abs().max()))
+        for tol, a, r in ((K2_TOL[dn], out[0], ref[0]),
+                          (K2_TOL["mean"], out[1], ref[1]),
+                          (K2_TOL["rstd"], out[2], ref[2])):
+            ratio = (a.double() - r).abs() / (tol["atol"]
+                                              + tol["rtol"] * r.abs())
+            if not _finite(ratio):
+                return float("nan"), float("nan"), float("nan")
+            share = max(share, float(ratio.max()))
+    return err, stat_err, share
+
+
 def layer_norm_phase(torch, timer, rows):
+    """K2 on every case, fp32 and bf16, with and without w and b: ATOL
+    on y and 2e-5 on mean and rstd against the plain version, K2_TOL on
+    y, mean and rstd; the timed shapes beside the plain version and
+    F.layer_norm."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.kernels import layer_norm as k2
 
-    g = torch.Generator(device="cuda").manual_seed(11)
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for R, C in ((8, 768), (128, 768), (16384, 768)):
-            x32 = torch.randn(R, C, device="cuda", generator=g) * 2 + 0.5
-            w32 = 1 + 0.1 * torch.randn(C, device="cuda", generator=g)
-            b32 = 0.1 * torch.randn(C, device="cuda", generator=g)
-            x, w, b = x32.to(dtype), w32.to(dtype), b32.to(dtype)
-            y, mean, rstd = k2.layer_norm_fwd(x, w, b, 1e-5)
-            ry, rmean, rrstd = k2.layer_norm_ref(x.float(), w.float(),
-                                                 b.float(), 1e-5)
-            torch.cuda.synchronize()
-            err = _err(y, ry)
-            check(err <= ATOL[dn], f"K2 {dn} ({R},{C}): max |y - plain| "
-                  f"{err} > {ATOL[dn]}")
-            check(_err(mean, rmean) <= 2e-5 and _err(rstd, rrstd) <= 2e-5,
-                  f"K2 {dn} ({R},{C}): mean/rstd disagree with the plain "
-                  "version")
-            for wi, bi in ((w, None), (None, b), (None, None)):
-                yo = k2.layer_norm_fwd(x, wi, bi, 1e-5)[0]
-                ro = k2.layer_norm_ref(
-                    x.float(), None if wi is None else wi.float(),
-                    None if bi is None else bi.float(), 1e-5)[0]
-                check(_err(yo, ro) <= ATOL[dn],
-                      f"K2 {dn} ({R},{C}) optional-affine case disagrees")
+        for case in k2_case_inputs(torch, dtype):
+            shape = case["shape"]
+            err, stat_err, share = k2_errors(dn, case, *k2_run(torch, case))
+            check(err <= ATOL[dn], f"K2 {dn} {shape}: max |y - plain| {err} "
+                  f"> {ATOL[dn]}")
+            check(stat_err <= 2e-5, f"K2 {dn} {shape}: mean/rstd disagree "
+                  f"with the plain version by {stat_err}")
+            check(share <= 1.0, f"K2 {dn} {shape}: an element of y, mean or "
+                  f"rstd is off by {share} x its K2_TOL limit")
+            if not case["timed"]:
+                print(f"  K2 {dn} {shape}: max |y - plain| {err:.3g}, at "
+                      f"{share:.3g} of K2_TOL", flush=True)
+                continue
+            x, (w, b) = case["x"], case["wb"]
+            R, C = x.shape
             sz = x.element_size()
             _record(rows, "K2", dn, [R, C], err, timer,
                     lambda: k2.layer_norm_fwd(x, w, b, 1e-5),
                     lambda: k2.layer_norm_ref(x, w, b, 1e-5),
                     lambda: TF.layer_norm(x, (C,), w, b, 1e-5),
                     nbytes=R * C * 2 * sz + 2 * C * sz + 8 * R,
-                    flops=8 * R * C)
+                    flops=8 * R * C, k2_limit_share=share,
+                    k2_tol=K2_TOL[dn])
 
 
 def _pool_case(torch, rs, nslots, bp, bs, H, D, dtype, spare=16):
@@ -677,31 +832,32 @@ def k4_share(int8, outs, exact) -> float:
 
 def decode_phase(torch, timer, rows, int8):
     """K4 (``int8``: K4-int8) on every case, fp32 and bf16: the shared
-    gate, and for bf16 q K4_TOL; timed beside its plain version and SDPA
-    over the dense view gathered (and dequantized) beforehand; then a bf16
-    q its C entry must refuse."""
+    gate, and K4_TOL for bf16 q, F32_PAGED_TOL for fp32; timed beside its
+    plain version and SDPA over the dense view gathered (and dequantized)
+    beforehand; then a bf16 q and an fp32 q's K pool its C entry must
+    refuse."""
     from paddle_tpu_torch.ops.kernels import paged_attention as k4
 
     _paged_phase(torch, timer, rows, "K4-int8" if int8 else "K4",
                  k4_case_inputs, k4_run, K4_TOL, "k4", int8,
                  k4.paged_attention, k4.paged_attention_ref)
     if not int8:
-        _refuses_misaligned(torch, "K4", k4, k4.paged_attention,
-                            next(k4_case_inputs(torch, torch.bfloat16,
-                                                False)))
+        for dtype in (torch.bfloat16, torch.float32):
+            _refuses_misaligned(torch, "K4", k4, k4.paged_attention,
+                                next(k4_case_inputs(torch, dtype, False)))
 
 
 # K5's cases (s, start): a prompt's first chunk, its second, a chunk over
 # the serving path's deepest prefix, a chunk length of no power of two,
 # and a chunk whose pad tail runs past the table's end; the int8 pools at
-# the first and the deepest. Both pools also: a chunk running off a
+# the first, the deepest and the chunk of no power of two. Both pools also: a chunk running off a
 # table of 5 blocks (80 rows, no multiple of a 64-key tile), whose last
 # key tile holds 48 zero-filled rows past the reach that its 24 pad
 # rows' positions would admit (unmasked, they would take a tenth or more
 # of those rows' softmax); and for bf16 q three slots at their own
 # starts (the kernel takes a start per slot).
 K5_SHAPES = ((128, 0), (128, 128), (128, 517), (100, 300), (64, 1000))
-K5_Q_SHAPES = ((128, 0), (128, 517))
+K5_Q_SHAPES = ((128, 0), (128, 517), (100, 300))
 K5_OFF_TABLE = (64, 40, 5)              # s, start, bp
 K5_SLOTS = (128, (0, 517, 260))
 K5_GEOMETRY = (12, 64, 16, 64)          # H, D, bs, bp: gpt2_small's
@@ -806,16 +962,22 @@ def paged_shared_error(dn, int8, outs, shared):
     return err, err / norm
 
 
+def f32_share(int8, outs, exact) -> float:
+    """The fp32 body's own measure (fp32 q, K4 or K5), against
+    ``F32_PAGED_TOL``."""
+    return limit_share(F32_PAGED_TOL["int8" if int8 else "fp32"], outs,
+                       exact)
+
+
 def k5_share(int8, outs, exact) -> float:
     """K5's own measure of bf16 q (:func:`limit_share` of ``K5_TOL``)."""
     return limit_share(K5_TOL["int8" if int8 else "bf16"], outs, exact)
 
 
 def limit_share(tol, outs, exact) -> float:
-    """A redesigned body's own measure of bf16 q: the largest |out -
-    plain| / (atol + rtol |plain|) of any element, against the fp32 plain
-    version, over clean, poisoned and NaN-poisoned pools (NaN if any is
-    not finite)."""
+    """A redesigned body's own measure: the largest |out - plain| / (atol
+    + rtol |plain|) of any element, against the fp32 plain version, over
+    clean, poisoned and NaN-poisoned pools (NaN if any is not finite)."""
     worst = 0.0
     for out, ref in zip(outs, (exact[0], exact[1], exact[0])):
         ref = ref.float()
@@ -833,28 +995,29 @@ def _finite(x) -> bool:
 
 def chunk_phase(torch, timer, rows, int8):
     """K5 (``int8``: K5-int8) on every case, fp32 and bf16: the shared
-    gate, and for bf16 q K5_TOL; timed beside its plain version and SDPA
-    over the dense view gathered (and dequantized) beforehand; then a bf16
-    q its C entry must refuse."""
+    gate, and K5_TOL for bf16 q, F32_PAGED_TOL for fp32; timed beside its
+    plain version and SDPA over the dense view gathered (and dequantized)
+    beforehand; then a bf16 q and an fp32 q's K pool its C entry must
+    refuse."""
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
 
     _paged_phase(torch, timer, rows, "K5-int8" if int8 else "K5",
                  k5_case_inputs, k5_run, K5_TOL, "k5", int8,
                  k5.chunk_prefill, k5.chunk_prefill_ref)
     if not int8:
-        _refuses_misaligned(torch, "K5", k5, k5.chunk_prefill,
-                            next(k5_case_inputs(torch, torch.bfloat16,
-                                                False)))
+        for dtype in (torch.bfloat16, torch.float32):
+            _refuses_misaligned(torch, "K5", k5, k5.chunk_prefill,
+                                next(k5_case_inputs(torch, dtype, False)))
 
 
 def _paged_phase(torch, timer, rows, name, cases, run, tols, kid, int8,
                  kernel_fn, ref_fn):
     """Every case of ``cases`` (K4's or K5's generator), fp32 and bf16 q:
-    ``run`` on it, the shared gate, for bf16 q the kernel's own gate
-    (:func:`limit_share` against ``tols``, reported as
-    ``<kid>_limit_share``),
-    and the row timed beside its plain version and SDPA over the dense
-    view gathered (and dequantized) beforehand."""
+    ``run`` on it, the shared gate, the body's own gate (:func:`limit_share`
+    against ``tols`` for bf16 q, reported as ``<kid>_limit_share``, and
+    against F32_PAGED_TOL for fp32 q, as ``f32_limit_share``), and the row
+    timed beside its plain version and SDPA over the dense view gathered
+    (and dequantized) beforehand."""
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for case in cases(torch, dtype, int8):
@@ -867,14 +1030,15 @@ def _paged_phase(torch, timer, rows, name, cases, run, tols, kid, int8,
             check(rel <= ATOL[dn], f"{name} {dn} {shape}: max |kernel - "
                   f"plain| {err} (relative {rel}) > {ATOL[dn]} (clean, "
                   "poisoned, or poisoned vs clean)")
-            extra = {}
             if dn == "bfloat16":
-                tol = tols["int8" if int8 else "bf16"]
-                share = limit_share(tol, outs, exact)
-                check(share <= 1.0, f"{name} {dn} {shape}: an element is "
-                      f"off by {share} x (atol {tol['atol']} + rtol "
-                      f"{tol['rtol']} |plain|)")
-                extra = {f"{kid}_limit_share": share, f"{kid}_tol": tol}
+                tol, gate = tols["int8" if int8 else "bf16"], kid
+            else:
+                tol, gate = F32_PAGED_TOL["int8" if int8 else "fp32"], "f32"
+            share = limit_share(tol, outs, exact)
+            check(share <= 1.0, f"{name} {dn} {shape}: an element is off by "
+                  f"{share} x (atol {tol['atol']} + rtol {tol['rtol']} "
+                  "|plain|)")
+            extra = {f"{gate}_limit_share": share, f"{gate}_tol": tol}
             q, table_t, t = case["q"], case["table_t"], case["t"]
             if int8:    # the library's view is dequantized beforehand
                 (kc, vc), sc = case["pools"]
@@ -893,25 +1057,37 @@ def _paged_phase(torch, timer, rows, name, cases, run, tols, kid, int8,
                     nbytes=case["nbytes"], flops=case["flops"], **extra)
 
 
+def _misaligned(torch, x):
+    """A contiguous copy of ``x`` one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")
+    xm = buf[1:x.numel() + 1].view(x.shape)
+    xm.copy_(x)
+    check(xm.is_contiguous() and xm.data_ptr() % 16 != 0,
+          "the misaligned case is not misaligned")
+    return xm
+
+
 def _refuses_misaligned(torch, name, mod, kernel_fn, case):
     """A bf16 q one element past a 16-byte boundary reaches the C entry,
     which must refuse it (cudaErrorInvalidValue = 1): cp.async takes
-    16-byte chunks. Nothing is launched or counted."""
-    q = case["q"]
-    buf = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
-    qm = buf[1:q.numel() + 1].view(q.shape)
-    qm.copy_(q)
-    check(qm.is_contiguous() and qm.data_ptr() % 16 != 0,
-          f"the misaligned {name} case is not misaligned")
+    16-byte chunks; so must an fp32 q's K pool (the fp32 body stages K and
+    V by cp.async too). Nothing is launched or counted."""
+    q, (kp, vp) = case["q"], case["pools"]
+    what = "q" if q.dtype == torch.bfloat16 else "k_pool"
+    if what == "q":
+        q = _misaligned(torch, q)
+    else:
+        kp = _misaligned(torch, kp)
+    dn = str(q.dtype).split(".")[1]
     before = mod.launches
     try:
-        kernel_fn(qm, *case["pools"], case["table_t"], case["t"])
+        kernel_fn(q, kp, vp, case["table_t"], case["t"])
     except RuntimeError as e:
-        check("CUDA error 1 " in str(e), f"{name} misaligned q: {e}")
+        check("CUDA error 1 " in str(e), f"{name} misaligned {what}: {e}")
     else:
-        fail(f"{name} launched on a bf16 q misaligned for cp.async")
+        fail(f"{name} launched on a {dn} {what} misaligned for cp.async")
     check(mod.launches == before, f"{name} counted a refused launch")
-    print(f"  {name} bfloat16: a q misaligned by one element is refused by "
+    print(f"  {name} {dn}: a {what} misaligned by one element is refused by "
           "the C entry", flush=True)
 
 

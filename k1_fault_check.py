@@ -147,11 +147,13 @@ def copy_patched(root: Path, dst: Path, script: Path, source: str,
 
 
 def drive(script: Path, source: str, faults, gate: str,
-          shared: str = "flash_gate", may_fault=()):
+          shared: str = "flash_gate", may_fault=(),
+          fault_dtypes=("bfloat16",)):
     """For the sound kernel and then each of ``faults`` (name -> (text,
     replacement) in ``csrc/<source>``): a fresh copy, ``script --child``
-    run in it (fp32 and bf16 for the sound kernel, bf16 for a fault), its
-    JSON rows echoed and summed up. Exits non-zero if the sound kernel
+    run in it (fp32 and bf16 for the sound kernel, ``fault_dtypes`` for a
+    fault: bf16 unless the faults are in an fp32 body), its JSON rows
+    echoed and summed up. Exits non-zero if the sound kernel
     fails the shared gate (the rows' ``shared`` verdict) or ``gate``, or
     if a fault changes an output and ``gate`` catches it in no case. A
     fault named in ``may_fault`` whose run fails (the kernel faulted on
@@ -171,7 +173,8 @@ def drive(script: Path, source: str, faults, gate: str,
             cmd = [sys.executable, str(dst / script.name), "--child"]
             cmd += (["--dtypes", "float32", "bfloat16", "--sound-out",
                      str(sound)] if fault is None
-                    else ["--dtypes", "bfloat16", "--sound-in", str(sound)])
+                    else ["--dtypes", *fault_dtypes, "--sound-in",
+                          str(sound)])
             run = subprocess.run(cmd, cwd=dst, capture_output=True, text=True,
                                  timeout=900)
             label = fault or "sound"

@@ -10,9 +10,10 @@ choices its design rejected: other cluster sizes (1, no split; 2; 4;
 16, past the portable 8); the splits' partials merged through device
 memory by a second small kernel, vLLM's v2 shape, in place of the
 cluster's distributed shared memory; each warp walking whole 64-key
-tiles of its own, in place of a quarter of every tile; a 3-stage ring;
-and the CUDA-core body that fp32 q runs, which served bf16 q before
-this body. For each one it
+tiles of its own, in place of a quarter of every tile; and a 3-stage
+ring. (The CUDA-core body that served bf16 q before this body was
+redesigned for fp32 q alone, which ``k45_f32_variants.py`` times.) For
+each one it
 copies the port into a fresh temporary directory and patches the copy
 (``k1_fault_check.copy_patched``; the checkout is never edited), builds
 every copy at once, then prints per variant
@@ -28,7 +29,7 @@ compare within the call. It exits non-zero if a variant's run fails or
 breaks K4_TOL.
 
 ``python3 k4_variants.py --serve [NAME ...]`` (by default the body as
-built and the CUDA-core body) serves instead ``chip_smoke.py``'s phase
+built and clusters of 4) serves instead ``chip_smoke.py``'s phase
 5c trace (``gpt2_small`` in bf16, 8 greedy requests, on bf16 and then
 int8 pools) with each named variant's kernels, in the order A, B, B, A
 for two: per run the decode-step p50, TTFT p50 and tokens/s (host
@@ -158,39 +159,6 @@ _V2 = [
      "                                                s, H);\n"),
 ]
 
-# the former bf16 route: bf16 q through the fp32 entry's CUDA-core kernel
-# (paged_attn_kernel at TQ bf16, one CTA per (slot, head))
-_CUDA_CORES = [
-    ("template <typename TP>\ncudaError_t f32_by_dim(",
-     "template <typename TP, typename TQ = float>\ncudaError_t f32_by_dim("),
-    ("    return ptt::launch_paged<float, TP, 64, kThreads, kMaxRows>(",
-     "    return ptt::launch_paged<TQ, TP, 64, kThreads, kMaxRows>("),
-    ("  return ptt::launch_paged<float, TP, 128, kThreads, kMaxRows>(",
-     "  return ptt::launch_paged<TQ, TP, 128, kThreads, kMaxRows>("),
-    ("      (D != 64 && D != 128) || dtype != ptt::kFloat32 ||\n"
-     "      (pool != ptt::kFloat32 && pool != ptt::kInt8))",
-     "      (D != 64 && D != 128) || (pool != dtype && pool != ptt::kInt8))"),
-    ("  if (pool == ptt::kInt8)\n"
-     "    return static_cast<int>(f32_by_dim<int8_t>(",
-     "  if (dtype == ptt::kBFloat16)\n"
-     "    return static_cast<int>(\n"
-     "        pool == ptt::kInt8\n"
-     "            ? f32_by_dim<int8_t, __nv_bfloat16>(\n"
-     "                  q, k_pool, v_pool, static_cast<const float*>(k_scale),\n"
-     "                  static_cast<const float*>(v_scale), tbl, tv, out, b, s,\n"
-     "                  H, D, bs, bp, scale, st)\n"
-     "            : f32_by_dim<__nv_bfloat16, __nv_bfloat16>(\n"
-     "                  q, k_pool, v_pool, nullptr, nullptr, tbl, tv, out, b, s,\n"
-     "                  H, D, bs, bp, scale, st));\n"
-     "  if (pool == ptt::kInt8)\n"
-     "    return static_cast<int>(f32_by_dim<int8_t>("),
-    ("ops/kernels/paged_attention.py",
-     "    if q.dtype == torch.bfloat16:\n"
-     "        err = lib.ptt_paged_decode_fwd(*args, pool, stream)\n",
-     "    if False:\n"
-     "        err = lib.ptt_paged_decode_fwd(*args, pool, stream)\n"),
-]
-
 # name -> [(source text in csrc/paged_attention.cu, replacement), ...]; a
 # triple (file under paddle_tpu_torch/, text, replacement) patches that
 # file
@@ -207,7 +175,6 @@ VARIANTS = {
     # two slices in flight while the third is read
     "3-stage ring": [(
         "constexpr int kStages = 2;", "constexpr int kStages = 3;")],
-    "the CUDA-core body": _CUDA_CORES,
 }
 
 _MMA = re.compile(r"paged_decode_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
@@ -279,8 +246,8 @@ def child_serve():
             "tokens_per_s": agg["aggregate_tokens_per_s"], "wall_s": wall,
             "device_ms": sum(ms for _, ms in kernels),
             "k4_device_ms_per_step": sum(
-                ms for k, ms in kernels if "paged_decode" in k
-                or "paged_attn_kernel" in k) / steps}), flush=True)
+                ms for k, ms in kernels if "paged_decode" in k) / steps}),
+              flush=True)
 
 
 def _ptxas(nvcc, flags, src: Path, obj: Path):
@@ -299,7 +266,7 @@ def main(names, serve=False):
                          text=True, timeout=60)
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
     if serve and not names:
-        names = ["as built", "the CUDA-core body"]
+        names = ["as built", "C = 4"]
     unknown = set(names) - set(VARIANTS)
     if unknown:
         raise SystemExit(f"k4_variants: no variant {sorted(unknown)}")

@@ -58,11 +58,11 @@
 //  - cp.async needs 16-byte aligned q, out and pools and row strides of
 //    16 bytes: the C entry refuses anything else (cudaErrorInvalidValue).
 //
-// fp32 q: paged_attn_kernel (paged_common.cuh), K4's body, on the CUDA
-// cores in fp32 (no TF32: the fp32 contract is 2e-5 of the plain
-// version). Grid (b * nq, H): the chunk is cut into nq q-blocks of qbs
-// rows (_pick_qbs(s) of chunk_prefill.py:159, capped at 64 by the
-// wrapper); each CTA walks only the key rows its deepest row can read.
+// fp32 q: paged_f32_kernel (paged_common.cuh), K4's fp32 body, on the
+// CUDA cores in fp32 (no TF32: the fp32 contract is 2e-5 of the plain
+// version). The chunk is cut into row tiles of its own (f32_rows: 16, 32
+// or 64 rows by s, whatever q-block the wrapper picked; qbs is checked,
+// not used), each tile's key walk split across a cluster.
 #include "flash_mma.cuh"
 #include "paged_common.cuh"
 
@@ -70,8 +70,7 @@ namespace {
 
 using ptt::mma::bf16;
 
-constexpr int kThreads = 256;  // fp32 body
-constexpr int kMaxRows = 64;
+constexpr int kMaxQbs = 64;  // the wrapper's q-block cap (pick_qbs)
 
 constexpr int kRows = 64;        // bf16 body: query rows a CTA, 4 warps x 16
 constexpr int kKeys = 64;        // keys a tile
@@ -413,19 +412,38 @@ cudaError_t mma_by_pool(int pool, const void* q, const void* kp,
                                          t, out, b, s, H, bs, bp, scale, st);
 }
 
+// The fp32 body's row tile for a chunk of s rows: the fewest tiles, and
+// no more rows a tile than s needs.
+inline int f32_rows(int s) { return s <= 16 ? 16 : s <= 32 ? 32 : 64; }
+
+template <typename TP, int D>
+cudaError_t f32_by_rows(const void* q, const void* kp, const void* vp,
+                        const float* ks, const float* vs, const int* table,
+                        const int* t, void* out, int b, int s, int H, int bs,
+                        int bp, float scale, cudaStream_t st) {
+  switch (f32_rows(s)) {
+    case 16:
+      return ptt::launch_f32<TP, D, 16>(q, kp, vp, ks, vs, table, t, out, b,
+                                        s, H, bs, bp, scale, st);
+    case 32:
+      return ptt::launch_f32<TP, D, 32>(q, kp, vp, ks, vs, table, t, out, b,
+                                        s, H, bs, bp, scale, st);
+    default:
+      return ptt::launch_f32<TP, D, 64>(q, kp, vp, ks, vs, table, t, out, b,
+                                        s, H, bs, bp, scale, st);
+  }
+}
+
 template <typename TP>
 cudaError_t f32_by_dim(const void* q, const void* kp, const void* vp,
                        const float* ks, const float* vs, const int* table,
-                       const int* t, void* out, int b, int s, int qbs, int H,
-                       int D, int bs, int bp, float scale, cudaStream_t st) {
-  const int nq = s / qbs;
+                       const int* t, void* out, int b, int s, int H, int D,
+                       int bs, int bp, float scale, cudaStream_t st) {
   if (D == 64)
-    return ptt::launch_paged<float, TP, 64, kThreads, kMaxRows>(
-        q, kp, vp, ks, vs, table, t, out, b * nq, H, s, qbs, nq, bs, bp,
-        scale, st);
-  return ptt::launch_paged<float, TP, 128, kThreads, kMaxRows>(
-      q, kp, vp, ks, vs, table, t, out, b * nq, H, s, qbs, nq, bs, bp, scale,
-      st);
+    return f32_by_rows<TP, 64>(q, kp, vp, ks, vs, table, t, out, b, s, H, bs,
+                               bp, scale, st);
+  return f32_by_rows<TP, 128>(q, kp, vp, ks, vs, table, t, out, b, s, H, bs,
+                              bp, scale, st);
 }
 
 template <int D, typename TP>
@@ -441,8 +459,10 @@ cudaError_t mma_occupancy(int* ctas, int* smem) {
 
 // Returns the launch's cudaError_t (0 = launched). `dtype` is q's type
 // code, `pool` the pools' (equal to dtype, or kInt8 with both scales).
-// bf16 q runs the tensor-core body in 64-row tiles (qbs is checked, not
-// used); fp32 q runs paged_attn_kernel in q-blocks of qbs rows.
+// Both bodies tile the chunk by rows of their own (qbs is checked, not
+// used): bf16 q runs the tensor-core body in 64-row tiles, fp32 q runs
+// paged_f32_kernel, whose pools and out must be 16-byte aligned (else
+// cudaErrorInvalidValue, and nothing is launched).
 extern "C" int ptt_chunk_prefill_fwd(const void* q, const void* k_pool,
                                      const void* v_pool, const void* k_scale,
                                      const void* v_scale, const void* table,
@@ -450,7 +470,7 @@ extern "C" int ptt_chunk_prefill_fwd(const void* q, const void* k_pool,
                                      int qbs, int H, int D, int bs, int bp,
                                      float scale, int dtype, int pool,
                                      void* stream) {
-  if (b < 1 || s < 1 || qbs < 1 || qbs > kMaxRows || s % qbs != 0 ||
+  if (b < 1 || s < 1 || qbs < 1 || qbs > kMaxQbs || s % qbs != 0 ||
       H < 1 || H > 65535 || bs < 1 || bp < 1 || (D != 64 && D != 128) ||
       (pool != dtype && pool != ptt::kInt8))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -464,10 +484,9 @@ extern "C" int ptt_chunk_prefill_fwd(const void* q, const void* k_pool,
       return static_cast<int>(
           pool == ptt::kInt8
               ? f32_by_dim<int8_t>(q, k_pool, v_pool, ks, vs, tbl, tv, out, b,
-                                   s, qbs, H, D, bs, bp, scale, st)
+                                   s, H, D, bs, bp, scale, st)
               : f32_by_dim<float>(q, k_pool, v_pool, nullptr, nullptr, tbl,
-                                  tv, out, b, s, qbs, H, D, bs, bp, scale,
-                                  st));
+                                  tv, out, b, s, H, D, bs, bp, scale, st));
     case ptt::kBFloat16:
       return static_cast<int>(mma_by_pool(pool, q, k_pool, v_pool, ks, vs,
                                           tbl, tv, out, b, s, H, D, bs, bp,

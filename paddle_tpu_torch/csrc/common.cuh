@@ -45,4 +45,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The current device's SMs: queried once a device for the first
+// kCachedDevices, on every call past them; 0 if the query fails.
+inline int sm_count() {
+  constexpr int kCachedDevices = 16;
+  static int cached[kCachedDevices] = {};
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kCachedDevices && cached[dev] != 0) return cached[dev];
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < kCachedDevices) cached[dev] = n;
+  return n;
+}
+
 }  // namespace ptt

@@ -76,9 +76,10 @@
 //    multiple of 16 bytes: the C entry refuses anything else
 //    (cudaErrorInvalidValue).
 //
-// fp32 q: paged_attn_kernel (paged_common.cuh), on the CUDA cores in fp32
-// (no TF32: the fp32 contract is 2e-5 of the plain version), one CTA per
-// (slot, head), as K5's fp32 q runs it.
+// fp32 q: paged_f32_kernel (paged_common.cuh), on the CUDA cores in fp32
+// (no TF32: the fp32 contract is 2e-5 of the plain version): the s rows
+// are one 16-row tile of a (slot, head), its key walk split across a
+// cluster as here, its products register-tiled; K5's fp32 q runs it too.
 #include <cooperative_groups.h>
 
 #include "flash_mma.cuh"
@@ -89,8 +90,7 @@ namespace {
 namespace cg = cooperative_groups;
 using ptt::mma::bf16;
 
-constexpr int kThreads = 128;  // fp32 body
-constexpr int kMaxRows = 16;
+constexpr int kMaxRows = 16;  // query rows a slot: one 16-row tile
 
 constexpr int kSplits = 8;     // bf16 body: CTAs of a cluster, one walk
 constexpr int kTile = 64;      // keys of a tile, the unit split by rank
@@ -544,19 +544,19 @@ cudaError_t f32_by_dim(const void* q, const void* kp, const void* vp,
                        const int* t, void* out, int b, int s, int H, int D,
                        int bs, int bp, float scale, cudaStream_t st) {
   if (D == 64)
-    return ptt::launch_paged<float, TP, 64, kThreads, kMaxRows>(
-        q, kp, vp, ks, vs, table, t, out, b, H, s, /*rows=*/s, /*nq=*/1,
-        bs, bp, scale, st);
-  return ptt::launch_paged<float, TP, 128, kThreads, kMaxRows>(
-      q, kp, vp, ks, vs, table, t, out, b, H, s, /*rows=*/s, /*nq=*/1, bs,
-      bp, scale, st);
+    return ptt::launch_f32<TP, 64, kMaxRows>(q, kp, vp, ks, vs, table, t, out,
+                                             b, s, H, bs, bp, scale, st);
+  return ptt::launch_f32<TP, 128, kMaxRows>(q, kp, vp, ks, vs, table, t, out,
+                                            b, s, H, bs, bp, scale, st);
 }
 
 }  // namespace
 
 // fp32 q: returns the launch's cudaError_t (0 = launched). `dtype` is q's
 // type code (kFloat32 only: bf16 q has ptt_paged_decode_fwd), `pool` the
-// pools' (kFloat32, or kInt8 with both scales).
+// pools' (kFloat32, or kInt8 with both scales). Pools or an out that
+// cp.async and float4 stores cannot take (16 bytes) are refused
+// (cudaErrorInvalidValue) and nothing is launched.
 extern "C" int ptt_paged_attention_fwd(const void* q, const void* k_pool,
                                        const void* v_pool,
                                        const void* k_scale,

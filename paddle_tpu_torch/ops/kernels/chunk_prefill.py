@@ -7,9 +7,11 @@ pools, and int8 code pools with ``(num_blocks, H)`` fp32 scales
 ``paddle_tpu_torch/csrc/chunk_prefill.cu``; its header note says what
 bounds it on the H100 and how the design answers that. bf16 q runs its
 tensor-core body (``mma.sync``) in 64-row tiles of the chunk, over bf16
-or int8 pools; fp32 q runs K4's body on the CUDA cores in q-blocks of
-:func:`pick_qbs` rows. A bf16 pointer or row that ``cp.async`` cannot
-take (16 bytes) is refused by the C entry, and the wrapper raises.
+or int8 pools; fp32 q runs K4's fp32 body on the CUDA cores in row
+tiles of its own (16, 32 or 64 rows by the chunk's length), each tile's
+key walk split across a thread-block cluster. A pointer or row that
+``cp.async`` cannot take (16 bytes) is refused by the C entry, and the
+wrapper raises.
 
 :func:`chunk_prefill` is the wrapper: a CPU tensor takes
 :func:`chunk_prefill_ref`, which DELEGATES to the K4 plain version
@@ -41,9 +43,10 @@ __all__ = ["chunk_prefill", "chunk_prefill_ref", "pick_qbs", "launches",
 launches = 0      # launches over full-precision pools
 launches_q = 0    # launches over int8 code pools
 
-# q-block cap of the fp32 body: a 64-row q tile and the 64-row logit
-# tile fit one CTA's shared memory, and 64*D/256 fp32 accumulators per
-# thread its registers (the bf16 body tiles by 64 rows whatever it gets)
+# q-block cap of pick_qbs: the q-block is the reference's tiling, which
+# the C entry checks (qbs <= 64, dividing s) but neither body follows:
+# both tile the chunk by rows of their own (fp32 16, 32 or 64 by s, bf16
+# 64), since the rows are independent (chunk_prefill.py:30-43)
 MAX_QBS = 64
 
 

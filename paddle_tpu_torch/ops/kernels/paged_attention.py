@@ -11,7 +11,8 @@ thread-block cluster and merged through distributed shared memory, over
 bf16 or int8 pools (C entry ``ptt_paged_decode_fwd``; a pointer or pool
 row that ``cp.async`` cannot take, 16 bytes, is refused and the wrapper
 raises); fp32 q runs the CUDA-core body that K5's fp32 q shares
-(``ptt_paged_attention_fwd``).
+(``ptt_paged_attention_fwd``), its key walk split across a cluster too,
+whose C entry refuses pools or an output off 16 bytes.
 
 :func:`paged_attention` is the wrapper: a CPU tensor takes
 :func:`paged_attention_ref` — the counterpart of ``paged_attention_xla``,

@@ -160,7 +160,9 @@ def test_signatures_match_the_c_entry_points():
 
 SCRIPTS = ["chip_smoke.py", "k1_fault_check.py", "k3_fault_check.py",
            "k3_variants.py", "k4_fault_check.py", "k4_variants.py",
-           "k5_fault_check.py", "k5_variants.py"]
+           "k5_fault_check.py", "k5_variants.py", "k2_fault_check.py",
+           "k2_variants.py", "k45_f32_fault_check.py",
+           "k45_f32_variants.py"]
 
 
 @pytest.mark.parametrize("script", SCRIPTS)

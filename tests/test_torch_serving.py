@@ -306,7 +306,9 @@ def test_port_never_imports_jax_or_the_jax_package():
     files += [REPO / "chip_smoke.py", REPO / "k1_fault_check.py",
               REPO / "k3_fault_check.py", REPO / "k3_variants.py",
               REPO / "k4_fault_check.py", REPO / "k4_variants.py",
-              REPO / "k5_fault_check.py", REPO / "k5_variants.py"]
+              REPO / "k5_fault_check.py", REPO / "k5_variants.py",
+              REPO / "k2_fault_check.py", REPO / "k2_variants.py",
+              REPO / "k45_f32_fault_check.py", REPO / "k45_f32_variants.py"]
     assert len(files) > 10
     bad = []
     for f in files:
