@@ -72,6 +72,16 @@ Phases, in order (any failure exits non-zero and prints no result):
    so that prefill runs K5's and decode K4's tensor-core bodies end to
    end: exact launch counts, and greedy agreement with the bf16
    teacher-forced argmax of at least 0.9;
+5d. speculative serving: ``ServingEngine(spec=NgramDrafter(k=4))``,
+   whose decode half is a verify running K4 at s = 5 through the block
+   table: the position-keyed draws equal the CPU's bits; k = 16 is
+   refused at construction (K4 holds 16 rows); phase 5's trace on the
+   fp32 model (launch counts L x verify steps for K4, L x chunks for K5,
+   (2L + 1) x (chunks + verify steps) for K2; greedy tokens against the
+   teacher-forced argmax as in phase 5), then 5c's 8 greedy requests on
+   the bf16 model over bf16 and int8 pools (exact counts, agreement >=
+   0.9); the spec keys of ``aggregate()`` and the host-clock perf beside
+   phases 5 and 5c;
 6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
    ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
@@ -1606,12 +1616,18 @@ def serving_phase(torch, card):
     _check_launches("fp32 serving", launches, cfg.num_layers, chunks, steps,
                     int8=False)
 
-    # greedy consistency: a teacher-forced no-cache forward of prompt +
-    # tokens[:-1] must put its argmax on every emitted token, except at a
-    # near-tie (top-2 gap < 1e-3). The no-cache forward is off the
-    # serving path; its attention takes the flash kernel K1 wherever the
-    # gate of _local_attention allows (length >= 128 that tiles into
-    # blocks of >= 64) and the plain _sdpa math elsewhere.
+    _greedy_consistency(torch, model, reqs, "greedy consistency")
+    print(_perf_line("serving", card, agg, wall), flush=True)
+    return launches, model, agg
+
+
+def _greedy_consistency(torch, model, reqs, what):
+    """A teacher-forced no-cache forward of prompt + tokens[:-1] must put
+    its argmax on every emitted greedy token, except at a near-tie (top-2
+    gap < 1e-3). The no-cache forward is off the serving path; its
+    attention takes the flash kernel K1 wherever the gate of
+    _local_attention allows (length >= 128 that tiles into blocks of >=
+    64) and the plain _sdpa math elsewhere."""
     near_ties = checked = 0
     with torch.inference_mode():
         for r in reqs:
@@ -1630,10 +1646,8 @@ def serving_phase(torch, card):
                           f"emitted {tok}, no-cache argmax {a}, top-2 gap "
                           f"{g}")
                     near_ties += 1
-    print(f"greedy consistency: {checked} tokens checked, {near_ties} "
-          "near-tie mismatches (top-2 gap < 1e-3)", flush=True)
-    print(_perf_line("serving", card, agg, wall), flush=True)
-    return launches, model, agg
+    print(f"{what}: {checked} tokens checked, {near_ties} near-tie "
+          "mismatches (top-2 gap < 1e-3)", flush=True)
 
 
 def _shared_prefix_trace(vocab):
@@ -1715,7 +1729,8 @@ def serving_bf16_phase(torch, card):
     greedy requests on bf16 pools, then on int8 pools: exact launch
     counts, every request done, and greedy agreement with the bf16
     teacher-forced argmax >= 0.9 (5b's limit, test_paged_kv.py:502).
-    Returns the launch counts of the bf16-pool and the int8-pool run."""
+    Returns the launch counts of the bf16-pool and the int8-pool run, the
+    model and the two runs' aggregates."""
     from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
 
     cfg = gpt2_small()
@@ -1723,7 +1738,7 @@ def serving_bf16_phase(torch, card):
     model.eval()
     trace = [kw for kw in _serving_trace(cfg.vocab_size)
              if kw.get("greedy")][:8]
-    out = {}
+    out, aggs = {}, {}
     for kv in (None, "int8"):
         what = f"bf16 serving{', int8 pools' if kv else ''}"
         _, reqs, agg, wall, launches = _serve(torch, model, trace,
@@ -1740,8 +1755,111 @@ def serving_bf16_phase(torch, card):
               f"{total} = {rate:.4f} (limit 0.9)", flush=True)
         check(rate >= 0.9, f"{what}: greedy agreement {rate} < 0.9")
         print(_perf_line(what, card, agg, wall), flush=True)
-        out[kv] = launches
-    return out[None], out["int8"]
+        out[kv], aggs[kv] = launches, agg
+    return out[None], out["int8"], model, aggs
+
+
+def draws_check(torch):
+    """``position_uniforms`` (the serving engine's position-keyed draws)
+    on the card gives the CPU's bits, at key data that includes 0 and
+    2**32 - 1, positions up to 2**31 and three lanes."""
+    from paddle_tpu_torch.core.random import position_uniforms
+
+    rs = np.random.RandomState(5)
+    kd = rs.randint(0, 1 << 32, (64, 2), dtype=np.uint64).astype(np.int64)
+    kd[0], kd[1] = 0, (1 << 32) - 1
+    pos = rs.randint(0, 1 << 31, (64, 4)).astype(np.int64)
+    pos[0, 0] = 0
+    kd_t, pos_t = torch.from_numpy(kd), torch.from_numpy(pos)
+    for lane in (0, 1, 7):
+        cpu = position_uniforms(kd_t, pos_t, lane)
+        dev = position_uniforms(kd_t.cuda(), pos_t.cuda(), lane)
+        check(dev.device.type == "cuda" and torch.equal(dev.cpu(), cpu),
+              f"position_uniforms lane {lane}: the card's bits differ "
+              "from the CPU's")
+    print(f"draws: position_uniforms on the card equals the CPU's bits at "
+          f"{3 * pos.size} (keydata, P, lane)", flush=True)
+
+
+def _spec_keys(agg):
+    return {k: agg[k] for k in ("spec_verify_steps",
+                                "spec_mean_accepted_per_step",
+                                "spec_mean_tokens_per_step")}
+
+
+def serving_spec_phase(torch, card, model, bf16_model, fp_agg, bf16_aggs,
+                       rows):
+    """Phase 5d: speculative serving, ``NgramDrafter(k=4)``, whose every
+    decode half is a verify running K4 at s = 5 over the block table. The
+    draws' bits against the CPU's; k = 16 refused at construction (K4
+    holds 16 query rows); fp32 ``gpt2_small`` serving phase 5's trace
+    (exact launch counts, greedy tokens against the teacher-forced
+    argmax, near-ties counted); the bf16 model serving phase 5c's 8
+    greedy requests on bf16 then int8 pools (exact launch counts,
+    agreement >= 0.9). Prints the spec keys, the host-clock perf beside
+    phases 5 and 5c, and K4's rows at the verify shape (phase 3) beside
+    this phase's launches."""
+    from paddle_tpu_torch.inference import NgramDrafter, SpeculativeEngine
+
+    draws_check(torch)
+    try:
+        SpeculativeEngine(model, 1, 64, k=16, block_size=16)
+        fail("SpeculativeEngine(k=16) on the card was not refused")
+    except ValueError as e:
+        check("K4" in str(e), f"k=16 refused for another reason: {e}")
+    L = model.config.num_layers
+    trace = _serving_trace(model.config.vocab_size)
+    runs = {}
+    for what, mdl, tr, kv in (
+            ("fp32 spec serving", model, trace, None),
+            ("bf16 spec serving", bf16_model,
+             [kw for kw in trace if kw.get("greedy")][:8], None),
+            ("bf16 spec serving, int8 pools", bf16_model,
+             [kw for kw in trace if kw.get("greedy")][:8], "int8")):
+        _, reqs, agg, wall, launches = _serve(
+            torch, mdl, tr, kv_dtype=kv, spec=NgramDrafter(k=4))
+        chunks, steps = int(agg["prefill_chunks"]), \
+            int(agg["spec_verify_steps"])
+        check(agg["decode_steps"] == steps, f"{what}: {agg['decode_steps']} "
+              f"decode steps, {steps} verify steps")
+        print(f"{what}: {int(agg['completed'])} requests, {chunks} prefill "
+              f"chunks, {steps} verify steps, {int(agg['preemptions'])} "
+              f"preemptions, {_spec_keys(agg)}, launches {launches}",
+              flush=True)
+        _check_launches(what, launches, L, chunks, steps,
+                        int8=kv is not None)
+        if mdl is model:
+            _greedy_consistency(torch, model, reqs, what)
+        else:
+            agree, total = _agreement(torch, mdl, reqs)
+            rate = agree / total
+            print(f"{what}: greedy agreement with the bf16 argmax {agree}/"
+                  f"{total} = {rate:.4f} (limit 0.9)", flush=True)
+            check(rate >= 0.9, f"{what}: greedy agreement {rate} < 0.9")
+        print(_perf_line(what, card, agg, wall), flush=True)
+        runs[what] = (agg, launches["K4-int8" if kv else "K4"])
+    base = {"fp32 spec serving": ("phase 5", fp_agg),
+            "bf16 spec serving": ("5c", bf16_aggs[None]),
+            "bf16 spec serving, int8 pools": ("5c", bf16_aggs["int8"])}
+    print(f"spec vs plain serving on {card} (host clock, not gated): " +
+          "; ".join(
+              f"{w}: {a['aggregate_tokens_per_s']:.1f} tokens/s, decode "
+              f"step p50 {a['decode_step_ms_p50']:.2f} ms ({base[w][0]}: "
+              f"{base[w][1]['aggregate_tokens_per_s']:.1f}, "
+              f"{base[w][1]['decode_step_ms_p50']:.2f} ms)"
+              for w, (a, _) in runs.items()), flush=True)
+    # K4 at the verify shape: phase 3's case of 8 slots at s 5 over the
+    # decode step's table, beside the verify launches of this phase
+    launches = {("K4", "float32"): runs["fp32 spec serving"][1],
+                ("K4", "bfloat16"): runs["bf16 spec serving"][1],
+                ("K4-int8", "bfloat16"):
+                    runs["bf16 spec serving, int8 pools"][1]}
+    for r in rows:
+        if r["kernel"] in ("K4", "K4-int8") and \
+                r["shape"] == [8, 5, 12, 64, 16, 64]:
+            print("verify shape: " + json.dumps(dict(
+                r, spec_launches=launches.get((r["kernel"], r["dtype"])))),
+                flush=True)
 
 
 def training_phase(torch, card):
@@ -1937,9 +2055,13 @@ def main():
     q_launches = serving_q_phase(torch, card, model, fp_agg)
     lap("int8 serving")
     launches.update({k: q_launches[k] for k in ("K4-int8", "K5-int8")})
-    del model
-    bf16_launches, bf16_q_launches = serving_bf16_phase(torch, card)
+    bf16_launches, bf16_q_launches, bf16_model, bf16_aggs = \
+        serving_bf16_phase(torch, card)
     lap("bf16 serving")
+    serving_spec_phase(torch, card, model, bf16_model, fp_agg, bf16_aggs,
+                       rows)
+    lap("spec serving")
+    del model, bf16_model
     launches.update({"K5-bf16": bf16_launches["K5"],
                      "K5-int8-bf16": bf16_q_launches["K5-int8"],
                      "K4-bf16": bf16_launches["K4"],

@@ -13,7 +13,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "get_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "module_device"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -36,8 +36,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def get_device(module: torch.nn.Module) -> torch.device:
-    """The device a module's parameters live on (they must agree)."""
+def module_device(module: torch.nn.Module) -> torch.device:
+    """The device a module's parameters live on (they must agree). Not
+    the reference's ``get_device()``, which names the current place and
+    arrives with ``device/``."""
     devs = {p.device for p in module.parameters()}
     if len(devs) != 1:
         raise ValueError(f"module parameters span devices {sorted(map(str, devs))}")

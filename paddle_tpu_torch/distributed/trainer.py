@@ -25,7 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from paddle_tpu_torch.amp.auto_cast import auto_cast
-from paddle_tpu_torch.core.place import get_device
+from paddle_tpu_torch.core.place import module_device
 
 __all__ = ["ShardedTrainer"]
 
@@ -51,9 +51,10 @@ class ShardedTrainer:
         self.loss_fn = loss_fn
         self.amp = amp
         self.amp_dtype = amp_dtype
-        self.device = get_device(model)
+        self.device = module_device(model)
 
-    def enable_anomaly_policy(self, config=None, **kwargs):
+    def enable_anomaly_policy(self, config=None, *, checkpoint_manager=None,
+                              **kwargs):
         raise NotImplementedError(
             "ShardedTrainer: the anomaly policy is not ported yet")
 

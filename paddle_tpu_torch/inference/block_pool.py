@@ -21,7 +21,18 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from paddle_tpu_torch.core.unported import refuse_unported
+
 __all__ = ["BlockAllocator"]
+
+
+def _one_plane(replica):
+    """The allocator has one plane: ``replica`` may name it (0) or be
+    left unset."""
+    if replica not in (None, 0):
+        raise NotImplementedError(
+            f"BlockAllocator: replica={replica!r} is not ported yet; the "
+            "port's allocator has one plane (replica 0)")
 
 
 class BlockAllocator:
@@ -29,9 +40,14 @@ class BlockAllocator:
     (including the reserved scratch block 0; ``capacity`` =
     ``num_blocks - 1`` are allocatable). ``block_nbytes`` is what one
     block pins across all layers (K + V), the unit of
-    ``kv_bytes_in_use``."""
+    ``kv_bytes_in_use``. One plane: the reference's ``devices`` and
+    ``replicas`` are accepted at their defaults only, and a method's
+    ``replica`` must name plane 0."""
 
-    def __init__(self, num_blocks: int, block_size: int, block_nbytes: int):
+    def __init__(self, num_blocks: int, block_size: int, block_nbytes: int,
+                 devices: int = 1, replicas: int = 1):
+        refuse_unported("BlockAllocator", devices=(devices, 1),
+                        replicas=(replicas, 1))
         if num_blocks < 2:
             raise ValueError(
                 f"need >= 2 pool blocks (block 0 is the scratch sink), "
@@ -49,18 +65,22 @@ class BlockAllocator:
         self.freed = 0
         self.peak = 0
 
-    def free_count(self) -> int:
+    def free_count(self, replica: Optional[int] = None) -> int:
+        _one_plane(replica)
         return len(self._free)
 
-    def blocks_in_use(self) -> int:
+    def blocks_in_use(self, replica: Optional[int] = None) -> int:
+        _one_plane(replica)
         return self.capacity - len(self._free)
 
-    def refcount(self, block: int) -> int:
+    def refcount(self, block: int, replica: int = 0) -> int:
+        _one_plane(replica)
         return int(self._refs[block])
 
-    def alloc(self, n: int) -> Optional[List[int]]:
+    def alloc(self, n: int, replica: int = 0) -> Optional[List[int]]:
         """Pop ``n`` fresh blocks (one reference each), or None — never a
         partial grant — when fewer than ``n`` are free."""
+        _one_plane(replica)
         if n < 0:
             raise ValueError(f"alloc({n})")
         if n > len(self._free):
@@ -72,8 +92,9 @@ class BlockAllocator:
         self.peak = max(self.peak, self.blocks_in_use())
         return out
 
-    def ref(self, blocks: Sequence[int]):
+    def ref(self, blocks: Sequence[int], replica: int = 0):
         """One more holder per block; only live blocks can gain one."""
+        _one_plane(replica)
         for b in blocks:
             if self._refs[b] <= 0:
                 raise RuntimeError(
@@ -81,10 +102,11 @@ class BlockAllocator:
                     "references can only be added to live blocks")
             self._refs[b] += 1
 
-    def deref(self, blocks: Sequence[int]) -> int:
+    def deref(self, blocks: Sequence[int], replica: int = 0) -> int:
         """Drop one reference per block; blocks reaching zero return to
         the free list. Returns how many were freed. A deref past zero —
         duplicates within this call included — raises before mutating."""
+        _one_plane(replica)
         for b, n in Counter(int(x) for x in blocks).items():
             if self._refs[b] < n:
                 raise RuntimeError(

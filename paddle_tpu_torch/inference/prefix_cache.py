@@ -32,24 +32,31 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from paddle_tpu_torch.core.unported import refuse_unported
+
 __all__ = ["PrefixCache", "PrefixCacheNode"]
 
 
 class PrefixCacheNode:
     """One cached chunk: the token ids it covers (the edge key from its
-    parent) and the ref-counted pool ``blocks`` holding its KV."""
+    parent) and the ref-counted pool ``blocks`` holding its KV. The
+    dense arena's host segments ``kseg``/``vseg`` are not ported: they
+    must be None."""
 
     __slots__ = ("key", "parent", "children", "blocks", "nbytes", "refs",
                  "last_use")
 
     def __init__(self, key: Tuple[int, ...],
-                 parent: Optional["PrefixCacheNode"],
-                 blocks: Optional[List[int]] = None, nbytes: int = 0):
+                 parent: Optional["PrefixCacheNode"], kseg, vseg,
+                 blocks: Optional[List[int]] = None,
+                 nbytes: Optional[int] = None):
+        refuse_unported("PrefixCacheNode", kseg=(kseg, None),
+                        vseg=(vseg, None))
         self.key = key
         self.parent = parent
         self.children: Dict[Tuple[int, ...], "PrefixCacheNode"] = {}
         self.blocks = blocks
-        self.nbytes = int(nbytes)
+        self.nbytes = int(nbytes) if nbytes is not None else 0
         self.refs = 0
         self.last_use = 0
 
@@ -71,7 +78,7 @@ class PrefixCache:
                              f"{chunk_tokens}")
         self.chunk_tokens = int(chunk_tokens)
         self.max_bytes = int(max_bytes)
-        self.root = PrefixCacheNode((), None)
+        self.root = PrefixCacheNode((), None, None, None)
         self.bytes = 0
         self._allocator = None     # bound by the paged serving engine
         self._tick = 0
@@ -209,7 +216,7 @@ class PrefixCache:
             owned = [int(b) for b in blocks]
             self._allocator.ref(owned)
             node = PrefixCacheNode(
-                key, parent, blocks=owned,
+                key, parent, None, None, blocks=owned,
                 nbytes=len(owned) * self._allocator.block_nbytes)
             parent.children[key] = node
             self.bytes += node.nbytes

@@ -36,19 +36,27 @@ final chunk rewrites before the slot's first real decode.
 
 Sampling: greedy is argmax (first index on ties) and token-exact with
 the JAX engine. Temperature draws cannot reproduce JAX's threefry
-``fold_in`` stream; each request instead owns a ``torch.Generator``
-(``core/random.py``) from which the engine draws exactly one uniform per
-committed sampled token, and the token is the inverse-CDF pick of the
-filtered softmax on the device. The stream is therefore private to the
-request and survives preemption; it is held to the JAX engine by
-distribution, not by value.
+``fold_in(slot_key, P)`` stream. The engine instead takes the
+reference's per-slot ``keydata`` — ``(b, 2)`` uint32 key data, one row a
+request (``core/random.py`` ``request_keydata``: from ``Request.seed``
+when set, else from the engine seed and the request id) — and the token
+landing at position ``P`` is the inverse-CDF pick of the filtered
+softmax at the uniform ``position_uniforms(keydata, P, LANE_DRAW)``,
+computed on the device. A draw is therefore a function of the request
+and the position only: it survives preemption and never depends on the
+neighbouring slots. It is held to the JAX engine by distribution, not by
+value.
 
 The overlapped tick of the JAX engine is kept: a decode step is
 launched asynchronously, the next tick's admissions run while the card
 computes, and only then are the tokens read back.
 
+With ``spec=`` (an ``NgramDrafter``) the decode half of a tick is a
+speculative verify (``inference/speculative.py``): every live slot
+commits between 1 and k+1 tokens per tick.
+
 Out of the port so far (each queued in ROADMAP.md): the dense arena,
-speculative decoding, meshes and replicas, telemetry and resilience,
+the draft-model drafter, meshes and replicas, telemetry and resilience,
 the host tier, the front door and fleet, LoRA, constraints,
 score/embed, ``generate()``.
 """
@@ -63,8 +71,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.place import get_device, resolve_device
-from paddle_tpu_torch.core.random import request_generator
+from paddle_tpu_torch.core.place import module_device, resolve_device
+from paddle_tpu_torch.core.random import (LANE_DRAW, position_uniforms,
+                                          request_keydata)
 from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.inference.block_pool import BlockAllocator
 from paddle_tpu_torch.inference.frontend.scheduler import FifoScheduler
@@ -254,71 +263,108 @@ class DecodeEngine:
         return torch.as_tensor(np.asarray(x), dtype=dtype,
                                device=self.device)
 
-    def _sampler_args(self, temps, greedy, uniforms, topks, topps):
+    def _sampler_args(self, temps, greedy, topks, topps):
         """The sampler's host vectors as device tensors. Built BEFORE the
         forward: a host-to-device copy after it would wait for the whole
-        forward to finish."""
+        forward to finish. ``topks``/``topps`` None disable the runtime
+        filters for every slot."""
         greedy = np.asarray(greedy)
-        filt = (np.asarray(topks) > 0).any() or (np.asarray(topps) < 1.0).any()
+        n = greedy.shape[0]
+        topks = np.zeros(n, np.int64) if topks is None else np.asarray(topks)
+        topps = np.ones(n, np.float32) if topps is None else np.asarray(topps)
+        filt = (topks > 0).any() or (topps < 1.0).any()
         return {
             "temps": self._vec(np.maximum(temps, 1e-6), torch.float32),
             "greedy": None if greedy.all() else self._vec(greedy, torch.bool),
-            "uniforms": self._vec(uniforms, torch.float32),
             "topks": self._vec(topks, torch.int64) if filt else None,
             "topps": self._vec(topps, torch.float32) if filt else None,
         }
+
+    def _uniforms(self, a, keydata, positions, lane: int):
+        """``position_uniforms`` of the slots' ``keydata`` at host
+        ``positions`` ((b,) or (b, n)), on the device; None when every
+        slot is greedy (nothing is drawn)."""
+        if a["greedy"] is None:
+            return None
+        kd = self._vec(np.asarray(keydata, np.uint32).astype(np.int64),
+                       torch.int64)
+        return position_uniforms(kd, self._vec(positions, torch.int64), lane)
 
     def _sample(self, last, temps, greedy, uniforms, topks, topps):
         """Device sampler over ``(n, V)`` fp32 logits (``serving.py:833``
         without the threefry stream). Host vectors: ``temps``,
         ``greedy``, ``topks``, ``topps`` and ``uniforms`` (one draw in
         [0, 1) per row, ignored for greedy rows)."""
-        return self._sample_dev(last, self._sampler_args(
-            temps, greedy, uniforms, topks, topps))
+        a = self._sampler_args(temps, greedy, topks, topps)
+        a["uniforms"] = self._vec(uniforms, torch.float32)
+        return self._sample_dev(last, a)
 
-    def _sample_dev(self, last, a):
-        last = last / a["temps"][:, None]
+    def _filter_dev(self, last, a):
+        """The target distribution's logits: temperature, the static
+        ``top_k`` and the per-slot runtime top-k/top-p, over ``(b, V)``
+        or ``(b, s, V)`` logits (per-slot vectors broadcast over s)."""
+        last = last / a["temps"].reshape((-1,) + (1,) * (last.dim() - 1))
         if self.top_k is not None:
-            kth = torch.topk(last, self.top_k, dim=-1).values[:, -1:]
+            kth = torch.topk(last, self.top_k, dim=-1).values[..., -1:]
             last = torch.where(last < kth,
                                torch.full_like(last, float("-inf")), last)
         if a["topks"] is not None:
             last = apply_topk_topp(last, a["topks"], a["topps"])
+        return last
+
+    @staticmethod
+    def _draw_dev(logits, u):
+        """Inverse-CDF draw from ``softmax(logits)`` at uniforms ``u`` of
+        the leading shape; a token outside the filter (probability 0)
+        is never picked."""
+        cdf = torch.cumsum(torch.softmax(logits, dim=-1), dim=-1)
+        target = (u * cdf[..., -1])[..., None]
+        drawn = torch.searchsorted(cdf, target, right=True)[..., 0]
+        return drawn.clamp(max=logits.shape[-1] - 1)
+
+    def _sample_dev(self, last, a):
+        last = self._filter_dev(last, a)
         arg = torch.argmax(last, dim=-1)
         if a["greedy"] is None:
             return arg
-        cdf = torch.cumsum(torch.softmax(last, dim=-1), dim=-1)
-        target = a["uniforms"][:, None] * cdf[:, -1:]
-        drawn = torch.searchsorted(cdf, target, right=True)[:, 0]
-        drawn = drawn.clamp(max=last.shape[-1] - 1)
-        return torch.where(a["greedy"], arg, drawn)
+        return torch.where(a["greedy"], arg,
+                           self._draw_dev(last, a["uniforms"]))
 
     def prefill_chunk_at(self, ids_row, slot: int, pos: int, plen: int,
-                         temps, greedy, uniforms, topks, topps):
+                         temps, greedy, keydata, topks=None, topps=None,
+                         targets_row=None):
         """Run the zero-padded ``(1, prefill_chunk)`` prompt chunk
         covering ``[pos, min(pos+C, plen))`` for ``slot``; returns
         ``(tok, next_pos)`` — ``tok`` a (1, 1) device tensor, meaningful
-        only for the prompt's final chunk."""
+        only for the prompt's final chunk. ``targets_row`` (scoring) is
+        accepted at its default only."""
+        refuse_unported("prefill_chunk_at", targets_row=(targets_row, None))
         C = self.prefill_chunk
         n = min(C, int(plen) - int(pos))
         chunk = np.zeros((1, C), np.int64)
         chunk[0, :n] = np.asarray(ids_row[pos:pos + n])
         tok = self.run_prefill_chunk(chunk, slot, pos, n - 1, temps,
-                                     greedy, uniforms, topks, topps)
+                                     greedy, keydata, topks=topks,
+                                     topps=topps)
         return tok, pos + n
 
     def run_prefill_chunk(self, ids_chunk, slot: int, start: int,
-                          last_idx: int, temps, greedy, uniforms, topks,
-                          topps):
+                          last_idx: int, temps, greedy, keydata,
+                          topks=None, topps=None, targets=None):
         """ONE ``(1, prefill_chunk)`` chunk for ``slot`` at pool offset
         ``start`` (a 0-dim offset: the model routes it to K5); samples
-        at ``last_idx``. The pad tail of a short final chunk computes
-        discarded rows whose K/V past the table's reach is dropped."""
+        the token of position ``start + last_idx + 1`` at ``last_idx``
+        from ``keydata`` ((1, 2) uint32). The pad tail of a short final
+        chunk computes discarded rows whose K/V past the table's reach
+        is dropped. ``targets`` is accepted at its default only."""
+        refuse_unported("run_prefill_chunk", targets=(targets, None))
         self._ensure_buffers()
         ids = self._vec(ids_chunk, torch.int64)
         table = self._vec(self.table[slot:slot + 1], torch.int32)
         t = torch.tensor(int(start), dtype=torch.int32, device=self.device)
-        args = self._sampler_args(temps, greedy, uniforms, topks, topps)
+        args = self._sampler_args(temps, greedy, topks, topps)
+        args["uniforms"] = self._uniforms(
+            args, keydata, [int(start) + int(last_idx) + 1], LANE_DRAW)
         with self._eval_mode():
             # last_idx + 1 real rows: the pad tail of a short final
             # chunk never shapes a block scale
@@ -327,16 +373,23 @@ class DecodeEngine:
             tok = self._sample_dev(logits[:, int(last_idx)].float(), args)
         return tok[:, None]
 
-    def step(self, toks, t, temps, greedy, uniforms, topks, topps):
+    def step(self, toks, t, temps, greedy, keydata, topks=None, topps=None,
+             defer: bool = False):
         """One lockstep decode step over all slots (per-slot offsets:
         the model routes it to K4); returns the next token per slot as a
-        (b, 1) device tensor, WITHOUT waiting for the card. Rows of idle
-        or prefilling slots compute garbage the caller discards."""
+        (b, 1) device tensor, WITHOUT waiting for the card. Slot ``i``'s
+        token lands at position ``t[i] + 1`` and is drawn from
+        ``keydata[i]`` ((b, 2) uint32). Rows of idle or prefilling slots
+        compute garbage the caller discards. ``defer`` is accepted at its
+        default only."""
+        refuse_unported("DecodeEngine.step", defer=(defer, False))
         self._ensure_buffers()
         ids = self._vec(toks, torch.int64)
         table = self._vec(self.table, torch.int32)
         tv = self._vec(t, torch.int32)
-        args = self._sampler_args(temps, greedy, uniforms, topks, topps)
+        args = self._sampler_args(temps, greedy, topks, topps)
+        args["uniforms"] = self._uniforms(
+            args, keydata, np.asarray(t, np.int64) + 1, LANE_DRAW)
         with self._eval_mode():
             logits, _ = self.model(
                 ids, caches=self._caches(table, tv, ids.shape[1]))
@@ -353,9 +406,9 @@ class Request:
     first token). ``finish_reason`` after completion: ``"eos"`` or
     ``"length"``. ``arrival_time`` is an offset in seconds from the start
     of :meth:`ServingEngine.run` (0 = already queued). ``seed`` pins the
-    request's private sample stream; unset, it derives from the engine
-    seed and the request id. ``top_k``/``top_p`` are per-request
-    filters. The fields keep the reference's order; its ``sampling``,
+    request's sample stream (its ``keydata``); unset, the stream derives
+    from the engine seed and the request id. ``top_k``/``top_p`` are
+    per-request filters. The fields keep the reference's order; its ``sampling``,
     ``deadline``, ``tenant``, ``priority``, ``adapter``, ``kind`` and
     ``response_format`` are accepted at their defaults only."""
 
@@ -383,8 +436,6 @@ class Request:
     tokens: List[int] = field(default_factory=list)
     status: str = "new"          # new -> queued -> running -> done
     finish_reason: Optional[str] = None
-    _gen: Optional[torch.Generator] = field(default=None, repr=False,
-                                            kw_only=True)
 
     def __post_init__(self):
         refuse_unported(
@@ -400,11 +451,16 @@ class ServingMetrics:
     :meth:`aggregate` folds them into the reference's headline keys
     (``serving.py:2475``), with the prefix cache's counted economics
     (``prefix_hit_tokens``, ``prefix_hit_rate``, ``evictions``) when
-    ``cache`` is given."""
+    ``cache`` is given and the speculative ones (``spec_*``) after
+    verify steps. The reference's ``registry`` and ``slo`` (telemetry)
+    are accepted at their defaults only."""
 
     def __init__(self, max_batch_slots: int,
                  cache: Optional[PrefixCache] = None,
-                 allocator: Optional[BlockAllocator] = None):
+                 allocator: Optional[BlockAllocator] = None,
+                 registry=None, slo=None):
+        refuse_unported("ServingMetrics", registry=(registry, None),
+                        slo=(slo, None))
         self.slots = max_batch_slots
         self.records: List[Dict[str, Any]] = []
         self.step_samples: List[Dict[str, float]] = []
@@ -447,12 +503,23 @@ class ServingMetrics:
             sample["blocks"] = float(blocks)
         self.tick_samples.append(sample)
 
-    def record_step(self, active: int, queued: int, seconds: float):
-        """One decode step over ``active`` live slots, ``seconds`` from
-        launch to tokens on the host."""
-        self.step_samples.append({"active": float(active),
-                                  "queued": float(queued),
-                                  "seconds": float(seconds)})
+    def record_step(self, active: int, queued: int,
+                    accepted: Optional[int] = None,
+                    committed: Optional[int] = None, *,
+                    seconds: Optional[float] = None):
+        """One decode (or verify) step over ``active`` live slots. A
+        speculative step also counts the draft tokens ``accepted`` over
+        the live slots and the tokens ``committed`` (accepted plus one
+        target token per slot, less budget and EOS truncation).
+        ``seconds`` is the host time from launch to tokens on the host,
+        the source of ``decode_step_ms_p50``."""
+        sample = {"active": float(active), "queued": float(queued)}
+        if accepted is not None:
+            sample["accepted"] = float(accepted)
+            sample["committed"] = float(committed or 0)
+        if seconds is not None:
+            sample["seconds"] = float(seconds)
+        self.step_samples.append(sample)
 
     def record_request(self, req: Request, arrival: float, admitted: float,
                        first_token: float, finished: float,
@@ -496,8 +563,11 @@ class ServingMetrics:
             out["queue_wait_p99_s"] = float(np.percentile(qwait, 99))
         if self.step_samples:
             out["decode_steps"] = float(len(self.step_samples))
-            out["decode_step_ms_p50"] = 1e3 * float(np.percentile(
-                [s["seconds"] for s in self.step_samples], 50))
+            secs = [s["seconds"] for s in self.step_samples
+                    if "seconds" in s]
+            if secs:
+                out["decode_step_ms_p50"] = 1e3 * float(
+                    np.percentile(secs, 50))
         load = self.tick_samples or self.step_samples
         if load:
             occ = [s.get("occupied", s.get("active", 0.0)) for s in load]
@@ -538,6 +608,15 @@ class ServingMetrics:
         if self._cache is not None:
             out["evictions"] = float(self._cache.evictions
                                      - self._evict_base)
+        spec = [s for s in self.step_samples if "accepted" in s]
+        if spec:
+            # per-(slot, verify) means (serving.py:2581-2590)
+            slot_steps = sum(s["active"] for s in spec)
+            out["spec_verify_steps"] = float(len(spec))
+            out["spec_mean_accepted_per_step"] = float(
+                sum(s["accepted"] for s in spec) / max(slot_steps, 1.0))
+            out["spec_mean_tokens_per_step"] = float(
+                sum(s["committed"] for s in spec) / max(slot_steps, 1.0))
         return out
 
 
@@ -553,7 +632,11 @@ class ServingEngine:
     ``kv_dtype="int8"`` quantizes the block pools; ``prefix_cache`` (a
     :class:`PrefixCache` whose ``chunk_tokens`` is a multiple of
     ``block_size``) shares prompt prefixes across requests zero-copy.
-    The parameters keep the reference's order; its ``spec``,
+    ``spec`` (an :class:`~paddle_tpu_torch.inference.speculative.
+    NgramDrafter`) turns the decode half of every tick into a
+    draft-and-verify step at fixed ``k = spec.k``, which reserves k rows
+    of each slot for the verify's writes.
+    The parameters keep the reference's order; its
     ``telemetry``, ``mesh``, ``quarantine``, ``logit_guard``,
     ``dispatch_retries``, ``dispatch_stall_s``,
     ``engine_failure_threshold``, ``overlap``, ``host_tier_blocks``,
@@ -577,7 +660,7 @@ class ServingEngine:
                  seq_parallel: bool = False, adaptive=None,
                  adapter_pool=None, *, device=None):
         refuse_unported(
-            "ServingEngine", spec=(spec, None),
+            "ServingEngine",
             telemetry=(telemetry, None), mesh=(mesh, None),
             quarantine=(quarantine, True), logit_guard=(logit_guard, False),
             dispatch_retries=(dispatch_retries, 2),
@@ -589,15 +672,27 @@ class ServingEngine:
             profile=(profile, False), seq_parallel=(seq_parallel, False),
             adaptive=(adaptive, None), adapter_pool=(adapter_pool, None))
         dev = resolve_device(device)
-        mdev = get_device(model)
+        mdev = module_device(model)
         if mdev.type != dev.type:
             raise ValueError(
                 f"the model lives on {mdev}, the engine was asked for "
                 f"{dev}; build the model on the engine's device")
-        self.engine = DecodeEngine(model, max_batch_slots, max_len,
-                                   top_k=top_k, prefill_chunk=prefill_chunk,
-                                   block_size=block_size,
-                                   num_blocks=num_blocks, kv_dtype=kv_dtype)
+        self.spec = spec
+        kw = dict(top_k=top_k, prefill_chunk=prefill_chunk,
+                  block_size=block_size, num_blocks=num_blocks,
+                  kv_dtype=kv_dtype)
+        if spec is None:
+            self.engine = DecodeEngine(model, max_batch_slots, max_len, **kw)
+        else:
+            # draft-and-verify (serving.py:2806-2822): the decode step
+            # becomes a k+1-row verify committing 1..k+1 tokens a slot
+            from paddle_tpu_torch.inference.speculative import (
+                SpeculativeEngine)
+
+            self.engine = SpeculativeEngine(model, max_batch_slots, max_len,
+                                            k=spec.k, **kw)
+            spec.begin(self.engine.b, self.engine.max_len)
+        self._spec_k = spec.k if spec is not None else 0
         self._alloc = self.engine.allocator
         self.quantized = self.engine.quantized
         self._cache = prefix_cache
@@ -611,8 +706,9 @@ class ServingEngine:
             prefix_cache.bind_block_allocator(self._alloc)
         self.b = self.engine.b
         self.max_len = self.engine.max_len
-        # one row of every slot is reserved for a generated token
-        self._plen_max = self.max_len - 1
+        # one row of every slot is reserved for a generated token, k for
+        # the verify's writes past it
+        self._plen_max = self.max_len - max(self._spec_k, 1)
         self.eos_id = eos_id
         self.seed = int(seed)
         self.clock = clock
@@ -629,6 +725,7 @@ class ServingEngine:
         self._topk = np.zeros((self.b,), np.int64)    # 0 = disabled
         self._topp = np.ones((self.b,), np.float32)   # 1.0 = disabled
         self._budget = np.zeros((self.b,), np.int32)
+        self._keydata = np.zeros((self.b, 2), np.uint32)
         # chunked-prefill state per slot (None = past prefill)
         self._pf: List[Optional[Dict[str, Any]]] = [None] * self.b
         self._times: Dict[int, Dict[str, float]] = {}
@@ -670,22 +767,31 @@ class ServingEngine:
                 f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
         plen = len(req.prompt)
         if plen < 1 or plen > self._plen_max:
+            spec_note = (f" minus the k={self._spec_k} speculation "
+                         "headroom" if self._spec_k else "")
             raise ValueError(
                 f"prompt length {plen} must be in [1, {self._plen_max}] "
-                f"(max_len={self.max_len}) — the slot needs "
+                f"(max_len={self.max_len}{spec_note}) — the slot needs "
                 "at least one row for generated tokens")
         if plen + req.max_new_tokens > self._plen_max + 1:
+            spec_note = (f" (max_len={self.max_len} minus the "
+                         f"k={self._spec_k} speculation verify headroom)"
+                         if self._spec_k else f" (max_len={self.max_len})")
             raise ValueError(
                 f"prompt_len + max_new_tokens = {plen} + "
                 f"{req.max_new_tokens} = {plen + req.max_new_tokens} "
                 f"exceeds the {self._plen_max + 1}-token slot budget"
-                f" (max_len={self.max_len}); shorten the prompt or lower "
+                f"{spec_note}; shorten the prompt or lower "
                 "max_new_tokens")
         # a request must be able to finish ALONE on the pool, or
         # preempting everyone else could never unblock it; its deepest
-        # write is row plen + max_new - 2
+        # write is row plen + max_new - 2, plus the k verify rows once a
+        # verify dispatches (max_new == 1 retires at prefill commit)
         bs = self.engine.block_size
-        alone = max(plen + req.max_new_tokens - 2, plen - 1) // bs + 1
+        deep = plen + req.max_new_tokens - 2
+        if req.max_new_tokens > 1:
+            deep += self._spec_k
+        alone = max(deep, plen - 1) // bs + 1
         if alone > self._alloc.capacity:
             raise ValueError(
                 f"request needs {alone} blocks of {bs} tokens to "
@@ -749,8 +855,9 @@ class ServingEngine:
         self._topp[slot] = float(req.top_p) if req.top_p is not None \
             else 1.0
         self._budget[slot] = req.max_new_tokens
-        if req._gen is None:
-            req._gen = request_generator(self.seed, req.id, req.seed)
+        # the request's stream: a function of (seed, id) only, so a
+        # resumed request replays the draws of its first residency
+        self._keydata[slot] = request_keydata(self.seed, req.id, req.seed)
         self._slots[slot] = req
         self._pf[slot] = st = {"ids": ids, "pos": 0, "nodes": nodes,
                                "seq": req.id}
@@ -805,16 +912,6 @@ class ServingEngine:
                 self.scheduler.requeue(req)
                 break   # pool short of blocks: the head waits
 
-    def _draw(self, slots) -> np.ndarray:
-        """One uniform per slot from its request's generator — only for
-        sampled (non-greedy) slots, so each request's stream advances
-        exactly once per committed sampled token."""
-        u = np.zeros((len(slots),), np.float32)
-        for i, slot in enumerate(slots):
-            if not self._greedy[slot]:
-                u[i] = torch.rand((), generator=self._slots[slot]._gen)
-        return u
-
     def _run_prefill_chunk(self):
         """Advance the oldest-admitted prefilling slot by one chunk; on
         the prompt's final chunk, commit its first token."""
@@ -824,12 +921,11 @@ class ServingEngine:
         slot = min(pf, key=lambda i: self._pf[i]["seq"])
         st = self._pf[slot]
         plen = len(st["ids"])
-        final = plen - st["pos"] <= self.engine.prefill_chunk
-        u = self._draw([slot]) if final else np.zeros((1,), np.float32)
         sl = slice(slot, slot + 1)
         st["tok"], st["pos"] = self.engine.prefill_chunk_at(
             st["ids"], slot, st["pos"], plen, self._temps[sl],
-            self._greedy[sl], u, self._topk[sl], self._topp[sl])
+            self._greedy[sl], self._keydata[sl], topks=self._topk[sl],
+            topps=self._topp[sl])
         self.metrics.count_prefill_chunk()
         if st["pos"] >= plen:
             self._finish_prefill(slot)
@@ -868,6 +964,11 @@ class ServingEngine:
         first = int(st["tok"][0, 0])
         self._pf[slot] = None
         self._adm_blocked = None
+        if self.spec is not None:
+            # the drafter's admit hook (serving.py:4759-4763)
+            self.spec.admit(np.asarray([slot], np.int32),
+                            st["ids"][None, :],
+                            np.asarray([len(st["ids"])], np.int32))
         self._t[slot] = len(st["ids"])
         self._toks[slot, 0] = first
         # a resumed request streamed its first token in an earlier
@@ -955,9 +1056,10 @@ class ServingEngine:
             return None
         return self.scheduler.select_victim(cands, self._now())
 
-    def _ensure_decode_blocks(self):
-        """Lazy block growth before a decode step: every live slot needs
-        storage behind row ``t``, the row this tick writes. Oldest slots
+    def _ensure_decode_blocks(self, span: int):
+        """Lazy block growth before a decode or verify step: every live
+        slot needs storage behind rows ``[t, t + span)``, the rows this
+        tick writes (rows past the arena are dropped). Oldest slots
         are served first; when the pool is dry the newest-admitted
         request is preempted (repeatedly if needed), after the prefix
         cache's cold leaves — submit()'s alone-fit check guarantees this
@@ -968,7 +1070,8 @@ class ServingEngine:
                        key=lambda i: self._seq[i])
         for slot in order:
             while self._slots[slot] is not None:
-                target = min(int(self._t[slot]), self.max_len - 1) // bs + 1
+                target = min(int(self._t[slot]) + span - 1,
+                             self.max_len - 1) // bs + 1
                 need = target - int(self._nblocks[slot])
                 if need <= 0:
                     break
@@ -995,16 +1098,17 @@ class ServingEngine:
                 occupied, self.scheduler.due_count(self._now()),
                 blocks=self._alloc.blocks_in_use())
         self._run_prefill_chunk()
-        self._ensure_decode_blocks()
+        self._ensure_decode_blocks(self._spec_k + 1)
         live = [i for i, r in enumerate(self._slots)
                 if r is not None and self._pf[i] is None]
         if not live:
             return
-        u = np.zeros((self.b,), np.float32)
-        u[live] = self._draw(live)
+        if self.spec is not None:
+            return self._step_speculative(live)
         t0 = time.perf_counter()
         tok = self.engine.step(self._toks, self._t, self._temps,
-                               self._greedy, u, self._topk, self._topp)
+                               self._greedy, self._keydata,
+                               topks=self._topk, topps=self._topp)
         # overlapped tick: the next tick's admissions run while the card
         # computes this step (slots retire at commit, after this pass,
         # so WHICH requests admit is unchanged — only when)
@@ -1012,11 +1116,55 @@ class ServingEngine:
         toks = tok.cpu().numpy()
         self.metrics.record_step(len(live),
                                  self.scheduler.due_count(self._now()),
-                                 time.perf_counter() - t0)
+                                 seconds=time.perf_counter() - t0)
         for slot in live:
             self._t[slot] += 1
             self._toks[slot, 0] = int(toks[slot, 0])
             self._commit_token(slot, int(toks[slot, 0]))
+
+    def _step_speculative(self, live):
+        """One draft-and-verify tick (``serving.py:6234-6350`` without
+        constraints, quarantine or telemetry): drafts from the slots'
+        contexts, one verify over all slots, the next tick's admissions
+        while the card computes, one read of ``out`` and ``accept``,
+        then every live slot commits between 1 and ``accept_cap + 1``
+        tokens — a host decision, never a shape."""
+        ctxs: List[Optional[List[int]]] = [None] * self.b
+        for i in live:
+            r = self._slots[i]
+            ctxs[i] = list(r.prompt) + r.tokens
+        drafts = self.spec.propose(ctxs, self._toks[:, 0], self._t)
+        t0 = time.perf_counter()
+        out, acc = self.engine.verify(
+            self._toks, drafts, self._t, self._temps, self._greedy,
+            self._keydata, topks=self._topk, topps=self._topp)
+        self._admit_ready()
+        # one host read of both
+        res = torch.cat([out, acc[:, None].to(out.dtype)], dim=1).cpu()
+        out, acc = res[:, :-1].numpy(), res[:, -1].numpy()
+        seconds = time.perf_counter() - t0
+        backlog = self.scheduler.due_count(self._now())
+        cap = min(self.spec.accept_cap, self._spec_k)
+        accepted_total = committed_total = 0
+        for slot in live:
+            req = self._slots[slot]
+            # never outrun the admitted budget; accepted counts what the
+            # verify accepted (clamped by the drafter's cap only),
+            # committed what was delivered
+            remaining = int(self._budget[slot]) - len(req.tokens)
+            va = min(int(acc[slot]), cap)
+            a = min(va, remaining - 1)
+            accepted_total += va
+            # offset and pending token advance with each append
+            for j in range(a + 1):
+                self._t[slot] += 1
+                self._toks[slot, 0] = int(out[slot, j])
+                self._commit_token(slot, int(out[slot, j]))
+                committed_total += 1
+                if self._slots[slot] is None:
+                    break   # EOS inside the accepted prefix: drop the rest
+        self.metrics.record_step(len(live), backlog, accepted_total,
+                                 committed_total, seconds=seconds)
 
     def _idle_wait(self, wait: float):
         """Sleep toward the next arrival; an injected clock that does not
@@ -1054,10 +1202,13 @@ class ServingEngine:
         self.step_decode()
         return "stepped"
 
-    def run(self, max_steps: Optional[int] = None) -> ServingMetrics:
+    def run(self, max_steps: Optional[int] = None,
+            keep_epoch: bool = False) -> ServingMetrics:
         """Drive the loop until queue and slots drain (or ``max_steps``
         ticks). A call that starts from an idle engine opens a fresh
-        metrics window and clock anchor for ``arrival_time``."""
+        metrics window and clock anchor for ``arrival_time``.
+        ``keep_epoch`` is accepted at its default only."""
+        refuse_unported("ServingEngine.run", keep_epoch=(keep_epoch, False))
         if not self.active_count():
             self._t0 = self.clock()
             self.metrics = ServingMetrics(self.b, self._cache, self._alloc)

@@ -222,7 +222,11 @@ class GPTAttention(Layer):
         self.attn_dropout_p = config.attention_dropout
         self.resid_dropout = Dropout(config.hidden_dropout)
 
-    def forward(self, x, cache=None, write_rows=None):
+    def forward(self, x, cache=None, lora=None, *, write_rows=None):
+        """``write_rows``: the commit's plan, shared by the layers of one
+        forward (:func:`_paged_write_rows` / :class:`_QuantPlan`);
+        ``lora`` is accepted at its default only."""
+        refuse_unported("GPTAttention.forward", lora=(lora, None))
         b, s = x.shape[0], x.shape[1]
         # the split is PER HEAD (gpt.py:276-277): each head's 3*D slice
         # holds its q, k, v — not three hidden-wide thirds
@@ -269,7 +273,8 @@ class GPTMLP(Layer):
         self.fc_out = RowParallelLinear(ffn, h, device=device, dtype=dtype)
         self.dropout = Dropout(config.hidden_dropout)
 
-    def forward(self, x):
+    def forward(self, x, lora=None):
+        refuse_unported("GPTMLP.forward", lora=(lora, None))
         return self.dropout(self.fc_out(F.gelu(self.fc_in(x),
                                                approximate=True)))
 
@@ -287,7 +292,8 @@ class GPTBlock(Layer):
                               dtype=dtype)
         self.mlp = GPTMLP(config, device=device, dtype=dtype)
 
-    def forward(self, x, cache=None, write_rows=None):
+    def forward(self, x, cache=None, lora=None, *, write_rows=None):
+        refuse_unported("GPTBlock.forward", lora=(lora, None))
         if cache is None:
             x = x + self.attn(self.ln_1(x))
         else:
@@ -315,7 +321,9 @@ class GPTModel(Layer):
                               epsilon=config.layer_norm_epsilon,
                               device=device, dtype=dtype)
 
-    def forward(self, input_ids, position_ids=None, caches=None):
+    def forward(self, input_ids, position_ids=None, caches=None,
+                adapters=None):
+        refuse_unported("GPTModel.forward", adapters=(adapters, None))
         b, s = input_ids.shape[0], input_ids.shape[1]
         steps = torch.arange(s, device=input_ids.device)
         if position_ids is None:
@@ -383,11 +391,15 @@ class GPTForCausalLM(Layer):
                 blk.mlp.fc_out.weight.normal_(0.0, out_std, generator=gen)
 
     def forward(self, input_ids, labels=None, position_ids=None,
-                caches=None):
+                caches=None, adapters=None, output_hidden=False):
         """Logits, or ``(logits, new_caches)`` with ``caches``; with
         ``labels`` (integer ids of ``input_ids``' shape) the mean
         next-token loss instead, through the fused chunked head and
-        cross entropy — the (N, vocab) logits never exist at once."""
+        cross entropy — the (N, vocab) logits never exist at once.
+        ``adapters`` and ``output_hidden`` are accepted at their
+        defaults only."""
+        refuse_unported("GPTForCausalLM.forward", adapters=(adapters, None),
+                        output_hidden=(output_hidden, False))
         if labels is not None and (
                 tuple(labels.shape) != tuple(input_ids.shape)
                 or labels.dtype not in _INT_DTYPES):

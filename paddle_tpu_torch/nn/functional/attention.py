@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.amp.auto_cast import maybe_cast_inputs
+from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.ops.kernels.flash_attention import (FlashAttentionFn,
                                                           _pick_block)
 
@@ -59,10 +60,17 @@ def _sdpa(q, k, v, attn_mask=None, is_causal: bool = False,
 
 
 def flash_attention(q, k, v, causal: bool = False,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    interpret: Optional[bool] = None):
     """Blockwise attention over (batch, seq, heads, head_dim) inputs
     (``ops/pallas/flash_attention.py:582``); ``scale`` defaults to
-    1/sqrt(head_dim)."""
+    1/sqrt(head_dim). The reference's TPU tiling (``block_q``,
+    ``block_k``) and Pallas ``interpret`` mode are accepted at their
+    defaults only."""
+    refuse_unported("flash_attention", block_q=(block_q, None),
+                    block_k=(block_k, None), interpret=(interpret, None))
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttentionFn.apply(q, k, v, float(scale), bool(causal))

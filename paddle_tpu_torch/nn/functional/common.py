@@ -11,7 +11,7 @@ from paddle_tpu_torch.core.unported import refuse_unported
 __all__ = ["linear", "embedding", "dropout"]
 
 
-def linear(x, weight, bias=None, op_name: str = "linear"):
+def linear(x, weight, bias=None, *, op_name: str = "linear"):
     """y = x @ W + b with paddle's (in, out) weight layout — NOT torch's
     (out, in) ``F.linear``. Under AMP the inputs are cast as the op
     ``op_name`` dictates: the tensor-parallel layers dispatch as
@@ -24,9 +24,20 @@ def linear(x, weight, bias=None, op_name: str = "linear"):
     return out
 
 
-def embedding(x, weight):
-    """Gather rows of ``weight`` by id."""
-    return TF.embedding(x, weight)
+def embedding(x, weight, padding_idx=None, sparse: bool = False):
+    """Gather rows of ``weight`` by id. Ids equal to ``padding_idx``
+    (negative counts from the end) give zero rows, so those rows of
+    ``weight`` get a zero gradient — the reference masks the output the
+    same way (``nn/functional/common.py:96``). ``sparse`` is accepted at
+    its default only."""
+    refuse_unported("embedding", sparse=(sparse, False))
+    out = TF.embedding(x, weight)
+    if padding_idx is not None:
+        if padding_idx < 0:
+            padding_idx += weight.shape[0]
+        out = torch.where((x != padding_idx).unsqueeze(-1), out,
+                          out.new_zeros(()))
+    return out
 
 
 def dropout(x, p: float = 0.5, axis=None, training: bool = True,

@@ -254,8 +254,8 @@ def test_sampler_draws_follow_the_filtered_softmax(models, top_p):
 
 
 def test_sampled_requests_keep_their_stream_through_preemption(models):
-    """Each request draws from its own generator, once per committed
-    sampled token: the same seeded temperature requests give the same
+    """Each request's draws are keyed by its key data and the position
+    of the token: the same seeded temperature requests give the same
     tokens whether or not the pool forces a preemption, and streaming
     delivers every token once with done on the last."""
     _, pm = models

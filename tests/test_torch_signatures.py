@@ -4,13 +4,20 @@ A positional call binds the parameter at its position: where the port
 put its own parameters (``device``, ``dtype``, ``seed``) or left out a
 reference parameter, the same call bound something else with no error
 (``nn.Embedding(V, D, 0)`` built the table on ``cuda:0`` instead of
-setting ``padding_idx``; ``F.dropout(x, 0.1, None)`` was the identity).
-For every public callable below, read from the reference's source with
-``ast`` (no JAX import), these tests hold:
+setting ``padding_idx``; ``F.dropout(x, 0.1, None)`` was the identity;
+``DecodeEngine.step``'s 5th argument was a float uniform where the
+reference takes uint32 ``keydata``). Every public function, class and
+method of every port module is swept with ``ast`` against the reference
+file at the same relative path (no JAX import), and these hold:
 
 - the port's positional parameters are the reference's, in its order,
   under its names, with its defaults;
-- the port's own parameters are keyword-only;
+- the port's own parameters are keyword-only, and each is one of the
+  stated additions (``KW_ONLY``); the reference's keyword-only
+  parameters are the port's too;
+- a callable the reference lacks at that path is a stated exception
+  (``ABSENT``, ``ELSEWHERE``), each with its reason, and no exception is
+  stale;
 - each reference parameter the port does not implement raises
   ``NotImplementedError`` naming it off its default, and is accepted at
   its default;
@@ -28,8 +35,11 @@ import torch
 from paddle_tpu_torch.distributed.meta_parallel import (ColumnParallelLinear,
                                                         RowParallelLinear,
                                                         VocabParallelEmbedding)
-from paddle_tpu_torch.inference import Request, ServingEngine
-from paddle_tpu_torch.inference.serving import DecodeEngine
+from paddle_tpu_torch.inference import (BlockAllocator, NgramDrafter,
+                                        Request, ServingEngine,
+                                        SpeculativeEngine)
+from paddle_tpu_torch.inference.prefix_cache import PrefixCacheNode
+from paddle_tpu_torch.inference.serving import DecodeEngine, ServingMetrics
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.models.gpt import (GPTAttention, GPTBlock, GPTMLP,
                                          GPTModel)
@@ -37,6 +47,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
 
 REF = Path(__file__).resolve().parents[1] / "paddle_tpu"
+PORT = REF.parent / "paddle_tpu_torch"
 _EMPTY = object()    # a parameter without a default
 
 
@@ -97,6 +108,18 @@ def _tiny():
 
 
 _X = torch.ones(4, 64)
+_ENGINE = DecodeEngine(_tiny(), 2, 32, block_size=8)
+_SPEC = SpeculativeEngine(_tiny(), 2, 32, k=2, block_size=8)
+_GREEDY = (np.zeros((2, 1), np.int64), np.zeros(2, np.int32),
+           np.ones(2, np.float32), np.ones(2, bool), np.zeros((2, 2), np.uint32))
+_CHUNK = (np.zeros((1, 32), np.int64), 0, 0, 3, np.ones(1, np.float32),
+          np.ones(1, bool), np.zeros((1, 2), np.uint32))
+_ROW = (np.arange(5), 0, 0, 5, np.ones(1, np.float32), np.ones(1, bool),
+        np.zeros((1, 2), np.uint32))
+_GPT = _tiny()
+_IDS = torch.zeros(1, 3, dtype=torch.long)
+_H = torch.zeros(1, 3, 64)
+_ALLOC = BlockAllocator(4, 8, 64)
 
 # id -> (reference file, qualname, port callable (for a method, bound
 # to a port layer), factory taking the unported parameters as keywords,
@@ -107,7 +130,7 @@ CASES = {
         "inference/serving.py", "ServingEngine", ServingEngine,
         lambda **kw: ServingEngine(_tiny(), max_batch_slots=1, max_len=64,
                                    block_size=8, device="cpu", **kw),
-        {"spec": None, "telemetry": None, "mesh": None, "quarantine": True,
+        {"telemetry": None, "mesh": None, "quarantine": True,
          "logit_guard": False, "dispatch_retries": 2,
          "dispatch_stall_s": None, "engine_failure_threshold": 3,
          "overlap": True, "host_tier_blocks": None, "swap_min_tokens": None,
@@ -183,6 +206,81 @@ CASES = {
             {"weight": np.zeros((2, 2), np.float32),
              "bias": np.zeros(2, np.float32)}, **kw),
         {"use_structured_name": True}, None),
+    # methods and functions (the rest of the sweep covers them by ast)
+    "DecodeEngine.step": (
+        "inference/serving.py", "DecodeEngine.step", _ENGINE.step,
+        lambda **kw: _ENGINE.step(*_GREEDY, **kw), {"defer": False}, None),
+    "DecodeEngine.run_prefill_chunk": (
+        "inference/serving.py", "DecodeEngine.run_prefill_chunk",
+        _ENGINE.run_prefill_chunk,
+        lambda **kw: _ENGINE.run_prefill_chunk(*_CHUNK, **kw),
+        {"targets": None}, None),
+    "DecodeEngine.prefill_chunk_at": (
+        "inference/serving.py", "DecodeEngine.prefill_chunk_at",
+        _ENGINE.prefill_chunk_at,
+        lambda **kw: _ENGINE.prefill_chunk_at(*_ROW, **kw),
+        {"targets_row": None}, None),
+    "SpeculativeEngine": (
+        "inference/speculative.py", "SpeculativeEngine", SpeculativeEngine,
+        lambda **kw: SpeculativeEngine(_tiny(), 1, 64, 2, block_size=8,
+                                       **kw),
+        {"ids_dtype": None, "mesh": None, "logit_guard": False,
+         "host_tier_blocks": None, "seq_parallel": False,
+         "adapter_pool": None}, None),
+    "SpeculativeEngine.verify": (
+        "inference/speculative.py", "SpeculativeEngine.verify",
+        _SPEC.verify,
+        lambda **kw: _SPEC.verify(_GREEDY[0], np.zeros((2, 2), np.int64),
+                                  *_GREEDY[1:], **kw),
+        {"defer": False}, None),
+    "ServingEngine.run": (
+        "inference/serving.py", "ServingEngine.run",
+        ServingEngine(_tiny(), 1, 64, block_size=8, device="cpu").run,
+        lambda **kw: ServingEngine(_tiny(), 1, 64, block_size=8,
+                                   device="cpu").run(**kw),
+        {"keep_epoch": False}, None),
+    "ServingMetrics": (
+        "inference/serving.py", "ServingMetrics", ServingMetrics,
+        lambda **kw: ServingMetrics(1, **kw),
+        {"registry": None, "slo": None}, None),
+    "ServingMetrics.record_step": (
+        "inference/serving.py", "ServingMetrics.record_step",
+        ServingMetrics(1).record_step, None, {}, None),
+    "BlockAllocator": (
+        "inference/block_pool.py", "BlockAllocator", BlockAllocator,
+        lambda **kw: BlockAllocator(4, 8, 64, **kw),
+        {"devices": 1, "replicas": 1}, None),
+    "BlockAllocator.alloc": (
+        "inference/block_pool.py", "BlockAllocator.alloc", _ALLOC.alloc,
+        lambda **kw: _ALLOC.deref(_ALLOC.alloc(1, **kw)), {"replica": 0},
+        None),
+    "BlockAllocator.free_count": (
+        "inference/block_pool.py", "BlockAllocator.free_count",
+        _ALLOC.free_count, lambda **kw: _ALLOC.free_count(**kw),
+        {"replica": None}, None),
+    "GPTAttention.forward": (
+        "models/gpt.py", "GPTAttention.forward", _GPT.gpt.h[0].attn.forward,
+        lambda **kw: _GPT.gpt.h[0].attn(_H, None, **kw), {"lora": None},
+        None),
+    "GPTMLP.forward": (
+        "models/gpt.py", "GPTMLP.forward", _GPT.gpt.h[0].mlp.forward,
+        lambda **kw: _GPT.gpt.h[0].mlp(_H, **kw), {"lora": None}, None),
+    "GPTBlock.forward": (
+        "models/gpt.py", "GPTBlock.forward", _GPT.gpt.h[0].forward,
+        lambda **kw: _GPT.gpt.h[0](_H, None, **kw), {"lora": None}, None),
+    "GPTModel.forward": (
+        "models/gpt.py", "GPTModel.forward", _GPT.gpt.forward,
+        lambda **kw: _GPT.gpt(_IDS, **kw), {"adapters": None}, None),
+    "GPTForCausalLM.forward": (
+        "models/gpt.py", "GPTForCausalLM.forward", _GPT.forward,
+        lambda **kw: _GPT(_IDS, **kw),
+        {"adapters": None, "output_hidden": False}, None),
+    "F.linear": ("nn/functional/common.py", "linear", F.linear, None, {},
+                 None),
+    "F.embedding": (
+        "nn/functional/common.py", "embedding", F.embedding,
+        lambda **kw: F.embedding(_IDS, _H[0], **kw), {"sparse": False},
+        None),
 }
 
 
@@ -201,8 +299,141 @@ UNPORTED = [(case, name) for case, spec in CASES.items()
             for name in spec[4]]
 
 
-@pytest.mark.parametrize("case", list(CASES))
+# ------------------------------------------------------------ the sweep
+# the port's own keyword-only parameters, each with its reason
+KW_ONLY = {
+    "device": "entry points run on the card unless the caller asks for "
+              "the CPU",
+    "dtype": "layers are built at a torch dtype (bf16 serving)",
+    "seed": "GPTForCausalLM draws its weights from a seeded generator",
+    "write_rows": "the commit plan one forward's layers share",
+    "op_name": "the op name AMP casts the tensor-parallel layers by",
+    "seconds": "the host step time behind decode_step_ms_p50",
+}
+# port callables the reference file at the same path lacks
+ABSENT = {
+    "core/place.py::resolve_device": "the port's default-to-the-card "
+        "device rule, raising without one",
+    "core/place.py::module_device": "where a module's parameters live; "
+        "the reference's get_device() arrives with device/",
+    "core/random.py::generator": "torch.Generator for weight draws; the "
+        "reference threads JAX keys",
+    "core/random.py::request_seed": "a request's seed for its stream; "
+        "JAX's threefry is not reproduced",
+    "core/random.py::request_keydata": "a request's (2,) uint32 key data, "
+        "the port's stand-in for its JAX key",
+    "core/random.py::position_uniforms": "the counter-based draw standing "
+        "in for fold_in(slot_key, P)",
+    "core/unported.py::refuse_unported": "the port's refusal of reference "
+        "parameters it does not implement",
+}
+# port modules with no reference file at their path
+ABSENT_MODULES = {
+    "ops/kernels/_build.py": "nvcc build and ctypes binding of csrc/",
+    "ops/kernels/chunk_prefill.py": "K5's wrapper; the TPU kernel is "
+        "ops/pallas/chunk_prefill.py",
+    "ops/kernels/flash_attention.py": "K1/K3's wrappers; the TPU kernels "
+        "are ops/pallas/flash_attention.py",
+    "ops/kernels/layer_norm.py": "K2's wrapper; the TPU kernel is "
+        "ops/pallas/layer_norm.py",
+    "ops/kernels/paged_attention.py": "K4's wrapper; the TPU kernel is "
+        "ops/pallas/paged_attention.py",
+}
+# port callables whose reference sits in another file
+ELSEWHERE = {
+    "nn/functional/attention.py::flash_attention":
+        "ops/pallas/flash_attention.py",
+}
+# reference parameters without a default that the port defaults
+DEFAULTED = {
+    "distributed/trainer.py::ShardedTrainer.__init__": (
+        {"loss_fn", "mesh"}, "the one-card trainer needs neither; every "
+        "call the reference accepts binds the same"),
+}
+
+
+def _public(path):
+    """{qualname: node} of a file's public functions, classes and their
+    public methods (``__init__`` and ``__call__`` included)."""
+    out = {}
+    if not path.exists():
+        return out
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)) \
+                and not n.name.startswith("_"):
+            out[n.name] = n
+            if isinstance(n, ast.ClassDef):
+                for f in n.body:
+                    if isinstance(f, ast.FunctionDef) and (
+                            not f.name.startswith("_")
+                            or f.name in ("__init__", "__call__")):
+                        out[f"{n.name}.{f.name}"] = f
+    return out
+
+
+SWEEP = {f"{f.relative_to(PORT).as_posix()}::{q}": node
+         for f in sorted(PORT.rglob("*.py"))
+         for q, node in _public(f).items()}
+
+
+def _ref_node(sid):
+    rel, qual = sid.split("::")
+    return _public(REF / ELSEWHERE.get(sid, rel)).get(qual)
+
+
+def _case_sid(relpath, qualname):
+    sid = f"{relpath}::{qualname}"
+    return sid + ".__init__" if f"{sid}.__init__" in SWEEP else sid
+
+
+_COVERED = {_case_sid(c[0], c[1]) for c in CASES.values()}
+_FUNCS = [sid for sid, n in SWEEP.items()
+          if isinstance(n, ast.FunctionDef) and sid not in _COVERED]
+_CLASSES = [sid for sid, n in SWEEP.items() if isinstance(n, ast.ClassDef)]
+_IN_REF = [sid for sid in _FUNCS if _ref_node(sid) is not None]
+
+
+def _ast_params(fn):
+    a = fn.args
+    pos = a.posonlyargs + a.args
+    defaults = [_EMPTY] * (len(pos) - len(a.defaults)) + list(a.defaults)
+    params = [(p.arg, d) for p, d in zip(pos, defaults)]
+    if params and params[0][0] in ("self", "cls", "ctx"):
+        params = params[1:]
+    return params, [p.arg for p in a.kwonlyargs]
+
+
+def _sweep_positional(sid):
+    rel = sid.split("::")[0]
+    ref = _ref_node(sid)
+    if rel in ABSENT_MODULES:
+        assert not (REF / rel).exists(), f"{rel} has a reference now"
+        return
+    if ref is None:
+        assert sid in ABSENT, (f"{sid}: the reference lacks it; state "
+                               "why in ABSENT")
+        return
+    assert sid not in ABSENT, f"{sid} is in the reference: stale"
+    if isinstance(ref, ast.ClassDef):
+        return
+    mine, _ = _ast_params(SWEEP[sid])
+    theirs, _ = _ast_params(ref)
+    assert [n for n, _ in mine] == [n for n, _ in theirs]
+    free = DEFAULTED.get(sid, (set(), ""))[0]
+    for (name, d), (_, want) in zip(mine, theirs):
+        if want is _EMPTY and name in free:
+            continue
+        assert (d is _EMPTY) == (want is _EMPTY), name
+        if d is not _EMPTY:
+            assert ast.dump(d) == ast.dump(want), (name, ast.unparse(d),
+                                                   ast.unparse(want))
+
+
+@pytest.mark.parametrize("case", list(CASES) + _FUNCS + _CLASSES)
 def test_positional_parameters_follow_the_reference(case):
+    if case not in CASES:
+        _sweep_positional(case)
+        return
     relpath, qualname, _, _, _, stop = CASES[case]
     ref, _ = _ref_params(relpath, qualname)
     if stop is not None:
@@ -213,8 +444,23 @@ def test_positional_parameters_follow_the_reference(case):
         assert _same_default(node, p.default), (name, p.default)
 
 
-@pytest.mark.parametrize("case", list(CASES))
+def _sweep_keyword_only(sid):
+    mine, ref = SWEEP[sid], _ref_node(sid)
+    _, my_kw = _ast_params(mine)
+    ref_pos, ref_kw = _ast_params(ref)
+    own = set(my_kw) - set(ref_kw) - {n for n, _ in ref_pos}
+    assert own <= set(KW_ONLY), f"{sid}: state the reason for {own}"
+    assert set(ref_kw) <= set(my_kw), f"{sid}: lacks {set(ref_kw)}"
+    for kind in ("vararg", "kwarg"):
+        assert (getattr(mine.args, kind) is None) == \
+            (getattr(ref.args, kind) is None), kind
+
+
+@pytest.mark.parametrize("case", list(CASES) + _IN_REF)
 def test_port_only_parameters_are_keyword_only(case):
+    if case not in CASES:
+        _sweep_keyword_only(case)
+        return
     relpath, qualname = CASES[case][:2]
     ref_pos, ref_kw = _ref_params(relpath, qualname)
     ref_names = {n for n, _ in ref_pos + ref_kw}
@@ -271,10 +517,30 @@ BINDS = {
     "Request(prompt, 4, 1.0, True, None, None, sampling)": (
         lambda: Request([1], 4, 1.0, True, None, None, object()),
         "sampling"),
+    # spec is ported: the drafter makes the engine speculative at its k
     "ServingEngine(model, 1, 64, None, None, 128, 0, clock, spec)": (
         lambda: ServingEngine(_tiny(), 1, 64, None, None, 128, 0,
-                              time.perf_counter, object(), device="cpu"),
-        "spec"),
+                              time.perf_counter, NgramDrafter(k=2),
+                              block_size=8, device="cpu").engine.k == 2,
+        None),
+    # keydata, not uniforms, 5th; topks, topps and defer defaulted
+    "step(toks, t, temps, greedy, keydata)": (
+        lambda: tuple(_ENGINE.step(*_GREEDY).shape) == (2, 1), None),
+    "verify(pending, drafts, t, temps, greedy, keydata)": (
+        lambda: tuple(_SPEC.verify(_GREEDY[0], np.zeros((2, 2), np.int64),
+                                   *_GREEDY[1:])[0].shape) == (2, 3), None),
+    # lora, not the port's write_rows, 3rd
+    "GPTAttention.forward(x, None, lora)": (
+        lambda: _GPT.gpt.h[0].attn(_H, None, {}), "lora"),
+    # op_name is the port's own: a 4th positional is one too many
+    "linear(x, w, b, 'linear')": (
+        lambda: pytest.raises(TypeError, F.linear, _X, torch.ones(64, 2),
+                              None, "linear") is not None, None),
+    "embedding(x, w, None, True)": (
+        lambda: F.embedding(_IDS, _H[0], None, True), "sparse"),
+    "PrefixCacheNode(key, parent, kseg, vseg)": (
+        lambda: PrefixCacheNode((), None, np.zeros(2), None), "kseg"),
+    "alloc(n, replica)": (lambda: _ALLOC.alloc(1, 1), "replica"),
     "DecodeEngine(model, 1, 64, None, ids_dtype)": (
         lambda: DecodeEngine(_tiny(), 1, 64, None, np.int32), "ids_dtype"),
     "set_state_dict(state, False)": (
@@ -292,3 +558,31 @@ def test_positional_call_binds_the_reference_parameter(call):
     else:
         with pytest.raises(NotImplementedError, match=refused):
             fn()
+
+
+EXCEPTIONS = ([("ABSENT", k) for k in ABSENT]
+              + [("ABSENT_MODULES", k) for k in ABSENT_MODULES]
+              + [("ELSEWHERE", k) for k in ELSEWHERE]
+              + [("DEFAULTED", k) for k in DEFAULTED]
+              + [("KW_ONLY", k) for k in KW_ONLY])
+
+
+@pytest.mark.parametrize("kind,key", EXCEPTIONS)
+def test_stated_exception_is_live(kind, key):
+    """Every stated exception names something the sweep meets, with a
+    reason."""
+    table = globals()[kind]
+    reason = table[key][1] if kind == "DEFAULTED" else table[key]
+    assert isinstance(reason, str) and len(reason) > 20
+    if kind == "ABSENT":
+        assert key in SWEEP and _ref_node(key) is None
+    elif kind == "ABSENT_MODULES":
+        assert (PORT / key).exists() and not (REF / key).exists()
+    elif kind == "ELSEWHERE":
+        assert key in SWEEP and _ref_node(key) is not None
+    elif kind == "DEFAULTED":
+        ref, _ = _ast_params(_ref_node(key))
+        assert table[key][0] <= {n for n, d in ref if d is _EMPTY}
+    else:
+        assert any(key in _ast_params(n)[1] for n in SWEEP.values()
+                   if isinstance(n, ast.FunctionDef))

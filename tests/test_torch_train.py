@@ -274,13 +274,41 @@ def test_forward_signature_and_labels_check_match_jax(tiny_pair):
     _, pm = tiny_pair
     names = list(inspect.signature(GPTForCausalLM.forward).parameters)
     jnames = list(inspect.signature(JaxGPT.forward).parameters)
-    assert names == jnames[:len(names)] == ["self", "input_ids", "labels",
-                                            "position_ids", "caches"]
+    assert names == jnames == ["self", "input_ids", "labels",
+                               "position_ids", "caches", "adapters",
+                               "output_hidden"]
     ids = torch.zeros(2, 16, dtype=torch.long)
     with pytest.raises(TypeError, match="position_ids"):
         pm(ids, torch.arange(16))               # position_ids passed as labels
     with pytest.raises(TypeError, match="integer ids"):
         pm(ids, ids.float())
+
+
+@pytest.mark.parametrize("padding_idx", [None, 3, -1])
+def test_embedding_padding_idx_matches_jax(padding_idx):
+    """``F.embedding(x, w, padding_idx)``: ids equal to ``padding_idx``
+    (negative from the end) give zero rows, whose weights get a zero
+    gradient — the JAX function's output and gradient, exactly."""
+    jf = importlib.import_module("paddle_tpu.nn.functional")
+    rs = np.random.RandomState(0)
+    w = rs.randn(10, 4).astype(np.float32)
+    x = np.asarray([[1, 3, 3, 9], [0, 3, 2, 1]])
+    r = rs.randn(2, 4, 4).astype(np.float32)
+
+    def jax_out(wv):
+        with _no_tape():
+            return jf.embedding(Tensor(jnp.asarray(x)), Tensor(wv),
+                                padding_idx=padding_idx).value
+
+    jgrad = jax.grad(lambda wv: (jax_out(wv) * r).sum())(jnp.asarray(w))
+    wt = torch.tensor(w, requires_grad=True)
+    out = F.embedding(torch.from_numpy(x), wt, padding_idx=padding_idx)
+    (out * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  np.asarray(jax_out(jnp.asarray(w))))
+    np.testing.assert_array_equal(wt.grad.numpy(), np.asarray(jgrad))
+    if padding_idx is not None:
+        assert not wt.grad[padding_idx % 10].any()
 
 
 def test_num_params_matches_jax_and_the_model():
