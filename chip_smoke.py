@@ -30,9 +30,10 @@ Phases, in order (any failure exits non-zero and prints no result):
    pools with (block, head) scales, poisoned with saturated codes (127)
    in every row no query may read and a 1e7 scale in every block no
    table names (NaN scales there for the kernel alone). K4 at the decode
-   step (8 slots), a lone request at t 1000, a verify of 4 drafts (s 5)
-   and slots running off tables of 5 blocks of 16 rows (s 5) and 3 of 11
-   (s 16), over both pools; K5 also
+   step (8 slots), a lone request at t 1000, a verify of 4 drafts (s 5),
+   slots running off tables of 5 blocks of 16 rows (s 5) and 3 of 11
+   (s 16), verifies of 16 and 31 drafts (s 17 and 32, two row tiles)
+   and 80 rows on 2 slots, over both pools; K5 also
    on a chunk running off a table of 5 blocks, and with bf16 q (its
    tensor-core body) on three slots at their own starts. Every bf16 K4
    case is held to K4_TOL, every bf16 K5 case to K5_TOL and every fp32
@@ -74,14 +75,31 @@ Phases, in order (any failure exits non-zero and prints no result):
    teacher-forced argmax of at least 0.9;
 5d. speculative serving: ``ServingEngine(spec=NgramDrafter(k=4))``,
    whose decode half is a verify running K4 at s = 5 through the block
-   table: the position-keyed draws equal the CPU's bits; k = 16 is
-   refused at construction (K4 holds 16 rows); phase 5's trace on the
-   fp32 model (launch counts L x verify steps for K4, L x chunks for K5,
-   (2L + 1) x (chunks + verify steps) for K2; greedy tokens against the
-   teacher-forced argmax as in phase 5), then 5c's 8 greedy requests on
-   the bf16 model over bf16 and int8 pools (exact counts, agreement >=
-   0.9); the spec keys of ``aggregate()`` and the host-clock perf beside
-   phases 5 and 5c;
+   table: the position-keyed draws equal the CPU's bits; phase 5's trace
+   on the fp32 model (launch counts L x verify steps for K4, L x chunks
+   for K5, (2L + 1) x (chunks + verify steps) for K2; greedy tokens
+   against the teacher-forced argmax as in phase 5), then 5c's 8 greedy
+   requests on the bf16 model over bf16 and int8 pools, and over bf16
+   pools at k = 16 (a verify of 17 rows a slot, K4's two row tiles;
+   exact counts, agreement >= 0.9 each); the spec keys of
+   ``aggregate()`` and the host-clock perf beside phases 5 and 5c;
+5e. dense serving: phase 5's fp32 model and trace behind
+   ``ServingEngine`` with ``block_size`` at its default (the dense
+   arena): greedy tokens against the teacher-forced argmax, K4 and K5
+   launched 0 times, K2 (2L + 1) x (chunks + steps); the host-clock
+   perf beside phase 5's;
+5f. ``generate()``: the fp32 model, batch 4 of 256-token prompts, 32 new
+   tokens, ``top_k=1``, with ``use_cache=True``, ``use_cache=False`` and
+   ``jit=True``: each path's tokens the teacher-forced argmax of its
+   own sequence but at near-ties, K1 launched L times in every forward
+   the flash gate admits, K2 (2L + 1) times a forward;
+5g. draft-model speculation: the fp32 model as the target on the paged
+   arena and then the dense one, 5c's 8 greedy requests with
+   ``DraftModelDrafter(draft, k=4)``: a self-draft (the target's weights)
+   accepting >= 0.9 x accept_cap (3) a verify, and a 2-layer draft at
+   the target's width whose tokens are the argmax's (near-ties
+   counted) as the run without speculation; exact counts for the
+   target's K4/K5 and K2 over target and draft;
 6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
    ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
@@ -477,11 +495,11 @@ def ptxas_phase():
                       f"{stores} bytes spill stores, {loads} bytes spill "
                       f"loads{extra}", flush=True)
                 name = None
-    check(seen == {"K1": 2, "K3": 6, "K4": 4, "K5": 4, "F32": 16}, f"ptxas: "
+    check(seen == {"K1": 2, "K3": 6, "K4": 4, "K5": 4, "F32": 24}, f"ptxas: "
           f"bodies seen {seen}, expected the tensor-core K1 at D 64 and "
           "128, K3a, K3b-dkv and K3b-dq at both, K4 and K5 over bf16 and "
           "int8 pools at both, and the fp32 body over fp32 and int8 pools "
-          "at both: K4's 16-row tiles, K5's 16, 32 and 64")
+          "at both in 16-, 32- and 64-row tiles, in K4's source and K5's")
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
@@ -786,10 +804,16 @@ def _paged_cost(H, D, bs, bp, t_np, s, sz, int8, index_nbytes):
 # off a table of 3 blocks of 11 rows (33 rows, one past a warp's 16
 # keys), whose last warp slice holds one key and 15 zero-filled ones
 # that rows 1-15's positions would admit (with 16-row blocks the table's
-# end is always a slice's, and the reach mask has nothing to mask).
+# end is always a slice's, and the reach mask has nothing to mask);
+# verifies of 16 and 31 drafts (s 17 and 32) at the decode step's
+# offsets, two 16-row tiles of the bf16 body (the second of one row at s
+# 17) and one 32-row tile of the fp32 body, the slots near t 1000
+# reaching past the table's 1024 rows; and 80 rows on 2 slots (5 tiles
+# of the bf16 body, a 64-row and a ragged 16-row tile of the fp32 one).
 K4_CASES = ((8, 1, None, 64, 16), (1, 1, (1000,), 64, 16),
             (8, 5, None, 64, 16), (2, 5, (78, 30), 5, 16),
-            (1, 16, (32,), 3, 11))
+            (1, 16, (32,), 3, 11), (8, 17, None, 64, 16),
+            (8, 32, None, 64, 16), (2, 80, (3, 940), 64, 16))
 K4_GEOMETRY = (12, 64)                  # H, D: gpt2_small's
 
 
@@ -1521,20 +1545,20 @@ def _serving_trace(vocab):
     return out
 
 
-def _serve(torch, model, trace, **engine_kw):
+def _serve(torch, model, trace, block_size=16, **engine_kw):
     """One run of ``trace`` through ``ServingEngine(model, 8 slots, max_len
-    1024, blocks of 16, chunks of 128, **engine_kw)`` on the card, after a
-    warm-up request (cuBLAS handles, the allocator) outside the counted
-    run: the engine, the requests, their streams, the aggregate, the wall
-    seconds and the launch counts of the run (every counter set to 0 just
-    before it)."""
+    1024, blocks of ``block_size`` (None: the dense arena), chunks of 128,
+    **engine_kw)`` on the card, after a warm-up request (cuBLAS handles,
+    the allocator) outside the counted run: the engine, the requests,
+    their streams, the aggregate, the wall seconds and the launch counts
+    of the run (every counter set to 0 just before it)."""
     from paddle_tpu_torch.inference import Request, ServingEngine
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
     from paddle_tpu_torch.ops.kernels import layer_norm as k2
     from paddle_tpu_torch.ops.kernels import paged_attention as k4
 
     eng = ServingEngine(model, max_batch_slots=8, max_len=1024,
-                        block_size=16, prefill_chunk=128, seed=0,
+                        block_size=block_size, prefill_chunk=128, seed=0,
                         device="cuda", **engine_kw)
     eng.submit(Request(prompt=[1, 2, 3], max_new_tokens=4, greedy=True))
     eng.run()
@@ -1560,15 +1584,18 @@ def _serve(torch, model, trace, **engine_kw):
     return eng, reqs, agg, wall, launches
 
 
-def _check_launches(what, launches, L, chunks, steps, int8):
+def _check_launches(what, launches, L, chunks, steps, int8, paged=True,
+                    extra_k2=0):
     """The kernels' counters against the engine's own chunk and step
-    counts: K2 twice a layer and once at the end of every forward, K4 a
-    layer a decode step, K5 a layer a prefill chunk (int8 pools: their
-    int8 counters, the fp ones 0)."""
+    counts: K2 twice a layer and once at the end of every forward (plus
+    ``extra_k2``, a draft model's), K4 a layer a decode step, K5 a layer
+    a prefill chunk (int8 pools: their int8 counters, the fp ones 0; the
+    dense arena: neither)."""
     q = "-int8" if int8 else ""
-    want = {"K2": (2 * L + 1) * (chunks + steps), "K4": 0, "K5": 0,
-            "K4-int8": 0, "K5-int8": 0}
-    want.update({f"K4{q}": L * steps, f"K5{q}": L * chunks})
+    want = {"K2": (2 * L + 1) * (chunks + steps) + extra_k2, "K4": 0,
+            "K5": 0, "K4-int8": 0, "K5-int8": 0}
+    if paged:
+        want.update({f"K4{q}": L * steps, f"K5{q}": L * chunks})
     check(launches == want, f"{what}: launch counts {launches} != {want} "
           f"implied by {chunks} chunks and {steps} steps")
 
@@ -1590,10 +1617,11 @@ def _agreement(torch, model, reqs):
 
 
 def _perf_line(what, card, agg, wall):
+    kv = agg.get("kv_bytes_in_use_peak")     # the paged arena's only
     return (f"{what} perf on {card}: {agg['aggregate_tokens_per_s']:.1f} "
             f"tokens/s, TTFT p50 {agg['ttft_p50_s'] * 1e3:.1f} ms, decode "
-            f"step p50 {agg['decode_step_ms_p50']:.2f} ms, wall {wall:.2f} s, "
-            f"kv_bytes_in_use_peak {int(agg['kv_bytes_in_use_peak'])}")
+            f"step p50 {agg['decode_step_ms_p50']:.2f} ms, wall {wall:.2f} s"
+            + ("" if kv is None else f", kv_bytes_in_use_peak {int(kv)}"))
 
 
 def serving_phase(torch, card):
@@ -1648,6 +1676,7 @@ def _greedy_consistency(torch, model, reqs, what):
                     near_ties += 1
     print(f"{what}: {checked} tokens checked, {near_ties} near-tie "
           "mismatches (top-2 gap < 1e-3)", flush=True)
+    return checked, near_ties
 
 
 def _shared_prefix_trace(vocab):
@@ -1791,33 +1820,30 @@ def serving_spec_phase(torch, card, model, bf16_model, fp_agg, bf16_aggs,
                        rows):
     """Phase 5d: speculative serving, ``NgramDrafter(k=4)``, whose every
     decode half is a verify running K4 at s = 5 over the block table. The
-    draws' bits against the CPU's; k = 16 refused at construction (K4
-    holds 16 query rows); fp32 ``gpt2_small`` serving phase 5's trace
-    (exact launch counts, greedy tokens against the teacher-forced
+    draws' bits against the CPU's; fp32 ``gpt2_small`` serving phase 5's
+    trace (exact launch counts, greedy tokens against the teacher-forced
     argmax, near-ties counted); the bf16 model serving phase 5c's 8
     greedy requests on bf16 then int8 pools (exact launch counts,
-    agreement >= 0.9). Prints the spec keys, the host-clock perf beside
-    phases 5 and 5c, and K4's rows at the verify shape (phase 3) beside
-    this phase's launches."""
-    from paddle_tpu_torch.inference import NgramDrafter, SpeculativeEngine
+    agreement >= 0.9); then the same on bf16 pools at k = 16, a verify
+    of 17 query rows a slot (K4's bf16 body in two row tiles). Prints
+    the spec keys, the host-clock perf beside phases 5 and 5c, and K4's
+    rows at the verify shapes (phase 3) beside this phase's launches;
+    returns the k = 16 run's K4 launches."""
+    from paddle_tpu_torch.inference import NgramDrafter
 
     draws_check(torch)
-    try:
-        SpeculativeEngine(model, 1, 64, k=16, block_size=16)
-        fail("SpeculativeEngine(k=16) on the card was not refused")
-    except ValueError as e:
-        check("K4" in str(e), f"k=16 refused for another reason: {e}")
     L = model.config.num_layers
     trace = _serving_trace(model.config.vocab_size)
+    greedy8 = [kw for kw in trace if kw.get("greedy")][:8]
     runs = {}
-    for what, mdl, tr, kv in (
-            ("fp32 spec serving", model, trace, None),
-            ("bf16 spec serving", bf16_model,
-             [kw for kw in trace if kw.get("greedy")][:8], None),
-            ("bf16 spec serving, int8 pools", bf16_model,
-             [kw for kw in trace if kw.get("greedy")][:8], "int8")):
+    for what, mdl, tr, kv, k in (
+            ("fp32 spec serving", model, trace, None, 4),
+            ("bf16 spec serving", bf16_model, greedy8, None, 4),
+            ("bf16 spec serving, int8 pools", bf16_model, greedy8, "int8",
+             4),
+            ("bf16 spec serving, k = 16", bf16_model, greedy8, None, 16)):
         _, reqs, agg, wall, launches = _serve(
-            torch, mdl, tr, kv_dtype=kv, spec=NgramDrafter(k=4))
+            torch, mdl, tr, kv_dtype=kv, spec=NgramDrafter(k=k))
         chunks, steps = int(agg["prefill_chunks"]), \
             int(agg["spec_verify_steps"])
         check(agg["decode_steps"] == steps, f"{what}: {agg['decode_steps']} "
@@ -1840,7 +1866,8 @@ def serving_spec_phase(torch, card, model, bf16_model, fp_agg, bf16_aggs,
         runs[what] = (agg, launches["K4-int8" if kv else "K4"])
     base = {"fp32 spec serving": ("phase 5", fp_agg),
             "bf16 spec serving": ("5c", bf16_aggs[None]),
-            "bf16 spec serving, int8 pools": ("5c", bf16_aggs["int8"])}
+            "bf16 spec serving, int8 pools": ("5c", bf16_aggs["int8"]),
+            "bf16 spec serving, k = 16": ("5c", bf16_aggs[None])}
     print(f"spec vs plain serving on {card} (host clock, not gated): " +
           "; ".join(
               f"{w}: {a['aggregate_tokens_per_s']:.1f} tokens/s, decode "
@@ -1848,18 +1875,174 @@ def serving_spec_phase(torch, card, model, bf16_model, fp_agg, bf16_aggs,
               f"{base[w][1]['aggregate_tokens_per_s']:.1f}, "
               f"{base[w][1]['decode_step_ms_p50']:.2f} ms)"
               for w, (a, _) in runs.items()), flush=True)
-    # K4 at the verify shape: phase 3's case of 8 slots at s 5 over the
-    # decode step's table, beside the verify launches of this phase
-    launches = {("K4", "float32"): runs["fp32 spec serving"][1],
-                ("K4", "bfloat16"): runs["bf16 spec serving"][1],
-                ("K4-int8", "bfloat16"):
-                    runs["bf16 spec serving, int8 pools"][1]}
+    # K4 at the verify shapes: phase 3's cases of 8 slots at s 5 and s 17
+    # over the decode step's table, beside the verify launches of this
+    # phase
+    launches = {("K4", "float32", 5): runs["fp32 spec serving"][1],
+                ("K4", "bfloat16", 5): runs["bf16 spec serving"][1],
+                ("K4-int8", "bfloat16", 5):
+                    runs["bf16 spec serving, int8 pools"][1],
+                ("K4", "bfloat16", 17): runs["bf16 spec serving, k = 16"][1]}
     for r in rows:
         if r["kernel"] in ("K4", "K4-int8") and \
-                r["shape"] == [8, 5, 12, 64, 16, 64]:
+                r["shape"] in ([8, 5, 12, 64, 16, 64],
+                               [8, 17, 12, 64, 16, 64]):
             print("verify shape: " + json.dumps(dict(
-                r, spec_launches=launches.get((r["kernel"], r["dtype"])))),
-                flush=True)
+                r, spec_launches=launches.get(
+                    (r["kernel"], r["dtype"], r["shape"][1])))), flush=True)
+    return runs["bf16 spec serving, k = 16"][1]
+
+
+def serving_dense_phase(torch, card, model, fp_agg):
+    """Phase 5e: phase 5's fp32 model and 16-request trace behind
+    ``ServingEngine`` with ``block_size`` left at its default, the dense
+    arena: greedy tokens against the teacher-forced argmax (near-ties
+    counted), no K4 or K5 launch, K2 (2L + 1) x (chunks + steps), and the
+    host-clock perf beside phase 5's (not gated)."""
+    cfg = model.config
+    _, reqs, agg, wall, launches = _serve(
+        torch, model, _serving_trace(cfg.vocab_size), block_size=None)
+    chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+    print(f"dense serving: {int(agg['completed'])} requests, {chunks} "
+          f"prefill chunks, {steps} decode steps, launches {launches}",
+          flush=True)
+    _check_launches("dense serving", launches, cfg.num_layers, chunks, steps,
+                    int8=False, paged=False)
+    _greedy_consistency(torch, model, reqs, "dense greedy consistency")
+    print(_perf_line("dense serving", card, agg, wall) + " (phase 5, paged: "
+          f"{fp_agg['aggregate_tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{fp_agg['ttft_p50_s'] * 1e3:.1f} ms, decode step p50 "
+          f"{fp_agg['decode_step_ms_p50']:.2f} ms; host clock, not gated)",
+          flush=True)
+
+
+GENERATE = (4, 256, 32)       # batch, prompt length, new tokens
+
+
+def generate_phase(torch, card, model):
+    """Phase 5f: ``model.generate`` on ``gpt2_small`` fp32, batch 4 of
+    256-token prompts, 32 new tokens, ``top_k=1``, through the concat
+    caches (``use_cache=True``), the whole sequence each token
+    (``use_cache=False``) and the dense engine (``jit=True``): each path's
+    tokens are the teacher-forced argmax of its own sequence but at
+    near-ties (so the paths agree up to counted near-ties), and K1
+    launches L times in every forward whose attention the flash gate
+    admits (counted from ``_flash_gate`` itself), K2 (2L + 1) times a
+    forward. Returns K1's launches."""
+    from paddle_tpu_torch.nn.functional.attention import _flash_gate
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+
+    b, s0, n = GENERATE
+    L = model.config.num_layers
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, model.config.vocab_size, (b, s0))).cuda()
+    model.generate(ids[:, :8], 2, top_k=1)         # warm-up, not counted
+    outs, secs = {}, {}
+    torch.cuda.synchronize()
+    for m in (fa, k2):
+        m.reset_launches()
+    for what, kw in (("use_cache=True", {}),
+                     ("use_cache=False", dict(use_cache=False)),
+                     ("jit=True", dict(jit=True))):
+        t0 = time.perf_counter()
+        outs[what] = model.generate(ids, n, top_k=1, **kw)
+        torch.cuda.synchronize()
+        secs[what] = time.perf_counter() - t0
+    k1, k2n = fa.launches["fwd"], k2.launches
+    # forwards: the cached path's prompt and n - 1 one-token steps; the
+    # uncached path's n whole sequences; the dense engine's prompt chunks
+    # (of 128) and n - 1 steps
+    chunks = b * -(-s0 // 128)
+    fwd = {"use_cache=True": [(s0, s0)] + [(1, s0 + i)
+                                            for i in range(1, n)],
+           "use_cache=False": [(s0 + i, s0 + i) for i in range(n)]}
+    gated = sum(_flash_gate(sq, sk, True, False)
+                for f in fwd.values() for sq, sk in f)
+    forwards = sum(len(f) for f in fwd.values()) + chunks + n - 1
+    print(f"generate: {b} x {s0} + {n}, K1 launches {k1} (gate admits "
+          f"{gated} forwards), K2 {k2n} over {forwards} forwards; host "
+          "clock (not gated): " + ", ".join(
+              f"{w} {b * n / t:.1f} tokens/s" for w, t in secs.items()),
+          flush=True)
+    check(k1 == L * gated and k2n == (2 * L + 1) * forwards,
+          f"generate: K1 {k1} != {L} x {gated} or K2 {k2n} != "
+          f"{2 * L + 1} x {forwards}")
+    for what, out in outs.items():
+        check(tuple(out.shape) == (b, s0 + n) and torch.equal(out[:, :s0],
+                                                              ids),
+              f"generate {what}: shape {tuple(out.shape)}")
+        reqs = [_Greedy(out[i, :s0].tolist(), out[i, s0:].tolist())
+                for i in range(b)]
+        _greedy_consistency(torch, model, reqs, f"generate {what}")
+    same = {w: int((o == outs["use_cache=True"]).all(dim=1).sum())
+            for w, o in outs.items()}
+    print(f"generate: rows equal to use_cache=True's: {same} of {b}",
+          flush=True)
+    return k1
+
+
+class _Greedy:
+    """A greedy request's prompt and tokens, as _greedy_consistency reads
+    them."""
+
+    def __init__(self, prompt, tokens, rid=0):
+        self.prompt, self.tokens, self.greedy, self.id = prompt, tokens, \
+            True, rid
+
+
+def draft_phase(torch, card, model):
+    """Phase 5g: phase 5's fp32 ``gpt2_small`` as the target, on the paged
+    arena (blocks of 16) and on the dense one, serving 5c's 8 greedy
+    requests with ``DraftModelDrafter(draft, k=4)``: a self-draft (a
+    second model carrying the target's weights) must accept at least 0.9
+    of accept_cap = 3 drafts a verify, and an independent 2-layer draft
+    at the target's width (another seed) must give the tokens of the
+    run without speculation, up to counted near-ties; exact launch
+    counts for the target's K4/K5 (paged) and K2 over target and
+    draft."""
+    from paddle_tpu_torch.inference import DraftModelDrafter
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+
+    cfg = model.config
+    L = cfg.num_layers
+    greedy8 = [kw for kw in _serving_trace(cfg.vocab_size)
+               if kw.get("greedy")][:8]
+    selfd = GPTForCausalLM(gpt2_small(), device="cuda", seed=1)
+    selfd.load_state_dict(model.state_dict())
+    small = gpt2_small()
+    small.num_layers = 2
+    indep = GPTForCausalLM(small, device="cuda", seed=1)
+    for m in (selfd, indep):
+        m.eval()
+    for arena, bs in (("paged", 16), ("dense", None)):
+        _, plain, _, _, _ = _serve(torch, model, greedy8, block_size=bs)
+        for what, draft in (("self-draft", selfd), ("2-layer draft", indep)):
+            name = f"draft-model spec serving, {arena}, {what}"
+            _, reqs, agg, wall, launches = _serve(
+                torch, model, greedy8, block_size=bs,
+                spec=DraftModelDrafter(draft, k=4))
+            chunks = int(agg["prefill_chunks"])
+            steps = int(agg["spec_verify_steps"])
+            Ld = draft.config.num_layers
+            # the draft prefills what the target prefills, in chunks of
+            # 128, and steps k = 4 times a verify
+            print(f"{name}: {chunks} prefill chunks, {steps} verify steps, "
+                  f"{_spec_keys(agg)}, launches {launches}", flush=True)
+            _check_launches(name, launches, L, chunks, steps, int8=False,
+                            paged=bs is not None,
+                            extra_k2=(2 * Ld + 1) * (chunks + 4 * steps))
+            acc = agg["spec_mean_accepted_per_step"]
+            if draft is selfd:
+                check(acc >= 0.9 * 3, f"{name}: {acc} drafts accepted a "
+                      "verify, < 0.9 x accept_cap 3")
+            _greedy_consistency(torch, model, reqs, name)
+            diff = sum(r.tokens != p.tokens for r, p in zip(reqs, plain))
+            print(f"{name}: {diff} of {len(reqs)} requests differ from the "
+                  "run without speculation (each held to the argmax "
+                  "above); " + _perf_line(name, card, agg, wall),
+                  flush=True)
+    del selfd, indep
 
 
 def training_phase(torch, card):
@@ -1993,11 +2176,16 @@ KERNELS = {
     "K4-int8-bf16": ("paged_attention (bf16 mma.sync cluster body, int8 "
                      "pools)", "paddle_tpu_torch/csrc/paged_attention.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:134"),
+    "K4-bf16-s17": ("paged_attention (bf16 mma.sync cluster body, a verify "
+                    "of 17 rows: two row tiles)",
+                    "paddle_tpu_torch/csrc/paged_attention.cu",
+                    "paddle_tpu/ops/pallas/paged_attention.py:103"),
 }
 # the row each kernel reports in the kernels line: for K2, K4 and K5
 # fp32 (the serving phase's dtype) at the decode shape for K2 and K4,
 # and the deepest prefix for K5; for K4's and K5's bf16 bodies (phase
-# 5c's) bf16 at the decode shape and the deepest prefix; for the flash
+# 5c's) bf16 at the decode shape and the deepest prefix, and K4's at
+# phase 5d's verify of 16 drafts (s 17); for the flash
 # kernels bf16 (the training phase's dtype under AMP) at the shape of the
 # path that launches them.
 # id -> (row's kernel, dtype, shape)
@@ -2014,7 +2202,8 @@ HEADLINE = {"K1": ("K1", "bfloat16", list(FLASH_CASES[0])),
             "K5-bf16": ("K5", "bfloat16", _K5_DEEP),
             "K5-int8-bf16": ("K5-int8", "bfloat16", _K5_DEEP),
             "K4-bf16": ("K4", "bfloat16", [8, 1, 12, 64, 16, 64]),
-            "K4-int8-bf16": ("K4-int8", "bfloat16", [8, 1, 12, 64, 16, 64])}
+            "K4-int8-bf16": ("K4-int8", "bfloat16", [8, 1, 12, 64, 16, 64]),
+            "K4-bf16-s17": ("K4", "bfloat16", [8, 17, 12, 64, 16, 64])}
 
 
 def main():
@@ -2058,14 +2247,22 @@ def main():
     bf16_launches, bf16_q_launches, bf16_model, bf16_aggs = \
         serving_bf16_phase(torch, card)
     lap("bf16 serving")
-    serving_spec_phase(torch, card, model, bf16_model, fp_agg, bf16_aggs,
-                       rows)
+    k16_launches = serving_spec_phase(torch, card, model, bf16_model, fp_agg,
+                                      bf16_aggs, rows)
     lap("spec serving")
-    del model, bf16_model
+    del bf16_model
+    serving_dense_phase(torch, card, model, fp_agg)
+    lap("dense serving")
+    generate_phase(torch, card, model)
+    lap("generate")
+    draft_phase(torch, card, model)
+    lap("draft-model spec serving")
+    del model
     launches.update({"K5-bf16": bf16_launches["K5"],
                      "K5-int8-bf16": bf16_q_launches["K5-int8"],
                      "K4-bf16": bf16_launches["K4"],
-                     "K4-int8-bf16": bf16_q_launches["K4-int8"]})
+                     "K4-int8-bf16": bf16_q_launches["K4-int8"],
+                     "K4-bf16-s17": k16_launches})
     train_launches = training_phase(torch, card)
     lap("training")
     launches.update({"K1": train_launches["K1"], "K3a": train_launches["K3a"],

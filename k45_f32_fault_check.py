@@ -10,9 +10,10 @@ itself into a fresh temporary directory, plants the fault in the copy's
 copy's kernels and runs every fp32-q K4 and K5 case of ``chip_smoke.py``
 (``k4_case_inputs``: the decode step of 8 slots, a lone request at t
 1000, a verify of 4 drafts, slots running off tables of 5 blocks of 16
-rows and of 3 blocks of 11; ``k5_case_inputs``: chunks at starts 0,
-128, 517, a chunk of 100 at 300, one of 64 at 1000 and one running off a
-table of 5 blocks; over fp32 and int8 pools, clean, poisoned and
+rows and of 3 blocks of 11, verifies of 17 and 32 rows (one 32-row
+tile) and of 80 rows on 2 slots (a 64-row tile and a ragged one);
+``k5_case_inputs``: chunks at starts 0, 128, 517, a chunk of 100 at
+300, one of 64 at 1000 and one running off a table of 5 blocks; over fp32 and int8 pools, clean, poisoned and
 NaN-poisoned) against the plain version through two gates:
 
 - the shared gate, ``ATOL``: the largest |kernel - plain| over clean,
@@ -69,6 +70,10 @@ FAULTS = {
         "          mma::cp_async_4(vsd + r, vsp + at, col <= reach);\n",
         f"          mma::cp_async_4(vsd + r, vsp + {_NEXT_BLOCK} * H + h,\n"
         "                          col <= reach);\n"),
+    # every row tile masks and reaches as if it held the slot's row 0
+    "the row tile's position offset dropped": (
+        "  const int base = tv[slot] + row0;  // position of this tile's row 0\n",
+        "  const int base = tv[slot];  // position of this tile's row 0\n"),
     # every row tile computes with the q rows of the chunk's first tile
     "the row tile mapped to the wrong q rows": (
         "      qs[i * KP + d] = i < nrows ? q[(q_row0 + i) * rs + h * D + d] * "

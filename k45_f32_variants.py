@@ -9,10 +9,10 @@ of text patches on ``csrc/paged_common.cuh`` (and, where the design
 needs it, on the two C entries' sources): the body as built (its own row
 tile, the key walk split across a cluster of the size ``f32_splits``
 picks from the grid, register-tiled products), and the choices its
-design rejected: a fixed cluster size of 1 (no split), 2, 4 or 8; K5's
-row tile fixed at 16, 32 or 64 rows; each thread's logits and outputs
-taken one dot product at a time, every operand read from shared memory
-(no micro-tiling). With ``--parent DIR``, a checkout of an earlier
+design rejected: a fixed cluster size of 1 (no split), 2, 4 or 8; the
+row tile (K4's and K5's, ``f32_rows``) fixed at 16, 32 or 64 rows; each
+thread's logits and outputs taken one dot product at a time, every
+operand read from shared memory (no micro-tiling). With ``--parent DIR``, a checkout of an earlier
 commit (``git archive <commit> | tar -x -C DIR``), that commit's
 ``paged_common.cuh``, ``paged_attention.cu`` and ``chunk_prefill.cu``
 are one more variant, "parent". For each one it copies the
@@ -64,8 +64,7 @@ def _splits(c):
 
 
 def _rows(rt):
-    return [("csrc/chunk_prefill.cu",
-             "inline int f32_rows(int s) { return s <= 16 ? 16 : s <= 32 ? "
+    return [("inline int f32_rows(int s) { return s <= 16 ? 16 : s <= 32 ? "
              "32 : 64; }",
              f"inline int f32_rows(int) {{ return {rt}; }}")]
 
@@ -126,9 +125,9 @@ VARIANTS = {
     "C = 2": _splits(2),
     "C = 4": _splits(4),
     "C = 8": _splits(8),
-    "K5 row tile 16": _rows(16),
-    "K5 row tile 32": _rows(32),
-    "K5 row tile 64": _rows(64),
+    "row tile 16": _rows(16),
+    "row tile 32": _rows(32),
+    "row tile 64": _rows(64),
     "no micro-tiling": _NO_MICRO,
 }
 

@@ -10,9 +10,11 @@ itself into a fresh temporary directory, plants the fault in the copy's
 copy's kernels and runs every bf16 K4 and K4-int8 case of
 ``chip_smoke.py`` (``k4_case_inputs``: the decode step of 8 slots, a
 lone request at t 1000, a verify of 4 drafts, a slot running off a
-table of 5 blocks of 16 rows and 16 rows running off one of 3 blocks of
-11, over bf16 pools and over int8 pools; clean, poisoned and
-NaN-poisoned pools) against the plain version through two gates:
+table of 5 blocks of 16 rows, 16 rows running off one of 3 blocks of
+11, verifies of 17 and 32 rows (two row tiles, one ragged) over the
+decode step's table and one of 80 rows on 2 slots (5 tiles), over bf16
+pools and over int8 pools; clean, poisoned and NaN-poisoned pools)
+against the plain version through two gates:
 
 - the shared gate, ``ATOL``: the largest |kernel - plain| over clean,
   poisoned and NaN-poisoned pools (over int8 pools relative to max(1,
@@ -89,6 +91,13 @@ FAULTS = {
     "the ring not waited for": (
         "    mma::cp_async_wait<kStages - 2>();\n",
         "    mma::cp_async_wait<kStages - 1>();\n"),
+    # every row tile masks and reaches as if it held the slot's row 0
+    "the row tile's position offset dropped": (
+        "  const int t0 = tv[slot] + row0;  ",
+        "  const int t0 = tv[slot];         "),
+    # every row tile computes with the slot's first 16 q rows
+    "the row tile mapped to the wrong q rows": (
+        "h * D, row0, s, rs);", "h * D, 0, s, rs);"),
 }
 
 # for the sound kernel: the atol each rtol would need

@@ -85,16 +85,17 @@ def _cluster_tail():
 _V2 = [
     ("constexpr float kLog2e = 1.4426950408889634f;\n",
      "constexpr float kLog2e = 1.4426950408889634f;\n"
-     "__device__ float* d_part;  // [b * H][kSplits][kMaxRows][D + 2]\n"
+     "__device__ float* d_part;  // [b * H][tiles][kSplits][kMaxRows][D + 2]\n"
      "float* g_ws = nullptr;\n"
      "size_t g_ws_n = 0;\n"),
     ("  const int rank = static_cast<int>(cluster.block_rank());\n",
      "  const int rank = blockIdx.x;\n"),
     (_cluster_tail,
      "  __syncthreads();\n"
-     "  float* part = d_part + (static_cast<int64_t>(blockIdx.y) * kSplits +\n"
-     "                          rank) * kMaxRows * (D + 2);\n"
-     "  for (int e = threadIdx.x; e < s * (D + 2); e += kMmaThreads) {\n"
+     "  float* part = d_part + ((static_cast<int64_t>(blockIdx.y) *\n"
+     "                           gridDim.z + blockIdx.z) * kSplits + rank) *\n"
+     "                              kMaxRows * (D + 2);\n"
+     "  for (int e = threadIdx.x; e < nrows * (D + 2); e += kMmaThreads) {\n"
      "    const int row = e / (D + 2), c = e % (D + 2);\n"
      "    part[e] = c < D ? po[row * D + c] : c == D ? pm[row] : pl[row];\n"
      "  }\n"
@@ -104,11 +105,14 @@ _V2 = [
      "    decode_merge_kernel(bf16* __restrict__ out, int s, int H) {\n"
      "  namespace mma = ptt::mma;\n"
      "  const int slot = blockIdx.x / H, h = blockIdx.x % H;\n"
+     "  const int row0 = blockIdx.y * kMaxRows;\n"
+     "  const int nrows = min(kMaxRows, s - row0);\n"
      "  const int64_t rs = static_cast<int64_t>(H) * D;\n"
-     "  const float* part = d_part + static_cast<int64_t>(blockIdx.x) *\n"
+     "  const float* part = d_part + (static_cast<int64_t>(blockIdx.x) *\n"
+     "                                gridDim.y + blockIdx.y) *\n"
      "                                   kSplits * kMaxRows * (D + 2);\n"
      "  constexpr int OC = D / 8;\n"
-     "  for (int idx = threadIdx.x; idx < s * OC; idx += blockDim.x) {\n"
+     "  for (int idx = threadIdx.x; idx < nrows * OC; idx += blockDim.x) {\n"
      "    const int row = idx / OC, c = idx % OC;\n"
      "    float mr[kSplits];\n"
      "    float mm = ptt::kMaskedLogit;\n"
@@ -128,7 +132,7 @@ _V2 = [
      "    }\n"
      "    const float inv = 1.f / ls;\n"
      "    *reinterpret_cast<uint4*>(out + (static_cast<int64_t>(slot) * s +\n"
-     "                                     row) * rs + h * D + c * 8) =\n"
+     "                                     row0 + row) * rs + h * D + c * 8) =\n"
      "        make_uint4(mma::pack_bf16(acc[0] * inv, acc[1] * inv),\n"
      "                   mma::pack_bf16(acc[2] * inv, acc[3] * inv),\n"
      "                   mma::pack_bf16(acc[4] * inv, acc[5] * inv),\n"
@@ -138,9 +142,10 @@ _V2 = [
     ("  attr->val.clusterDim.x = kSplits;\n",
      "  attr->val.clusterDim.x = 1;\n"),
     ("  cudaLaunchAttribute attr;\n"
-     "  const cudaLaunchConfig_t cfg = decode_config<D, TP>(b, H, st, &attr);\n",
-     "  const size_t need = static_cast<size_t>(b) * H * kSplits * kMaxRows *\n"
-     "                      (D + 2);\n"
+     "  const cudaLaunchConfig_t cfg = decode_config<D, TP>(b, s, H, st, &attr);\n",
+     "  const size_t need = static_cast<size_t>(b) * H *\n"
+     "                      ((s + kMaxRows - 1) / kMaxRows) * kSplits *\n"
+     "                      kMaxRows * (D + 2);\n"
      "  if (need > g_ws_n) {\n"
      "    if (g_ws != nullptr) cudaFree(g_ws);\n"
      "    e = cudaMalloc(&g_ws, need * sizeof(float));\n"
@@ -150,13 +155,13 @@ _V2 = [
      "    if (e != cudaSuccess) return e;\n"
      "  }\n"
      "  cudaLaunchAttribute attr;\n"
-     "  const cudaLaunchConfig_t cfg = decode_config<D, TP>(b, H, st, &attr);\n"),
+     "  const cudaLaunchConfig_t cfg = decode_config<D, TP>(b, s, H, st, &attr);\n"),
     ("                         static_cast<bf16*>(out), s, H, bs, bp, scale);\n"
      "  if (e != cudaSuccess) return e;\n",
      "                         static_cast<bf16*>(out), s, H, bs, bp, scale);\n"
      "  if (e != cudaSuccess) return e;\n"
-     "  decode_merge_kernel<D><<<b * H, 128, 0, st>>>(static_cast<bf16*>(out),\n"
-     "                                                s, H);\n"),
+     "  decode_merge_kernel<D><<<dim3(b * H, (s + kMaxRows - 1) / kMaxRows),\n"
+     "                           128, 0, st>>>(static_cast<bf16*>(out), s, H);\n"),
 ]
 
 # name -> [(source text in csrc/paged_attention.cu, replacement), ...]; a

@@ -60,9 +60,9 @@
 //
 // fp32 q: paged_f32_kernel (paged_common.cuh), K4's fp32 body, on the
 // CUDA cores in fp32 (no TF32: the fp32 contract is 2e-5 of the plain
-// version). The chunk is cut into row tiles of its own (f32_rows: 16, 32
-// or 64 rows by s, whatever q-block the wrapper picked; qbs is checked,
-// not used), each tile's key walk split across a cluster.
+// version). The chunk is cut into row tiles of its own (ptt::f32_rows: 16,
+// 32 or 64 rows by s, whatever q-block the wrapper picked; qbs is
+// checked, not used), each tile's key walk split across a cluster.
 #include "flash_mma.cuh"
 #include "paged_common.cuh"
 
@@ -412,40 +412,6 @@ cudaError_t mma_by_pool(int pool, const void* q, const void* kp,
                                          t, out, b, s, H, bs, bp, scale, st);
 }
 
-// The fp32 body's row tile for a chunk of s rows: the fewest tiles, and
-// no more rows a tile than s needs.
-inline int f32_rows(int s) { return s <= 16 ? 16 : s <= 32 ? 32 : 64; }
-
-template <typename TP, int D>
-cudaError_t f32_by_rows(const void* q, const void* kp, const void* vp,
-                        const float* ks, const float* vs, const int* table,
-                        const int* t, void* out, int b, int s, int H, int bs,
-                        int bp, float scale, cudaStream_t st) {
-  switch (f32_rows(s)) {
-    case 16:
-      return ptt::launch_f32<TP, D, 16>(q, kp, vp, ks, vs, table, t, out, b,
-                                        s, H, bs, bp, scale, st);
-    case 32:
-      return ptt::launch_f32<TP, D, 32>(q, kp, vp, ks, vs, table, t, out, b,
-                                        s, H, bs, bp, scale, st);
-    default:
-      return ptt::launch_f32<TP, D, 64>(q, kp, vp, ks, vs, table, t, out, b,
-                                        s, H, bs, bp, scale, st);
-  }
-}
-
-template <typename TP>
-cudaError_t f32_by_dim(const void* q, const void* kp, const void* vp,
-                       const float* ks, const float* vs, const int* table,
-                       const int* t, void* out, int b, int s, int H, int D,
-                       int bs, int bp, float scale, cudaStream_t st) {
-  if (D == 64)
-    return f32_by_rows<TP, 64>(q, kp, vp, ks, vs, table, t, out, b, s, H, bs,
-                               bp, scale, st);
-  return f32_by_rows<TP, 128>(q, kp, vp, ks, vs, table, t, out, b, s, H, bs,
-                              bp, scale, st);
-}
-
 template <int D, typename TP>
 cudaError_t mma_occupancy(int* ctas, int* smem) {
   *smem = static_cast<int>(mma_smem<D, TP>());
@@ -483,10 +449,11 @@ extern "C" int ptt_chunk_prefill_fwd(const void* q, const void* k_pool,
     case ptt::kFloat32:
       return static_cast<int>(
           pool == ptt::kInt8
-              ? f32_by_dim<int8_t>(q, k_pool, v_pool, ks, vs, tbl, tv, out, b,
-                                   s, H, D, bs, bp, scale, st)
-              : f32_by_dim<float>(q, k_pool, v_pool, nullptr, nullptr, tbl,
-                                  tv, out, b, s, H, D, bs, bp, scale, st));
+              ? ptt::f32_by_dim<int8_t>(q, k_pool, v_pool, ks, vs, tbl, tv,
+                                        out, b, s, H, D, bs, bp, scale, st)
+              : ptt::f32_by_dim<float>(q, k_pool, v_pool, nullptr, nullptr,
+                                       tbl, tv, out, b, s, H, D, bs, bp,
+                                       scale, st));
     case ptt::kBFloat16:
       return static_cast<int>(mma_by_pool(pool, q, k_pool, v_pool, ks, vs,
                                           tbl, tv, out, b, s, H, D, bs, bp,

@@ -3,9 +3,11 @@
 // Replaces the TPU kernel paddle_tpu/ops/pallas/paged_attention.py
 // (_paged_kernel, reached through paged_attention_pallas), both branches:
 // full-precision pools, and int8 code pools with (num_blocks, H) scales
-// (:134-136). q (b, s <= 16, H, D) at per-slot offsets t (b,) attends its
-// slot's KV through the block table; query row i reads cols <= t + i.
-// Layouts are paged_common.cuh's.
+// (:134-136). q (b, s, H, D) at per-slot offsets t (b,) attends its
+// slot's KV through the block table; query row i reads cols <= t + i. Any
+// s: the reference's q block is the slot's s rows (:222), here cut into
+// tiles of 16 rows, each walking its own keys. Layouts are
+// paged_common.cuh's.
 //
 // Bound on the H100: bytes. Decode reads each slot's committed K and V
 // once (sum over slots of (t+1)*H*D*2 elements) and does ~4 flops per
@@ -18,22 +20,25 @@
 // bf16 q: paged_decode_mma_kernel, both products on the tensor cores
 // (mma.sync m16n8k16, bf16 in, fp32 accumulate; flash_mma.cuh), over
 // bf16 pools or int8 code pools.
-//  - Grid (kSplits, b * H) in clusters of (kSplits, 1, 1): the kSplits
-//    CTAs of a cluster split one (slot, head)'s key walk. One CTA per
-//    (slot, head) would give 96 CTAs on 132 SMs at 8 slots, each walking
-//    its slot's whole history (16 tiles at t 1000) alone; the cluster
-//    gives 768, each walking at most 2. Each CTA reads t[slot] on the
-//    device, takes the slot's reach, min(t + s - 1, bp * bs - 1), and its
-//    T = reach / kTile + 1 tiles, and rank r takes tiles [r T / kSplits,
-//    (r + 1) T / kSplits): every slot's walk splits evenly whatever its
-//    length, and the host never reads t. A rank with no tiles still
+//  - Grid (kSplits, b * H, ceil(s / 16)) in clusters of (kSplits, 1, 1):
+//    the kSplits CTAs of a cluster split one (slot, head, row tile)'s key
+//    walk. One CTA per (slot, head) would give 96 CTAs on 132 SMs at 8
+//    slots, each walking its slot's whole history (16 tiles at t 1000)
+//    alone; the cluster gives 768, each walking at most 2. Each CTA reads
+//    t[slot] on the device, takes its row tile's reach, min(t + row0 +
+//    nrows - 1, bp * bs - 1) for rows [row0, row0 + nrows) of the slot's
+//    s, and its T = reach / kTile + 1 tiles, and rank r takes tiles [r T
+//    / kSplits, (r + 1) T / kSplits): every walk splits evenly whatever
+//    its length, and the host never reads t. A verify of more than 16
+//    rows launches one cluster a row tile, in the same launch. A rank with no tiles still
 //    takes part in both cluster barriers, its partial m = -1e30, l = 0.
 //    Clusters of 8, the portable maximum: 4 is faster at 8 slots (its 384
 //    CTAs are resident at once, where the card holds 77 clusters of 8,
 //    616 of the 768) but slower for a lone request; 16 is slower at 8
 //    slots (k4_variants.py, PERF.md).
-//  - The s rows are one m16 tile: Q is staged once by cp.async (rows past
-//    s zero-filled, never stored) and held as A fragments by every warp.
+//  - A CTA's rows are one m16 tile: Q is staged once by cp.async (rows
+//    past s zero-filled, never stored) and held as A fragments by every
+//    warp.
 //    The warps split keys, not rows: warp w takes keys [w * kWarpKeys,
 //    +kWarpKeys) of each tile, so S is two n8 products a k16 step and P
 //    is one k16 A fragment of P.V. Each warp keeps its own m, l and o
@@ -67,8 +72,8 @@
 //  - The merge: each warp writes its rows' m, l and o * fv to shared
 //    memory, the CTA folds its warps into one partial (m = max m_w, l =
 //    sum l_w 2^(m_w - m), o likewise), then cluster.sync(), and rank r
-//    merges every 8-column chunk whose index is r modulo kSplits from all
-//    ranks' partials, read through distributed shared memory (no
+//    merges every 8-column chunk of the tile's rows whose index is r
+//    modulo kSplits from all ranks' partials, read through distributed shared memory (no
 //    workspace, counter, fence or second launch), into 16-byte bf16
 //    stores. A second cluster.sync() follows the last remote read: no CTA
 //    exits while another reads its shared memory.
@@ -78,8 +83,9 @@
 //
 // fp32 q: paged_f32_kernel (paged_common.cuh), on the CUDA cores in fp32
 // (no TF32: the fp32 contract is 2e-5 of the plain version): the s rows
-// are one 16-row tile of a (slot, head), its key walk split across a
-// cluster as here, its products register-tiled; K5's fp32 q runs it too.
+// are row tiles of 16, 32 or 64 (f32_rows, as for K5's chunks) of a
+// (slot, head), each tile's key walk split across a cluster as here, its
+// products register-tiled; K5's fp32 q runs it too.
 #include <cooperative_groups.h>
 
 #include "flash_mma.cuh"
@@ -90,7 +96,7 @@ namespace {
 namespace cg = cooperative_groups;
 using ptt::mma::bf16;
 
-constexpr int kMaxRows = 16;  // query rows a slot: one 16-row tile
+constexpr int kMaxRows = 16;  // query rows a CTA: one m16 tile
 
 constexpr int kSplits = 8;     // bf16 body: CTAs of a cluster, one walk
 constexpr int kTile = 64;      // keys of a tile, the unit split by rank
@@ -168,9 +174,11 @@ __global__ void __launch_bounds__(kMmaThreads)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int slot = blockIdx.y / H, h = blockIdx.y % H;
+  // the CTA's row tile: rows [row0, row0 + nrows) of the slot's s
+  const int row0 = blockIdx.z * kMaxRows, nrows = min(kMaxRows, s - row0);
   const int64_t rs = static_cast<int64_t>(H) * D;  // row stride, elements
-  const int t0 = tv[slot];                          // position of row 0
-  const int reach = min(t0 + s - 1, bp * bs - 1);
+  const int t0 = tv[slot] + row0;                   // position of row0
+  const int reach = min(t0 + nrows - 1, bp * bs - 1);
   const int n_tiles = reach / kTile + 1;
   // this rank's tiles: an even share of the slot's, whatever its length
   const int tile_lo = rank * n_tiles / kSplits,
@@ -214,7 +222,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   // groups in flight: Q, then the warp's slices 0 .. kStages - 2 (one
   // group each, empty past its last, so the count stays fixed)
   mma::tile_async<kMaxRows, D, LDS, kMmaThreads>(
-      qs, q + static_cast<int64_t>(slot) * s * rs + h * D, 0, s, rs);
+      qs, q + static_cast<int64_t>(slot) * s * rs + h * D, row0, s, rs);
   mma::cp_async_commit();
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
@@ -377,7 +385,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
   }
 
-  // the warp's partial over its own ring, rows < s only: m, l (summed
+  // the warp's partial over its own ring, the tile's rows only: m, l (summed
   // over the quad) and o * f, so every warp's and split's o is in one
   // unit (f = 1 for bf16 pools)
   mma::cp_async_wait<0>();
@@ -388,7 +396,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = g + 8 * i;
-    if (row < s) {
+    if (row < nrows) {
 #pragma unroll
       for (int n = 0; n < ND; ++n)
         *reinterpret_cast<float2*>(wo + row * D + n * 8 + 2 * t) =
@@ -402,7 +410,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   __syncthreads();
   // the warps' partials into the CTA's, o in place over warp 0's (each
   // element read and written by one thread)
-  for (int e = threadIdx.x; e < s * D; e += kMmaThreads) {
+  for (int e = threadIdx.x; e < nrows * D; e += kMmaThreads) {
     const int row = e / D, col = e % D;
     float mm = ptt::kMaskedLogit;
 #pragma unroll
@@ -425,10 +433,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   // every rank's partial is in its shared memory
   cluster.sync();
   // rank r merges the 8-column chunks idx = r, r + kSplits, ... of the
-  // s rows: m = max m_r, l = sum l_r 2^(m_r - m), O = sum o_r 2^(m_r - m)
+  // tile's rows: m = max m_r, l = sum l_r 2^(m_r - m), O = sum o_r 2^(m_r - m)
   // / l. Every row reads column 0 (rank 0's), so l > 0.
   constexpr int OC = D / 8;
-  for (int idx = rank + kSplits * threadIdx.x; idx < s * OC;
+  for (int idx = rank + kSplits * threadIdx.x; idx < nrows * OC;
        idx += kSplits * kMmaThreads) {
     const int row = idx / OC, c = idx % OC;
     float mr[kSplits];
@@ -458,9 +466,9 @@ __global__ void __launch_bounds__(kMmaThreads)
       acc[7] += x1.w * a;
     }
     const float inv = 1.f / ls;
-    *reinterpret_cast<uint4*>(out + (static_cast<int64_t>(slot) * s + row) *
-                                        rs +
-                              h * D + c * 8) =
+    *reinterpret_cast<uint4*>(
+        out + (static_cast<int64_t>(slot) * s + row0 + row) * rs + h * D +
+        c * 8) =
         make_uint4(mma::pack_bf16(acc[0] * inv, acc[1] * inv),
                    mma::pack_bf16(acc[2] * inv, acc[3] * inv),
                    mma::pack_bf16(acc[4] * inv, acc[5] * inv),
@@ -477,12 +485,13 @@ cudaError_t prepare_decode() {
                               static_cast<int>(DecodeSmem<D, TP>::bytes));
 }
 
-// The launch: grid (kSplits, b * H) in clusters of (kSplits, 1, 1).
+// The launch: grid (kSplits, b * H, ceil(s / kMaxRows)) in clusters of
+// (kSplits, 1, 1).
 template <int D, typename TP>
-cudaLaunchConfig_t decode_config(int b, int H, cudaStream_t st,
+cudaLaunchConfig_t decode_config(int b, int s, int H, cudaStream_t st,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kSplits, b * H);
+  cfg.gridDim = dim3(kSplits, b * H, (s + kMaxRows - 1) / kMaxRows);
   cfg.blockDim = dim3(kMmaThreads);
   cfg.dynamicSmemBytes = DecodeSmem<D, TP>::bytes;
   cfg.stream = st;
@@ -503,7 +512,7 @@ cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
   cudaError_t e = prepare_decode<D, TP>();
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = decode_config<D, TP>(b, H, st, &attr);
+  const cudaLaunchConfig_t cfg = decode_config<D, TP>(b, s, H, st, &attr);
   e = cudaLaunchKernelEx(&cfg, paged_decode_mma_kernel<D, TP>,
                          static_cast<const bf16*>(q),
                          static_cast<const TP*>(kp),
@@ -533,21 +542,10 @@ cudaError_t decode_occupancy(int* clusters, int* smem) {
   cudaError_t e = prepare_decode<D, TP>();
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = decode_config<D, TP>(1, 1, nullptr, &attr);
+  const cudaLaunchConfig_t cfg =
+      decode_config<D, TP>(1, 1, 1, nullptr, &attr);
   return cudaOccupancyMaxActiveClusters(clusters,
                                         paged_decode_mma_kernel<D, TP>, &cfg);
-}
-
-template <typename TP>
-cudaError_t f32_by_dim(const void* q, const void* kp, const void* vp,
-                       const float* ks, const float* vs, const int* table,
-                       const int* t, void* out, int b, int s, int H, int D,
-                       int bs, int bp, float scale, cudaStream_t st) {
-  if (D == 64)
-    return ptt::launch_f32<TP, 64, kMaxRows>(q, kp, vp, ks, vs, table, t, out,
-                                             b, s, H, bs, bp, scale, st);
-  return ptt::launch_f32<TP, 128, kMaxRows>(q, kp, vp, ks, vs, table, t, out,
-                                            b, s, H, bs, bp, scale, st);
 }
 
 }  // namespace
@@ -565,7 +563,7 @@ extern "C" int ptt_paged_attention_fwd(const void* q, const void* k_pool,
                                        int H, int D, int bs, int bp,
                                        float scale, int dtype, int pool,
                                        void* stream) {
-  if (b < 1 || s < 1 || s > kMaxRows || H < 1 || bs < 1 || bp < 1 ||
+  if (b < 1 || s < 1 || H < 1 || bs < 1 || bp < 1 ||
       (D != 64 && D != 128) || dtype != ptt::kFloat32 ||
       (pool != ptt::kFloat32 && pool != ptt::kInt8))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -573,13 +571,13 @@ extern "C" int ptt_paged_attention_fwd(const void* q, const void* k_pool,
   const int* tbl = static_cast<const int*>(table);
   const int* tv = static_cast<const int*>(t);
   if (pool == ptt::kInt8)
-    return static_cast<int>(f32_by_dim<int8_t>(
+    return static_cast<int>(ptt::f32_by_dim<int8_t>(
         q, k_pool, v_pool, static_cast<const float*>(k_scale),
         static_cast<const float*>(v_scale), tbl, tv, out, b, s, H, D, bs, bp,
         scale, st));
-  return static_cast<int>(f32_by_dim<float>(q, k_pool, v_pool, nullptr,
-                                            nullptr, tbl, tv, out, b, s, H,
-                                            D, bs, bp, scale, st));
+  return static_cast<int>(ptt::f32_by_dim<float>(q, k_pool, v_pool, nullptr,
+                                                 nullptr, tbl, tv, out, b, s,
+                                                 H, D, bs, bp, scale, st));
 }
 
 // bf16 q: the tensor-core cluster body over `pool` (kBFloat16, or kInt8
@@ -592,8 +590,8 @@ extern "C" int ptt_paged_decode_fwd(const void* q, const void* k_pool,
                                     const void* t, void* out, int b, int s,
                                     int H, int D, int bs, int bp, float scale,
                                     int pool, void* stream) {
-  if (b < 1 || s < 1 || s > kMaxRows || H < 1 ||
-      static_cast<int64_t>(b) * H > 65535 || bs < 1 || bp < 1 ||
+  if (b < 1 || s < 1 || H < 1 || static_cast<int64_t>(b) * H > 65535 ||
+      (s + kMaxRows - 1) / kMaxRows > 65535 || bs < 1 || bp < 1 ||
       (D != 64 && D != 128) ||
       (pool != ptt::kBFloat16 && pool != ptt::kInt8) ||
       !decode_aligned(q, k_pool, v_pool, k_scale, v_scale, out, pool, H, D))

@@ -25,9 +25,8 @@
 // prefix), and each FMA read its operand from shared memory.
 //
 // paged_f32_kernel<TP, D, RT> (TP: float, or int8_t codes):
-//  - Its own row tile: a CTA owns RT query rows (16, 32 or 64, chosen by
-//    the C entry from s, whatever q-block the wrapper picked) of one
-//    (slot, head); the rows are independent (chunk_prefill.py:30-43).
+//  - Its own row tile: a CTA owns RT query rows (16, 32 or 64, f32_rows
+//    of s, whatever q-block K5's wrapper picked) of one (slot, head); the rows are independent (chunk_prefill.py:30-43).
 //    Grid C * b * ceil(s / RT) * H (on x) in clusters of C: the C CTAs
 //    of a cluster split one row tile's key walk. Each reads t[slot] on
 //    the device, takes the tile's reach, min(base + rows - 1, bp*bs - 1),
@@ -526,6 +525,41 @@ cudaError_t launch_f32(const void* q, const void* kp, const void* vp,
                          scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The row tile for s query rows a slot, K4's and K5's alike: the fewest
+// tiles, and no more rows a tile than s needs.
+inline int f32_rows(int s) { return s <= 16 ? 16 : s <= 32 ? 32 : 64; }
+
+template <typename TP, int D>
+cudaError_t f32_by_rows(const void* q, const void* kp, const void* vp,
+                        const float* ks, const float* vs, const int* table,
+                        const int* t, void* out, int b, int s, int H, int bs,
+                        int bp, float scale, cudaStream_t st) {
+  switch (f32_rows(s)) {
+    case 16:
+      return launch_f32<TP, D, 16>(q, kp, vp, ks, vs, table, t, out, b, s, H,
+                                   bs, bp, scale, st);
+    case 32:
+      return launch_f32<TP, D, 32>(q, kp, vp, ks, vs, table, t, out, b, s, H,
+                                   bs, bp, scale, st);
+    default:
+      return launch_f32<TP, D, 64>(q, kp, vp, ks, vs, table, t, out, b, s, H,
+                                   bs, bp, scale, st);
+  }
+}
+
+// The fp32 body on b slots of s query rows at head dim D (64 or 128).
+template <typename TP>
+cudaError_t f32_by_dim(const void* q, const void* kp, const void* vp,
+                       const float* ks, const float* vs, const int* table,
+                       const int* t, void* out, int b, int s, int H, int D,
+                       int bs, int bp, float scale, cudaStream_t st) {
+  if (D == 64)
+    return f32_by_rows<TP, 64>(q, kp, vp, ks, vs, table, t, out, b, s, H, bs,
+                               bp, scale, st);
+  return f32_by_rows<TP, 128>(q, kp, vp, ks, vs, table, t, out, b, s, H, bs,
+                              bp, scale, st);
 }
 
 }  // namespace ptt

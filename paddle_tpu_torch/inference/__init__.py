@@ -5,9 +5,11 @@ from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 from paddle_tpu_torch.inference.serving import (DecodeEngine, Request,
                                                 ServingEngine, ServingMetrics,
                                                 apply_topk_topp)
-from paddle_tpu_torch.inference.speculative import (NgramDrafter,
+from paddle_tpu_torch.inference.speculative import (DraftModelDrafter,
+                                                    NgramDrafter,
                                                     SpeculativeEngine)
 
 __all__ = ["BlockAllocator", "Scheduler", "FifoScheduler", "PrefixCache",
            "DecodeEngine", "Request", "ServingEngine", "ServingMetrics",
-           "apply_topk_topp", "NgramDrafter", "SpeculativeEngine"]
+           "apply_topk_topp", "NgramDrafter", "DraftModelDrafter",
+           "SpeculativeEngine"]

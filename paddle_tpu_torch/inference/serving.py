@@ -1,25 +1,31 @@
-"""Continuous-batching serving over the paged KV arena — the port of
-``paddle_tpu/inference/serving.py`` (slice 1).
+"""Continuous-batching serving over a KV arena — the port of
+``paddle_tpu/inference/serving.py``.
 
 Two layers, as in the JAX package:
 
-- :class:`DecodeEngine` — the device substrate. Each layer's K/V lives
-  in ONE block pool ``(num_blocks, block_size, H, D)`` addressed through
-  an int32 block table ``(slots, max_len // block_size)`` — at the
-  model's dtype, or (``kv_dtype="int8"``) as int8 codes with fp32
-  ``(num_blocks, H)`` absmax scales per layer, quantized on commit
-  (``models/gpt.py`` ``_upd_paged_q``) and dequantized inside K4/K5. Prompts
-  prefill one slot at a time in fixed-size chunks (``prefill_chunk``
-  tokens at a scalar offset: the chunk-prefill kernel K5), and decode
-  steps every slot in lockstep (per-slot offsets: the paged-decode
-  kernel K4), ending in the sampler. PyTorch runs eagerly, so the
-  JAX package's compiled programs (``_build_chunk_prefill``,
-  ``_build_step``) are plain methods here.
+- :class:`DecodeEngine` — the device substrate, over one of two arenas.
+  PAGED (``block_size=`` set): each layer's K/V lives in ONE block pool
+  ``(num_blocks, block_size, H, D)`` addressed through an int32 block
+  table ``(slots, max_len // block_size)`` — at the model's dtype, or
+  (``kv_dtype="int8"``) as int8 codes with fp32 ``(num_blocks, H)``
+  absmax scales per layer, quantized on commit (``models/gpt.py``
+  ``_upd_paged_q``) and dequantized inside K4/K5. DENSE (the default,
+  ``block_size=None``): each layer's K/V is a ``(slots, max_len, H,
+  D)`` buffer, a slot one row of it, attended through the plain masked
+  attention (the reference computes it in XLA, not in a Pallas
+  kernel). Prompts prefill one slot at a time in fixed-size chunks
+  (``prefill_chunk`` tokens at a scalar offset: on the paged arena the
+  chunk-prefill kernel K5), and decode steps every slot in lockstep
+  (per-slot offsets: on the paged arena the paged-decode kernel K4),
+  ending in the sampler. PyTorch runs eagerly, so the JAX package's
+  compiled programs (``_build_chunk_prefill``, ``_build_step``) are
+  plain methods here.
 
 - :class:`ServingEngine` — the host scheduler. FIFO admission gated on
-  free BLOCKS, one prefill chunk per tick (oldest-admitted prefilling
-  slot) interleaved with one lockstep decode step, lazy block growth as
-  committed lengths cross block boundaries, preemption of the
+  free BLOCKS (paged) or free slots alone (dense), one prefill chunk
+  per tick (oldest-admitted prefilling slot) interleaved with one
+  lockstep decode step, on the paged arena lazy block growth as
+  committed lengths cross block boundaries and preemption of the
   newest-admitted request when the pool runs dry (it resumes by
   re-prefilling prompt + committed tokens), retirement at EOS or
   length, ``on_token`` streaming, and counted metrics. With a
@@ -29,10 +35,12 @@ Two layers, as in the JAX package:
   its new full chunks join the trie when the prompt is committed.
 
 Lockstep garbage (as in the JAX package's ``serving.py`` docstring):
-idle slots keep computing with an all-zero table row and offset 0, so
-their writes land in scratch block 0, which is never allocated;
-a slot still prefilling is parked at offset ``plen - 1``, a row its own
-final chunk rewrites before the slot's first real decode.
+idle slots keep computing at offset 0 — on the paged arena with an
+all-zero table row, so their writes land in scratch block 0, which is
+never allocated; on the dense arena in their own row, which nobody
+reads before its next prompt rewrites it — and a slot still prefilling
+is parked at offset ``plen - 1``, a row its own final chunk rewrites
+before the slot's first real decode.
 
 Sampling: greedy is argmax (first index on ties) and token-exact with
 the JAX engine. Temperature draws cannot reproduce JAX's threefry
@@ -51,14 +59,15 @@ The overlapped tick of the JAX engine is kept: a decode step is
 launched asynchronously, the next tick's admissions run while the card
 computes, and only then are the tokens read back.
 
-With ``spec=`` (an ``NgramDrafter``) the decode half of a tick is a
-speculative verify (``inference/speculative.py``): every live slot
-commits between 1 and k+1 tokens per tick.
+With ``spec=`` (an ``NgramDrafter`` or a ``DraftModelDrafter``) the
+decode half of a tick is a speculative verify
+(``inference/speculative.py``): every live slot commits between 1 and
+k+1 tokens per tick.
 
-Out of the port so far (each queued in ROADMAP.md): the dense arena,
-the draft-model drafter, meshes and replicas, telemetry and resilience,
-the host tier, the front door and fleet, LoRA, constraints,
-score/embed, ``generate()``.
+Out of the port so far (each queued in ROADMAP.md): the dense arena's
+prefix cache (host K/V segments), meshes and replicas, telemetry and
+resilience, the host tier, the front door and fleet, LoRA, constraints,
+score/embed.
 """
 
 from __future__ import annotations
@@ -122,18 +131,21 @@ def _is_int8(kv_dtype) -> bool:
 
 
 class DecodeEngine:
-    """Per-slot paged decode over one KV block pool per layer.
+    """Per-slot decode over a dense arena or one KV block pool per layer.
 
-    ``model`` exposes ``kv_cache_spec()`` and the paged-cache forward
-    ``model(ids, caches=[(k_pool, v_pool, table, t), ...]) -> (logits,
-    caches)`` (:class:`~paddle_tpu_torch.models.gpt.GPTForCausalLM`),
-    whose quantized caches are ``(k_pool, v_pool, k_scale, v_scale,
-    table, t, cl)``. The engine runs on the model's device.
-    ``block_size`` must divide ``max_len``; ``num_blocks`` counts the
-    scratch block 0 and defaults to the dense-equivalent ``slots *
-    max_len / block_size + 1``. ``top_k`` is the static top-k filter of
-    every draw. ``kv_dtype="int8"`` stores the pools as int8 codes with
-    per-(block, head) fp32 absmax scales. The reference's ``ids_dtype``,
+    ``model`` exposes ``kv_cache_spec()`` and the cache forward
+    ``model(ids, caches=[...]) -> (logits, caches)``
+    (:class:`~paddle_tpu_torch.models.gpt.GPTForCausalLM`): dense
+    ``(k_buf, v_buf, t)``, paged ``(k_pool, v_pool, table, t)`` or
+    quantized ``(k_pool, v_pool, k_scale, v_scale, table, t, cl)``. The
+    engine runs on the model's device. ``block_size=None`` (the
+    default) is the dense arena, ``(slots, max_len, H, D)`` buffers a
+    layer; else ``block_size`` must divide ``max_len`` and
+    ``num_blocks`` counts the scratch block 0 and defaults to the
+    dense-equivalent ``slots * max_len / block_size + 1``. ``top_k`` is
+    the static top-k filter of every draw. ``kv_dtype="int8"`` stores
+    the pools as int8 codes with per-(block, head) fp32 absmax scales
+    (paged only, as ``num_blocks``). The reference's ``ids_dtype``,
     ``mesh``, ``logit_guard``, ``host_tier_blocks``, ``seq_parallel``
     and ``adapter_pool`` are accepted at their defaults only."""
 
@@ -163,16 +175,17 @@ class DecodeEngine:
                 "KV pool stores int8 codes with per-block absmax scales "
                 "(pass kv_dtype='int8') or full precision (leave unset)")
         self.quantized = kv_dtype is not None
-        if self.quantized and block_size is None:
+        self.paged = block_size is not None
+        if self.quantized and not self.paged:
             raise ValueError(
                 "kv_dtype='int8' quantizes the PAGED block pools (the "
                 "scale is per block); pass block_size= to enable the "
                 "paged arena")
-        if block_size is None:
-            raise NotImplementedError(
-                "the dense KV arena (block_size=None) is not ported yet — "
-                "it is a later slice of the port; pass block_size= for "
-                "the paged arena")
+        if num_blocks is not None and not self.paged:
+            raise ValueError(
+                "num_blocks without block_size would be silently ignored "
+                "— the KV budget only exists on the paged arena; pass "
+                "block_size= to enable it")
         if prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -188,10 +201,21 @@ class DecodeEngine:
         self.dtype = spec["dtype"]
         # pool storage: int8 codes when quantized, else the model's dtype
         self.pool_dtype = torch.int8 if self.quantized else self.dtype
-        bs = int(block_size)
+        self.kbufs: Optional[List[torch.Tensor]] = None
+        self.vbufs: Optional[List[torch.Tensor]] = None
+        self.kscales: Optional[List[torch.Tensor]] = None
+        self.vscales: Optional[List[torch.Tensor]] = None
+        # the paged bookkeeping; None on the dense arena
+        self.allocator: Optional[BlockAllocator] = None
+        self.table: Optional[np.ndarray] = None
+        if self.paged:
+            self._init_paged(int(block_size), num_blocks)
+
+    def _init_paged(self, bs: int, num_blocks: Optional[int]):
+        """The block pool's geometry, allocator and host table."""
         if bs < 1 or self.max_len % bs:
             raise ValueError(
-                f"block_size {block_size} must be >= 1 and divide "
+                f"block_size {bs} must be >= 1 and divide "
                 f"max_len {self.max_len} (the gathered per-slot "
                 "view must match the dense arena row for row)")
         self.block_size = bs
@@ -213,16 +237,14 @@ class DecodeEngine:
         # host mirror of the block table; entries past a slot's mapped
         # count stay 0 = the scratch sink
         self.table = np.zeros((self.b, self.blocks_per_slot), np.int32)
-        self.kbufs: Optional[List[torch.Tensor]] = None
-        self.vbufs: Optional[List[torch.Tensor]] = None
-        self.kscales: Optional[List[torch.Tensor]] = None
-        self.vscales: Optional[List[torch.Tensor]] = None
 
     def reset(self):
-        """Zero the pools and, when quantized, their scales (the table
-        and allocator belong to the scheduler and are left alone)."""
+        """Zero the arena: the dense buffers, or the pools and, when
+        quantized, their scales (the table and allocator belong to the
+        scheduler and are left alone)."""
         shape = (self.num_blocks, self.block_size, self.heads,
-                 self.head_dim)
+                 self.head_dim) if self.paged else \
+            (self.b, self.max_len, self.heads, self.head_dim)
 
         def zeros(shape, dtype):
             return [torch.zeros(shape, dtype=dtype, device=self.device)
@@ -238,6 +260,20 @@ class DecodeEngine:
         if self.kbufs is None:
             self.reset()
 
+    def release_buffers(self):
+        """Free the arena (``serving.py:770``); it is allocated again, zeroed,
+        on the next prefill or step. ``generate()`` releases a cached
+        engine between calls, so the model's engine cache pins geometry,
+        not device memory."""
+        self.kbufs = self.vbufs = None
+        self.kscales = self.vscales = None
+
+    def refresh_params(self):
+        """Pick up updated weights (``serving.py:662``). The reference
+        snapshots parameter values as its programs' arguments; the port
+        reads the model's parameters at every forward, so there is
+        nothing to refresh."""
+
     @contextlib.contextmanager
     def _eval_mode(self):
         """Run with the model in eval mode and no autograd, restoring the
@@ -250,9 +286,15 @@ class DecodeEngine:
         finally:
             self.model.train(was)
 
-    def _caches(self, table, t, cl: int):
+    def _caches(self, table, t, cl: int, slot: Optional[int] = None):
         """Per-layer cache tuples; ``cl`` is the commit's count of REAL
-        rows, which bounds the quantizer's absmax (``gpt.py:125-135``)."""
+        rows, which bounds the quantizer's absmax (``gpt.py:125-135``).
+        Dense: the whole arena, or with ``slot`` that slot's row (a view:
+        the commit lands in the arena)."""
+        if not self.paged:
+            rows = slice(None) if slot is None else slice(slot, slot + 1)
+            return [(self.kbufs[i][rows], self.vbufs[i][rows], t)
+                    for i in range(self.L)]
         if self.quantized:
             return [(self.kbufs[i], self.vbufs[i], self.kscales[i],
                      self.vscales[i], table, t, cl) for i in range(self.L)]
@@ -260,8 +302,19 @@ class DecodeEngine:
                 for i in range(self.L)]
 
     def _vec(self, x, dtype):
+        """``x`` (host values, or a tensor: the previous step's tokens
+        stay on the device) as a device tensor of ``dtype``."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, dtype)
         return torch.as_tensor(np.asarray(x), dtype=dtype,
                                device=self.device)
+
+    def _table(self, rows=slice(None)):
+        """The block table's ``rows`` on the device; None on the dense
+        arena."""
+        if not self.paged:
+            return None
+        return self._vec(self.table[rows], torch.int32)
 
     def _sampler_args(self, temps, greedy, topks, topps):
         """The sampler's host vectors as device tensors. Built BEFORE the
@@ -360,7 +413,7 @@ class DecodeEngine:
         refuse_unported("run_prefill_chunk", targets=(targets, None))
         self._ensure_buffers()
         ids = self._vec(ids_chunk, torch.int64)
-        table = self._vec(self.table[slot:slot + 1], torch.int32)
+        table = self._table(slice(slot, slot + 1))
         t = torch.tensor(int(start), dtype=torch.int32, device=self.device)
         args = self._sampler_args(temps, greedy, topks, topps)
         args["uniforms"] = self._uniforms(
@@ -369,9 +422,51 @@ class DecodeEngine:
             # last_idx + 1 real rows: the pad tail of a short final
             # chunk never shapes a block scale
             logits, _ = self.model(
-                ids, caches=self._caches(table, t, int(last_idx) + 1))
+                ids, caches=self._caches(table, t, int(last_idx) + 1,
+                                         slot=int(slot)))
             tok = self._sample_dev(logits[:, int(last_idx)].float(), args)
         return tok[:, None]
+
+    def prefill(self, ids, slots, prompt_lens, temps, greedy, keydata,
+                topks=None, topps=None):
+        """Prefill ``nb`` prompts into arena ``slots``, one slot after
+        another in chunks (``serving.py:1669``); returns their first
+        tokens, (nb, 1) on the device. ``ids`` is (nb, plen) right-padded
+        to the longest prompt (host values or a device tensor),
+        ``prompt_lens`` each row's real length; ``temps``, ``greedy``,
+        ``keydata`` and the runtime filters are per row."""
+        plens = np.asarray(prompt_lens, np.int32)
+        nb = plens.shape[0]
+        if nb and int(plens.max()) > self.max_len:
+            raise ValueError(
+                f"prompt length {int(plens.max())} exceeds the "
+                f"{self.max_len}-row KV arena")
+        if nb and int(plens.min()) < 1:
+            raise ValueError(
+                "prefill needs at least one prompt token per row (the "
+                "first output token samples from the prompt's logits); "
+                f"got prompt_lens={plens.tolist()}")
+        rows = ids.cpu().numpy() if isinstance(ids, torch.Tensor) \
+            else np.asarray(ids)
+        slots = np.asarray(slots, np.int32)
+        temps = np.asarray(temps, np.float32)
+        greedy = np.asarray(greedy, bool)
+        keydata = np.asarray(keydata, np.uint32)
+        topks = np.zeros(nb, np.int64) if topks is None \
+            else np.asarray(topks)
+        topps = np.ones(nb, np.float32) if topps is None \
+            else np.asarray(topps)
+        toks = []
+        for r in range(nb):
+            plen, pos, tok = int(plens[r]), 0, None
+            sl = slice(r, r + 1)
+            while pos < plen:
+                tok, pos = self.prefill_chunk_at(
+                    rows[r], int(slots[r]), pos, plen, temps[sl],
+                    greedy[sl], keydata[sl], topks=topks[sl],
+                    topps=topps[sl])
+            toks.append(tok)
+        return torch.cat(toks, dim=0)
 
     def step(self, toks, t, temps, greedy, keydata, topks=None, topps=None,
              defer: bool = False):
@@ -385,7 +480,7 @@ class DecodeEngine:
         refuse_unported("DecodeEngine.step", defer=(defer, False))
         self._ensure_buffers()
         ids = self._vec(toks, torch.int64)
-        table = self._vec(self.table, torch.int32)
+        table = self._table()
         tv = self._vec(t, torch.int32)
         args = self._sampler_args(temps, greedy, topks, topps)
         args["uniforms"] = self._uniforms(
@@ -621,8 +716,9 @@ class ServingMetrics:
 
 
 class ServingEngine:
-    """Continuous-batching scheduler over a paged :class:`DecodeEngine`
-    (``serving.py:2653``).
+    """Continuous-batching scheduler over a :class:`DecodeEngine`
+    (``serving.py:2653``), dense (``block_size=None``, the default) or
+    paged.
 
     ``submit()`` validates and enqueues; ``run()`` drives the
     admit -> prefill-chunk + decode-step -> retire loop until the queue
@@ -631,11 +727,12 @@ class ServingEngine:
     moved). ``seed`` seeds every request that does not pin its own.
     ``kv_dtype="int8"`` quantizes the block pools; ``prefix_cache`` (a
     :class:`PrefixCache` whose ``chunk_tokens`` is a multiple of
-    ``block_size``) shares prompt prefixes across requests zero-copy.
-    ``spec`` (an :class:`~paddle_tpu_torch.inference.speculative.
-    NgramDrafter`) turns the decode half of every tick into a
-    draft-and-verify step at fixed ``k = spec.k``, which reserves k rows
-    of each slot for the verify's writes.
+    ``block_size``) shares prompt prefixes across requests zero-copy, on
+    the paged arena (the dense arena's host K/V segments are a later
+    slice). ``spec`` (an :class:`~paddle_tpu_torch.inference.speculative.
+    NgramDrafter` or ``DraftModelDrafter``) turns the decode half of
+    every tick into a draft-and-verify step at fixed ``k = spec.k``,
+    which reserves k rows of each slot for the verify's writes.
     The parameters keep the reference's order; its
     ``telemetry``, ``mesh``, ``quarantine``, ``logit_guard``,
     ``dispatch_retries``, ``dispatch_stall_s``,
@@ -693,9 +790,16 @@ class ServingEngine:
                                             k=spec.k, **kw)
             spec.begin(self.engine.b, self.engine.max_len)
         self._spec_k = spec.k if spec is not None else 0
-        self._alloc = self.engine.allocator
+        self.paged = self.engine.paged
+        self._alloc = self.engine.allocator   # None on the dense arena
         self.quantized = self.engine.quantized
         self._cache = prefix_cache
+        if prefix_cache is not None and not self.paged:
+            raise NotImplementedError(
+                "prefix_cache on the dense arena (block_size=None) copies "
+                "host K/V segments into the slot's rows; that is a later "
+                "slice of the port (ROADMAP Queue 1 item 2) — pass "
+                "block_size= for the zero-copy paged prefix cache")
         if prefix_cache is not None:
             if prefix_cache.chunk_tokens > self.engine.max_len:
                 raise ValueError(
@@ -783,22 +887,24 @@ class ServingEngine:
                 f"exceeds the {self._plen_max + 1}-token slot budget"
                 f"{spec_note}; shorten the prompt or lower "
                 "max_new_tokens")
-        # a request must be able to finish ALONE on the pool, or
-        # preempting everyone else could never unblock it; its deepest
-        # write is row plen + max_new - 2, plus the k verify rows once a
-        # verify dispatches (max_new == 1 retires at prefill commit)
-        bs = self.engine.block_size
-        deep = plen + req.max_new_tokens - 2
-        if req.max_new_tokens > 1:
-            deep += self._spec_k
-        alone = max(deep, plen - 1) // bs + 1
-        if alone > self._alloc.capacity:
-            raise ValueError(
-                f"request needs {alone} blocks of {bs} tokens to "
-                f"finish, but the pool only has "
-                f"{self._alloc.capacity} allocatable blocks — it "
-                "could never be scheduled; grow num_blocks or "
-                "shrink the request")
+        if self.paged:
+            # a request must be able to finish ALONE on the pool, or
+            # preempting everyone else could never unblock it; its
+            # deepest write is row plen + max_new - 2, plus the k verify
+            # rows once a verify dispatches (max_new == 1 retires at
+            # prefill commit)
+            bs = self.engine.block_size
+            deep = plen + req.max_new_tokens - 2
+            if req.max_new_tokens > 1:
+                deep += self._spec_k
+            alone = max(deep, plen - 1) // bs + 1
+            if alone > self._alloc.capacity:
+                raise ValueError(
+                    f"request needs {alone} blocks of {bs} tokens to "
+                    f"finish, but the pool only has "
+                    f"{self._alloc.capacity} allocatable blocks — it "
+                    "could never be scheduled; grow num_blocks or "
+                    "shrink the request")
         req.id = self._next_id
         self._next_id += 1
         req.status = "queued"
@@ -808,6 +914,10 @@ class ServingEngine:
     def active_count(self) -> int:
         return sum(1 for r in self._slots if r is not None)
 
+    def free_block_count(self) -> Optional[int]:
+        """Free paged-pool blocks; None on the dense arena."""
+        return self._alloc.free_count() if self.paged else None
+
     # -- scheduling ---------------------------------------------------------
     def _now(self) -> float:
         if self._t0 is None:
@@ -816,38 +926,19 @@ class ServingEngine:
 
     def _admit(self, req: Request) -> bool:
         """Admit ``req`` into a free slot if the pool can back its
-        prompt beyond its cached prefix; False leaves it queued. A
-        preempted request resumes here and re-prefills prompt +
-        committed tokens (riding the prefix cache where present)."""
+        prompt beyond its cached prefix (the dense arena: a free slot is
+        enough); False leaves it queued. A preempted request resumes
+        here and re-prefills prompt + committed tokens (riding the
+        prefix cache where present)."""
         ids = np.asarray(list(req.prompt) + req.tokens, np.int64)
         plen = int(ids.shape[0])
-        nodes, hit = [], 0
-        if self._cache is not None:
-            nodes, hit = self._cache.lookup(ids)
-        # admission is gated on free BLOCKS behind rows [hit, plen): the
-        # spliced prefix brings its own. A fault in here drops the
-        # lookup's trie refs before propagating.
-        try:
-            bs = self.engine.block_size
-            need = (plen - 1) // bs + 1 - hit // bs
-            if self._alloc.free_count() < need and self._cache is not None:
-                # trie-held blocks are reclaimable capacity: evict cold
-                # unreferenced leaves first
-                self._cache.evict_for_blocks(need)
-            fresh = self._alloc.alloc(need)
+        nodes, hit, fresh = [], 0, []
+        if self.paged:
+            if self._cache is not None:
+                nodes, hit = self._cache.lookup(ids)
+            fresh = self._grant_prompt_blocks(req, plen, nodes, hit)
             if fresh is None:
-                if nodes:
-                    self._cache.release(nodes)
-                    nodes = []
-                # re-trying every tick while nothing freed would only
-                # burn host work (and count phantom trie lookups):
-                # remember the failure against the free counter
-                self._adm_blocked = (req.id, self._alloc.freed)
                 return False
-        except BaseException:
-            if nodes:
-                self._cache.release(nodes)
-            raise
         slot = self._free.pop()
         self._temps[slot] = max(float(req.temperature), 1e-6)
         self._greedy[slot] = bool(req.greedy)
@@ -881,8 +972,36 @@ class ServingEngine:
         self._t[slot] = plen - 1
         self._toks[slot, 0] = 0
         self.metrics.count_prompt_tokens(plen)
-        self._seed_slot_storage(slot, st, nodes, fresh)
+        if self.paged:
+            self._seed_slot_storage(slot, st, nodes, fresh)
         return True
+
+    def _grant_prompt_blocks(self, req: Request, plen: int, nodes, hit: int):
+        """The fresh blocks behind rows [hit, plen) of an admission: the
+        spliced prefix brings its own. None when the pool is short: the
+        lookup's trie refs are dropped and the failure is remembered
+        against the allocator's free counter. A fault in here drops the
+        lookup's trie refs before propagating."""
+        try:
+            bs = self.engine.block_size
+            need = (plen - 1) // bs + 1 - hit // bs
+            if self._alloc.free_count() < need and self._cache is not None:
+                # trie-held blocks are reclaimable capacity: evict cold
+                # unreferenced leaves first
+                self._cache.evict_for_blocks(need)
+            fresh = self._alloc.alloc(need)
+        except BaseException:
+            if nodes:
+                self._cache.release(nodes)
+            raise
+        if fresh is None:
+            if nodes:
+                self._cache.release(nodes)
+            # re-trying every tick while nothing freed would only burn
+            # host work (and count phantom trie lookups): remember the
+            # failure against the free counter
+            self._adm_blocked = (req.id, self._alloc.freed)
+        return fresh
 
     def _seed_slot_storage(self, slot: int, st, nodes, fresh):
         """Wire the admitted slot's storage: splice the trie hit's block
@@ -905,7 +1024,8 @@ class ServingEngine:
             req = self.scheduler.next_due(self._now())
             if req is None:
                 break
-            if self._adm_blocked == (req.id, self._alloc.freed):
+            if self._adm_blocked is not None and \
+                    self._adm_blocked == (req.id, self._alloc.freed):
                 break   # still blocked: nothing freed since the last try
             self.scheduler.pop(req)
             if not self._admit(req):
@@ -1022,7 +1142,9 @@ class ServingEngine:
 
     def _release_blocks(self, slot: int):
         """Drop the slot's blocks and point its table row back at the
-        scratch sink."""
+        scratch sink (nothing to drop on the dense arena)."""
+        if not self.paged:
+            return
         n = int(self._nblocks[slot])
         if n:
             self._alloc.deref(self.engine.table[slot, :n].tolist())
@@ -1096,9 +1218,10 @@ class ServingEngine:
         if occupied:
             self.metrics.record_tick(
                 occupied, self.scheduler.due_count(self._now()),
-                blocks=self._alloc.blocks_in_use())
+                blocks=self._alloc.blocks_in_use() if self.paged else None)
         self._run_prefill_chunk()
-        self._ensure_decode_blocks(self._spec_k + 1)
+        if self.paged:
+            self._ensure_decode_blocks(self._spec_k + 1)
         live = [i for i, r in enumerate(self._slots)
                 if r is not None and self._pf[i] is None]
         if not live:

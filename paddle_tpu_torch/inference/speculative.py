@@ -1,25 +1,31 @@
-"""Speculative decoding over the paged arena — the port of
+"""Speculative decoding over the dense or the paged arena — the port of
 ``paddle_tpu/inference/speculative.py``.
 
 Draft-and-verify (Leviathan et al. 2023; Chen et al. 2023): a cheap
 drafter proposes k continuation tokens per slot; ONE forward of the
 target model over ``[pending, d_1..d_k]`` per slot — the decode step's
-per-slot write, mask and position math at s = k+1, so the model routes
-it to the paged decode kernel K4 — returns logits at every candidate
-position; an acceptance rule keeps the longest valid prefix of the draft
-and draws one more token from the target's own distribution. Every
+per-slot write, mask and position math at s = k+1, so on the paged
+arena the model routes it to the paged decode kernel K4, any k — returns
+logits at every candidate position; an acceptance rule keeps the longest
+valid prefix of the draft and draws one more token from the target's
+own distribution. Every
 verify commits between 1 and k+1 tokens per slot.
 
 Rollback of rejected tokens is free by construction: a slot never reads
-a column past its own offset (K4 masks ``cols <= t + j``), so rejecting
-a draft suffix is just not advancing ``t``; the stale rows are
-overwritten by the next write before anything reads them.
+a column past its own offset (K4 and the dense mask read ``cols <= t +
+j``), so rejecting a draft suffix is just not advancing ``t``; the
+stale rows are overwritten by the next write before anything reads
+them.
 
 - :class:`NgramDrafter` — model-free prompt lookup on the host: the
   continuation of the most recent earlier occurrence of the slot's
   trailing n-gram, or the last token repeated.
-- :class:`SpeculativeEngine` — a paged :class:`~paddle_tpu_torch.
-  inference.serving.DecodeEngine` plus :meth:`~SpeculativeEngine.verify`.
+- :class:`DraftModelDrafter` — a small draft model on a private dense
+  :class:`~paddle_tpu_torch.inference.serving.DecodeEngine` whose arena
+  mirrors the target's commit state, drafting k tokens greedily a tick,
+  at accept cap k - 1.
+- :class:`SpeculativeEngine` — a :class:`~paddle_tpu_torch.inference.
+  serving.DecodeEngine` plus :meth:`~SpeculativeEngine.verify`.
 
 Acceptance (``speculative.py:427-506`` of the reference): greedy slots
 accept the exact prefix matching the target's argmax (token-identical to
@@ -31,8 +37,9 @@ acceptance coin and draw are ``position_uniforms(keydata, P, lane)`` on
 lanes ``LANE_COIN`` and ``LANE_DRAW`` (``core/random.py``), so a
 request's stream depends on the request and the position only.
 
-Not ported yet: the draft-model drafter (it rides a dense arena), the
-constrained verify's masks, the logit guard, adapters and replicas.
+Not ported yet: ``DraftLenController`` (adaptive k), the constrained
+verify's masks, the logit guard, adapters and replicas, and the
+compiled-executable counts (the port compiles nothing).
 """
 
 from __future__ import annotations
@@ -46,11 +53,7 @@ from paddle_tpu_torch.core.random import LANE_COIN, LANE_DRAW
 from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.inference.serving import DecodeEngine
 
-__all__ = ["NgramDrafter", "SpeculativeEngine"]
-
-# K4 on the card holds at most this many query rows per slot
-# (ops/kernels/paged_attention.py); a verify runs k + 1 of them
-_K4_MAX_ROWS = 16
+__all__ = ["NgramDrafter", "DraftModelDrafter", "SpeculativeEngine"]
 
 
 class NgramDrafter:
@@ -129,15 +132,112 @@ class NgramDrafter:
         return out
 
 
+class DraftModelDrafter:
+    """Small-draft-model drafter on its own dense decode arena
+    (``speculative.py:159``).
+
+    The draft model (same vocabulary as the target) runs k greedy decode
+    steps a tick through a private dense :class:`DecodeEngine` whose
+    (slots, max_len) arena mirrors the target's: a draft step feeds the
+    slot's pending token at the target's own offset, so after a verify
+    accepts a < k tokens the draft arena's rows [0, t + a + 1) hold
+    exactly the committed sequence's K/V, and rollback is the same
+    "don't advance t" as the target's. The k-th draft's K/V is never
+    written (k steps write rows t .. t + k - 1), so ``accept_cap`` is
+    k - 1: the mirror stays exact with no catch-up step. Greedy drafting
+    keeps the proposal deterministic, which the acceptance rule for
+    sampled targets needs."""
+
+    def __init__(self, model, k: int = 4, prefill_chunk: int = 128):
+        if k < 2:
+            raise ValueError(
+                f"DraftModelDrafter needs k >= 2 (accept cap is k-1; "
+                f"k=1 could never accept a draft), got {k}")
+        self.model = model
+        self.k = int(k)
+        self.prefill_chunk = int(prefill_chunk)
+        self.engine: Optional[DecodeEngine] = None
+        self.k_eff = self.k
+
+    @property
+    def accept_cap(self) -> int:
+        return self.k - 1
+
+    def set_draft_len(self, k_eff: int):
+        """Adopt an effective draft length in [1, k]: :meth:`propose`
+        runs ``min(k, k_eff + 1)`` draft steps (each a full draft-model
+        forward) and pads the remaining columns with the last draft; the
+        engine's commit clamp at k_eff makes pad positions
+        uncommittable. k_eff + 1 steps keep the mirror exact: an accept
+        of a <= k_eff tokens needs draft rows up to t + a, and step j
+        writes row t + j."""
+        if not 1 <= int(k_eff) <= self.k:
+            raise ValueError(
+                f"k_eff must be in [1, {self.k}], got {k_eff}")
+        self.k_eff = int(k_eff)
+
+    def begin(self, slots: int, max_len: int):
+        """The draft arena of ``slots`` rows of ``max_len``, built once
+        per geometry."""
+        if self.engine is not None and \
+                (self.engine.b, self.engine.max_len) == (int(slots),
+                                                         int(max_len)):
+            self.engine.refresh_params()
+            return
+        self.engine = DecodeEngine(self.model, slots, max_len, top_k=None,
+                                   prefill_chunk=self.prefill_chunk)
+        b = self.engine.b
+        self._temps = np.ones((b,), np.float32)
+        self._greedy = np.ones((b,), bool)           # deterministic drafts
+        self._keydata = np.zeros((b, 2), np.uint32)  # unused under greedy
+
+    def admit(self, slots, ids, prompt_lens):
+        """Prefill the draft arena rows of newly admitted slots with the
+        prompts the target prefilled."""
+        nb = len(slots)
+        self.engine.prefill(np.asarray(ids, np.int64),
+                            np.asarray(slots, np.int32),
+                            np.asarray(prompt_lens, np.int32),
+                            self._temps[:nb], self._greedy[:nb],
+                            self._keydata[:nb])
+
+    def propose(self, contexts, pending, t) -> np.ndarray:
+        """k greedy draft steps over the whole arena in lockstep, feeding
+        each slot's pending token at the target's offset; the chain d_1
+        .. d_k is the proposal, (b, k) int32, read back once. Idle slots
+        step garbage rows that are never read."""
+        b = self.engine.b
+        toks = np.asarray(pending, np.int64).reshape(b, 1)
+        tt = np.asarray(t, np.int32).copy()
+        steps = min(self.k, int(self.k_eff) + 1)
+        chain = []
+        for _ in range(steps):
+            toks = self.engine.step(toks, tt, self._temps, self._greedy,
+                                    self._keydata)
+            chain.append(toks)
+            tt += 1
+        drafts = np.zeros((b, self.k), np.int32)
+        drafts[:, :steps] = torch.cat(chain, dim=1).cpu().numpy()
+        if steps < self.k:
+            # the verify still reads k columns: pad with the last draft
+            drafts[:, steps:] = drafts[:, steps - 1:steps]
+        return drafts
+
+    def release(self):
+        """Free the draft arena alongside the target's."""
+        if self.engine is not None:
+            self.engine.release_buffers()
+
+
 class SpeculativeEngine(DecodeEngine):
-    """A paged :class:`DecodeEngine` plus one verify at fixed ``k``.
+    """A :class:`DecodeEngine` (dense or paged) plus one verify at fixed
+    ``k``.
 
     :meth:`verify` runs the target over the k+1 tokens ``[pending,
-    d_1..d_k]`` per slot, written at rows t..t+k of the slot's blocks,
-    and applies the acceptance rule on the device. Callers keep ``t + k
-    <= max_len - 1`` for every slot (the serving engine reserves k rows
-    of headroom). On a CUDA device ``k + 1`` may not exceed the 16 query
-    rows K4 holds. The reference's ``ids_dtype``, ``mesh``,
+    d_1..d_k]`` per slot, written at rows t..t+k of the slot's row or
+    blocks, and applies the acceptance rule on the device. Callers keep
+    ``t + k <= max_len - 1`` for every slot (the serving engine reserves
+    k rows of headroom). The reference's ``ids_dtype``, ``mesh``,
     ``logit_guard``, ``host_tier_blocks``, ``seq_parallel`` and
     ``adapter_pool`` are accepted at their defaults only."""
 
@@ -159,12 +259,6 @@ class SpeculativeEngine(DecodeEngine):
                          host_tier_blocks=host_tier_blocks,
                          seq_parallel=seq_parallel,
                          adapter_pool=adapter_pool)
-        if self.device.type == "cuda" and k + 1 > _K4_MAX_ROWS:
-            raise ValueError(
-                f"k={k}: the verify runs k + 1 = {k + 1} query rows per "
-                f"slot through the paged decode kernel K4, which holds at "
-                f"most {_K4_MAX_ROWS} on the card; use k <= "
-                f"{_K4_MAX_ROWS - 1}")
         self.k = int(k)
 
     def verify(self, pending, drafts, t, temps, greedy, keydata,
@@ -185,7 +279,7 @@ class SpeculativeEngine(DecodeEngine):
             [np.asarray(pending, np.int64).reshape(self.b, 1),
              np.asarray(drafts, np.int64).reshape(self.b, k)], axis=1)
         ids = self._vec(toks, torch.int64)
-        table = self._vec(self.table, torch.int32)
+        table = self._table()
         t_np = np.asarray(t, np.int64)
         tv = self._vec(t_np, torch.int32)
         a = self._sampler_args(temps, greedy, topks, topps)

@@ -27,9 +27,29 @@ Forward modes:
   donates the buffers instead; :func:`_upd_paged`, :func:`_upd_paged_q`),
   then attention reads back through the table: a query chunk (s > 1) at
   a scalar offset runs the chunk-prefill kernel K5, everything else the
-  paged decode kernel K4 — the routing of ``gpt.py:350-357``.
+  paged decode kernel K4 — the routing of ``gpt.py:350-357``;
+- the DENSE static cache (``gpt.py:361-419``): per layer ``(k_buf,
+  v_buf, t)`` — ``(b, max_len, H, D)`` buffers and the write offset
+  ``t``, a 0-dim tensor for a chunk (row j lands at ``t + j``; rows
+  past ``max_len`` are DROPPED, as the reference's ``mode="drop"``
+  scatter drops them) or ``(b,)`` per-slot offsets for a step or a
+  verify (each slot's rows land at ``min(t, max_len - s) + j``: the
+  start clamp of ``dynamic_update_slice``, which only an idle slot's
+  garbage ever reaches). New rows commit IN PLACE (:func:`_upd_dense`);
+  then each query row reads ``cols <= t + j`` through the plain masked
+  attention, as the reference runs it in XLA (no Pallas kernel there,
+  so none here);
+- the CONCAT cache (``gpt.py:420-423``): per layer ``(k, v)`` of the
+  rows so far, extended by the new ones — ``generate(use_cache=True)``'s
+  eager decode. Its causal attention goes through
+  ``F.scaled_dot_product_attention``'s gate: a prompt's forward from an
+  empty cache can take K1, a one-token step the plain attention.
 
-The dense static arena is a later slice.
+:meth:`GPTForCausalLM.generate` is the model's own inference entry
+(``gpt.py:679-940``): eager with or without the concat cache, or
+(``jit=True``) the whole batch through a dense
+:class:`~paddle_tpu_torch.inference.serving.DecodeEngine` kept on the
+model, optionally speculative (``spec=``).
 """
 
 from __future__ import annotations
@@ -38,10 +58,12 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.amp.auto_cast import maybe_cast_inputs
 from paddle_tpu_torch.core.place import resolve_device
+from paddle_tpu_torch.core.random import LANE_DRAW, position_uniforms
 from paddle_tpu_torch.core.random import generator as make_generator
 from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.distributed.meta_parallel import (ColumnParallelLinear,
@@ -209,6 +231,65 @@ def _upd_paged_q(kp, vp, ksc, vsc, kn, vn, tbl, tv, cl, plan=None):
     return kp, vp, ksc, vsc
 
 
+class _DensePlan:
+    """Where a dense commit of ``s`` new rows per slot lands and what each
+    query row may read — shared by every layer of one forward (they
+    share the offsets and the buffers' geometry).
+
+    ``dst`` indexes the buffer viewed as (b * max_len, H, D), ``src`` the
+    new rows flattened (slot, step), None when every row lands. A scalar
+    ``t`` (a chunk) writes row j at ``t + j`` and drops rows past
+    ``max_len`` (one host sync, as the paged commit's); a ``(b,)`` ``t``
+    writes slot i's rows at ``min(t[i], max_len - s) + j``, never
+    dropping (``dynamic_update_slice``'s clamp, ``gpt.py:388-395``).
+    ``mask`` is ``cols <= t + j`` over the buffer's ``max_len`` columns
+    (``gpt.py:401-418``), with the UNclamped ``t``."""
+
+    def __init__(self, t, b: int, s: int, max_len: int):
+        dev = t.device
+        steps = torch.arange(s, device=dev)
+        cols = torch.arange(max_len, device=dev)[None, None, None, :]
+        base = torch.arange(b, device=dev)[:, None] * max_len
+        if t.dim() == 0:
+            pos = (t.long() + steps).expand(b, s)
+            keep = (pos < max_len).reshape(-1)
+            self.src = keep.nonzero().squeeze(1)              # host sync
+            self.dst = (base + pos).reshape(-1).index_select(0, self.src)
+            self.mask = cols <= (t + steps)[None, None, :, None]
+        else:
+            start = t.long().reshape(-1, 1).clamp(max=max_len - s)
+            self.src = None
+            self.dst = (base + start + steps).reshape(-1)
+            self.mask = cols <= (t.reshape(-1, 1, 1, 1)
+                                 + steps[None, None, :, None])
+
+
+def _upd_dense(kb, vb, kn, vn, plan: _DensePlan):
+    """Commit new K/V rows ``(b, s, H, D)`` into the dense ``(b, max_len,
+    H, D)`` buffers IN PLACE, where ``plan`` says (JAX returns new
+    buffers instead; ``gpt.py:370-397``)."""
+    tail = tuple(kb.shape[2:])
+    for buf, new in ((kb, kn), (vb, vn)):
+        rows = new.reshape((-1,) + tail)
+        if plan.src is not None:
+            rows = rows.index_select(0, plan.src)
+        buf.view((-1,) + tail).index_copy_(0, plan.dst, rows.to(buf.dtype))
+    return kb, vb
+
+
+def _cache_plan(c0, s: int):
+    """The commit plan of one forward over caches whose first layer's
+    tuple is ``c0``: the quantized, paged or dense plan, or None for the
+    concat cache (nothing to plan)."""
+    if len(c0) == 7:
+        return _QuantPlan(c0[4], c0[5], c0[6], s, c0[0].shape[1])
+    if len(c0) == 4:
+        return _paged_write_rows(c0[2], c0[3], s, c0[0].shape[1])
+    if len(c0) == 3:
+        return _DensePlan(c0[2], c0[0].shape[0], s, c0[0].shape[1])
+    return None
+
+
 class GPTAttention(Layer):
     def __init__(self, config: GPTConfig, *, device=None,
                  dtype=torch.float32):
@@ -224,8 +305,9 @@ class GPTAttention(Layer):
 
     def forward(self, x, cache=None, lora=None, *, write_rows=None):
         """``write_rows``: the commit's plan, shared by the layers of one
-        forward (:func:`_paged_write_rows` / :class:`_QuantPlan`);
-        ``lora`` is accepted at its default only."""
+        forward (:func:`_paged_write_rows` / :class:`_QuantPlan` /
+        :class:`_DensePlan`; computed here when None); ``lora`` is
+        accepted at its default only."""
         refuse_unported("GPTAttention.forward", lora=(lora, None))
         b, s = x.shape[0], x.shape[1]
         # the split is PER HEAD (gpt.py:276-277): each head's 3*D slice
@@ -233,12 +315,24 @@ class GPTAttention(Layer):
         qkv = self.qkv_proj(x).reshape(b, s, self.num_heads,
                                        3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
-        if cache is not None:
-            if len(cache) not in (4, 7):
-                raise NotImplementedError(
-                    "only the paged caches (k_pool, v_pool, table, t) and "
-                    "(k_pool, v_pool, k_scale, v_scale, table, t, cl) are "
-                    "ported; the dense arena is a later slice")
+        mask, causal, out = None, True, None
+        if cache is not None and len(cache) not in (2, 3, 4, 7):
+            raise ValueError(
+                f"a cache is (k, v), (k_buf, v_buf, t), (k_pool, v_pool, "
+                f"table, t) or (k_pool, v_pool, k_scale, v_scale, table, "
+                f"t, cl); got a {len(cache)}-tuple")
+        if cache is not None and len(cache) == 3:
+            k_buf, v_buf, t = cache
+            plan = write_rows if write_rows is not None \
+                else _DensePlan(t, b, s, k_buf.shape[1])
+            _upd_dense(k_buf, v_buf, k, v, plan)
+            k, v, mask, causal = k_buf, v_buf, plan.mask, False
+            cache = (k_buf, v_buf, t + s)
+        elif cache is not None and len(cache) == 2:
+            k = torch.cat([cache[0], k.to(cache[0].dtype)], dim=1)
+            v = torch.cat([cache[1], v.to(cache[1].dtype)], dim=1)
+            cache = (k, v)
+        elif cache is not None:
             quantized = len(cache) == 7
             if quantized:
                 k_pool, v_pool, k_sc, v_sc, table, t, cl = cache
@@ -255,10 +349,10 @@ class GPTAttention(Layer):
                          v_scale=v_sc)
             cache = (k_pool, v_pool, k_sc, v_sc, table, t + s, cl) \
                 if quantized else (k_pool, v_pool, table, t + s)
-        else:
+        if out is None:
             out = F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, dropout_p=self.attn_dropout_p,
-                training=self.training)
+                q, k, v, attn_mask=mask, is_causal=causal,
+                dropout_p=self.attn_dropout_p, training=self.training)
         out = self.resid_dropout(self.out_proj(
             out.reshape(b, s, self.num_heads * self.head_dim)))
         return out if cache is None else (out, cache)
@@ -329,11 +423,15 @@ class GPTModel(Layer):
         if position_ids is None:
             if caches is None:
                 position_ids = steps
+            elif len(caches[0]) == 2:
+                # the concat cache: its rows so far (gpt.py:557-558)
+                position_ids = caches[0][0].shape[1] + steps
             else:
                 # a scalar start (chunk prefill) or (b,) per-slot
-                # starts: the 4th of 4 or the 6th of 7 cache elements
-                # (never the last: in the quantized tuple that is cl)
-                t = caches[0][5] if len(caches[0]) == 7 else caches[0][3]
+                # starts: the last of the dense 3 and the paged 4, the
+                # 6th of the quantized 7 (whose last is cl: the
+                # reference reads it there, gpt.py:549, a fault)
+                t = caches[0][5] if len(caches[0]) == 7 else caches[0][-1]
                 position_ids = t + steps if t.dim() == 0 \
                     else t.reshape(-1, 1) + steps
         # the pad tail of a final prefill chunk can run past the position
@@ -346,11 +444,7 @@ class GPTModel(Layer):
             for block in self.h:
                 x = block(x)
             return self.ln_f(x)
-        c0 = caches[0]
-        if len(c0) == 7:
-            rows = _QuantPlan(c0[4], c0[5], c0[6], s, c0[0].shape[1])
-        else:
-            rows = _paged_write_rows(c0[2], c0[3], s, c0[0].shape[1])
+        rows = _cache_plan(caches[0], s)
         new_caches = []
         for block, cache in zip(self.h, caches):
             x, c = block(x, cache=cache, write_rows=rows)
@@ -424,6 +518,209 @@ class GPTForCausalLM(Layer):
         """Functional LM loss (``gpt.py:656``): shift-by-one causal CE."""
         return F.cross_entropy(logits[:, :-1], labels[:, 1:],
                                reduction="mean")
+
+    # -- generation ---------------------------------------------------------
+    def generate(self, input_ids, max_new_tokens: int = 20,
+                 temperature: float = 1.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, use_cache: bool = True,
+                 jit: bool = False, spec=None):
+        """Autoregressive sampling (``gpt.py:679``): ``input_ids`` (b, s0)
+        in, (b, s0 + max_new_tokens) out, in the input's integer dtype on
+        the model's device.
+
+        ``use_cache=True`` decodes one token a forward through the concat
+        caches; ``use_cache=False`` re-runs the whole sequence each
+        token. ``jit=True`` runs the whole batch through a dense
+        :class:`~paddle_tpu_torch.inference.serving.DecodeEngine` kept on
+        the model under the reference's key (batch, max_len, dtypes,
+        ``top_k``, speculation's k): the prompt in chunks, then one
+        lockstep step a token (PyTorch compiles nothing; the engine is
+        kept for its buffers' geometry and reallocates them each call).
+        ``spec`` (with ``jit=True``) is ``"ngram"`` or a drafter
+        instance: draft-and-verify through
+        :class:`~paddle_tpu_torch.inference.speculative.SpeculativeEngine`.
+
+        Draws: one ``(b, 2)`` key data a call from torch's default CPU
+        generator (``core.random.seed`` seeds it), and the token landing
+        at position P of row i is drawn at ``position_uniforms(keydata[i],
+        P)``, on every path; the reference's threefry stream is not
+        reproduced. Greedy decoding (``top_k=1``) draws nothing that
+        matters and is token-exact with the reference on every path."""
+        from paddle_tpu_torch.inference.serving import (DecodeEngine,
+                                                        apply_topk_topp)
+
+        ids = torch.as_tensor(input_ids, device=self.gpt.wte.weight.device)
+        if top_p is not None and not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if spec is not None and not jit:
+            raise ValueError(
+                "speculative decoding rides the static-cache path; call "
+                "generate(..., jit=True, spec=...)")
+        self.eval()
+        if max_new_tokens <= 0:
+            return ids
+        keydata = torch.randint(0, 1 << 32, (ids.shape[0], 2),
+                                dtype=torch.int64).numpy().astype(np.uint32)
+        if jit:
+            return self._generate_jit(ids, max_new_tokens, temperature,
+                                      top_k, top_p, spec=spec,
+                                      keydata=keydata)
+        kd = torch.from_numpy(keydata.astype(np.int64)).to(ids.device)
+
+        def sample(logits):
+            last = logits[:, -1].float() / max(float(temperature), 1e-6)
+            if top_k is not None:
+                kth = torch.sort(last, dim=-1).values[:, -top_k][:, None]
+                last = torch.where(last < kth, float("-inf"), last)
+            if top_p is not None:
+                b = last.shape[0]
+                last = apply_topk_topp(
+                    last, torch.zeros(b, dtype=torch.int64,
+                                      device=last.device),
+                    torch.full((b,), top_p, device=last.device))
+            # the token lands at position ids.shape[1]
+            pos = torch.full((last.shape[0],), ids.shape[1],
+                             dtype=torch.int64, device=last.device)
+            nxt = DecodeEngine._draw_dev(
+                last, position_uniforms(kd, pos, LANE_DRAW))
+            return nxt[:, None].to(ids.dtype)
+
+        with torch.inference_mode():
+            if not use_cache:
+                for _ in range(max_new_tokens):
+                    ids = torch.cat([ids, sample(self(ids))], dim=1)
+                return ids
+            # prefill from empty concat caches, then one-token steps
+            b, heads = ids.shape[0], self.config.num_heads
+            w = self.gpt.wte.weight
+            empty = torch.zeros((b, 0, heads,
+                                 self.config.hidden_size // heads),
+                                dtype=w.dtype, device=w.device)
+            logits, caches = self(ids, caches=[(empty, empty)
+                                               for _ in self.gpt.h])
+            tok = sample(logits)
+            ids = torch.cat([ids, tok], dim=1)
+            for _ in range(max_new_tokens - 1):
+                logits, caches = self(tok, caches=caches)
+                tok = sample(logits)
+                ids = torch.cat([ids, tok], dim=1)
+        return ids
+
+    _decode_cache: Optional[dict] = None
+
+    def _generate_jit(self, input_ids, max_new_tokens: int,
+                      temperature: float, top_k: Optional[int],
+                      top_p: Optional[float] = None, spec=None, *,
+                      keydata=None):
+        """The whole batch through a dense engine cached on the model
+        (``gpt.py:778``): the prompt through ``prefill``, then
+        ``max_new_tokens - 1`` steps, or the speculative loop; the
+        engine's buffers (and the drafter's) are released at the end.
+        ``keydata`` is the call's (b, 2) uint32 key data."""
+        from paddle_tpu_torch.inference.serving import DecodeEngine
+
+        ids = input_ids
+        b, s0 = ids.shape
+        mpe = self.config.max_position_embeddings
+        drafter, spec_k = None, 0
+        if spec is not None:
+            from paddle_tpu_torch.inference.speculative import (
+                NgramDrafter, SpeculativeEngine)
+
+            if isinstance(spec, str):
+                if spec != "ngram":
+                    raise ValueError(
+                        f"unknown spec drafter {spec!r}; pass 'ngram' or a "
+                        "drafter instance (NgramDrafter / "
+                        "DraftModelDrafter)")
+                drafter = NgramDrafter()
+            else:
+                drafter = spec
+            spec_k = drafter.k
+        # spec reserves k rows of verify headroom past the last generated
+        # position (frozen rows keep verifying until the batch finishes)
+        need = s0 + max_new_tokens + spec_k
+        if need > mpe:
+            raise ValueError(
+                f"prompt + max_new_tokens"
+                f"{f' + spec headroom k={spec_k}' if spec_k else ''} = "
+                f"{need} exceeds max_position_embeddings {mpe}")
+        max_len = min(-(-need // 64) * 64, mpe)
+        if self._decode_cache is None:
+            self._decode_cache = {}
+        key = (b, max_len, str(self.gpt.wte.weight.dtype), str(ids.dtype),
+               top_k, spec_k or None)
+        eng = self._decode_cache.get(key)
+        if eng is None:
+            if drafter is not None:
+                eng = SpeculativeEngine(self, b, max_len, k=spec_k,
+                                        top_k=top_k)
+            else:
+                eng = DecodeEngine(self, b, max_len, top_k=top_k)
+            self._decode_cache[key] = eng
+        else:
+            eng.refresh_params()
+        temps = np.full((b,), max(float(temperature), 1e-6), np.float32)
+        greedy = np.zeros((b,), bool)
+        topps = np.full((b,), top_p if top_p is not None else 1.0,
+                        np.float32)
+        slots = np.arange(b, dtype=np.int32)
+        plens = np.full((b,), s0, np.int32)
+        try:
+            if drafter is not None:
+                gen = self._spec_decode_loop(
+                    eng, drafter, ids, max_new_tokens, temps, greedy,
+                    keydata, slots, plens, topps=topps)
+                return torch.cat([ids, torch.as_tensor(
+                    gen, device=ids.device).to(ids.dtype)], dim=1)
+            tok = eng.prefill(ids, slots, plens, temps, greedy, keydata,
+                              topps=topps)
+            t = np.full((b,), s0, np.int32)
+            pieces = [ids, tok.to(ids.dtype)]
+            for _ in range(max_new_tokens - 1):
+                tok = eng.step(tok, t, temps, greedy, keydata, topps=topps)
+                t += 1
+                pieces.append(tok.to(ids.dtype))
+            return torch.cat(pieces, dim=1)
+        finally:
+            # a cached engine keeps its geometry, not its buffers
+            eng.release_buffers()
+            if drafter is not None:
+                drafter.release()
+
+    def _spec_decode_loop(self, eng, drafter, ids_v, max_new_tokens, temps,
+                          greedy, keydata, slots, plens, topps=None):
+        """The whole-batch speculative loop (``gpt.py:896``): draft k,
+        verify once, commit the accepted prefix plus one target token a
+        row; a row that reached its quota freezes (offset and pending
+        token stop) until the slowest finishes. Returns the (b,
+        max_new_tokens) generated ids on the host."""
+        b, s0 = ids_v.shape
+        drafter.begin(eng.b, eng.max_len)
+        tok = eng.prefill(ids_v, slots, plens, temps, greedy, keydata,
+                          topps=topps)
+        prompts = ids_v.cpu().numpy()
+        drafter.admit(np.arange(b, dtype=np.int32), prompts, plens)
+        prompts = prompts.tolist()
+        pending = tok.cpu().numpy().astype(np.int64)          # (b, 1)
+        gen = [[int(pending[i, 0])] for i in range(b)]
+        t = np.full((b,), s0, np.int32)
+        cap = min(drafter.accept_cap, drafter.k)
+        while any(len(g) < max_new_tokens for g in gen):
+            ctxs = [prompts[i] + gen[i] for i in range(b)]
+            drafts = drafter.propose(ctxs, pending[:, 0], t)
+            out, acc = eng.verify(pending, drafts, t, temps, greedy,
+                                  keydata, topps=topps)
+            out, acc = out.cpu().numpy(), acc.cpu().numpy()
+            for i in range(b):
+                rem = max_new_tokens - len(gen[i])
+                if rem <= 0:
+                    continue   # frozen row
+                a = min(int(acc[i]), cap, rem - 1)
+                gen[i].extend(int(x) for x in out[i, :a + 1])
+                t[i] += a + 1
+                pending[i, 0] = out[i, a]
+        return np.asarray(gen, np.int64)
 
     def kv_cache_spec(self) -> dict:
         """Cache geometry the serving engine sizes its pools from."""

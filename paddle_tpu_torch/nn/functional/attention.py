@@ -76,19 +76,25 @@ def flash_attention(q, k, v, causal: bool = False,
     return FlashAttentionFn.apply(q, k, v, float(scale), bool(causal))
 
 
+def _flash_gate(sq: int, sk: int, is_causal: bool, masked: bool,
+                dropout_p: float = 0.0) -> bool:
+    """Whether JAX ``_local_attention``'s gate (:101-123) sends ``sq``
+    query rows over ``sk`` keys to flash: no mask, no active dropout,
+    not causal with sq != sk, and both at least 128 and tiling into
+    blocks of at least 64 (tiny or degenerately tiling shapes, such as
+    prime lengths, do not block usefully)."""
+    return (not masked and dropout_p <= 0.0 and not (is_causal and sq != sk)
+            and sq >= 128 and sk >= 128 and _pick_block(sq, 256) >= 64
+            and _pick_block(sk, 256) >= 64)
+
+
 def _local_attention(query, key, value, attn_mask, dropout_p: float = 0.0,
                      is_causal: bool = False, scale: Optional[float] = None):
     """The flash-or-plain pick of JAX ``_local_attention`` (:101-123)."""
-    if attn_mask is None and dropout_p <= 0.0:
-        sq, sk = query.shape[1], key.shape[1]
-        if not (is_causal and sq != sk):
-            # tiny or degenerately-tiling shapes (e.g. prime seq lengths)
-            # don't block usefully — they take the plain path
-            if (sq >= 128 and sk >= 128
-                    and _pick_block(sq, 256) >= 64
-                    and _pick_block(sk, 256) >= 64):
-                return flash_attention(query, key, value, causal=is_causal,
-                                       scale=scale)
+    if _flash_gate(query.shape[1], key.shape[1], is_causal,
+                   attn_mask is not None, dropout_p):
+        return flash_attention(query, key, value, causal=is_causal,
+                               scale=scale)
     return _sdpa(query, key, value, attn_mask=attn_mask, is_causal=is_causal,
                  scale=scale)
 

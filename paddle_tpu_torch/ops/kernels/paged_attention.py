@@ -6,13 +6,16 @@ pools, and int8 code pools dequantized by ``(num_blocks, H)`` fp32
 absmax scales (``paged_attention.py:134-136``). The kernels are in
 ``paddle_tpu_torch/csrc/paged_attention.cu``, whose header note says what
 bounds them on the H100 and how the designs answer that: bf16 q runs a
-tensor-core body (``mma.sync``) whose key walk is split across a
-thread-block cluster and merged through distributed shared memory, over
+tensor-core body (``mma.sync``), one cluster a 16-row tile of a slot's s
+query rows, whose key walk is split across the cluster and merged
+through distributed shared memory, over
 bf16 or int8 pools (C entry ``ptt_paged_decode_fwd``; a pointer or pool
 row that ``cp.async`` cannot take, 16 bytes, is refused and the wrapper
 raises); fp32 q runs the CUDA-core body that K5's fp32 q shares
-(``ptt_paged_attention_fwd``), its key walk split across a cluster too,
-whose C entry refuses pools or an output off 16 bytes.
+(``ptt_paged_attention_fwd``) in row tiles of 16, 32 or 64, its key walk
+split across a cluster too, whose C entry refuses pools or an output off
+16 bytes. Both take any number of query rows a slot, as the reference's
+q block (the slot's s rows, ``paged_attention.py:222``) does.
 
 :func:`paged_attention` is the wrapper: a CPU tensor takes
 :func:`paged_attention_ref` — the counterpart of ``paged_attention_xla``,
@@ -169,9 +172,6 @@ def paged_attention(q, k_pool, v_pool, table, t,
     pool = check_paged_args("paged_attention", q, k_pool, v_pool, table,
                             k_scale, v_scale)
     b, s, h, d = q.shape
-    if not 1 <= s <= 16:
-        raise ValueError(f"paged_attention: s={s} query rows per slot; the "
-                         "kernel holds at most 16")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     tv = broadcast_offsets(t, b, q.device)

@@ -3,16 +3,18 @@
 ``csrc/paged_attention.cu``'s ``paged_decode_mma_kernel`` runs decode
 and verify attention over the paged pool as ``mma.sync.m16n8k16``
 products fed by ``ldmatrix``, with the lane address patterns of
-``csrc/flash_mma.cuh``, and splits each (slot, head)'s key walk over the
-CTAs of a thread-block cluster. No card is needed to check that
+``csrc/flash_mma.cuh``, and splits each (slot, head, 16-row tile)'s key
+walk over the CTAs of a thread-block cluster. No card is needed to check that
 dataflow: this file emulates every CTA of every cluster lane by lane in
 numpy, with the instruction emulations of
 ``tests/test_torch_flash_bwd_layout.py`` (which hold the patterns, parsed
 from the header, to the PTX fragment maps), as the kernel takes its
 steps:
 
-- each rank's tile range and each warp's key slices, with the
-  expressions parsed from the source;
+- each CTA's row tile (its first row, its row count, its position and
+  its reach) and each rank's key-tile range and each warp's key slices,
+  with the expressions parsed from the source, for any number of query
+  rows a slot (s 17 and 32: two row tiles, one of them ragged);
 - each slice gathered row by row through a shuffled table, rows past
   the reach zero-filled and never addressed (every row no query may
   read, and every block none of whose rows may be read, holds NaN,
@@ -40,6 +42,7 @@ the JAX package's ``paged_attention_xla`` and ``paged_attention_pallas``
 
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -94,8 +97,18 @@ def _body_int(name):
 
 
 _WALK = {name: _body_int(name) for name in
-         ("n_tiles", "tile_lo", "tile_hi", "k_lo", "k_hi", "n_slices",
-          "n_mine")}
+         ("row0", "nrows", "t0", "reach", "n_tiles", "tile_lo", "tile_hi",
+          "k_lo", "k_hi", "n_slices", "n_mine")}
+
+
+def row_tile(tile, s, t, bs, bp):
+    """(row0, nrows, t0, reach) of the CTAs of row tile ``tile`` of a slot
+    at offset ``t`` with ``s`` query rows, by the body's expressions."""
+    env = {"blockIdx": SimpleNamespace(z=tile), "kMaxRows": MAX_ROWS,
+           "s": s, "tv": [t], "slot": 0, "bs": bs, "bp": bp, "min": min}
+    for name in ("row0", "nrows", "t0", "reach"):
+        env[name] = eval(_WALK[name], env)
+    return env["row0"], env["nrows"], env["t0"], env["reach"]
 _K0 = _c_expr(re.search(r"const int k0 = (.*?);", BODY).group(1))
 
 
@@ -115,14 +128,14 @@ def walk(reach, rank):
     return out
 
 
-def merge_chunks(s, D, rank):
-    """The 8-column output chunks that ``rank`` merges, by the body's
-    loop over idx."""
+def merge_chunks(nrows, D, rank):
+    """The 8-column output chunks of a row tile of ``nrows`` rows that
+    ``rank`` merges, by the body's loop over idx."""
     m = re.search(r"for \(int idx = (.*?); idx < (.*?);\s*idx \+= (.*?)\)",
                   BODY, re.S)
     init, bound, step = (_c_expr(x) for x in m.groups())
-    env = {"rank": rank, "kSplits": SPLITS, "kMmaThreads": THREADS, "s": s,
-           "OC": D // 8}
+    env = {"rank": rank, "kSplits": SPLITS, "kMmaThreads": THREADS,
+           "nrows": nrows, "OC": D // 8}
     got = []
     for tid in range(THREADS):
         idx = eval(init.replace("threadIdx.x", str(tid)), env)
@@ -241,29 +254,32 @@ def emulate(q, kp, vp, ksc, vsc, table, tv, scale=None):
     bs, bp = kp.shape[1], table.shape[1]
     scale = 1.0 / np.sqrt(D) if scale is None else scale
     out = np.full(q.shape, np.nan, np.float32)
-    q16 = np.zeros((b, MAX_ROWS, H, D), np.float32)  # rows past s: zeros
-    q16[:, :s] = q
-    for slot in range(b):
-        t0 = int(tv[slot])
-        reach = min(t0 + s - 1, bp * bs - 1)
+    ntile = -(-s // MAX_ROWS)
+    # rows past s: zeros
+    qz = np.zeros((b, ntile * MAX_ROWS, H, D), np.float32)
+    qz[:, :s] = q
+    for slot, tile in np.ndindex(b, ntile):
+        row0, nrows, t0, reach = row_tile(tile, s, int(tv[slot]), bs, bp)
+        q16 = qz[slot, row0:row0 + MAX_ROWS]
         for h in range(H):
             cta = []
             for rank in range(SPLITS):
                 parts = [_warp_rows(*_slice_partial(
-                    q16[slot, :, h], kp, vp, ksc, vsc, table[slot], h, t0,
+                    q16[:, h], kp, vp, ksc, vsc, table[slot], h, t0,
                     reach, keys, scale, bs), D)
                     for keys in walk(reach, rank).values()]
-                cta.append(_fold(*zip(*((pm[:s], pl[:s], po[:s])
+                cta.append(_fold(*zip(*((pm[:nrows], pl[:nrows],
+                                         po[:nrows])
                                         for pm, pl, po in parts))))
             # the cluster merge, chunk by chunk as the ranks take them
             for rank in range(SPLITS):
-                for idx in merge_chunks(s, D, rank):
+                for idx in merge_chunks(nrows, D, rank):
                     row, c = divmod(idx, D // 8)
                     mm, ls, acc = _fold(
                         *zip(*((pm[row:row + 1], pl[row:row + 1],
                                 po[row:row + 1, 8 * c:8 * c + 8])
                                for pm, pl, po in cta)))
-                    out[slot, row, h, 8 * c:8 * c + 8] = _bf16(
+                    out[slot, row0 + row, h, 8 * c:8 * c + 8] = _bf16(
                         acc[0] * (np.float32(1) / ls[0]))
     return out
 
@@ -348,7 +364,9 @@ def _hold(got, ref):
 # blocks (80 rows, no multiple of 64) beside one inside it, and 16 rows
 # off a table of 3 blocks of 11 (33 rows: the last warp slice holds one
 # key and 15 zero-filled ones that rows 1-15's positions admit); D 128;
-# 16 rows over blocks of 5 rows, so slices and blocks never line up.
+# 16 rows over blocks of 5 rows, so slices and blocks never line up;
+# verifies of 16 and 31 drafts (s 17, 32: two row tiles, the first's
+# second of one row), the s-32 one running off a table of 3 blocks.
 # Each over bf16 pools and int8 pools.
 CASES = [
     (1, 1, [1000], 64, 16, 64, 2),
@@ -360,6 +378,8 @@ CASES = [
     (1, 16, [32], 64, 11, 3, 2),
     (1, 5, [300], 128, 16, 64, 1),
     (2, 16, [7, 61], 64, 5, 24, 1),
+    (2, 17, [0, 90], 64, 16, 8, 1),
+    (1, 32, [20], 64, 16, 3, 1),
 ]
 
 
@@ -420,3 +440,19 @@ def test_every_output_chunk_is_merged_by_one_rank(s, D):
         for idx in merge_chunks(s, D, rank):
             merged[idx] += 1
     assert (merged == 1).all()
+
+
+@pytest.mark.parametrize("s", [17, 32, 80])
+def test_row_tiles_cover_the_slot_s_rows_once(s):
+    """The grid's row tiles take rows [row0, row0 + nrows) of the slot's
+    s, 16 a tile and the last one ragged, each at its own position and
+    reach (t + row0 + nrows - 1, cut at the table's end)."""
+    assert "cfg.gridDim = dim3(kSplits, b * H, (s + kMaxRows - 1) / " \
+        "kMaxRows);" in SRC
+    covered = np.zeros(s, int)
+    for tile in range(-(-s // MAX_ROWS)):
+        row0, nrows, t0, reach = row_tile(tile, s, 1000, 16, 64)
+        assert 1 <= nrows <= MAX_ROWS and t0 == 1000 + row0
+        assert reach == min(1000 + row0 + nrows - 1, 1023)
+        covered[row0:row0 + nrows] += 1
+    assert (covered == 1).all()

@@ -1,9 +1,9 @@
 """K4's and K5's fp32 body, rehearsed on the CPU.
 
 ``csrc/paged_common.cuh``'s ``paged_f32_kernel<TP, D, RT>`` runs fp32
-queries over fp32 or int8 pools for both K4 (decode/verify, one 16-row
-tile) and K5 (chunk prefill, row tiles of 16, 32 or 64 by the chunk's
-length, ``f32_rows`` in ``chunk_prefill.cu``): a CTA owns a row tile of
+queries over fp32 or int8 pools for both K4 (decode/verify) and K5
+(chunk prefill), in row tiles of 16, 32 or 64 by the slot's query rows
+(``f32_rows`` in the same header): a CTA owns a row tile of
 one (slot, head), the C CTAs of a cluster split its key walk into even
 shares of KT-key tiles, and the partials merge through distributed
 shared memory. No card is needed to check that dataflow: this file
@@ -21,8 +21,9 @@ and the merge's chunk loop parsed from the source, and checks that
   grp + 16 r, keys lane + 16 c (QK) and dims 4 lane + 64 x (P.V), and
   the merge's float4 chunks once across ranks and threads;
 - the row tile is the body's own, whatever q-block ``pick_qbs`` gives
-  (s 100, 64, 128), and the tile's reach mask holds on a 33-row table
-  (blocks of 11) that a 16-row verify runs off;
+  (s 100, 64, 128), K4's verify takes any s (17 and 32 rows: one 32-row
+  tile; 80: a 64-row tile and a ragged one) and the tile's reach mask
+  holds on a 33-row table (blocks of 11) that a 16-row verify runs off;
 - int8 codes are dequantized by their own block's (block, head) scale.
 
 Every case is held to the plain version (``paged_attention_ref`` /
@@ -49,7 +50,6 @@ from paddle_tpu_torch.ops.kernels import paged_attention as k4
 CSRC = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
 SRC = (CSRC / "paged_common.cuh").read_text()
 K5_SRC = (CSRC / "chunk_prefill.cu").read_text()
-K4_SRC = (CSRC / "paged_attention.cu").read_text()
 BODY = SRC[SRC.index("paged_f32_kernel(const float*"):
            SRC.index("inline int f32_splits(")]
 LOG2E = np.float32(1.4426950408889634)
@@ -65,7 +65,6 @@ def _const(name, src=SRC):
 THREADS, LANES = _const("kF32Threads"), _const("kF32Lanes")
 GROUPS = THREADS // LANES
 MAX_SPLITS, CTAS_PER_SM = _const("kF32MaxSplits"), _const("kF32CTAsPerSM")
-K4_ROWS = _const("kMaxRows", K4_SRC)
 
 
 def _c_expr(expr):
@@ -98,7 +97,7 @@ _KT = _c_expr(re.search(r"static constexpr int value = (.*?);",
 _WALK = {n: _int(n) for n in ("tile", "row0", "nrows", "base", "reach",
                               "n_tiles", "tile_lo", "tile_hi")}
 _F32_ROWS = _c_expr(re.search(r"inline int f32_rows\(int s\) \{ return "
-                              r"(.*?); \}", K5_SRC).group(1))
+                              r"(.*?); \}", SRC).group(1))
 _SPLIT_WHILE = _c_expr(re.search(r"while \(c > 1 && (.*?)\) c /= 2;",
                                  SRC).group(1))
 assert "static_cast<int64_t>(kF32CTAsPerSM) * 16 / RT * sms;" in SRC
@@ -114,8 +113,8 @@ assert "kt + (lane + kF32Lanes * c) * KP" in BODY
 assert "vt + (c + k) * D +\n" in BODY and "4 * lane + 64 * x" in BODY
 assert "const bool busy = grp < nrows;" in BODY
 # the fp32 launch paths take no q-block
-assert re.search(r"f32_by_dim<int8_t>\(q, k_pool, v_pool, ks, vs, tbl, tv, "
-                 r"out, b,\s*s, H, D,", K5_SRC)
+assert re.search(r"f32_by_dim<int8_t>\(q, k_pool, v_pool, ks, vs, tbl, tv,"
+                 r"\s*out, b,\s*s, H, D,", K5_SRC)
 
 
 def key_tile(D):
@@ -309,7 +308,7 @@ def _plain(fn, q, kp, vp, ksc, vsc, table, t):
 def _check(kernel, b, s, starts, D, bs, bp, int8, seed, nsplit=None):
     q, kp, vp, ksc, vsc, table, t = _case(b, s, starts, D, bs, bp, int8,
                                           seed)
-    RT = K4_ROWS if kernel == "K4" else f32_rows(s)
+    RT = f32_rows(s)
     got, walked = emulate(q, *_poisoned(kp, vp, ksc, vsc, table, t, s),
                           table, t, RT, nsplit)
     ref = _plain(k4.paged_attention_ref if kernel == "K4"
@@ -327,13 +326,18 @@ def _check(kernel, b, s, starts, D, bs, bp, int8, seed, nsplit=None):
 
 # (kernel, b, s, starts, D, bs, bp, int8): K4's decode step (3 slots),
 # a verify (s 5), 16 rows running off a 33-row table (blocks of 11), D
-# 128; K5's chunks of 128 (two 64-row tiles), 100 (its s-100 tiling: 64
+# 128, verifies of 16 and 31 drafts (s 17 and 32: one 32-row tile, the
+# s-17 one ragged) and 80 rows (a 64-row tile and a 16-row one) whose
+# second slot runs off its table; K5's chunks of 128 (two 64-row tiles), 100 (its s-100 tiling: 64
 # + 36 rows, not pick_qbs's 25 of 4), 64, a 24-row chunk (a 32-row tile)
 # and a chunk running off a 5-block table; each over fp32 and int8 pools
 CASES = [("K4", 3, 1, (0, 37, 200), 64, 16, 16),
          ("K4", 2, 5, (78, 30), 64, 16, 8),
          ("K4", 1, 16, (32,), 64, 11, 3),
          ("K4", 2, 3, (5, 90), 128, 16, 8),
+         ("K4", 2, 17, (0, 100), 64, 16, 8),
+         ("K4", 2, 32, (40, 3), 64, 16, 8),
+         ("K4", 2, 80, (7, 60), 64, 16, 8),
          ("K5", 1, 128, (37,), 64, 16, 16),
          ("K5", 1, 100, (75,), 64, 16, 16),
          ("K5", 2, 64, (0, 130), 64, 16, 16),

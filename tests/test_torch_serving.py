@@ -30,8 +30,9 @@ from paddle_tpu.inference.serving import apply_topk_topp as jax_topk_topp
 from paddle_tpu.models import GPTForCausalLM as JaxGPT
 from paddle_tpu.models import gpt_tiny as jax_gpt_tiny
 
-from paddle_tpu_torch.inference import (BlockAllocator, Request,
-                                        ServingEngine, apply_topk_topp)
+from paddle_tpu_torch.inference import (BlockAllocator, PrefixCache,
+                                        Request, ServingEngine,
+                                        apply_topk_topp)
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 
 SYS = [7, 3, 9, 11, 2, 5, 8, 4] * 4          # 32-token shared prefix
@@ -189,14 +190,20 @@ def test_submit_raises_the_same_errors(models, case):
 
 
 def test_resubmit_and_dense_arena_are_rejected(models):
+    """A resubmitted request is rejected; the dense arena serves since
+    the port took it (tests/test_torch_dense.py), and what it still
+    rejects is its prefix cache, a later slice."""
     _, pm = models
     pe = ServingEngine(pm, max_batch_slots=1, max_len=64, block_size=8,
                        device="cpu")
     r = pe.submit(Request(prompt=[1, 2], max_new_tokens=2, greedy=True))
     with pytest.raises(ValueError, match="already queued"):
         pe.submit(r)
+    assert ServingEngine(pm, max_batch_slots=1, max_len=64,
+                         device="cpu").paged is False
     with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(pm, max_batch_slots=1, max_len=64, device="cpu")
+        ServingEngine(pm, max_batch_slots=1, max_len=64, device="cpu",
+                      prefix_cache=PrefixCache(chunk_tokens=8))
 
 
 def test_default_device_raises_without_a_card(models):

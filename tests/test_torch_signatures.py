@@ -35,8 +35,8 @@ import torch
 from paddle_tpu_torch.distributed.meta_parallel import (ColumnParallelLinear,
                                                         RowParallelLinear,
                                                         VocabParallelEmbedding)
-from paddle_tpu_torch.inference import (BlockAllocator, NgramDrafter,
-                                        Request, ServingEngine,
+from paddle_tpu_torch.inference import (BlockAllocator, DraftModelDrafter,
+                                        NgramDrafter, Request, ServingEngine,
                                         SpeculativeEngine)
 from paddle_tpu_torch.inference.prefix_cache import PrefixCacheNode
 from paddle_tpu_torch.inference.serving import DecodeEngine, ServingMetrics
@@ -109,6 +109,8 @@ def _tiny():
 
 _X = torch.ones(4, 64)
 _ENGINE = DecodeEngine(_tiny(), 2, 32, block_size=8)
+_DENSE = DecodeEngine(_tiny(), 2, 32)
+_DRAFTER = DraftModelDrafter(_tiny(), 3)
 _SPEC = SpeculativeEngine(_tiny(), 2, 32, k=2, block_size=8)
 _GREEDY = (np.zeros((2, 1), np.int64), np.zeros(2, np.int32),
            np.ones(2, np.float32), np.ones(2, bool), np.zeros((2, 2), np.uint32))
@@ -220,6 +222,29 @@ CASES = {
         _ENGINE.prefill_chunk_at,
         lambda **kw: _ENGINE.prefill_chunk_at(*_ROW, **kw),
         {"targets_row": None}, None),
+    # the dense arena, generate() and the draft-model drafter: no
+    # unported parameter among them
+    "DecodeEngine.prefill": (
+        "inference/serving.py", "DecodeEngine.prefill", _DENSE.prefill,
+        None, {}, None),
+    "DecodeEngine.release_buffers": (
+        "inference/serving.py", "DecodeEngine.release_buffers",
+        _DENSE.release_buffers, None, {}, None),
+    "DecodeEngine.refresh_params": (
+        "inference/serving.py", "DecodeEngine.refresh_params",
+        _DENSE.refresh_params, None, {}, None),
+    "GPTForCausalLM.generate": (
+        "models/gpt.py", "GPTForCausalLM.generate", _GPT.generate, None, {},
+        None),
+    "DraftModelDrafter": (
+        "inference/speculative.py", "DraftModelDrafter", DraftModelDrafter,
+        None, {}, None),
+    "DraftModelDrafter.propose": (
+        "inference/speculative.py", "DraftModelDrafter.propose",
+        _DRAFTER.propose, None, {}, None),
+    "DraftModelDrafter.admit": (
+        "inference/speculative.py", "DraftModelDrafter.admit",
+        _DRAFTER.admit, None, {}, None),
     "SpeculativeEngine": (
         "inference/speculative.py", "SpeculativeEngine", SpeculativeEngine,
         lambda **kw: SpeculativeEngine(_tiny(), 1, 64, 2, block_size=8,
@@ -541,6 +566,18 @@ BINDS = {
     "PrefixCacheNode(key, parent, kseg, vseg)": (
         lambda: PrefixCacheNode((), None, np.zeros(2), None), "kseg"),
     "alloc(n, replica)": (lambda: _ALLOC.alloc(1, 1), "replica"),
+    # the prompt rows, their slots and lengths, then the sampler's rows
+    "prefill(ids, slots, prompt_lens, temps, greedy, keydata)": (
+        lambda: tuple(_DENSE.prefill(np.ones((1, 3), np.int64), [1], [3],
+                                     *_GREEDY[2:4], _GREEDY[4])[:1].shape)
+        == (1, 1), None),
+    # max_new_tokens, temperature, top_k, top_p, use_cache: greedy
+    # through the concat caches equals the whole-sequence path
+    "generate(ids, 3, 1.0, 1, None, False)": (
+        lambda: torch.equal(_GPT.generate(_IDS, 3, 1.0, 1, None, False),
+                            _GPT.generate(_IDS, 3, 1.0, 1, None, True)),
+        None),
+    "DraftModelDrafter(model, 3)": (lambda: _DRAFTER.accept_cap == 2, None),
     "DecodeEngine(model, 1, 64, None, ids_dtype)": (
         lambda: DecodeEngine(_tiny(), 1, 64, None, np.int32), "ids_dtype"),
     "set_state_dict(state, False)": (

@@ -2,9 +2,10 @@
 against the JAX package's.
 
 - ``NgramDrafter.propose`` equals the reference's exactly.
-- Greedy ``SpeculativeEngine.verify``: ``out`` and ``accept`` equal the
-  JAX engine's on the same poisoned paged pools, table, offsets and
-  drafts (some drafts matching the argmax prefix); the pools after the
+- Greedy ``SpeculativeEngine.verify`` at k = 4, 16 and 31 (17 and 32
+  query rows a slot, K4's two row tiles on the card): ``out`` and
+  ``accept`` equal the JAX engine's on the same poisoned paged pools,
+  table, offsets and drafts (some drafts matching the argmax prefix); the pools after the
   call match within 1e-5 (fp32; int8: codes within one step, scales
   1e-5).
 - ``ServingEngine(spec=NgramDrafter(k=4), block_size=16)``: greedy tokens
@@ -20,7 +21,7 @@ against the JAX package's.
   position-keyed stream (``core/random.py``) is uniform, its lanes
   uncorrelated, and a pure function of (keydata, P, lane).
 - EOS inside an accepted prefix, the speculation headroom's errors (the
-  reference's messages) and the device refusals.
+  reference's messages), and the device rule (no k refused on a card).
 """
 
 import numpy as np
@@ -119,21 +120,40 @@ VERIFY_SLOTS = [(37, [1, 2, 3, 4], 4), (10, [5, 6, 0, 0], 2),
                 (20, [7, 8, 0, 0], 0), (0, [0, 0, 0, 0], 0)]   # idle
 
 
-def _verify_state(int8):
+def _geometry(k):
+    """(max_len, table, num_blocks) of a verify at ``k``: VERIFY_SLOTS'
+    blocks and arena (k = K), and past it an arena of whole blocks
+    holding the deepest slot's t + k, with fresh blocks mapped behind
+    every live slot's rows t .. t + k."""
+    deepest = max(off for off, _, _ in VERIFY_SLOTS) + k
+    max_len = max(MAX_LEN, (deepest // BS + 1) * BS)
+    table = np.zeros((B, max_len // BS), np.int32)
+    nblk = NBLK
+    for slot, (off, blocks, _) in enumerate(VERIFY_SLOTS):
+        table[slot, :len(blocks)] = blocks
+        if not any(blocks):
+            continue                       # the idle slot: scratch only
+        for j in range((off + k) // BS + 1):
+            if not table[slot, j]:
+                table[slot, j], nblk = nblk, nblk + 1
+    return max_len, table, nblk
+
+
+def _verify_state(int8, k=K):
     """Pools with random context below each slot's offset and poison
     everywhere else (1e9, or int8 codes 127 with 1e7 scales in blocks no
     table names), the table and the offsets."""
     rs = np.random.RandomState(11)
     L, H, D = 2, 4, 16
-    table = np.asarray([m for _, m, _ in VERIFY_SLOTS], np.int32)
+    _, table, nblk = _geometry(k)
     t = np.asarray([s for s, _, _ in VERIFY_SLOTS], np.int32)
     pools = []
     for _ in range(2 * L):
         if int8:
-            codes = np.full((NBLK, BS, H, D), 127, np.int8)
-            scales = np.full((NBLK, H), 1e7, np.float32)
+            codes = np.full((nblk, BS, H, D), 127, np.int8)
+            scales = np.full((nblk, H), 1e7, np.float32)
         else:
-            codes = np.full((NBLK, BS, H, D), 1e9, np.float32)
+            codes = np.full((nblk, BS, H, D), 1e9, np.float32)
         for slot, (off, blocks, _) in enumerate(VERIFY_SLOTS):
             for r in range(off):
                 blk = blocks[r // BS]
@@ -146,9 +166,10 @@ def _verify_state(int8):
     return pools, table, t
 
 
-def _port_verify_engine(pm, int8, pools, table):
-    eng = SpeculativeEngine(pm, B, MAX_LEN, k=K, block_size=BS,
-                            num_blocks=NBLK,
+def _port_verify_engine(pm, int8, pools, table, k=K):
+    max_len, _, nblk = _geometry(k)
+    eng = SpeculativeEngine(pm, B, max_len, k=k, block_size=BS,
+                            num_blocks=nblk,
                             kv_dtype="int8" if int8 else None)
     eng.reset()
     L = eng.L
@@ -169,14 +190,14 @@ def _greedy_args():
             np.zeros((B, 2), np.uint32))
 
 
-def _drafts(pm, int8, pools, table, t, pending):
+def _drafts(pm, int8, pools, table, t, pending, k=K):
     """Drafts whose first ``want`` tokens are the target's argmax chain
     (found by growing the chain one port verify at a time; a verify
     rewrites rows t..t+k before reading them, so rerunning it on the
     same pools is harmless), then a token off it."""
-    eng = _port_verify_engine(pm, int8, pools, table)
-    drafts = np.zeros((B, K), np.int64)
-    for j in range(K):
+    eng = _port_verify_engine(pm, int8, pools, table, k)
+    drafts = np.zeros((B, k), np.int64)
+    for j in range(k):
         out, _ = eng.verify(pending, drafts, t, *_greedy_args())
         out = out.numpy()
         for slot, (_, _, want) in enumerate(VERIFY_SLOTS):
@@ -187,14 +208,31 @@ def _drafts(pm, int8, pools, table, t, pending):
 
 @pytest.mark.parametrize("int8", [False, True])
 def test_greedy_verify_matches_jax(models, int8, monkeypatch):
+    _check_greedy_verify(models, int8, K, monkeypatch)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("k", [16, 31])
+def test_greedy_verify_past_16_rows_matches_jax(models, k, int8,
+                                                monkeypatch):
+    """k + 1 = 17 and 32 query rows a slot, which K4 on the card runs as
+    two 16-row tiles of its bf16 body (one ragged at 17): the plain
+    version the CPU runs against the reference's, as at k = 4."""
+    _check_greedy_verify(models, int8, k, monkeypatch)
+
+
+def _check_greedy_verify(models, int8, k, monkeypatch):
+    """``out``, ``accept`` and the pools after one greedy verify at ``k``
+    of the port and of JAX on the same poisoned pools."""
     jm, pm = models
     if int8:
         _read_jax_positions_from_t(monkeypatch)
-    pools, table, t = _verify_state(int8)
+    pools, table, t = _verify_state(int8, k)
     pending = np.asarray([[17], [3], [250], [0]], np.int64)
-    drafts = _drafts(pm, int8, pools, table, t, pending)
+    drafts = _drafts(pm, int8, pools, table, t, pending, k)
 
-    je = JaxSpecEngine(jm, B, MAX_LEN, k=K, block_size=BS, num_blocks=NBLK,
+    max_len, _, nblk = _geometry(k)
+    je = JaxSpecEngine(jm, B, max_len, k=k, block_size=BS, num_blocks=nblk,
                        kv_dtype="int8" if int8 else None)
     je._ensure_buffers()
     if int8:
@@ -209,7 +247,7 @@ def test_greedy_verify_matches_jax(models, int8, monkeypatch):
     jout, jacc = je.verify(pending.astype(np.int32),
                            drafts.astype(np.int32), t, *_greedy_args())
 
-    pe = _port_verify_engine(pm, int8, pools, table)
+    pe = _port_verify_engine(pm, int8, pools, table, k)
     out, acc = pe.verify(pending, drafts, t, *_greedy_args())
     np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
     np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
@@ -545,18 +583,17 @@ def test_boundary_budget_runs_to_length(models):
 
 
 def test_device_refusals(models):
-    """No card: the default device raises. On a CUDA device k + 1 rows
-    past K4's 16 are refused at construction (a stub model that claims
-    the card; nothing is allocated before the check)."""
+    """No card: the default device raises. A verify of any k is taken on
+    a CUDA device too, K4 running any number of query rows a slot (a
+    stub model that claims the card; nothing is allocated at
+    construction), as on the CPU."""
     _, pm = models
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ServingEngine(pm, max_batch_slots=1, max_len=64, block_size=8,
                           spec=NgramDrafter(k=4))
     stub = _FixedLogits(np.zeros(4, np.float32), device="cuda")
-    with pytest.raises(ValueError, match="K4"):
-        SpeculativeEngine(stub, 1, 64, k=16, block_size=8)
-    assert SpeculativeEngine(stub, 1, 64, k=15, block_size=8).k == 15
-    # the CPU's plain version takes any k
-    assert SpeculativeEngine(_FixedLogits(np.zeros(4)), 1, 64, k=16,
-                             block_size=8).k == 16
+    for k in (15, 16, 31):
+        assert SpeculativeEngine(stub, 1, 64, k=k, block_size=8).k == k
+        assert SpeculativeEngine(_FixedLogits(np.zeros(4)), 1, 64, k=k,
+                                 block_size=8).k == k
