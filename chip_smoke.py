@@ -9,11 +9,12 @@ Phases, in order (any failure exits non-zero and prints no result):
 1. card: the ``nvidia-smi`` name and power limit, the capability;
 2. build: ``csrc/*.cu`` -> ``build/kernels/`` with ``nvcc`` for sm_90a,
    then the registers and spills of every K1/K3/K4/K5 instantiation
-   (``-Xptxas -v``; a bf16 K1, K3a, K3b-dkv, K3b-dq, K4 or K5 body, or an
-   instantiation of the fp32 paged body, that spills fails the run), the
-   tensor-core instructions (HMMA) and atomics (RED, ATOM) that
-   ``cuobjdump -sass`` finds in each bf16 K3, K4 and K5 body and in the
-   fp32 paged body (no HMMA in a bf16 body fails the run, and so do
+   (``-Xptxas -v``; a bf16 or fp16 K1, K3a, K3b-dkv or K3b-dq body, a
+   bf16 K4 or K5 body, or an instantiation of the fp32 paged body, that
+   spills fails the run), the tensor-core instructions (HMMA) and
+   atomics (RED, ATOM) that ``cuobjdump -sass`` finds in each bf16 and
+   fp16 K1 and K3 body, each bf16 K4 and K5 body and the fp32 paged
+   body (no HMMA in a tensor-core body fails the run, and so do
    atomics in the K3b-dq body, whose dQ is written once, and any HMMA in
    the fp32 body), and the bf16 K1's, K3 and K5 bodies' shared memory and
    CTAs per SM from the CUDA runtime (K4's: the clusters the card holds
@@ -42,6 +43,8 @@ Phases, in order (any failure exits non-zero and prints no result):
    by K4's and by K5's C entry point;
 4. flash: K1 (forward), K3a (fused backward) and K3b (the streaming
    dK/dV and dQ passes) against their plain versions in fp32 and bf16
+   (and in fp16 at the training shape and S 8320, with q and k scaled
+   so the largest logits reach ~1e4, each held to the fp16 gates)
    at the training shape, non-causal, at head_dim 128, and on the
    long-context route (S 8320, through ``F.scaled_dot_product_attention``
    and ``.backward()``, whose launch counters must show the streaming
@@ -55,7 +58,8 @@ Phases, in order (any failure exits non-zero and prints no result):
    shapes and at S 8320, each held to FLASH_TOL and to K3_TOL (dQ, dK,
    dV element by element), and misaligned pointers their C entry points
    must refuse; SDPA's backward alone (and its forward + backward) is
-   the K3 rows' yardstick;
+   the K3 rows' yardstick; the fp16 bodies run every K1 and K3 case as
+   well, at unit scale, each held to the fp16 gates;
 5. serving: ``gpt2_small`` at full width and depth (random weights from a
    seed) serves 16 requests through ``ServingEngine`` on the card; the
    kernels' launch counters must equal what the engine's own chunk and
@@ -105,6 +109,22 @@ Phases, in order (any failure exits non-zero and prints no result):
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
    exact launch counts per step, and an fp32 forward on the card equal
    to the same forward on the CPU; tokens/s, step p50 and MFU;
+6b. the loop a user writes, in fp16: the same model and batch with
+   ``recompute_granularity="full"``, ``auto_cast(dtype="float16")``,
+   ``GradScaler`` and AdamW on a warm-up + cosine schedule with a
+   global-norm clip, 2 + 10 steps: a finite, falling loss, launches K1
+   = 2L, K3a = L and K2 = 4L + 1 a step (the fp16 K1 and K3 bodies;
+   each block's forward runs again in the backward), every step's
+   learning rate the schedule replayed on the host, and one planted
+   step whose loss is multiplied by inf skipped (parameters and AdamW
+   state bitwise unchanged, the scale halved, one skip); tokens/s, step
+   p50 and peak memory beside phase 6's;
+6c. the model's defaults: ``gpt2_small`` with its 0.1 dropouts, batch
+   4 x 1024, ``decorate(level="O2", dtype="bfloat16")`` with AdamW's
+   fp32 master weights, 5 steps of a user loop and then 5 through
+   ``ShardedTrainer(recompute=True)``: a finite, falling loss, K1 = K3 =
+   0 (attention dropout keeps the plain attention), K2 exact, bf16
+   parameters beside fp32 masters (LayerNorm stays fp32);
 7. the ``kernels`` JSON line, then the ``ok`` line.
 """
 
@@ -121,7 +141,8 @@ import numpy as np
 # H100 SXM published peaks (NVIDIA data sheet, dense, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12,      # fp32 on the CUDA cores
-              "bfloat16": 989e12}    # bf16 on the tensor cores
+              "bfloat16": 989e12,    # bf16 on the tensor cores
+              "float16": 989e12}     # fp16 on the tensor cores
 
 # fp32: the kernels and the plain versions differ only in summation
 # order (online softmax over blocks vs one softmax; warp-shuffle vs
@@ -131,12 +152,37 @@ PEAK_FLOPS = {"float32": 67e12,      # fp32 on the CUDA cores
 # plain version itself rounds logits and P to bf16 at other places.
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
+# fp16 (the flash kernels' third dtype, fp16 AMP's): the tensor-core
+# bodies instantiated on __half, held to gates of their own. The cases of
+# k1_case_inputs / k3_case_inputs run at unit scale, as in bf16, under
+# "float16": fp16 keeps 3 more bits than bf16, so O and the gradients
+# differ by roundings to fp16 (rtol) plus P and dS rounded to fp16 from
+# logits that differ in the last fp32 bits (atol). The timed shapes run
+# in fp16 with q and k scaled by FP16_QK_SCALE, so that the largest
+# logits reach ~1e4 (fp16 itself tops out at 65504), under
+# "float16-scaled": the logits are fp32 sums of terms ~1600 times larger,
+# whose last bits move lse and, through P and dS, O and the gradients by
+# as much more; dQ and dK carry K's and Q's scale of 40, and the
+# long-context route's dK (delta from the route's own fp16 O, lse from
+# its forward) moves most. Over those cases on an H100 the sound
+# kernels' worst errors are, unit scale: lse 9.5e-7 (bf16's 1.9e-6:
+# one lse limit for both), O 1.39e-4 + 2**-10 |plain|, dQ 2.07e-4, dK
+# 1.68e-4, dV 1.75e-4 + 2**-9 |plain|; scaled: lse 4.9e-3, O 1.73e-3 +
+# 1e-2 |plain|, dQ 0.0693, dK 0.0347 (the route), dV 1.79e-3 + 1e-2
+# |plain|; the shared gate's 7.7e-4 and 9.6e-4 (k1_fault_check.py,
+# k3_fault_check.py, PERF.md). Each limit sits 3.5-5.2x above its worst,
+# and those scripts show each planted fault that changes an output
+# failing the fp16 gates.
+FP16_QK_SCALE = 40.0
+FP16_SCALED = "float16-scaled"
+
 # flash kernels, relative to max(1, max |plain|) of each output. fp32:
 # summation order over up to 8320 keys or queries, and the fused dQ's
 # fp32 atomics, whose order changes from run to run. bf16: one rounding
 # of each output to bf16, plus P and dS, which both sides round to bf16
 # at the same places but from logits that differ in the last fp32 bits.
-FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 4e-3,
+             FP16_SCALED: 4e-3}
 
 # K1 is held to more than FLASH_TOL: lse on its own, absolutely, and O
 # element by element, |O - plain| <= atol + rtol * |plain|. Under causal
@@ -150,7 +196,9 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # (k1_fault_check.py, PERF.md); the limits sit 3-5x above them, and that
 # script shows each planted fault that changes an output failing them.
 K1_TOL = {"float32": {"lse": 1e-5, "atol": 3e-6, "rtol": 1e-5},
-          "bfloat16": {"lse": 1e-5, "atol": 3e-3, "rtol": 1e-2}}
+          "bfloat16": {"lse": 1e-5, "atol": 3e-3, "rtol": 1e-2},
+          "float16": {"lse": 1e-5, "atol": 5e-4, "rtol": 2.0 ** -10},
+          FP16_SCALED: {"lse": 2e-2, "atol": 6e-3, "rtol": 1e-2}}
 
 # The K3 kernels (K3a, K3b-dkv, K3b-dq) are held to more than FLASH_TOL
 # too: each of dQ, dK and dV element by element, |out - plain| <= atol +
@@ -168,7 +216,11 @@ K1_TOL = {"float32": {"lse": 1e-5, "atol": 3e-6, "rtol": 1e-5},
 K3_TOL = {"float32": {"rtol": 1e-5,
                       "atol": {"dQ": 8e-6, "dK": 5e-6, "dV": 4e-6}},
           "bfloat16": {"rtol": 1e-2,
-                       "atol": {"dQ": 4e-3, "dK": 4e-3, "dV": 1.5e-2}}}
+                       "atol": {"dQ": 4e-3, "dK": 4e-3, "dV": 1.5e-2}},
+          "float16": {"rtol": 2.0 ** -9,
+                      "atol": {"dQ": 8e-4, "dK": 7e-4, "dV": 7e-4}},
+          FP16_SCALED: {"rtol": 1e-2,
+                        "atol": {"dQ": 0.25, "dK": 0.12, "dV": 6.5e-3}}}
 
 
 # K5's bf16 body (q bf16; bf16 pools, or int8 codes with their scales)
@@ -327,9 +379,10 @@ def build_phase():
 _PTXAS_F32 = re.compile(r"paged_f32_kernelI(f|a)Li(\d+)ELi(\d+)E")
 _PTXAS_K5 = re.compile(r"chunk_prefill_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
 _PTXAS_K4 = re.compile(r"paged_decode_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
-_PTXAS_FLASH = re.compile(r"flash_fwd_(mma_)?kernelI(f)?Li(\d+)E")
+_PTXAS_FLASH = re.compile(r"flash_fwd_(mma_)?kernelILi(\d+)E"
+                          r"(13__nv_bfloat16|6__half)?")
 _PTXAS_BWD = re.compile(r"flash_(bwd_mma|dq_mma|dkv|dq)_kernelILi(\d+)E"
-                        r"(?:Lb(\d)E)?")
+                        r"(?:Lb(\d)E)?(13__nv_bfloat16|6__half)?")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
@@ -355,25 +408,32 @@ def _occupancy(fn, *args) -> str:
 
 def _ptxas_label(src: str, name):
     """What a matched kernel name is, whether it is a tensor-core body
-    that must not spill, and its occupancy query's (function, args)."""
+    that must not spill, and its occupancy query's (function, args): the
+    occupancy entry points report the bf16 instantiations, so an fp16 one
+    has none."""
     if src == "flash_fwd.cu":
-        bf16 = name.group(1) is not None
-        D = int(name.group(3))
-        return (f"K1 {'bf16 mma.sync' if bf16 else 'fp32 CUDA cores'}, D "
-                f"{D}", bf16, ("ptt_flash_fwd_occupancy", D))
+        mma = name.group(1) is not None
+        D, half = int(name.group(2)), name.group(3) == "6__half"
+        if not mma:
+            return f"K1 fp32 CUDA cores, D {D}", False, None
+        return (f"K1 {'fp16' if half else 'bf16'} mma.sync, D {D}", True,
+                None if half else ("ptt_flash_fwd_occupancy", D))
     if src == "flash_bwd.cu":
         kind, D = name.group(1), int(name.group(2))
         fused = name.group(3) == "1"
+        half = name.group(4) == "6__half"
+        dt = "fp16" if half else "bf16"
         if kind == "dq":
             return f"K3b-dq fp32 CUDA cores, D {D}", False, None
         if kind == "dq_mma":
-            return (f"K3b-dq bf16 mma.sync, D {D}", True,
-                    ("ptt_flash_bwd_dq_occupancy", D))
+            return (f"K3b-dq {dt} mma.sync, D {D}", True,
+                    None if half else ("ptt_flash_bwd_dq_occupancy", D))
         what = "K3a" if fused else "K3b-dkv"
         if kind == "dkv":
             return f"{what} fp32 CUDA cores, D {D}", False, None
-        return (f"{what} bf16 mma.sync, D {D}", True,
-                ("ptt_flash_bwd_occupancy", D, int(fused)))
+        return (f"{what} {dt} mma.sync, D {D}", True,
+                None if half else ("ptt_flash_bwd_occupancy", D,
+                                   int(fused)))
     if name.re is _PTXAS_K5:
         D, int8 = int(name.group(1)), name.group(2) == "a"
         return (f"K5 bf16 mma.sync, pool {'int8' if int8 else 'bf16'}, D "
@@ -418,14 +478,15 @@ def _sass_ops(obj: str, ops=("HMMA", "RED", "ATOM")):
 
 def ptxas_phase():
     """Registers and spills of every K1, K3, K4 and K5 instantiation, from
-    ``nvcc -Xptxas -v`` on their sources; a bf16 K1, K3a, K3b-dkv, K3b-dq,
-    K4 or K5 (the tensor-core bodies) or an instantiation of the fp32
-    paged body that spills fails the run. For the tensor-core bodies also
-    their shared memory and the CTAs an SM holds (K4: the clusters the
-    card holds), and for the bf16 K3, K4 and K5 bodies the tensor-core
-    products (HMMA) and atomics in their SASS: a body without HMMA, a K3a
-    without atomics, or a K3b-dq with any, fails; so does an fp32 paged
-    body with any HMMA (fp32 stays on the CUDA cores)."""
+    ``nvcc -Xptxas -v`` on their sources; a tensor-core body (K1, K3a,
+    K3b-dkv and K3b-dq in bf16 and fp16, K4 and K5 in bf16) or an
+    instantiation of the fp32 paged body that spills fails the run. For
+    the bf16 tensor-core bodies also their shared memory and the CTAs an
+    SM holds (K4: the clusters the card holds), and for every
+    tensor-core body the tensor-core products (HMMA) and atomics in its
+    SASS: a body without HMMA, a K3a without atomics, or a K3b-dq with
+    any, fails; so does an fp32 paged body with any HMMA (fp32 stays on
+    the CUDA cores)."""
     import tempfile
 
     from paddle_tpu_torch.ops.kernels import _build
@@ -444,7 +505,8 @@ def ptxas_phase():
         check(all(p.returncode == 0 for p in procs),
               "nvcc -Xptxas -v failed:\n" + "\n".join(
                   o for p, o in zip(procs, outs) if p.returncode))
-        sass = {**_sass_ops(f"{tmp}/flash_bwd.o"),
+        sass = {**_sass_ops(f"{tmp}/flash_fwd.o"),
+                **_sass_ops(f"{tmp}/flash_bwd.o"),
                 **_sass_ops(f"{tmp}/chunk_prefill.o"),
                 **_sass_ops(f"{tmp}/paged_attention.o")}
     seen = {"K1": 0, "K3": 0, "K4": 0, "K5": 0, "F32": 0}
@@ -474,11 +536,11 @@ def ptxas_phase():
                     extra = f", SASS {ops['HMMA']} HMMA"
                 if mma:
                     seen[label[:2]] += 1
-                    extra = _occupancy(*occ)
+                    if occ is not None:
+                        extra = _occupancy(*occ)
                     check(stores == loads == 0, f"ptxas: {label} spills "
                           f"{stores} bytes stored, {loads} loaded")
-                if mma and src.name in ("flash_bwd.cu", "chunk_prefill.cu",
-                                        "paged_attention.cu"):
+                if mma:
                     ops = sass.get(full)
                     check(ops is not None and ops["HMMA"] > 0,
                           f"SASS: {label} has no HMMA ({ops})")
@@ -495,11 +557,12 @@ def ptxas_phase():
                       f"{stores} bytes spill stores, {loads} bytes spill "
                       f"loads{extra}", flush=True)
                 name = None
-    check(seen == {"K1": 2, "K3": 6, "K4": 4, "K5": 4, "F32": 24}, f"ptxas: "
-          f"bodies seen {seen}, expected the tensor-core K1 at D 64 and "
-          "128, K3a, K3b-dkv and K3b-dq at both, K4 and K5 over bf16 and "
-          "int8 pools at both, and the fp32 body over fp32 and int8 pools "
-          "at both in 16-, 32- and 64-row tiles, in K4's source and K5's")
+    check(seen == {"K1": 4, "K3": 12, "K4": 4, "K5": 4, "F32": 24},
+          f"ptxas: bodies seen {seen}, expected the tensor-core K1, K3a, "
+          "K3b-dkv and K3b-dq in bf16 and fp16 at D 64 and 128, K4 and K5 "
+          "over bf16 and int8 pools at both, and the fp32 body over fp32 "
+          "and int8 pools at both in 16-, 32- and 64-row tiles, in K4's "
+          "source and K5's")
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
@@ -1130,23 +1193,38 @@ def _refuses_misaligned(torch, name, mod, kernel_fn, case):
 FLASH_CASES = [(16, 1024, 12, 64, True), (2, 1024, 12, 64, False),
                (2, 1024, 6, 128, True)]
 FLASH_LONG = (1, 8320, 2, 64, True)
+# the timed shapes of each dtype: fp16 (fp16 AMP's dtype) at the
+# training shape (and, as every dtype, the long-context route)
+FLASH_TIMED = {"float32": FLASH_CASES, "bfloat16": FLASH_CASES,
+               "float16": FLASH_CASES[:1]}
 
 
 def _rel_err(out, ref) -> float:
     return _err(out, ref) / max(1.0, float(ref.float().abs().max()))
 
 
+def timed_gate(dn: str) -> str:
+    """The gate of a timed case of dtype ``dn`` (its inputs from
+    :func:`_flash_inputs`): FP16_SCALED for fp16, else the dtype's."""
+    return FP16_SCALED if dn == "float16" else dn
+
+
 def _flash_inputs(torch, B, S, H, D, dtype, seed):
+    """q, k, v, dO of a timed shape; in fp16 q and k scaled by
+    FP16_QK_SCALE (logits up to ~1e4), held to the FP16_SCALED gate."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
-            for _ in range(4)]      # q, k, v, dO
+    qk = FP16_QK_SCALE if dtype == torch.float16 else 1.0
+    return [(torch.randn(B, S, H, D, device="cuda", generator=g)
+             * (qk if i < 2 else 1.0)).to(dtype)
+            for i in range(4)]      # q, k, v, dO
 
 
 def _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
                 errs):
     """Time K1, K3a and the K3b pair at one shape (inputs as given) and
     record one row each; ``errs`` maps kernel id to its checked error
-    (for the K3 kernels also the largest share of K3_TOL). The K3 rows'
+    (for the K3 kernels also the largest share of K3_TOL) under the
+    gate :func:`timed_gate` names. The K3 rows'
     library call is SDPA's backward alone (its forward run once outside
     the events), with its forward + backward beside it."""
     import torch.nn.functional as TF
@@ -1187,18 +1265,20 @@ def _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
             ("K3b-dq", lambda: fa.flash_bwd_dq(*bwd), plain_bwd, library_bwd,
              5 * n + 2 * vec, 1.5 * flops)):
         bound_ms, bound_by = _bound(nbytes, kflops, dn)
+        gate = timed_gate(dn)
         row = {"kernel": kid, "dtype": dn, "shape": shape,
                "max_abs_err": errs[kid][0], "rel_err": errs[kid][1],
-               "tol": FLASH_TOL[dn], "kernel_ms": timer(fn, n=10),
+               "gate": gate, "tol": FLASH_TOL[gate],
+               "kernel_ms": timer(fn, n=10),
                "plain_ms": plain, "library_ms": library,
                "bound_ms": bound_ms, "bound_by": bound_by}
         if kid == "K1":
             row.update(lse_err=errs[kid][2], o_limit_share=errs[kid][3],
-                       k1_tol=K1_TOL[dn])
+                       k1_tol=K1_TOL[gate])
         else:
             row["library_fwd_bwd_ms"] = library_both
         if kid != "K1":
-            row.update(k3_limit_share=errs[kid][2], k3_tol=K3_TOL[dn])
+            row.update(k3_limit_share=errs[kid][2], k3_tol=K3_TOL[gate])
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
 
@@ -1228,9 +1308,10 @@ def _grads(prefix, got, want):
 
 
 def k1_errors(dn, o, ro, lse, rlse):
-    """K1's own measures against its plain version: lse's max |err|, and
-    the largest |O - plain| / (atol + rtol * |plain|) of any element
-    (NaN if any O is not finite)."""
+    """K1's own measures against its plain version under gate ``dn`` (a
+    dtype's name, or FP16_SCALED): lse's max |err|, and the largest |O -
+    plain| / (atol + rtol * |plain|) of any element (NaN if any O is not
+    finite)."""
     tol = K1_TOL[dn]
     ro = ro.float()
     ratio = (o.float() - ro).abs() / (tol["atol"] + tol["rtol"] * ro.abs())
@@ -1305,6 +1386,32 @@ def k3_grads(torch, q, k, v, do, causal):
                   "K3b-dq": {"dQ": fa.flash_bwd_dq(*bwd)}}, bwd
 
 
+def k3_route_grads(torch, q, k, v, do, causal):
+    """The long-context route's gradients: q, k, v through the public
+    ``F.scaled_dot_product_attention`` and ``.backward(do)`` (the
+    backward kernels take lse from the route's forward and delta from its
+    O), as dicts by the kernel that computes them (the streaming pair
+    beyond 8192 keys, else K3a), with the plain gradients they are held
+    to (lse and delta from the plain forward) and the route's O."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+    out.backward(do)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
+    want = dict(zip(GRADS, fa.flash_bwd_ref(q, k, v, do, rlse, delta, scale,
+                                            causal)))
+    if fa._use_streaming(q.shape[1], k.shape[1]):
+        got = {"K3b-dkv": {"dK": kl.grad, "dV": vl.grad},
+               "K3b-dq": {"dQ": ql.grad}}
+    else:
+        got = {"K3a": {"dQ": ql.grad, "dK": kl.grad, "dV": vl.grad}}
+    return want, got, out.detach()
+
+
 def k3_case_inputs(torch, dtype):
     """(name, (q, k, v, dO), causal) of every K3 case beyond the timed
     shapes: the K1 cases of :func:`k1_case_inputs`, each with a dO of q's
@@ -1337,7 +1444,7 @@ def k3_cases(torch, dtype):
             err = _k3_check(torch, dn, name, kid, grads, want)
             print(f"  {kid} {dn} {name}: max |err| {err[0]:.3g}, relative "
                   f"{err[1]:.3g}, at {err[2]:.3g} of K3_TOL", flush=True)
-    if dtype != torch.bfloat16:
+    if dtype == torch.float32:
         return
     lib = _build.load_library()
     q = torch.zeros(1, 128, 1, 64, device="cuda", dtype=dtype)
@@ -1355,10 +1462,10 @@ def k3_cases(torch, dtype):
                 lib.ptt_flash_bwd_dkv(*args, *[t.data_ptr() for t in grads],
                                       *tail),
                 lib.ptt_flash_bwd_dq(*args, grads[0].data_ptr(), *tail))
-        check(errs == (1, 1, 1), f"K3 bf16 took a misaligned "
+        check(errs == (1, 1, 1), f"K3 {dn} took a misaligned "
               f"{'q' if bad == 0 else 'dO'} pointer (returned {errs})")
-    print("  K3a, K3b-dkv, K3b-dq bf16 misaligned q or dO pointer: refused "
-          "at the entry points (cudaError 1)", flush=True)
+    print(f"  K3a, K3b-dkv, K3b-dq {dn} misaligned q or dO pointer: "
+          "refused at the entry points (cudaError 1)", flush=True)
 
 
 def k1_case_inputs(torch, dtype):
@@ -1390,7 +1497,7 @@ def k1_case_inputs(torch, dtype):
     n = B * S * H * D
     yield ("misaligned view",
            tuple(rand(n + 1)[1:].view(B, S, H, D) for _ in range(3)), True,
-           "copied" if dtype == torch.bfloat16 else "kept")
+           "kept" if dtype == torch.float32 else "copied")
     # NaN past S: a CTA whose tile runs past S must not read those rows
     S, pad = 1000, 64
     bufs = []
@@ -1418,9 +1525,9 @@ def k1_cases(torch, dtype):
             kept = [t.data_ptr() for t in got] == [t.data_ptr() for t in qkv]
             check(kept == (layout == "kept"), f"K1 {dn} {name}: the layout "
                   f"gate's views were not {layout}")
-            check(dtype != torch.bfloat16 or all(
+            check(dtype == torch.float32 or all(
                 t.data_ptr() % 16 == 0 for t in got),
-                f"K1 bf16 {name}: the layout gate passed a misaligned view")
+                f"K1 {dn} {name}: the layout gate passed a misaligned view")
         scale = 1.0 / qkv[0].shape[-1] ** 0.5
         o, lse = fa.flash_fwd(*qkv, scale, causal)
         ro, rlse = fa.flash_fwd_ref(*qkv, scale, causal)
@@ -1430,21 +1537,22 @@ def k1_cases(torch, dtype):
               f"{err[1]:.3g}, lse {err[2]:.3g}, O at {err[3]:.3g} of its "
               "limit", flush=True)
     # a misaligned pointer that reaches the entry point: refused
-    # (cudaErrorInvalidValue = 1) for bf16, and the wrapper's check raises
-    if dtype == torch.bfloat16:
+    # (cudaErrorInvalidValue = 1) for bf16 and fp16, and the wrapper's
+    # check raises
+    if dtype != torch.float32:
         q = torch.zeros(1, 128, 1, 64, device="cuda", dtype=dtype)
         o = torch.empty_like(q)
         lse = torch.empty(1, 1, 128, device="cuda")
         err = _build.load_library().ptt_flash_fwd(
             q.data_ptr() + 2, q.data_ptr(), q.data_ptr(), o.data_ptr(),
             lse.data_ptr(), *fa._tail(q, q, 0.125, True))
-        check(err == 1, f"K1 bf16 took a misaligned pointer (returned {err})")
+        check(err == 1, f"K1 {dn} took a misaligned pointer (returned {err})")
         try:
             _build.check(err, "flash forward kernel")
             fail("a refused K1 launch did not raise")
         except RuntimeError:
             pass
-        print("  K1 bf16 misaligned pointer: refused at the entry point "
+        print(f"  K1 {dn} misaligned pointer: refused at the entry point "
               f"(cudaError {err}), the wrapper raises", flush=True)
 
 
@@ -1455,11 +1563,12 @@ def flash_phase(torch, timer, rows):
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     long_launches = None
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[1]
         k1_cases(torch, dtype)
         k3_cases(torch, dtype)
-        for ci, (B, S, H, D, causal) in enumerate(FLASH_CASES):
+        gate = timed_gate(dn)
+        for ci, (B, S, H, D, causal) in enumerate(FLASH_TIMED[dn]):
             shape = [B, S, H, D, causal]
             q, k, v, do = _flash_inputs(torch, B, S, H, D, dtype, 41 + ci)
             scale = 1.0 / D ** 0.5
@@ -1475,13 +1584,13 @@ def flash_phase(torch, timer, rows):
             split = dict(zip(GRADS, (fa.flash_bwd_dq(*bwd),
                                      *fa.flash_bwd_dkv(*bwd))))
             torch.cuda.synchronize()
-            e_fwd = _k1_check(torch, dn, shape, o, ro, lse, rlse)
-            e_fused = _k3_check(torch, dn, shape, "K3a", fused, want)
-            e_dkv = _k3_check(torch, dn, shape, "K3b-dkv",
+            e_fwd = _k1_check(torch, gate, shape, o, ro, lse, rlse)
+            e_fused = _k3_check(torch, gate, shape, "K3a", fused, want)
+            e_dkv = _k3_check(torch, gate, shape, "K3b-dkv",
                               {n: split[n] for n in GRADS[1:]}, want)
-            e_dq = _k3_check(torch, dn, shape, "K3b-dq", {"dQ": split["dQ"]},
-                             want)
-            _flash_check(torch, dn, shape, _grads("split ", split, want))
+            e_dq = _k3_check(torch, gate, shape, "K3b-dq",
+                             {"dQ": split["dQ"]}, want)
+            _flash_check(torch, gate, shape, _grads("split ", split, want))
             errs = {"K1": e_fwd, "K3a": e_fused, "K3b-dkv": e_dkv,
                     "K3b-dq": e_dq}
             _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale,
@@ -1492,10 +1601,8 @@ def flash_phase(torch, timer, rows):
         B, S, H, D, causal = FLASH_LONG
         shape = [B, S, H, D, causal]
         q, k, v, do = _flash_inputs(torch, B, S, H, D, dtype, 47)
-        ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
         fa.reset_launches()
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-        out.backward(do)
+        want, route, out = k3_route_grads(torch, q, k, v, do, causal)
         torch.cuda.synchronize()
         got = dict(fa.launches)
         print(f"long-context route {dn} {shape}: launches {got}", flush=True)
@@ -1508,20 +1615,18 @@ def flash_phase(torch, timer, rows):
         scale = 1.0 / D ** 0.5
         ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
         delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
-        want = dict(zip(GRADS, fa.flash_bwd_ref(q, k, v, do, rlse, delta,
-                                                scale, causal)))
         # lse from the same kernel on the same inputs, outside the count
         lse = fa.flash_fwd(q, k, v, scale, causal)[1]
-        e_fwd = _k1_check(torch, dn, shape, out.detach(), ro, lse, rlse)
-        _flash_check(torch, dn, shape, _grads("split ", dict(zip(
-            GRADS, (ql.grad, kl.grad, vl.grad))), want))
-        e_dkv = _k3_check(torch, dn, shape, "K3b-dkv",
-                          {"dK": kl.grad, "dV": vl.grad}, want)
-        e_dq = _k3_check(torch, dn, shape, "K3b-dq", {"dQ": ql.grad}, want)
+        e_fwd = _k1_check(torch, gate, shape, out, ro, lse, rlse)
+        _flash_check(torch, gate, shape, _grads("split ", {
+            **route["K3b-dkv"], **route["K3b-dq"]}, want))
+        e_dkv = _k3_check(torch, gate, shape, "K3b-dkv", route["K3b-dkv"],
+                          want)
+        e_dq = _k3_check(torch, gate, shape, "K3b-dq", route["K3b-dq"], want)
         fused = dict(zip(GRADS, fa.flash_bwd_fused(q, k, v, do, lse, delta,
                                                    scale, causal)))
         torch.cuda.synchronize()
-        e_fused = _k3_check(torch, dn, shape, "K3a", fused, want)
+        e_fused = _k3_check(torch, gate, shape, "K3a", fused, want)
         _flash_rows(torch, timer, rows, dn, shape, q, k, v, do, scale, causal,
                     {"K1": e_fwd, "K3a": e_fused, "K3b-dkv": e_dkv,
                      "K3b-dq": e_dq})
@@ -2047,7 +2152,7 @@ def draft_phase(torch, card, model):
 
 def training_phase(torch, card):
     """``bench.py``'s training run on the port: returns the launch counts
-    of the 10 timed steps."""
+    of the 10 timed steps and its perf (tokens/s, step p50, peak GiB)."""
     from paddle_tpu_torch.distributed import ShardedTrainer
     from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -2109,14 +2214,222 @@ def training_phase(torch, card):
           f"for {steps} steps")
     tokens_per_s = batch * seq * steps / (total_ms / 1e3)
     mfu = tokens_per_s * 6 * cfg.num_params() / PEAK_FLOPS["bfloat16"]
+    perf = {"tokens_per_s": tokens_per_s,
+            "step_p50_ms": float(np.median(step_ms)),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(f"training on {card}: {tokens_per_s:.1f} tokens/s, step p50 "
-          f"{float(np.median(step_ms)):.2f} ms (min {min(step_ms):.2f}, max "
+          f"{perf['step_p50_ms']:.2f} ms (min {min(step_ms):.2f}, max "
           f"{max(step_ms):.2f}), MFU {mfu:.4f} (6 x {cfg.num_params()} "
-          f"params / 989 TFLOP/s), peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"params / 989 TFLOP/s), peak memory {perf['peak_gib']:.2f} GiB, "
           f"launches over {steps} steps {launches}", flush=True)
-    _profile_step(torch, trainer, ids, float(np.median(step_ms)))
+    _profile_step(torch, trainer, ids, perf["step_p50_ms"])
+    return launches, perf
+
+
+def _schedule():
+    """Phase 6b's learning rate: 3 warm-up steps to 1e-4, then a cosine
+    over 12 (a fresh one replays the rates on the host)."""
+    from paddle_tpu_torch.optimizer import lr
+
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=12), 3, 0.0,
+                           1e-4)
+
+
+def _snapshot(torch, model, opt):
+    """Copies of every parameter and every optimizer slot, on the card."""
+    params = [p.detach().clone() for p in model.parameters()]
+    states = [{k: v.clone() for k, v in opt._accumulators[id(p)].items()}
+              for p in model.parameters()]
+    return params, states
+
+
+def _unchanged(torch, model, opt, snap) -> bool:
+    params, states = snap
+    return all(torch.equal(a, p.detach())
+               for a, p in zip(params, model.parameters())) and all(
+        torch.equal(v, opt._accumulators[id(p)][k])
+        for st, p in zip(states, model.parameters()) for k, v in st.items())
+
+
+def training_fp16_phase(torch, card, base):
+    """6b: the loop a user writes, in fp16. ``gpt2_small`` at full width
+    and depth with per-block recompute, batch 16 x 1024, both dropouts 0
+    (so the gate admits flash), ``auto_cast(dtype="float16")``,
+    ``GradScaler``, and AdamW on a warm-up + cosine schedule with a
+    global-norm clip; 2 warm-up and 10 timed steps, then one planted step
+    whose loss is multiplied by inf. Returns the launch counts of the
+    timed steps; ``base`` is phase 6's perf, printed beside."""
+    from paddle_tpu_torch.amp import GradScaler, auto_cast
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt2_small()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    cfg.recompute_granularity = "full"
+    batch, seq, warm, steps = 16, 1024, 2, 10
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    sched, replay = _schedule(), _schedule()
+    opt = AdamW(sched, parameters=model.parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    # one non-finite step halves the scale (the default waits for two)
+    scaler = GradScaler(init_loss_scaling=2.0 ** 15, incr_every_n_steps=4,
+                        decr_every_n_nan_or_inf=1)
+
+    def step(plant=False):
+        check(opt.get_lr() == replay(), f"6b: learning rate {opt.get_lr()!r}"
+              f" != the schedule replayed on the host {replay()!r}")
+        with auto_cast(dtype="float16"):
+            loss = model(ids, ids)
+        if plant:
+            loss = loss * float("inf")
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        sched.step()
+        replay.step()
+        return loss.detach()
+
+    losses = [step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    for m in (fa, k2):
+        m.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    for start, end in ev:
+        start.record()
+        losses.append(step())
+        end.record()
+    torch.cuda.synchronize()
+    launches = {"K1": fa.launches["fwd"], "K3a": fa.launches["bwd_fused"],
+                "K3b-dkv": fa.launches["bwd_dkv"],
+                "K3b-dq": fa.launches["bwd_dq"], "K2": k2.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [s.elapsed_time(e) for s, e in ev]
+    total_ms = ev[0][0].elapsed_time(ev[-1][1])
+    vals = [float(x) for x in losses]
+    print(f"6b fp16 losses: {vals}; loss scale {scaler.get_loss_scaling()},"
+          f" skipped {scaler.num_skipped_steps}", flush=True)
+    check(all(np.isfinite(vals)), "6b: non-finite fp16 training loss")
+    check(vals[-1] < vals[0], f"6b: loss did not fall: {vals[0]} -> "
+          f"{vals[-1]}")
+    L = cfg.num_layers
+    # per step: K1 in each block's forward and again in its replay, K3a
+    # once; K2 twice a block forward and replay, and ln_f once
+    want = {"K1": 2 * L * steps, "K3a": L * steps, "K3b-dkv": 0,
+            "K3b-dq": 0, "K2": (4 * L + 1) * steps}
+    check(launches == want, f"6b: launch counts {launches} != {want} for "
+          f"{steps} steps")
+    # the planted step: skipped, nothing moved, the scale halved
+    snap = _snapshot(torch, model, opt)
+    scale = scaler.get_loss_scaling()
+    skipped = scaler.num_skipped_steps
+    step(plant=True)
+    torch.cuda.synchronize()
+    check(scaler.num_skipped_steps == skipped + 1 == 1,
+          f"6b: skipped steps {scaler.num_skipped_steps}, expected the "
+          "planted one only")
+    check(scaler.get_loss_scaling() == scale / 2, f"6b: loss scale "
+          f"{scaler.get_loss_scaling()} after the planted step, expected "
+          f"{scale / 2}")
+    check(_unchanged(torch, model, opt, snap), "6b: the planted inf step "
+          "moved a parameter or an optimizer slot")
+    del snap
+    tokens_per_s = batch * seq * steps / (total_ms / 1e3)
+    print(f"6b fp16 + recompute on {card}: {tokens_per_s:.1f} tokens/s "
+          f"(phase 6 {base['tokens_per_s']:.1f}), step p50 "
+          f"{float(np.median(step_ms)):.2f} ms (phase 6 "
+          f"{base['step_p50_ms']:.2f}), peak memory {peak:.2f} GiB (phase 6 "
+          f"{base['peak_gib']:.2f}), launches over {steps} steps "
+          f"{launches}; the planted inf step skipped with parameters and "
+          f"AdamW state bitwise unchanged, scale {scale} -> "
+          f"{scaler.get_loss_scaling()}", flush=True)
     return launches
+
+
+def training_defaults_phase(torch, card):
+    """6c: ``gpt2_small`` with its default dropouts (0.1 / 0.1) trains:
+    O2 in bf16 (``decorate``) with AdamW's fp32 master weights, 5 steps
+    of a user loop at batch 4 x 1024, then 5 through
+    ``ShardedTrainer(recompute=True)``. Attention dropout keeps the plain
+    attention, so K1 and K3 launch 0 times."""
+    from paddle_tpu_torch.amp import auto_cast, decorate
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.nn.layers import LayerNorm
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt2_small()
+    check(cfg.hidden_dropout == cfg.attention_dropout == 0.1,
+          f"6c: gpt2_small's dropouts are {cfg.hidden_dropout}, "
+          f"{cfg.attention_dropout}")
+    batch, seq, steps = 4, 1024, 5
+    L = cfg.num_layers
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    for how in ("loop", "ShardedTrainer(recompute=True)"):
+        torch.manual_seed(0)
+        model = GPTForCausalLM(cfg, device="cuda", seed=0)
+        model.train()
+        opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                    multi_precision=True)
+        model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+        trainer = ShardedTrainer(model, opt, None, recompute=True, amp=True,
+                                 amp_dtype="bfloat16") \
+            if how != "loop" else None
+        for m in (fa, k2):
+            m.reset_launches()
+        losses = []
+        for _ in range(steps):
+            if trainer is not None:
+                losses.append(trainer.train_step(ids, ids))
+                continue
+            with auto_cast(level="O2", dtype="bfloat16"):
+                loss = model(ids, ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        vals = [float(x) for x in losses]
+        launches = {"K1": fa.launches["fwd"],
+                    "K3": sum(fa.launches[n] for n in
+                              ("bwd_fused", "bwd_dkv", "bwd_dq")),
+                    "K2": k2.launches}
+        # K2 twice a block and once for ln_f a forward; the trainer's
+        # recompute replays the whole forward
+        want = {"K1": 0, "K3": 0,
+                "K2": (2 * L + 1) * steps * (2 if trainer else 1)}
+        print(f"6c {how}: losses {vals}, launches {launches}", flush=True)
+        check(all(np.isfinite(vals)), f"6c {how}: non-finite loss")
+        check(vals[-1] < vals[0], f"6c {how}: loss did not fall: "
+              f"{vals[0]} -> {vals[-1]}")
+        check(launches == want, f"6c {how}: launch counts {launches} != "
+              f"{want}")
+        norms = {id(p) for m in model.modules() if isinstance(m, LayerNorm)
+                 for p in m.parameters()}
+        for p in model.parameters():
+            norm = id(p) in norms
+            check(p.dtype == (torch.float32 if norm else torch.bfloat16),
+                  f"6c: a {'LayerNorm' if norm else 'non-norm'} parameter "
+                  f"is {p.dtype} after decorate(O2)")
+            st = opt._accumulators[id(p)]
+            check(norm or (st["@master"].dtype == torch.float32
+                           and st["moment1"].dtype == torch.float32),
+                  "6c: a bf16 parameter has no fp32 master weight")
+        del model, opt, trainer
+    print(f"6c on {card}: gpt2_small with dropouts 0.1/0.1 trains in O2 "
+          "bf16 with fp32 masters, by a loop and by ShardedTrainer("
+          "recompute=True)", flush=True)
 
 
 def _profile_step(torch, trainer, ids, step_ms):
@@ -2180,6 +2493,11 @@ KERNELS = {
                     "of 17 rows: two row tiles)",
                     "paddle_tpu_torch/csrc/paged_attention.cu",
                     "paddle_tpu/ops/pallas/paged_attention.py:103"),
+    "K1-fp16": ("flash_fwd (fp16 mma.sync body)",
+                "paddle_tpu_torch/csrc/flash_fwd.cu",
+                f"{_FA}:54, {_FA}:108"),
+    "K3a-fp16": ("flash_bwd_fused (fp16 mma.sync body)",
+                 "paddle_tpu_torch/csrc/flash_bwd.cu", f"{_FA}:362"),
 }
 # the row each kernel reports in the kernels line: for K2, K4 and K5
 # fp32 (the serving phase's dtype) at the decode shape for K2 and K4,
@@ -2187,7 +2505,8 @@ KERNELS = {
 # 5c's) bf16 at the decode shape and the deepest prefix, and K4's at
 # phase 5d's verify of 16 drafts (s 17); for the flash
 # kernels bf16 (the training phase's dtype under AMP) at the shape of the
-# path that launches them.
+# path that launches them, and their fp16 bodies (phase 6b's) at the
+# training shape.
 # id -> (row's kernel, dtype, shape)
 _K5_DEEP = [128, 517, 12, 64, 16, 64]
 HEADLINE = {"K1": ("K1", "bfloat16", list(FLASH_CASES[0])),
@@ -2203,7 +2522,9 @@ HEADLINE = {"K1": ("K1", "bfloat16", list(FLASH_CASES[0])),
             "K5-int8-bf16": ("K5-int8", "bfloat16", _K5_DEEP),
             "K4-bf16": ("K4", "bfloat16", [8, 1, 12, 64, 16, 64]),
             "K4-int8-bf16": ("K4-int8", "bfloat16", [8, 1, 12, 64, 16, 64]),
-            "K4-bf16-s17": ("K4", "bfloat16", [8, 17, 12, 64, 16, 64])}
+            "K4-bf16-s17": ("K4", "bfloat16", [8, 17, 12, 64, 16, 64]),
+            "K1-fp16": ("K1", "float16", list(FLASH_CASES[0])),
+            "K3a-fp16": ("K3a", "float16", list(FLASH_CASES[0]))}
 
 
 def main():
@@ -2263,11 +2584,17 @@ def main():
                      "K4-bf16": bf16_launches["K4"],
                      "K4-int8-bf16": bf16_q_launches["K4-int8"],
                      "K4-bf16-s17": k16_launches})
-    train_launches = training_phase(torch, card)
+    train_launches, train_perf = training_phase(torch, card)
     lap("training")
+    fp16_launches = training_fp16_phase(torch, card, train_perf)
+    lap("fp16 training")
+    training_defaults_phase(torch, card)
+    lap("training at the model's defaults")
     launches.update({"K1": train_launches["K1"], "K3a": train_launches["K3a"],
                      "K3b-dkv": long_launches["bwd_dkv"],
-                     "K3b-dq": long_launches["bwd_dq"]})
+                     "K3b-dq": long_launches["bwd_dq"],
+                     "K1-fp16": fp16_launches["K1"],
+                     "K3a-fp16": fp16_launches["K3a"]})
 
     out = []
     for kid, (name, src, replaces) in KERNELS.items():

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted faults in K1's bf16 kernel, held to chip_smoke.py's K1 gates.
+"""Planted faults in K1's tensor-core kernel, held to chip_smoke.py's K1 gates.
 
 Run from the root of a checkout on one Hopper card (``nvcc`` and
 PyTorch built for CUDA): ``python3 k1_fault_check.py``. For the sound
@@ -8,8 +8,12 @@ kernel and then for each fault of ``FAULTS``, it copies
 temporary directory, plants the fault in the copy's
 ``csrc/flash_fwd.cu`` (the checkout is never edited), builds that
 copy's kernels and runs every K1 case of ``chip_smoke.py`` (the cases of
-``k1_case_inputs``, the timed shapes and the long-context shape) against
-the plain version through two gates:
+``k1_case_inputs``, the timed shapes of ``FLASH_TIMED`` and the
+long-context shape) against the plain version through two gates. The
+sound kernel runs in fp32, bf16 and fp16, each fault in bf16 and fp16:
+the tensor-core body is one source instantiated on both types, so a
+fault planted in it reaches both, and both gates must catch it.
+The gates:
 
 - the flash gate: O and lse each within ``FLASH_TOL`` relative to
   max(1, max |plain|), the limit every flash kernel is held to;
@@ -49,8 +53,8 @@ FAULTS = {
         " && (more || j < 15);\n"),
     # Q.K^T reads the ring stage that tile j + 1's copies are filling
     "K read from the other ring stage": (
-        "    const bf16* kt = ks + (j & 1) * kTile * LDS;\n",
-        "    const bf16* kt = ks + ((j + 1) & 1) * kTile * LDS;\n"),
+        "    const T* kt = ks + (j & 1) * kTile * LDS;\n",
+        "    const T* kt = ks + ((j + 1) & 1) * kTile * LDS;\n"),
     # the last tile's V copies may still be in flight during P.V
     "last V tile not waited for": (
         "      mma::cp_async_wait<0>();\n",
@@ -69,18 +73,23 @@ FAULTS = {
 
 # for the sound kernel: the atol each rtol would need on O
 RTOLS = {"bfloat16": [0.0, 2.0 ** -8, 2.0 ** -7, 1e-2],
+         "float16": [0.0, 2.0 ** -11, 2.0 ** -10, 2.0 ** -9, 1e-2],
          "float32": [0.0, 1e-6, 1e-5]}
 
 
 def _cases(torch, cs, dtype):
+    """(name, (q, k, v), causal, gate) of every K1 case of ``dtype``."""
+    dn = str(dtype).split(".")[1]
     for name, qkv, causal, _ in cs.k1_case_inputs(torch, dtype):
-        yield name, qkv, causal
-    for ci, (B, S, H, D, causal) in enumerate(cs.FLASH_CASES):
+        yield name, qkv, causal, dn
+    for ci, (B, S, H, D, causal) in enumerate(cs.FLASH_TIMED[dn]):
         yield (f"timed {[B, S, H, D, causal]}",
-               cs._flash_inputs(torch, B, S, H, D, dtype, 41 + ci)[:3], causal)
+               cs._flash_inputs(torch, B, S, H, D, dtype, 41 + ci)[:3], causal,
+               cs.timed_gate(dn))
     B, S, H, D, causal = cs.FLASH_LONG
     yield (f"long-context {[B, S, H, D, causal]}",
-           cs._flash_inputs(torch, B, S, H, D, dtype, 47)[:3], causal)
+           cs._flash_inputs(torch, B, S, H, D, dtype, 47)[:3], causal,
+           cs.timed_gate(dn))
 
 
 def child(dtypes, sound_out, sound_in):
@@ -98,19 +107,21 @@ def child(dtypes, sound_out, sound_in):
     sound = torch.load(sound_in) if sound_in else None
     saved = {}
     for dn in dtypes:
-        for name, qkv, causal in _cases(torch, cs, getattr(torch, dn)):
+        for name, qkv, causal, gate in _cases(torch, cs, getattr(torch, dn)):
             scale = 1.0 / qkv[0].shape[-1] ** 0.5
             o, lse = fa.flash_fwd(*qkv, scale, causal)
             ro, rlse = fa.flash_fwd_ref(*qkv, scale, causal)
             finite = bool(torch.isfinite(o.float()).all()
                           and torch.isfinite(lse).all())
             rel = max(cs._rel_err(o, ro), cs._rel_err(lse, rlse))
-            e_lse, share = cs.k1_errors(dn, o, ro, lse, rlse)
-            row = {"dtype": dn, "case": name, "flash_gate_rel_err": rel,
-                   "flash_gate": finite and rel <= cs.FLASH_TOL[dn],
+            e_lse, share = cs.k1_errors(gate, o, ro, lse, rlse)
+            row = {"dtype": dn, "case": name, "gate": gate,
+                   "flash_gate_rel_err": rel,
+                   "flash_gate": finite and rel <= cs.FLASH_TOL[gate],
                    "lse_err": e_lse, "o_max_abs_err": cs._err(o, ro),
                    "o_limit_share": share,
-                   "k1_gate": finite and cs.k1_passes(dn, o, ro, lse, rlse)}
+                   "k1_gate": finite and cs.k1_passes(gate, o, ro, lse,
+                                                      rlse)}
             key = f"{dn} {name}"
             if sound is None:
                 saved[key] = (o.cpu(), lse.cpu())
@@ -151,14 +162,17 @@ def drive(script: Path, source: str, faults, gate: str,
           fault_dtypes=("bfloat16",)):
     """For the sound kernel and then each of ``faults`` (name -> (text,
     replacement) in ``csrc/<source>``): a fresh copy, ``script --child``
-    run in it (fp32 and bf16 for the sound kernel, ``fault_dtypes`` for a
-    fault: bf16 unless the faults are in an fp32 body), its JSON rows
+    run in it (fp32 and bf16 for the sound kernel, and any other of
+    ``fault_dtypes``; ``fault_dtypes`` for a fault: bf16 unless the faults
+    are in an fp32 body, bf16 and fp16 for the flash bodies), its JSON rows
     echoed and summed up. Exits non-zero if the sound kernel
     fails the shared gate (the rows' ``shared`` verdict) or ``gate``, or
     if a fault changes an output and ``gate`` catches it in no case. A
     fault named in ``may_fault`` whose run fails (the kernel faulted on
     the card, say) is reported as caught by the run, not by a gate."""
     root = script.parent
+    sound_dtypes = ["float32", "bfloat16"] + [
+        d for d in fault_dtypes if d not in ("float32", "bfloat16")]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -171,7 +185,7 @@ def drive(script: Path, source: str, faults, gate: str,
             copy_patched(root, dst, script, source,
                          [] if fault is None else [faults[fault]])
             cmd = [sys.executable, str(dst / script.name), "--child"]
-            cmd += (["--dtypes", "float32", "bfloat16", "--sound-out",
+            cmd += (["--dtypes", *sound_dtypes, "--sound-out",
                      str(sound)] if fault is None
                     else ["--dtypes", *fault_dtypes, "--sound-in",
                           str(sound)])
@@ -210,7 +224,8 @@ def drive(script: Path, source: str, faults, gate: str,
 
 
 def main():
-    drive(Path(__file__).resolve(), "flash_fwd.cu", FAULTS, "k1_gate")
+    drive(Path(__file__).resolve(), "flash_fwd.cu", FAULTS, "k1_gate",
+          fault_dtypes=("bfloat16", "float16"))
 
 
 if __name__ == "__main__":

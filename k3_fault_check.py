@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted faults in K3's bf16 bodies, held to chip_smoke.py's K3 gates.
+"""Planted faults in K3's tensor-core bodies, held to chip_smoke.py's K3 gates.
 
 Run from the root of a checkout on one Hopper card (``nvcc`` and
 PyTorch built for CUDA): ``python3 k3_fault_check.py``. For the sound
@@ -9,9 +9,13 @@ K3b-dkv, or in the dQ body, K3b-dq), it copies ``paddle_tpu_torch/``,
 temporary directory, plants the fault in the copy's
 ``csrc/flash_bwd.cu`` (the checkout is never edited), builds that copy's
 kernels and runs every K3a, K3b-dkv and K3b-dq case of
-``chip_smoke.py`` (the cases of ``k3_case_inputs``, the timed shapes and
-the long-context shape, with lse from K1 as in training) against the
-plain version through two gates:
+``chip_smoke.py`` (the cases of ``k3_case_inputs``, the timed shapes of
+``FLASH_TIMED`` and the long-context shape, with lse from K1 as in
+training, and the long-context route through the public sdpa's
+backward, lse and delta from its own forward) against the plain version
+through two gates. The sound kernel
+runs in fp32, bf16 and fp16, each fault in bf16 and fp16 (one source
+instantiated on both types). The gates:
 
 - the flash gate: each gradient within ``FLASH_TOL`` relative to
   max(1, max |plain|), the limit every flash kernel is held to;
@@ -47,8 +51,8 @@ FAULTS = {
         "    const int q0 = q_first + j * kTile;\n"),
     # S^T and dK read Q from the ring stage tile j + 1's copies fill
     "Q read from the other ring stage": (
-        "    const bf16* qt = qs + st * TILE;\n",
-        "    const bf16* qt = qs + (st ^ 1) * TILE;\n"),
+        "    const T* qt = qs + st * TILE;\n",
+        "    const T* qt = qs + (st ^ 1) * TILE;\n"),
     # the top-of-tile barrier, the only one between the dQ pass's reads
     # of the dS tile (and of the ring stage) and their overwrite
     "no barrier before the dS tile is overwritten": (
@@ -86,8 +90,8 @@ FAULTS = {
         "    const int k0 = j * kTile, st = j & 1;\n"),
     # S and dS K read K from the stage tile j + 1's copies fill
     "dQ: K read from the other ring stage": (
-        "    const bf16* kt = ks + st * TILE;\n",
-        "    const bf16* kt = ks + (st ^ 1) * TILE;\n"),
+        "    const T* kt = ks + st * TILE;\n",
+        "    const T* kt = ks + (st ^ 1) * TILE;\n"),
     # tile j's K and V copies may still be in flight during its math
     "dQ: key tile not waited for": (
         "    mma::cp_async_wait<0>();\n    __syncthreads();\n"
@@ -118,22 +122,34 @@ FAULTS = {
 
 # for the sound kernel: the atol each rtol would need, per gradient
 RTOLS = {"bfloat16": [0.0, 2.0 ** -8, 2.0 ** -7, 1e-2],
+         "float16": [0.0, 2.0 ** -11, 2.0 ** -10, 2.0 ** -9, 1e-2],
          "float32": [0.0, 1e-6, 1e-5]}
 # one unit in the last place of the dtype, relative to the value (at
-# most 2**-7 in bf16, 2**-22 in fp32): where dQ moves by no more (beyond
-# its spread), the atomics' order explains it and the fault did not
-# change it
-EPS = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -22}
+# most 2**-7 in bf16, 2**-10 in fp16, 2**-22 in fp32): where dQ moves
+# by no more (beyond its spread), the atomics' order explains it and the
+# fault did not change it
+EPS = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10, "float32": 2.0 ** -22}
 
 
 def _cases(torch, cs, dtype):
-    yield from cs.k3_case_inputs(torch, dtype)
-    for ci, (B, S, H, D, causal) in enumerate(cs.FLASH_CASES):
+    """(name, (q, k, v, dO), causal, gate, grads) of every K3 case of
+    ``dtype``: ``grads`` is ``chip_smoke.k3_grads`` (each kernel called
+    on K1's lse and the plain O's delta), or for the long-context route
+    ``k3_route_grads`` (the public sdpa's backward), as chip_smoke.py
+    checks each."""
+    dn = str(dtype).split(".")[1]
+    for name, inputs, causal in cs.k3_case_inputs(torch, dtype):
+        yield name, inputs, causal, dn, cs.k3_grads
+    for ci, (B, S, H, D, causal) in enumerate(cs.FLASH_TIMED[dn]):
         yield (f"timed {[B, S, H, D, causal]}",
-               cs._flash_inputs(torch, B, S, H, D, dtype, 41 + ci), causal)
+               cs._flash_inputs(torch, B, S, H, D, dtype, 41 + ci), causal,
+               cs.timed_gate(dn), cs.k3_grads)
     B, S, H, D, causal = cs.FLASH_LONG
-    yield (f"long-context {[B, S, H, D, causal]}",
-           cs._flash_inputs(torch, B, S, H, D, dtype, 47), causal)
+    inputs = cs._flash_inputs(torch, B, S, H, D, dtype, 47)
+    yield (f"long-context {[B, S, H, D, causal]}", inputs, causal,
+           cs.timed_gate(dn), cs.k3_grads)
+    yield (f"long-context route {[B, S, H, D, causal]}", inputs, causal,
+           cs.timed_gate(dn), cs.k3_route_grads)
 
 
 def child(dtypes, sound_out, sound_in):
@@ -150,15 +166,15 @@ def child(dtypes, sound_out, sound_in):
     sound = torch.load(sound_in) if sound_in else None
     saved = {}
     for dn in dtypes:
-        for name, (q, k, v, do), causal in _cases(torch, cs,
-                                                  getattr(torch, dn)):
-            want, got, _ = cs.k3_grads(torch, q, k, v, do, causal)
+        for name, (q, k, v, do), causal, gate, k3_grads in _cases(
+                torch, cs, getattr(torch, dn)):
+            want, got, _ = k3_grads(torch, q, k, v, do, causal)
             # each output's largest change over two more runs
             spreads = {kid: dict.fromkeys(grads, 0.0)
                        for kid, grads in got.items()}
             if sound is None:
                 for _ in range(2):
-                    again = cs.k3_grads(torch, q, k, v, do, causal)[1]
+                    again = k3_grads(torch, q, k, v, do, causal)[1]
                     for kid, grads in got.items():
                         for n, g in grads.items():
                             spreads[kid][n] = max(spreads[kid][n],
@@ -167,12 +183,14 @@ def child(dtypes, sound_out, sound_in):
                 finite = all(bool(torch.isfinite(g.float()).all())
                              for g in grads.values())
                 rel = max(cs._rel_err(g, want[n]) for n, g in grads.items())
-                shares = cs.k3_errors(dn, grads, want)
+                shares = cs.k3_errors(gate, grads, want)
                 row = {"dtype": dn, "case": name, "k3": kid,
                        "flash_gate_rel_err": rel,
-                       "flash_gate": finite and rel <= cs.FLASH_TOL[dn],
+                       "flash_gate": finite and rel <= cs.FLASH_TOL[gate],
                        "k3_limit_shares": shares,
-                       "k3_gate": finite and cs.k3_passes(dn, grads, want)}
+                       "k3_gate": finite and cs.k3_passes(gate, grads,
+                                                          want),
+                       "gate": gate}
                 key = f"{dn} {name} {kid}"
                 if sound is None:
                     saved[key] = ({n: g.cpu() for n, g in grads.items()},
@@ -204,8 +222,9 @@ def child(dtypes, sound_out, sound_in):
 def main():
     import k1_fault_check
 
-    k1_fault_check.drive(Path(__file__).resolve(), "flash_bwd.cu", FAULTS,
-                         "k3_gate")
+    k1_fault_check.drive(Path(__file__).resolve(), "flash_bwd.cu",
+                         FAULTS, "k3_gate",
+                         fault_dtypes=("bfloat16", "float16"))
 
 
 if __name__ == "__main__":

@@ -17,7 +17,11 @@ block pool with the LayerNorm, paged-decode and chunk-prefill kernels.
 Slice 2 ports GPT training on one card: ``GPTForCausalLM(ids, labels)``,
 paddle's AMP (``amp``), ``Adam``/``AdamW`` (``optimizer``) and
 ``distributed.ShardedTrainer``, with the flash-attention forward and
-backward kernels.
+backward kernels. Slice 13 adds the rest of the one-card training loop:
+``optimizer.lr`` schedulers, ``nn`` gradient clipping,
+``amp.GradScaler`` and ``amp.decorate`` (O2) with master weights,
+recompute (``distributed.fleet.utils``), attention dropout and the
+cross-entropy variants; the flash kernels take float16 too.
 """
 
 from paddle_tpu_torch.core.place import resolve_device

@@ -11,17 +11,22 @@ op names the JAX dispatcher uses (``linear``, ``matmul``,
 
 ``torch.autocast`` is deliberately not used: its op lists differ from
 paddle's (it runs ``layer_norm`` in the input dtype, for one).
+
+:func:`decorate` is paddle's O2 (``amp.decorate``, :133-160): it casts
+the fp32 parameters of a model to the amp dtype in place, all but those
+of its normalization layers, which stay fp32.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Sequence, Set
+from typing import Optional, Sequence, Set
 
 import torch
 
 __all__ = ["auto_cast", "amp_guard", "white_list", "black_list",
-           "amp_state", "maybe_cast_inputs", "WHITE_LIST", "BLACK_LIST"]
+           "amp_state", "maybe_cast_inputs", "decorate", "WHITE_LIST",
+           "BLACK_LIST"]
 
 # ops that are numerically safe and tensor-core profitable in low
 # precision (auto_cast.py:22-29)
@@ -137,3 +142,33 @@ def maybe_cast_inputs(op_name: str, vals: Sequence) -> Sequence:
     return [v.to(target) if isinstance(v, torch.Tensor)
             and v.dtype in _FLOATS and v.dtype != target else v
             for v in vals]
+
+
+def decorate(models=None, optimizers=None, level: str = "O2",
+             dtype: str = "bfloat16", master_weight=None,
+             save_dtype: Optional[str] = None):
+    """``paddle.amp.decorate``: under O2 every fp32 parameter of
+    ``models`` (a layer or a list of them) is cast to ``dtype`` in place,
+    the same ``Parameter`` objects keeping their identity (an optimizer
+    built before still holds them), except the parameters of the
+    normalization layers, which stay fp32. Returns the models, and with
+    ``optimizers`` the pair, as the reference does. ``master_weight`` and
+    ``save_dtype`` are accepted and, as in the reference, not acted on:
+    master weights are the optimizer's ``multi_precision``."""
+    from paddle_tpu_torch.nn.layers.norm import LayerNorm
+
+    target = _to_dtype(dtype)
+    single = isinstance(models, torch.nn.Module)
+    model_list = [models] if single else list(models or ())
+    for model in model_list:
+        if level != "O2":
+            continue
+        for layer in model.modules():
+            if isinstance(layer, LayerNorm):
+                continue
+            for p in layer._parameters.values():
+                if p is not None and p.dtype == torch.float32:
+                    p.data = p.data.to(target)
+    if optimizers is None:
+        return models if single else model_list
+    return (models if single else model_list), optimizers

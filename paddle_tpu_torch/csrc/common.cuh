@@ -1,7 +1,8 @@
 // Shared helpers for the port's hand-written Hopper kernels: fp32/bf16
 // load-store conversions and the dtype codes the Python wrappers pass
-// (0 = float32, 1 = bfloat16, 2 = int8 codes of a quantized KV pool).
-// Every kernel computes in fp32.
+// (0 = float32, 1 = bfloat16, 2 = int8 codes of a quantized KV pool,
+// 3 = float16, which the flash kernels take). Every kernel computes in
+// fp32.
 #pragma once
 
 #include <cstdint>
@@ -11,7 +12,7 @@
 
 namespace ptt {
 
-enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2, kFloat16 = 3 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {

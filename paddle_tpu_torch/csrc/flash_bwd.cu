@@ -38,7 +38,7 @@
 // operations: 26.6 GFLOP at S 8320 (B 1, H 2, D 64, causal), 27 us at
 // 989 TFLOP/s against 3 us for its 10.6 MB.
 //
-// bf16 dK/dV body, flash_bwd_mma_kernel<D, WITH_DQ>: every product on
+// bf16 dK/dV body, flash_bwd_mma_kernel<D, WITH_DQ, T>: every product on
 // the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate;
 // flash_mma.cuh). A CTA of 4 warps owns 64 keys, 16 per warp; two CTAs
 // share an SM. K and V are staged once by cp.async; at D 64 each warp
@@ -70,7 +70,7 @@
 // warp reads the whole Q and dO tile, twice: as is and transposed), and
 // with dQ the atomics.
 //
-// bf16 dQ body, flash_dq_mma_kernel<D>: the dK/dV body's mirror, in the
+// bf16 dQ body, flash_dq_mma_kernel<D, T>: the dK/dV body's mirror, in the
 // natural orientation (queries on the accumulator rows). A CTA of 4
 // warps owns 64 queries of one (batch, head), 16 per warp; two CTAs
 // share an SM (at S 8320, B 1, H 2: 260 CTAs on 264 slots, one wave).
@@ -94,6 +94,12 @@
 // per query tile in 16-byte chunks; what is left is latency at 8 warps an
 // SM and the shared-memory reads of the K and V fragments (each warp
 // reads K twice, as is and transposed, and V once).
+//
+// fp16: the same two bodies, instantiated on __half (flash_mma.cuh's
+// Elem<T>: the m16n8k16 .f16 product, and P, dS, dK, dV and dQ rounded
+// to fp16 to nearest, a value past 65504 becoming inf and never
+// saturating, so that an overflow reaches the loss scaler). Where the
+// notes above say bf16 of these bodies, read the input's 16-bit type.
 //
 // fp32: the CUDA-core bodies, products in fp32 on register micro-tiles
 // fed by float4 shared-memory reads (no TF32: the fp32 contract is 1e-4
@@ -274,10 +280,10 @@ constexpr size_t mma_smem() {
          sizeof(float) * 4 * kTile;
 }
 
-template <int D, bool WITH_DQ>
+template <int D, bool WITH_DQ, typename T>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     flash_bwd_mma_kernel(const Args a) {
-  using mma::bf16;
+  using E = mma::Elem<T>;
   constexpr int LDS = D + 8;       // row stride of K, V, Q, dO
   constexpr int LDP = kTile + 8;   // row stride of the dS^T tile
   constexpr int TILE = kTile * LDS;
@@ -288,23 +294,23 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   constexpr bool HOLD = D == 64;   // K and V fragments held in registers
   constexpr int DQC = 64;          // dQ columns per pass
   extern __shared__ float4 smem4[];
-  bf16* ks = reinterpret_cast<bf16*>(smem4);
-  bf16* vs = ks + TILE;
-  bf16* qs = vs + TILE;     // 2 stages
-  bf16* dos = qs + 2 * TILE;  // 2 stages
+  T* ks = reinterpret_cast<T*>(smem4);
+  T* vs = ks + TILE;
+  T* qs = vs + TILE;     // 2 stages
+  T* dos = qs + 2 * TILE;  // 2 stages
   float* lse_s = reinterpret_cast<float*>(dos + 2 * TILE);  // 2 stages
   float* delta_s = lse_s + 2 * kTile;                       // 2 stages
-  bf16* dss = reinterpret_cast<bf16*>(delta_s + 2 * kTile);  // with dQ
+  T* dss = reinterpret_cast<T*>(delta_s + 2 * kTile);  // with dQ
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int k0 = blockIdx.x * kTile, kw = k0 + warp * 16;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.kv_sb + h * a.kv_sh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.kv_sb + h * a.kv_sh;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.kv_sb + h * a.kv_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.kv_sb + h * a.kv_sh;
   const int64_t o_ss = static_cast<int64_t>(a.H) * D;  // dO is contiguous
-  const bf16* dout = static_cast<const bf16*>(a.dout) +
+  const T* dout = static_cast<const T*>(a.dout) +
                      static_cast<int64_t>(b) * a.Sq * o_ss + h * D;
   const float* lse = a.lse + static_cast<int64_t>(bh) * a.Sq;
   const float* delta = a.delta + static_cast<int64_t>(bh) * a.Sq;
@@ -355,8 +361,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   for (int j = 0; j < n_tiles; ++j) {
     const int q0 = q_first + j * kTile;
     const int st = j & 1;
-    const bf16* qt = qs + st * TILE;
-    const bf16* dt = dos + st * TILE;
+    const T* qt = qs + st * TILE;
+    const T* dt = dos + st * TILE;
     const float* lt = lse_s + st * kTile;
     const float* delt = delta_s + st * kTile;
     // tile j has landed; every warp is done with tile j - 1: with its
@@ -394,11 +400,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
         for (int n = 0; n < NC; n += 2) {
           uint32_t bq[4], bd[4];
           mma::ldsm_x4(bq, mma::b_x4<LDS>(qt, c + n * 8, kd * 16, lane));
-          mma::mma_bf16(s[n], ka, bq[0], bq[1]);
-          mma::mma_bf16(s[n + 1], ka, bq[2], bq[3]);
+          E::mma(s[n], ka, bq[0], bq[1]);
+          E::mma(s[n + 1], ka, bq[2], bq[3]);
           mma::ldsm_x4(bd, mma::b_x4<LDS>(dt, c + n * 8, kd * 16, lane));
-          mma::mma_bf16(dp[n], va, bd[0], bd[1]);
-          mma::mma_bf16(dp[n + 1], va, bd[2], bd[3]);
+          E::mma(dp[n], va, bd[0], bd[1]);
+          E::mma(dp[n + 1], va, bd[2], bd[3]);
         }
       }
       // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale,
@@ -424,27 +430,27 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
         }
       }
       // dV_w += P^T dO and dK_w += dS^T Q: two n8 tiles of P^T (dS^T),
-      // rounded to bf16 (P to dO's dtype :408, dS to Q's :417), are one
+      // rounded to T (P to dO's dtype :408, dS to Q's :417), are one
       // k16 A fragment
 #pragma unroll
       for (int kk = 0; kk < NC / 2; ++kk) {
         uint32_t pa[4], da[4];
-        mma::pack_a(pa, s[2 * kk], s[2 * kk + 1]);
-        mma::pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
+        E::pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+        E::pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
         for (int n = 0; n < ND; n += 2) {
           uint32_t bf[4];
           mma::ldsm_x4_trans(bf, mma::bt_x4<LDS>(dt, c + kk * 16, n * 8, lane));
-          mma::mma_bf16(dv[n], pa, bf[0], bf[1]);
-          mma::mma_bf16(dv[n + 1], pa, bf[2], bf[3]);
+          E::mma(dv[n], pa, bf[0], bf[1]);
+          E::mma(dv[n + 1], pa, bf[2], bf[3]);
           mma::ldsm_x4_trans(bf, mma::bt_x4<LDS>(qt, c + kk * 16, n * 8, lane));
-          mma::mma_bf16(dk[n], da, bf[0], bf[1]);
-          mma::mma_bf16(dk[n + 1], da, bf[2], bf[3]);
+          E::mma(dk[n], da, bf[0], bf[1]);
+          E::mma(dk[n + 1], da, bf[2], bf[3]);
         }
         if constexpr (WITH_DQ) {
-          // dS^T in bf16 (K's dtype, :422) into the tile: key rows,
+          // dS^T in T (K's dtype, :422) into the tile: key rows,
           // query columns
-          bf16* r = dss + (warp * 16 + g) * LDP + c + kk * 16 + 2 * t;
+          T* r = dss + (warp * 16 + g) * LDP + c + kk * 16 + 2 * t;
           *reinterpret_cast<uint32_t*>(r) = da[0];
           *reinterpret_cast<uint32_t*>(r + 8 * LDP) = da[1];
           *reinterpret_cast<uint32_t*>(r + 8) = da[2];
@@ -475,8 +481,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
             uint32_t bf[4];
             mma::ldsm_x4_trans(bf,
                                mma::bt_x4<LDS>(ks, kk * 16, dc + n * 8, lane));
-            mma::mma_bf16(dq[n], sa, bf[0], bf[1]);
-            mma::mma_bf16(dq[n + 1], sa, bf[2], bf[3]);
+            E::mma(dq[n], sa, bf[0], bf[1]);
+            E::mma(dq[n + 1], sa, bf[2], bf[3]);
           }
         }
 #pragma unroll
@@ -495,8 +501,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     }
   }
 
-  bf16* dk_out = static_cast<bf16*>(a.dk);
-  bf16* dv_out = static_cast<bf16*>(a.dv);
+  T* dk_out = static_cast<T*>(a.dk);
+  T* dv_out = static_cast<T*>(a.dv);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = kw + g + 8 * i;
@@ -506,9 +512,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<uint32_t*>(dk_out + off + n * 8) =
-          mma::pack_bf16(dk[n][2 * i], dk[n][2 * i + 1]);
+          E::pack(dk[n][2 * i], dk[n][2 * i + 1]);
       *reinterpret_cast<uint32_t*>(dv_out + off + n * 8) =
-          mma::pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+          E::pack(dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }
@@ -576,10 +582,10 @@ constexpr size_t dq_mma_smem() {
   return sizeof(__nv_bfloat16) * 6 * kTile * (D + 8);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     flash_dq_mma_kernel(const Args a) {
-  using mma::bf16;
+  using E = mma::Elem<T>;
   constexpr int LDS = D + 8;       // row stride of Q, dO, K, V
   constexpr int TILE = kTile * LDS;
   constexpr int KD = D / 16;       // k16 steps over the head dim
@@ -587,10 +593,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   constexpr int KC = 64;           // keys per chunk of a key tile
   constexpr int NC = KC / 8;       // n8 tiles over a chunk's keys
   extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dos = qs + TILE;
-  bf16* ks = dos + TILE;     // 2 stages
-  bf16* vs = ks + 2 * TILE;  // 2 stages
+  T* qs = reinterpret_cast<T*>(smem4);
+  T* dos = qs + TILE;
+  T* ks = dos + TILE;     // 2 stages
+  T* vs = ks + 2 * TILE;  // 2 stages
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -598,11 +604,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   const int tile = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = tile * kTile, w0 = q0 + warp * 16;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.kv_sb + h * a.kv_sh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.kv_sb + h * a.kv_sh;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.kv_sb + h * a.kv_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.kv_sb + h * a.kv_sh;
   const int64_t o_ss = static_cast<int64_t>(a.H) * D;  // dO is contiguous
-  const bf16* dout = static_cast<const bf16*>(a.dout) +
+  const T* dout = static_cast<const T*>(a.dout) +
                      static_cast<int64_t>(b) * a.Sq * o_ss + h * D;
   // causal (top-left): keys past the tile's last row are dead
   const int k_end = a.causal ? min(q0 + kTile, a.Sk) : a.Sk;
@@ -655,8 +661,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kTile, st = j & 1;
-    const bf16* kt = ks + st * TILE;
-    const bf16* vt = vs + st * TILE;
+    const T* kt = ks + st * TILE;
+    const T* vt = vs + st * TILE;
     // key tile j has landed; every warp is done with tile j - 1, whose
     // stage tile j + 1's copies now refill
     mma::cp_async_wait<0>();
@@ -679,11 +685,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
         for (int n = 0; n < NC; n += 2) {
           uint32_t bk[4], bv[4];
           mma::ldsm_x4(bk, mma::b_x4<LDS>(kt, c + n * 8, kd * 16, lane));
-          mma::mma_bf16(s[n], qf[kd], bk[0], bk[1]);
-          mma::mma_bf16(s[n + 1], qf[kd], bk[2], bk[3]);
+          E::mma(s[n], qf[kd], bk[0], bk[1]);
+          E::mma(s[n + 1], qf[kd], bk[2], bk[3]);
           mma::ldsm_x4(bv, mma::b_x4<LDS>(vt, c + n * 8, kd * 16, lane));
-          mma::mma_bf16(dp[n], df[kd], bv[0], bv[1]);
-          mma::mma_bf16(dp[n + 1], df[kd], bv[2], bv[3]);
+          E::mma(dp[n], df[kd], bv[0], bv[1]);
+          E::mma(dp[n + 1], df[kd], bv[2], bv[3]);
         }
       }
       // P = exp(S scale - lse) and dS = P (dP - delta) scale on the
@@ -700,25 +706,25 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
           }
           dp[n][e] = p * (dp[n][e] - delta_r[e / 2]) * a.scale;
         }
-      // dQ_w += dS K: two n8 tiles of dS, rounded to bf16 (K's dtype,
+      // dQ_w += dS K: two n8 tiles of dS, rounded to T (K's dtype,
       // :255), are one k16 A fragment; K by ldmatrix.trans
 #pragma unroll
       for (int kk = 0; kk < NC / 2; ++kk) {
         uint32_t sa[4];
-        mma::pack_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+        E::pack_a(sa, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
         for (int n = 0; n < ND; n += 2) {
           uint32_t bf[4];
           mma::ldsm_x4_trans(bf, mma::bt_x4<LDS>(kt, c + kk * 16, n * 8, lane));
-          mma::mma_bf16(dq[n], sa, bf[0], bf[1]);
-          mma::mma_bf16(dq[n + 1], sa, bf[2], bf[3]);
+          E::mma(dq[n], sa, bf[0], bf[1]);
+          E::mma(dq[n + 1], sa, bf[2], bf[3]);
         }
       }
     }
   }
 
-  // dQ in bf16 pairs, each row written once by its lane quad
-  bf16* dq_out = static_cast<bf16*>(a.out);
+  // dQ in T pairs, each row written once by its lane quad
+  T* dq_out = static_cast<T*>(a.out);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = w0 + g + 8 * i;
@@ -728,7 +734,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(dq_out + off + n * 8) =
-          mma::pack_bf16(dq[n][2 * i], dq[n][2 * i + 1]);
+          E::pack(dq[n][2 * i], dq[n][2 * i + 1]);
   }
 }
 
@@ -743,10 +749,10 @@ cudaError_t dq_f32(const Args& a, cudaStream_t st) {
   return launch(flash_dq_kernel<D>, grid, smem, st, a);
 }
 
-template <int D>
-cudaError_t dq_bf16(const Args& a, cudaStream_t st) {
+template <int D, typename T>
+cudaError_t dq_mma(const Args& a, cudaStream_t st) {
   const dim3 grid((a.Sq + kTile - 1) / kTile, a.B * a.H);
-  return launch(flash_dq_mma_kernel<D>, grid, dq_mma_smem<D>(), st, a,
+  return launch(flash_dq_mma_kernel<D, T>, grid, dq_mma_smem<D>(), st, a,
                 kMmaThreads);
 }
 
@@ -760,32 +766,47 @@ cudaError_t dkv_f32(const Args& a, bool fused, cudaStream_t st) {
                : launch(flash_dkv_kernel<D, false>, grid, smem, st, a);
 }
 
-template <int D>
-cudaError_t dkv_bf16(const Args& a, bool fused, cudaStream_t st) {
+template <int D, typename T>
+cudaError_t dkv_mma(const Args& a, bool fused, cudaStream_t st) {
   const dim3 grid((a.Sk + kTile - 1) / kTile, a.B * a.H);
-  return fused ? launch(flash_bwd_mma_kernel<D, true>, grid,
+  return fused ? launch(flash_bwd_mma_kernel<D, true, T>, grid,
                         mma_smem<D, true>(), st, a, kMmaThreads)
-               : launch(flash_bwd_mma_kernel<D, false>, grid,
+               : launch(flash_bwd_mma_kernel<D, false, T>, grid,
                         mma_smem<D, false>(), st, a, kMmaThreads);
+}
+
+// The tensor-core bodies of element type T (bf16 or fp16).
+template <typename T>
+cudaError_t dispatch_mma(const Args& a, int D, Kind kind, cudaStream_t st) {
+  const bool d64 = D == 64;
+  if (!mma_aligned(a, a.dout)) return cudaErrorInvalidValue;
+  if (kind == Kind::kDq)
+    return d64 ? dq_mma<64, T>(a, st) : dq_mma<128, T>(a, st);
+  const bool fused = kind == Kind::kFused;
+  return d64 ? dkv_mma<64, T>(a, fused, st) : dkv_mma<128, T>(a, fused, st);
 }
 
 cudaError_t dispatch(const Args& a, int D, int dtype, Kind kind,
                      cudaStream_t st) {
   const bool d64 = D == 64;
-  if (dtype == kFloat32) {
-    if (kind == Kind::kDq) return d64 ? dq_f32<64>(a, st) : dq_f32<128>(a, st);
-    const bool fused = kind == Kind::kFused;
-    return d64 ? dkv_f32<64>(a, fused, st) : dkv_f32<128>(a, fused, st);
+  switch (dtype) {
+    case kFloat32: {
+      if (kind == Kind::kDq)
+        return d64 ? dq_f32<64>(a, st) : dq_f32<128>(a, st);
+      const bool fused = kind == Kind::kFused;
+      return d64 ? dkv_f32<64>(a, fused, st) : dkv_f32<128>(a, fused, st);
+    }
+    case kBFloat16:
+      return dispatch_mma<__nv_bfloat16>(a, D, kind, st);
+    case kFloat16:
+      return dispatch_mma<__half>(a, D, kind, st);
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (!mma_aligned(a, a.dout)) return cudaErrorInvalidValue;
-  if (kind == Kind::kDq) return d64 ? dq_bf16<64>(a, st) : dq_bf16<128>(a, st);
-  const bool fused = kind == Kind::kFused;
-  return d64 ? dkv_bf16<64>(a, fused, st) : dkv_bf16<128>(a, fused, st);
 }
 
 int run(const Args& a, int D, int dtype, Kind kind, void* stream) {
-  if (!valid_args(a, D) || (dtype != kFloat32 && dtype != kBFloat16))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_args(a, D)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       dispatch(a, D, dtype, kind, static_cast<cudaStream_t>(stream)));
 }
@@ -808,7 +829,8 @@ cudaError_t mma_occupancy(K kern, size_t bytes, int* ctas, int* smem) {
 // Common arguments: q, k, v (B, S, H, D) with strides (sb, ss, sh, 1), k
 // and v sharing theirs; dO contiguous (B, Sq, H, D); lse and delta fp32
 // (B, H, Sq); dK, dV contiguous (B, Sk, H, D) in the input dtype. The
-// bf16 dK/dV body also needs the alignment of mma_aligned (q, k, v, dO).
+// bf16 and fp16 bodies also need the alignment of mma_aligned (q, k, v,
+// dO).
 // Each returns the launch's cudaError_t (0 = launched).
 #define PTT_FLASH_BWD_PARAMS                                                \
   int B, int H, int Sq, int Sk, int D, int64_t q_sb, int64_t q_ss,          \
@@ -863,14 +885,14 @@ extern "C" int ptt_flash_bwd_occupancy(int D, int fused, int* ctas,
                                        int* smem) {
   cudaError_t e = cudaErrorInvalidValue;
   if (D == 64)
-    e = fused ? mma_occupancy(flash_bwd_mma_kernel<64, true>,
+    e = fused ? mma_occupancy(flash_bwd_mma_kernel<64, true, mma::bf16>,
                               mma_smem<64, true>(), ctas, smem)
-              : mma_occupancy(flash_bwd_mma_kernel<64, false>,
+              : mma_occupancy(flash_bwd_mma_kernel<64, false, mma::bf16>,
                               mma_smem<64, false>(), ctas, smem);
   else if (D == 128)
-    e = fused ? mma_occupancy(flash_bwd_mma_kernel<128, true>,
+    e = fused ? mma_occupancy(flash_bwd_mma_kernel<128, true, mma::bf16>,
                               mma_smem<128, true>(), ctas, smem)
-              : mma_occupancy(flash_bwd_mma_kernel<128, false>,
+              : mma_occupancy(flash_bwd_mma_kernel<128, false, mma::bf16>,
                               mma_smem<128, false>(), ctas, smem);
   return static_cast<int>(e);
 }
@@ -879,9 +901,10 @@ extern "C" int ptt_flash_bwd_occupancy(int D, int fused, int* ctas,
 extern "C" int ptt_flash_bwd_dq_occupancy(int D, int* ctas, int* smem) {
   cudaError_t e = cudaErrorInvalidValue;
   if (D == 64)
-    e = mma_occupancy(flash_dq_mma_kernel<64>, dq_mma_smem<64>(), ctas, smem);
+    e = mma_occupancy(flash_dq_mma_kernel<64, mma::bf16>, dq_mma_smem<64>(),
+                      ctas, smem);
   else if (D == 128)
-    e = mma_occupancy(flash_dq_mma_kernel<128>, dq_mma_smem<128>(), ctas,
-                      smem);
+    e = mma_occupancy(flash_dq_mma_kernel<128, mma::bf16>, dq_mma_smem<128>(),
+                      ctas, smem);
   return static_cast<int>(e);
 }

@@ -19,8 +19,13 @@
 // tensor-core peak): bytes and operations are about even. In fp32 (67
 // TFLOP/s on the CUDA cores) operations bound it, 0.39 ms.
 //
-// bf16: flash_fwd_mma_kernel, both products on the tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate; flash_mma.cuh). A CTA
+// bf16 and fp16: flash_fwd_mma_kernel<D, T>, both products on the
+// tensor cores (mma.sync m16n8k16, T in, fp32 accumulate; flash_mma.cuh).
+// The two types share the body: their fragments, staging and ldmatrix
+// are the same, and Elem<T> supplies the product instruction and the
+// rounding of P and O, which for fp16 rounds to nearest and lets a value
+// past 65504 become inf (never saturates), as the reference's cast does.
+// A CTA
 // owns 128 query rows of one (batch, head), 8 warps of 16 rows each.
 // Its Q tile is staged once by cp.async and held in registers as A
 // fragments for the whole key loop; 64-key K and V tiles stream through
@@ -28,7 +33,7 @@
 // math, so loads overlap the products. S = Q.K^T stays in registers
 // (K's B fragments by ldmatrix), the online softmax runs on the
 // accumulator fragments (row max and sum over the 4 lanes of a row by
-// shuffles), and P, rounded to bf16, becomes the A operand of P.V in
+// shuffles), and P, rounded to T, becomes the A operand of P.V in
 // registers (V's B fragments by ldmatrix.trans). No score tile goes
 // through shared memory. Under causal masking a warp skips a key tile
 // whose keys all lie past its last row (an exact no-op of the recurrence),
@@ -170,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
 }
 
 
-constexpr int kRowsQ = 128;  // query rows per bf16 CTA: 8 warps x 16
+constexpr int kRowsQ = 128;  // query rows per tensor-core CTA: 8 x 16
 constexpr float kLog2e = 1.4426950408889634f;
 
 // exp(x - m) for the softmax: one ex2 on the multiplied difference
@@ -178,18 +183,18 @@ __device__ __forceinline__ float exp_diff(float x, float m) {
   return exp2f((x - m) * kLog2e);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(const Args a) {
-  using mma::bf16;
-  constexpr int LDS = D + 8;  // bf16 row stride: 16 bytes of padding
+  using E = mma::Elem<T>;
+  constexpr int LDS = D + 8;  // 16-bit row stride: 16 bytes of padding
   constexpr int KD = D / 16;  // k16 steps of Q.K^T
   constexpr int ND = D / 8;   // n8 tiles of the output
   constexpr int NS = kTile / 8;  // n8 tiles of a score tile
   extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);  // kRowsQ x LDS, then O
-  bf16* ks = qs + kRowsQ * LDS;               // 2 stages x kTile x LDS
-  bf16* vs = ks + 2 * kTile * LDS;            // 2 stages x kTile x LDS
+  T* qs = reinterpret_cast<T*>(smem4);  // kRowsQ x LDS, then O
+  T* ks = qs + kRowsQ * LDS;            // 2 stages x kTile x LDS
+  T* vs = ks + 2 * kTile * LDS;         // 2 stages x kTile x LDS
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -197,9 +202,9 @@ __global__ void __launch_bounds__(kThreads)
   const int tile = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = tile * kRowsQ, w0 = q0 + warp * 16;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.kv_sb + h * a.kv_sh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.kv_sb + h * a.kv_sh;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.kv_sb + h * a.kv_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.kv_sb + h * a.kv_sh;
   // causal: keys past the tile's last row are dead
   const int k_end = a.causal ? min(q0 + kRowsQ, a.Sk) : a.Sk;
   const int n_tiles = (k_end + kTile - 1) / kTile;
@@ -228,16 +233,16 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kTile;
-    const bf16* kt = ks + (j & 1) * kTile * LDS;
-    const bf16* vt = vs + (j & 1) * kTile * LDS;
+    const T* kt = ks + (j & 1) * kTile * LDS;
+    const T* vt = vs + (j & 1) * kTile * LDS;
     const bool more = j + 1 < n_tiles;
     // K_j has landed (V_j may not have); every warp is done with tile
     // j - 1, whose stage the copies of tile j + 1 now overwrite
     mma::cp_async_wait<1>();
     __syncthreads();
     if (more) {
-      bf16* kn = ks + ((j + 1) & 1) * kTile * LDS;
-      bf16* vn = vs + ((j + 1) & 1) * kTile * LDS;
+      T* kn = ks + ((j + 1) & 1) * kTile * LDS;
+      T* vn = vs + ((j + 1) & 1) * kTile * LDS;
       mma::tile_async<kTile, D, LDS, kThreads>(kn, k, k0 + kTile, a.Sk,
                                                a.kv_ss);
       mma::cp_async_commit();
@@ -260,8 +265,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int n = 0; n < NS; n += 2) {
           uint32_t kf[4];
           mma::ldsm_x4(kf, mma::b_x4<LDS>(kt, n * 8, kd * 16, lane));
-          mma::mma_bf16(s[n], qf[kd], kf[0], kf[1]);
-          mma::mma_bf16(s[n + 1], qf[kd], kf[2], kf[3]);
+          E::mma(s[n], qf[kd], kf[0], kf[1]);
+          E::mma(s[n + 1], qf[kd], kf[2], kf[3]);
         }
       // tiles wholly below the diagonal and inside Sk skip the test
       const bool edge =
@@ -311,17 +316,17 @@ __global__ void __launch_bounds__(kThreads)
       mma::cp_async_wait<0>();
     __syncthreads();
     if (live) {
-      // acc += P.V, P rounded to bf16 (V's dtype, :85)
+      // acc += P.V, P rounded to T (V's dtype, :85)
 #pragma unroll
       for (int kk = 0; kk < NS / 2; ++kk) {
         uint32_t pa[4];
-        mma::pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+        E::pack_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
         for (int n = 0; n < ND; n += 2) {
           uint32_t vf[4];
           mma::ldsm_x4_trans(vf, mma::bt_x4<LDS>(vt, kk * 16, n * 8, lane));
-          mma::mma_bf16(o[n], pa, vf[0], vf[1]);
-          mma::mma_bf16(o[n + 1], pa, vf[2], vf[3]);
+          E::mma(o[n], pa, vf[0], vf[1]);
+          E::mma(o[n + 1], pa, vf[2], vf[3]);
         }
       }
     }
@@ -338,19 +343,19 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 2; ++i)
       if (w0 + g + 8 * i < a.Sq) lse[w0 + g + 8 * i] = m[i] + logf(l[i]);
   }
-  // O = acc / l in bf16, staged through this warp's own 16 rows of the Q
+  // O = acc / l in T, staged through this warp's own 16 rows of the Q
   // tile (its Q fragments are in registers) into 16-byte stores
-  bf16* os = qs + warp * 16 * LDS;
+  T* os = qs + warp * 16 * LDS;
   __syncwarp();
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     *reinterpret_cast<uint32_t*>(os + g * LDS + n * 8 + 2 * t) =
-        mma::pack_bf16(o[n][0] / l[0], o[n][1] / l[0]);
+        E::pack(o[n][0] / l[0], o[n][1] / l[0]);
     *reinterpret_cast<uint32_t*>(os + (g + 8) * LDS + n * 8 + 2 * t) =
-        mma::pack_bf16(o[n][2] / l[1], o[n][3] / l[1]);
+        E::pack(o[n][2] / l[1], o[n][3] / l[1]);
   }
   __syncwarp();
-  bf16* out = static_cast<bf16*>(a.out);
+  T* out = static_cast<T*>(a.out);
   constexpr int CPR = D / 8;
 #pragma unroll
   for (int idx = lane; idx < 16 * CPR; idx += 32) {
@@ -371,34 +376,40 @@ cudaError_t fwd_f32(const Args& a, cudaStream_t st) {
   return launch(flash_fwd_kernel<D>, grid, smem, st, a);
 }
 
-// the bf16 kernel's shared memory: the Q tile and two stages of K and V,
-// rows of D + 8 bf16
+// the tensor-core kernel's shared memory: the Q tile and two stages of K
+// and V, rows of D + 8 16-bit elements (bf16 and fp16 alike)
 template <int D>
-constexpr size_t bf16_smem() {
+constexpr size_t mma_smem() {
   return sizeof(__nv_bfloat16) * (kRowsQ + 4 * kTile) * (D + 8);
 }
 
-template <int D>
-cudaError_t fwd_bf16(const Args& a, cudaStream_t st) {
+template <int D, typename T>
+cudaError_t fwd_mma(const Args& a, cudaStream_t st) {
   const dim3 grid((a.Sq + kRowsQ - 1) / kRowsQ, a.B * a.H);
-  return launch(flash_fwd_mma_kernel<D>, grid, bf16_smem<D>(), st, a);
+  return launch(flash_fwd_mma_kernel<D, T>, grid, mma_smem<D>(), st, a);
 }
 
-template <int D>
-cudaError_t bf16_occupancy(int* ctas, int* smem) {
-  *smem = static_cast<int>(bf16_smem<D>());
-  cudaError_t e = allow_smem(flash_fwd_mma_kernel<D>, bf16_smem<D>());
+template <typename T>
+cudaError_t fwd_mma(const Args& a, int D, cudaStream_t st) {
+  if (!mma_aligned(a, a.out)) return cudaErrorInvalidValue;
+  return D == 64 ? fwd_mma<64, T>(a, st) : fwd_mma<128, T>(a, st);
+}
+
+template <int D, typename T>
+cudaError_t mma_occupancy(int* ctas, int* smem) {
+  *smem = static_cast<int>(mma_smem<D>());
+  cudaError_t e = allow_smem(flash_fwd_mma_kernel<D, T>, mma_smem<D>());
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, flash_fwd_mma_kernel<D>, kThreads, bf16_smem<D>());
+      ctas, flash_fwd_mma_kernel<D, T>, kThreads, mma_smem<D>());
 }
 
 }  // namespace
 
 // q, k, v (B, S, H, D) with strides (sb, ss, sh, 1), k and v sharing
 // theirs; o contiguous (B, Sq, H, D) in the input dtype; lse fp32
-// (B, H, Sq). bf16 also needs the alignment of mma_aligned. Returns the
-// launch's cudaError_t (0 = launched).
+// (B, H, Sq). bf16 and fp16 also need the alignment of mma_aligned.
+// Returns the launch's cudaError_t (0 = launched).
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int H, int Sq, int Sk,
                              int D, int64_t q_sb, int64_t q_ss, int64_t q_sh,
@@ -415,10 +426,9 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
       return static_cast<int>(D == 64 ? fwd_f32<64>(a, st)
                                       : fwd_f32<128>(a, st));
     case ptt::kBFloat16:
-      if (!mma_aligned(a, a.out))
-        return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(D == 64 ? fwd_bf16<64>(a, st)
-                                      : fwd_bf16<128>(a, st));
+      return static_cast<int>(fwd_mma<__nv_bfloat16>(a, D, st));
+    case ptt::kFloat16:
+      return static_cast<int>(fwd_mma<__half>(a, D, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -430,9 +440,9 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
 extern "C" int ptt_flash_fwd_occupancy(int D, int* ctas, int* smem) {
   switch (D) {
     case 64:
-      return static_cast<int>(bf16_occupancy<64>(ctas, smem));
+      return static_cast<int>(mma_occupancy<64, __nv_bfloat16>(ctas, smem));
     case 128:
-      return static_cast<int>(bf16_occupancy<128>(ctas, smem));
+      return static_cast<int>(mma_occupancy<128, __nv_bfloat16>(ctas, smem));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

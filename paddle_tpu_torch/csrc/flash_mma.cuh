@@ -1,9 +1,14 @@
 // Warp-level tensor-core building blocks for the attention kernels on
 // Hopper (sm_90a): cp.async staging, ldmatrix fragment loads and the
-// bf16 (and fp16) mma.sync.m16n8k16 product, each as inline PTX. The
-// bf16 forward (flash_fwd.cu), the bf16 dK/dV and dQ backward bodies
-// (flash_bwd.cu) and the bf16 chunk prefill (chunk_prefill.cu) are built
-// from them. The fp16 fragments have the bf16 ones' layout.
+// bf16 and fp16 mma.sync.m16n8k16 products, each as inline PTX. The
+// forward (flash_fwd.cu), the dK/dV and dQ backward bodies
+// (flash_bwd.cu), in bf16 and fp16 alike, and the bf16 chunk prefill
+// (chunk_prefill.cu) and paged decode (paged_attention.cu) are built
+// from them. The fp16 fragments have the bf16 ones' layout, and cp.async
+// and ldmatrix move 16-bit elements whatever they hold, so the staging
+// and the address patterns take either type; what differs is the
+// product instruction and the rounding of fp32 values into operands and
+// outputs (Elem<T>).
 //
 // Fragment layouts, as the PTX ISA fixes them for
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, with
@@ -87,7 +92,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -95,7 +100,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
+                                              const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -124,9 +129,12 @@ __device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// (lo, hi) rounded to fp16 (to nearest even), lo in the lower half.
+// (lo, hi) rounded to fp16 (to nearest even), lo in the lower half. Not
+// saturating: a value past fp16's range (65504) becomes inf, so an
+// overflow of P, dS or an output reaches the caller (the loss scaler
+// skips the step on it) instead of turning into a finite wrong value.
 __device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
-  const __half2 v = __floats2half2_rn(lo, hi);
+  const __half2 v = __float22half2_rn(make_float2(lo, hi));
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
@@ -156,6 +164,47 @@ __device__ __forceinline__ void pack_a_f16(uint32_t (&a)[4],
   a[3] = pack_f16(c8[2], c8[3]);
 }
 
+// The element types of the tensor-core bodies: the m16n8k16 product of
+// two fragments of T (fp32 accumulate), and fp32 values rounded to T,
+// two to a register (pack) or as the k16 A fragment of two n8
+// accumulator tiles (pack_a).
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<bf16> {
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_bf16(d, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack_bf16(lo, hi);
+  }
+  static __device__ __forceinline__ void pack_a(uint32_t (&a)[4],
+                                                const float (&c)[4],
+                                                const float (&c8)[4]) {
+    ::ptt::mma::pack_a(a, c, c8);
+  }
+};
+
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_f16(d, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack_f16(lo, hi);
+  }
+  static __device__ __forceinline__ void pack_a(uint32_t (&a)[4],
+                                                const float (&c)[4],
+                                                const float (&c8)[4]) {
+    pack_a_f16(a, c, c8);
+  }
+};
+
 // Lane addresses for ldmatrix.x4 in a tile of row stride LDS elements:
 //  a_x4:  the A fragment of rows [r0, r0 + 16) x cols [c0, c0 + 16);
 //  b_x4:  B fragments (b0, b1) of n8 tiles n0 and n0 + 8 at k [c0, c0 +
@@ -167,39 +216,39 @@ __device__ __forceinline__ void pack_a_f16(uint32_t (&a)[4],
 //         holds column c of A, its rows contiguous). Matrix l / 8 is
 //         A's 8 x 8 block (rows r0 + 8 ((l / 8) % 2), cols c0 + 8 (l /
 //         16)), so the four land in a0..a3's order.
-template <int LDS>
-__device__ __forceinline__ const bf16* a_x4(const bf16* s, int r0, int c0,
+template <int LDS, typename T>
+__device__ __forceinline__ const T* a_x4(const T* s, int r0, int c0,
                                             int lane) {
   return s + (r0 + lane % 16) * LDS + c0 + (lane / 16) * 8;
 }
-template <int LDS>
-__device__ __forceinline__ const bf16* b_x4(const bf16* s, int n0, int c0,
+template <int LDS, typename T>
+__device__ __forceinline__ const T* b_x4(const T* s, int n0, int c0,
                                             int lane) {
   return s + (n0 + (lane / 16) * 8 + lane % 8) * LDS + c0 +
          ((lane / 8) % 2) * 8;
 }
-template <int LDS>
-__device__ __forceinline__ const bf16* bt_x4(const bf16* s, int r0, int c0,
+template <int LDS, typename T>
+__device__ __forceinline__ const T* bt_x4(const T* s, int r0, int c0,
                                              int lane) {
   return s + (r0 + ((lane / 8) % 2) * 8 + lane % 8) * LDS + c0 +
          (lane / 16) * 8;
 }
 
-template <int LDS>
-__device__ __forceinline__ const bf16* at_x4(const bf16* s, int r0, int c0,
+template <int LDS, typename T>
+__device__ __forceinline__ const T* at_x4(const T* s, int r0, int c0,
                                              int lane) {
   return s + (c0 + (lane / 16) * 8 + lane % 8) * LDS + r0 +
          ((lane / 8) % 2) * 8;
 }
 
-// Stage rows [r0, r0 + ROWS) of one (batch, head) of a bf16 (B, S, H, D)
+// Stage rows [r0, r0 + ROWS) of one (batch, head) of a 16-bit (B, S, H, D)
 // tensor into `dst` (row stride LDS) with NT threads, 16 bytes a thread
 // per step. `src` points at row 0 of the (batch, head); rows are `ss`
 // elements apart. Rows at or past S are zero-filled and never read.
 // Needs `src` 16-byte aligned and `ss` a multiple of 8 elements.
-template <int ROWS, int D, int LDS, int NT>
-__device__ __forceinline__ void tile_async(bf16* __restrict__ dst,
-                                           const bf16* __restrict__ src,
+template <int ROWS, int D, int LDS, int NT, typename T>
+__device__ __forceinline__ void tile_async(T* __restrict__ dst,
+                                           const T* __restrict__ src,
                                            int r0, int S, int64_t ss) {
   constexpr int CPR = D / 8;  // 16-byte chunks per row
   static_assert(ROWS * CPR % NT == 0, "chunks must split evenly");

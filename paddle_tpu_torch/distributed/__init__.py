@@ -1,3 +1,4 @@
+from paddle_tpu_torch.distributed import fleet
 from paddle_tpu_torch.distributed.trainer import ShardedTrainer
 
-__all__ = ["ShardedTrainer"]
+__all__ = ["ShardedTrainer", "fleet"]

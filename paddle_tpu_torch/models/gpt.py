@@ -66,6 +66,7 @@ from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.core.random import LANE_DRAW, position_uniforms
 from paddle_tpu_torch.core.random import generator as make_generator
 from paddle_tpu_torch.core.unported import refuse_unported
+from paddle_tpu_torch.distributed.fleet.utils import recompute
 from paddle_tpu_torch.distributed.meta_parallel import (ColumnParallelLinear,
                                                         RowParallelLinear,
                                                         VocabParallelEmbedding)
@@ -95,6 +96,9 @@ class GPTConfig:
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
     tie_word_embeddings: bool = True
+    # per-block activation recompute: None | "full" (gpt.py:59-62): each
+    # block rematerializes its forward in the backward
+    recompute_granularity: Optional[str] = None
 
     @property
     def ffn_size(self) -> int:
@@ -441,8 +445,12 @@ class GPTModel(Layer):
             max=self.config.max_position_embeddings - 1)
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
         if caches is None:
+            # per-BLOCK remat (gpt.py:563-582): only while training with
+            # no cache; each block's forward is replayed in the backward
+            remat = (self.config.recompute_granularity == "full"
+                     and self.training)
             for block in self.h:
-                x = block(x)
+                x = recompute(block, x) if remat else block(x)
             return self.ln_f(x)
         rows = _cache_plan(caches[0], s)
         new_caches = []

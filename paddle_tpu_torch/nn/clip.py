@@ -1,0 +1,114 @@
+"""Gradient clipping — the port of ``paddle_tpu/nn/clip.py``.
+
+The clippers take and return ``(param, grad)`` pairs of torch tensors,
+as the optimizer hands them over before it folds in weight decay
+(``Optimizer.step``). A parameter whose ``need_clip`` attribute is
+false, or a pair whose grad is None, passes through untouched. Every
+norm stays a device tensor: clipping never reads a value back to the
+host, so a step still never waits for the card.
+
+- :class:`ClipGradByValue`: each element into [min, max];
+- :class:`ClipGradByNorm`: each gradient by its own L2 norm, taken in
+  the gradient's dtype as the reference takes it;
+- :class:`ClipGradByGlobalNorm`: every gradient by one L2 norm over all
+  of them, summed in fp32 whatever the gradients' dtype, the scale cast
+  to each gradient's dtype;
+- :func:`clip_grad_norm_`: the torch-style utility on ``.grad`` in place.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+__all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm", "clip_grad_norm_"]
+
+
+def _skip(p, g) -> bool:
+    return g is None or (hasattr(p, "need_clip") and not p.need_clip)
+
+
+class ClipGradBase:
+    def __call__(self, params_grads: List[Tuple]):
+        raise NotImplementedError
+
+
+class ClipGradByValue(ClipGradBase):
+    def __init__(self, max: float, min: float = None):  # noqa: A002
+        self.max = float(max)
+        self.min = float(min) if min is not None else -self.max
+
+    def __call__(self, params_grads):
+        return [(p, g) if _skip(p, g) else (p, g.clamp(self.min, self.max))
+                for p, g in params_grads]
+
+
+class ClipGradByNorm(ClipGradBase):
+    def __init__(self, clip_norm: float):
+        self.clip_norm = float(clip_norm)
+
+    def __call__(self, params_grads):
+        out = []
+        for p, g in params_grads:
+            if _skip(p, g):
+                out.append((p, g))
+                continue
+            norm = g.square().sum().sqrt()
+            scale = (self.clip_norm / norm.clamp(min=1e-12)).clamp(max=1.0)
+            out.append((p, g * scale))
+        return out
+
+
+class ClipGradByGlobalNorm(ClipGradBase):
+    def __init__(self, clip_norm: float, group_name: str = "default_group"):
+        self.clip_norm = float(clip_norm)
+        self.group_name = group_name
+
+    def _global_norm_sq(self, params_grads):
+        """The fp32 sum of squares over every clipped gradient (None if
+        there is none): one multi-tensor norm launch for fp32 grads."""
+        grads = [g.float() for p, g in params_grads if not _skip(p, g)]
+        if not grads:
+            return None
+        return torch.stack(torch._foreach_norm(grads)).square().sum()
+
+    def __call__(self, params_grads):
+        sq = self._global_norm_sq(params_grads)
+        if sq is None:
+            return params_grads
+        global_norm = sq.sqrt()
+        scale = self.clip_norm / global_norm.clamp(min=self.clip_norm)
+        return [(p, g) if _skip(p, g) else (p, g * scale.to(g.dtype))
+                for p, g in params_grads]
+
+
+def _stack(parts):
+    """Per-gradient scalars stacked at their common (widest) dtype, as
+    ``jnp.stack`` promotes them."""
+    dtype = parts[0].dtype
+    for t in parts[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return torch.stack([t.to(dtype) for t in parts])
+
+
+def clip_grad_norm_(parameters, max_norm: float, norm_type: float = 2.0,
+                    error_if_nonfinite: bool = False):
+    """torch-style in-place utility (paddle.nn.utils.clip_grad_norm_):
+    scales every ``.grad`` by min(max_norm / (total + 1e-6), 1) and
+    returns the total norm, each gradient's part taken in its dtype.
+    ``error_if_nonfinite`` is accepted and, as in the reference, not
+    acted on."""
+    params = [p for p in parameters if p.grad is not None]
+    if not params:
+        return torch.zeros(())
+    if norm_type == float("inf"):
+        total = _stack([p.grad.abs().max() for p in params]).max()
+    else:
+        total = _stack([(p.grad.abs() ** norm_type).sum()
+                        for p in params]).sum() ** (1.0 / norm_type)
+    clip_coef = (max_norm / (total + 1e-6)).clamp(max=1.0)
+    for p in params:
+        p.grad = p.grad * clip_coef
+    return total

@@ -6,7 +6,8 @@ Counterpart of ``paddle_tpu/nn/functional/attention.py``, in paddle's
 - ``_sdpa`` is the plain attention of ``_sdpa_xla`` (:26): fp32
   softmax, a causal mask aligned BOTTOM-right (``tril(k=sk-sq)``), a
   boolean mask selecting with -inf, probabilities cast back to the
-  input dtype before the value product;
+  input dtype before the value product, and attention dropout on those
+  probabilities (:48-51): ``where(keep, probs / (1 - p), 0)``;
 - :func:`flash_attention` is the flash path (K1 forward, K3 backward,
   ``ops/kernels/flash_attention.py``), whose causal mask is TOP-left
   aligned as the Pallas kernels' is;
@@ -16,8 +17,13 @@ Counterpart of ``paddle_tpu/nn/functional/attention.py``, in paddle's
   sq, sk >= 128 and both tile into blocks of at least 64.
 
 :func:`scaled_dot_product_attention` has the JAX function's signature
-(:209-213). Attention dropout (p > 0 while training) is not ported yet
-and raises; the JAX gate sends it to XLA too.
+(:209-213). Attention dropout (p > 0 while training) keeps the plain
+path, as the JAX gate sends it to XLA: there is no flash kernel with
+dropout in either package. Its keep mask is drawn from the device's
+default generator, the stream ``F.dropout`` draws from, so a recompute
+(``fleet.utils.recompute``, which saves and restores that generator's
+state) replays the same mask. JAX's threefry bits are not reproduced:
+the mask's distribution is the reference's, not its values.
 """
 
 from __future__ import annotations
@@ -36,8 +42,11 @@ __all__ = ["scaled_dot_product_attention", "flash_attention"]
 
 
 def _sdpa(q, k, v, attn_mask=None, is_causal: bool = False,
-          scale: Optional[float] = None):
-    """q, k, v: (batch, seq, heads, head_dim)."""
+          scale: Optional[float] = None, dropout_p: float = 0.0,
+          keep=None):
+    """q, k, v: (batch, seq, heads, head_dim). With ``dropout_p`` > 0 the
+    probabilities are dropped by ``keep`` ((batch, heads, sq, sk) bool;
+    drawn here when None) and the kept ones scaled by 1 / (1 - p)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -56,6 +65,12 @@ def _sdpa(q, k, v, attn_mask=None, is_causal: bool = False,
         else:
             logits = logits + attn_mask
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    if dropout_p > 0.0:
+        if keep is None:   # Bernoulli(1 - p) from the default generator
+            keep = torch.empty(probs.shape, device=probs.device).bernoulli_(
+                1.0 - dropout_p).bool()
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            probs.new_zeros(()))
     return torch.matmul(probs, vt).transpose(1, 2)
 
 
@@ -96,7 +111,7 @@ def _local_attention(query, key, value, attn_mask, dropout_p: float = 0.0,
         return flash_attention(query, key, value, causal=is_causal,
                                scale=scale)
     return _sdpa(query, key, value, attn_mask=attn_mask, is_causal=is_causal,
-                 scale=scale)
+                 scale=scale, dropout_p=dropout_p)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -106,12 +121,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training: bool = True):
     """Paddle-layout attention, the JAX function's signature and
     defaults. Under AMP q, k and v are cast as the white-listed op
-    ``scaled_dot_product_attention`` (the mask is not)."""
+    ``scaled_dot_product_attention`` (the mask is not). ``dropout_p``
+    applies while ``training``; with ``training=False`` it is the
+    identity."""
     drop = dropout_p if training else 0.0
-    if drop > 0.0:
-        raise NotImplementedError(
-            "attention dropout (dropout_p > 0 while training) is not "
-            "ported yet; pass training=False or dropout_p=0")
     query, key, value = maybe_cast_inputs("scaled_dot_product_attention",
                                           (query, key, value))
     return _local_attention(query, key, value, attn_mask, drop, is_causal,

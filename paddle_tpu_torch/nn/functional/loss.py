@@ -1,10 +1,14 @@
 """Loss functionals of the port (``paddle_tpu/nn/functional/loss.py``).
 
-- :func:`cross_entropy`: the hard-label fast path of JAX
-  ``cross_entropy`` (:36-67): logits stay in their dtype, max and
-  logsumexp accumulate in fp32, ``ignore_index`` rows count neither in
-  the sum nor in the mean's denominator. Soft labels, class weights,
-  label smoothing and ``use_softmax=False`` are not ported yet.
+- :func:`cross_entropy`: JAX ``cross_entropy`` (:36-115). Its
+  hard-label fast path: logits stay in their dtype, max and logsumexp
+  accumulate in fp32, ``ignore_index`` rows count neither in the sum
+  nor in the mean's denominator. Its general path, for soft labels,
+  class weights, label smoothing or ``use_softmax=False``: fp32
+  log-probabilities (``log_softmax``, or ``log(clip(p, 1e-15, 1))`` of
+  given probabilities), soft labels smoothed toward uniform, hard labels
+  smoothed by the mean log-probability, a class-weighted mean divided by
+  the summed weights of the rows not ignored.
 - :func:`linear_cross_entropy` (:374-410): the fused LM head and
   cross entropy. :class:`_LinearCE` mirrors ``_linear_ce`` (:293-371):
   the vocabulary goes in chunks of ``vocab_chunk`` with an online
@@ -39,15 +43,19 @@ def cross_entropy(input, label, weight=None, ignore_index: int = -100,
                   reduction: str = "mean", soft_label: bool = False,
                   axis: int = -1, use_softmax: bool = True,
                   label_smoothing: float = 0.0):
-    """Hard-label softmax cross entropy over ``axis``; ``reduction="mean"``
-    averages over the rows that are not ignored."""
-    if soft_label or not use_softmax or weight is not None \
-            or label_smoothing != 0.0:
-        raise NotImplementedError(
-            "cross_entropy: only the hard-label softmax path is ported "
-            "(soft_label, weight, label_smoothing and use_softmax=False "
-            "are later work)")
-    (logits,) = maybe_cast_inputs("cross_entropy", (input,))
+    """Cross entropy over ``axis`` of logits (or, with
+    ``use_softmax=False``, probabilities) against hard labels (class ids,
+    with or without a trailing unit axis) or, with ``soft_label``, a
+    distribution per row. ``reduction="mean"`` averages hard labels over
+    the rows not ignored (weighted: divides by their summed class
+    weights), soft labels over every row."""
+    # the op's positional inputs, as the reference's dispatcher casts them
+    logits, label = maybe_cast_inputs("cross_entropy", (input, label))
+    if (soft_label or not use_softmax or weight is not None
+            or label_smoothing != 0.0):
+        return _cross_entropy_general(logits, label, weight, ignore_index,
+                                      reduction, soft_label, axis,
+                                      use_softmax, label_smoothing)
     lbl = label
     if lbl.dim() == logits.dim():
         lbl = lbl.squeeze(axis)
@@ -61,6 +69,51 @@ def cross_entropy(input, label, weight=None, ignore_index: int = -100,
     loss = torch.where(valid, lse - picked.float(), 0.0)
     if reduction == "mean":
         return loss.sum() / valid.sum().clamp(min=1).float()
+    return _reduce(loss, reduction)
+
+
+def _cross_entropy_general(logits, label, weight, ignore_index: int,
+                           reduction: str, soft_label: bool, axis: int,
+                           use_softmax: bool, label_smoothing: float):
+    """The general path of JAX ``cross_entropy`` (:69-115), term for
+    term, in fp32."""
+    if logits.is_floating_point() and torch.finfo(logits.dtype).bits < 32:
+        logits = logits.float()
+    if use_softmax:
+        logp = torch.log_softmax(logits, dim=axis)
+    else:
+        logp = torch.log(logits.clamp(1e-15, 1.0))
+    num_classes = logits.shape[axis]
+    if soft_label:
+        lbl = label
+        if label_smoothing > 0.0:
+            lbl = (1 - label_smoothing) * lbl + label_smoothing / num_classes
+        term = lbl * logp
+        if weight is not None:
+            shape = [1] * term.dim()
+            shape[axis] = num_classes
+            term = term * weight.reshape(shape)
+        loss = -term.sum(dim=axis)
+        valid = None
+    else:
+        lbl = label
+        if lbl.dim() == logp.dim():    # (N, ..., 1) index form
+            lbl = lbl.squeeze(axis)
+        lbl = lbl.long()
+        valid = lbl != ignore_index
+        safe = torch.where(valid, lbl, 0)
+        picked = torch.gather(logp, axis, safe.unsqueeze(axis)).squeeze(axis)
+        if label_smoothing > 0.0:
+            smooth = logp.mean(dim=axis)
+            picked = (1 - label_smoothing) * picked + label_smoothing * smooth
+        loss = -torch.where(valid, picked, 0.0)
+        if weight is not None:
+            w = torch.where(valid, weight[safe], 0.0)
+            loss = loss * w
+            if reduction == "mean":
+                return loss.sum() / w.sum().clamp(min=1e-12)
+    if reduction == "mean" and not soft_label:
+        return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)
     return _reduce(loss, reduction)
 
 

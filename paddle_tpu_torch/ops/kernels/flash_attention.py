@@ -3,21 +3,23 @@
 Replaces ``paddle_tpu/ops/pallas/flash_attention.py``: the forward
 kernels ``_fwd_kernel`` (:54) and ``_fwd_stream_kernel`` (:108), which
 on Hopper are one entry point (``csrc/flash_fwd.cu``: a tensor-core
-kernel for bf16, a CUDA-core one for fp32), the fused backward
+kernel for bf16 and fp16, a CUDA-core one for fp32), the fused backward
 ``_bwd_fused_kernel`` (:362) and the streaming pair
 ``_bwd_dkv_stream_kernel`` (:162) / ``_bwd_dq_stream_kernel`` (:215)
 (``csrc/flash_bwd.cu``: the fused kernel and the dK/dV pass are one
-body, the dQ pass another, both on the tensor cores for bf16). The
+body, the dQ pass another, both on the tensor cores for bf16 and
+fp16). The
 kernels' header notes say what bounds each on the H100 and how the
 design answers that.
 
 Each wrapper takes paddle's (B, S, H, D) layout: a CPU tensor runs the
 plain version (``flash_fwd_ref`` / ``flash_bwd_ref``, the same
-arithmetic in fp32 with the same bf16 rounding points); a CUDA tensor
-launches the kernel or raises. A view the kernels cannot take (a head
-dim that is not contiguous, k and v with unequal strides; in bf16, where
-every kernel runs on the tensor cores, also a base pointer not 16-byte
-aligned or a stride not a multiple of 8) is copied first by
+arithmetic in fp32 with the same bf16 or fp16 rounding points); a CUDA
+tensor launches the kernel or raises. A view the kernels cannot take (a
+head dim that is not contiguous, k and v with unequal strides; in bf16
+and fp16, where every kernel runs on the tensor cores, also a base
+pointer not 16-byte aligned or a stride not a multiple of 8) is copied
+first by
 :func:`kernel_layout`. ``launches`` counts kernel launches, per
 kernel, and nothing else.
 
@@ -48,7 +50,9 @@ _MASKED = -1e30   # flash_attention.py:33: never -inf, so exp/max stay finite
 
 launches = {"fwd": 0, "bwd_fused": 0, "bwd_dkv": 0, "bwd_dq": 0}
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry points' type codes (csrc/common.cuh); bf16 and fp16 run
+# the tensor-core bodies, fp32 the CUDA-core ones
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 _HEAD_DIMS = (64, 128)
 
 
@@ -86,7 +90,8 @@ def _scores(q, k, scale: float, causal: bool):
 def flash_fwd_ref(q, k, v, scale: float, causal: bool
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward: O (B, Sq, H, D) in q's dtype and the fp32
-    logsumexp (B, H, Sq). P is rounded to V's dtype before P.V (:85)."""
+    logsumexp (B, H, Sq). P is rounded to V's dtype before P.V (:85);
+    in fp16 a value past 65504 rounds to inf, as the kernel's does."""
     s = _scores(q, k, scale, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -119,8 +124,8 @@ def _cuda_args(name: str, q, k, v):
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v must share one dtype of "
-                        f"float32/bfloat16, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+                        f"float32/bfloat16/float16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"{name}: q (B, Sq, H, D) and k, v (B, Sk, H, D) "
@@ -137,17 +142,18 @@ def _cuda_args(name: str, q, k, v):
 def _fits_kernel(t) -> bool:
     if t.stride(-1) != 1:
         return False
-    if t.dtype != torch.bfloat16:
+    if t.dtype == torch.float32:
         return True
+    # a tensor-core dtype (bf16, fp16): the cp.async staging's alignment
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
 
 
 def kernel_layout(q, k, v):
     """q, k, v in the layout the flash kernels take, on any device: the
-    head dim contiguous and k and v sharing strides; in bf16 also every
-    base pointer 16-byte aligned and every stride on (B, S, H) a multiple
-    of 8 elements, since every bf16 kernel runs on the tensor cores and
-    stages 16-byte chunks by cp.async. Views that already fit are
+    head dim contiguous and k and v sharing strides; in bf16 and fp16
+    also every base pointer 16-byte aligned and every stride on (B, S, H)
+    a multiple of 8 elements, since every 16-bit kernel runs on the
+    tensor cores and stages 16-byte chunks by cp.async. Views that already fit are
     returned as they are (GPT's per-head slices of one qkv projection:
     strides 3HD, 3D, 1 at element offsets 0, D, 2D); the others are
     copied into fresh contiguous tensors, a layout copy that never
@@ -172,9 +178,9 @@ def _tail(q, k, scale: float, causal: bool):
 
 def _grad_args(name: str, q, k, v, do, lse, delta):
     """The backward kernels' inputs in their layout: q, k, v by
-    :func:`kernel_layout`; dO, lse and delta contiguous, and a bf16 dO at
-    a 16-byte aligned base (a contiguous view at a misaligned offset is
-    copied)."""
+    :func:`kernel_layout`; dO, lse and delta contiguous, and a bf16 or
+    fp16 dO at a 16-byte aligned base (a contiguous view at a misaligned
+    offset is copied)."""
     q, k, v = _cuda_args(name, q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"{name}: dO must match q's shape and dtype")

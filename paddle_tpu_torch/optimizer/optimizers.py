@@ -10,7 +10,12 @@ parameter with its own fp32 0-dim ``beta1_pow``/``beta2_pow`` slots:
 
 AdamW first multiplies the parameter by (1 - lr*coeff) (decoupled decay,
 not folded into the gradient); ``apply_decay_param_fun(name)`` false
-sets coeff to 0 for that parameter.
+sets coeff to 0 for that parameter. Under ``multi_precision`` the
+"parameter" of the rule is the fp32 master (``Optimizer.step``).
+
+``lazy_mode`` (Adam, AdamW) and ``lr_ratio`` (AdamW) are accepted and
+not acted on, as the reference accepts them (optimizers.py:93-143): with
+dense gradients a lazy update is the dense one.
 """
 
 from __future__ import annotations
@@ -31,24 +36,22 @@ class Adam(Optimizer):
                  beta2: float = 0.999, epsilon: float = 1e-8, parameters=None,
                  weight_decay=None, grad_clip=None, lazy_mode: bool = False,
                  multi_precision: bool = False, name=None):
-        if lazy_mode:
-            raise NotImplementedError("lazy_mode is not ported yet")
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
 
-    def _init_state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
-        one = torch.ones((), dtype=torch.float32, device=p.device)
-        return {"moment1": torch.zeros_like(p),
-                "moment2": torch.zeros_like(p),
+    def _init_state_from_value(self, raw: torch.Tensor
+                               ) -> Dict[str, torch.Tensor]:
+        one = torch.ones((), dtype=torch.float32, device=raw.device)
+        return {"moment1": torch.zeros_like(raw),
+                "moment2": torch.zeros_like(raw),
                 "beta1_pow": one, "beta2_pow": one.clone()}
 
     def _adam(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-              lr: float):
+              st: List[Dict[str, torch.Tensor]], lr: float):
         b1, b2 = self._beta1, self._beta2
-        st = self._states(params)
         m1 = [s["moment1"] for s in st]
         m2 = [s["moment2"] for s in st]
         b1p = [s["beta1_pow"] for s in st]
@@ -69,8 +72,9 @@ class Adam(Optimizer):
         torch._foreach_sub_(params, step)
 
     def _update(self, group: Dict[str, Any], named: _Named,
-                grads: List[torch.Tensor], lr: float):
-        self._adam([p for _, p in named], grads, lr)
+                grads: List[torch.Tensor],
+                states: List[Dict[str, torch.Tensor]], lr: float):
+        self._adam([p for _, p in named], grads, states, lr)
 
 
 class AdamW(Adam):
@@ -83,8 +87,6 @@ class AdamW(Adam):
                  weight_decay: float = 0.01, lr_ratio=None,
                  apply_decay_param_fun=None, grad_clip=None, lazy_mode=False,
                  multi_precision=False, name=None):
-        if lr_ratio is not None:
-            raise NotImplementedError("lr_ratio is not ported yet")
         self._coeff = float(weight_decay)
         self._apply_decay_param_fun = apply_decay_param_fun
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
@@ -102,7 +104,8 @@ class AdamW(Adam):
         return float(group.get("weight_decay", self._coeff))
 
     def _update(self, group: Dict[str, Any], named: _Named,
-                grads: List[torch.Tensor], lr: float):
+                grads: List[torch.Tensor],
+                states: List[Dict[str, torch.Tensor]], lr: float):
         # one foreach pass per distinct decay coefficient
         by_coeff: Dict[float, List[int]] = {}
         for i, (name, _) in enumerate(named):
@@ -111,4 +114,5 @@ class AdamW(Adam):
             params = [named[i][1] for i in idx]
             if coeff:
                 torch._foreach_mul_(params, 1.0 - lr * coeff)
-            self._adam(params, [grads[i] for i in idx], lr)
+            self._adam(params, [grads[i] for i in idx],
+                       [states[i] for i in idx], lr)

@@ -140,15 +140,22 @@ def test_gate_goes_to_flash_exactly_where_jax_does(case, monkeypatch):
 def test_sdpa_signature_and_dropout_default_match_jax():
     """The argument order and defaults are the JAX function's, so a
     positional scale is a scale, and training defaults to True: dropout
-    with p > 0 is then active (JAX applies it; the port, which has no
-    attention dropout yet, raises instead of silently skipping it)."""
+    with p > 0 is then active, as JAX applies it (some outputs differ
+    from the attention without dropout), and with training=False the
+    call is the attention without dropout."""
     jsig = inspect.signature(jax_attention.scaled_dot_product_attention)
     psig = inspect.signature(port_attention.scaled_dot_product_attention)
     assert [(p.name, p.default) for p in psig.parameters.values()] == \
         [(p.name, p.default) for p in jsig.parameters.values()]
-    q = torch.zeros(1, 8, 1, 8)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        port_attention.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 8, 1, 8, generator=g)
+    plain = port_attention.scaled_dot_product_attention(q, q, q)
+    torch.manual_seed(0)
+    dropped = port_attention.scaled_dot_product_attention(q, q, q,
+                                                          dropout_p=0.5)
+    assert dropped.shape == q.shape and not torch.allclose(dropped, plain)
     out = port_attention.scaled_dot_product_attention(
         q, q, q, None, 0.1, True, 0.5, False)
     assert out.shape == q.shape
+    assert torch.equal(out, port_attention.scaled_dot_product_attention(
+        q, q, q, None, 0.0, True, 0.5))

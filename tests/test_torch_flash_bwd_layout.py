@@ -30,6 +30,12 @@ output element, |emulated - plain| <= 2e-3 + 2**-7 |plain|, is one bf16
 rounding of the output (2**-8 relative, both sides) plus those flips; a
 fragment from the wrong lane, row or tile is off by the size of the
 output itself.
+
+Both bodies are also instantiated on fp16 (``Elem<__half>``: the same
+fragments, P, dS and the outputs rounded to fp16 instead). The fp16
+cases run the same emulation with fp16 rounding on fp16 inputs against
+the plain version in fp16, at limits eight times tighter (fp16 keeps 3
+more bits): 2.5e-4 + 2**-10 |plain|.
 """
 
 import re
@@ -50,6 +56,7 @@ TILE_ROWS = 64                    # kTile: keys of a CTA, queries of a tile
 WARPS = 4
 LOG2E = np.float32(1.4426950408889634)
 ATOL, RTOL = 2e-3, 2.0 ** -7
+F16_ATOL, F16_RTOL = 2.5e-4, 2.0 ** -10
 
 
 def _patterns():
@@ -57,7 +64,7 @@ def _patterns():
     parsed from the return expression of each pattern in the header."""
     src = MMA_CUH.read_text()
     found = re.findall(
-        r"const bf16\* (\w+_x4)\(const bf16\* s, int (\w+), int (\w+),\s*"
+        r"const T\* (\w+_x4)\(const T\* s, int (\w+), int (\w+),\s*"
         r"int lane\) \{\s*return s \+ (.*?);", src, re.S)
     out = {}
     for name, p0, p1, expr in found:
@@ -75,6 +82,12 @@ def _bf16(x):
     u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
     u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
     return u.astype(np.uint32).view(np.float32)
+
+
+def _f16(x):
+    """fp32 -> fp16 (round to nearest even; past 65504 inf) -> fp32."""
+    with np.errstate(over="ignore"):
+        return np.asarray(x, np.float32).astype(np.float16).astype(np.float32)
 
 
 def ldsm(smem, addr, trans=False):
@@ -116,10 +129,11 @@ def mma(d, a, b0, b1):
     d[:, 3] += C[G + 8, 2 * T + 1]
 
 
-def pack_a(c, c8):
-    """Two n8 accumulator tiles, rounded to bf16, as one k16 A fragment."""
-    return _bf16(np.stack([c[:, 0:2], c[:, 2:4], c8[:, 0:2], c8[:, 2:4]],
-                          axis=1))
+def pack_a(c, c8, rnd=_bf16):
+    """Two n8 accumulator tiles, rounded to bf16 (or by ``rnd``), as one
+    k16 A fragment."""
+    return rnd(np.stack([c[:, 0:2], c[:, 2:4], c8[:, 0:2], c8[:, 2:4]],
+                        axis=1))
 
 
 def _at(name, base, ld, r0, c0):
@@ -184,11 +198,12 @@ def test_pattern_loads_its_operand(name):
 
 # ------------------------------------------------------------ one body
 def emulate_cta(q, k, v, do, lse, delta, scale, causal, k0, dq_acc, dk_out,
-                dv_out):
+                dv_out, rnd=_bf16):
     """One CTA of ``flash_bwd_mma_kernel`` for one (batch, head): keys
-    [k0, k0 + 64); q, do (Sq, D), k, v (Sk, D) bf16 values in fp32; lse,
-    delta (Sq,) fp32. Adds into ``dq_acc`` (None: the dK/dV pass alone)
-    and writes its dK, dV rows in bf16."""
+    [k0, k0 + 64); q, do (Sq, D), k, v (Sk, D) bf16 values in fp32 (fp16
+    values with ``rnd=_f16``); lse, delta (Sq,) fp32. Adds into
+    ``dq_acc`` (None: the dK/dV pass alone) and writes its dK, dV rows
+    rounded by ``rnd``."""
     Sq, D = q.shape
     Sk = k.shape[0]
     LDS, LDP = D + 8, TILE_ROWS + 8
@@ -261,8 +276,8 @@ def emulate_cta(q, k, v, do, lse, delta, scale, causal, k0, dq_acc, dk_out,
                         dp[n][:, e] = p * (dp[n][:, e] - delta_c) * np.float32(
                             scale)
                 for kk in range(NC // 2):
-                    pa = pack_a(s[2 * kk], s[2 * kk + 1])
-                    da = pack_a(dp[2 * kk], dp[2 * kk + 1])
+                    pa = pack_a(s[2 * kk], s[2 * kk + 1], rnd)
+                    da = pack_a(dp[2 * kk], dp[2 * kk + 1], rnd)
                     for n in range(0, ND, 2):
                         bf = ldsm(smem, _at("bt_x4", dt, LDS, c + 16 * kk,
                                             8 * n), trans=True)
@@ -305,22 +320,23 @@ def emulate_cta(q, k, v, do, lse, delta, scale, causal, k0, dq_acc, dk_out,
             for n in range(ND):
                 cols = 8 * n + 2 * T
                 for out, acc in ((dk_out, dk), (dv_out, dv)):
-                    out[key[ok], cols[ok]] = _bf16(acc[w][n][ok, 2 * i])
-                    out[key[ok], cols[ok] + 1] = _bf16(
+                    out[key[ok], cols[ok]] = rnd(acc[w][n][ok, 2 * i])
+                    out[key[ok], cols[ok] + 1] = rnd(
                         acc[w][n][ok, 2 * i + 1])
 
 
-def _inputs(Sq, Sk, D, seed):
+def _inputs(Sq, Sk, D, seed, rnd=_bf16):
     rs = np.random.RandomState(seed)
-    q, do = (_bf16(rs.randn(Sq, D)) for _ in range(2))
-    k, v = (_bf16(rs.randn(Sk, D)) for _ in range(2))
+    q, do = (rnd(rs.randn(Sq, D)) for _ in range(2))
+    k, v = (rnd(rs.randn(Sk, D)) for _ in range(2))
     return q, k, v, do
 
 
-def _plain(q, k, v, do, scale, causal):
+def _plain(q, k, v, do, scale, causal, dtype=torch.bfloat16):
     """lse from the plain forward, delta = rowsum(dO * O), and the plain
-    backward, on (1, S, 1, D) bf16 tensors as the wrapper sees them."""
-    qt, kt, vt, dot = (torch.from_numpy(x)[None, :, None, :].to(torch.bfloat16)
+    backward, on (1, S, 1, D) tensors of ``dtype`` as the wrapper sees
+    them."""
+    qt, kt, vt, dot = (torch.from_numpy(x)[None, :, None, :].to(dtype)
                        for x in (q, k, v, do))
     o, lse = port_fa.flash_fwd_ref(qt, kt, vt, scale, causal)
     delta = (dot.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -381,10 +397,12 @@ DQ_KC = int(re.search(r"constexpr int KC = (\d+);", _dq_body_source())
             .group(1))
 
 
-def emulate_dq_cta(q, k, v, do, lse, delta, scale, causal, block, dq_out):
+def emulate_dq_cta(q, k, v, do, lse, delta, scale, causal, block, dq_out,
+                   rnd=_bf16):
     """CTA ``block`` of ``flash_dq_mma_kernel`` for one (batch, head): q,
-    do (Sq, D), k, v (Sk, D) bf16 values in fp32; lse, delta (Sq,) fp32.
-    Writes its dQ rows in bf16."""
+    do (Sq, D), k, v (Sk, D) bf16 values in fp32 (fp16 values with
+    ``rnd=_f16``); lse, delta (Sq,) fp32. Writes its dQ rows rounded by
+    ``rnd``."""
     Sq, D = q.shape
     Sk = k.shape[0]
     LDS = D + 8
@@ -447,7 +465,7 @@ def emulate_dq_cta(q, k, v, do, lse, delta, scale, causal, block, dq_out):
                         dp[n][:, e] = p * (dp[n][:, e] - delta_r[w][e // 2]
                                            ) * np.float32(scale)
                 for kk in range(NC // 2):
-                    sa = pack_a(dp[2 * kk], dp[2 * kk + 1])
+                    sa = pack_a(dp[2 * kk], dp[2 * kk + 1], rnd)
                     for n in range(0, ND, 2):
                         bf = ldsm(smem, _at("bt_x4", kt, LDS, c + 16 * kk,
                                             8 * n), trans=True)
@@ -459,8 +477,8 @@ def emulate_dq_cta(q, k, v, do, lse, delta, scale, causal, block, dq_out):
             ok = row < Sq
             for n in range(ND):
                 cols = 8 * n + 2 * T
-                dq_out[row[ok], cols[ok]] = _bf16(dq[w][n][ok, 2 * i])
-                dq_out[row[ok], cols[ok] + 1] = _bf16(dq[w][n][ok, 2 * i + 1])
+                dq_out[row[ok], cols[ok]] = rnd(dq[w][n][ok, 2 * i])
+                dq_out[row[ok], cols[ok] + 1] = rnd(dq[w][n][ok, 2 * i + 1])
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -487,3 +505,62 @@ def test_emulated_dq_body_matches_the_plain_backward(Sq, Sk, D, causal):
     worst = np.max(np.abs(dq - rdq) / (ATOL + RTOL * np.abs(rdq)))
     assert worst <= 1.0, worst
     assert np.abs(rdq).max() > 0.5   # the case has real gradients
+
+
+# ------------------------------------------------------------ fp16
+@pytest.mark.parametrize("with_dq", [True, False], ids=["fused", "dkv"])
+@pytest.mark.parametrize("Sq,Sk,D,causal", CASES)
+def test_emulated_fp16_body_matches_the_plain_backward(Sq, Sk, D, causal,
+                                                       with_dq):
+    """The dK/dV body on __half: fp16 inputs, P and dS packed to fp16,
+    dK and dV stored in fp16, against the plain backward in fp16."""
+    q, k, v, do = _inputs(Sq, Sk, D, seed=Sq + Sk + D, rnd=_f16)
+    scale = 1.0 / np.sqrt(D)
+    lse, delta, (rdq, rdk, rdv) = _plain(q, k, v, do, scale, causal,
+                                         torch.float16)
+    dq_acc = np.zeros((Sq, D), np.float32) if with_dq else None
+    dk = np.full((Sk, D), np.nan, np.float32)
+    dv = np.full((Sk, D), np.nan, np.float32)
+    for k0 in range(0, Sk, TILE_ROWS):
+        emulate_cta(q, k, v, do, lse, delta, scale, causal, k0, dq_acc, dk,
+                    dv, rnd=_f16)
+    got = [("dK", dk, rdk), ("dV", dv, rdv)]
+    if with_dq:    # the wrapper casts the fp32 buffer to q's dtype
+        got.append(("dQ", _f16(dq_acc), rdq))
+    for name, out, ref in got:
+        assert np.isfinite(out).all(), name
+        worst = np.max(np.abs(out - ref) / (F16_ATOL + F16_RTOL * np.abs(ref)))
+        assert worst <= 1.0, (name, worst)
+        assert np.abs(ref).max() > 0.5, name
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal", DQ_CASES)
+def test_emulated_fp16_dq_body_matches_the_plain_backward(Sq, Sk, D, causal):
+    q, k, v, do = _inputs(Sq, Sk, D, seed=Sq + Sk + D + 1, rnd=_f16)
+    scale = 1.0 / np.sqrt(D)
+    lse, delta, (rdq, _, _) = _plain(q, k, v, do, scale, causal,
+                                     torch.float16)
+    dq = np.full((Sq, D), np.nan, np.float32)
+    for block in range(-(-Sq // TILE_ROWS)):
+        emulate_dq_cta(q, k, v, do, lse, delta, scale, causal, block, dq,
+                       rnd=_f16)
+    assert np.isfinite(dq).all()
+    worst = np.max(np.abs(dq - rdq) / (F16_ATOL + F16_RTOL * np.abs(rdq)))
+    assert worst <= 1.0, worst
+    assert np.abs(rdq).max() > 0.5
+
+
+def test_fp16_pack_overflows_to_inf_as_the_plain_version_does():
+    """pack_f16 rounds to nearest and does not saturate: a dS past fp16's
+    range becomes inf in the packed operand, as ``.to(torch.float16)``
+    makes it in the plain backward, so the loss scaler sees it."""
+    src = MMA_CUH.read_text()
+    body = src[src.index("uint32_t pack_f16("):]
+    body = body[:body.index("}")]
+    assert "__float22half2_rn" in body and "satfinite" not in body
+    c = np.array([[7e4, -1.0, 65504.0, -7e4]] * 32, np.float32)
+    a = pack_a(c, c, _f16)
+    assert np.isinf(a[:, 0, 0]).all() and (a[:, 0, 1] == -1.0).all()
+    assert (a[:, 1, 0] == 65504.0).all() and np.isneginf(a[:, 1, 1]).all()
+    big = torch.tensor([7e4, 1.0]).to(torch.float16)
+    assert torch.isinf(big[0]) and big[1] == 1.0

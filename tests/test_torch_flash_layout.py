@@ -2,9 +2,10 @@
 
 ``kernel_layout`` (``paddle_tpu_torch/ops/kernels/flash_attention.py``)
 decides, on any device, whether q, k and v reach the flash kernels as
-they are or as fresh contiguous copies: every bf16 kernel (the forward,
-the backward's dK/dV body and its dQ body) runs on the tensor cores and
-stages 16-byte chunks by ``cp.async``, so every bf16 base pointer must
+they are or as fresh contiguous copies: every bf16 and fp16 kernel (the
+forward, the backward's dK/dV body and its dQ body) runs on the tensor
+cores and stages 16-byte chunks by ``cp.async``, so every such base
+pointer must
 be 16-byte aligned and every stride on (B, S, H) a multiple of 8
 elements; the fp32 kernels, on the CUDA cores, take such views as they
 are. These tests hold the gate to that contract on CPU
@@ -127,6 +128,44 @@ def test_gate_copies_k_and_v_with_unequal_strides(dtype):
     assert got[0].data_ptr() == q.data_ptr()
     assert got[1].stride() == got[2].stride()
     _assert_copied_equal(got[1:], (k, v))
+
+
+def test_gate_takes_fp16_as_a_tensor_core_dtype():
+    """fp16 runs the tensor-core bodies as bf16 does: a view misaligned
+    by one element and a stride off the 16-byte grid are copied, GPT's
+    qkv views pass as they are."""
+    B, S, H, D = 2, 64, 2, 64
+    n = B * S * H * D
+    fp16 = torch.float16
+    q, k, v = (_randn(n + 1, dtype=fp16, seed=i)[1:].view(B, S, H, D)
+               for i in range(3))
+    _assert_copied_equal(port_fa.kernel_layout(q, k, v), (q, k, v))
+    q, k, v = (_randn(B, S, H, D + 1, dtype=fp16, seed=i)[..., :D]
+               for i in range(3))
+    _assert_copied_equal(port_fa.kernel_layout(q, k, v), (q, k, v))
+    q, k, v = _randn(B, S, H, 3 * D, dtype=fp16).split(D, dim=-1)
+    assert _ptrs(port_fa.kernel_layout(q, k, v)) == _ptrs((q, k, v))
+
+
+def test_gate_sees_gpt_views_in_the_fp16_model_forward(monkeypatch):
+    """gpt_tiny's no-cache forward under fp16 AMP: every layer hands K1
+    fp16 views the gate passes as they are."""
+    cfg = gpt_tiny()
+    model = GPTForCausalLM(cfg, device="cpu", seed=0)
+    seen = []
+    real = port_fa.flash_fwd
+
+    def spy(q, k, v, scale, causal):
+        got = port_fa.kernel_layout(q, k, v)
+        seen.append((q.dtype, _ptrs(got) == _ptrs((q, k, v))))
+        return real(q, k, v, scale, causal)
+
+    monkeypatch.setattr(port_fa, "flash_fwd", spy)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, cfg.max_position_embeddings)))
+    with torch.no_grad(), auto_cast(level="O1", dtype="float16"):
+        model(ids)
+    assert seen == [(torch.float16, True)] * cfg.num_layers
 
 
 _CTYPE = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,

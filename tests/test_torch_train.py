@@ -353,8 +353,7 @@ def test_three_train_steps_match_jax_trainer(amp, rtol):
 def test_trainer_refuses_what_is_not_ported():
     pm = GPTForCausalLM(gpt_tiny(), device="cpu")
     opt = AdamW(parameters=pm.parameters())
-    for kw in (dict(mesh=np.zeros(4)), dict(recompute=True),
-               dict(strategy=object())):
+    for kw in (dict(mesh=np.zeros(4)), dict(strategy=object())):
         with pytest.raises(NotImplementedError):
             ShardedTrainer(pm, opt, None, **kw)
     with pytest.raises(NotImplementedError, match="anomaly"):
