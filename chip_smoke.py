@@ -9,11 +9,11 @@ Phases, in order (any failure exits non-zero and prints no result):
 1. card: the ``nvidia-smi`` name and power limit, the capability;
 2. build: ``csrc/*.cu`` -> ``build/kernels/`` with ``nvcc`` for sm_90a,
    then the registers and spills of every K1/K3/K4/K5 instantiation
-   (``-Xptxas -v``; a bf16 or fp16 K1, K3a, K3b-dkv or K3b-dq body, a
-   bf16 K4 or K5 body, or an instantiation of the fp32 paged body, that
+   (``-Xptxas -v``; a bf16 or fp16 K1, K3a, K3b-dkv, K3b-dq, K4 or K5
+   body, or an instantiation of the fp32 paged body, that
    spills fails the run), the tensor-core instructions (HMMA) and
    atomics (RED, ATOM) that ``cuobjdump -sass`` finds in each bf16 and
-   fp16 K1 and K3 body, each bf16 K4 and K5 body and the fp32 paged
+   fp16 K1, K3, K4 and K5 body and the fp32 paged
    body (no HMMA in a tensor-core body fails the run, and so do
    atomics in the K3b-dq body, whose dQ is written once, and any HMMA in
    the fp32 body), and the bf16 K1's, K3 and K5 bodies' shared memory and
@@ -22,7 +22,8 @@ Phases, in order (any failure exits non-zero and prints no result):
 3. kernels: K2 LayerNorm (also at a large mean, an odd C and on an
    offset view, with and without w and b, each held to K2_TOL as well),
    K4 paged decode and K5 chunk prefill, each
-   against its plain PyTorch version in fp32 and bf16 at the serving
+   against its plain PyTorch version in fp32 and bf16 (and fp16 at
+   FP16_CASES' shapes) at the serving
    path's shapes, on pools poisoned where no query may read (1e9 in
    unreadable rows of mapped blocks, NaN in blocks no table names; for
    the kernel alone also NaN in every unreadable row), with
@@ -36,11 +37,12 @@ Phases, in order (any failure exits non-zero and prints no result):
    (s 16), verifies of 16 and 31 drafts (s 17 and 32, two row tiles)
    and 80 rows on 2 slots, over both pools; K5 also
    on a chunk running off a table of 5 blocks, and with bf16 q (its
-   tensor-core body) on three slots at their own starts. Every bf16 K4
-   case is held to K4_TOL, every bf16 K5 case to K5_TOL and every fp32
-   K4 and K5 case to F32_PAGED_TOL as well, element by element, and a
-   bf16 q, or an fp32 q's K pool, misaligned for cp.async must be refused
-   by K4's and by K5's C entry point;
+   tensor-core body) on three slots at their own starts. Every bf16 and
+   fp16 K4 case is held to K4_TOL (fp16 to its own limits), every bf16
+   and fp16 K5 case to K5_TOL and every fp32 K4 and K5 case to
+   F32_PAGED_TOL as well, element by element, and a bf16 or fp16 q, or
+   an fp32 q's K pool, misaligned for cp.async must be refused by K4's
+   and by K5's C entry point;
 4. flash: K1 (forward), K3a (fused backward) and K3b (the streaming
    dK/dV and dQ passes) against their plain versions in fp32 and bf16
    (and in fp16 at the training shape and S 8320, with q and k scaled
@@ -91,7 +93,9 @@ Phases, in order (any failure exits non-zero and prints no result):
    ``ServingEngine`` with ``block_size`` at its default (the dense
    arena): greedy tokens against the teacher-forced argmax, K4 and K5
    launched 0 times, K2 (2L + 1) x (chunks + steps); the host-clock
-   perf beside phase 5's;
+   perf beside phase 5's; then 5b's shared-prompt trace on the dense
+   arena with and without a ``PrefixCache`` (cached chunks copied into
+   the slot's rows): greedy tokens equal, prefix hits > 0, K4 = K5 = 0;
 5f. ``generate()``: the fp32 model, batch 4 of 256-token prompts, 32 new
    tokens, ``top_k=1``, with ``use_cache=True``, ``use_cache=False`` and
    ``jit=True``: each path's tokens the teacher-forced argmax of its
@@ -104,6 +108,20 @@ Phases, in order (any failure exits non-zero and prints no result):
    the target's width whose tokens are the argmax's (near-ties
    counted) as the run without speculation; exact counts for the
    target's K4/K5 and K2 over target and draft;
+5h. fp16 serving: ``gpt2_small`` in fp16 at full width and depth serves
+   5c's 8 greedy requests on fp16 pools, then on int8 pools (K2's, K4's
+   and K5's fp16 bodies): finite teacher-forced logits, exact launch
+   counts, greedy agreement with the fp16 teacher-forced argmax >= 0.9;
+5i. the host tier: phase 5's fp32 model and trace on pools poisoned
+   after the warm-up, fp32 then int8: a roomy run, a run starved to
+   ``TIER_POOL`` blocks without a tier and one with
+   ``host_tier_blocks=TIER_POOL``: the roomy run's greedy tokens (near
+   ties counted), preemptions, blocks spilled and swapped back and
+   re-prefill tokens avoided > 0, fewer prefill tokens computed than
+   without a tier, exact launch counts, tier and pool empty at the end;
+   then 5b's trace behind a ``PrefixCache`` whose budget holds 3 chunks
+   with a tier: demotions and host hits > 0 and the cache-off run's
+   greedy tokens;
 6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
    ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
@@ -150,7 +168,11 @@ PEAK_FLOPS = {"float32": 67e12,      # fp32 on the CUDA cores
 # to half an ulp (0.0156 below |y| = 8); the reference is the plain
 # version evaluated in fp32 on the same bf16 values, because the bf16
 # plain version itself rounds logits and P to bf16 at other places.
-ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# fp16 (K2, K4, K5): the output rounded to fp16 once (2**-11
+# relatively); over int8 pools the fp16 plain version also rounds the
+# dequantized view and its logits to fp16, which reads up to 2.8e-3 of
+# max(1, max |plain|) on an H100 (PERF.md): the limit sits 2.8x above.
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 8e-3}
 
 # fp16 (the flash kernels' third dtype, fp16 AMP's): the tensor-core
 # bodies instantiated on __half, held to gates of their own. The cases of
@@ -223,6 +245,20 @@ K3_TOL = {"float32": {"rtol": 1e-5,
                         "atol": {"dQ": 0.25, "dK": 0.12, "dV": 6.5e-3}}}
 
 
+# K4's and K5's tensor-core bodies instantiated on fp16 (q fp16; fp16
+# pools, or int8 codes with their scales) are held to gates of their
+# own, keyed "fp16" and "int8-fp16" in K4_TOL and K5_TOL, the same way:
+# one rounding of the output to fp16 (rtol 2**-9, four half-units of
+# fp16's last place), and P rounded to fp16 before P.V (atol), against
+# the plain version in fp32 on clean, poisoned and NaN-poisoned pools.
+# Over every K4 and K5 case of this script run in fp16 (phase 3 runs
+# FP16_CASES; k4_ and k5_fault_check.py run them all) on an H100 the
+# sound bodies' worst errors at that rtol are, fp16 pools: K4 2.27e-4, K5
+# 2.00e-4; int8 pools: K4 4.82e-4, K5 7.55e-4 (k4_fault_check.py,
+# k5_fault_check.py, PERF.md): the limits sit 4.4x, 5.0x, 4.1x and 4.0x
+# above them, and those scripts show each planted fault that changes an
+# fp16 output failing them.
+
 # K5's bf16 body (q bf16; bf16 pools, or int8 codes with their scales)
 # is held to more than ATOL too: element by element, |out - plain| <=
 # atol + rtol |plain|, against the plain version evaluated in fp32 on the
@@ -237,7 +273,9 @@ K3_TOL = {"float32": {"rtol": 1e-5,
 # and that script shows each planted fault that changes an output
 # failing them.
 K5_TOL = {"bf16": {"atol": 6e-3, "rtol": 1e-2},
-          "int8": {"atol": 2e-3, "rtol": 1e-2}}
+          "int8": {"atol": 2e-3, "rtol": 1e-2},
+          "fp16": {"atol": 1e-3, "rtol": 2.0 ** -9},
+          "int8-fp16": {"atol": 3e-3, "rtol": 2.0 ** -9}}
 
 # K4's bf16 body (q bf16; bf16 pools, or int8 codes with their scales;
 # the key walk split across a cluster) is held to its own gate the same
@@ -251,7 +289,9 @@ K5_TOL = {"bf16": {"atol": 6e-3, "rtol": 1e-2},
 # them, and that script shows each planted fault that changes an output
 # failing them.
 K4_TOL = {"bf16": {"atol": 6e-3, "rtol": 1e-2},
-          "int8": {"atol": 1.5e-3, "rtol": 1e-2}}
+          "int8": {"atol": 1.5e-3, "rtol": 1e-2},
+          "fp16": {"atol": 1e-3, "rtol": 2.0 ** -9},
+          "int8-fp16": {"atol": 2e-3, "rtol": 2.0 ** -9}}
 
 # K2 is held to the shared gate against its plain version in fp32
 # (layer_norm_ref): y within ATOL, mean and rstd within 2e-5. At a large
@@ -270,9 +310,17 @@ K4_TOL = {"bf16": {"atol": 6e-3, "rtol": 1e-2},
 # PERF.md): the limits sit 3-4x above them. The wide bf16 rows (C 2048,
 # 65536) reach 0.43 and 0.52 of the limits, their means' fp32 sums
 # erring by up to 1.5e-7 + 1.2e-7 |exact|. k2_fault_check.py shows each
-# planted fault that changes an output failing them.
+# planted fault that changes an output failing them. fp16 y (K2's
+# __half instantiation) differs by its one rounding to fp16 (2**-11
+# relatively, half a unit) plus the fp32 mean's error times rstd, which
+# dominates near y = 0: over the same cases in fp16 (k2_fault_check.py
+# runs them all; phase 3 FP16_CASES) its worst is 2.0e-7 + 2**-11
+# |exact| at C 65536 and 1.05e-7 + 2**-11 |exact| at C <= 16384
+# (k2_fault_check.py, PERF.md); the limit, 6e-7 + 2**-9 |exact|, sits 3x
+# above in atol and 4x in rtol.
 K2_TOL = {"float32": {"atol": 3e-7, "rtol": 4e-6},
           "bfloat16": {"atol": 2e-7, "rtol": 1.2e-2},
+          "float16": {"atol": 6e-7, "rtol": 2.0 ** -9},
           "mean": {"atol": 4e-7, "rtol": 4.8e-7},
           "rstd": {"atol": 1.4e-7, "rtol": 4e-7}}
 
@@ -377,8 +425,10 @@ def build_phase():
 
 
 _PTXAS_F32 = re.compile(r"paged_f32_kernelI(f|a)Li(\d+)ELi(\d+)E")
-_PTXAS_K5 = re.compile(r"chunk_prefill_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
-_PTXAS_K4 = re.compile(r"paged_decode_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
+_PTXAS_K5 = re.compile(r"chunk_prefill_mma_kernelILi(\d+)E"
+                       r"(13__nv_bfloat16|6__half)(a|S\d*_)E")
+_PTXAS_K4 = re.compile(r"paged_decode_mma_kernelILi(\d+)E"
+                       r"(13__nv_bfloat16|6__half)(a|S\d*_)E")
 _PTXAS_FLASH = re.compile(r"flash_fwd_(mma_)?kernelILi(\d+)E"
                           r"(13__nv_bfloat16|6__half)?")
 _PTXAS_BWD = re.compile(r"flash_(bwd_mma|dq_mma|dkv|dq)_kernelILi(\d+)E"
@@ -434,16 +484,16 @@ def _ptxas_label(src: str, name):
         return (f"{what} {dt} mma.sync, D {D}", True,
                 None if half else ("ptt_flash_bwd_occupancy", D,
                                    int(fused)))
-    if name.re is _PTXAS_K5:
-        D, int8 = int(name.group(1)), name.group(2) == "a"
-        return (f"K5 bf16 mma.sync, pool {'int8' if int8 else 'bf16'}, D "
-                f"{D}", True, ("ptt_chunk_prefill_occupancy", D,
-                               2 if int8 else 1))
-    if name.re is _PTXAS_K4:
-        D, int8 = int(name.group(1)), name.group(2) == "a"
-        return (f"K4 bf16 mma.sync, clusters, pool "
-                f"{'int8' if int8 else 'bf16'}, D {D}", True,
-                ("ptt_paged_decode_occupancy", D, 2 if int8 else 1))
+    if name.re in (_PTXAS_K4, _PTXAS_K5):
+        D, int8 = int(name.group(1)), name.group(3) == "a"
+        dt = "fp16" if name.group(2) == "6__half" else "bf16"
+        k4 = name.re is _PTXAS_K4
+        occ = ("ptt_paged_decode_occupancy" if k4 else
+               "ptt_chunk_prefill_occupancy", D, 2 if int8 else 1)
+        return (f"{'K4' if k4 else 'K5'} {dt} mma.sync, "
+                f"{'clusters, ' if k4 else ''}pool "
+                f"{'int8' if int8 else dt}, D {D}", True,
+                None if dt == "fp16" else occ)
     return (f"K4/K5 fp32 body, pool {'int8' if name.group(1) == 'a' else 'fp32'}"
             f", D {name.group(2)}, {name.group(3)}-row tiles", False, None)
 
@@ -479,7 +529,7 @@ def _sass_ops(obj: str, ops=("HMMA", "RED", "ATOM")):
 def ptxas_phase():
     """Registers and spills of every K1, K3, K4 and K5 instantiation, from
     ``nvcc -Xptxas -v`` on their sources; a tensor-core body (K1, K3a,
-    K3b-dkv and K3b-dq in bf16 and fp16, K4 and K5 in bf16) or an
+    K3b-dkv, K3b-dq, K4 and K5 in bf16 and fp16) or an
     instantiation of the fp32 paged body that spills fails the run. For
     the bf16 tensor-core bodies also their shared memory and the CTAs an
     SM holds (K4: the clusters the card holds), and for every
@@ -557,10 +607,11 @@ def ptxas_phase():
                       f"{stores} bytes spill stores, {loads} bytes spill "
                       f"loads{extra}", flush=True)
                 name = None
-    check(seen == {"K1": 4, "K3": 12, "K4": 4, "K5": 4, "F32": 24},
+    check(seen == {"K1": 4, "K3": 12, "K4": 8, "K5": 8, "F32": 24},
           f"ptxas: bodies seen {seen}, expected the tensor-core K1, K3a, "
           "K3b-dkv and K3b-dq in bf16 and fp16 at D 64 and 128, K4 and K5 "
-          "over bf16 and int8 pools at both, and the fp32 body over fp32 "
+          "in bf16 and fp16 over pools of q's type and int8 pools at both, "
+          "and the fp32 body over fp32 "
           "and int8 pools at both in 16-, 32- and 64-row tiles, in K4's "
           "source and K5's")
 
@@ -598,6 +649,15 @@ def _record(rows, name, dtype, shape, err, timer, kernel, plain, library,
 # past 48 KB of shared memory) and 65536 (fp32: past what one CTA's
 # shared memory holds, read from global memory on each pass)
 K2_TIMED = ((8, 768), (128, 768), (16384, 768))
+# the fp16 cases of phase 3, by the kernels' shape labels: the serving
+# path's shapes (K2 the decode step and training's rows; K4 the decode
+# step, a verify of 4 and of 16 drafts; K5 a first chunk and the deepest
+# prefix), over both pools; k2_, k4_ and k5_fault_check.py run every case
+# in fp16
+FP16_CASES = {"K2": ([8, 768], [16384, 768]),
+              "K4": ([8, 1, 12, 64, 16, 64], [8, 5, 12, 64, 16, 64],
+                     [8, 17, 12, 64, 16, 64]),
+              "K5": ([128, 0, 12, 64, 16, 64], [128, 517, 12, 64, 16, 64])}
 K2_WIDE = ((64, 2048), (16, 16384), (4, 65536))
 
 
@@ -694,18 +754,20 @@ def k2_errors(dn, case, outs, plain, exact):
 
 
 def layer_norm_phase(torch, timer, rows):
-    """K2 on every case, fp32 and bf16, with and without w and b: ATOL
-    on y and 2e-5 on mean and rstd against the plain version, K2_TOL on
-    y, mean and rstd; the timed shapes beside the plain version and
-    F.layer_norm."""
+    """K2 on every case, fp32, bf16 and fp16, with and without w and b:
+    ATOL on y and 2e-5 on mean and rstd against the plain version, K2_TOL
+    on y, mean and rstd; the timed shapes beside the plain version and
+    F.layer_norm (in x's dtype)."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.kernels import layer_norm as k2
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[1]
         for case in k2_case_inputs(torch, dtype):
             shape = case["shape"]
+            if dn == "float16" and shape not in FP16_CASES["K2"]:
+                continue
             err, stat_err, share = k2_errors(dn, case, *k2_run(torch, case))
             check(err <= ATOL[dn], f"K2 {dn} {shape}: max |y - plain| {err} "
                   f"> {ATOL[dn]}")
@@ -745,7 +807,10 @@ def _poison(torch, kp, vp, table, reach, dead=1e9):
     """``dead`` in every pool row no (slot, table entry) can read under
     the mask ``col <= reach[slot]``; NaN in every block no table row
     names. For the plain version ``dead`` is 1e9, not NaN: it gathers
-    whole table rows and multiplies their masked rows by p = 0."""
+    whole table rows and multiplies their masked rows by p = 0. fp16
+    pools take 3e4 for 1e9, which fp16 cannot hold (0 x inf is NaN)."""
+    if kp.dtype == torch.float16 and dead == 1e9:
+        dead = 3e4
     nblk, bs = kp.shape[0], kp.shape[1]
     readable = np.zeros((nblk, bs), bool)
     named = np.zeros((nblk,), bool)
@@ -921,25 +986,33 @@ def k4_run(torch, case):
     return _paged_run(torch, case, k4.paged_attention, k4.paged_attention_ref)
 
 
-def k4_share(int8, outs, exact) -> float:
-    """K4's own measure of bf16 q, against ``K4_TOL``, as :func:`k5_share`
-    measures K5 against ``K5_TOL``."""
-    return limit_share(K4_TOL["int8" if int8 else "bf16"], outs, exact)
+def tol_key(dn: str, int8: bool) -> str:
+    """The key of a tensor-core body's own gate in ``K4_TOL`` and
+    ``K5_TOL`` for q's dtype name ``dn`` and the pools."""
+    return {("bfloat16", False): "bf16", ("bfloat16", True): "int8",
+            ("float16", False): "fp16", ("float16", True): "int8-fp16"}[
+                (dn, int8)]
+
+
+def k4_share(int8, outs, exact, dn="bfloat16") -> float:
+    """K4's own measure of bf16 or fp16 q, against ``K4_TOL``, as
+    :func:`k5_share` measures K5 against ``K5_TOL``."""
+    return limit_share(K4_TOL[tol_key(dn, int8)], outs, exact)
 
 
 def decode_phase(torch, timer, rows, int8):
-    """K4 (``int8``: K4-int8) on every case, fp32 and bf16: the shared
-    gate, and K4_TOL for bf16 q, F32_PAGED_TOL for fp32; timed beside its
-    plain version and SDPA over the dense view gathered (and dequantized)
-    beforehand; then a bf16 q and an fp32 q's K pool its C entry must
-    refuse."""
+    """K4 (``int8``: K4-int8) on every case, fp32, bf16 and fp16: the
+    shared gate, and K4_TOL for bf16 and fp16 q, F32_PAGED_TOL for fp32;
+    timed beside its plain version and SDPA over the dense view gathered
+    (and dequantized) beforehand; then a bf16 q, an fp16 q and an fp32
+    q's K pool its C entry must refuse."""
     from paddle_tpu_torch.ops.kernels import paged_attention as k4
 
     _paged_phase(torch, timer, rows, "K4-int8" if int8 else "K4",
                  k4_case_inputs, k4_run, K4_TOL, "k4", int8,
                  k4.paged_attention, k4.paged_attention_ref)
     if not int8:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
             _refuses_misaligned(torch, "K4", k4, k4.paged_attention,
                                 next(k4_case_inputs(torch, dtype, False)))
 
@@ -973,7 +1046,7 @@ def k5_case_inputs(torch, dtype, int8, shapes=None):
                  (K5_Q_SHAPES if int8 else K5_SHAPES)]
         cases.append((1, K5_OFF_TABLE[0], (K5_OFF_TABLE[1],),
                       K5_OFF_TABLE[2]))
-        if dtype == torch.bfloat16:
+        if dtype != torch.float32:
             cases.append((len(K5_SLOTS[1]), K5_SLOTS[0], K5_SLOTS[1], bp0))
     for b, s, starts, bp in cases:
         rs = np.random.RandomState((32 if int8 else 31) + starts[0] + s
@@ -1047,15 +1120,15 @@ def _paged_run(torch, case, kernel_fn, ref_fn):
 def paged_shared_error(dn, int8, outs, shared):
     """The gate every K4/K5 case is held to: the largest |kernel - plain|
     over clean, poisoned, poisoned against clean and NaN-poisoned against
-    clean, relative to max(1, max |plain|) for bf16 q over int8 pools
-    (whose plain version rounds the dequantized view to bf16), else
-    absolute."""
+    clean, relative to max(1, max |plain|) for bf16 or fp16 q over int8
+    pools (whose plain version rounds the dequantized view to q's dtype),
+    else absolute."""
     out, out_p, out_n = outs
     ref, ref_p = shared
     err = max(_err(out, ref), _err(out_p, ref_p), _err(out_p, out),
               _err(out_n, out))
     norm = max(1.0, float(ref.float().abs().max())) \
-        if int8 and dn == "bfloat16" else 1.0
+        if int8 and dn != "float32" else 1.0
     return err, err / norm
 
 
@@ -1066,9 +1139,10 @@ def f32_share(int8, outs, exact) -> float:
                        exact)
 
 
-def k5_share(int8, outs, exact) -> float:
-    """K5's own measure of bf16 q (:func:`limit_share` of ``K5_TOL``)."""
-    return limit_share(K5_TOL["int8" if int8 else "bf16"], outs, exact)
+def k5_share(int8, outs, exact, dn="bfloat16") -> float:
+    """K5's own measure of bf16 or fp16 q (:func:`limit_share` of
+    ``K5_TOL``)."""
+    return limit_share(K5_TOL[tol_key(dn, int8)], outs, exact)
 
 
 def limit_share(tol, outs, exact) -> float:
@@ -1091,34 +1165,37 @@ def _finite(x) -> bool:
 
 
 def chunk_phase(torch, timer, rows, int8):
-    """K5 (``int8``: K5-int8) on every case, fp32 and bf16: the shared
-    gate, and K5_TOL for bf16 q, F32_PAGED_TOL for fp32; timed beside its
-    plain version and SDPA over the dense view gathered (and dequantized)
-    beforehand; then a bf16 q and an fp32 q's K pool its C entry must
-    refuse."""
+    """K5 (``int8``: K5-int8) on every case, fp32, bf16 and fp16: the
+    shared gate, and K5_TOL for bf16 and fp16 q, F32_PAGED_TOL for fp32;
+    timed beside its plain version and SDPA over the dense view gathered
+    (and dequantized) beforehand; then a bf16 q, an fp16 q and an fp32
+    q's K pool its C entry must refuse."""
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
 
     _paged_phase(torch, timer, rows, "K5-int8" if int8 else "K5",
                  k5_case_inputs, k5_run, K5_TOL, "k5", int8,
                  k5.chunk_prefill, k5.chunk_prefill_ref)
     if not int8:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
             _refuses_misaligned(torch, "K5", k5, k5.chunk_prefill,
                                 next(k5_case_inputs(torch, dtype, False)))
 
 
 def _paged_phase(torch, timer, rows, name, cases, run, tols, kid, int8,
                  kernel_fn, ref_fn):
-    """Every case of ``cases`` (K4's or K5's generator), fp32 and bf16 q:
-    ``run`` on it, the shared gate, the body's own gate (:func:`limit_share`
-    against ``tols`` for bf16 q, reported as ``<kid>_limit_share``, and
+    """Every case of ``cases`` (K4's or K5's generator), fp32, bf16 and
+    fp16 q: ``run`` on it, the shared gate, the body's own gate
+    (:func:`limit_share` against ``tols`` for bf16 and fp16 q, reported
+    as ``<kid>_limit_share``, and
     against F32_PAGED_TOL for fp32 q, as ``f32_limit_share``), and the row
     timed beside its plain version and SDPA over the dense view gathered
     (and dequantized) beforehand."""
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[1]
         for case in cases(torch, dtype, int8):
             shape = case["shape"]
+            if dn == "float16" and shape not in FP16_CASES[name[:2]]:
+                continue
             outs, shared, exact = run(torch, case)
             check(all(_finite(o) for o in outs),
                   f"{name} {dn} {shape}: non-finite output on a poisoned "
@@ -1127,8 +1204,8 @@ def _paged_phase(torch, timer, rows, name, cases, run, tols, kid, int8,
             check(rel <= ATOL[dn], f"{name} {dn} {shape}: max |kernel - "
                   f"plain| {err} (relative {rel}) > {ATOL[dn]} (clean, "
                   "poisoned, or poisoned vs clean)")
-            if dn == "bfloat16":
-                tol, gate = tols["int8" if int8 else "bf16"], kid
+            if dn != "float32":
+                tol, gate = tols[tol_key(dn, int8)], kid
             else:
                 tol, gate = F32_PAGED_TOL["int8" if int8 else "fp32"], "f32"
             share = limit_share(tol, outs, exact)
@@ -1165,12 +1242,12 @@ def _misaligned(torch, x):
 
 
 def _refuses_misaligned(torch, name, mod, kernel_fn, case):
-    """A bf16 q one element past a 16-byte boundary reaches the C entry,
-    which must refuse it (cudaErrorInvalidValue = 1): cp.async takes
+    """A bf16 or fp16 q one element past a 16-byte boundary reaches the C
+    entry, which must refuse it (cudaErrorInvalidValue = 1): cp.async takes
     16-byte chunks; so must an fp32 q's K pool (the fp32 body stages K and
     V by cp.async too). Nothing is launched or counted."""
     q, (kp, vp) = case["q"], case["pools"]
-    what = "q" if q.dtype == torch.bfloat16 else "k_pool"
+    what = "k_pool" if q.dtype == torch.float32 else "q"
     if what == "q":
         q = _misaligned(torch, q)
     else:
@@ -1650,13 +1727,16 @@ def _serving_trace(vocab):
     return out
 
 
-def _serve(torch, model, trace, block_size=16, **engine_kw):
+def _serve(torch, model, trace, block_size=16, poison=False, **engine_kw):
     """One run of ``trace`` through ``ServingEngine(model, 8 slots, max_len
     1024, blocks of ``block_size`` (None: the dense arena), chunks of 128,
     **engine_kw)`` on the card, after a warm-up request (cuBLAS handles,
     the allocator) outside the counted run: the engine, the requests,
     their streams, the aggregate, the wall seconds and the launch counts
-    of the run (every counter set to 0 just before it)."""
+    of the run (every counter set to 0 just before it). ``poison`` fills
+    every pool after the warm-up as phase 3 poisons (1e9, or saturated
+    int8 codes and 1e7 scales): a row read before it was written, or
+    restored wrong, wrecks the softmax it reaches."""
     from paddle_tpu_torch.inference import Request, ServingEngine
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
     from paddle_tpu_torch.ops.kernels import layer_norm as k2
@@ -1667,6 +1747,12 @@ def _serve(torch, model, trace, block_size=16, **engine_kw):
                         device="cuda", **engine_kw)
     eng.submit(Request(prompt=[1, 2, 3], max_new_tokens=4, greedy=True))
     eng.run()
+    if poison:
+        e = eng.engine
+        for b in e.kbufs + e.vbufs:
+            b.fill_(127 if e.quantized else 1e9)
+        for x in (e.kscales or []) + (e.vscales or []):
+            x.fill_(1e7)
     streamed = {}
     reqs = [eng.submit(Request(on_token=lambda r, tok, done: streamed.
                                setdefault(r.id, []).append((tok, bool(done))),
@@ -2003,7 +2089,10 @@ def serving_dense_phase(torch, card, model, fp_agg):
     ``ServingEngine`` with ``block_size`` left at its default, the dense
     arena: greedy tokens against the teacher-forced argmax (near-ties
     counted), no K4 or K5 launch, K2 (2L + 1) x (chunks + steps), and the
-    host-clock perf beside phase 5's (not gated)."""
+    host-clock perf beside phase 5's (not gated). Then the dense arena's
+    prefix cache: 5b's shared-prompt trace with and without a
+    ``PrefixCache(chunk_tokens=128)`` (segment copies of cached chunks
+    into the slot's rows): greedy tokens equal, hits > 0, K4 = K5 = 0."""
     cfg = model.config
     _, reqs, agg, wall, launches = _serve(
         torch, model, _serving_trace(cfg.vocab_size), block_size=None)
@@ -2019,6 +2108,194 @@ def serving_dense_phase(torch, card, model, fp_agg):
           f"{fp_agg['ttft_p50_s'] * 1e3:.1f} ms, decode step p50 "
           f"{fp_agg['decode_step_ms_p50']:.2f} ms; host clock, not gated)",
           flush=True)
+
+    from paddle_tpu_torch.inference import PrefixCache
+
+    trace = _shared_prefix_trace(cfg.vocab_size)
+    _, cold, cold_agg, _, _ = _serve(torch, model, trace, block_size=None)
+    cache = PrefixCache(chunk_tokens=128, max_bytes=1 << 30)
+    _, reqs, agg, wall, launches = _serve(torch, model, trace,
+                                          block_size=None,
+                                          prefix_cache=cache)
+    chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+    hits = int(agg["prefix_hit_tokens"])
+    print(f"dense serving + prefix cache: {int(agg['completed'])} requests, "
+          f"{chunks} prefill chunks (cache off "
+          f"{int(cold_agg['prefill_chunks'])}), {steps} decode steps, "
+          f"prefix hit tokens {hits}, trie {cache.stats()}, launches "
+          f"{launches}", flush=True)
+    _check_launches("dense serving + prefix cache", launches,
+                    cfg.num_layers, chunks, steps, int8=False, paged=False)
+    check(hits > 0 and hits == cache.hit_tokens,
+          f"dense prefix hit tokens {hits}, the trie's {cache.hit_tokens}")
+    for r, c in zip(reqs, cold):
+        if r.greedy:
+            check(r.tokens == c.tokens, f"dense request {r.id}: cache on "
+                  f"{r.tokens[:8]}... != cache off {c.tokens[:8]}...")
+    print("dense cache on vs off: greedy tokens equal; "
+          + _perf_line("dense serving + prefix cache", card, agg, wall),
+          flush=True)
+
+
+def serving_fp16_phase(torch, card):
+    """Phase 5h: ``gpt2_small`` in fp16 at full width and depth serves
+    5c's 8 greedy requests on fp16 pools, then on int8 pools, so that
+    every LayerNorm runs K2's fp16 body, prefill K5's and decode K4's
+    tensor-core bodies on ``__half``: the teacher-forced logits finite
+    (fp16's range holds the random model), exact launch counts, and
+    greedy agreement with the fp16 teacher-forced argmax >= 0.9 (5c's
+    limit). Returns the launch counts of the two runs."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+
+    cfg = gpt2_small()
+    model = GPTForCausalLM(cfg, device="cuda", seed=0, dtype=torch.float16)
+    model.eval()
+    trace = [kw for kw in _serving_trace(cfg.vocab_size)
+             if kw.get("greedy")][:8]
+    with torch.inference_mode():
+        ids = torch.tensor([trace[0]["prompt"]], device="cuda")
+        logits = model(ids)
+    check(logits.dtype == torch.float16 and _finite(logits),
+          "fp16 gpt2_small: the teacher-forced logits are not finite fp16")
+    print(f"fp16 teacher-forced logits: max |logit| "
+          f"{float(logits.float().abs().max()):.3f}", flush=True)
+    out = {}
+    for kv in (None, "int8"):
+        what = f"fp16 serving{', int8 pools' if kv else ''}"
+        _, reqs, agg, wall, launches = _serve(torch, model, trace,
+                                              kv_dtype=kv)
+        chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+        print(f"{what}: {int(agg['completed'])} requests, {chunks} prefill "
+              f"chunks, {steps} decode steps, launches {launches}",
+              flush=True)
+        _check_launches(what, launches, cfg.num_layers, chunks, steps,
+                        int8=kv is not None)
+        agree, total = _agreement(torch, model, reqs)
+        rate = agree / total
+        print(f"{what}: greedy agreement with the fp16 argmax {agree}/"
+              f"{total} = {rate:.4f} (limit 0.9)", flush=True)
+        check(rate >= 0.9, f"{what}: greedy agreement {rate} < 0.9")
+        print(_perf_line(what, card, agg, wall), flush=True)
+        out[kv] = launches
+    return out[None], out["int8"]
+
+
+def _same_greedy(torch, model, want, got, what):
+    """Greedy requests of ``got`` give the tokens of ``want`` (the same
+    trace), but at a near-tie: where they first differ, the top-2 gap of
+    a teacher-forced no-cache forward of ``want``'s tokens must be below
+    1e-3 (phase 5's rule; the two runs' K/V rows may come from different
+    GEMM shapes, a decode step's or a chunk's). Returns the number of
+    requests that diverged."""
+    diverged = 0
+    with torch.inference_mode():
+        for w, g in zip(want, got):
+            if not w.greedy or w.tokens == g.tokens:
+                continue
+            step = next(i for i, (a, b) in enumerate(zip(w.tokens, g.tokens))
+                        if a != b)
+            ids = torch.tensor([list(w.prompt) + w.tokens[:step]],
+                               device="cuda")
+            top2 = torch.topk(model(ids)[0, -1].float(), 2).values
+            gap = float(top2[0] - top2[1])
+            check(gap < 1e-3, f"{what}: request {w.id} diverges at token "
+                  f"{step} ({w.tokens[step]} vs {g.tokens[step]}), top-2 "
+                  f"gap {gap}")
+            diverged += 1
+    return diverged
+
+
+# the starved pool of phase 5i: 170 blocks of 16 rows for 8 slots (the
+# roomy run peaks at 279 on phase 5's trace), so growth preempts decoding
+# requests (at 160 the one victim is still prefilling, and nothing
+# spills); the tier takes every block a victim can hold
+TIER_POOL = 170
+
+
+def serving_tier_phase(torch, card, model):
+    """Phase 5i: the host tier on phase 5's fp32 model and trace, over
+    fp32 pools and then int8 pools, each poisoned after the warm-up.
+    Three runs each: roomy, starved (``num_blocks=TIER_POOL``) without a
+    tier, and starved with ``host_tier_blocks=TIER_POOL``: the same
+    greedy tokens (but at counted near-ties), preemptions >= 1, blocks
+    spilled and swapped in and re-prefill tokens avoided > 0, fewer
+    prefill tokens computed than without a tier, exact launch counts
+    (K5 a layer a chunk of the engine's own count: a swapped-back request
+    resumes at its spilled frontier), and the tier and the pool back to
+    empty. Then 5b's shared-prompt trace behind a ``PrefixCache`` whose
+    budget holds 3 chunks, with a tier: demotions and host hits > 0, the
+    greedy tokens of the run without a cache."""
+    from paddle_tpu_torch.inference import PrefixCache
+
+    cfg = model.config
+    L = cfg.num_layers
+    trace = _serving_trace(cfg.vocab_size)
+    for kv in (None, "int8"):
+        what = f"host tier{', int8 pools' if kv else ''}"
+        _, roomy, _, _, _ = _serve(torch, model, trace, poison=True,
+                                   kv_dtype=kv)
+        _, starved, s_agg, _, _ = _serve(torch, model, trace, poison=True,
+                                         kv_dtype=kv, num_blocks=TIER_POOL)
+        eng, reqs, agg, wall, launches = _serve(
+            torch, model, trace, poison=True, kv_dtype=kv,
+            num_blocks=TIER_POOL, host_tier_blocks=TIER_POOL)
+        chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+        keys = ("preemptions", "blocks_spilled", "blocks_swapped_in",
+                "reprefill_tokens_avoided", "prefill_tokens_computed")
+        print(f"{what}: {chunks} prefill chunks, {steps} decode steps, "
+              + ", ".join(f"{k} {int(agg[k])}" for k in keys)
+              + f"; without a tier: preemptions {int(s_agg['preemptions'])}"
+              f", prefill_tokens_computed "
+              f"{int(s_agg['prefill_tokens_computed'])}; tier "
+              f"{eng.host_tier_state()}, launches {launches}", flush=True)
+        _check_launches(what, launches, L, chunks, steps, int8=kv is not None)
+        check(agg["preemptions"] >= 1 and s_agg["preemptions"] >= 1,
+              f"{what}: the starved pool did not preempt")
+        for k in keys[1:4]:
+            check(agg[k] > 0, f"{what}: {k} is {agg[k]}")
+        check(agg["prefill_tokens_computed"]
+              < s_agg["prefill_tokens_computed"],
+              f"{what}: {agg['prefill_tokens_computed']} prefill tokens "
+              f"computed, {s_agg['prefill_tokens_computed']} without a tier")
+        check(eng._alloc.free_count() == eng._alloc.capacity
+              and eng._host.free_count() == eng._host.capacity
+              and eng._host.reconcile({}) == {
+                  "leaked_host_blocks": 0, "missing_host_refs": 0,
+                  "host_free_list_errors": 0},
+              f"{what}: blocks left after the run: pool "
+              f"{eng._alloc.blocks_in_use()}, tier {eng.host_tier_state()}")
+        n_no = _same_greedy(torch, model, roomy, starved,
+                            f"{what}, starved without a tier")
+        n_tier = _same_greedy(torch, model, roomy, reqs, f"{what}, tiered")
+        print(f"{what}: greedy tokens of the roomy run in the starved runs "
+              f"but at {n_no} (no tier) and {n_tier} (tier) near-tie "
+              "divergences; " + _perf_line(what, card, agg, wall),
+              flush=True)
+
+    trace = _shared_prefix_trace(cfg.vocab_size)
+    cold_eng, cold, _, _, _ = _serve(torch, model, trace)
+    cache = PrefixCache(chunk_tokens=128, max_bytes=3 * (128 // 16)
+                        * cold_eng._alloc.block_nbytes)
+    eng, reqs, agg, wall, launches = _serve(torch, model, trace,
+                                            prefix_cache=cache,
+                                            host_tier_blocks=256)
+    st = cache.stats()
+    chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+    print(f"host tier + prefix cache (budget 3 chunks): {chunks} prefill "
+          f"chunks, {steps} decode steps, prefix hit tokens "
+          f"{int(agg['prefix_hit_tokens'])}, trie {st}, launches {launches}",
+          flush=True)
+    _check_launches("host tier + prefix cache", launches, L, chunks, steps,
+                    int8=False)
+    check(st["host_demotions"] > 0 and st["host_hits"] > 0,
+          f"host tier + prefix cache: demotions {st['host_demotions']}, "
+          f"host hits {st['host_hits']}")
+    for r, c in zip(reqs, cold):
+        if r.greedy:
+            check(r.tokens == c.tokens, f"tiered trie request {r.id}: "
+                  f"{r.tokens[:8]}... != cache off {c.tokens[:8]}...")
+    print("host tier + prefix cache: greedy tokens equal to the cache-off "
+          "run", flush=True)
 
 
 GENERATE = (4, 256, 32)       # batch, prompt length, new tokens
@@ -2493,6 +2770,20 @@ KERNELS = {
                     "of 17 rows: two row tiles)",
                     "paddle_tpu_torch/csrc/paged_attention.cu",
                     "paddle_tpu/ops/pallas/paged_attention.py:103"),
+    "K2-fp16": ("layer_norm (fp16)", "paddle_tpu_torch/csrc/layer_norm.cu",
+                "paddle_tpu/ops/pallas/layer_norm.py:31"),
+    "K4-fp16": ("paged_attention (fp16 mma.sync cluster body)",
+                "paddle_tpu_torch/csrc/paged_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:103"),
+    "K4-int8-fp16": ("paged_attention (fp16 mma.sync cluster body, int8 "
+                     "pools)", "paddle_tpu_torch/csrc/paged_attention.cu",
+                     "paddle_tpu/ops/pallas/paged_attention.py:134"),
+    "K5-fp16": ("chunk_prefill (fp16 mma.sync body)",
+                "paddle_tpu_torch/csrc/chunk_prefill.cu",
+                "paddle_tpu/ops/pallas/chunk_prefill.py:93"),
+    "K5-int8-fp16": ("chunk_prefill (fp16 mma.sync body, int8 pools)",
+                     "paddle_tpu_torch/csrc/chunk_prefill.cu",
+                     "paddle_tpu/ops/pallas/chunk_prefill.py:126"),
     "K1-fp16": ("flash_fwd (fp16 mma.sync body)",
                 "paddle_tpu_torch/csrc/flash_fwd.cu",
                 f"{_FA}:54, {_FA}:108"),
@@ -2503,7 +2794,8 @@ KERNELS = {
 # fp32 (the serving phase's dtype) at the decode shape for K2 and K4,
 # and the deepest prefix for K5; for K4's and K5's bf16 bodies (phase
 # 5c's) bf16 at the decode shape and the deepest prefix, and K4's at
-# phase 5d's verify of 16 drafts (s 17); for the flash
+# phase 5d's verify of 16 drafts (s 17); their fp16 instantiations and
+# K2's (phase 5h's) at the same shapes in fp16; for the flash
 # kernels bf16 (the training phase's dtype under AMP) at the shape of the
 # path that launches them, and their fp16 bodies (phase 6b's) at the
 # training shape.
@@ -2523,6 +2815,11 @@ HEADLINE = {"K1": ("K1", "bfloat16", list(FLASH_CASES[0])),
             "K4-bf16": ("K4", "bfloat16", [8, 1, 12, 64, 16, 64]),
             "K4-int8-bf16": ("K4-int8", "bfloat16", [8, 1, 12, 64, 16, 64]),
             "K4-bf16-s17": ("K4", "bfloat16", [8, 17, 12, 64, 16, 64]),
+            "K2-fp16": ("K2", "float16", [8, 768]),
+            "K4-fp16": ("K4", "float16", [8, 1, 12, 64, 16, 64]),
+            "K4-int8-fp16": ("K4-int8", "float16", [8, 1, 12, 64, 16, 64]),
+            "K5-fp16": ("K5", "float16", _K5_DEEP),
+            "K5-int8-fp16": ("K5-int8", "float16", _K5_DEEP),
             "K1-fp16": ("K1", "float16", list(FLASH_CASES[0])),
             "K3a-fp16": ("K3a", "float16", list(FLASH_CASES[0]))}
 
@@ -2574,6 +2871,10 @@ def main():
     del bf16_model
     serving_dense_phase(torch, card, model, fp_agg)
     lap("dense serving")
+    fp16_serve, fp16_q_serve = serving_fp16_phase(torch, card)
+    lap("fp16 serving")
+    serving_tier_phase(torch, card, model)
+    lap("host tier")
     generate_phase(torch, card, model)
     lap("generate")
     draft_phase(torch, card, model)
@@ -2583,7 +2884,12 @@ def main():
                      "K5-int8-bf16": bf16_q_launches["K5-int8"],
                      "K4-bf16": bf16_launches["K4"],
                      "K4-int8-bf16": bf16_q_launches["K4-int8"],
-                     "K4-bf16-s17": k16_launches})
+                     "K4-bf16-s17": k16_launches,
+                     "K2-fp16": fp16_serve["K2"],
+                     "K4-fp16": fp16_serve["K4"],
+                     "K4-int8-fp16": fp16_q_serve["K4-int8"],
+                     "K5-fp16": fp16_serve["K5"],
+                     "K5-int8-fp16": fp16_q_serve["K5-int8"]})
     train_launches, train_perf = training_phase(torch, card)
     lap("training")
     fp16_launches = training_fp16_phase(torch, card, train_perf)

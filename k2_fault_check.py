@@ -9,8 +9,8 @@ itself into a fresh temporary directory, plants the fault in the copy's
 ``csrc/layer_norm.cu`` (the checkout is never edited), builds that
 copy's kernels and runs every K2 case of ``chip_smoke.py``
 (``k2_case_inputs``: the timed shapes, rows of large mean, an odd C, an
-offset view and wide rows, each with and without w and b) in fp32 and
-bf16 through two gates:
+offset view and wide rows, each with and without w and b) in fp32,
+bf16 and fp16 through two gates:
 
 - the shared gate: the largest |y - plain| within ``ATOL`` and mean and
   rstd within 2e-5 of the plain version in fp32 (y against the plain
@@ -84,6 +84,7 @@ FAULTS = {
 
 # for the sound kernel: the atol each rtol would need, per output
 RTOLS = {"float32": [0.0, 1e-7, 1e-6], "bfloat16": [2.0 ** -8, 2.0 ** -7],
+         "float16": [2.0 ** -11, 2.0 ** -10],
          "mean": [0.0, 6e-8, 1.2e-7], "rstd": [0.0, 1e-7, 1e-6]}
 
 
@@ -133,7 +134,7 @@ def main():
 
     k1_fault_check.drive(Path(__file__).resolve(), "layer_norm.cu", FAULTS,
                          "k2_gate", shared="shared_gate",
-                         fault_dtypes=("float32", "bfloat16"))
+                         fault_dtypes=("float32", "bfloat16", "float16"))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted faults in K4's bf16 cluster body, held to chip_smoke.py's K4 gates.
+"""Planted faults in K4's bf16/fp16 cluster body, held to K4's gates.
 
 Run from the root of a checkout on one Hopper card (``nvcc`` and
 PyTorch built for CUDA): ``python3 k4_fault_check.py``. For the sound
@@ -7,20 +7,20 @@ kernel and then for each fault of ``FAULTS``, it copies
 ``paddle_tpu_torch/``, ``chip_smoke.py``, ``k1_fault_check.py`` and
 itself into a fresh temporary directory, plants the fault in the copy's
 ``csrc/paged_attention.cu`` (the checkout is never edited), builds that
-copy's kernels and runs every bf16 K4 and K4-int8 case of
+copy's kernels and runs every bf16 and fp16 K4 and K4-int8 case of
 ``chip_smoke.py`` (``k4_case_inputs``: the decode step of 8 slots, a
 lone request at t 1000, a verify of 4 drafts, a slot running off a
 table of 5 blocks of 16 rows, 16 rows running off one of 3 blocks of
 11, verifies of 17 and 32 rows (two row tiles, one ragged) over the
-decode step's table and one of 80 rows on 2 slots (5 tiles), over bf16
-pools and over int8 pools; clean, poisoned and NaN-poisoned pools)
+decode step's table and one of 80 rows on 2 slots (5 tiles), over pools
+of q's dtype and over int8 pools; clean, poisoned and NaN-poisoned pools)
 against the plain version through two gates:
 
 - the shared gate, ``ATOL``: the largest |kernel - plain| over clean,
   poisoned and NaN-poisoned pools (over int8 pools relative to max(1,
   max |plain|)), the limit every K4/K5 case is held to;
-- K4's own gate, ``K4_TOL``: element by element against the plain
-  version in fp32.
+- K4's own gate, ``K4_TOL`` (bf16 and fp16 each their own limits):
+  element by element against the plain version in fp32.
 
 It prints the card, one JSON line per (kernel, case) with both verdicts
 and the errors they read (for the sound kernel also the atol that each
@@ -33,7 +33,7 @@ that leaves every output as it was escapes both gates and is reported
 as unchanged. A fault whose run fails on the card (a CTA's shared
 memory read after it exited may fault) is reported as caught by the
 run. fp32 q runs the CUDA-core body, which no fault here touches, so
-only bf16 q is run. The copy-plant-run loop is ``k1_fault_check.drive``.
+only bf16 and fp16 q are run (one source, two instantiations). The copy-plant-run loop is ``k1_fault_check.drive``.
 """
 
 from __future__ import annotations
@@ -101,14 +101,14 @@ FAULTS = {
 }
 
 # for the sound kernel: the atol each rtol would need
-RTOLS = [0.0, 2.0 ** -8, 2.0 ** -7, 1e-2]
+RTOLS = [0.0, 2.0 ** -10, 2.0 ** -9, 2.0 ** -8, 2.0 ** -7, 1e-2]
 
 
 def child(dtypes, sound_out, sound_in):
-    """Every bf16 K4 case of this copy's kernel through both gates, one
-    JSON line each; the sound run saves its outputs, a fault's run
-    compares with them. ``dtypes`` is taken for drive()'s sake: fp32 q
-    runs the CUDA-core body, so the cases are bf16 only."""
+    """Every bf16 and fp16 K4 case of this copy's kernel (of ``dtypes``,
+    those two) through both gates, one JSON line each; the sound run saves
+    its outputs, a fault's run compares with them. fp32 q runs the
+    CUDA-core body, which no fault here touches, so fp32 is not run."""
     import torch
 
     import chip_smoke as cs
@@ -118,19 +118,20 @@ def child(dtypes, sound_out, sound_in):
     torch.backends.cudnn.allow_tf32 = False
     sound = torch.load(sound_in) if sound_in else None
     saved = {}
-    for int8 in (False, True):
-        for case in cs.k4_case_inputs(torch, torch.bfloat16, int8):
+    for dn, int8 in ((dn, int8) for dn in dtypes if dn != "float32"
+                     for int8 in (False, True)):
+        for case in cs.k4_case_inputs(torch, getattr(torch, dn), int8):
             outs, shared, exact = cs.k4_run(torch, case)
             finite = all(cs._finite(o) for o in outs)
-            err, rel = cs.paged_shared_error("bfloat16", int8, outs, shared)
-            share = cs.k4_share(int8, outs, exact)
-            pools = "int8" if int8 else "bf16"
-            row = {"dtype": "bfloat16", "pools": pools,
+            err, rel = cs.paged_shared_error(dn, int8, outs, shared)
+            share = cs.k4_share(int8, outs, exact, dn)
+            pools = "int8" if int8 else dn
+            row = {"dtype": dn, "pools": pools,
                    "case": case["shape"], "shared_gate_err": rel,
-                   "shared_gate": finite and rel <= cs.ATOL["bfloat16"],
+                   "shared_gate": finite and rel <= cs.ATOL[dn],
                    "k4_limit_share": share,
                    "k4_gate": finite and share <= 1.0}
-            key = f"{pools} {case['shape']}"
+            key = f"{dn} {pools} {case['shape']}"
             if sound is None:
                 saved[key] = [o.cpu() for o in outs]
                 needed = {str(r): 0.0 for r in RTOLS}
@@ -154,7 +155,8 @@ def main():
 
     k1_fault_check.drive(Path(__file__).resolve(), "paged_attention.cu",
                          FAULTS, "k4_gate", shared="shared_gate",
-                         may_fault={"the second cluster.sync() removed"})
+                         may_fault={"the second cluster.sync() removed"},
+                         fault_dtypes=("bfloat16", "float16"))
 
 
 if __name__ == "__main__":

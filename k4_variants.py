@@ -19,7 +19,7 @@ copies the port into a fresh temporary directory and patches the copy
 every copy at once, then prints per variant
 
 - ``nvcc -Xptxas -v``'s registers and spills of each instantiation of
-  ``paged_decode_mma_kernel<D, TP>``;
+  ``paged_decode_mma_kernel<D, T, TP>`` (T bf16: the variants time bf16 q);
 - one JSON line per bf16 K4 and K4-int8 case of ``chip_smoke.py``
   (``k4_case_inputs``): the device time (``chip_smoke.Timer``: median of
   single launches, cold L2) and the largest share of ``K4_TOL``.
@@ -61,7 +61,7 @@ def _splits(c):
             "TP>::bytes)) != cudaSuccess\n"
             "             ? cudaGetLastError()\n"
             "             : cudaFuncSetAttribute(\n"
-            "                   paged_decode_mma_kernel<D, TP>,\n"
+            "                   paged_decode_mma_kernel<D, T, TP>,\n"
             "                   cudaFuncAttributeNonPortableClusterSizeAllowed, "
             "1);\n}\n"))
     return patches
@@ -74,7 +74,7 @@ def _cluster_tail():
            / "paged_attention.cu").read_text()
     return src[src.index("  // every rank's partial is in its shared "
                          "memory\n"):
-               src.index("template <int D, typename TP>\n"
+               src.index("template <int D, typename T, typename TP>\n"
                          "cudaError_t prepare_decode")]
 
 
@@ -156,9 +156,9 @@ _V2 = [
      "  }\n"
      "  cudaLaunchAttribute attr;\n"
      "  const cudaLaunchConfig_t cfg = decode_config<D, TP>(b, s, H, st, &attr);\n"),
-    ("                         static_cast<bf16*>(out), s, H, bs, bp, scale);\n"
+    ("                         static_cast<T*>(out), s, H, bs, bp, scale);\n"
      "  if (e != cudaSuccess) return e;\n",
-     "                         static_cast<bf16*>(out), s, H, bs, bp, scale);\n"
+     "                         static_cast<T*>(out), s, H, bs, bp, scale);\n"
      "  if (e != cudaSuccess) return e;\n"
      "  decode_merge_kernel<D><<<dim3(b * H, (s + kMaxRows - 1) / kMaxRows),\n"
      "                           128, 0, st>>>(static_cast<bf16*>(out), s, H);\n"),
@@ -182,7 +182,7 @@ VARIANTS = {
         "constexpr int kStages = 2;", "constexpr int kStages = 3;")],
 }
 
-_MMA = re.compile(r"paged_decode_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
+_MMA = re.compile(r"paged_decode_mma_kernelILi(\d+)E13__nv_bfloat16(a|S\d*_)E")
 
 
 def child(build_only: bool):

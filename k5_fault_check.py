@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted faults in K5's bf16 body, held to chip_smoke.py's K5 gates.
+"""Planted faults in K5's bf16/fp16 body, held to chip_smoke.py's K5 gates.
 
 Run from the root of a checkout on one Hopper card (``nvcc`` and
 PyTorch built for CUDA): ``python3 k5_fault_check.py``. For the sound
@@ -7,17 +7,17 @@ kernel and then for each fault of ``FAULTS``, it copies
 ``paddle_tpu_torch/``, ``chip_smoke.py``, ``k1_fault_check.py`` and
 itself into a fresh temporary directory, plants the fault in the copy's
 ``csrc/chunk_prefill.cu`` (the checkout is never edited), builds that
-copy's kernels and runs every bf16 K5 and K5-int8 case of
-``chip_smoke.py`` (``k5_case_inputs``: the five chunk shapes over bf16
-pools, the two over int8 pools, three slots at their own starts over
+copy's kernels and runs every bf16 and fp16 K5 and K5-int8 case of
+``chip_smoke.py`` (``k5_case_inputs``: the five chunk shapes over pools
+of q's dtype, the two over int8 pools, three slots at their own starts over
 each; clean, poisoned and NaN-poisoned pools) against the plain version
 through two gates:
 
 - the shared gate, ``ATOL``: the largest |kernel - plain| over clean,
   poisoned and NaN-poisoned pools (over int8 pools relative to max(1,
   max |plain|)), the limit every K4/K5 case is held to;
-- K5's own gate, ``K5_TOL``: element by element against the plain
-  version in fp32.
+- K5's own gate, ``K5_TOL`` (bf16 and fp16 each their own limits):
+  element by element against the plain version in fp32.
 
 It prints the card, one JSON line per (kernel, case) with both verdicts
 and the errors they read (for the sound kernel also the atol that each
@@ -26,7 +26,8 @@ non-zero if the sound kernel fails a gate, or if a fault changes some
 output and K5's gate catches it in no case. A fault changes an output
 where any of the three differs from the sound kernel's in any bit (the
 body has no atomics: its outputs are the same from run to run). fp32 q
-runs K4's body, which no fault here touches, so only bf16 q is run. The
+runs K4's body, which no fault here touches, so only bf16 and fp16 q
+are run (one source, two instantiations). The
 copy-plant-run loop is ``k1_fault_check.drive``.
 """
 
@@ -76,14 +77,14 @@ FAULTS = {
 }
 
 # for the sound kernel: the atol each rtol would need
-RTOLS = [0.0, 2.0 ** -8, 2.0 ** -7, 1e-2]
+RTOLS = [0.0, 2.0 ** -10, 2.0 ** -9, 2.0 ** -8, 2.0 ** -7, 1e-2]
 
 
 def child(dtypes, sound_out, sound_in):
-    """Every bf16 K5 case of this copy's kernel through both gates, one
-    JSON line each; the sound run saves its outputs, a fault's run
-    compares with them. ``dtypes`` is taken for drive()'s sake: K5's
-    fp32 q runs K4's body, so the cases are bf16 only."""
+    """Every bf16 and fp16 K5 case of this copy's kernel (of ``dtypes``,
+    those two) through both gates, one JSON line each; the sound run saves
+    its outputs, a fault's run compares with them. fp32 q runs the
+    CUDA-core body, which no fault here touches, so fp32 is not run."""
     import torch
 
     import chip_smoke as cs
@@ -93,19 +94,20 @@ def child(dtypes, sound_out, sound_in):
     torch.backends.cudnn.allow_tf32 = False
     sound = torch.load(sound_in) if sound_in else None
     saved = {}
-    for int8 in (False, True):
-        for case in cs.k5_case_inputs(torch, torch.bfloat16, int8):
+    for dn, int8 in ((dn, int8) for dn in dtypes if dn != "float32"
+                     for int8 in (False, True)):
+        for case in cs.k5_case_inputs(torch, getattr(torch, dn), int8):
             outs, shared, exact = cs.k5_run(torch, case)
             finite = all(cs._finite(o) for o in outs)
-            err, rel = cs.paged_shared_error("bfloat16", int8, outs, shared)
-            share = cs.k5_share(int8, outs, exact)
-            pools = "int8" if int8 else "bf16"
-            row = {"dtype": "bfloat16", "pools": pools,
+            err, rel = cs.paged_shared_error(dn, int8, outs, shared)
+            share = cs.k5_share(int8, outs, exact, dn)
+            pools = "int8" if int8 else dn
+            row = {"dtype": dn, "pools": pools,
                    "case": case["shape"], "shared_gate_err": rel,
-                   "shared_gate": finite and rel <= cs.ATOL["bfloat16"],
+                   "shared_gate": finite and rel <= cs.ATOL[dn],
                    "k5_limit_share": share,
                    "k5_gate": finite and share <= 1.0}
-            key = f"{pools} {case['shape']}"
+            key = f"{dn} {pools} {case['shape']}"
             if sound is None:
                 saved[key] = [o.cpu() for o in outs]
                 needed = {str(r): 0.0 for r in RTOLS}
@@ -128,7 +130,8 @@ def main():
     import k1_fault_check
 
     k1_fault_check.drive(Path(__file__).resolve(), "chunk_prefill.cu",
-                         FAULTS, "k5_gate", shared="shared_gate")
+                         FAULTS, "k5_gate", shared="shared_gate",
+                         fault_dtypes=("bfloat16", "float16"))
 
 
 if __name__ == "__main__":

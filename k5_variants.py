@@ -15,7 +15,7 @@ fresh temporary directory and patches the copy
 every copy at once, then prints per variant
 
 - ``nvcc -Xptxas -v``'s registers and spills of each instantiation of
-  ``chunk_prefill_mma_kernel<D, TP>``;
+  ``chunk_prefill_mma_kernel<D, T, TP>`` (T bf16: the variants time bf16 q);
 - one JSON line per bf16 K5 and K5-int8 case of ``chip_smoke.py``
   (``k5_case_inputs``), and per shape of ``EXTRA_SHAPES``: the device
   time (``chip_smoke.Timer``: median of single launches, cold L2) and
@@ -65,12 +65,12 @@ _SPLIT = [
      "  for (int i = 0; i < 2; ++i) {\n"
      "    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);\n"
      "    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);\n"
-     "    l[i] /= f;  // O = o * f / l (f = 1 for bf16 pools)\n  }\n",
+     "    l[i] /= f;  // O = o * f / l (f = 1 for 16-bit pools)\n  }\n",
      "#pragma unroll\n"
      "  for (int i = 0; i < 2; ++i) {\n"
      "    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);\n"
      "    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);\n"
-     "    l[i] /= f;  // O = o * f / l (f = 1 for bf16 pools)\n  }\n"
+     "    l[i] /= f;  // O = o * f / l (f = 1 for 16-bit pools)\n  }\n"
      "  if (nact > 1) {\n"
      "    constexpr int RW = D + 2;  // a row: O / l, then m, l\n"
      "    float* pc = part + ((static_cast<int64_t>(z) * gridDim.y + h) *\n"
@@ -104,7 +104,7 @@ _SPLIT = [
      "    if (!last) return;\n"
      "    __threadfence();\n"
      "    float* p0 = pc - z * zs;  // split 0 of this CTA\n"
-     "    bf16* oh = out + static_cast<int64_t>(slot) * s * rs + h * D;\n"
+     "    T* oh = out + static_cast<int64_t>(slot) * s * rs + h * D;\n"
      "    for (int idx = threadIdx.x; idx < rows * (D / 8);\n"
      "         idx += kMmaThreads) {\n"
      "      const int r = idx / (D / 8), c = idx % (D / 8);\n"
@@ -119,27 +119,27 @@ _SPLIT = [
      "        for (int e = 0; e < 8; ++e) w[e] += wy * __ldcg(pr + c * 8 + e);\n"
      "      }\n"
      "      uint4 v;\n"
-     "      v.x = mma::pack_bf16(w[0] / lsum, w[1] / lsum);\n"
-     "      v.y = mma::pack_bf16(w[2] / lsum, w[3] / lsum);\n"
-     "      v.z = mma::pack_bf16(w[4] / lsum, w[5] / lsum);\n"
-     "      v.w = mma::pack_bf16(w[6] / lsum, w[7] / lsum);\n"
+     "      v.x = E::pack(w[0] / lsum, w[1] / lsum);\n"
+     "      v.y = E::pack(w[2] / lsum, w[3] / lsum);\n"
+     "      v.z = E::pack(w[4] / lsum, w[5] / lsum);\n"
+     "      v.w = E::pack(w[6] / lsum, w[7] / lsum);\n"
      "      *reinterpret_cast<uint4*>(oh + (r0 + r) * rs + c * 8) = v;\n"
      "    }\n"
      "    return;\n"
      "  }\n"
      "  if (!warp_live) return;\n"),
-    ("template <int D, typename TP>\n"
+    ("template <int D, typename T, typename TP>\n"
      "cudaError_t launch_mma(const void* q, const void* kp, const void* vp,\n",
      "float* g_part;  // the entry's split arguments\n"
      "int* g_sem;\n"
      "int g_nsplit;\n\n"
-     "template <int D, typename TP>\n"
+     "template <int D, typename T, typename TP>\n"
      "cudaError_t launch_mma(const void* q, const void* kp, const void* vp,\n"),
     ("  const dim3 grid(b * ntile, H);\n",
      "  const int tiles = (bp * bs + kKeys - 1) / kKeys;\n"
      "  const dim3 grid(b * ntile, H, g_nsplit);\n"),
-    ("      s, ntile, H, bs, bp, scale);\n",
-     "      s, ntile, H, bs, bp, scale, g_part, g_sem,\n"
+    ("      ntile, H, bs, bp, scale);\n",
+     "      ntile, H, bs, bp, scale, g_part, g_sem,\n"
      "      (tiles + g_nsplit - 1) / g_nsplit);\n"),
     ("                                     float scale, int dtype, int pool,\n"
      "                                     void* stream) {\n",
@@ -189,9 +189,9 @@ VARIANTS = {
     # into bf16 (K) and fp16 (V) on the way
     "(c) int8 codes into fragments": [
         ("    if constexpr (kCode) {\n"
-         "      // codes -> bf16 (K) and fp16 (V), 16 a chunk",
+         "      // codes -> T (K) and fp16 (V), 16 a chunk",
          "    if constexpr (false) {\n"
-         "      // codes -> bf16 (K) and fp16 (V), 16 a chunk"),
+         "      // codes -> T (K) and fp16 (V), 16 a chunk"),
         ("        mma::ldsm_x4(kf, mma::b_x4<LDS>(kt, n * 8, kd * 16, lane));\n",
          "        if constexpr (kCode) {\n"
          "#pragma unroll\n"
@@ -229,7 +229,7 @@ VARIANTS = {
 # power of two must not be slower than a longer one)
 EXTRA_SHAPES = ((128, 300),)
 
-_MMA = re.compile(r"chunk_prefill_mma_kernelILi(\d+)E(13__nv_bfloat16|a)E")
+_MMA = re.compile(r"chunk_prefill_mma_kernelILi(\d+)E13__nv_bfloat16(a|S\d*_)E")
 
 
 def child(build_only: bool):

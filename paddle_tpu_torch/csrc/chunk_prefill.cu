@@ -14,9 +14,13 @@
 // 517), so what is left is latency: few CTAs, each walking its keys in
 // order.
 //
-// bf16 q: chunk_prefill_mma_kernel, both products on the tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate; flash_mma.cuh), over
-// bf16 pools or int8 code pools (whose P.V runs in fp16, below).
+// bf16 or fp16 q: chunk_prefill_mma_kernel<D, T, TP>, both products on
+// the tensor cores (mma.sync m16n8k16, T in, fp32 accumulate;
+// flash_mma.cuh), over pools of q's type or int8 code pools (whose P.V
+// runs in fp16, below). One source for both types: Elem<T> gives the
+// product (.bf16 or .f16) and the rounding of P and of the output (fp16:
+// to nearest, overflow to inf, never satfinite); the logits, their
+// scale, mask and running max stay fp32 in either.
 //  - Grid (b * ceil(s / 64), H), whatever q-block the wrapper picked: a
 //    CTA of 4 warps owns 64 query rows of one (slot, head), 16 a warp
 //    (the rows are independent, chunk_prefill.py:30-43), so a chunk of
@@ -35,13 +39,14 @@
 //  - S = Q.K^T on the accumulators (K by ldmatrix), the online softmax
 //    on the fragments (a row's max and sum over its quad by shuffles,
 //    m and l in registers, scale * log2(e) folded into exp2), P rounded
-//    to bf16 by pack_a as the A operand of P.V (V by ldmatrix.trans).
+//    to T by Elem<T>::pack_a as the A operand of P.V (V by
+//    ldmatrix.trans).
 //    Masked logits are -1e30, never -inf (paged_attention.py:55); the
 //    mask is tested only on tiles that cross the warp's diagonal or the
 //    reach, and a warp skips tiles wholly past its deepest row.
 //  - Int8 pools: the codes land by cp.async at one byte an element,
 //    beside each key row's (block, head) scales (one 4-byte copy a row).
-//    Once a tile has landed, the CTA turns its codes into a bf16 K tile
+//    Once a tile has landed, the CTA turns its codes into a K tile of T
 //    and an fp16 V tile in shared memory, both exact (|code| <= 128). The
 //    k scale multiplies S's fp32 column of its key, S[i,j] = ks[blk(j)] *
 //    sum_d q[i,d] code[j,d]. The v scale goes into P before its rounding,
@@ -53,7 +58,7 @@
 //    values passes 4e-3 + 1e-2 |O| (tests/test_torch_chunk_layout.py).
 //    o carries the factor fv of its last tile; the softmax's rescale
 //    moves it to the next tile's, and the store divides by l / fv.
-//  - O / l is written in bf16 through the warp's own rows of the Q tile
+//  - O / l is written in T through the warp's own rows of the Q tile
 //    into 16-byte stores. Every row reads column 0, so l > 0.
 //  - cp.async needs 16-byte aligned q, out and pools and row strides of
 //    16 bytes: the C entry refuses anything else (cudaErrorInvalidValue).
@@ -72,14 +77,15 @@ using ptt::mma::bf16;
 
 constexpr int kMaxQbs = 64;  // the wrapper's q-block cap (pick_qbs)
 
-constexpr int kRows = 64;        // bf16 body: query rows a CTA, 4 warps x 16
+constexpr int kRows = 64;  // tensor-core body: query rows a CTA, 4 warps x 16
 constexpr int kKeys = 64;        // keys a tile
 constexpr int kMmaThreads = 128;
 constexpr int kStages = 2;       // cp.async ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The bf16 body's dynamic shared memory: the Q tile (then O), and for
-// bf16 pools kStages K and V tiles (rows of D + 8 bf16); for int8 pools
+// The tensor-core body's dynamic shared memory (the same for bf16 and
+// fp16 q, both 2 bytes): the Q tile (then O), and for 16-bit pools
+// kStages K and V tiles (rows of D + 8 elements); for int8 pools
 // one converted K and V tile, kStages code tiles of each (rows of D
 // bytes) and kStages rows of k and v scales.
 template <int D, typename TP>
@@ -89,33 +95,35 @@ constexpr size_t mma_smem() {
          (code ? 2 * kStages * kKeys * (D + sizeof(float)) : 0);
 }
 
-template <int D, typename TP>
+// T: q's and out's type (bf16 or __half); TP: the pools' (T or int8_t)
+template <int D, typename T, typename TP>
 __global__ void __launch_bounds__(kMmaThreads)
-    chunk_prefill_mma_kernel(const bf16* __restrict__ q,
+    chunk_prefill_mma_kernel(const T* __restrict__ q,
                              const TP* __restrict__ kp,
                              const TP* __restrict__ vp,
                              const float* __restrict__ ksp,
                              const float* __restrict__ vsp,
                              const int* __restrict__ table,
                              const int* __restrict__ tv,
-                             bf16* __restrict__ out, int s, int ntile, int H,
+                             T* __restrict__ out, int s, int ntile, int H,
                              int bs, int bp, float scale) {
   namespace mma = ptt::mma;
+  using E = mma::Elem<T>;
   constexpr bool kCode = ptt::IsCode<TP>::value;
-  constexpr int LDS = D + 8;         // bf16 row stride: 16 bytes of padding
+  constexpr int LDS = D + 8;         // row stride: 16 bytes of padding
   constexpr int KD = D / 16;         // k16 steps of Q.K^T
   constexpr int ND = D / 8;          // n8 tiles of the output
   constexpr int NS = kKeys / 8;      // n8 tiles of a score tile
-  constexpr int KV = kCode ? 1 : kStages;  // bf16 K and V tiles
+  constexpr int KV = kCode ? 1 : kStages;  // 16-bit K and V tiles
   constexpr int PLD = kCode ? D : LDS;     // row stride of a ring stage
   constexpr int CPR = D * sizeof(TP) / 16; // 16-byte chunks a key row
   constexpr int EPC = 16 / sizeof(TP);     // elements a chunk
   static_assert(kKeys * CPR % kMmaThreads == 0, "chunks must split evenly");
   extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);  // kRows x LDS, then O
-  bf16* ks = qs + kRows * LDS;                // KV x kKeys x LDS
-  bf16* vs = ks + KV * kKeys * LDS;           // KV x kKeys x LDS
-  // the ring: bf16 pools fill ks / vs; int8 pools their codes and scales
+  T* qs = reinterpret_cast<T*>(smem4);  // kRows x LDS, then O
+  T* ks = qs + kRows * LDS;             // KV x kKeys x LDS
+  T* vs = ks + KV * kKeys * LDS;        // KV x kKeys x LDS (int8: fp16 bits)
+  // the ring: 16-bit pools fill ks / vs; int8 pools their codes and scales
   TP* kr = kCode ? reinterpret_cast<TP*>(vs + kKeys * LDS)
                  : reinterpret_cast<TP*>(ks);
   TP* vr = kCode ? kr + kStages * kKeys * D : reinterpret_cast<TP*>(vs);
@@ -201,10 +209,10 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (j + kStages - 1 < n_tiles)
       stage_tile(j + kStages - 1, (j + kStages - 1) % kStages);
     mma::cp_async_commit();
-    const bf16* kt = ks + (kCode ? 0 : st * kKeys * LDS);
-    const bf16* vt = vs + (kCode ? 0 : st * kKeys * LDS);
+    const T* kt = ks + (kCode ? 0 : st * kKeys * LDS);
+    const T* vt = vs + (kCode ? 0 : st * kKeys * LDS);
     if constexpr (kCode) {
-      // codes -> bf16 (K) and fp16 (V), 16 a chunk: exact, |code| <= 128
+      // codes -> T (K) and fp16 (V), 16 a chunk: exact, |code| <= 128
       constexpr int CC = D / 16;
 #pragma unroll
       for (int u = 0; u < kKeys * CC / kMmaThreads; ++u) {
@@ -219,7 +227,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
             const float lo = b[2 * e], hi = b[2 * e + 1];
-            w[e] = x ? mma::pack_f16(lo, hi) : mma::pack_bf16(lo, hi);
+            w[e] = x ? mma::pack_f16(lo, hi) : E::pack(lo, hi);
           }
           uint4* dst = reinterpret_cast<uint4*>((x ? vs : ks) + r * LDS +
                                                 c * 16);
@@ -243,8 +251,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int n = 0; n < NS; n += 2) {
         uint32_t kf[4];
         mma::ldsm_x4(kf, mma::b_x4<LDS>(kt, n * 8, kd * 16, lane));
-        mma::mma_bf16(sc[n], qf[kd], kf[0], kf[1]);
-        mma::mma_bf16(sc[n + 1], qf[kd], kf[2], kf[3]);
+        E::mma(sc[n], qf[kd], kf[0], kf[1]);
+        E::mma(sc[n + 1], qf[kd], kf[2], kf[3]);
       }
     // tiles wholly below the warp's diagonal and inside the reach skip
     // the test
@@ -301,14 +309,14 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int n = 0; n < ND; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e / 2] * rescale;
-    // O += P.V, P rounded to bf16 (int8 pools: fp16, against fp16 codes)
+    // O += P.V, P rounded to T (int8 pools: fp16, against fp16 codes)
 #pragma unroll
     for (int kk = 0; kk < NS / 2; ++kk) {
       uint32_t pa[4];
       if constexpr (kCode)
         mma::pack_a_f16(pa, sc[2 * kk], sc[2 * kk + 1]);
       else
-        mma::pack_a(pa, sc[2 * kk], sc[2 * kk + 1]);
+        E::pack_a(pa, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         uint32_t vf[4];
@@ -317,8 +325,8 @@ __global__ void __launch_bounds__(kMmaThreads)
           mma::mma_f16(o[n], pa, vf[0], vf[1]);
           mma::mma_f16(o[n + 1], pa, vf[2], vf[3]);
         } else {
-          mma::mma_bf16(o[n], pa, vf[0], vf[1]);
-          mma::mma_bf16(o[n + 1], pa, vf[2], vf[3]);
+          E::mma(o[n], pa, vf[0], vf[1]);
+          E::mma(o[n + 1], pa, vf[2], vf[3]);
         }
       }
     }
@@ -329,21 +337,21 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] /= f;  // O = o * f / l (f = 1 for bf16 pools)
+    l[i] /= f;  // O = o * f / l (f = 1 for 16-bit pools)
   }
-  // O / l in bf16, staged through this warp's own 16 rows of the Q tile
+  // O / l in T, staged through this warp's own 16 rows of the Q tile
   // (its Q fragments are in registers) into 16-byte stores
-  bf16* os = qs + warp * 16 * LDS;
+  T* os = qs + warp * 16 * LDS;
   __syncwarp();
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     *reinterpret_cast<uint32_t*>(os + g * LDS + n * 8 + 2 * t) =
-        mma::pack_bf16(o[n][0] / l[0], o[n][1] / l[0]);
+        E::pack(o[n][0] / l[0], o[n][1] / l[0]);
     *reinterpret_cast<uint32_t*>(os + (g + 8) * LDS + n * 8 + 2 * t) =
-        mma::pack_bf16(o[n][2] / l[1], o[n][3] / l[1]);
+        E::pack(o[n][2] / l[1], o[n][3] / l[1]);
   }
   __syncwarp();
-  bf16* oh = out + static_cast<int64_t>(slot) * s * rs + h * D;
+  T* oh = out + static_cast<int64_t>(slot) * s * rs + h * D;
   constexpr int OCR = D / 8;  // 16-byte chunks of an output row
 #pragma unroll
   for (int idx = lane; idx < 16 * OCR; idx += 32) {
@@ -354,31 +362,31 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-template <int D, typename TP>
+template <int D, typename T, typename TP>
 cudaError_t allow_mma_smem() {
-  return cudaFuncSetAttribute(chunk_prefill_mma_kernel<D, TP>,
+  return cudaFuncSetAttribute(chunk_prefill_mma_kernel<D, T, TP>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(mma_smem<D, TP>()));
 }
 
-template <int D, typename TP>
+template <int D, typename T, typename TP>
 cudaError_t launch_mma(const void* q, const void* kp, const void* vp,
                        const float* ks, const float* vs, const int* table,
                        const int* t, void* out, int b, int s, int H, int bs,
                        int bp, float scale, cudaStream_t st) {
-  cudaError_t e = allow_mma_smem<D, TP>();
+  cudaError_t e = allow_mma_smem<D, T, TP>();
   if (e != cudaSuccess) return e;
   const int ntile = (s + kRows - 1) / kRows;
   const dim3 grid(b * ntile, H);
-  chunk_prefill_mma_kernel<D, TP><<<grid, kMmaThreads, mma_smem<D, TP>(),
-                                    st>>>(
-      static_cast<const bf16*>(q), static_cast<const TP*>(kp),
-      static_cast<const TP*>(vp), ks, vs, table, t, static_cast<bf16*>(out),
-      s, ntile, H, bs, bp, scale);
+  chunk_prefill_mma_kernel<D, T, TP><<<grid, kMmaThreads, mma_smem<D, TP>(),
+                                       st>>>(
+      static_cast<const T*>(q), static_cast<const TP*>(kp),
+      static_cast<const TP*>(vp), ks, vs, table, t, static_cast<T*>(out), s,
+      ntile, H, bs, bp, scale);
   return cudaGetLastError();
 }
 
-// The bf16 body stages 16-byte chunks by cp.async: q, out and both pools
+// The tensor-core body stages 16-byte chunks by cp.async: q, out and both pools
 // 16-byte aligned, a pool row (H * D elements; q's rows are as long or
 // twice as long) a multiple of 16 bytes; int8 scales 4-byte aligned.
 bool mma_aligned(const void* q, const void* kp, const void* vp,
@@ -392,6 +400,9 @@ bool mma_aligned(const void* q, const void* kp, const void* vp,
          (pool != ptt::kInt8 || (al(ks, 4) && al(vs, 4))) && row % 16 == 0;
 }
 
+// q of type T over pools of type code `pool` (T's, or kInt8 with both
+// scales), at head dim D
+template <typename T>
 cudaError_t mma_by_pool(int pool, const void* q, const void* kp,
                         const void* vp, const float* ks, const float* vs,
                         const int* table, const int* t, void* out, int b,
@@ -401,24 +412,27 @@ cudaError_t mma_by_pool(int pool, const void* q, const void* kp,
     return cudaErrorInvalidValue;
   if (pool == ptt::kInt8) {
     if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
-    return D == 64 ? launch_mma<64, int8_t>(q, kp, vp, ks, vs, table, t, out,
-                                            b, s, H, bs, bp, scale, st)
-                   : launch_mma<128, int8_t>(q, kp, vp, ks, vs, table, t,
-                                             out, b, s, H, bs, bp, scale, st);
+    return D == 64 ? launch_mma<64, T, int8_t>(q, kp, vp, ks, vs, table, t,
+                                               out, b, s, H, bs, bp, scale,
+                                               st)
+                   : launch_mma<128, T, int8_t>(q, kp, vp, ks, vs, table, t,
+                                                out, b, s, H, bs, bp, scale,
+                                                st);
   }
-  return D == 64 ? launch_mma<64, bf16>(q, kp, vp, nullptr, nullptr, table, t,
+  return D == 64 ? launch_mma<64, T, T>(q, kp, vp, nullptr, nullptr, table, t,
                                         out, b, s, H, bs, bp, scale, st)
-                 : launch_mma<128, bf16>(q, kp, vp, nullptr, nullptr, table,
+                 : launch_mma<128, T, T>(q, kp, vp, nullptr, nullptr, table,
                                          t, out, b, s, H, bs, bp, scale, st);
 }
 
 template <int D, typename TP>
 cudaError_t mma_occupancy(int* ctas, int* smem) {
   *smem = static_cast<int>(mma_smem<D, TP>());
-  cudaError_t e = allow_mma_smem<D, TP>();
+  cudaError_t e = allow_mma_smem<D, bf16, TP>();
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, chunk_prefill_mma_kernel<D, TP>, kMmaThreads, mma_smem<D, TP>());
+      ctas, chunk_prefill_mma_kernel<D, bf16, TP>, kMmaThreads,
+      mma_smem<D, TP>());
 }
 
 }  // namespace
@@ -426,8 +440,8 @@ cudaError_t mma_occupancy(int* ctas, int* smem) {
 // Returns the launch's cudaError_t (0 = launched). `dtype` is q's type
 // code, `pool` the pools' (equal to dtype, or kInt8 with both scales).
 // Both bodies tile the chunk by rows of their own (qbs is checked, not
-// used): bf16 q runs the tensor-core body in 64-row tiles, fp32 q runs
-// paged_f32_kernel, whose pools and out must be 16-byte aligned (else
+// used): bf16 and fp16 q run the tensor-core body in 64-row tiles, fp32
+// q runs paged_f32_kernel, whose pools and out must be 16-byte aligned (else
 // cudaErrorInvalidValue, and nothing is launched).
 extern "C" int ptt_chunk_prefill_fwd(const void* q, const void* k_pool,
                                      const void* v_pool, const void* k_scale,
@@ -455,16 +469,20 @@ extern "C" int ptt_chunk_prefill_fwd(const void* q, const void* k_pool,
                                        tbl, tv, out, b, s, H, D, bs, bp,
                                        scale, st));
     case ptt::kBFloat16:
-      return static_cast<int>(mma_by_pool(pool, q, k_pool, v_pool, ks, vs,
-                                          tbl, tv, out, b, s, H, D, bs, bp,
-                                          scale, st));
+      return static_cast<int>(mma_by_pool<bf16>(pool, q, k_pool, v_pool, ks,
+                                                vs, tbl, tv, out, b, s, H, D,
+                                                bs, bp, scale, st));
+    case ptt::kFloat16:
+      return static_cast<int>(mma_by_pool<__half>(pool, q, k_pool, v_pool, ks,
+                                                  vs, tbl, tv, out, b, s, H,
+                                                  D, bs, bp, scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The bf16 body at head dim D over pools of type code `pool` (kBFloat16
-// or kInt8): how many of its CTAs one SM holds, as the CUDA runtime
+// The bf16-q body at head dim D over pools of type code `pool` (kBFloat16
+// or kInt8; the fp16-q body's shared memory is the same): how many of its CTAs one SM holds, as the CUDA runtime
 // computes it from the kernel's registers and shared memory, into *ctas,
 // and its dynamic shared memory in bytes into *smem.
 extern "C" int ptt_chunk_prefill_occupancy(int D, int pool, int* ctas,

@@ -1,13 +1,13 @@
-// Shared helpers for the port's hand-written Hopper kernels: fp32/bf16
-// load-store conversions and the dtype codes the Python wrappers pass
-// (0 = float32, 1 = bfloat16, 2 = int8 codes of a quantized KV pool,
-// 3 = float16, which the flash kernels take). Every kernel computes in
-// fp32.
+// Shared helpers for the port's hand-written Hopper kernels: fp32, bf16
+// and fp16 load-store conversions and the dtype codes the Python
+// wrappers pass (0 = float32, 1 = bfloat16, 2 = int8 codes of a
+// quantized KV pool, 3 = float16). Every kernel computes in fp32.
 #pragma once
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace ptt {
@@ -18,6 +18,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);
 }
@@ -31,6 +32,11 @@ __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+// to nearest even; past fp16's range (65504) inf, never saturated
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

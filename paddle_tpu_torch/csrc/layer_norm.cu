@@ -14,13 +14,13 @@
 // Two kernels, chosen by the C entry from C, the dtype and the pointers:
 //
 // ln_warp_kernel<T, VPL> (C a multiple of a 16-byte vector, at most
-// 32 * kMaxVecs vectors: C <= 1024 fp32, 2048 bf16; every pointer 16-byte
-// aligned): one warp a row,
+// 32 * kMaxVecs vectors: C <= 1024 fp32, 2048 bf16 or fp16; every
+// pointer 16-byte aligned): one warp a row,
 // kWarps warps a CTA, a grid sized to the CTAs the card holds at once,
 // warps striding over rows. A lane holds its vectors lane, lane + 32, ...
 // of the row in registers (VPL 16-byte vectors: at C 768, 6 float4 in
-// fp32, 3 x 8 bf16 in bf16), so the row is read once from HBM and every
-// pass after that runs on registers: the sum (warp shuffles, no
+// fp32, 3 x 8 halves in bf16 or fp16), so the row is read once from HBM
+// and every pass after that runs on registers: the sum (warp shuffles, no
 // __syncthreads), the centred variance, the output. w and b are loaded
 // once a warp, by the same lane mapping, and kept in registers for every
 // row the warp takes. y leaves as 16-byte vectors; lane 0 writes mean
@@ -36,6 +36,9 @@
 // the output. A row too wide for one CTA's shared memory (past ~227 KB)
 // is not staged: each pass reads it again from global memory.
 //
+// T is float, __nv_bfloat16 or __half (type codes 0, 1, 3): one source,
+// the 16-bit types differing only in Pack<T>'s conversions.
+//
 // Neither is a fallback: a kernel the launch refuses returns its error.
 #include <algorithm>
 #include <cstdint>
@@ -50,8 +53,9 @@ constexpr int kMaxVecs = 8;            // 16-byte vectors a lane may hold
                                        // (x, w and b: 3 x 8 x 16 bytes)
 constexpr int kRowThreads = 256;       // ln_row_kernel: one CTA a row
 
-// 16 bytes of T as N floats, and back (bf16 rounded to nearest even, as
-// torch's .to(bfloat16))
+// 16 bytes of T as N floats, and back (bf16 and fp16 rounded to nearest
+// even, as torch's .to(bfloat16) and .to(float16); an fp16 value past
+// 65504 becomes inf, never saturated)
 template <typename T>
 struct Pack;
 template <>
@@ -81,6 +85,28 @@ struct Pack<__nv_bfloat16> {
   }
   __device__ static uint32_t pair(float lo, float hi) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __device__ static uint4 store(const float* f) {
+    return make_uint4(pair(f[0], f[1]), pair(f[2], f[3]), pair(f[4], f[5]),
+                      pair(f[6], f[7]));
+  }
+};
+template <>
+struct Pack<__half> {
+  static constexpr int N = 8;
+  __device__ static void load(const uint4& u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p =
+          __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  __device__ static uint32_t pair(float lo, float hi) {
+    const __half2 h = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&h);
   }
   __device__ static uint4 store(const float* f) {
@@ -349,6 +375,9 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
     case ptt::kBFloat16:
       return static_cast<int>(
           launch<__nv_bfloat16>(x, w, b, y, mean, rstd, R, C, eps, st));
+    case ptt::kFloat16:
+      return static_cast<int>(
+          launch<__half>(x, w, b, y, mean, rstd, R, C, eps, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

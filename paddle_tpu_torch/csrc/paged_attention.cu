@@ -17,9 +17,12 @@
 //
 // Two bodies, by q's type:
 //
-// bf16 q: paged_decode_mma_kernel, both products on the tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate; flash_mma.cuh), over
-// bf16 pools or int8 code pools.
+// bf16 or fp16 q: paged_decode_mma_kernel<D, T, TP>, both products on the
+// tensor cores (mma.sync m16n8k16, T in, fp32 accumulate; flash_mma.cuh),
+// over pools of q's type or int8 code pools. One source for both types:
+// Elem<T> gives the product (.bf16 or .f16) and the rounding of P and of
+// the output (fp16: to nearest, overflow to inf, never satfinite); the
+// logits, their scale, mask and running max stay fp32 in either.
 //  - Grid (kSplits, b * H, ceil(s / 16)) in clusters of (kSplits, 1, 1):
 //    the kSplits CTAs of a cluster split one (slot, head, row tile)'s key
 //    walk. One CTA per (slot, head) would give 96 CTAs on 132 SMs at 8
@@ -54,11 +57,12 @@
 //    slice (a table of blocks of no multiple of 16 rows).
 //  - The online softmax runs on the accumulators in log2 units (a row's
 //    max and sum over its quad by shuffles, scale * log2(e) folded into
-//    exp2), P is packed to bf16 by pack_a, V read by ldmatrix.trans.
+//    exp2), P is packed to T by Elem<T>::pack_a, V read by
+//    ldmatrix.trans.
 //    Masked logits are -1e30, never -inf (paged_attention.py:55); a warp
 //    whose keys so far are all masked for a row keeps p = 0 there.
 //  - Int8 pools: codes land at one byte an element beside one 4-byte
-//    scale copy a key row; the warp turns its codes into a bf16 K slice
+//    scale copy a key row; the warp turns its codes into a K slice of T
 //    and an fp16 V slice, both exact (|code| <= 128). The k scale
 //    multiplies S's column; the v scale goes into P before its rounding,
 //    as p * vs / fv with fv the slice's largest v scale, so P lies in [0,
@@ -74,8 +78,8 @@
 //    sum l_w 2^(m_w - m), o likewise), then cluster.sync(), and rank r
 //    merges every 8-column chunk of the tile's rows whose index is r
 //    modulo kSplits from all ranks' partials, read through distributed shared memory (no
-//    workspace, counter, fence or second launch), into 16-byte bf16
-//    stores. A second cluster.sync() follows the last remote read: no CTA
+//    workspace, counter, fence or second launch), into 16-byte stores of
+//    T. A second cluster.sync() follows the last remote read: no CTA
 //    exits while another reads its shared memory.
 //  - cp.async needs 16-byte aligned q, out and pools and pool rows of a
 //    multiple of 16 bytes: the C entry refuses anything else
@@ -98,7 +102,7 @@ using ptt::mma::bf16;
 
 constexpr int kMaxRows = 16;  // query rows a CTA: one m16 tile
 
-constexpr int kSplits = 8;     // bf16 body: CTAs of a cluster, one walk
+constexpr int kSplits = 8;     // tensor-core body: CTAs of a cluster, one walk
 constexpr int kTile = 64;      // keys of a tile, the unit split by rank
 constexpr int kWarps = 4;
 constexpr int kWarpKeys = 16;  // keys of a tile each warp takes
@@ -106,10 +110,11 @@ constexpr int kStages = 2;     // cp.async ring depth, a warp's
 constexpr int kMmaThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The bf16 body's dynamic shared memory: the Q tile; a region per warp,
-// its ring of K and V slices (kWarpKeys rows a stage; bf16 pools in rows
-// of D + 8, int8 pools as codes in rows of D bytes with each row's two
-// scales, plus the converted bf16 K and fp16 V slice), which holds the
+// The tensor-core body's dynamic shared memory (the same for bf16 and
+// fp16 q, both 2 bytes): the Q tile; a region per warp, its ring of K and
+// V slices (kWarpKeys rows a stage; 16-bit pools in rows of D + 8, int8
+// pools as codes in rows of D bytes with each row's two scales, plus the
+// converted K and fp16 V slice), which holds the
 // warp's partial o (kMaxRows x D fp32) once its walk is done; then m and
 // l of each warp's rows and of the CTA's.
 template <int D, typename TP>
@@ -130,18 +135,20 @@ struct DecodeSmem {
                 "a warp's partial o fits its ring");
 };
 
-template <int D, typename TP>
+// T: q's and out's type (bf16 or __half); TP: the pools' (T or int8_t)
+template <int D, typename T, typename TP>
 __global__ void __launch_bounds__(kMmaThreads)
-    paged_decode_mma_kernel(const bf16* __restrict__ q,
+    paged_decode_mma_kernel(const T* __restrict__ q,
                             const TP* __restrict__ kp,
                             const TP* __restrict__ vp,
                             const float* __restrict__ ksp,
                             const float* __restrict__ vsp,
                             const int* __restrict__ table,
                             const int* __restrict__ tv,
-                            bf16* __restrict__ out, int s, int H, int bs,
+                            T* __restrict__ out, int s, int H, int bs,
                             int bp, float scale) {
   namespace mma = ptt::mma;
+  using E = mma::Elem<T>;
   using L = DecodeSmem<D, TP>;
   constexpr bool kCode = L::kCode;
   constexpr int LDS = L::LDS;
@@ -155,7 +162,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   static_assert(kWarpKeys * CPR % 32 == 0, "chunks must split evenly");
   extern __shared__ float4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
-  bf16* qs = reinterpret_cast<bf16*>(sm);
+  T* qs = reinterpret_cast<T*>(sm);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   char* wr = sm + L::q + warp * L::warp;    // this warp's region
@@ -163,8 +170,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   TP* vr = kr + SL * PLD;
   float* ksc = reinterpret_cast<float*>(vr + SL * PLD);  // int8 pools
   float* vsc = ksc + SL;
-  bf16* kc = reinterpret_cast<bf16*>(vsc + SL);  // converted K (int8)
-  bf16* vc = kc + kWarpKeys * LDS;               // converted V, fp16 bits
+  T* kc = reinterpret_cast<T*>(vsc + SL);  // converted K (int8)
+  T* vc = kc + kWarpKeys * LDS;            // converted V, fp16 bits
   float* wm = reinterpret_cast<float*>(sm + L::q + kWarps * L::warp);
   float* wl = wm + kWarps * kMaxRows;       // each warp's rows' m, l
   float* pm = wl + kWarps * kMaxRows;       // the CTA's partial m, l
@@ -257,13 +264,13 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (u + kStages - 1 < n_mine)
       stage_slice(u + kStages - 1, (u + kStages - 1) % kStages);
     mma::cp_async_commit();
-    const bf16* kt = kc;  // the slice as bf16 K and V rows of LDS
-    const bf16* vt = vc;
+    const T* kt = kc;  // the slice as K and V rows of LDS
+    const T* vt = vc;
     if constexpr (!kCode) {
-      kt = reinterpret_cast<const bf16*>(kr) + st * kWarpKeys * LDS;
-      vt = reinterpret_cast<const bf16*>(vr) + st * kWarpKeys * LDS;
+      kt = reinterpret_cast<const T*>(kr) + st * kWarpKeys * LDS;
+      vt = reinterpret_cast<const T*>(vr) + st * kWarpKeys * LDS;
     } else {
-      // codes -> bf16 (K) and fp16 (V), 16 a chunk: exact, |code| <= 128
+      // codes -> T (K) and fp16 (V), 16 a chunk: exact, |code| <= 128
       constexpr int CC = D / 16;
 #pragma unroll
       for (int x = 0; x < kWarpKeys * CC / 32; ++x) {
@@ -277,7 +284,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
             const float lo = b[2 * e], hi = b[2 * e + 1];
-            w[e] = y ? mma::pack_f16(lo, hi) : mma::pack_bf16(lo, hi);
+            w[e] = y ? mma::pack_f16(lo, hi) : E::pack(lo, hi);
           }
           uint4* dst = reinterpret_cast<uint4*>((y ? vc : kc) + r * LDS +
                                                 c * 16);
@@ -298,8 +305,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int n = 0; n < NS; n += 2) {
         uint32_t kf[4];
         mma::ldsm_x4(kf, mma::b_x4<LDS>(kt, n * 8, kd * 16, lane));
-        mma::mma_bf16(sc[n], qf[kd], kf[0], kf[1]);
-        mma::mma_bf16(sc[n + 1], qf[kd], kf[2], kf[3]);
+        E::mma(sc[n], qf[kd], kf[0], kf[1]);
+        E::mma(sc[n + 1], qf[kd], kf[2], kf[3]);
       }
     // slices wholly at or below row 0's position and inside the reach
     // skip the test
@@ -362,14 +369,14 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int n = 0; n < ND; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e / 2] * rescale;
-    // O += P.V, P rounded to bf16 (int8 pools: fp16, against fp16 codes)
+    // O += P.V, P rounded to T (int8 pools: fp16, against fp16 codes)
 #pragma unroll
     for (int kk = 0; kk < NS / 2; ++kk) {
       uint32_t pa[4];
       if constexpr (kCode)
         mma::pack_a_f16(pa, sc[2 * kk], sc[2 * kk + 1]);
       else
-        mma::pack_a(pa, sc[2 * kk], sc[2 * kk + 1]);
+        E::pack_a(pa, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         uint32_t vf[4];
@@ -378,8 +385,8 @@ __global__ void __launch_bounds__(kMmaThreads)
           mma::mma_f16(o[n], pa, vf[0], vf[1]);
           mma::mma_f16(o[n + 1], pa, vf[2], vf[3]);
         } else {
-          mma::mma_bf16(o[n], pa, vf[0], vf[1]);
-          mma::mma_bf16(o[n + 1], pa, vf[2], vf[3]);
+          E::mma(o[n], pa, vf[0], vf[1]);
+          E::mma(o[n + 1], pa, vf[2], vf[3]);
         }
       }
     }
@@ -387,7 +394,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   // the warp's partial over its own ring, the tile's rows only: m, l (summed
   // over the quad) and o * f, so every warp's and split's o is in one
-  // unit (f = 1 for bf16 pools)
+  // unit (f = 1 for 16-bit pools)
   mma::cp_async_wait<0>();
   __syncwarp();
   float* wo = reinterpret_cast<float*>(wr);
@@ -469,18 +476,18 @@ __global__ void __launch_bounds__(kMmaThreads)
     *reinterpret_cast<uint4*>(
         out + (static_cast<int64_t>(slot) * s + row0 + row) * rs + h * D +
         c * 8) =
-        make_uint4(mma::pack_bf16(acc[0] * inv, acc[1] * inv),
-                   mma::pack_bf16(acc[2] * inv, acc[3] * inv),
-                   mma::pack_bf16(acc[4] * inv, acc[5] * inv),
-                   mma::pack_bf16(acc[6] * inv, acc[7] * inv));
+        make_uint4(E::pack(acc[0] * inv, acc[1] * inv),
+                   E::pack(acc[2] * inv, acc[3] * inv),
+                   E::pack(acc[4] * inv, acc[5] * inv),
+                   E::pack(acc[6] * inv, acc[7] * inv));
   }
   // no CTA leaves while another still reads its shared memory
   cluster.sync();
 }
 
-template <int D, typename TP>
+template <int D, typename T, typename TP>
 cudaError_t prepare_decode() {
-  return cudaFuncSetAttribute(paged_decode_mma_kernel<D, TP>,
+  return cudaFuncSetAttribute(paged_decode_mma_kernel<D, T, TP>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(DecodeSmem<D, TP>::bytes));
 }
@@ -504,22 +511,47 @@ cudaLaunchConfig_t decode_config(int b, int s, int H, cudaStream_t st,
   return cfg;
 }
 
-template <int D, typename TP>
+template <int D, typename T, typename TP>
 cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
                           const float* ks, const float* vs, const int* table,
                           const int* t, void* out, int b, int s, int H,
                           int bs, int bp, float scale, cudaStream_t st) {
-  cudaError_t e = prepare_decode<D, TP>();
+  cudaError_t e = prepare_decode<D, T, TP>();
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = decode_config<D, TP>(b, s, H, st, &attr);
-  e = cudaLaunchKernelEx(&cfg, paged_decode_mma_kernel<D, TP>,
-                         static_cast<const bf16*>(q),
+  e = cudaLaunchKernelEx(&cfg, paged_decode_mma_kernel<D, T, TP>,
+                         static_cast<const T*>(q),
                          static_cast<const TP*>(kp),
                          static_cast<const TP*>(vp), ks, vs, table, t,
-                         static_cast<bf16*>(out), s, H, bs, bp, scale);
+                         static_cast<T*>(out), s, H, bs, bp, scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// q of type T over pools of type code `pool` (T's, or kInt8 with both
+// scales), at head dim D
+template <typename T>
+cudaError_t decode_by_pool(int pool, const void* q, const void* kp,
+                           const void* vp, const float* ks, const float* vs,
+                           const int* table, const int* t, void* out, int b,
+                           int s, int H, int D, int bs, int bp, float scale,
+                           cudaStream_t st) {
+  if (pool == ptt::kInt8) {
+    if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
+    return D == 64 ? launch_decode<64, T, int8_t>(q, kp, vp, ks, vs, table,
+                                                  t, out, b, s, H, bs, bp,
+                                                  scale, st)
+                   : launch_decode<128, T, int8_t>(q, kp, vp, ks, vs, table,
+                                                   t, out, b, s, H, bs, bp,
+                                                   scale, st);
+  }
+  return D == 64 ? launch_decode<64, T, T>(q, kp, vp, nullptr, nullptr,
+                                           table, t, out, b, s, H, bs, bp,
+                                           scale, st)
+                 : launch_decode<128, T, T>(q, kp, vp, nullptr, nullptr,
+                                            table, t, out, b, s, H, bs, bp,
+                                            scale, st);
 }
 
 // cp.async takes 16-byte chunks: q, out and both pools 16-byte aligned, a
@@ -539,19 +571,20 @@ bool decode_aligned(const void* q, const void* kp, const void* vp,
 template <int D, typename TP>
 cudaError_t decode_occupancy(int* clusters, int* smem) {
   *smem = static_cast<int>(DecodeSmem<D, TP>::bytes);
-  cudaError_t e = prepare_decode<D, TP>();
+  cudaError_t e = prepare_decode<D, bf16, TP>();
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       decode_config<D, TP>(1, 1, 1, nullptr, &attr);
-  return cudaOccupancyMaxActiveClusters(clusters,
-                                        paged_decode_mma_kernel<D, TP>, &cfg);
+  return cudaOccupancyMaxActiveClusters(
+      clusters, paged_decode_mma_kernel<D, bf16, TP>, &cfg);
 }
 
 }  // namespace
 
 // fp32 q: returns the launch's cudaError_t (0 = launched). `dtype` is q's
-// type code (kFloat32 only: bf16 q has ptt_paged_decode_fwd), `pool` the
+// type code (kFloat32 only: bf16 and fp16 q have ptt_paged_decode_fwd),
+// `pool` the
 // pools' (kFloat32, or kInt8 with both scales). Pools or an out that
 // cp.async and float4 stores cannot take (16 bytes) are refused
 // (cudaErrorInvalidValue) and nothing is launched.
@@ -580,20 +613,22 @@ extern "C" int ptt_paged_attention_fwd(const void* q, const void* k_pool,
                                                  H, D, bs, bp, scale, st));
 }
 
-// bf16 q: the tensor-core cluster body over `pool` (kBFloat16, or kInt8
-// with both scales). Returns the launch's cudaError_t (0 = launched); a
-// pointer or pool row cp.async cannot take is refused
-// (cudaErrorInvalidValue) and nothing is launched.
+// bf16 or fp16 q (`dtype` kBFloat16 or kFloat16): the tensor-core
+// cluster body over `pool` (q's type code, or kInt8 with both scales).
+// Returns the launch's cudaError_t (0 = launched); a pointer or pool row
+// cp.async cannot take is refused (cudaErrorInvalidValue) and nothing is
+// launched.
 extern "C" int ptt_paged_decode_fwd(const void* q, const void* k_pool,
                                     const void* v_pool, const void* k_scale,
                                     const void* v_scale, const void* table,
                                     const void* t, void* out, int b, int s,
                                     int H, int D, int bs, int bp, float scale,
-                                    int pool, void* stream) {
+                                    int dtype, int pool, void* stream) {
   if (b < 1 || s < 1 || H < 1 || static_cast<int64_t>(b) * H > 65535 ||
       (s + kMaxRows - 1) / kMaxRows > 65535 || bs < 1 || bp < 1 ||
       (D != 64 && D != 128) ||
-      (pool != ptt::kBFloat16 && pool != ptt::kInt8) ||
+      (dtype != ptt::kBFloat16 && dtype != ptt::kFloat16) ||
+      (pool != dtype && pool != ptt::kInt8) ||
       !decode_aligned(q, k_pool, v_pool, k_scale, v_scale, out, pool, H, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -601,28 +636,16 @@ extern "C" int ptt_paged_decode_fwd(const void* q, const void* k_pool,
   const float* vs = static_cast<const float*>(v_scale);
   const int* tbl = static_cast<const int*>(table);
   const int* tv = static_cast<const int*>(t);
-  if (pool == ptt::kInt8) {
-    if (ks == nullptr || vs == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(
-        D == 64 ? launch_decode<64, int8_t>(q, k_pool, v_pool, ks, vs, tbl,
-                                            tv, out, b, s, H, bs, bp, scale,
-                                            st)
-                : launch_decode<128, int8_t>(q, k_pool, v_pool, ks, vs, tbl,
-                                             tv, out, b, s, H, bs, bp, scale,
-                                             st));
-  }
   return static_cast<int>(
-      D == 64 ? launch_decode<64, bf16>(q, k_pool, v_pool, nullptr, nullptr,
-                                        tbl, tv, out, b, s, H, bs, bp, scale,
-                                        st)
-              : launch_decode<128, bf16>(q, k_pool, v_pool, nullptr, nullptr,
-                                         tbl, tv, out, b, s, H, bs, bp, scale,
-                                         st));
+      dtype == ptt::kFloat16
+          ? decode_by_pool<__half>(pool, q, k_pool, v_pool, ks, vs, tbl, tv,
+                                   out, b, s, H, D, bs, bp, scale, st)
+          : decode_by_pool<bf16>(pool, q, k_pool, v_pool, ks, vs, tbl, tv,
+                                 out, b, s, H, D, bs, bp, scale, st));
 }
 
-// The bf16 body at head dim D over pools of type code `pool` (kBFloat16
-// or kInt8): how many of its clusters the card holds at once, as the CUDA
+// The bf16-q body at head dim D over pools of type code `pool` (kBFloat16
+// or kInt8; the fp16-q body's shared memory is the same): how many of its clusters the card holds at once, as the CUDA
 // runtime computes it from the kernel's registers, shared memory and
 // cluster size, into *clusters, and its dynamic shared memory in bytes
 // into *smem.

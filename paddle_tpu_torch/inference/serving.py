@@ -31,8 +31,21 @@ Two layers, as in the JAX package:
   length, ``on_token`` streaming, and counted metrics. With a
   :class:`~paddle_tpu_torch.inference.prefix_cache.PrefixCache` a
   prompt's cached full chunks are spliced into the slot's table
-  zero-copy (one block reference each) and only its suffix prefills;
+  zero-copy (one block reference each; the dense arena copies the
+  cached segments into the slot's rows) and only its suffix prefills;
   its new full chunks join the trie when the prompt is committed.
+
+- The host tier (``host_tier_blocks=``, paged only): a
+  :class:`~paddle_tpu_torch.inference.block_pool.HostTier` of host
+  blocks under the pool. A preempted request's committed full blocks
+  are SPILLED there before its device blocks recycle, and re-admission
+  copies them back into fresh blocks (swap-back) and resumes its chunk
+  prefill at the spilled frontier instead of re-prefilling everything;
+  a prefix cache's cold nodes demote there before they are dropped.
+  Every copy is blocking, so a block is never recycled or handed out
+  while a copy of it is in flight. A spill that fails falls back to
+  recompute, a swap-back that fails to a full re-prefill, a promotion
+  that fails to a miss.
 
 Lockstep garbage (as in the JAX package's ``serving.py`` docstring):
 idle slots keep computing at offset 0 — on the paged arena with an
@@ -64,10 +77,10 @@ decode half of a tick is a speculative verify
 (``inference/speculative.py``): every live slot commits between 1 and
 k+1 tokens per tick.
 
-Out of the port so far (each queued in ROADMAP.md): the dense arena's
-prefix cache (host K/V segments), meshes and replicas, telemetry and
-resilience, the host tier, the front door and fleet, LoRA, constraints,
-score/embed.
+Out of the port so far (each queued in ROADMAP.md): meshes and
+replicas, telemetry and resilience (snapshot/restore of a request, the
+audit, fault points), the swap-threshold controller, cancellation, the
+front door and fleet, LoRA, constraints, score/embed.
 """
 
 from __future__ import annotations
@@ -84,7 +97,7 @@ from paddle_tpu_torch.core.place import module_device, resolve_device
 from paddle_tpu_torch.core.random import (LANE_DRAW, position_uniforms,
                                           request_keydata)
 from paddle_tpu_torch.core.unported import refuse_unported
-from paddle_tpu_torch.inference.block_pool import BlockAllocator
+from paddle_tpu_torch.inference.block_pool import BlockAllocator, HostTier
 from paddle_tpu_torch.inference.frontend.scheduler import FifoScheduler
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 
@@ -145,9 +158,11 @@ class DecodeEngine:
     dense-equivalent ``slots * max_len / block_size + 1``. ``top_k`` is
     the static top-k filter of every draw. ``kv_dtype="int8"`` stores
     the pools as int8 codes with per-(block, head) fp32 absmax scales
-    (paged only, as ``num_blocks``). The reference's ``ids_dtype``,
-    ``mesh``, ``logit_guard``, ``host_tier_blocks``, ``seq_parallel``
-    and ``adapter_pool`` are accepted at their defaults only."""
+    (paged only, as ``num_blocks``). ``host_tier_blocks`` (paged only)
+    puts a :class:`HostTier` of that many host blocks under the pool,
+    pinned on the card. The reference's ``ids_dtype``, ``mesh``,
+    ``logit_guard``, ``seq_parallel`` and ``adapter_pool`` are accepted
+    at their defaults only."""
 
     def __init__(self, model, max_batch_slots: int, max_len: int,
                  top_k: Optional[int] = None, ids_dtype=None,
@@ -160,7 +175,6 @@ class DecodeEngine:
         refuse_unported(
             "DecodeEngine", ids_dtype=(ids_dtype, None), mesh=(mesh, None),
             logit_guard=(logit_guard, False),
-            host_tier_blocks=(host_tier_blocks, None),
             seq_parallel=(seq_parallel, False),
             adapter_pool=(adapter_pool, None))
         spec = model.kv_cache_spec()
@@ -210,6 +224,19 @@ class DecodeEngine:
         self.table: Optional[np.ndarray] = None
         if self.paged:
             self._init_paged(int(block_size), num_blocks)
+        # the host tier: preempted requests' committed blocks and demoted
+        # trie nodes park here and are copied back instead of recomputed
+        self.host_tier: Optional[HostTier] = None
+        if host_tier_blocks is not None:
+            if not self.paged:
+                raise ValueError(
+                    "host_tier_blocks needs the paged arena (the tier "
+                    "parks pool blocks); pass block_size= to enable it")
+            self.host_tier = HostTier(
+                int(host_tier_blocks), self.block_size, self.L, self.heads,
+                self.head_dim, dtype=self.pool_dtype,
+                quantized=self.quantized,
+                pin_memory=self.device.type == "cuda")
 
     def _init_paged(self, bs: int, num_blocks: Optional[int]):
         """The block pool's geometry, allocator and host table."""
@@ -491,6 +518,114 @@ class DecodeEngine:
             tok = self._sample_dev(logits[:, -1].float(), args)
         return tok[:, None]
 
+    # -- the dense arena's prefix cache: chunk copy and extract -------------
+    def copy_chunk(self, slot: int, start: int, kseg, vseg):
+        """Seed arena rows ``[start, start + chunk)`` of ``slot`` from a
+        cached ``(L, chunk, H, D)`` segment pair (``_build_copy``,
+        ``serving.py:1210``): one slice write a layer."""
+        if self.paged:
+            raise RuntimeError(
+                "chunk-copy is a dense-arena program; the paged engine "
+                "shares cached prefixes by block-table splice instead")
+        self._ensure_buffers()
+        cc, start = int(kseg.shape[1]), int(start)
+        for i in range(self.L):
+            self.kbufs[i][slot, start:start + cc].copy_(kseg[i])
+            self.vbufs[i][slot, start:start + cc].copy_(vseg[i])
+
+    def extract_chunk(self, slot: int, start: int, chunk_tokens: int):
+        """Arena rows ``[start, start + chunk_tokens)`` of ``slot`` as a
+        new ``(L, chunk, H, D)`` segment pair (``_build_extract``,
+        ``serving.py:1235``), on the arena's device."""
+        if self.paged:
+            raise RuntimeError(
+                "chunk-extract is a dense-arena program; the paged "
+                "engine captures a prefix by taking block references "
+                "instead")
+        self._ensure_buffers()
+        rows = slice(int(start), int(start) + int(chunk_tokens))
+        return (torch.stack([self.kbufs[i][slot, rows]
+                             for i in range(self.L)]),
+                torch.stack([self.vbufs[i][slot, rows]
+                             for i in range(self.L)]))
+
+    # -- the host tier: spill and swap-back ---------------------------------
+    def gather_blocks_to_host(self, blocks: Sequence[int],
+                              replica: int = 0):
+        """``blocks``'s pool rows of every layer copied to the host:
+        ``(kseg, vseg, kscale, vscale)`` in the :class:`HostTier` layout
+        (``(n, L, bs, H, D)`` data, ``(n, L, H)`` scales, None at full
+        precision), CPU tensors. The copy is blocking: it has landed when
+        this returns. ``replica`` must name the one plane (0)."""
+        refuse_unported("gather_blocks_to_host", replica=(replica, 0))
+        return tuple(None if x is None else x.cpu()
+                     for x in self._gather_blocks(blocks))
+
+    def _gather_blocks(self, blocks: Sequence[int]):
+        """``blocks``'s pool rows of every layer, gathered on the
+        device in the :class:`HostTier` layout."""
+        self._ensure_buffers()
+        idx = torch.as_tensor(list(blocks), dtype=torch.int64,
+                              device=self.device)
+
+        def take(bufs):
+            return torch.stack([bufs[i].index_select(0, idx)
+                                for i in range(self.L)], dim=1)
+
+        ks = vs = None
+        if self.quantized:
+            ks, vs = take(self.kscales), take(self.vscales)
+        return take(self.kbufs), take(self.vbufs), ks, vs
+
+    def spill_blocks(self, blocks: Sequence[int],
+                     replica: int = 0) -> Optional[List[int]]:
+        """Park ``blocks``'s committed KV in the host tier; returns the
+        host block ids holding it (one tier reference each, the
+        caller's), or None when the tier cannot grant the space (the
+        caller recomputes instead). A raise from the copy returns the
+        grant first, so a failed spill leaks nothing."""
+        refuse_unported("spill_blocks", replica=(replica, 0))
+        if self.host_tier is None:
+            return None
+        host = self.host_tier.alloc(len(blocks))
+        if host is None:
+            return None
+        try:
+            # device rows copied straight into the (pinned) tier
+            self.host_tier.write(host, *self._gather_blocks(blocks))
+        except BaseException:
+            # nothing was parked: undo the grant without counting a drop
+            self.host_tier.deref(host, aborted=True)
+            raise
+        return host
+
+    def restore_blocks(self, host_blocks: Sequence[int],
+                       device_blocks: Sequence[int], replica: int = 0):
+        """Copy parked KV of ``host_blocks`` into pool blocks
+        ``device_blocks`` (and their scale rows when quantized), the
+        exact bits: one ``index_copy_`` a layer and pool. Remapping the
+        block table stays the caller's."""
+        refuse_unported("restore_blocks", replica=(replica, 0))
+        if self.host_tier is None:
+            raise RuntimeError("restore_blocks without a host tier")
+        if len(host_blocks) != len(device_blocks):
+            raise ValueError(
+                f"swap-back maps {len(host_blocks)} host blocks onto "
+                f"{len(device_blocks)} device blocks")
+        self._ensure_buffers()
+        # one copy a tensor from the tier's pinned read to the device
+        kseg, vseg, ks, vs = (None if x is None else x.to(self.device)
+                              for x in self.host_tier.read(host_blocks))
+        idx = torch.as_tensor(list(device_blocks), dtype=torch.int64,
+                              device=self.device)
+        for i in range(self.L):
+            self.kbufs[i].index_copy_(0, idx, kseg[:, i])
+            self.vbufs[i].index_copy_(0, idx, vseg[:, i])
+            if self.quantized:
+                self.kscales[i].index_copy_(0, idx, ks[:, i])
+                self.vscales[i].index_copy_(0, idx, vs[:, i])
+        self.host_tier.count_swap_in(len(host_blocks))
+
 
 @dataclass
 class Request:
@@ -546,9 +681,11 @@ class ServingMetrics:
     :meth:`aggregate` folds them into the reference's headline keys
     (``serving.py:2475``), with the prefix cache's counted economics
     (``prefix_hit_tokens``, ``prefix_hit_rate``, ``evictions``) when
-    ``cache`` is given and the speculative ones (``spec_*``) after
-    verify steps. The reference's ``registry`` and ``slo`` (telemetry)
-    are accepted at their defaults only."""
+    ``cache`` is given, the host tier's (``blocks_spilled``,
+    ``blocks_swapped_in``, ``reprefill_tokens_avoided``) and the
+    speculative ones (``spec_*``) after verify steps. The reference's
+    ``registry`` and ``slo`` (telemetry) are accepted at their defaults
+    only."""
 
     def __init__(self, max_batch_slots: int,
                  cache: Optional[PrefixCache] = None,
@@ -566,6 +703,9 @@ class ServingMetrics:
         self.prompt_tokens = 0
         self.prefix_hit_tokens = 0
         self.preemptions = 0
+        self.blocks_spilled = 0
+        self.blocks_swapped_in = 0
+        self.swap_in_tokens = 0
         self._cache = cache
         self._evict_base = cache.evictions if cache is not None else 0
         self._alloc = allocator
@@ -588,6 +728,13 @@ class ServingMetrics:
 
     def record_preemption(self):
         self.preemptions += 1
+
+    def count_spill(self, blocks: int):
+        self.blocks_spilled += int(blocks)
+
+    def count_swap_in(self, blocks: int, tokens: int):
+        self.blocks_swapped_in += int(blocks)
+        self.swap_in_tokens += int(tokens)
 
     def record_tick(self, occupied: int, queued: int,
                     blocks: Optional[int] = None):
@@ -697,9 +844,14 @@ class ServingMetrics:
         out["prefix_hit_rate"] = (
             self.prefix_hit_tokens / self.prompt_tokens
             if self.prompt_tokens else 0.0)
-        # spliced prefix rows were committed without running the model
+        # spliced prefix rows and swapped-back rows were committed
+        # without running the model
         out["prefill_tokens_computed"] = float(
-            self.prompt_tokens - self.prefix_hit_tokens)
+            self.prompt_tokens - self.prefix_hit_tokens
+            - self.swap_in_tokens)
+        out["blocks_spilled"] = float(self.blocks_spilled)
+        out["blocks_swapped_in"] = float(self.blocks_swapped_in)
+        out["reprefill_tokens_avoided"] = float(self.swap_in_tokens)
         if self._cache is not None:
             out["evictions"] = float(self._cache.evictions
                                      - self._evict_base)
@@ -726,19 +878,23 @@ class ServingEngine:
     (default ``"cuda"``; the model must already live there — nothing is
     moved). ``seed`` seeds every request that does not pin its own.
     ``kv_dtype="int8"`` quantizes the block pools; ``prefix_cache`` (a
-    :class:`PrefixCache` whose ``chunk_tokens`` is a multiple of
-    ``block_size``) shares prompt prefixes across requests zero-copy, on
-    the paged arena (the dense arena's host K/V segments are a later
-    slice). ``spec`` (an :class:`~paddle_tpu_torch.inference.speculative.
-    NgramDrafter` or ``DraftModelDrafter``) turns the decode half of
-    every tick into a draft-and-verify step at fixed ``k = spec.k``,
-    which reserves k rows of each slot for the verify's writes.
-    The parameters keep the reference's order; its
-    ``telemetry``, ``mesh``, ``quarantine``, ``logit_guard``,
-    ``dispatch_retries``, ``dispatch_stall_s``,
-    ``engine_failure_threshold``, ``overlap``, ``host_tier_blocks``,
-    ``swap_min_tokens``, ``profile``, ``seq_parallel``, ``adaptive`` and
-    ``adapter_pool`` are accepted at their defaults only."""
+    :class:`PrefixCache`) shares prompt prefixes across requests:
+    zero-copy on the paged arena (``chunk_tokens`` a multiple of
+    ``block_size``), as cached segment copies on the dense arena.
+    ``host_tier_blocks`` (paged only) puts a host tier under the pool:
+    a preempted request's committed full blocks spill there and are
+    copied back at re-admission when they cover at least
+    ``swap_min_tokens`` tokens (default one block), and the prefix
+    cache's cold nodes demote there. ``spec`` (an
+    :class:`~paddle_tpu_torch.inference.speculative.NgramDrafter` or
+    ``DraftModelDrafter``) turns the decode half of every tick into a
+    draft-and-verify step at fixed ``k = spec.k``, which reserves k rows
+    of each slot for the verify's writes. The parameters keep the
+    reference's order; its ``telemetry``, ``mesh``, ``quarantine``,
+    ``logit_guard``, ``dispatch_retries``, ``dispatch_stall_s``,
+    ``engine_failure_threshold``, ``overlap``, ``profile``,
+    ``seq_parallel``, ``adaptive`` and ``adapter_pool`` are accepted at
+    their defaults only."""
 
     def __init__(self, model, max_batch_slots: int = 8, max_len: int = 256,
                  top_k: Optional[int] = None, eos_id: Optional[int] = None,
@@ -764,8 +920,6 @@ class ServingEngine:
             dispatch_stall_s=(dispatch_stall_s, None),
             engine_failure_threshold=(engine_failure_threshold, 3),
             overlap=(overlap, True),
-            host_tier_blocks=(host_tier_blocks, None),
-            swap_min_tokens=(swap_min_tokens, None),
             profile=(profile, False), seq_parallel=(seq_parallel, False),
             adaptive=(adaptive, None), adapter_pool=(adapter_pool, None))
         dev = resolve_device(device)
@@ -777,7 +931,7 @@ class ServingEngine:
         self.spec = spec
         kw = dict(top_k=top_k, prefill_chunk=prefill_chunk,
                   block_size=block_size, num_blocks=num_blocks,
-                  kv_dtype=kv_dtype)
+                  kv_dtype=kv_dtype, host_tier_blocks=host_tier_blocks)
         if spec is None:
             self.engine = DecodeEngine(model, max_batch_slots, max_len, **kw)
         else:
@@ -792,22 +946,43 @@ class ServingEngine:
         self._spec_k = spec.k if spec is not None else 0
         self.paged = self.engine.paged
         self._alloc = self.engine.allocator   # None on the dense arena
+        self._host = self.engine.host_tier    # None without a tier
         self.quantized = self.engine.quantized
+        # the swap-vs-recompute threshold: a victim's committed full
+        # blocks spill only when they cover at least this many tokens
+        # (default one block; a sub-block tail always recomputes)
+        if swap_min_tokens is not None and self._host is None:
+            raise ValueError(
+                "swap_min_tokens without host_tier_blocks would be "
+                "silently ignored — the swap policy only exists with "
+                "a host tier")
+        self._swap_min = int(swap_min_tokens) if swap_min_tokens \
+            is not None else (self.engine.block_size
+                              if self._host is not None else 0)
         self._cache = prefix_cache
-        if prefix_cache is not None and not self.paged:
-            raise NotImplementedError(
-                "prefix_cache on the dense arena (block_size=None) copies "
-                "host K/V segments into the slot's rows; that is a later "
-                "slice of the port (ROADMAP Queue 1 item 2) — pass "
-                "block_size= for the zero-copy paged prefix cache")
-        if prefix_cache is not None:
-            if prefix_cache.chunk_tokens > self.engine.max_len:
-                raise ValueError(
-                    f"prefix cache chunk {prefix_cache.chunk_tokens} "
-                    f"exceeds the {self.engine.max_len}-row KV arena")
+        if prefix_cache is not None and \
+                prefix_cache.chunk_tokens > self.engine.max_len:
+            raise ValueError(
+                f"prefix cache chunk {prefix_cache.chunk_tokens} "
+                f"exceeds the {self.engine.max_len}-row KV arena")
+        if prefix_cache is not None and self.paged:
             # zero-copy sharing: trie nodes hold ref-counted block ids of
             # this pool (validates the chunk/block alignment)
             prefix_cache.bind_block_allocator(self._alloc)
+            if self._host is not None:
+                # tiered eviction: cold nodes demote to the host tier
+                # before they are dropped, and a lookup that reaches one
+                # copies it back through these closures
+                prefix_cache.bind_host_tier(
+                    self._host, spill=self.engine.spill_blocks,
+                    promote=self._promote_host_blocks)
+        elif prefix_cache is not None and \
+                prefix_cache._allocator is not None:
+            # a block-bound cache's nodes hold no segments for the dense
+            # copy path
+            raise ValueError(
+                "prefix cache is bound to a paged engine's block pool; "
+                "a dense engine needs a fresh (host-segment) cache")
         self.b = self.engine.b
         self.max_len = self.engine.max_len
         # one row of every slot is reserved for a generated token, k for
@@ -918,6 +1093,16 @@ class ServingEngine:
         """Free paged-pool blocks; None on the dense arena."""
         return self._alloc.free_count() if self.paged else None
 
+    def host_tier_state(self) -> Optional[Dict[str, int]]:
+        """The host tier's occupancy (None without a tier)."""
+        if self._host is None:
+            return None
+        return {"capacity": self._host.capacity,
+                "free": self._host.free_count(),
+                "in_use": self._host.blocks_in_use(),
+                "spills": self._host.spills,
+                "swap_ins": self._host.swap_ins}
+
     # -- scheduling ---------------------------------------------------------
     def _now(self) -> float:
         if self._t0 is None:
@@ -928,14 +1113,20 @@ class ServingEngine:
         """Admit ``req`` into a free slot if the pool can back its
         prompt beyond its cached prefix (the dense arena: a free slot is
         enough); False leaves it queued. A preempted request resumes
-        here and re-prefills prompt + committed tokens (riding the
-        prefix cache where present)."""
+        here: with a spill manifest its parked KV is copied back and its
+        prefill resumes at the spilled frontier, else it re-prefills
+        prompt + committed tokens (riding the prefix cache where
+        present)."""
         ids = np.asarray(list(req.prompt) + req.tokens, np.int64)
         plen = int(ids.shape[0])
         nodes, hit, fresh = [], 0, []
+        # a manifest covers prompt AND generated tokens, more than any
+        # trie prefix could: its request skips the lookup (no phantom
+        # hits, no trie refs to undo) and takes a whole fresh grant
+        spill = getattr(req, "_spill", None)
+        if self._cache is not None and spill is None:
+            nodes, hit = self._cache.lookup(ids)
         if self.paged:
-            if self._cache is not None:
-                nodes, hit = self._cache.lookup(ids)
             fresh = self._grant_prompt_blocks(req, plen, nodes, hit)
             if fresh is None:
                 return False
@@ -974,6 +1165,16 @@ class ServingEngine:
         self.metrics.count_prompt_tokens(plen)
         if self.paged:
             self._seed_slot_storage(slot, st, nodes, fresh)
+            if spill is not None:
+                self._swap_back(req, slot, st, fresh, spill)
+        elif nodes:
+            # the dense arena: one slice copy a layer for every cached
+            # chunk, far cheaper than the model forwards it replaces
+            cc = self._cache.chunk_tokens
+            for j, node in enumerate(nodes):
+                self.engine.copy_chunk(slot, j * cc, node.kseg, node.vseg)
+                st["pos"] = (j + 1) * cc
+                self.metrics.count_prefix_hit_tokens(cc)
         return True
 
     def _grant_prompt_blocks(self, req: Request, plen: int, nodes, hit: int):
@@ -1059,7 +1260,7 @@ class ServingEngine:
         st = self._pf[slot]
         if self._cache is not None:
             cc = self._cache.chunk_tokens
-            bpc = cc // self.engine.block_size
+            bpc = cc // self.engine.block_size if self.paged else 0
             ids = st["ids"]
             path, st["nodes"] = list(st["nodes"]), []
             try:
@@ -1067,15 +1268,20 @@ class ServingEngine:
                     parent = path[-1] if path else None
                     key = ids[j * cc:(j + 1) * cc]
                     # another request with this prefix may have finished
-                    # first: reuse its node
+                    # first: reuse its node instead of capturing a copy
+                    # that first-writer-wins would drop
                     node = self._cache.acquire_child(parent, key)
-                    if node is None:
+                    if node is None and self.paged:
                         # ZERO-COPY insert: the trie takes references to
                         # the very blocks the slot prefilled into
                         node = self._cache.insert_blocks(
                             parent, key,
                             self.engine.table[slot,
                                               j * bpc:(j + 1) * bpc].tolist())
+                    elif node is None:
+                        node = self._cache.insert(
+                            parent, key,
+                            *self.engine.extract_chunk(slot, j * cc, cc))
                     path.append(node)
             finally:
                 # held refs drop even if an insert raises: pinned nodes
@@ -1127,6 +1333,10 @@ class ServingEngine:
         self._release_held_nodes(slot)
         self._free.append(slot)
         self._release_blocks(slot)
+        if self._host is not None:
+            # a request that retires with its swap-back still pending
+            # must not leave its parked host blocks behind
+            self._release_spill(req)
         self._adm_blocked = None   # retire changes the free capacity
         # park the freed slot at offset 0: its lockstep garbage lands in
         # the scratch block its zeroed table row points at
@@ -1151,13 +1361,91 @@ class ServingEngine:
         self.engine.table[slot, :] = 0
         self._nblocks[slot] = 0
 
+    # -- the host tier: spill and swap-back ---------------------------------
+    def _swap_back(self, req: Request, slot: int, st, fresh, spill):
+        """Copy a resumed request's parked KV into its fresh blocks (the
+        table already maps them) and start its chunk prefill AT the
+        spilled frontier (``st["pos"]``): the copy replaces the chunks
+        that frontier covers, counted as ``reprefill_tokens_avoided``. A
+        copy that raises falls back to a full re-prefill (the host
+        blocks dropped, ``pos`` left at 0)."""
+        host_blocks = spill["host_blocks"]
+        nfull = len(host_blocks)
+        try:
+            self.engine.restore_blocks(host_blocks, fresh[:nfull])
+        except Exception:
+            req._spill = None
+            self._host.deref(host_blocks)
+            return
+        req._spill = None
+        self._host.deref(host_blocks, restored=True)
+        st["pos"] = int(spill["tokens"])
+        self.metrics.count_swap_in(nfull, spill["tokens"])
+
+    def _spill_victim(self, slot: int, req: Request) -> bool:
+        """Park the victim's committed full blocks in the host tier
+        before they recycle, when they cover at least ``swap_min_tokens``
+        tokens (a shorter prefix recomputes). A full tier first drops
+        the prefix cache's oldest demoted nodes; a spill that raises
+        falls back to recompute."""
+        self._release_spill(req)
+        bs = self.engine.block_size
+        nfull = int(self._t[slot]) // bs
+        tokens = nfull * bs
+        if nfull < 1 or tokens < self._swap_min:
+            return False
+        blocks = self.engine.table[slot, :nfull].tolist()
+        try:
+            host = self.engine.spill_blocks(blocks)
+            if host is None and self._cache is not None and \
+                    self._cache.reclaim_host_blocks(nfull):
+                # a live request's work outranks a cold cached prefix
+                host = self.engine.spill_blocks(blocks)
+        except Exception:
+            return False
+        if host is None:
+            return False
+        req._spill = {"host_blocks": host, "tokens": tokens}
+        self.metrics.count_spill(nfull)
+        return True
+
+    def _release_spill(self, req: Request):
+        """Drop a request's parked host blocks if it holds any (a
+        request that ends without swapping back)."""
+        spill = getattr(req, "_spill", None)
+        if spill is None:
+            return
+        req._spill = None
+        self._host.deref(spill["host_blocks"])
+
+    def _promote_host_blocks(self, host_blocks) -> Optional[List[int]]:
+        """The prefix cache's promotion closure: grant device blocks for
+        a demoted node and copy its parked KV into them. None when the
+        pool cannot grant them or the copy raises (the lookup then
+        misses there); it never evicts or preempts on its own."""
+        dev = self._alloc.alloc(len(host_blocks))
+        if dev is None:
+            return None
+        try:
+            self.engine.restore_blocks(host_blocks, dev)
+        except Exception:
+            self._alloc.deref(dev)
+            return None
+        return dev
+
     def _preempt(self, slot: int):
-        """Pool exhausted: push this request back to the queue HEAD. Its
-        blocks recycle now; its committed tokens stay on the Request, so
-        re-admission re-prefills prompt + tokens and continues where it
-        left off (greedy decoding makes that token-exact; a sampled
+        """Pool exhausted: push this request back to the queue HEAD. With
+        a host tier its committed full blocks spill first, and
+        re-admission copies them back; else (or below the threshold) its
+        blocks recycle now and its committed tokens stay on the Request,
+        so re-admission re-prefills prompt + tokens and continues where
+        it left off (greedy decoding makes that token-exact; a sampled
         request keeps its private stream)."""
         req = self._slots[slot]
+        if self._host is not None and self._pf[slot] is None:
+            # before the release below recycles the blocks the copy
+            # reads; a victim still prefilling recomputes
+            self._spill_victim(slot, req)
         self._release_held_nodes(slot)
         self._release_blocks(slot)
         self._slots[slot] = None

@@ -46,8 +46,8 @@ _SIGNATURES = {
     # q, k/v pools, k/v scales (null at full precision), table, t, out;
     # the sizes; scale, q's type code, the pools' type code, stream
     "ptt_paged_attention_fwd": [_VP] * 8 + [_I] * 6 + [_F, _I, _I, _VP],
-    # the same without q's type code (bf16): K4's tensor-core body
-    "ptt_paged_decode_fwd": [_VP] * 8 + [_I] * 6 + [_F, _I, _VP],
+    # the same for bf16 or fp16 q: K4's tensor-core body
+    "ptt_paged_decode_fwd": [_VP] * 8 + [_I] * 6 + [_F, _I, _I, _VP],
     # head dim, the pools' type code (bf16 or int8); out: clusters the
     # card holds at once and shared-memory bytes of the bf16 K4 body
     "ptt_paged_decode_occupancy": [_I, _I, _VP, _VP],

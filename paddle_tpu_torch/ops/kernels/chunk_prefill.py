@@ -5,9 +5,10 @@ via ``chunk_prefill_pallas``) in both of its branches: full-precision
 pools, and int8 code pools with ``(num_blocks, H)`` fp32 scales
 (``chunk_prefill.py:126-128``). The kernel is
 ``paddle_tpu_torch/csrc/chunk_prefill.cu``; its header note says what
-bounds it on the H100 and how the design answers that. bf16 q runs its
-tensor-core body (``mma.sync``) in 64-row tiles of the chunk, over bf16
-or int8 pools; fp32 q runs K4's fp32 body on the CUDA cores in row
+bounds it on the H100 and how the design answers that. bf16 or fp16 q
+runs its tensor-core body (``mma.sync``; one source instantiated on both
+types) in 64-row tiles of the chunk, over pools of q's dtype or int8
+pools; fp32 q runs K4's fp32 body on the CUDA cores in row
 tiles of its own (16, 32 or 64 rows by the chunk's length), each tile's
 key walk split across a thread-block cluster. A pointer or row that
 ``cp.async`` cannot take (16 bytes) is refused by the C entry, and the

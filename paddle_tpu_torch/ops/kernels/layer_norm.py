@@ -30,7 +30,8 @@ __all__ = ["layer_norm_fwd", "layer_norm_ref", "LayerNormFn", "launches",
 
 launches = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# type codes of csrc/common.cuh
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 
 
 def reset_launches():
@@ -71,7 +72,7 @@ def layer_norm_fwd(x2: torch.Tensor, weight: Optional[torch.Tensor],
                          f"tensor, got shape {tuple(x2.shape)}")
     if x2.dtype not in _DTYPES:
         raise TypeError(f"layer_norm_fwd: dtype {x2.dtype} not supported "
-                        "(float32, bfloat16)")
+                        "(float32, bfloat16, float16)")
     R, C = x2.shape
     for name, p in (("weight", weight), ("bias", bias)):
         if p is not None and (p.device != x2.device or p.dtype != x2.dtype

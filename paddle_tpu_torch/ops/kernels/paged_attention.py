@@ -5,11 +5,12 @@ via ``paged_attention_pallas``) in both of its branches: full-precision
 pools, and int8 code pools dequantized by ``(num_blocks, H)`` fp32
 absmax scales (``paged_attention.py:134-136``). The kernels are in
 ``paddle_tpu_torch/csrc/paged_attention.cu``, whose header note says what
-bounds them on the H100 and how the designs answer that: bf16 q runs a
-tensor-core body (``mma.sync``), one cluster a 16-row tile of a slot's s
-query rows, whose key walk is split across the cluster and merged
-through distributed shared memory, over
-bf16 or int8 pools (C entry ``ptt_paged_decode_fwd``; a pointer or pool
+bounds them on the H100 and how the designs answer that: bf16 or fp16 q
+runs a tensor-core body (``mma.sync``; one source instantiated on both
+types), one cluster a 16-row tile of a slot's s query rows, whose key
+walk is split across the cluster and merged through distributed shared
+memory, over pools of q's dtype or int8 pools (C entry
+``ptt_paged_decode_fwd``; a pointer or pool
 row that ``cp.async`` cannot take, 16 bytes, is refused and the wrapper
 raises); fp32 q runs the CUDA-core body that K5's fp32 q shares
 (``ptt_paged_attention_fwd``) in row tiles of 16, 32 or 64, its key walk
@@ -45,7 +46,7 @@ launches_q = 0    # launches over int8 code pools
 
 # type codes of csrc/common.cuh: q's (and a full-precision pool's), and
 # the code of an int8 pool
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 _INT8 = 2
 
 
@@ -111,8 +112,8 @@ def check_paged_args(what, q, k_pool, v_pool, table, k_scale=None,
     if d not in (64, 128):
         raise ValueError(f"{what}: head_dim {d} not supported (64, 128)")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"{what}: q must be float32 or bfloat16, got "
-                        f"{q.dtype}")
+        raise TypeError(f"{what}: q must be float32, bfloat16 or float16, "
+                        f"got {q.dtype}")
     tensors = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                ("table", table)]
     if k_pool.dtype == torch.int8 and v_pool.dtype == torch.int8:
@@ -182,11 +183,11 @@ def paged_attention(q, k_pool, v_pool, table, t,
             out.data_ptr(), b, s, h, d, k_pool.shape[1], table.shape[1],
             float(scale))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if q.dtype == torch.bfloat16:
-        err = lib.ptt_paged_decode_fwd(*args, pool, stream)
-    else:
+    if q.dtype == torch.float32:
         err = lib.ptt_paged_attention_fwd(*args, _DTYPES[q.dtype], pool,
                                           stream)
+    else:
+        err = lib.ptt_paged_decode_fwd(*args, _DTYPES[q.dtype], pool, stream)
     _build.check(err, "paged_attention kernel")
     global launches, launches_q
     if pool == _INT8:

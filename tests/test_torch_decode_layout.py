@@ -57,7 +57,7 @@ from test_torch_flash_bwd_layout import G, T, _at, _bf16, ldsm, mma, pack_a
 
 SRC = (Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
        / "paged_attention.cu").read_text()
-BODY = SRC[SRC.index("paged_decode_mma_kernel(const bf16*"):]
+BODY = SRC[SRC.index("paged_decode_mma_kernel(const T*"):]
 LOG2E = np.float32(1.4426950408889634)
 MASKED = np.float32(-1e30)
 ATOL, RTOL = 4e-3, 1e-2

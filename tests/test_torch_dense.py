@@ -20,7 +20,8 @@ sides), the same numpy inputs:
   ``ServingEngine()`` with its defaults against the JAX engine and
   JAX ``generate(jit=True)`` on ``tests/test_serving.py:42``'s trace,
   token for token;
-- the reference's refusals, and the dense prefix cache still refused.
+- the reference's refusals (the dense prefix cache itself is
+  ``tests/test_torch_dense_prefix.py``'s).
 
 Tolerance: fp32 logits ``ATOL`` 1e-4 (``tests/test_torch_gpt.py``'s:
 two layers of width 64, summation order); greedy tokens exact.
@@ -247,16 +248,18 @@ def test_default_serving_engine_serves_the_reference_trace(models):
 
 
 def test_dense_refusals(models):
-    """The reference's refusals (``serving.py:315-327``), and the dense
-    prefix cache refused as a later slice."""
+    """The reference's refusals (``serving.py:315-327``, ``:2929-2935``):
+    int8 or ``num_blocks`` without ``block_size``, and a prefix cache
+    bound to a paged engine's pool on the dense arena."""
     _, pm = models
     with pytest.raises(ValueError, match="PAGED"):
         DecodeEngine(pm, 2, 64, kv_dtype="int8")
     with pytest.raises(ValueError, match="num_blocks without block_size"):
         DecodeEngine(pm, 2, 64, num_blocks=9)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(pm, 2, 64, prefix_cache=PrefixCache(chunk_tokens=16),
-                      device="cpu")
-    # and the paged arena keeps its cache
-    ServingEngine(pm, 2, 64, prefix_cache=PrefixCache(chunk_tokens=16),
-                  block_size=16, device="cpu")
+    # the paged arena binds its cache to the pool ...
+    cache = PrefixCache(chunk_tokens=16)
+    ServingEngine(pm, 2, 64, prefix_cache=cache, block_size=16,
+                  device="cpu")
+    # ... which the dense arena's segment copies cannot read
+    with pytest.raises(ValueError, match="bound to a paged engine"):
+        ServingEngine(pm, 2, 64, prefix_cache=cache, device="cpu")

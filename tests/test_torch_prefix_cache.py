@@ -360,9 +360,12 @@ def test_engine_cache_checks(models):
     with pytest.raises(RuntimeError, match="ONE serving engine"):
         ServingEngine(pm, max_batch_slots=1, max_len=64, block_size=8,
                       prefix_cache=cache, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # a dense engine takes a fresh cache, never one bound to a pool
+    with pytest.raises(ValueError, match="bound to a paged engine"):
         ServingEngine(pm, max_batch_slots=1, max_len=64,
-                      prefix_cache=PrefixCache(chunk_tokens=8), device="cpu")
+                      prefix_cache=cache, device="cpu")
+    ServingEngine(pm, max_batch_slots=1, max_len=64,
+                  prefix_cache=PrefixCache(chunk_tokens=8), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ServingEngine(pm, max_batch_slots=1, max_len=64, block_size=8,

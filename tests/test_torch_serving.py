@@ -191,8 +191,9 @@ def test_submit_raises_the_same_errors(models, case):
 
 def test_resubmit_and_dense_arena_are_rejected(models):
     """A resubmitted request is rejected; the dense arena serves since
-    the port took it (tests/test_torch_dense.py), and what it still
-    rejects is its prefix cache, a later slice."""
+    the port took it (tests/test_torch_dense.py), with its prefix cache
+    (tests/test_torch_dense_prefix.py), and rejects a cache bound to a
+    paged engine's pool."""
     _, pm = models
     pe = ServingEngine(pm, max_batch_slots=1, max_len=64, block_size=8,
                        device="cpu")
@@ -201,9 +202,15 @@ def test_resubmit_and_dense_arena_are_rejected(models):
         pe.submit(r)
     assert ServingEngine(pm, max_batch_slots=1, max_len=64,
                          device="cpu").paged is False
-    with pytest.raises(NotImplementedError, match="later slice"):
+    assert ServingEngine(pm, max_batch_slots=1, max_len=64, device="cpu",
+                         prefix_cache=PrefixCache(chunk_tokens=8)).paged \
+        is False
+    bound = PrefixCache(chunk_tokens=8)
+    ServingEngine(pm, max_batch_slots=1, max_len=64, block_size=8,
+                  device="cpu", prefix_cache=bound)
+    with pytest.raises(ValueError, match="bound to a paged engine"):
         ServingEngine(pm, max_batch_slots=1, max_len=64, device="cpu",
-                      prefix_cache=PrefixCache(chunk_tokens=8))
+                      prefix_cache=bound)
 
 
 def test_default_device_raises_without_a_card(models):

@@ -122,6 +122,8 @@ _GPT = _tiny()
 _IDS = torch.zeros(1, 3, dtype=torch.long)
 _H = torch.zeros(1, 3, 64)
 _ALLOC = BlockAllocator(4, 8, 64)
+# a paged engine with a host tier: the spill and swap-back methods
+_TIER = DecodeEngine(_tiny(), 2, 32, block_size=8, host_tier_blocks=2)
 
 # id -> (reference file, qualname, port callable (for a method, bound
 # to a port layer), factory taking the unported parameters as keywords,
@@ -135,15 +137,13 @@ CASES = {
         {"telemetry": None, "mesh": None, "quarantine": True,
          "logit_guard": False, "dispatch_retries": 2,
          "dispatch_stall_s": None, "engine_failure_threshold": 3,
-         "overlap": True, "host_tier_blocks": None, "swap_min_tokens": None,
-         "profile": False, "seq_parallel": False, "adaptive": None,
+         "overlap": True, "profile": False, "seq_parallel": False, "adaptive": None,
          "adapter_pool": None}, None),
     "DecodeEngine": (
         "inference/serving.py", "DecodeEngine", DecodeEngine,
         lambda **kw: DecodeEngine(_tiny(), 1, 64, block_size=8, **kw),
         {"ids_dtype": None, "mesh": None, "logit_guard": False,
-         "host_tier_blocks": None, "seq_parallel": False,
-         "adapter_pool": None}, None),
+         "seq_parallel": False, "adapter_pool": None}, None),
     # the reference's engine-owned state past finish_reason
     # (cancel_requested, spill and constraint slots, logprobs) is not
     # the port's
@@ -250,8 +250,7 @@ CASES = {
         lambda **kw: SpeculativeEngine(_tiny(), 1, 64, 2, block_size=8,
                                        **kw),
         {"ids_dtype": None, "mesh": None, "logit_guard": False,
-         "host_tier_blocks": None, "seq_parallel": False,
-         "adapter_pool": None}, None),
+         "seq_parallel": False, "adapter_pool": None}, None),
     "SpeculativeEngine.verify": (
         "inference/speculative.py", "SpeculativeEngine.verify",
         _SPEC.verify,
@@ -275,6 +274,23 @@ CASES = {
         "inference/block_pool.py", "BlockAllocator", BlockAllocator,
         lambda **kw: BlockAllocator(4, 8, 64, **kw),
         {"devices": 1, "replicas": 1}, None),
+    # the host tier (one plane: ``replica`` at 0 only)
+    "DecodeEngine.gather_blocks_to_host": (
+        "inference/serving.py", "DecodeEngine.gather_blocks_to_host",
+        _TIER.gather_blocks_to_host,
+        lambda **kw: _TIER.gather_blocks_to_host([1], **kw),
+        {"replica": 0}, None),
+    "DecodeEngine.spill_blocks": (
+        "inference/serving.py", "DecodeEngine.spill_blocks",
+        _TIER.spill_blocks,
+        lambda **kw: _TIER.host_tier.deref(_TIER.spill_blocks([1], **kw),
+                                           restored=True),
+        {"replica": 0}, None),
+    "DecodeEngine.restore_blocks": (
+        "inference/serving.py", "DecodeEngine.restore_blocks",
+        _TIER.restore_blocks,
+        lambda **kw: _TIER.restore_blocks([0], [1], **kw),
+        {"replica": 0}, None),
     "BlockAllocator.alloc": (
         "inference/block_pool.py", "BlockAllocator.alloc", _ALLOC.alloc,
         lambda **kw: _ALLOC.deref(_ALLOC.alloc(1, **kw)), {"replica": 0},
@@ -334,6 +350,8 @@ KW_ONLY = {
     "write_rows": "the commit plan one forward's layers share",
     "op_name": "the op name AMP casts the tensor-parallel layers by",
     "seconds": "the host step time behind decode_step_ms_p50",
+    "pin_memory": "the host tier's blocks pinned for the card's copy "
+                  "engines (numpy buffers in the reference)",
 }
 # port callables the reference file at the same path lacks
 ABSENT = {
@@ -369,11 +387,15 @@ ELSEWHERE = {
     "nn/functional/attention.py::flash_attention":
         "ops/pallas/flash_attention.py",
 }
-# reference parameters without a default that the port defaults
+# reference parameters whose default the port sets otherwise: none in
+# the reference, or one of another framework's types
 DEFAULTED = {
     "distributed/trainer.py::ShardedTrainer.__init__": (
         {"loss_fn", "mesh"}, "the one-card trainer needs neither; every "
         "call the reference accepts binds the same"),
+    "inference/block_pool.py::HostTier.__init__": (
+        {"dtype"}, "the tier's blocks are torch tensors: np.float32 "
+        "becomes torch.float32, the same element type"),
 }
 
 
@@ -446,7 +468,8 @@ def _sweep_positional(sid):
     assert [n for n, _ in mine] == [n for n, _ in theirs]
     free = DEFAULTED.get(sid, (set(), ""))[0]
     for (name, d), (_, want) in zip(mine, theirs):
-        if want is _EMPTY and name in free:
+        if name in free:
+            assert d is not _EMPTY, name
             continue
         assert (d is _EMPTY) == (want is _EMPTY), name
         if d is not _EMPTY:
@@ -563,8 +586,11 @@ BINDS = {
                               None, "linear") is not None, None),
     "embedding(x, w, None, True)": (
         lambda: F.embedding(_IDS, _H[0], None, True), "sparse"),
+    # kseg, vseg: the dense arena's cached segment pair
     "PrefixCacheNode(key, parent, kseg, vseg)": (
-        lambda: PrefixCacheNode((), None, np.zeros(2), None), "kseg"),
+        lambda: PrefixCacheNode((), None, _X, _X[:1]).kseg is _X, None),
+    "spill_blocks(blocks, replica)": (
+        lambda: _TIER.spill_blocks([1], 1), "replica"),
     "alloc(n, replica)": (lambda: _ALLOC.alloc(1, 1), "replica"),
     # the prompt rows, their slots and lengths, then the sampler's rows
     "prefill(ids, slots, prompt_lens, temps, greedy, keydata)": (
@@ -619,7 +645,13 @@ def test_stated_exception_is_live(kind, key):
         assert key in SWEEP and _ref_node(key) is not None
     elif kind == "DEFAULTED":
         ref, _ = _ast_params(_ref_node(key))
-        assert table[key][0] <= {n for n, d in ref if d is _EMPTY}
+        mine = dict(_ast_params(SWEEP[key])[0])
+        # each named parameter lacks a default in the reference, or the
+        # port's differs from it
+        assert table[key][0] <= {
+            n for n, d in ref if d is _EMPTY or (
+                mine.get(n, _EMPTY) is not _EMPTY
+                and ast.dump(mine[n]) != ast.dump(d))}
     else:
         assert any(key in _ast_params(n)[1] for n in SWEEP.values()
                    if isinstance(n, ast.FunctionDef))
