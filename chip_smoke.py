@@ -143,12 +143,30 @@ Phases, in order (any failure exits non-zero and prints no result):
    ``ShardedTrainer(recompute=True)``: a finite, falling loss, K1 = K3 =
    0 (attention dropout keeps the plain attention), K2 exact, bf16
    parameters beside fp32 masters (LayerNorm stays fp32);
+6d. fault-tolerant training, ``gpt2_small`` at full width and depth:
+   ``DistributedStrategy(gradient_merge=True, k_steps=4, avg=True)`` over
+   4 micro-batches of 4 x 1024 with SGD in fp32 against one step on the
+   16 x 1024 batch (every parameter within MERGE_TOL; K1 = K3a = L and
+   K2 = 2L + 1 each micro-step), then 2 + 5 merged windows under AMP bf16
+   AdamW (tokens/s and window p50 beside phase 6's); the anomaly policy
+   through a float ``scale`` leaf of a 4 x 1024 batch that
+   ``fault_injection.nan_batch`` poisons (``skip_step``: the step counted,
+   parameters and AdamW state bitwise unchanged, a
+   ``TransientFailureWarning``; ``raise``: ``FloatingPointError``;
+   ``rollback`` after 2 bad steps to an async ``CheckpointManager`` save
+   still committing: the saved state bitwise), a newer version with one
+   flipped byte that ``restore`` falls back from, and ``save_checkpoint``
+   loaded by a trainer from another seed bitwise (parameters, AdamW
+   slots, step, scheduler) whose next 3 losses agree within RESUME_RTOL;
+   the checkpoint's bytes, the async save's stall and commit, a blocking
+   save, the sha256 verify and a restore, timed;
 7. the ``kernels`` JSON line, then the ``ok`` line.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2499,7 +2517,8 @@ def training_phase(torch, card):
           f"{max(step_ms):.2f}), MFU {mfu:.4f} (6 x {cfg.num_params()} "
           f"params / 989 TFLOP/s), peak memory {perf['peak_gib']:.2f} GiB, "
           f"launches over {steps} steps {launches}", flush=True)
-    _profile_step(torch, trainer, ids, perf["step_p50_ms"])
+    _profile_step(torch, lambda: trainer.train_step(ids, ids),
+                  perf["step_p50_ms"])
     return launches, perf
 
 
@@ -2709,8 +2728,354 @@ def training_defaults_phase(torch, card):
           "recompute=True)", flush=True)
 
 
-def _profile_step(torch, trainer, ids, step_ms):
-    """Device time of one more training step by kernel, from
+# 6d: a merged window of k micro-batches against one step on the whole
+# batch, SGD in fp32 (no TF32) from the same weights. Both sides compute
+# the same gradient but for summation order: the merge sums k per-micro-
+# batch means, the full step one mean over the batch, and K3a's dQ
+# atomics add in a run-dependent order. Each parameter is p - lr * g,
+# rounded once to fp32 on each side, so the gate is element by element
+# |merged - full| <= atol + rtol |full| with rtol 2**-22 (that one
+# rounding on each side) and atol for lr times the gradients'
+# difference. Over 4 runs on an H100 (two batches) the sound worst past
+# rtol is 6.2e-9 to 8.2e-9 (max |merged - full| 5.96e-8, one fp32 ulp of
+# the largest parameters; ~14M of the 124M elements differ at all;
+# PERF.md, PR 15): atol sits 3.7x above it.
+MERGE_TOL = {"atol": 3e-8, "rtol": 2.0 ** -22}
+# 6d: losses of a trainer resumed from a checkpoint against the trainer
+# that saved it, 3 steps each from bitwise-equal state (bf16 AMP,
+# AdamW): the first is the same forward on the same weights (equal on
+# the card); the next two follow updates whose gradients differ by
+# K3a's dQ atomics' order. On an H100 they differ by up to 1.29e-5
+# relatively (PERF.md, PR 15); the limit sits 7.8x above.
+RESUME_RTOL = 1e-4
+
+
+def _counts(fa, k2):
+    return {"K1": fa.launches["fwd"], "K3a": fa.launches["bwd_fused"],
+            "K3b": fa.launches["bwd_dkv"] + fa.launches["bwd_dq"],
+            "K2": k2.launches}
+
+
+def _merge_exactness(torch, cfg, ids, fa, k2):
+    """6d.1a: 4 merged micro-batches of 4 x 1024 against one step on the
+    16 x 1024 batch (SGD, fp32); exact launch counts a micro-step."""
+    from paddle_tpu_torch.distributed import DistributedStrategy
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import SGD
+
+    L, k, lr = cfg.num_layers, 4, 0.1
+    rows = ids.shape[0] // k
+
+    def trainer(strategy):
+        model = GPTForCausalLM(cfg, device="cuda", seed=0)
+        model.train()
+        return ShardedTrainer(model, SGD(lr, parameters=model.parameters()),
+                              None, strategy=strategy)
+
+    merged = trainer(DistributedStrategy(
+        gradient_merge=True, gradient_merge_configs={"k_steps": k,
+                                                     "avg": True}))
+    start = [p.detach().clone() for p in merged.model.parameters()]
+    want = {"K1": L, "K3a": L, "K3b": 0, "K2": 2 * L + 1}
+    for i in range(k):
+        torch.cuda.synchronize()
+        for m in (fa, k2):
+            m.reset_launches()
+        part = ids[i * rows:(i + 1) * rows]
+        merged.train_step(part, part)
+        torch.cuda.synchronize()
+        got = _counts(fa, k2)
+        check(got == want, f"6d: micro-step {i} launches {got} != {want}")
+    full = trainer(None)
+    full.train_step(ids, ids)
+    torch.cuda.synchronize()
+    worst = {"abs": 0.0, "resid": 0.0, "differ": 0, "update": 0.0}
+    for p0, pm, pf in zip(start, merged.model.parameters(),
+                          full.model.parameters()):
+        d = (pm.detach() - pf.detach()).abs()
+        resid = d - MERGE_TOL["rtol"] * pf.detach().abs()
+        worst["abs"] = max(worst["abs"], float(d.max()))
+        worst["resid"] = max(worst["resid"], float(resid.max()))
+        worst["differ"] += int((d > 0).sum())
+        worst["update"] = max(worst["update"],
+                              float((pf.detach() - p0).abs().max()))
+    print(f"6d merge: 4 x {rows} x {ids.shape[1]} merged against 16 x "
+          f"{ids.shape[1]} (SGD lr {lr}, fp32): max |merged - full| "
+          f"{worst['abs']:.3e} ({worst['differ']} elements differ; the "
+          f"largest update {worst['update']:.3e}), worst past rtol "
+          f"2**-22 |full| {worst['resid']:.3e} (atol {MERGE_TOL['atol']})",
+          flush=True)
+    check(worst["resid"] <= MERGE_TOL["atol"], "6d: the merged window "
+          f"differs from the full batch by {worst['resid']:.3e} past rtol "
+          f"(atol {MERGE_TOL['atol']})")
+    check(worst["update"] > 10 * MERGE_TOL["atol"],
+          "6d: the full-batch step moved no parameter")
+
+
+def _merge_perf(torch, card, cfg, ids, fa, k2, base):
+    """6d.1b: 2 + 5 merged windows (4 x 4 x 1024) under AMP bf16 AdamW;
+    tokens/s and step p50 (a window) beside phase 6's."""
+    from paddle_tpu_torch.distributed import DistributedStrategy
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    L, k, warm, windows = cfg.num_layers, 4, 2, 5
+    rows = ids.shape[0] // k
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    trainer = ShardedTrainer(
+        model, AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01),
+        None, amp=True, strategy=DistributedStrategy(
+            gradient_merge=True, gradient_merge_configs={"k_steps": k}))
+
+    def window():
+        return [trainer.train_step(ids[i * rows:(i + 1) * rows],
+                                   ids[i * rows:(i + 1) * rows])
+                for i in range(k)]
+
+    losses = [window() for _ in range(warm)]
+    torch.cuda.synchronize()
+    for m in (fa, k2):
+        m.reset_launches()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(windows)]
+    for start, end in ev:
+        start.record()
+        losses.append(window())
+        end.record()
+    torch.cuda.synchronize()
+    got = _counts(fa, k2)
+    want = {"K1": k * L * windows, "K3a": k * L * windows, "K3b": 0,
+            "K2": k * (2 * L + 1) * windows}
+    check(got == want, f"6d: merged AMP launches {got} != {want}")
+    means = [float(np.mean([float(x) for x in w])) for w in losses]
+    check(all(np.isfinite(means)), "6d: non-finite merged AMP loss")
+    check(means[-1] < means[0], f"6d: merged loss did not fall: {means}")
+    win_ms = [s.elapsed_time(e) for s, e in ev]
+    total_ms = ev[0][0].elapsed_time(ev[-1][1])
+    tokens_per_s = ids.numel() * windows / (total_ms / 1e3)
+    print(f"6d merged windows on {card}: window means {means}; "
+          f"{tokens_per_s:.1f} tokens/s (phase 6 {base['tokens_per_s']:.1f})"
+          f", window p50 {float(np.median(win_ms)):.2f} ms (phase 6 step "
+          f"{base['step_p50_ms']:.2f}), launches over {windows} windows "
+          f"{got}", flush=True)
+    _profile_step(torch, window, float(np.median(win_ms)))
+
+
+def _flip_byte(path):
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _tfw(rec, what):
+    from paddle_tpu_torch.distributed import TransientFailureWarning
+
+    check(any(issubclass(w.category, TransientFailureWarning) for w in rec),
+          f"6d: {what} raised no TransientFailureWarning")
+
+
+def _anomaly_and_fallback(torch, card, cfg, ids, root):
+    """6d.2: the anomaly policy through a float ``scale`` leaf of the
+    batch (``loss_fn = loss * scale``, which ``nan_batch`` poisons), then
+    a corrupt newest version that ``CheckpointManager.restore`` falls
+    back from. Returns the checkpoint timings."""
+    import warnings
+
+    from paddle_tpu_torch.distributed import CheckpointManager, ShardedTrainer
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.testing import fault_injection as fi
+
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01)
+    trainer = ShardedTrainer(model, opt, lambda loss, s: loss * s, amp=True)
+    scale = torch.ones((), device="cuda")
+
+    def step():
+        return trainer.train_step(ids, ids, scale)
+
+    def planted(n):
+        with warnings.catch_warnings(record=True) as rec, \
+                fi.inject("trainer:batch", fi.nan_batch(), times=n) as inj:
+            warnings.simplefilter("always")
+            out = [step() for _ in range(n)]
+        check(inj.fired == n, f"6d: {inj.fired} of {n} planted batches")
+        return out, rec
+
+    trainer.enable_anomaly_policy(policy="skip_step")
+    for _ in range(2):
+        step()
+    snap, count = _snapshot(torch, model, opt), trainer.step_count
+    (loss,), rec = planted(1)
+    torch.cuda.synchronize()
+    check(not np.isfinite(float(loss)), "6d: the planted loss is finite")
+    check(trainer.step_count == count + 1 and
+          trainer.anomaly_stats["skipped"] == 1,
+          f"6d skip_step: step {trainer.step_count}, stats "
+          f"{trainer.anomaly_stats}")
+    _tfw(rec, "skip_step")
+    check(_unchanged(torch, model, opt, snap), "6d skip_step: the planted "
+          "step moved a parameter or an AdamW slot")
+    check(np.isfinite(float(step())), "6d: no finite loss after the skip")
+
+    trainer.enable_anomaly_policy(policy="raise")
+    try:
+        planted(1)
+        fail("6d raise: the planted step did not raise")
+    except FloatingPointError as e:
+        print(f"6d raise: {e}", flush=True)
+
+    mgr = CheckpointManager(os.path.join(root, "managed"), async_save=True)
+    trainer.enable_anomaly_policy(policy="rollback", rollback_after=2,
+                                  checkpoint_manager=mgr)
+    snap, saved_step = _snapshot(torch, model, opt), trainer.step_count
+    mgr.save()                   # committing while the bad steps land
+    _, rec = planted(2)
+    torch.cuda.synchronize()
+    check(trainer.anomaly_stats["rollbacks"] == 1 and
+          trainer.step_count == saved_step,
+          f"6d rollback: step {trainer.step_count} (saved {saved_step}), "
+          f"stats {trainer.anomaly_stats}")
+    _tfw(rec, "rollback")
+    check(_unchanged(torch, model, opt, snap), "6d rollback: the restored "
+          "state is not the saved one bitwise")
+    check(np.isfinite(float(step())), "6d: no finite loss after rollback")
+    print(f"6d anomaly policy on {card}: skip_step, raise and rollback "
+          f"(to step {saved_step}) as planted; stats "
+          f"{trainer.anomaly_stats}", flush=True)
+
+    # a newer version, saved asynchronously and timed, then corrupted
+    t0 = time.perf_counter()
+    mgr.save()
+    stall = time.perf_counter() - t0
+    mgr.wait()
+    commit = time.perf_counter() - t0 - stall
+    newest = os.path.join(mgr.path, f"v{trainer.step_count:012d}")
+    nbytes = _dir_bytes(newest)
+    _flip_byte(os.path.join(newest, "shard-0.npz"))
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        back = mgr.restore()
+    _tfw(rec, "the corrupt version")
+    check(back == saved_step and trainer.step_count == saved_step,
+          f"6d: restore fell back to step {back}, expected {saved_step}")
+    check(_unchanged(torch, model, opt, snap), "6d: the fallback restore "
+          "is not the older version bitwise")
+    mgr.close()
+    del snap
+    return {"bytes": nbytes, "stall": stall, "commit": commit}
+
+
+def _checkpoint_resume(torch, card, cfg, ids, root, timing):
+    """6d.3: ``save_checkpoint`` from step 2; a trainer from another seed
+    loads it bitwise (parameters, AdamW slots, step, scheduler), then 3
+    steps of each agree."""
+    from paddle_tpu_torch.distributed import ShardedTrainer, checkpoint
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    def make(seed):
+        model = GPTForCausalLM(cfg, device="cuda", seed=seed)
+        model.train()
+        sched = lr.StepDecay(1e-4, step_size=2)
+        opt = AdamW(sched, parameters=model.parameters(), weight_decay=0.01)
+        return ShardedTrainer(model, opt, None, amp=True), sched
+
+    def steps(t, sched, n):
+        out = []
+        for _ in range(n):
+            out.append(t.train_step(ids, ids))
+            sched.step()
+        return [float(x) for x in out]
+
+    saver, s_sched = make(0)
+    steps(saver, s_sched, 2)
+    path = os.path.join(root, "trainer")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    saver.save_checkpoint(path)
+    blocking = time.perf_counter() - t0
+    loader, l_sched = make(1)
+    t0 = time.perf_counter()
+    checkpoint.verify_checkpoint(path)
+    verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader.load_checkpoint(path, verify=False)
+    torch.cuda.synchronize()
+    restore = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(
+        saver.model.parameters(), loader.model.parameters())) and all(
+        torch.equal(v, loader.optimizer._accumulators[id(q)][s])
+        for p, q in zip(saver.model.parameters(), loader.model.parameters())
+        for s, v in saver.optimizer._accumulators[id(p)].items())
+    check(same, "6d: the loaded parameters or AdamW state differ from the "
+          "saved ones")
+    check(loader.step_count == saver.step_count == 2 and
+          l_sched.state_dict() == s_sched.state_dict(),
+          f"6d: loaded step {loader.step_count}, scheduler "
+          f"{l_sched.state_dict()} against {s_sched.state_dict()}")
+    a, b = steps(saver, s_sched, 3), steps(loader, l_sched, 3)
+    rel = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    print(f"6d resume: saver {a}, loader {b}, largest relative difference "
+          f"{rel:.3e} (limit {RESUME_RTOL})", flush=True)
+    check(all(np.isfinite(a + b)) and rel <= RESUME_RTOL,
+          f"6d: resumed losses {b} against {a}")
+    print(f"6d checkpoints on {card}: {timing['bytes']} bytes a version; "
+          f"async save() stall {timing['stall']:.3f} s (the host snapshot) "
+          f"against {timing['commit']:.3f} s of background commit; a "
+          f"blocking save {blocking:.3f} s, the sha256 verify {verify:.3f} "
+          f"s, a restore {restore:.3f} s", flush=True)
+
+
+def training_resilience_phase(torch, card, base):
+    """6d: fault-tolerant training of ``gpt2_small`` at full width and
+    depth: gradient merge (exact against the full batch, then timed
+    under AMP), the anomaly policy's three actions, checkpoints and a
+    fallback past a corrupt version. Checkpoints go to a fresh temporary
+    directory, deleted at the end."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+
+    cfg = gpt2_small()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (16, 1024))).cuda()
+    _merge_exactness(torch, cfg, ids, fa, k2)
+    torch.cuda.empty_cache()
+    _merge_perf(torch, card, cfg, ids, fa, k2, base)
+    torch.cuda.empty_cache()
+    # three versions on disk at once: params and two AdamW moments, fp32
+    version = 3 * 4 * cfg.num_params()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        check(free > 3 * version + (2 << 30), f"6d: {free} bytes free under "
+              f"{root}, the checkpoints need {3 * version} and 2 GiB spare")
+        timing = _anomaly_and_fallback(torch, card, cfg, ids[:4], root)
+        torch.cuda.empty_cache()
+        _checkpoint_resume(torch, card, cfg, ids[:4], root, timing)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _profile_step(torch, run, step_ms):
+    """Device time of one more training step (``run()``) by kernel, from
     ``torch.profiler`` (CUPTI): the largest kernels, and the device's
     busy share of the timed step p50."""
     from torch.autograd import DeviceType
@@ -2718,7 +3083,7 @@ def _profile_step(torch, trainer, ids, step_ms):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(ids, ids)
+        run()
         torch.cuda.synchronize()
     # device-side events only: an operator's own entry repeats the device
     # time of the kernels it launched
@@ -2896,6 +3261,8 @@ def main():
     lap("fp16 training")
     training_defaults_phase(torch, card)
     lap("training at the model's defaults")
+    training_resilience_phase(torch, card, train_perf)
+    lap("fault-tolerant training")
     launches.update({"K1": train_launches["K1"], "K3a": train_launches["K3a"],
                      "K3b-dkv": long_launches["bwd_dkv"],
                      "K3b-dq": long_launches["bwd_dq"],

@@ -21,12 +21,19 @@ backward kernels. Slice 13 adds the rest of the one-card training loop:
 ``optimizer.lr`` schedulers, ``nn`` gradient clipping,
 ``amp.GradScaler`` and ``amp.decorate`` (O2) with master weights,
 recompute (``distributed.fleet.utils``), attention dropout and the
-cross-entropy variants; the flash kernels take float16 too.
+cross-entropy variants; the flash kernels take float16 too. Slice 15
+adds fault-tolerant training on one card: ``distributed.checkpoint``
+(the reference's on-disk format), ``distributed.resilience``
+(``CheckpointManager``, the anomaly policy), ``DistributedStrategy``
+with gradient merge, ``testing.fault_injection`` and the ``FLAGS_*``
+registry (``set_flags``/``get_flags``).
 """
 
+from paddle_tpu_torch.core.flags import get_flags, set_flags
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.core.random import seed
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device", "seed", "__version__"]
+__all__ = ["resolve_device", "seed", "set_flags", "get_flags",
+           "__version__"]

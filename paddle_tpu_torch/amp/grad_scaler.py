@@ -15,7 +15,9 @@ gradients (``torch._amp_foreach_non_finite_check_and_unscale_``: the
 reference's check_finite_and_unscale), reading one flag back to the host
 once a step. A step whose gradients are not all finite is skipped: the
 optimizer is not called, so the parameters and its state stay bit for
-bit what they were, and the skip is counted and warned about.
+bit what they were, and the skip is counted and warned about with
+``distributed.resilience.TransientFailureWarning``, as the reference
+warns.
 """
 
 from __future__ import annotations
@@ -99,11 +101,14 @@ class GradScaler:
         if not self._found_inf:
             optimizer.step()
         else:
+            from paddle_tpu_torch.distributed.resilience import \
+                TransientFailureWarning
+
             self._skip_count += 1
-            warnings.warn(
+            warnings.warn(TransientFailureWarning(
                 f"GradScaler: non-finite gradients at loss scale "
                 f"{self._scale:g}; update skipped (total skipped: "
-                f"{self._skip_count})", UserWarning, stacklevel=2)
+                f"{self._skip_count})"), stacklevel=2)
         self._step_called = True
 
     def minimize(self, optimizer, scaled_loss):

@@ -1,5 +1,6 @@
 from paddle_tpu_torch.optimizer import lr
 from paddle_tpu_torch.optimizer.optimizer import Optimizer
-from paddle_tpu_torch.optimizer.optimizers import Adam, AdamW
+from paddle_tpu_torch.optimizer.optimizers import (SGD, Adam, AdamW,
+                                                   Momentum)
 
-__all__ = ["lr", "Optimizer", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW"]

@@ -21,7 +21,8 @@ master copy with fp32 state (the reference's ``@master`` slot), and the
 parameter receives the master rounded to its dtype.
 
 Per-parameter state lives in ``_accumulators[id(param)]`` under the
-JAX package's slot names. The updates are plain torch, in place
+JAX package's slot names; :meth:`_named_state` hands the same tensors
+out by parameter name. The updates are plain torch, in place
 (``torch._foreach_*`` over each group): the JAX update is XLA, not a
 Pallas kernel. They read no value back to the host, so a step never
 waits for the card.
@@ -126,6 +127,16 @@ class Optimizer:
         if st is None:
             st = self._accumulators[id(p)] = self._init_state(p)
         return st
+
+    def _named_state(self, names: Dict[int, str]
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The live state of every parameter this optimizer holds whose
+        ``id`` is in ``names`` (made now if it has had no step yet), keyed
+        by ``names[id(param)]``. The slot tensors themselves, not copies:
+        the trainer reads and writes its checkpoint's ``opt/<name>/<slot>``
+        entries through them."""
+        return {names[id(p)]: self._state(p)
+                for _, _, p in self._parameters() if id(p) in names}
 
     # -- the update (override) ----------------------------------------------
     def _update(self, group: Dict[str, Any], named: _Named,

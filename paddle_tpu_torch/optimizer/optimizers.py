@@ -1,5 +1,10 @@
-"""Adam and AdamW — the port of ``paddle_tpu/optimizer/optimizers.py``
-(:87-187).
+"""SGD, Momentum, Adam and AdamW — the port of
+``paddle_tpu/optimizer/optimizers.py`` (:21-60, :87-187).
+
+SGD is ``param - lr * grad``; Momentum keeps a ``velocity`` slot,
+``v = momentum * v + grad``, and steps ``param - lr * v`` (Nesterov:
+``param - lr * (grad + momentum * v)``). Each product is rounded to the
+parameter's dtype before the subtraction, as the JAX rules compute it.
 
 The rule is JAX ``Adam._update`` in the same order of operations, per
 parameter with its own fp32 0-dim ``beta1_pow``/``beta2_pow`` slots:
@@ -26,7 +31,49 @@ import torch
 
 from paddle_tpu_torch.optimizer.optimizer import Optimizer, _Named
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["SGD", "Momentum", "Adam", "AdamW"]
+
+
+class SGD(Optimizer):
+    _state_slots = ()
+
+    def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+
+    def _update(self, group: Dict[str, Any], named: _Named,
+                grads: List[torch.Tensor],
+                states: List[Dict[str, torch.Tensor]], lr: float):
+        torch._foreach_sub_([p for _, p in named],
+                            torch._foreach_mul(grads, lr))
+
+
+class Momentum(Optimizer):
+    _state_slots = ("velocity",)
+
+    def __init__(self, learning_rate=0.001, momentum: float = 0.9,
+                 parameters=None, use_nesterov: bool = False,
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
+        self._momentum = float(momentum)
+        self._nesterov = bool(use_nesterov)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+
+    def _update(self, group: Dict[str, Any], named: _Named,
+                grads: List[torch.Tensor],
+                states: List[Dict[str, torch.Tensor]], lr: float):
+        v = [s["velocity"] for s in states]
+        torch._foreach_mul_(v, self._momentum)
+        torch._foreach_add_(v, grads)
+        if self._nesterov:
+            step = torch._foreach_mul(v, self._momentum)
+            torch._foreach_add_(step, grads)
+            torch._foreach_mul_(step, lr)
+        else:
+            step = torch._foreach_mul(v, lr)
+        torch._foreach_sub_([p for _, p in named], step)
 
 
 class Adam(Optimizer):

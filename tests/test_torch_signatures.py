@@ -369,7 +369,16 @@ ABSENT = {
         "in for fold_in(slot_key, P)",
     "core/unported.py::refuse_unported": "the port's refusal of reference "
         "parameters it does not implement",
+    # a reference callable that a module ported whole lacks (``WHOLE``)
+    "testing/fault_injection.py::nan_kv": "poisons a serving slot's KV "
+        "through ServingEngine.poison_slot_kv, which arrives with the "
+        "serving fault points",
 }
+# port modules that carry every public callable of their reference but
+# the ``ABSENT`` entries named there
+WHOLE = ["core/flags.py", "testing/fault_injection.py",
+         "distributed/checkpoint.py", "distributed/resilience.py",
+         "distributed/strategy.py"]
 # port modules with no reference file at their path
 ABSENT_MODULES = {
     "ops/kernels/_build.py": "nvcc build and ctypes binding of csrc/",
@@ -638,7 +647,11 @@ def test_stated_exception_is_live(kind, key):
     reason = table[key][1] if kind == "DEFAULTED" else table[key]
     assert isinstance(reason, str) and len(reason) > 20
     if kind == "ABSENT":
-        assert key in SWEEP and _ref_node(key) is None
+        # a port callable the reference lacks, or the reverse in a
+        # module ported whole
+        assert (key in SWEEP) != (_ref_node(key) is not None)
+        if key not in SWEEP:
+            assert key.split("::")[0] in WHOLE
     elif kind == "ABSENT_MODULES":
         assert (PORT / key).exists() and not (REF / key).exists()
     elif kind == "ELSEWHERE":
@@ -655,3 +668,11 @@ def test_stated_exception_is_live(kind, key):
     else:
         assert any(key in _ast_params(n)[1] for n in SWEEP.values()
                    if isinstance(n, ast.FunctionDef))
+
+
+@pytest.mark.parametrize("rel", WHOLE)
+def test_whole_module_has_every_reference_callable(rel):
+    mine = set(_public(PORT / rel))
+    missing = {q for q in _public(REF / rel) if q not in mine}
+    assert missing == {k.split("::")[1] for k in ABSENT
+                       if k.startswith(rel + "::")}

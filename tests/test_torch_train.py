@@ -351,10 +351,20 @@ def test_three_train_steps_match_jax_trainer(amp, rtol):
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """A mesh of more than one device, ZeRO offload, pipelines, MoE and
+    a batch spec are later work; a one-device mesh is accepted."""
+    from paddle_tpu_torch.distributed import DistributedStrategy
+
     pm = GPTForCausalLM(gpt_tiny(), device="cpu")
     opt = AdamW(parameters=pm.parameters())
-    for kw in (dict(mesh=np.zeros(4)), dict(strategy=object())):
-        with pytest.raises(NotImplementedError):
+    offload = DistributedStrategy(sharding=True,
+                                  sharding_configs={"offload": True})
+    for kw, match in ((dict(mesh=np.zeros(4)), "more than one device"),
+                      (dict(strategy=offload), "offload"),
+                      (dict(strategy=DistributedStrategy(pipeline=True)),
+                       "pipeline"),
+                      (dict(strategy=DistributedStrategy(moe=True)), "moe"),
+                      (dict(batch_spec=("dp",)), "batch_spec")):
+        with pytest.raises(NotImplementedError, match=match):
             ShardedTrainer(pm, opt, None, **kw)
-    with pytest.raises(NotImplementedError, match="anomaly"):
-        ShardedTrainer(pm, opt, None).enable_anomaly_policy()
+    assert ShardedTrainer(pm, opt, None, mesh=np.zeros(1)).step_count == 0
