@@ -122,6 +122,38 @@ Phases, in order (any failure exits non-zero and prints no result):
    then 5b's trace behind a ``PrefixCache`` whose budget holds 3 chunks
    with a tier: demotions and host hits > 0 and the cache-off run's
    greedy tokens;
+5j. serving telemetry and request-scoped resilience (run after 5d):
+   (a) ``logit_guard=True`` with ``fault_injection.nan_kv`` armed at
+   ``serving:tick`` on slot 0's first decoding tick, over fp32 pools
+   (phase 5's trace), bf16 pools (the bf16 model, 5c's 8 requests) and
+   int8 pools (the fp32 model, 5c's 8 requests): exactly the poisoned
+   request ends "error", counted under
+   ``serving_request_errors_total{where="logit_guard"}``, its tokens a
+   prefix of its clean run's, the others' greedy tokens the clean run's
+   (near-ties counted), a clean ``audit()``, the blocks it released
+   scrubbed to 0, and a clean guarded run launching K2, K4 and K5
+   exactly as often as the same trace unguarded (with the same
+   tokens); then a poisoned shared prefix of 5b's trace: the request
+   that splices it ends "error" before any token (K5's first token),
+   requests that share nothing serve a clean run's tokens; (b) phase
+   5's trace with ``profile=True`` and the watchdog armed at 30 s:
+   phase 5's tokens, top-level coverage >= 0.95, and printed: each
+   phase's share of the tick wall, the dispatch ledger's enqueue and
+   device window per warm decode and prefill dispatch, and the
+   telemetry volume per decode step; then phase 5's trace with the
+   default ``Telemetry`` and with one whose every emit is dropped, 4
+   runs each in the order on, off, off, on, on, off, off, on: phase
+   5's tokens and launches each time,
+   and the two arms' walls and decode step p50 (the telemetry's cost,
+   host clock, not gated); (c) dispatch faults on 5c's 8
+   requests: a 0.2 s sleep at one warm decode dispatch under
+   ``dispatch_stall_s=0.05`` (exactly one ``dispatch_stall``), a raise
+   on a dispatch's first attempt (one counted retry), a raise at
+   ``serving:tick`` (one counted engine error, the trace finished),
+   each with the clean run's tokens. Every engine of 5j absorbs
+   exactly the planted failure, and every serving run of phase 5 with
+   nothing planted absorbs none (no retried dispatch, quarantined
+   request, crashed tick, stall or degraded swap: ``_check_absorbed``);
 6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
    ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
@@ -1745,7 +1777,55 @@ def _serving_trace(vocab):
     return out
 
 
-def _serve(torch, model, trace, block_size=16, poison=False, **engine_kw):
+# the counters in which a ServingEngine absorbs a failure and serves on
+# (a retried dispatch, a quarantined request, a crashed tick the breaker
+# took, a stall, a degraded swap, a dropped telemetry write): a run with
+# nothing planted must read 0 in each
+ABSORBED = ("serving_request_errors_total",
+            "serving_nonfinite_logit_events_total",
+            "serving_engine_errors_total", "serving_breaker_trips_total",
+            "serving_dispatch_retries_total", "serving_dispatch_stalls_total",
+            "serving_swap_fallbacks_total",
+            "serving_flight_dump_failed_total",
+            "serving_profiler_errors_total")
+
+
+def _absorbed(eng):
+    """Every failure ``eng`` absorbed, as {series: count} with the zeros
+    left out: the counters of ``ABSORBED`` by label, the swap verdict
+    ``fault``, the ProgramSets' own retry and stall counts (kept apart
+    from the registry), the breaker's consecutive failures and trip
+    state, and the dispatches past the watchdog right now."""
+    reg = eng.telemetry.registry
+    out = {}
+    for name in ABSORBED:
+        snap = reg.get(name).snapshot()
+        for label, v in (snap.items() if isinstance(snap, dict)
+                         else [(None, snap)]):
+            out[name if label is None else f"{name}{{{label}}}"] = v
+    out["serving_swap_decisions_total{fault}"] = reg.get(
+        "serving_swap_decisions_total").snapshot().get("fault", 0.0)
+    for ps in eng._program_sets():
+        out["ProgramSet.retry_events"] = \
+            out.get("ProgramSet.retry_events", 0) + ps.retry_events
+        out["ProgramSet.stall_events"] = \
+            out.get("ProgramSet.stall_events", 0) + ps.stall_events
+    b = eng.breaker_state()
+    out.update({"breaker failures": b["failures"],
+                "breaker open": int(b["open"]),
+                "stalls in progress": eng.dispatch_stalled()})
+    return {k: v for k, v in out.items() if v}
+
+
+def _check_absorbed(eng, what, want=None):
+    """``_absorbed(eng)`` equals ``want`` (nothing, by default)."""
+    got = _absorbed(eng)
+    check(got == (want or {}), f"{what}: absorbed failures {got}, want "
+          f"{want or {}}")
+
+
+def _serve(torch, model, trace, block_size=16, poison=False, arm=None,
+           **engine_kw):
     """One run of ``trace`` through ``ServingEngine(model, 8 slots, max_len
     1024, blocks of ``block_size`` (None: the dense arena), chunks of 128,
     **engine_kw)`` on the card, after a warm-up request (cuBLAS handles,
@@ -1754,7 +1834,13 @@ def _serve(torch, model, trace, block_size=16, poison=False, **engine_kw):
     of the run (every counter set to 0 just before it). ``poison`` fills
     every pool after the warm-up as phase 3 poisons (1e9, or saturated
     int8 codes and 1e7 scales): a row read before it was written, or
-    restored wrong, wrecks the softmax it reaches."""
+    restored wrong, wrecks the softmax it reaches. ``arm`` (a callable
+    returning a context manager: a planted fault) wraps the counted run;
+    a request it made the engine quarantine ends ``"error"``, and the
+    caller checks what the engine absorbed. With nothing armed, every
+    request must end "length" or "eos" and the engine must have
+    absorbed nothing (``_check_absorbed``): a retried dispatch or a
+    crashed tick the breaker took fails the run as a raise would."""
     from paddle_tpu_torch.inference import Request, ServingEngine
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
     from paddle_tpu_torch.ops.kernels import layer_norm as k2
@@ -1779,12 +1865,21 @@ def _serve(torch, model, trace, block_size=16, poison=False, **engine_kw):
     for m in (k2, k4, k5):
         m.reset_launches()
     t0 = time.perf_counter()
-    agg = eng.run().aggregate()
+    if arm is None:
+        agg = eng.run().aggregate()
+    else:
+        with arm():
+            agg = eng.run().aggregate()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"K2": k2.launches, "K4": k4.launches, "K5": k5.launches,
                 "K4-int8": k4.launches_q, "K5-int8": k5.launches_q}
+    if arm is None:
+        _check_absorbed(eng, "serving")
     for r in reqs:
+        if arm is not None and r.status == "done" and \
+                r.finish_reason == "error":
+            continue
         check(r.status == "done" and r.finish_reason in ("length", "eos"),
               f"request {r.id} ended {r.status}/{r.finish_reason}")
         check([tk for tk, _ in streamed[r.id]] == r.tokens
@@ -1855,7 +1950,7 @@ def serving_phase(torch, card):
 
     _greedy_consistency(torch, model, reqs, "greedy consistency")
     print(_perf_line("serving", card, agg, wall), flush=True)
-    return launches, model, agg
+    return launches, model, agg, reqs
 
 
 def _greedy_consistency(torch, model, reqs, what):
@@ -1968,7 +2063,7 @@ def serving_bf16_phase(torch, card):
     counts, every request done, and greedy agreement with the bf16
     teacher-forced argmax >= 0.9 (5b's limit, test_paged_kv.py:502).
     Returns the launch counts of the bf16-pool and the int8-pool run, the
-    model and the two runs' aggregates."""
+    model, the two runs' aggregates and the bf16-pool run's requests."""
     from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
 
     cfg = gpt2_small()
@@ -1976,7 +2071,7 @@ def serving_bf16_phase(torch, card):
     model.eval()
     trace = [kw for kw in _serving_trace(cfg.vocab_size)
              if kw.get("greedy")][:8]
-    out, aggs = {}, {}
+    out, aggs, served = {}, {}, {}
     for kv in (None, "int8"):
         what = f"bf16 serving{', int8 pools' if kv else ''}"
         _, reqs, agg, wall, launches = _serve(torch, model, trace,
@@ -1993,8 +2088,8 @@ def serving_bf16_phase(torch, card):
               f"{total} = {rate:.4f} (limit 0.9)", flush=True)
         check(rate >= 0.9, f"{what}: greedy agreement {rate} < 0.9")
         print(_perf_line(what, card, agg, wall), flush=True)
-        out[kv], aggs[kv] = launches, agg
-    return out[None], out["int8"], model, aggs
+        out[kv], aggs[kv], served[kv] = launches, agg, reqs
+    return out[None], out["int8"], model, aggs, served[None]
 
 
 def draws_check(torch):
@@ -2315,6 +2410,343 @@ def serving_tier_phase(torch, card, model):
     print("host tier + prefix cache: greedy tokens equal to the cache-off "
           "run", flush=True)
 
+
+def _live_slot_past_prefill(slot):
+    """``serving:tick``'s trigger for ``nan_kv(slot)``: the first tick at
+    which ``slot`` holds a request that is decoding."""
+    return lambda ctx: ctx["engine"]._slots[slot] is not None \
+        and ctx["engine"]._pf[slot] is None
+
+
+def _watch_scrubs(torch, eng, seen):
+    """Record, right after every scrub of released blocks, whether every
+    pool and scale row of those blocks reads 0. The watcher holds the
+    engine weakly, so the engine and its pools still free on their last
+    reference."""
+    import weakref
+
+    ref, cls = weakref.ref(eng.engine), type(eng.engine)
+
+    def watched(slot=None, blocks=None, replica=0):
+        e = ref()
+        cls.scrub_slot_kv(e, slot=slot, blocks=blocks, replica=replica)
+        if blocks:
+            idx = torch.as_tensor(list(blocks), device="cuda")
+            bufs = e.kbufs + e.vbufs + (e.kscales or []) + (e.vscales or [])
+            seen.append((len(blocks),
+                         all(bool((b[idx] == 0).all()) for b in bufs)))
+
+    eng.engine.scrub_slot_kv = watched
+
+
+# what the engine absorbs when the logit guard retires one request
+GUARD_RETIRED = {"serving_request_errors_total{logit_guard}": 1.0,
+                 "serving_nonfinite_logit_events_total": 1.0}
+
+
+def _contained(torch, model, what, clean, faulted, eng, seen):
+    """The containment checks of one planted NaN: exactly one request
+    ended "error", counted under the guard's label; the others' greedy
+    tokens equal the clean run's (near-ties counted), the victim's
+    tokens a prefix of its clean ones; a clean audit; the scrubbed
+    blocks read 0."""
+    victims = [r for r in faulted if r.finish_reason == "error"]
+    check(len(victims) == 1, f"{what}: {len(victims)} requests ended "
+          "'error', want exactly the poisoned one")
+    v = victims[0]
+    want = clean[faulted.index(v)]
+    check(v.tokens == want.tokens[:len(v.tokens)],
+          f"{what}: the victim's tokens {v.tokens[:8]} are not a prefix of "
+          f"its clean run's")
+    _check_absorbed(eng, what, GUARD_RETIRED)
+    report = eng.audit()
+    check(report["leaked_blocks"] == 0 and report["orphaned_pins"] == 0
+          and report["slot_errors"] == 0, f"{what}: audit {report}")
+    check(len(seen) == 1 and seen[0][0] > 0 and seen[0][1],
+          f"{what}: scrubs (blocks, all read 0): {seen}")
+    others = [(c, f) for c, f in zip(clean, faulted) if f is not v]
+    n = _same_greedy(torch, model, [c for c, _ in others],
+                     [f for _, f in others], what)
+    print(f"{what}: request {v.id} retired 'error' after {len(v.tokens)} "
+          f"tokens, {seen[0][0]} blocks scrubbed to 0; the other "
+          f"{len(others)} requests' greedy tokens equal the clean run's "
+          f"but at {n} near-tie divergences; audit {report['leaked_blocks']}"
+          f" leaked, {report['orphaned_pins']} orphaned", flush=True)
+
+
+def _poisoned_prefix(torch, model):
+    """A request that splices a poisoned shared prefix retires "error"
+    before its first token (K5 over the poisoned blocks, the guard on
+    the chunk's last row); requests that share nothing serve the tokens
+    of a clean run."""
+    from paddle_tpu_torch.inference import PrefixCache, Request, ServingEngine
+
+    trace = _shared_prefix_trace(model.config.vocab_size)
+    others = [dict(prompt=kw["prompt"][512:], greedy=True,
+                   max_new_tokens=kw["max_new_tokens"])
+              for kw in trace[1:5]]
+    out = {}
+    for poison in (False, True):
+        eng = ServingEngine(model, max_batch_slots=8, max_len=1024,
+                            block_size=16, prefill_chunk=128, seed=0,
+                            prefix_cache=PrefixCache(chunk_tokens=128),
+                            logit_guard=True, device="cuda")
+        seeder = eng.submit(Request(prompt=trace[0]["prompt"],
+                                    max_new_tokens=4, greedy=True))
+        eng.run()
+        check(seeder.finish_reason == "length", "poisoned prefix: seeder "
+              f"ended {seeder.finish_reason}")
+        if poison:
+            nodes = list(eng._cache.iter_nodes())
+            blocks = sorted({b for n in nodes for b in n.blocks})
+            eng.engine.poison_slot_kv(0, table_row=blocks)
+        streamed = []
+        victim = eng.submit(Request(
+            prompt=trace[1]["prompt"], max_new_tokens=8, greedy=True,
+            on_token=lambda r, t, d: streamed.append(t)))
+        reqs = [eng.submit(Request(**kw)) for kw in others]
+        eng.run()
+        _check_absorbed(eng, f"poisoned prefix, poison {poison}",
+                        GUARD_RETIRED if poison else None)
+        out[poison] = (victim, reqs, eng, streamed)
+    (cv, creqs, _, _), (v, reqs, eng, streamed) = out[False], out[True]
+    check(cv.finish_reason == "length" and cv.tokens,
+          f"poisoned prefix: the clean victim ended {cv.finish_reason}")
+    check(v.finish_reason == "error" and v.tokens == [] and streamed == [],
+          f"poisoned prefix: the victim ended {v.finish_reason} with "
+          f"{len(v.tokens)} tokens, {len(streamed)} streamed")
+    check(all(r.finish_reason == "length" for r in reqs),
+          "poisoned prefix: a request that shares nothing did not finish")
+    n = _same_greedy(torch, model, creqs, reqs, "poisoned prefix")
+    report = eng.audit()
+    check(report["leaked_blocks"] == 0 and report["orphaned_pins"] == 0,
+          f"poisoned prefix: audit {report}")
+    print(f"poisoned prefix (fp32, K5's first token): the splicing request "
+          f"retired 'error' before any token; the {len(reqs)} others equal "
+          f"the clean run's but at {n} near-tie divergences", flush=True)
+
+
+def _tick_anatomy(torch, card, model, fp_reqs):
+    """5j(b): phase 5's trace with ``profile=True`` (and the watchdog
+    armed at 30 s, so that closing a dispatch's window waits on its CUDA
+    event and the ledger's device window runs to the kernels' end):
+    tokens equal phase 5's unprofiled run, top-level coverage >= 0.95,
+    then the phase shares, the dispatch ledger and the telemetry volume
+    per decode step."""
+    cfg = model.config
+    eng, reqs, agg, wall, _ = _serve(torch, model,
+                                     _serving_trace(cfg.vocab_size),
+                                     profile=True, dispatch_stall_s=30.0)
+    check([r.tokens for r in reqs] == [r.tokens for r in fp_reqs],
+          "profiled serving: tokens differ from phase 5's unprofiled run")
+    snap = eng.telemetry.profiler.snapshot()
+    cov = snap["coverage_fraction"]
+    check(0.95 <= cov <= 1.0 + 1e-9, f"profiled serving: top-level "
+          f"coverage {cov}")
+    check(eng.executable_count() == 2
+          and eng.telemetry.recompile_events() == 0,
+          f"profiled serving: {eng.executable_count()} programs, "
+          f"{eng.telemetry.recompile_events()} recompiles")
+    shares = ", ".join(
+        f"{name} {ph['fraction_of_tick']:.4f}"
+        for name, ph in sorted(snap["phases"].items(),
+                               key=lambda kv: -kv[1]["seconds_total"]))
+    print(f"tick anatomy on {card} (host clock; {snap['ticks']} ticks, "
+          f"{snap['tick_seconds_total']:.4f} s, top-level coverage "
+          f"{cov:.4f}): share of the tick wall: {shares}", flush=True)
+    for name, st in sorted(eng.engine.programs.dispatch_stats().items()):
+        warm = st["dispatches"] - st["cold_dispatches"]
+        print(f"dispatch ledger {name}: {int(st['dispatches'])} dispatches "
+              f"({int(st['cold_dispatches'])} cold); per warm dispatch: "
+              f"enqueue {1e3 * st['enqueue_s'] / warm:.3f} ms, device "
+              f"window {1e3 * st['device_window_s'] / warm:.3f} ms, wall "
+              f"{1e3 * st['wall_s'] / warm:.3f} ms", flush=True)
+    steps = agg["decode_steps"]
+    print(f"telemetry volume: {eng.telemetry.events_emitted()} events "
+          f"emitted (warm-up included) over {int(steps)} decode steps; "
+          f"profiler spans {eng.telemetry.profiler.total_events}; "
+          + _perf_line("profiled serving", card, agg, wall), flush=True)
+
+
+def _silent_telemetry():
+    """A ``Telemetry`` that drops what it is given: the recorder's and
+    the tracer's events and the SLO tracker's observations go nowhere,
+    the sentinel is off, and every metric but the ``ABSORBED`` counters
+    (which move only on a failure) drops its updates. What stays is the
+    engine's own: the ProgramSet's signatures, fault points and ledger
+    clocks, and the guard around each telemetry call."""
+    from paddle_tpu_torch.observability import MetricsRegistry, Telemetry
+
+    def drop(*args, **kw):
+        return None
+
+    class Silent(MetricsRegistry):
+        def _get(self, cls, name, help, **kw):
+            m = super()._get(cls, name, help, **kw)
+            if name not in ABSORBED:
+                m._inc = m._set = m._observe = drop
+            return m
+
+    tel = Telemetry(registry=Silent())
+    tel.recorder.record = drop
+    tel.tracer.lifecycle = tel.tracer.event = tel.tracer.span = drop
+    tel.slo.observe = drop
+    tel.sentinel.enabled = False
+    return tel
+
+
+# each arm first and last equally often, so a drift of the host's speed
+# over the runs cancels in the difference of the means
+TELEMETRY_ORDER = ("on", "off", "off", "on") * 2
+
+
+def _telemetry_cost(torch, card, model, fp_reqs, fp_launches):
+    """5j(b): what the always-on telemetry costs the serving tick. Phase
+    5's trace with the engine's default ``Telemetry`` ("on") and with
+    ``_silent_telemetry()`` ("off"), in the order ``TELEMETRY_ORDER``:
+    each run gives phase 5's tokens and launch counts, "off" emits no
+    event; printed (host clock, not gated): each run's wall and decode
+    step p50, the difference of the two arms' means per decode step,
+    and the spread of the walls within an arm beside it."""
+    trace = _serving_trace(model.config.vocab_size)
+    runs = {"on": [], "off": []}
+    for arm in TELEMETRY_ORDER:
+        kw = {} if arm == "on" else {"telemetry": _silent_telemetry()}
+        eng, reqs, agg, wall, launches = _serve(torch, model, trace, **kw)
+        check([r.tokens for r in reqs] == [r.tokens for r in fp_reqs]
+              and launches == fp_launches, f"telemetry {arm}: tokens or "
+              f"launches {launches} differ from phase 5's {fp_launches}")
+        events = eng.telemetry.events_emitted()
+        check((events > 0) == (arm == "on"),
+              f"telemetry {arm}: {events} events emitted")
+        runs[arm].append((wall, agg["decode_step_ms_p50"],
+                          int(agg["decode_steps"])))
+    mean = {a: [float(np.mean(c)) for c in zip(*r)] for a, r in runs.items()}
+    steps = mean["on"][2]
+    dwall = 1e3 * (mean["on"][0] - mean["off"][0])
+    spread = {a: 1e3 * (max(w for w, _, _ in r) - min(w for w, _, _ in r))
+              for a, r in runs.items()}
+    print(f"telemetry cost on {card} (host clock, not gated; phase 5's "
+          f"trace, order {TELEMETRY_ORDER}): " + "; ".join(
+              f"{a}: walls {[round(w, 4) for w, _, _ in r]} s, decode step "
+              f"p50 {[round(p, 3) for _, p, _ in r]} ms"
+              for a, r in runs.items())
+          + f"; mean wall on - off {dwall:.2f} ms over {steps:.0f} decode "
+          f"steps, {dwall / steps:.3f} ms a step; decode step p50 on - off "
+          f"{mean['on'][1] - mean['off'][1]:.3f} ms; spread of the walls "
+          f"within an arm: on {spread['on']:.2f} ms, off "
+          f"{spread['off']:.2f} ms", flush=True)
+
+
+def _dispatch_faults(torch, model, trace, clean):
+    """5j(c): a 0.2 s sleep at one warm decode dispatch under a 0.05 s
+    watchdog gives exactly one ``dispatch_stall`` event; a raise on a
+    dispatch's first attempt is absorbed by one counted retry; a raise at
+    ``serving:tick`` counts one engine error and the trace finishes. The
+    tokens equal the clean run's each time."""
+    from paddle_tpu_torch.testing import fault_injection as fi
+
+    def third_warm_step():
+        calls = {"n": 0}
+
+        def when(ctx):
+            if ctx["program"] != "decode_step":
+                return False
+            calls["n"] += 1
+            return calls["n"] == 3
+        return when
+
+    cases = [
+        ("stall", dict(dispatch_stall_s=0.05), {
+            "serving_dispatch_stalls_total": 1.0,
+            "ProgramSet.stall_events": 1},
+         lambda: fi.inject("serving:dispatch", fi.sleep_(0.2),
+                           when=third_warm_step(), times=1)),
+        ("retry", {}, {"serving_dispatch_retries_total": 1.0,
+                       "ProgramSet.retry_events": 1},
+         lambda: fi.inject("serving:dispatch", fi.raise_(RuntimeError(
+             "planted dispatch fault")),
+             when=lambda ctx: ctx["attempt"] == 0, times=1)),
+        ("tick", {}, {"serving_engine_errors_total": 1.0},
+         lambda: fi.inject("serving:tick", fi.raise_(RuntimeError(
+             "planted tick crash")), when=lambda ctx: ctx["step"] > 20,
+             times=1)),
+    ]
+    for what, kw, want, arm in cases:
+        eng, reqs, _, _, _ = _serve(torch, model, trace, arm=arm, **kw)
+        _check_absorbed(eng, f"dispatch faults, {what}", want)
+        stalls = len(eng.telemetry.recorder.events(kind="dispatch_stall"))
+        check(stalls == (what == "stall"), f"dispatch faults, {what}: "
+              f"{stalls} dispatch_stall events")
+        check([r.tokens for r in reqs] == [r.tokens for r in clean],
+              f"dispatch faults, {what}: tokens differ from the clean run")
+        print(f"dispatch faults, {what}: absorbed {want}, "
+              f"{stalls} dispatch_stall events; tokens equal the clean "
+              "run's", flush=True)
+
+
+def serving_resilience_phase(torch, card, model, bf16_model, fp_launches,
+                             fp_reqs, bf16_launches, bf16_reqs):
+    """Phase 5j: serving telemetry and request-scoped resilience at full
+    width. (a) containment: ``logit_guard=True`` with ``nan_kv`` armed at
+    ``serving:tick`` on one live slot, over fp32 pools (phase 5's trace),
+    bf16 pools (the bf16 model, 5c's 8 requests) and int8 pools (the
+    fp32 model, 5c's 8 requests), then a poisoned shared prefix: exactly
+    the poisoned request ends "error", counted under
+    ``serving_request_errors_total{where="logit_guard"}``, the others'
+    greedy tokens equal a clean run's, a clean audit, the scrubbed
+    blocks read 0, and the clean guarded run gives the tokens and the K2,
+    K4 and K5 launches of the same trace with the guard off; (b) the
+    tick anatomy of phase 5's trace with ``profile=True``, and the cost
+    of the always-on telemetry; (c) dispatch faults. Every engine
+    absorbs exactly the planted failure (``_check_absorbed``)."""
+    from paddle_tpu_torch.testing import fault_injection as fi
+
+    cfg = model.config
+    L = cfg.num_layers
+    trace = _serving_trace(cfg.vocab_size)
+    greedy8 = [kw for kw in trace if kw.get("greedy")][:8]
+    for what, mdl, tr, kv, off, base in (
+            ("guard, fp32", model, trace, None, fp_launches, fp_reqs),
+            ("guard, bf16", bf16_model, greedy8, None, bf16_launches,
+             bf16_reqs),
+            ("guard, int8 pools", model, greedy8, "int8", None, None)):
+        if off is None:
+            _, base, _, _, off = _serve(torch, mdl, tr, kv_dtype=kv)
+        _, clean, c_agg, _, on = _serve(torch, mdl, tr, kv_dtype=kv,
+                                        logit_guard=True)
+        check(on == off, f"{what}: guarded launches {on} != unguarded "
+              f"{off}")
+        _check_launches(what, on, L, int(c_agg["prefill_chunks"]),
+                        int(c_agg["decode_steps"]), int8=kv is not None)
+        check([r.tokens for r in clean] == [r.tokens for r in base],
+              f"{what}: guarded tokens differ from the unguarded run's")
+        seen = []
+
+        def poison(ctx, seen=seen):
+            # the scrub watcher rides the planted fault onto the engine
+            _watch_scrubs(torch, ctx["engine"], seen)
+            fi.nan_kv(0)(ctx)
+
+        eng, faulted, agg, _, launches = _serve(
+            torch, mdl, tr, kv_dtype=kv, logit_guard=True,
+            arm=lambda: fi.inject("serving:tick", poison,
+                                  when=_live_slot_past_prefill(0), times=1))
+        _check_launches(what + ", faulted", launches, L,
+                        int(agg["prefill_chunks"]), int(agg["decode_steps"]),
+                        int8=kv is not None)
+        _contained(torch, mdl, what, clean, faulted, eng, seen)
+    _poisoned_prefix(torch, model)
+    _tick_anatomy(torch, card, model, fp_reqs)
+    _telemetry_cost(torch, card, model, fp_reqs, fp_launches)
+    _, clean8, _, _, _ = _serve(torch, model, greedy8)
+    _dispatch_faults(torch, model, greedy8, clean8)
+    # a planted raise's traceback holds its engine in a reference cycle
+    # (the exception, the fault point's frame, the injector): collect
+    # them, so later phases' peak memory is their own
+    import gc
+
+    gc.collect()
 
 GENERATE = (4, 256, 32)       # batch, prompt length, new tokens
 
@@ -3222,17 +3654,22 @@ def main():
     lap("K2, K4, K5")
     long_launches = flash_phase(torch, timer, rows)
     lap("flash")
-    launches, model, fp_agg = serving_phase(torch, card)
+    launches, model, fp_agg, fp_reqs = serving_phase(torch, card)
+    fp_launches = dict(launches)
     lap("serving")
     q_launches = serving_q_phase(torch, card, model, fp_agg)
     lap("int8 serving")
     launches.update({k: q_launches[k] for k in ("K4-int8", "K5-int8")})
-    bf16_launches, bf16_q_launches, bf16_model, bf16_aggs = \
+    bf16_launches, bf16_q_launches, bf16_model, bf16_aggs, bf16_reqs = \
         serving_bf16_phase(torch, card)
     lap("bf16 serving")
     k16_launches = serving_spec_phase(torch, card, model, bf16_model, fp_agg,
                                       bf16_aggs, rows)
     lap("spec serving")
+    serving_resilience_phase(torch, card, model, bf16_model, fp_launches,
+                             fp_reqs, bf16_launches, bf16_reqs)
+    del bf16_reqs
+    lap("serving resilience and telemetry")
     del bf16_model
     serving_dense_phase(torch, card, model, fp_agg)
     lap("dense serving")

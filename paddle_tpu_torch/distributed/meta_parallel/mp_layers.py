@@ -19,7 +19,7 @@ from torch import nn
 from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Layer
-from paddle_tpu_torch.nn.layers.common import Linear
+from paddle_tpu_torch.nn.layers.common import Linear, _xavier_uniform_
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding"]
@@ -65,7 +65,8 @@ class RowParallelLinear(_DenseLinear):
 
 
 class VocabParallelEmbedding(Layer):
-    """Embedding table (vocab, hidden); the reference splits the vocab
+    """Embedding table (vocab, hidden), drawn XavierUniform as the
+    reference's (``mp_layers.py:211``); the reference splits the vocab
     rows over 'mp'."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
@@ -77,8 +78,8 @@ class VocabParallelEmbedding(Layer):
                         mp_group=(mp_group, None), name=(name, None))
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        self.weight = nn.Parameter(torch.empty(
-            (num_embeddings, embedding_dim), device=device, dtype=dtype))
+        self.weight = nn.Parameter(_xavier_uniform_(torch.empty(
+            (num_embeddings, embedding_dim), device=device, dtype=dtype)))
 
     def forward(self, x):
         return F.embedding(x, self.weight)

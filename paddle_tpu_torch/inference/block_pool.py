@@ -17,7 +17,15 @@ the same free list and reference counts over host blocks shaped like
 device blocks, where a preempted request's committed KV and a demoted
 trie node's KV park until they are copied back.
 
-Not ported in this slice: replica planes and ``BlockAllocator.reconcile``.
+Both carry the serving chaos points — ``serving:alloc`` on every grant
+(reference :206) and ``serving:spill_write`` on every tier write
+(:472) — and an optional flight ``recorder`` that receives
+``block_alloc``, ``block_free``, ``host_block_free``, ``host_spill``
+and ``host_swap_in`` events. :meth:`BlockAllocator.reconcile` and
+:meth:`HostTier.reconcile` are what ``ServingEngine.audit()`` checks
+the pools with.
+
+Not ported yet: replica planes.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.unported import refuse_unported
+from paddle_tpu_torch.testing.fault_injection import fault_point
 
 __all__ = ["BlockAllocator", "HostTier"]
 
@@ -83,6 +92,8 @@ class BlockAllocator:
         self.allocs = 0
         self.freed = 0
         self.peak = 0
+        # optional FlightRecorder: block churn is postmortem evidence
+        self.recorder = None
 
     def free_count(self, replica: Optional[int] = None) -> int:
         _one_plane(replica)
@@ -96,12 +107,42 @@ class BlockAllocator:
         _one_plane(replica)
         return int(self._refs[block])
 
+    def reconcile(self, expected: Dict[int, int],
+                  replica: int = 0) -> Dict[str, int]:
+        """Audit the pool against ``expected``, the holder count per
+        block the caller can account for (live slots' table entries plus
+        prefix-trie references): ``leaked_blocks`` carry more references
+        than holders, ``missing_refs`` fewer (a legitimate deref would
+        double-free), ``free_list_errors`` count free-list entries with
+        references, referenced blocks missing from both, and a
+        circulating scratch block. Pure read."""
+        _one_plane(replica)
+        free = set(self._free)
+        leaked = missing = flerr = 0
+        if 0 in free or self._refs[0] != 0 or 0 in expected:
+            flerr += 1          # the scratch sink must never circulate
+        for b in range(1, self.num_blocks):
+            refs = int(self._refs[b])
+            want = int(expected.get(b, 0))
+            if refs > want:
+                leaked += 1
+            elif refs < want:
+                missing += 1
+            if (b in free) != (refs == 0):
+                flerr += 1
+        return {"leaked_blocks": leaked, "missing_refs": missing,
+                "free_list_errors": flerr}
+
     def alloc(self, n: int, replica: int = 0) -> Optional[List[int]]:
         """Pop ``n`` fresh blocks (one reference each), or None — never a
         partial grant — when fewer than ``n`` are free."""
         _one_plane(replica)
         if n < 0:
             raise ValueError(f"alloc({n})")
+        # chaos hook: an armed injector fails this grant like a real
+        # allocator fault would
+        fault_point("serving:alloc", n=n, free=len(self._free),
+                    replica=replica)
         if n > len(self._free):
             return None
         out = [self._free.pop() for _ in range(n)]
@@ -109,6 +150,10 @@ class BlockAllocator:
             self._refs[b] = 1
         self.allocs += n
         self.peak = max(self.peak, self.blocks_in_use())
+        if self.recorder is not None and n:
+            self.recorder.record("block_alloc", n=n, replica=replica,
+                                 in_use=self.blocks_in_use(),
+                                 free=len(self._free))
         return out
 
     def ref(self, blocks: Sequence[int], replica: int = 0):
@@ -134,6 +179,10 @@ class BlockAllocator:
                 self._free.append(int(b))
                 freed += 1
         self.freed += freed
+        if self.recorder is not None and freed:
+            self.recorder.record("block_free", n=freed, replica=replica,
+                                 in_use=self.blocks_in_use(),
+                                 free=len(self._free))
         return freed
 
 
@@ -202,6 +251,7 @@ class HostTier:
         self.drops = 0           # blocks freed without a swap-back
         self.bytes_spilled = 0
         self.bytes_restored = 0
+        self.recorder = None     # optional FlightRecorder
 
     # -- queries ----------------------------------------------------------
     def free_count(self) -> int:
@@ -273,6 +323,10 @@ class HostTier:
                 freed += 1
         if not restored and not aborted:
             self.drops += freed
+        if self.recorder is not None and freed:
+            self.recorder.record("host_block_free", n=freed,
+                                 restored=bool(restored),
+                                 in_use=self.blocks_in_use())
         return freed
 
     # -- data plane --------------------------------------------------------
@@ -284,7 +338,9 @@ class HostTier:
         quantized. Each block is one blocking copy into its slot of the
         tier: every byte has landed when this returns, before the caller
         recycles the device blocks. The counters move only after every
-        copy, so a raise leaves the grant releasable by the caller."""
+        copy, so a raise (the ``serving:spill_write`` chaos point
+        included) leaves the grant releasable by the caller."""
+        fault_point("serving:spill_write", n=len(blocks))
         if self.quantized and (kscale is None or vscale is None):
             raise ValueError(
                 "quantized host tier needs the absmax scale rows "
@@ -298,6 +354,9 @@ class HostTier:
         n = len(blocks)
         self.spills += n
         self.bytes_spilled += n * self.block_nbytes
+        if self.recorder is not None and n:
+            self.recorder.record("host_spill", n=n,
+                                 in_use=self.blocks_in_use())
 
     def read(self, blocks: Sequence[int]) -> Tuple:
         """Parked block data ``(kseg, vseg, kscale, vscale)`` in the
@@ -321,3 +380,6 @@ class HostTier:
         device-side write succeeded)."""
         self.swap_ins += int(n)
         self.bytes_restored += int(n) * self.block_nbytes
+        if self.recorder is not None and n:
+            self.recorder.record("host_swap_in", n=int(n),
+                                 in_use=self.blocks_in_use())

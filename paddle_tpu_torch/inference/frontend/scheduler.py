@@ -42,6 +42,10 @@ class Scheduler:
     def depth(self) -> int:
         raise NotImplementedError
 
+    def pending(self) -> list:
+        """Snapshot of every queued request (no particular order)."""
+        raise NotImplementedError
+
     def due_count(self, now: float) -> int:
         raise NotImplementedError
 
@@ -86,6 +90,9 @@ class FifoScheduler(Scheduler):
 
     def depth(self) -> int:
         return len(self._q)
+
+    def pending(self) -> list:
+        return list(self._q)
 
     def due_count(self, now: float) -> int:
         n = 0

@@ -35,8 +35,10 @@ more than ``(len(prompt) - 1) // chunk_tokens`` chunks, so the prompt's
 last token always runs through the model (its logits sample the first
 output token).
 
-Not ported in this slice: ``clone_empty`` for replicas, and the flight
-recorder's events.
+An optional flight ``recorder`` (set by the serving engine) receives
+``trie_promote``, ``trie_demote`` and ``trie_evict`` events.
+
+Not ported yet: ``clone_empty`` for replicas.
 """
 
 from __future__ import annotations
@@ -114,6 +116,9 @@ class PrefixCache:
         self.host_hits = 0
         self.host_hit_tokens = 0
         self.promote_failures = 0
+        # optional FlightRecorder (set by the serving engine): trie
+        # evictions are postmortem evidence
+        self.recorder = None
 
     # -- queries ----------------------------------------------------------
     def iter_nodes(self):
@@ -212,6 +217,9 @@ class PrefixCache:
         self.bytes += node.nbytes   # back on the device budget
         self.host_hits += 1
         self.host_hit_tokens += self.chunk_tokens
+        if self.recorder is not None:
+            self.recorder.record("trie_promote", tokens=len(node.key),
+                                 blocks=list(node.blocks))
         return True
 
     def release(self, nodes: Sequence[PrefixCacheNode]):
@@ -403,6 +411,10 @@ class PrefixCache:
         self._allocator.deref(blocks)
         self.bytes -= victim.nbytes     # off the device budget
         self.host_demotions += 1
+        if self.recorder is not None:
+            self.recorder.record("trie_demote", tokens=len(victim.key),
+                                 nbytes=victim.nbytes,
+                                 host_blocks=list(victim.host_blocks))
         return True
 
     def reclaim_host_blocks(self, need: int, protect=None) -> bool:
@@ -448,6 +460,14 @@ class PrefixCache:
                 and victim.blocks is not None \
                 and self._demote_node(victim):
             return
+        if self.recorder is not None:
+            self.recorder.record(
+                "trie_evict", tokens=len(victim.key),
+                nbytes=victim.nbytes,
+                blocks=list(victim.blocks) if victim.blocks is not None
+                else None,
+                host_blocks=list(victim.host_blocks)
+                if victim.host_blocks is not None else None)
         del victim.parent.children[victim.key]
         demoted = victim.host_blocks is not None
         if not demoted:

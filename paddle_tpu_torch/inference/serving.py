@@ -77,15 +77,24 @@ decode half of a tick is a speculative verify
 (``inference/speculative.py``): every live slot commits between 1 and
 k+1 tokens per tick.
 
+Telemetry and resilience (``ServingEngine``'s docstring): an
+always-on :class:`~paddle_tpu_torch.observability.Telemetry` bundle,
+the program registry (``inference/program_set.py``) with its dispatch
+retries, stall watchdog and ledger, request-scoped fault quarantine,
+the NaN/inf logit guard, the engine-scoped circuit breaker,
+``audit()``, and the tick profiler.
+
 Out of the port so far (each queued in ROADMAP.md): meshes and
-replicas, telemetry and resilience (snapshot/restore of a request, the
-audit, fault points), the swap-threshold controller, cancellation, the
-front door and fleet, LoRA, constraints, score/embed.
+replicas, snapshot/restore/migration of a request and the tick-boundary
+jobs, the swap-threshold controller, cancellation, deadlines and
+tenants, the front door and fleet, LoRA, constraints, score/embed.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -100,6 +109,14 @@ from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.inference.block_pool import BlockAllocator, HostTier
 from paddle_tpu_torch.inference.frontend.scheduler import FifoScheduler
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
+from paddle_tpu_torch.inference.program_set import ProgramSet, _weak_program
+from paddle_tpu_torch.observability import Telemetry
+from paddle_tpu_torch.observability.metrics import (DEFAULT_SIZE_BUCKETS,
+                                                    DEFAULT_TIME_BUCKETS,
+                                                    MetricsRegistry)
+from paddle_tpu_torch.observability.profile import PHASE_BUCKETS
+from paddle_tpu_torch.observability.sentinel import describe_args
+from paddle_tpu_torch.testing.fault_injection import fault_point
 
 __all__ = ["DecodeEngine", "ServingEngine", "Request", "ServingMetrics",
            "apply_topk_topp"]
@@ -160,9 +177,22 @@ class DecodeEngine:
     the pools as int8 codes with per-(block, head) fp32 absmax scales
     (paged only, as ``num_blocks``). ``host_tier_blocks`` (paged only)
     puts a :class:`HostTier` of that many host blocks under the pool,
-    pinned on the card. The reference's ``ids_dtype``, ``mesh``,
-    ``logit_guard``, ``seq_parallel`` and ``adapter_pool`` are accepted
-    at their defaults only."""
+    pinned on the card.
+
+    The engine's programs (``chunk_prefill``, ``decode_step``, on the
+    dense arena the prefix cache's ``chunk_copy``/``chunk_extract``)
+    dispatch through a :class:`~paddle_tpu_torch.inference.program_set.
+    ProgramSet` (``self.programs``): the ``serving:dispatch`` fault
+    point, bounded retries, the stall watchdog, the dispatch ledger and
+    the recompile ``sentinel`` live there. ``logit_guard=True`` adds a
+    per-slot finite check over the sampled logits of the step, the
+    verify and every prefill chunk, on the device
+    (``torch.isfinite(logits).all(-1)``); a row that fails samples from
+    zeros instead (a valid draw the caller discards), and the mask
+    lands in ``last_step_finite`` / ``last_prefill_finite`` as a
+    device tensor the caller reads with the tokens. The reference's
+    ``ids_dtype``, ``mesh``, ``seq_parallel`` and ``adapter_pool`` are
+    accepted at their defaults only."""
 
     def __init__(self, model, max_batch_slots: int, max_len: int,
                  top_k: Optional[int] = None, ids_dtype=None,
@@ -174,7 +204,6 @@ class DecodeEngine:
                  seq_parallel: bool = False, adapter_pool=None):
         refuse_unported(
             "DecodeEngine", ids_dtype=(ids_dtype, None), mesh=(mesh, None),
-            logit_guard=(logit_guard, False),
             seq_parallel=(seq_parallel, False),
             adapter_pool=(adapter_pool, None))
         spec = model.kv_cache_spec()
@@ -205,6 +234,11 @@ class DecodeEngine:
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.model = model
         self.device = spec["device"]
+        # the NaN/inf logit guard: per-slot finite masks of the last
+        # step/verify (b,) and the last prefill chunk (1,), device tensors
+        self.logit_guard = bool(logit_guard)
+        self.last_step_finite: Optional[torch.Tensor] = None
+        self.last_prefill_finite: Optional[torch.Tensor] = None
         self.b = int(max_batch_slots)
         self.max_len = int(max_len)
         self.top_k = top_k
@@ -237,6 +271,31 @@ class DecodeEngine:
                 self.head_dim, dtype=self.pool_dtype,
                 quantized=self.quantized,
                 pin_memory=self.device.type == "cuda")
+        # the program registry: dispatch, retries, the watchdog, the
+        # ledger and the sentinel's signatures in one home
+        self.programs = ProgramSet(mesh)
+        self.programs.register("decode_step",
+                               _weak_program(self._step_program))
+        self.programs.register("chunk_prefill",
+                               _weak_program(self._chunk_program))
+
+    @property
+    def sentinel(self):
+        """Optional :class:`~paddle_tpu_torch.observability.sentinel.
+        RecompileSentinel`, stored ON the program registry so the
+        sentinel and :meth:`executable_count` watch the same
+        programs."""
+        return self.programs.sentinel
+
+    @sentinel.setter
+    def sentinel(self, s):
+        self.programs.sentinel = s
+
+    def executable_count(self) -> Optional[int]:
+        """Distinct ``(program, argument signature)`` pairs dispatched
+        so far (``serving.py:1767``): 2 for a plain serving engine, the
+        padded chunk and the lockstep step."""
+        return self.programs.executable_count()
 
     def _init_paged(self, bs: int, num_blocks: Optional[int]):
         """The block pool's geometry, allocator and host table."""
@@ -343,15 +402,35 @@ class DecodeEngine:
             return None
         return self._vec(self.table[rows], torch.int32)
 
+    @staticmethod
+    def _sampling_vectors(n: int, topks, topps):
+        """The per-slot runtime filters as host arrays (``serving.py:874``):
+        None disables them for every row (top-k 0, top-p 1.0), so every
+        dispatch carries the same argument signature."""
+        topks = np.zeros((n,), np.int64) if topks is None \
+            else np.asarray(topks, np.int64)
+        topps = np.ones((n,), np.float32) if topps is None \
+            else np.asarray(topps, np.float32)
+        return topks, topps
+
+    @staticmethod
+    def _guard(logits, dims):
+        """The logit guard: ``ok`` True where every logit of a row over
+        ``dims`` is finite; failing rows become zeros, a valid
+        distribution whose draw the caller discards."""
+        ok = torch.isfinite(logits).flatten(1).all(-1) if dims > 1 \
+            else torch.isfinite(logits).all(-1)
+        shape = (-1,) + (1,) * (logits.dim() - 1)
+        return ok, torch.where(ok.reshape(shape), logits,
+                               torch.zeros_like(logits))
+
     def _sampler_args(self, temps, greedy, topks, topps):
         """The sampler's host vectors as device tensors. Built BEFORE the
         forward: a host-to-device copy after it would wait for the whole
-        forward to finish. ``topks``/``topps`` None disable the runtime
-        filters for every slot."""
+        forward to finish. ``topks``/``topps`` are host arrays, as
+        :meth:`_sampling_vectors` gives them."""
         greedy = np.asarray(greedy)
-        n = greedy.shape[0]
-        topks = np.zeros(n, np.int64) if topks is None else np.asarray(topks)
-        topps = np.ones(n, np.float32) if topps is None else np.asarray(topps)
+        topks, topps = np.asarray(topks), np.asarray(topps)
         filt = (topks > 0).any() or (topps < 1.0).any()
         return {
             "temps": self._vec(np.maximum(temps, 1e-6), torch.float32),
@@ -436,23 +515,52 @@ class DecodeEngine:
         the token of position ``start + last_idx + 1`` at ``last_idx``
         from ``keydata`` ((1, 2) uint32). The pad tail of a short final
         chunk computes discarded rows whose K/V past the table's reach
-        is dropped. ``targets`` is accepted at its default only."""
+        is dropped. With the logit guard, ``last_prefill_finite`` holds
+        the chunk's (1,) finite mask. ``targets`` is accepted at its
+        default only."""
         refuse_unported("run_prefill_chunk", targets=(targets, None))
         self._ensure_buffers()
+        topks, topps = self._sampling_vectors(1, topks, topps)
+        ids_chunk = ids_chunk if isinstance(ids_chunk, torch.Tensor) \
+            else np.asarray(ids_chunk, np.int64)
+        temps = np.asarray(temps, np.float32)
+        greedy = np.asarray(greedy, bool)
+        keydata = np.asarray(keydata, np.uint32)
+        tok, self.last_prefill_finite = self.programs.call(
+            "chunk_prefill", ids_chunk, int(slot), int(start),
+            int(last_idx), temps, greedy, keydata, topks, topps,
+            describe=lambda: describe_args(
+                ids_chunk=ids_chunk, slot=slot, start=start,
+                last_idx=last_idx, temps=temps, greedy=greedy,
+                keydata=keydata, topks=topks, topps=topps))
+        return tok
+
+    def _chunk_program(self, ids_chunk, slot: int, start: int,
+                       last_idx: int, temps, greedy, keydata, topks,
+                       topps):
+        """The chunk-prefill program (``_build_chunk_prefill``): the
+        forward and the sampler, ``(tok (1, 1), finite (1,) or None)``
+        on the device."""
         ids = self._vec(ids_chunk, torch.int64)
         table = self._table(slice(slot, slot + 1))
         t = torch.tensor(int(start), dtype=torch.int32, device=self.device)
         args = self._sampler_args(temps, greedy, topks, topps)
         args["uniforms"] = self._uniforms(
             args, keydata, [int(start) + int(last_idx) + 1], LANE_DRAW)
+        ok = None
         with self._eval_mode():
             # last_idx + 1 real rows: the pad tail of a short final
             # chunk never shapes a block scale
             logits, _ = self.model(
                 ids, caches=self._caches(table, t, int(last_idx) + 1,
                                          slot=int(slot)))
-            tok = self._sample_dev(logits[:, int(last_idx)].float(), args)
-        return tok[:, None]
+            last = logits[:, int(last_idx)].float()
+            if self.logit_guard:
+                # the guard covers the FIRST token too: a chunk over a
+                # poisoned shared prefix must not stream a garbage token
+                ok, last = self._guard(last, 1)
+            tok = self._sample_dev(last, args)
+        return tok[:, None], ok
 
     def prefill(self, ids, slots, prompt_lens, temps, greedy, keydata,
                 topks=None, topps=None):
@@ -479,10 +587,7 @@ class DecodeEngine:
         temps = np.asarray(temps, np.float32)
         greedy = np.asarray(greedy, bool)
         keydata = np.asarray(keydata, np.uint32)
-        topks = np.zeros(nb, np.int64) if topks is None \
-            else np.asarray(topks)
-        topps = np.ones(nb, np.float32) if topps is None \
-            else np.asarray(topps)
+        topks, topps = self._sampling_vectors(nb, topks, topps)
         toks = []
         for r in range(nb):
             plen, pos, tok = int(plens[r]), 0, None
@@ -502,33 +607,130 @@ class DecodeEngine:
         (b, 1) device tensor, WITHOUT waiting for the card. Slot ``i``'s
         token lands at position ``t[i] + 1`` and is drawn from
         ``keydata[i]`` ((b, 2) uint32). Rows of idle or prefilling slots
-        compute garbage the caller discards. ``defer`` is accepted at its
-        default only."""
-        refuse_unported("DecodeEngine.step", defer=(defer, False))
+        compute garbage the caller discards. With the logit guard,
+        ``last_step_finite`` holds the (b,) finite mask.
+
+        ``defer=True`` returns ``(tok, finalize)``: the serving tick
+        runs its next round's admission while the card computes and
+        calls ``finalize()`` (the armed watchdog's sync point; a no-op
+        when unarmed) right before it reads the tokens."""
         self._ensure_buffers()
+        topks, topps = self._sampling_vectors(self.b, topks, topps)
+        t = np.asarray(t, np.int32)
+        temps = np.asarray(temps, np.float32)
+        greedy = np.asarray(greedy, bool)
+        keydata = np.asarray(keydata, np.uint32)
+        out = self.programs.call(
+            "decode_step", toks, t, temps, greedy, keydata, topks, topps,
+            describe=lambda: describe_args(
+                toks=toks, t=t, temps=temps, greedy=greedy,
+                keydata=keydata, topks=topks, topps=topps),
+            defer=defer)
+        fin = None
+        if defer:
+            out, fin = out
+        tok, self.last_step_finite = out
+        return (tok, fin) if defer else tok
+
+    def _step_program(self, toks, t, temps, greedy, keydata, topks, topps):
+        """The decode-step program (``_build_step``): the forward over
+        every slot and the sampler, ``(tok (b, 1), finite (b,) or
+        None)`` on the device."""
         ids = self._vec(toks, torch.int64)
         table = self._table()
         tv = self._vec(t, torch.int32)
         args = self._sampler_args(temps, greedy, topks, topps)
         args["uniforms"] = self._uniforms(
             args, keydata, np.asarray(t, np.int64) + 1, LANE_DRAW)
+        ok = None
         with self._eval_mode():
             logits, _ = self.model(
                 ids, caches=self._caches(table, tv, ids.shape[1]))
-            tok = self._sample_dev(logits[:, -1].float(), args)
-        return tok[:, None]
+            last = logits[:, -1].float()
+            if self.logit_guard:
+                # NaN never reaches the argmax or the draw of ANY slot
+                ok, last = self._guard(last, 1)
+            tok = self._sample_dev(last, args)
+        return tok[:, None], ok
+
+    def poison_slot_kv(self, slot: int, table_row=None):
+        """Chaos/testing utility (``serving.py:1854``): corrupt ONE slot's
+        committed KV storage with NaN — its dense row, or every pool
+        block its table row (or ``table_row``) maps; int8 pools poison
+        their fp32 SCALE rows instead (int8 codes hold no NaN). The
+        slot's next logits go non-finite through the real kernels while
+        every other slot's storage is untouched. Shared (trie-spliced)
+        blocks are poisoned too, as real corruption would be."""
+        self._ensure_buffers()
+        nan = float("nan")
+        if not self.paged:
+            for i in range(self.L):
+                self.kbufs[i][int(slot)] = nan
+                self.vbufs[i][int(slot)] = nan
+            return
+        row = np.asarray(self.table[slot] if table_row is None
+                         else table_row)
+        blocks = [int(b) for b in np.unique(row) if b != 0]
+        if not blocks:
+            return
+        idx = torch.as_tensor(blocks, dtype=torch.int64, device=self.device)
+        for i in range(self.L):
+            if self.quantized:
+                self.kscales[i][idx] = nan
+                self.vscales[i][idx] = nan
+            else:
+                self.kbufs[i][idx] = nan
+                self.vbufs[i][idx] = nan
+
+    def scrub_slot_kv(self, slot: Optional[int] = None,
+                      blocks: Optional[Sequence[int]] = None,
+                      replica: int = 0):
+        """Zero poisoned KV storage after a non-finite quarantine
+        (``serving.py:1895``): the dense ``slot`` row, or the pool
+        ``blocks`` with their int8 scale rows. Masks bound which rows a
+        query attends, but NaN survives an additive mask, so a NaN row
+        in reachable storage would poison the next occupant's softmax:
+        it must be cleared. ``replica`` must name the one plane (0)."""
+        refuse_unported("scrub_slot_kv", replica=(replica, 0))
+        if self.kbufs is None:
+            return
+        idx = None
+        if blocks:
+            idx = torch.as_tensor([int(b) for b in blocks],
+                                  dtype=torch.int64, device=self.device)
+        for i in range(self.L):
+            if slot is not None and not self.paged:
+                self.kbufs[i][int(slot)] = 0
+                self.vbufs[i][int(slot)] = 0
+            if idx is not None:
+                self.kbufs[i][idx] = 0
+                self.vbufs[i][idx] = 0
+                if self.quantized:
+                    self.kscales[i][idx] = 0.0
+                    self.vscales[i][idx] = 0.0
 
     # -- the dense arena's prefix cache: chunk copy and extract -------------
     def copy_chunk(self, slot: int, start: int, kseg, vseg):
         """Seed arena rows ``[start, start + chunk)`` of ``slot`` from a
         cached ``(L, chunk, H, D)`` segment pair (``_build_copy``,
-        ``serving.py:1210``): one slice write a layer."""
+        ``serving.py:1210``): one slice write a layer, dispatched as
+        the ``chunk_copy[chunk]`` program."""
         if self.paged:
             raise RuntimeError(
                 "chunk-copy is a dense-arena program; the paged engine "
                 "shares cached prefixes by block-table splice instead")
+        cc = int(kseg.shape[1])
+        name = f"chunk_copy[{cc}]"
+        if not self.programs.defined(name):
+            self.programs.register(name, _weak_program(self._copy_program))
         self._ensure_buffers()
-        cc, start = int(kseg.shape[1]), int(start)
+        self.programs.call(
+            name, kseg, vseg, int(slot), int(start),
+            describe=lambda: describe_args(kseg=kseg, vseg=vseg,
+                                           slot=slot, start=start))
+
+    def _copy_program(self, kseg, vseg, slot: int, start: int):
+        cc = int(kseg.shape[1])
         for i in range(self.L):
             self.kbufs[i][slot, start:start + cc].copy_(kseg[i])
             self.vbufs[i][slot, start:start + cc].copy_(vseg[i])
@@ -536,14 +738,24 @@ class DecodeEngine:
     def extract_chunk(self, slot: int, start: int, chunk_tokens: int):
         """Arena rows ``[start, start + chunk_tokens)`` of ``slot`` as a
         new ``(L, chunk, H, D)`` segment pair (``_build_extract``,
-        ``serving.py:1235``), on the arena's device."""
+        ``serving.py:1235``), on the arena's device, dispatched as the
+        ``chunk_extract[chunk]`` program."""
         if self.paged:
             raise RuntimeError(
                 "chunk-extract is a dense-arena program; the paged "
                 "engine captures a prefix by taking block references "
                 "instead")
+        cc = int(chunk_tokens)
+        name = f"chunk_extract[{cc}]"
+        if not self.programs.defined(name):
+            self.programs.register(name, _weak_program(self._extract))
         self._ensure_buffers()
-        rows = slice(int(start), int(start) + int(chunk_tokens))
+        return self.programs.call(
+            name, int(slot), int(start), cc,
+            describe=lambda: describe_args(slot=slot, start=start))
+
+    def _extract(self, slot: int, start: int, cc: int):
+        rows = slice(start, start + cc)
         return (torch.stack([self.kbufs[i][slot, rows]
                              for i in range(self.L)]),
                 torch.stack([self.vbufs[i][slot, rows]
@@ -612,6 +824,9 @@ class DecodeEngine:
             raise ValueError(
                 f"swap-back maps {len(host_blocks)} host blocks onto "
                 f"{len(device_blocks)} device blocks")
+        # the chaos point fires before any device write, so a faulted
+        # swap-back leaves the pool untouched for the re-prefill
+        fault_point("serving:swap_in", n=len(host_blocks))
         self._ensure_buffers()
         # one copy a tensor from the tier's pinned read to the device
         kseg, vseg, ks, vs = (None if x is None else x.to(self.device)
@@ -633,14 +848,16 @@ class Request:
 
     ``on_token(request, token_id, done)`` streams tokens as they are
     committed (the first when the prompt's prefill completes = time to
-    first token). ``finish_reason`` after completion: ``"eos"`` or
-    ``"length"``. ``arrival_time`` is an offset in seconds from the start
-    of :meth:`ServingEngine.run` (0 = already queued). ``seed`` pins the
+    first token). ``finish_reason`` after completion: ``"eos"``,
+    ``"length"``, or ``"error"`` for a request the engine quarantined.
+    ``arrival_time`` is an offset in seconds from the start of
+    :meth:`ServingEngine.run` (0 = already queued). ``seed`` pins the
     request's sample stream (its ``keydata``); unset, the stream derives
     from the engine seed and the request id. ``top_k``/``top_p`` are
-    per-request filters. The fields keep the reference's order; its ``sampling``,
-    ``deadline``, ``tenant``, ``priority``, ``adapter``, ``kind`` and
-    ``response_format`` are accepted at their defaults only."""
+    per-request filters. The fields keep the reference's order; its
+    ``sampling``, ``deadline``, ``tenant``, ``priority``, ``adapter``,
+    ``kind`` and ``response_format`` are accepted at their defaults
+    only."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 32
@@ -682,19 +899,25 @@ class ServingMetrics:
     (``serving.py:2475``), with the prefix cache's counted economics
     (``prefix_hit_tokens``, ``prefix_hit_rate``, ``evictions``) when
     ``cache`` is given, the host tier's (``blocks_spilled``,
-    ``blocks_swapped_in``, ``reprefill_tokens_avoided``) and the
-    speculative ones (``spec_*``) after verify steps. The reference's
-    ``registry`` and ``slo`` (telemetry) are accepted at their defaults
-    only."""
+    ``blocks_swapped_in``, ``reprefill_tokens_avoided``), the overlap
+    window's (``overlap_ticks``, ``overlap_fraction``) and the
+    speculative ones (``spec_*``) after verify steps.
+
+    A window ALSO streams into an observability ``MetricsRegistry``
+    (``registry=``; a private one when not given) under the reference's
+    family names: per-request TTFT/TPOT/queue-wait/latency and
+    prompt/new-token histograms, the lifetime counters and the load
+    gauges. The registry is cumulative across windows (the service's
+    scrape state); ``slo`` (an :class:`~paddle_tpu_torch.observability.
+    slo.SLOTracker`) observes every retired request's TTFT and TPOT."""
 
     def __init__(self, max_batch_slots: int,
                  cache: Optional[PrefixCache] = None,
                  allocator: Optional[BlockAllocator] = None,
                  registry=None, slo=None):
-        refuse_unported("ServingMetrics", registry=(registry, None),
-                        slo=(slo, None))
         self.slots = max_batch_slots
         self.records: List[Dict[str, Any]] = []
+        self.drops: List[Dict[str, Any]] = []
         self.step_samples: List[Dict[str, float]] = []
         self.tick_samples: List[Dict[str, float]] = []
         self.t_first: Optional[float] = None
@@ -702,10 +925,15 @@ class ServingMetrics:
         self.prefill_chunks = 0
         self.prompt_tokens = 0
         self.prefix_hit_tokens = 0
+        # ticks whose next-round admission ran while the dispatched
+        # step was in flight
+        self.overlap_ticks = 0
         self.preemptions = 0
         self.blocks_spilled = 0
         self.blocks_swapped_in = 0
         self.swap_in_tokens = 0
+        # host reads of a prefill's sampled token (final chunks only)
+        self.prefill_token_syncs = 0
         self._cache = cache
         self._evict_base = cache.evictions if cache is not None else 0
         self._alloc = allocator
@@ -714,27 +942,110 @@ class ServingMetrics:
         if allocator is not None:
             # the high-water mark restarts with the window
             allocator.peak = allocator.blocks_in_use()
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self._slo = slo
+        r = self.registry
+        tb, sb = DEFAULT_TIME_BUCKETS, DEFAULT_SIZE_BUCKETS
+        self._h_ttft = r.histogram(
+            "serving_ttft_seconds", "arrival to first token", tb)
+        self._h_tpot = r.histogram(
+            "serving_tpot_seconds",
+            "time per output token after the first (Sarathi's stall "
+            "metric, per request)", tb)
+        self._h_qwait = r.histogram(
+            "serving_queue_wait_seconds", "arrival to admission", tb)
+        self._h_latency = r.histogram(
+            "serving_request_latency_seconds", "arrival to last token",
+            tb)
+        self._h_prompt = r.histogram(
+            "serving_prompt_tokens", "prompt length per request", sb)
+        self._h_new = r.histogram(
+            "serving_new_tokens", "generated tokens per request", sb)
+        self._c_done = r.counter(
+            "serving_requests_completed_total",
+            "retired requests by finish reason", labelnames=("reason",))
+        self._c_dropped = r.counter(
+            "serving_requests_dropped_total",
+            "queued requests dropped before admission "
+            "(cancelled / deadline_exceeded)", labelnames=("reason",))
+        self._c_tokens = r.counter(
+            "serving_tokens_generated_total", "committed new tokens")
+        self._c_steps = r.counter(
+            "serving_decode_steps_total", "lockstep decode/verify ticks")
+        self._c_chunks = r.counter(
+            "serving_prefill_chunks_total", "chunk-prefill dispatches")
+        self._c_overlap = r.counter(
+            "serving_overlap_ticks_total",
+            "decode/verify ticks whose next-tick admission/scheduling "
+            "ran while the dispatched programs were in flight")
+        self._c_prompt = r.counter(
+            "serving_prompt_tokens_total", "prompt tokens admitted")
+        self._c_hit = r.counter(
+            "serving_prefix_hit_tokens_total",
+            "prompt tokens served from the prefix cache")
+        self._c_preempt = r.counter(
+            "serving_preemptions_total",
+            "requests preempted back to the queue on pool exhaustion")
+        self._c_spilled = r.counter(
+            "serving_blocks_spilled_total",
+            "pool blocks copied to the host tier at preemption "
+            "(trie demotions count on the cache's own stats)")
+        self._c_swapped = r.counter(
+            "serving_blocks_swapped_in_total",
+            "host-tier blocks spliced back into the device pool")
+        self._c_avoided = r.counter(
+            "serving_reprefill_tokens_avoided_total",
+            "prompt+token positions a swap-back seeded instead of "
+            "recomputing through the model")
+        self._c_tok_syncs = r.counter(
+            "serving_prefill_token_syncs_total",
+            "host syncs materializing a prefill chunk's sampled token "
+            "(final chunks only — non-final draws stay on device)")
+        self._g_queue = r.gauge(
+            "serving_queue_depth", "due requests waiting for admission")
+        self._g_occ = r.gauge(
+            "serving_slots_occupied", "in-flight slots (incl. prefill)")
+        self._g_blocks = r.gauge(
+            "serving_blocks_in_use", "paged pool blocks mapped")
 
+    # counted-economics updates: one home each, so the window attribute
+    # and the lifetime registry series never drift apart
     def count_prefill_chunk(self):
         self.prefill_chunks += 1
+        self._c_chunks.inc()
 
     def count_prompt_tokens(self, n: int):
         # admission semantics: a preempted request's re-prefill counts
         # again, so prefill_tokens_computed charges the redone work
         self.prompt_tokens += int(n)
+        self._c_prompt.inc(int(n))
 
     def count_prefix_hit_tokens(self, n: int):
         self.prefix_hit_tokens += int(n)
+        self._c_hit.inc(int(n))
+
+    def count_overlap_tick(self):
+        self.overlap_ticks += 1
+        self._c_overlap.inc()
 
     def record_preemption(self):
         self.preemptions += 1
+        self._c_preempt.inc()
 
     def count_spill(self, blocks: int):
         self.blocks_spilled += int(blocks)
+        self._c_spilled.inc(int(blocks))
 
     def count_swap_in(self, blocks: int, tokens: int):
         self.blocks_swapped_in += int(blocks)
         self.swap_in_tokens += int(tokens)
+        self._c_swapped.inc(int(blocks))
+        self._c_avoided.inc(int(tokens))
+
+    def count_prefill_token_sync(self):
+        self.prefill_token_syncs += 1
+        self._c_tok_syncs.inc()
 
     def record_tick(self, occupied: int, queued: int,
                     blocks: Optional[int] = None):
@@ -743,6 +1054,9 @@ class ServingMetrics:
         sample = {"occupied": float(occupied), "queued": float(queued)}
         if blocks is not None:
             sample["blocks"] = float(blocks)
+            self._g_blocks.set(blocks)
+        self._g_occ.set(occupied)
+        self._g_queue.set(queued)
         self.tick_samples.append(sample)
 
     def record_step(self, active: int, queued: int,
@@ -761,6 +1075,7 @@ class ServingMetrics:
             sample["committed"] = float(committed or 0)
         if seconds is not None:
             sample["seconds"] = float(seconds)
+        self._c_steps.inc()
         self.step_samples.append(sample)
 
     def record_request(self, req: Request, arrival: float, admitted: float,
@@ -776,16 +1091,38 @@ class ServingMetrics:
         n = len(req.tokens)
         decode_time = (finished - first_token) \
             - (resume_wait - resume_wait_pre_first)
-        self.records.append({
+        rec = {
             "id": req.id, "prompt_len": len(req.prompt), "new_tokens": n,
+            "tenant": req.tenant,
             "queue_wait": (admitted - arrival) + resume_wait,
             "ttft": first_token - arrival - resume_wait_pre_first,
             "latency": finished - arrival,
             "tpot": decode_time / (n - 1) if n > 1 else None,
-        })
+        }
+        self.records.append(rec)
+        self._h_ttft.observe(rec["ttft"])
+        self._h_qwait.observe(rec["queue_wait"])
+        self._h_latency.observe(rec["latency"])
+        if n > 1:
+            self._h_tpot.observe(rec["tpot"])
+        self._h_prompt.observe(rec["prompt_len"])
+        self._h_new.observe(n)
+        self._c_tokens.inc(n)
+        self._c_done.labels(reason=req.finish_reason or "unknown").inc()
+        if self._slo is not None:
+            self._slo.observe(req.tenant, rec["ttft"], rec["tpot"])
+
+    def record_drop(self, req: Request, reason: str):
+        """A queued request dropped before admission: counted by reason,
+        with no latency sample."""
+        self.drops.append({"id": req.id, "reason": reason,
+                           "tenant": req.tenant})
+        self._c_dropped.labels(reason=reason).inc()
 
     def aggregate(self) -> Dict[str, float]:
         out: Dict[str, float] = {"completed": float(len(self.records))}
+        if self.drops:
+            out["dropped"] = float(len(self.drops))
         if self.records:
             lat = np.asarray([r["latency"] for r in self.records])
             ttft = np.asarray([r["ttft"] for r in self.records])
@@ -839,6 +1176,10 @@ class ServingMetrics:
         if self.records:
             out["prefill_chunk_dispatches_per_request"] = float(
                 self.prefill_chunks / len(self.records))
+        out["overlap_ticks"] = float(self.overlap_ticks)
+        if self.step_samples:
+            out["overlap_fraction"] = float(
+                self.overlap_ticks / len(self.step_samples))
         out["prompt_tokens"] = float(self.prompt_tokens)
         out["prefix_hit_tokens"] = float(self.prefix_hit_tokens)
         out["prefix_hit_rate"] = (
@@ -852,6 +1193,7 @@ class ServingMetrics:
         out["blocks_spilled"] = float(self.blocks_spilled)
         out["blocks_swapped_in"] = float(self.blocks_swapped_in)
         out["reprefill_tokens_avoided"] = float(self.swap_in_tokens)
+        out["prefill_token_syncs"] = float(self.prefill_token_syncs)
         if self._cache is not None:
             out["evictions"] = float(self._cache.evictions
                                      - self._evict_base)
@@ -865,6 +1207,47 @@ class ServingMetrics:
             out["spec_mean_tokens_per_step"] = float(
                 sum(s["committed"] for s in spec) / max(slot_steps, 1.0))
         return out
+
+
+# the profiling-off fast path: ServingEngine._phase returns this shared
+# reusable null context, so an unprofiled tick allocates nothing a phase
+_NULL_PHASE = contextlib.nullcontext()
+
+
+class _ProfPhase:
+    """A guarded tick-profiler phase span (``serving.py:2615``): a
+    raising profiler is absorbed, counted into
+    ``serving_profiler_errors_total`` and warned once, while the engine
+    keeps serving token-exact. Exceptions from the BODY of the ``with``
+    block propagate untouched."""
+
+    __slots__ = ("_eng", "_name", "_cm")
+
+    def __init__(self, eng, name):
+        self._eng = eng
+        self._name = name
+        self._cm = None
+
+    def __enter__(self):
+        prof = getattr(self._eng.telemetry, "profiler", None)
+        if prof is None or not prof.enabled:
+            return self
+        try:
+            cm = prof.phase(self._name)
+            cm.__enter__()
+            self._cm = cm
+        except Exception as err:
+            self._cm = None
+            self._eng._profile_failed(err)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._cm is not None:
+            try:
+                self._cm.__exit__(None, None, None)
+            except Exception as err:
+                self._eng._profile_failed(err)
+        return False
 
 
 class ServingEngine:
@@ -889,12 +1272,47 @@ class ServingEngine:
     :class:`~paddle_tpu_torch.inference.speculative.NgramDrafter` or
     ``DraftModelDrafter``) turns the decode half of every tick into a
     draft-and-verify step at fixed ``k = spec.k``, which reserves k rows
-    of each slot for the verify's writes. The parameters keep the
-    reference's order; its ``telemetry``, ``mesh``, ``quarantine``,
-    ``logit_guard``, ``dispatch_retries``, ``dispatch_stall_s``,
-    ``engine_failure_threshold``, ``overlap``, ``profile``,
+    of each slot for the verify's writes.
+
+    ``telemetry`` is the engine's observability bundle
+    (:class:`~paddle_tpu_torch.observability.Telemetry`), ALWAYS on — a
+    private one per engine by default. Every request's lifecycle
+    streams into its tracer (one chrome-trace lane a request), every
+    engine event (admission, preemption, block churn, trie eviction,
+    program launch) into its flight recorder (dumped if ``run()``
+    dies), the latency and length histograms and the counters into its
+    registry under the reference's names, and its recompile sentinel
+    watches every program. ``profile=True`` arms the bundle's
+    :class:`~paddle_tpu_torch.observability.profile.TickProfiler`: the
+    tick's phases (``admission``, ``bookkeeping``,
+    ``prefill_dispatch``, ``block_growth``, ``draft``,
+    ``decode_dispatch``, ``overlap_window``, ``token_sync``,
+    ``callbacks``) as host-clock spans. Every telemetry and profiler
+    call is guarded: a raising one is counted and warned, never a
+    request fault.
+
+    ``overlap=True`` (default) runs the next tick's admissions while the
+    dispatched step is in flight, reading the tokens only after.
+
+    Resilience: a fault on one request's admit, prefix splice or copy,
+    chunk prefill or swap-back path is QUARANTINED — that request
+    retires with ``finish_reason="error"`` (counted under
+    ``serving_request_errors_total{where=}``, its slot, blocks and trie
+    pins released) and the engine keeps serving; ``quarantine=False``
+    fails fast instead. Engine-scoped tick failures count against a
+    consecutive-failure circuit breaker (``engine_failure_threshold``)
+    that drains to the fail-all path (flight dump, raise).
+    ``logit_guard=True`` retires exactly the slot whose logits went
+    non-finite, and zeroes the storage it released. Program dispatches
+    get ``dispatch_retries`` bounded jittered retries and, with
+    ``dispatch_stall_s``, a watchdog that records ``dispatch_stall``
+    events. :meth:`audit` reconciles the pool, the host tier, the trie
+    pins and the slot table after every quarantine.
+
+    The parameters keep the reference's order; its ``mesh``,
     ``seq_parallel``, ``adaptive`` and ``adapter_pool`` are accepted at
-    their defaults only."""
+    their defaults only, and the port has no cancellation, deadlines,
+    tenants, request snapshots or tick-boundary jobs yet."""
 
     def __init__(self, model, max_batch_slots: int = 8, max_len: int = 256,
                  top_k: Optional[int] = None, eos_id: Optional[int] = None,
@@ -913,14 +1331,8 @@ class ServingEngine:
                  seq_parallel: bool = False, adaptive=None,
                  adapter_pool=None, *, device=None):
         refuse_unported(
-            "ServingEngine",
-            telemetry=(telemetry, None), mesh=(mesh, None),
-            quarantine=(quarantine, True), logit_guard=(logit_guard, False),
-            dispatch_retries=(dispatch_retries, 2),
-            dispatch_stall_s=(dispatch_stall_s, None),
-            engine_failure_threshold=(engine_failure_threshold, 3),
-            overlap=(overlap, True),
-            profile=(profile, False), seq_parallel=(seq_parallel, False),
+            "ServingEngine", mesh=(mesh, None),
+            seq_parallel=(seq_parallel, False),
             adaptive=(adaptive, None), adapter_pool=(adapter_pool, None))
         dev = resolve_device(device)
         mdev = module_device(model)
@@ -928,10 +1340,14 @@ class ServingEngine:
             raise ValueError(
                 f"the model lives on {mdev}, the engine was asked for "
                 f"{dev}; build the model on the engine's device")
+        # telemetry is ALWAYS on; the default bundle is private
+        self.telemetry = telemetry if telemetry is not None \
+            else Telemetry(clock=clock)
         self.spec = spec
         kw = dict(top_k=top_k, prefill_chunk=prefill_chunk,
                   block_size=block_size, num_blocks=num_blocks,
-                  kv_dtype=kv_dtype, host_tier_blocks=host_tier_blocks)
+                  kv_dtype=kv_dtype, logit_guard=logit_guard,
+                  host_tier_blocks=host_tier_blocks)
         if spec is None:
             self.engine = DecodeEngine(model, max_batch_slots, max_len, **kw)
         else:
@@ -944,6 +1360,7 @@ class ServingEngine:
                                             k=spec.k, **kw)
             spec.begin(self.engine.b, self.engine.max_len)
         self._spec_k = spec.k if spec is not None else 0
+        self.replicas = 1
         self.paged = self.engine.paged
         self._alloc = self.engine.allocator   # None on the dense arena
         self._host = self.engine.host_tier    # None without a tier
@@ -959,6 +1376,7 @@ class ServingEngine:
         self._swap_min = int(swap_min_tokens) if swap_min_tokens \
             is not None else (self.engine.block_size
                               if self._host is not None else 0)
+        self._swaps_in_flight = 0
         self._cache = prefix_cache
         if prefix_cache is not None and \
                 prefix_cache.chunk_tokens > self.engine.max_len:
@@ -993,6 +1411,9 @@ class ServingEngine:
         self.clock = clock
         self.scheduler = scheduler if scheduler is not None \
             else FifoScheduler()
+        # guards queue mutations against a scraper's reads (the ops
+        # plane's /debug/requests runs on its own threads)
+        self._lock = threading.RLock()
         self._slots: List[Optional[Request]] = [None] * self.b
         self._free: List[int] = list(range(self.b))[::-1]
         self._next_id = 0
@@ -1019,7 +1440,272 @@ class ServingEngine:
         # memo of the last blocked admission: (request id, allocator
         # free counter) — retried only once capacity could have grown
         self._adm_blocked: Optional[tuple] = None
-        self.metrics = ServingMetrics(self.b, self._cache, self._alloc)
+        # -- resilience ---------------------------------------------------
+        self._quar = bool(quarantine)
+        self._breaker_threshold = int(engine_failure_threshold)
+        if self._breaker_threshold < 1:
+            raise ValueError(
+                f"engine_failure_threshold must be >= 1, got "
+                f"{engine_failure_threshold}")
+        self._engine_failures = 0       # consecutive; reset per clean tick
+        # breaker STATE: open from a trip until the next run() call
+        self._breaker_open = False
+        self._cb_error = False          # the raise came from a callback
+        self._ticks_total = 0
+        self.logit_guard = bool(logit_guard)
+        # the guarded step's finite mask, read with its tokens
+        self._finite_host: Optional[np.ndarray] = None
+        self._profile = bool(profile)
+        self._profile_warned = False
+        if self._profile:
+            prof = getattr(self.telemetry, "profiler", None)
+            if prof is not None:
+                prof.enable()
+        # per-replica utilization accounting (one replica here)
+        self._rep_ticks = 0
+        self._rep_busy = [0] * self.replicas
+        self._rep_tokens = [0] * self.replicas
+        self._overlap = bool(overlap)
+        # dispatch-level resilience lives on the ProgramSet (the draft
+        # model's arena included)
+        for ps in self._program_sets():
+            ps.dispatch_retries = int(dispatch_retries)
+            ps.stall_threshold = dispatch_stall_s
+        self._wire_telemetry(self.telemetry)
+        self.metrics = ServingMetrics(self.b, self._cache, self._alloc,
+                                      registry=self.telemetry.registry,
+                                      slo=self.telemetry.slo)
+        self._arm_resilience_telemetry(self.telemetry)
+        self._arm_load_gauges(self.telemetry)
+
+    def _program_sets(self):
+        """Every ProgramSet this engine dispatches through: its own,
+        plus the draft model's when one rides along."""
+        sets = [self.engine.programs]
+        if self.spec is not None and \
+                getattr(self.spec, "engine", None) is not None:
+            sets.append(self.spec.engine.programs)
+        return sets
+
+    def _wire_telemetry(self, telemetry):
+        """Point the sentinel at every program and the flight recorder
+        at the pools and the trie, and register the submission
+        counter."""
+        self.engine.sentinel = telemetry.sentinel
+        if self.spec is not None and \
+                getattr(self.spec, "engine", None) is not None:
+            self.spec.engine.sentinel = telemetry.sentinel
+        if self._alloc is not None:
+            self._alloc.recorder = telemetry.recorder
+        if self._host is not None:
+            self._host.recorder = telemetry.recorder
+        if self._cache is not None:
+            self._cache.recorder = telemetry.recorder
+        self._c_submitted = telemetry.registry.counter(
+            "serving_requests_submitted_total",
+            "requests accepted into the queue")
+
+    def _arm_resilience_telemetry(self, telemetry):
+        """Register the resilience counters and gauges on ``telemetry``
+        (eager, so a scrape before the first fault shows explicit 0s)
+        and point the ProgramSets' watchdog, retry and ledger hooks at
+        its ring and registry (``serving.py:3173``)."""
+        r = telemetry.registry
+        self._c_req_err = r.counter(
+            "serving_request_errors_total",
+            "requests quarantined with finish_reason='error', by "
+            "faulting path", labelnames=("where",))
+        self._c_nonfinite = r.counter(
+            "serving_nonfinite_logit_events_total",
+            "slots retired by the NaN/inf logit guard")
+        self._c_eng_err = r.counter(
+            "serving_engine_errors_total",
+            "engine-scoped tick failures absorbed by the breaker")
+        self._c_breaker = r.counter(
+            "serving_breaker_trips_total",
+            "circuit-breaker trips draining to the fail-all path")
+        self._c_dump_failed = r.counter(
+            "serving_flight_dump_failed_total",
+            "tracer/flight-ring writes that failed and were absorbed "
+            "(crash handling and request paths; serving continues)")
+        c_stall = r.counter(
+            "serving_dispatch_stalls_total",
+            "compiled dispatches that overran the stall watchdog")
+        c_retry = r.counter(
+            "serving_dispatch_retries_total",
+            "transient dispatch errors absorbed by bounded retry")
+        self._g_leaked = r.gauge(
+            "serving_leaked_blocks",
+            "pool blocks with unaccounted references at the last "
+            "audit (0 = reconciled clean)")
+        self._g_orphaned = r.gauge(
+            "serving_orphaned_pins",
+            "prefix-trie references no live slot accounts for at the "
+            "last audit")
+        self._c_swap_dec = r.counter(
+            "serving_swap_decisions_total",
+            "per-preemption swap-vs-recompute verdicts (swap = spill "
+            "to the host tier; recompute = prefix below the "
+            "crossover; host_full = tier could not grant; fault = "
+            "spill faulted mid-write) — sums to the tier-eligible "
+            "preemptions", labelnames=("choice",))
+        self._c_swap_fb = r.counter(
+            "serving_swap_fallbacks_total",
+            "spill/swap-back faults degraded to re-prefill (the "
+            "request survives; only the copy saving is lost)",
+            labelnames=("where",))
+        self._g_leaked_host = r.gauge(
+            "serving_leaked_host_blocks",
+            "host-tier blocks with unaccounted references at the "
+            "last audit (0 = reconciled clean)")
+        self._c_prof_err = r.counter(
+            "serving_profiler_errors_total",
+            "tick-profiler calls that raised and were absorbed "
+            "(profiling is observability, never control flow; "
+            "serving continues)")
+        # the per-program dispatch ledger
+        c_disp = r.counter(
+            "program_dispatches_total",
+            "compiled-program dispatches by program (the ProgramSet "
+            "ledger; every dispatch counts, deferred ones included)",
+            labelnames=("program",))
+        h_enq = r.histogram(
+            "serving_program_enqueue_seconds",
+            "host-side dispatch call duration per program (async "
+            "enqueue, not device completion)",
+            PHASE_BUCKETS, labelnames=("program",))
+        h_win = r.histogram(
+            "serving_program_device_window_seconds",
+            "enqueue-return to finalize per program — on an async "
+            "backend, the device-side window the host can overlap",
+            PHASE_BUCKETS, labelnames=("program",))
+        h_wall = r.histogram(
+            "serving_program_wall_seconds",
+            "dispatch to finalize per program (enqueue + device "
+            "window)", PHASE_BUCKETS, labelnames=("program",))
+        for ps in self._program_sets():
+            ps.recorder = telemetry.recorder
+            ps.stall_counter = c_stall
+            ps.retry_counter = c_retry
+            ps.dispatch_counter = c_disp
+            ps.enqueue_hist = h_enq
+            ps.window_hist = h_win
+            ps.wall_hist = h_wall
+
+    def _arm_load_gauges(self, telemetry):
+        """Register the scrape-time LOAD gauges a fleet router routes on
+        (``serving.py:3292``); :meth:`publish_load_gauges` refreshes
+        them per scrape, so the tick loop never pays for them."""
+        r = telemetry.registry
+        self._g_free_slots = r.gauge(
+            "serving_free_slots",
+            "decode slots free for admission at the last scrape")
+        self._g_free_blocks = r.gauge(
+            "serving_free_blocks",
+            "paged pool blocks on the free list at the last scrape "
+            "(-1 = dense engine, no pool)")
+        self._g_tier_depth = r.gauge(
+            "serving_queue_depth_tier",
+            "queued requests by priority tier at the last scrape",
+            labelnames=("tier",))
+        self._g_overlap_frac = r.gauge(
+            "serving_overlap_fraction",
+            "overlapped ticks / decode steps in the current metrics "
+            "window")
+        self._g_breaker_open = r.gauge(
+            "serving_breaker_open",
+            "1 while the circuit breaker is open (tripped, engine "
+            "drained to fail-all; re-closes on the next run()), else 0")
+        self._g_stalled = r.gauge(
+            "serving_dispatch_stalled",
+            "compiled dispatches currently past the stall watchdog "
+            "threshold")
+        self._g_host_blocks = r.gauge(
+            "serving_host_blocks_in_use",
+            "host-tier blocks holding spilled KV at the last scrape "
+            "(-1 = no host tier configured)")
+        self._g_swap_inflight = r.gauge(
+            "serving_swap_in_flight",
+            "host<->device block copies in flight right now (spills "
+            "and swap-backs; >0 on a scrape = the tick is paying a "
+            "swap stall)")
+        self._g_prefill_backlog = r.gauge(
+            "serving_prefill_backlog_tokens",
+            "unprefilled prompt tokens summed over prefilling slots "
+            "at the last scrape — the saturation signal a "
+            "role='prefill' engine's /readyz and the fleet router's "
+            "long-prompt classifier read")
+        self._tiers_seen = set()
+        self._g_rep_util = r.gauge(
+            "serving_replica_utilization",
+            "busy-slot-ticks / (ticks * slots-per-replica) in the "
+            "current metrics window, by replica (R=1 publishes the "
+            "single replica 0 child)", labelnames=("replica",))
+        self._g_rep_tpt = r.gauge(
+            "serving_replica_tokens_per_tick",
+            "tokens committed per scheduler tick in the current "
+            "metrics window, by replica", labelnames=("replica",))
+        self._g_skew = r.gauge(
+            "serving_replica_skew",
+            "max/mean of per-replica busy-slot-ticks in the current "
+            "metrics window (1.0 = perfectly balanced; counted, "
+            "wall-clock-free — trivially 1.0 at R=1)")
+        self._g_pfx_hit_rate = self._g_pfx_bytes = None
+        self._g_pfx_hit_tokens = None
+        if self._cache is not None:
+            self._g_pfx_hit_rate = r.gauge(
+                "serving_prefix_hit_rate",
+                "prefix-cache lookups that matched >= 1 chunk / total "
+                "lookups since the trie was built, by replica-local "
+                "trie", labelnames=("replica",))
+            self._g_pfx_bytes = r.gauge(
+                "serving_prefix_trie_bytes",
+                "device KV bytes pinned by the replica-local trie's "
+                "cached chunks at the last scrape (demoted host-tier "
+                "bytes excluded)", labelnames=("replica",))
+            self._g_pfx_hit_tokens = r.gauge(
+                "serving_prefix_hit_tokens_recovered",
+                "prompt tokens served from cached KV instead of "
+                "recomputed, cumulative since the trie was built, by "
+                "replica-local trie", labelnames=("replica",))
+            self._g_pfx_hit_rate.labels(replica="0").set(0.0)
+            self._g_pfx_bytes.labels(replica="0").set(
+                float(self._cache.bytes))
+            self._g_pfx_hit_tokens.labels(replica="0").set(
+                float(self._cache.hit_tokens))
+
+    def prefill_backlog_tokens(self) -> int:
+        """Unprefilled prompt tokens summed over prefilling slots (queued
+        requests are not counted)."""
+        with self._lock:
+            return sum(len(st["ids"]) - st["pos"]
+                       for st in self._pf
+                       if st is not None and st["pos"] < len(st["ids"]))
+
+    def set_telemetry(self, telemetry):
+        """Swap in a fresh telemetry bundle between runs — e.g. after a
+        warmup request, so exported histograms, lanes and rings describe
+        the measured traffic. Idle engines only."""
+        if self.active_count() or self.scheduler.depth():
+            raise RuntimeError(
+                "set_telemetry with requests queued or in flight would "
+                "split their lifecycle across two bundles; drain first")
+        # carry the warmup baselines over: a fresh sentinel observing
+        # warm programs for the "first" time would swallow a real
+        # post-swap recompile as its own warmup
+        telemetry.sentinel.adopt_baseline(
+            self.telemetry.sentinel.baseline())
+        self.telemetry = telemetry
+        self._wire_telemetry(telemetry)
+        self.metrics = ServingMetrics(self.b, self._cache, self._alloc,
+                                      registry=telemetry.registry,
+                                      slo=telemetry.slo)
+        self._arm_resilience_telemetry(telemetry)
+        self._arm_load_gauges(telemetry)
+        if self._profile:
+            prof = getattr(telemetry, "profiler", None)
+            if prof is not None:
+                prof.enable()
 
     # -- submission ---------------------------------------------------------
     def submit(self, req: Request) -> Request:
@@ -1080,28 +1766,38 @@ class ServingEngine:
                     f"{self._alloc.capacity} allocatable blocks — it "
                     "could never be scheduled; grow num_blocks or "
                     "shrink the request")
-        req.id = self._next_id
-        self._next_id += 1
-        req.status = "queued"
-        self.scheduler.submit(req)
+        with self._lock:
+            req.id = self._next_id
+            self._next_id += 1
+            req.status = "queued"
+            self.scheduler.submit(req)
+            self._c_submitted.inc()
+            with self._telemetry("submit events"):
+                self.telemetry.tracer.lifecycle(
+                    req.id, "submitted", prompt_len=plen,
+                    max_new_tokens=req.max_new_tokens,
+                    arrival_time=req.arrival_time)
+                self.telemetry.recorder.record(
+                    "submit", rid=req.id, prompt_len=plen,
+                    max_new_tokens=req.max_new_tokens,
+                    tenant=req.tenant, req_kind=req.kind)
         return req
 
     def active_count(self) -> int:
         return sum(1 for r in self._slots if r is not None)
 
-    def free_block_count(self) -> Optional[int]:
-        """Free paged-pool blocks; None on the dense arena."""
-        return self._alloc.free_count() if self.paged else None
+    def queue_depth(self) -> int:
+        return self.scheduler.depth()
 
-    def host_tier_state(self) -> Optional[Dict[str, int]]:
-        """The host tier's occupancy (None without a tier)."""
-        if self._host is None:
-            return None
-        return {"capacity": self._host.capacity,
-                "free": self._host.free_count(),
-                "in_use": self._host.blocks_in_use(),
-                "spills": self._host.spills,
-                "swap_ins": self._host.swap_ins}
+    def executable_count(self) -> Optional[int]:
+        """Programs behind this serving engine (``serving.py:3878``):
+        the engine's distinct ``(program, signature)`` pairs plus the
+        draft model's when one rides along."""
+        n = self.engine.executable_count()
+        if n is None or self.spec is None:
+            return n
+        dn = self.spec.executable_count()
+        return None if dn is None else n + dn
 
     # -- scheduling ---------------------------------------------------------
     def _now(self) -> float:
@@ -1116,36 +1812,50 @@ class ServingEngine:
         here: with a spill manifest its parked KV is copied back and its
         prefill resumes at the spilled frontier, else it re-prefills
         prompt + committed tokens (riding the prefix cache where
-        present)."""
+        present). Every fallible coercion runs before the first
+        acquisition, and everything acquired is registered on the slot
+        before anything else can fault, so a fault tears down through
+        :meth:`_retire` to zero leaks."""
         ids = np.asarray(list(req.prompt) + req.tokens, np.int64)
         plen = int(ids.shape[0])
+        temp = max(float(req.temperature), 1e-6)
+        greedy = bool(req.greedy)
+        topk = int(req.top_k) if req.top_k is not None else 0
+        topp = float(req.top_p) if req.top_p is not None else 1.0
+        # the request's stream: a function of (seed, id) only, so a
+        # resumed request replays the draws of its first residency
+        keydata = request_keydata(self.seed, req.id, req.seed)
         nodes, hit, fresh = [], 0, []
         # a manifest covers prompt AND generated tokens, more than any
         # trie prefix could: its request skips the lookup (no phantom
         # hits, no trie refs to undo) and takes a whole fresh grant
         spill = getattr(req, "_spill", None)
         if self._cache is not None and spill is None:
-            nodes, hit = self._cache.lookup(ids)
+            with self._phase("trie_lookup"):
+                nodes, hit = self._cache.lookup(ids)
+        block_snap = None
         if self.paged:
-            fresh = self._grant_prompt_blocks(req, plen, nodes, hit)
+            fresh, block_snap = self._grant_prompt_blocks(req, plen, nodes,
+                                                          hit)
             if fresh is None:
                 return False
+        free_snap = len(self._free)
         slot = self._free.pop()
-        self._temps[slot] = max(float(req.temperature), 1e-6)
-        self._greedy[slot] = bool(req.greedy)
-        self._topk[slot] = int(req.top_k) if req.top_k is not None else 0
-        self._topp[slot] = float(req.top_p) if req.top_p is not None \
-            else 1.0
+        self._temps[slot] = temp
+        self._greedy[slot] = greedy
+        self._topk[slot] = topk
+        self._topp[slot] = topp
         self._budget[slot] = req.max_new_tokens
-        # the request's stream: a function of (seed, id) only, so a
-        # resumed request replays the draws of its first residency
-        self._keydata[slot] = request_keydata(self.seed, req.id, req.seed)
+        self._keydata[slot] = keydata
+        # REGISTER first: once the slot holds the request and its held
+        # nodes, a later fault tears down completely through _retire
+        st = {"ids": ids, "pos": 0, "nodes": nodes, "seq": req.id}
         self._slots[slot] = req
-        self._pf[slot] = st = {"ids": ids, "pos": 0, "nodes": nodes,
-                               "seq": req.id}
+        self._pf[slot] = st
         self._seq[slot] = self._adm_seq
         self._adm_seq += 1
         req.status = "running"
+        resuming = req.id in self._ptimes
         tm = self._ptimes.pop(req.id, None)
         if tm is not None:
             pa = tm.pop("preempted_at", None)
@@ -1162,27 +1872,52 @@ class ServingEngine:
         # one no spliced prefix covers (hit <= plen-1)
         self._t[slot] = plen - 1
         self._toks[slot, 0] = 0
-        self.metrics.count_prompt_tokens(plen)
-        if self.paged:
-            self._seed_slot_storage(slot, st, nodes, fresh)
-            if spill is not None:
-                self._swap_back(req, slot, st, fresh, spill)
-        elif nodes:
-            # the dense arena: one slice copy a layer for every cached
-            # chunk, far cheaper than the model forwards it replaces
-            cc = self._cache.chunk_tokens
-            for j, node in enumerate(nodes):
-                self.engine.copy_chunk(slot, j * cc, node.kseg, node.vseg)
-                st["pos"] = (j + 1) * cc
-                self.metrics.count_prefix_hit_tokens(cc)
+        try:
+            self.metrics.count_prompt_tokens(plen)
+            with self._telemetry("admit events"):
+                self.telemetry.recorder.record(
+                    "select_slot", rid=req.id, slot=int(slot), replica=0,
+                    free_slots=[free_snap],
+                    free_blocks=None if block_snap is None
+                    else [block_snap], hits=None, decision=None,
+                    req_kind=req.kind)
+                if not resuming:
+                    # the queued band starts at the request's due time
+                    anchor = self._t0 if self._t0 is not None \
+                        else self.clock()
+                    self.telemetry.tracer.lifecycle(
+                        req.id, "arrived",
+                        ts=min(anchor + max(float(req.arrival_time), 0.0),
+                               self.clock()))
+                self.telemetry.tracer.lifecycle(
+                    req.id, "resumed" if resuming else "admitted",
+                    slot=slot, prompt_len=plen, prefix_hit_tokens=hit)
+                self.telemetry.recorder.record(
+                    "admit", rid=req.id, slot=slot, prompt_len=plen,
+                    hit=hit, resumed=resuming)
+                if hit:
+                    self.telemetry.tracer.lifecycle(
+                        req.id, "prefix_hit", tokens=hit)
+            with self._phase("trie_splice"):
+                self._seed_slot_storage(req, slot, st, nodes, fresh)
+        except BaseException:
+            # registration claimed the slot and nodes (teardown releases
+            # them) and the table every PLACED fresh block; only an
+            # un-placed grant has no owner yet
+            if self._nblocks[slot] == 0 and fresh:
+                self._alloc.deref(fresh)
+                fresh.clear()
+            raise
         return True
 
     def _grant_prompt_blocks(self, req: Request, plen: int, nodes, hit: int):
-        """The fresh blocks behind rows [hit, plen) of an admission: the
-        spliced prefix brings its own. None when the pool is short: the
-        lookup's trie refs are dropped and the failure is remembered
-        against the allocator's free counter. A fault in here drops the
-        lookup's trie refs before propagating."""
+        """The fresh blocks behind rows [hit, plen) of an admission (the
+        spliced prefix brings its own) and the free count they were
+        granted from. None when the pool is short: the lookup's trie
+        refs are dropped and the failure is remembered against the
+        allocator's free counter. A fault in here (the allocator's
+        ``serving:alloc`` point included) drops the lookup's trie refs
+        before propagating."""
         try:
             bs = self.engine.block_size
             need = (plen - 1) // bs + 1 - hit // bs
@@ -1190,7 +1925,9 @@ class ServingEngine:
                 # trie-held blocks are reclaimable capacity: evict cold
                 # unreferenced leaves first
                 self._cache.evict_for_blocks(need)
-            fresh = self._alloc.alloc(need)
+            fresh, free = None, self._alloc.free_count()
+            if free >= need:
+                fresh = self._alloc.alloc(need)
         except BaseException:
             if nodes:
                 self._cache.release(nodes)
@@ -1202,52 +1939,157 @@ class ServingEngine:
             # host work (and count phantom trie lookups): remember the
             # failure against the free counter
             self._adm_blocked = (req.id, self._alloc.freed)
-        return fresh
+            with self._telemetry("admit_blocked event"):
+                self.telemetry.recorder.record(
+                    "admit_blocked", rid=req.id, need=need,
+                    free=self._alloc.free_count())
+        return fresh, free
 
-    def _seed_slot_storage(self, slot: int, st, nodes, fresh):
-        """Wire the admitted slot's storage: splice the trie hit's block
-        ids into its table (ZERO-COPY: one allocator reference per
-        block, no device work — the shared rows are committed the moment
-        the table points at them), then place the fresh grant. The
-        prefill starts at the hit."""
-        nb = 0
-        for node in nodes:
-            self._alloc.ref(node.blocks)
-            self.engine.table[slot, nb:nb + len(node.blocks)] = node.blocks
-            nb += len(node.blocks)
-            st["pos"] += self._cache.chunk_tokens
-            self.metrics.count_prefix_hit_tokens(self._cache.chunk_tokens)
-        self.engine.table[slot, nb:nb + len(fresh)] = fresh
-        self._nblocks[slot] = nb + len(fresh)
+    def _seed_slot_storage(self, req: Request, slot: int, st, nodes,
+                           fresh):
+        """Wire the admitted slot's storage: on the paged arena splice
+        the trie hit's block ids into its table (ZERO-COPY: one
+        allocator reference per block, no device work) and place the
+        fresh grant, then swap a spilled request's KV back; on the dense
+        arena copy the cached segments into the slot's rows. Bookkeeping
+        advances a node or block at a time, so a fault at any point
+        leaves a slot whose teardown reconciles to zero leaked blocks."""
+        if self.paged:
+            nb = 0
+            try:
+                if nodes:
+                    cc = self._cache.chunk_tokens
+                    fault_point("serving:prefix_splice", rid=req.id,
+                                slot=slot)
+                    for node in nodes:
+                        self._alloc.ref(node.blocks)
+                        self.engine.table[
+                            slot, nb:nb + len(node.blocks)] = node.blocks
+                        nb += len(node.blocks)
+                        self._nblocks[slot] = nb
+                        st["pos"] += cc
+                        self.metrics.count_prefix_hit_tokens(cc)
+                for off, blk in enumerate(fresh):
+                    self.engine.table[slot, nb + off] = blk
+                    self._nblocks[slot] = nb + off + 1
+            except BaseException:
+                # return the un-placed share of the grant (no other
+                # holder exists for it) and truncate the list so the
+                # caller's unwind cannot double-free it
+                placed = int(self._nblocks[slot]) - nb
+                if placed < len(fresh):
+                    self._alloc.deref(fresh[placed:])
+                    del fresh[placed:]
+                raise
+            spill = getattr(req, "_spill", None)
+            if spill is not None:
+                self._swap_back(req, slot, st, fresh, spill)
+        elif nodes:
+            # the dense arena: one slice copy a layer for every cached
+            # chunk, far cheaper than the model forwards it replaces
+            cc = self._cache.chunk_tokens
+            fault_point("serving:prefix_copy", rid=req.id, slot=slot)
+            for j, node in enumerate(nodes):
+                self.engine.copy_chunk(slot, j * cc, node.kseg, node.vseg)
+                st["pos"] = (j + 1) * cc
+                self.metrics.count_prefix_hit_tokens(cc)
 
     def _admit_ready(self):
         while self._free:
-            req = self.scheduler.next_due(self._now())
-            if req is None:
-                break
-            if self._adm_blocked is not None and \
-                    self._adm_blocked == (req.id, self._alloc.freed):
-                break   # still blocked: nothing freed since the last try
-            self.scheduler.pop(req)
-            if not self._admit(req):
-                self.scheduler.requeue(req)
+            with self._lock:
+                req = self.scheduler.next_due(self._now())
+                if req is None:
+                    break
+                if self._adm_blocked is not None and \
+                        self._adm_blocked == (req.id, self._alloc.freed):
+                    break   # still blocked: nothing freed since the last try
+                self.scheduler.pop(req)
+            try:
+                admitted = self._admit(req)
+            except Exception as e:
+                # per-request fault QUARANTINE: this request's admission
+                # faulted (trie walk, block grant, splice, copy or
+                # swap-back); retire IT and keep serving everyone else
+                if not self._quar or self._cb_error:
+                    if req.status != "running":
+                        with self._lock:
+                            self.scheduler.requeue(req)
+                    raise
+                self._quarantine(req, e, "admit")
+                continue
+            except BaseException:
+                # before the slot was assigned nothing was mutated: back
+                # to the front of the policy's order
+                if req.status != "running":
+                    with self._lock:
+                        self.scheduler.requeue(req)
+                raise
+            if not admitted:
+                with self._lock:
+                    self.scheduler.requeue(req)
                 break   # pool short of blocks: the head waits
 
     def _run_prefill_chunk(self):
         """Advance the oldest-admitted prefilling slot by one chunk; on
-        the prompt's final chunk, commit its first token."""
+        the prompt's final chunk, commit its first token. A fault on
+        this path is quarantined to the owning request."""
         pf = [i for i in range(self.b) if self._pf[i] is not None]
         if not pf:
             return
-        slot = min(pf, key=lambda i: self._pf[i]["seq"])
+        with self._phase("prefill_dispatch"):
+            slot = min(pf, key=lambda i: self._pf[i]["seq"])
+            req = self._slots[slot]
+            try:
+                fault_point("serving:prefill_chunk", rid=req.id,
+                            slot=slot, replica=0)
+                self._prefill_turn(slot)
+            except Exception as e:
+                # a client callback's raise (the first token's on_token
+                # runs inside _finish_prefill) stays engine-scoped
+                if not self._quar or self._cb_error:
+                    raise
+                self._quarantine(req, e, "prefill")
+
+    def _prefill_turn(self, slot: int):
         st = self._pf[slot]
+        rid = self._slots[slot].id
         plen = len(st["ids"])
-        sl = slice(slot, slot + 1)
-        st["tok"], st["pos"] = self.engine.prefill_chunk_at(
-            st["ids"], slot, st["pos"], plen, self._temps[sl],
-            self._greedy[sl], self._keydata[sl], topks=self._topk[sl],
-            topps=self._topp[sl])
-        self.metrics.count_prefill_chunk()
+        if st["pos"] < plen:
+            with self._telemetry("launch event"):
+                self.telemetry.recorder.record(
+                    "launch", program="chunk_prefill", rid=rid,
+                    slot=slot, pos=st["pos"])
+            sl = slice(slot, slot + 1)
+            # the chunk's span on the request's trace lane, on the
+            # tracer's clock (the engine clock)
+            tracer = self.telemetry.tracer
+            t_span = tracer.clock()
+            try:
+                tok, st["pos"] = self.engine.prefill_chunk_at(
+                    st["ids"], slot, st["pos"], plen, self._temps[sl],
+                    self._greedy[sl], self._keydata[sl],
+                    topks=self._topk[sl], topps=self._topp[sl])
+            finally:
+                with self._telemetry("prefill span"):
+                    tracer.record_event_sink("serving:prefill_chunk", rid,
+                                             t_span,
+                                             tracer.clock() - t_span)
+            self.metrics.count_prefill_chunk()
+            finite = self.engine.last_prefill_finite
+            if self.logit_guard and finite is not None:
+                # one host read of the draw and its finite flag
+                pair = torch.cat([tok.reshape(-1),
+                                  finite.reshape(-1).to(tok.dtype)]).cpu()
+                if not bool(pair[1]):
+                    # the chunk attended over poisoned KV (a corrupted
+                    # shared prefix): retire the slot before any token
+                    # reaches its stream
+                    self._quarantine_nonfinite(slot)
+                    return
+                tok = pair[:1].reshape(1, 1)
+            # only the final chunk's draw is read: a non-final chunk's
+            # stays on the device unread
+            st["tok"] = tok
         if st["pos"] >= plen:
             self._finish_prefill(slot)
 
@@ -1255,7 +2097,9 @@ class ServingEngine:
         """Prompt committed: hand its new full chunks to the prefix cache
         and release the trie refs held since admission, then read its
         first token (the one host sync of the whole prefill = TTFT) and
-        move the slot into the decode cohort."""
+        move the slot into the decode cohort. Re-entrant on the cache
+        path: a failed insert releases every held ref and clears the
+        held list, so a retry or a teardown never double-releases."""
         req = self._slots[slot]
         st = self._pf[slot]
         if self._cache is not None:
@@ -1287,7 +2131,9 @@ class ServingEngine:
                 # held refs drop even if an insert raises: pinned nodes
                 # would shrink the evictable budget for good
                 self._cache.release(path)
-        first = int(st["tok"][0, 0])
+        with self._phase("token_sync"):
+            first = int(st["tok"][0, 0])
+        self.metrics.count_prefill_token_sync()
         self._pf[slot] = None
         self._adm_blocked = None
         if self.spec is not None:
@@ -1301,17 +2147,30 @@ class ServingEngine:
         # residency: TTFT is recorded once
         if "first_token" not in self._times[req.id]:
             self._times[req.id]["first_token"] = self._now()
+            with self._telemetry("first_token event"):
+                self.telemetry.tracer.lifecycle(req.id, "first_token",
+                                                token=first)
         self._commit_token(slot, first)
 
     def _commit_token(self, slot: int, token: int):
         req = self._slots[slot]
         req.tokens.append(int(token))
+        self._rep_tokens[0] += 1
+        with self._telemetry("token event"):
+            self.telemetry.tracer.event(req.id, "token", tok=int(token),
+                                        n=len(req.tokens))
         eos = req.eos_id if req.eos_id is not None else self.eos_id
         done_eos = eos is not None and token == eos
         done = bool(done_eos or len(req.tokens) >= self._budget[slot])
         try:
             if req.on_token is not None:
-                req.on_token(req, int(token), done)
+                try:
+                    req.on_token(req, int(token), done)
+                except BaseException:
+                    # a raising CLIENT callback is engine-scoped: the
+                    # streaming contract broke
+                    self._cb_error = True
+                    raise
         finally:
             # retirement does not depend on the callback surviving
             if done and self._slots[slot] is req:
@@ -1330,8 +2189,8 @@ class ServingEngine:
         req.status = "done"
         req.finish_reason = reason
         self._slots[slot] = None
-        self._release_held_nodes(slot)
         self._free.append(slot)
+        self._release_held_nodes(slot)
         self._release_blocks(slot)
         if self._host is not None:
             # a request that retires with its swap-back still pending
@@ -1347,8 +2206,19 @@ class ServingEngine:
             req, tm["arrival"], tm["admitted"], tm.get("first_token", now),
             now, resume_wait=tm.get("resume_wait", 0.0),
             resume_wait_pre_first=tm.get("resume_wait_pre_first", 0.0))
+        with self._telemetry("retire events"):
+            self.telemetry.tracer.lifecycle(
+                req.id, "finished", reason=reason,
+                new_tokens=len(req.tokens))
+            self.telemetry.recorder.record("retire", rid=req.id,
+                                           reason=reason,
+                                           new_tokens=len(req.tokens))
         if req.on_finish is not None:
-            req.on_finish(req)
+            try:
+                req.on_finish(req)
+            except BaseException:
+                self._cb_error = True   # client fault: engine-scoped
+                raise
 
     def _release_blocks(self, slot: int):
         """Drop the slot's blocks and point its table row back at the
@@ -1367,46 +2237,84 @@ class ServingEngine:
         table already maps them) and start its chunk prefill AT the
         spilled frontier (``st["pos"]``): the copy replaces the chunks
         that frontier covers, counted as ``reprefill_tokens_avoided``. A
-        copy that raises falls back to a full re-prefill (the host
-        blocks dropped, ``pos`` left at 0)."""
+        copy that raises (the ``serving:swap_in`` point included) falls
+        back to a full re-prefill, counted: the host blocks are dropped
+        and ``pos`` stays 0."""
         host_blocks = spill["host_blocks"]
         nfull = len(host_blocks)
+        self._swaps_in_flight += 1
         try:
-            self.engine.restore_blocks(host_blocks, fresh[:nfull])
-        except Exception:
+            with self._phase("swap_in"):
+                self.engine.restore_blocks(host_blocks, fresh[:nfull])
+        except Exception as e:
             req._spill = None
             self._host.deref(host_blocks)
+            self._c_swap_fb.labels(where="swap_in").inc()
+            with self._telemetry("swap_in_failed event"):
+                self.telemetry.recorder.record(
+                    "swap_in_failed", rid=req.id, blocks=nfull,
+                    error=repr(e))
             return
+        finally:
+            self._swaps_in_flight -= 1
         req._spill = None
         self._host.deref(host_blocks, restored=True)
         st["pos"] = int(spill["tokens"])
         self.metrics.count_swap_in(nfull, spill["tokens"])
+        with self._telemetry("swap_in event"):
+            self.telemetry.tracer.event(req.id, "swap_in",
+                                        tokens=int(spill["tokens"]),
+                                        blocks=nfull)
+            self.telemetry.recorder.record(
+                "swap_in", rid=req.id, slot=slot,
+                tokens=int(spill["tokens"]), blocks=nfull)
 
     def _spill_victim(self, slot: int, req: Request) -> bool:
         """Park the victim's committed full blocks in the host tier
         before they recycle, when they cover at least ``swap_min_tokens``
         tokens (a shorter prefix recomputes). A full tier first drops
         the prefix cache's oldest demoted nodes; a spill that raises
-        falls back to recompute."""
+        (the ``serving:spill_write`` point included) falls back to
+        recompute. Every verdict is counted."""
         self._release_spill(req)
         bs = self.engine.block_size
         nfull = int(self._t[slot]) // bs
         tokens = nfull * bs
         if nfull < 1 or tokens < self._swap_min:
+            self._c_swap_dec.labels(choice="recompute").inc()
             return False
         blocks = self.engine.table[slot, :nfull].tolist()
+        self._swaps_in_flight += 1
         try:
-            host = self.engine.spill_blocks(blocks)
+            with self._phase("spill"):
+                host = self.engine.spill_blocks(blocks)
             if host is None and self._cache is not None and \
                     self._cache.reclaim_host_blocks(nfull):
                 # a live request's work outranks a cold cached prefix
-                host = self.engine.spill_blocks(blocks)
-        except Exception:
+                with self._phase("spill"):
+                    host = self.engine.spill_blocks(blocks)
+        except Exception as e:
+            self._c_swap_dec.labels(choice="fault").inc()
+            self._c_swap_fb.labels(where="spill").inc()
+            with self._telemetry("spill_failed event"):
+                self.telemetry.recorder.record(
+                    "spill_failed", rid=req.id, blocks=nfull,
+                    error=repr(e))
             return False
+        finally:
+            self._swaps_in_flight -= 1
         if host is None:
+            self._c_swap_dec.labels(choice="host_full").inc()
             return False
         req._spill = {"host_blocks": host, "tokens": tokens}
         self.metrics.count_spill(nfull)
+        self._c_swap_dec.labels(choice="swap").inc()
+        with self._telemetry("spill event"):
+            self.telemetry.tracer.event(req.id, "spill", tokens=tokens,
+                                        blocks=nfull)
+            self.telemetry.recorder.record(
+                "spill", rid=req.id, slot=slot, tokens=tokens,
+                blocks=nfull)
         return True
 
     def _release_spill(self, req: Request):
@@ -1421,16 +2329,20 @@ class ServingEngine:
     def _promote_host_blocks(self, host_blocks) -> Optional[List[int]]:
         """The prefix cache's promotion closure: grant device blocks for
         a demoted node and copy its parked KV into them. None when the
-        pool cannot grant them or the copy raises (the lookup then
-        misses there); it never evicts or preempts on its own."""
+        pool cannot grant them or the copy raises (counted; the lookup
+        then misses there); it never evicts or preempts on its own."""
         dev = self._alloc.alloc(len(host_blocks))
         if dev is None:
             return None
+        self._swaps_in_flight += 1
         try:
             self.engine.restore_blocks(host_blocks, dev)
         except Exception:
             self._alloc.deref(dev)
+            self._c_swap_fb.labels(where="promote").inc()
             return None
+        finally:
+            self._swaps_in_flight -= 1
         return dev
 
     def _preempt(self, slot: int):
@@ -1458,6 +2370,261 @@ class ServingEngine:
         self.scheduler.requeue(req)
         self._adm_blocked = None
         self.metrics.record_preemption()
+        with self._telemetry("preempt events"):
+            self.telemetry.tracer.lifecycle(
+                req.id, "preempted", slot=slot,
+                tokens_so_far=len(req.tokens))
+            self.telemetry.recorder.record(
+                "preempt", rid=req.id, slot=slot,
+                tokens_so_far=len(req.tokens))
+
+    def _drop_queued(self, req: Request, reason: str):
+        """Retire a request that holds no slot (a faulted admission that
+        never got one): only host state to release, plus any spill
+        manifest still parking its KV in the host tier."""
+        req.status = "done"
+        req.finish_reason = reason
+        if self._host is not None:
+            self._release_spill(req)
+        self._ptimes.pop(req.id, None)
+        self.metrics.record_drop(req, reason)
+        with self._telemetry("drop events"):
+            self.telemetry.tracer.lifecycle(
+                req.id, "finished", reason=reason,
+                new_tokens=len(req.tokens))
+            self.telemetry.recorder.record("retire", rid=req.id,
+                                           reason=reason, queued=True)
+        if req.on_finish is not None:
+            try:
+                req.on_finish(req)
+            except BaseException:
+                self._cb_error = True   # client fault: engine-scoped
+                raise
+
+    def _quarantine(self, req: Request, exc: BaseException, where: str):
+        """Retire exactly ONE faulted request with
+        ``finish_reason="error"`` (``serving.py:5248``): a request that
+        owns a slot tears down through :meth:`_retire` (slot, blocks and
+        trie pins released, ``on_finish`` fired); one that never got a
+        slot drops like a queued request. The fault is counted, lands in
+        the flight ring and on the request's trace lane, and an
+        :meth:`audit` reconciles the pools."""
+        self._c_req_err.labels(where=where).inc()
+        # the quarantine's own telemetry is best-effort: an unhealthy
+        # recorder must not turn a request fault into an engine fault
+        try:
+            self.telemetry.recorder.record(
+                "request_error", rid=req.id, where=where,
+                error=repr(exc))
+            self.telemetry.tracer.event(req.id, "request_error",
+                                        where=where, error=repr(exc))
+        except Exception as rec_err:
+            self._warn_dump_failed("request_error event", rec_err)
+        slot = next((i for i, r in enumerate(self._slots) if r is req),
+                    None)
+        if slot is not None:
+            self._retire(slot, "error")
+        elif req.status != "done":
+            self._drop_queued(req, "error")
+        try:
+            self.audit()
+        except Exception as rec_err:
+            self._warn_dump_failed("post-quarantine audit", rec_err)
+
+    def audit(self, record: bool = True) -> Dict[str, int]:
+        """State reconciliation (``serving.py:5283``): the block pool's
+        refcounts, the host tier's, the trie's pins and the slot table
+        against what the scheduler can account for, published as the
+        ``serving_leaked_blocks``, ``serving_orphaned_pins`` and
+        ``serving_leaked_host_blocks`` gauges. Pure read.
+
+        A block's holders are the live slots whose table maps it (one
+        reference a mapped entry) plus each trie node listing it; a trie
+        node's pins are the prefilling slots holding it since admission;
+        a host block's holders are the spill manifests of queued and
+        live requests plus demoted trie nodes."""
+        report = {"leaked_blocks": 0, "missing_refs": 0,
+                  "free_list_errors": 0, "orphaned_pins": 0,
+                  "slot_errors": 0, "leaked_host_blocks": 0,
+                  "missing_host_refs": 0, "host_free_list_errors": 0,
+                  "leaked_adapters": 0, "missing_adapter_refs": 0,
+                  "adapter_free_list_errors": 0}
+        # occupied and free must partition [0, b), and a prefill record
+        # needs a live owner
+        occupied = {i for i, r in enumerate(self._slots) if r is not None}
+        free = set(self._free)
+        report["slot_errors"] = (
+            len(occupied & free) + (self.b - len(occupied | free))
+            + sum(1 for i in range(self.b)
+                  if self._pf[i] is not None and self._slots[i] is None))
+        held: Dict[int, int] = {}
+        for i in occupied:
+            if self._pf[i] is not None:
+                for nd in self._pf[i]["nodes"]:
+                    held[id(nd)] = held.get(id(nd), 0) + 1
+        expected: Dict[int, int] = {}
+        host_expected: Dict[int, int] = {}
+        if self._cache is not None:
+            # ONE trie walk: the pins, the nodes' device blocks and a
+            # demoted node's parked host blocks
+            for nd in self._cache.iter_nodes():
+                extra = nd.refs - held.get(id(nd), 0)
+                if extra > 0:
+                    report["orphaned_pins"] += extra
+                for b in nd.blocks or ():
+                    expected[int(b)] = expected.get(int(b), 0) + 1
+                for b in getattr(nd, "host_blocks", None) or ():
+                    host_expected[int(b)] = host_expected.get(int(b), 0) + 1
+        if self.paged:
+            for i in occupied:
+                for b in self.engine.table[i, :self._nblocks[i]]:
+                    expected[int(b)] = expected.get(int(b), 0) + 1
+            report.update(self._alloc.reconcile(expected))
+        if self._host is not None:
+            with self._lock:
+                pending = list(self.scheduler.pending())
+            for r in pending + [r for r in self._slots if r is not None]:
+                sp = getattr(r, "_spill", None)
+                for b in (sp or {}).get("host_blocks", ()):
+                    host_expected[int(b)] = host_expected.get(int(b), 0) + 1
+            report.update(self._host.reconcile(host_expected))
+        self._g_leaked.set(report["leaked_blocks"])
+        self._g_orphaned.set(report["orphaned_pins"])
+        self._g_leaked_host.set(report["leaked_host_blocks"])
+        if record:
+            self.telemetry.recorder.record("audit", **report)
+        return report
+
+    # -- ops-plane accessors: read-only load and health state ---------------
+    def free_slot_count(self) -> int:
+        return len(self._free)
+
+    def free_block_count(self) -> Optional[int]:
+        """Free paged-pool blocks; None on the dense arena."""
+        return self._alloc.free_count() if self.paged else None
+
+    def host_tier_state(self) -> Optional[Dict[str, int]]:
+        """The host tier's occupancy (None without a tier)."""
+        if self._host is None:
+            return None
+        return {"capacity": self._host.capacity,
+                "free": self._host.free_count(),
+                "in_use": self._host.blocks_in_use(),
+                "spills": self._host.spills,
+                "swap_ins": self._host.swap_ins}
+
+    def _req_tier(self, req: Request) -> int:
+        """The priority tier a queued request is counted under (the
+        port's requests carry no priority yet: tier 0)."""
+        p = getattr(req, "priority", None)
+        return int(p) if p is not None else 0
+
+    def queue_depth_by_tier(self) -> Dict[int, int]:
+        out: Dict[int, int] = {}
+        with self._lock:
+            pending = list(self.scheduler.pending())
+        for r in pending:
+            t = self._req_tier(r)
+            out[t] = out.get(t, 0) + 1
+        return out
+
+    def breaker_state(self) -> Dict[str, Any]:
+        """Circuit-breaker state: ``open`` is True from a trip until the
+        next :meth:`run` call (the operator's restart)."""
+        return {"open": self._breaker_open,
+                "failures": self._engine_failures,
+                "threshold": self._breaker_threshold}
+
+    def audit_state(self) -> Dict[str, int]:
+        """The LAST audit's leak gauges, what ``/readyz`` reads without
+        paying a fresh reconciliation per probe."""
+        return {"leaked_blocks": int(self._g_leaked.value),
+                "orphaned_pins": int(self._g_orphaned.value),
+                "leaked_host_blocks": int(self._g_leaked_host.value),
+                "leaked_adapters": 0}
+
+    def dispatch_stalled(self) -> int:
+        """Dispatches CURRENTLY past the stall watchdog, across every
+        ProgramSet this engine drives (the drafter's included)."""
+        return sum(ps.stalls_in_progress for ps in self._program_sets())
+
+    def publish_load_gauges(self) -> None:
+        """Refresh the scrape-time load gauges (``serving.py:5483``):
+        read-only snapshots the ops plane takes per ``/metrics``
+        scrape, so the tick loop never pays for them."""
+        self._g_free_slots.set(self.free_slot_count())
+        fb = self.free_block_count()
+        self._g_free_blocks.set(-1.0 if fb is None else float(fb))
+        depth = self.queue_depth_by_tier()
+        for t in self._tiers_seen - set(depth):
+            self._g_tier_depth.labels(tier=str(t)).set(0.0)
+        for t, n in depth.items():
+            self._tiers_seen.add(t)
+            self._g_tier_depth.labels(tier=str(t)).set(float(n))
+        m = self.metrics
+        steps = len(m.step_samples)
+        self._g_overlap_frac.set(m.overlap_ticks / steps if steps else 0.0)
+        self._g_breaker_open.set(1.0 if self._breaker_open else 0.0)
+        self._g_stalled.set(float(self.dispatch_stalled()))
+        self._g_host_blocks.set(
+            -1.0 if self._host is None
+            else float(self._host.blocks_in_use()))
+        self._g_swap_inflight.set(float(self._swaps_in_flight))
+        self._g_prefill_backlog.set(float(self.prefill_backlog_tokens()))
+        util = self.replica_utilization()
+        self._g_rep_util.labels(replica="0").set(util["utilization"][0])
+        self._g_rep_tpt.labels(replica="0").set(util["tokens_per_tick"][0])
+        self._g_skew.set(util["skew"])
+        if self._g_pfx_hit_rate is not None:
+            cache = self._cache
+            lk = cache.lookups
+            self._g_pfx_hit_rate.labels(replica="0").set(
+                cache.hits / lk if lk else 0.0)
+            self._g_pfx_bytes.labels(replica="0").set(float(cache.bytes))
+            self._g_pfx_hit_tokens.labels(replica="0").set(
+                float(cache.hit_tokens))
+
+    def debug_requests(self) -> Dict[str, Any]:
+        """The live slot and queue table plus the reconciliation report
+        (``/debug/requests``), built from the enumeration :meth:`audit`
+        reconciles, with ``record=False`` so a scrape never lands an
+        event in the flight ring."""
+        with self._lock:
+            slots = []
+            for i, r in enumerate(self._slots):
+                if r is None:
+                    slots.append(None)
+                    continue
+                row = {"slot": i, "id": r.id, "tenant": r.tenant,
+                       "status": ("prefilling" if self._pf[i] is not None
+                                  else "decoding"),
+                       "prompt_len": len(r.prompt),
+                       "new_tokens": len(r.tokens),
+                       "offset": int(self._t[i]),
+                       "budget": int(self._budget[i]),
+                       "finish_reason": r.finish_reason}
+                if self.paged:
+                    row["blocks"] = int(self._nblocks[i])
+                slots.append(row)
+            queue = [{"id": r.id, "tenant": r.tenant,
+                      "tier": self._req_tier(r),
+                      "prompt_len": len(r.prompt),
+                      "arrival_time": r.arrival_time,
+                      "deadline": r.deadline}
+                     for r in self.scheduler.pending()]
+            report = self.audit(record=False)
+        return {"slots": slots, "queue": queue, "audit": report,
+                "free_slots": len(self._free),
+                "free_blocks": self.free_block_count(),
+                "host_tier": self.host_tier_state(),
+                "breaker": self.breaker_state()}
+
+    def poison_slot_kv(self, slot: int):
+        """Chaos/testing delegate (``serving.py:5604``): corrupt one live
+        slot's committed KV (:meth:`DecodeEngine.poison_slot_kv`), the
+        trigger of the ``serving:tick`` point's
+        :func:`~paddle_tpu_torch.testing.fault_injection.nan_kv`."""
+        self.engine.poison_slot_kv(slot)
 
     def _select_victim(self) -> Optional[int]:
         cands = [(i, r, int(self._seq[i]))
@@ -1496,86 +2663,207 @@ class ServingEngine:
                 self.engine.table[slot, n0:n0 + need] = got
                 self._nblocks[slot] += need
 
+    def _backlog(self, now: float) -> int:
+        return self.scheduler.due_count(now)
+
     def step_decode(self):
         """One tick: one prefill chunk (oldest-admitted prefilling slot)
         plus one lockstep decode step committing a token to every live
         slot past prefill. A slot whose prompt completed this very tick
         joins the decode half immediately."""
-        self.scheduler.on_tick(self._now())
-        occupied = self.active_count()
-        if occupied:
-            self.metrics.record_tick(
-                occupied, self.scheduler.due_count(self._now()),
-                blocks=self._alloc.blocks_in_use() if self.paged else None)
+        # chaos hook: crash mid-tick, or storage corruption (nan_kv)
+        self._ticks_total += 1
+        fault_point("serving:tick", engine=self, step=self._ticks_total)
+        with self._phase("bookkeeping"):
+            self.scheduler.on_tick(self._now())
+            occupied = self.active_count()
+            self._rep_ticks += 1
+            self._rep_busy[0] += occupied
+            if occupied:
+                self.metrics.record_tick(
+                    occupied, self._backlog(self._now()),
+                    blocks=self._alloc.blocks_in_use() if self.paged
+                    else None)
         self._run_prefill_chunk()
         if self.paged:
-            self._ensure_decode_blocks(self._spec_k + 1)
-        live = [i for i, r in enumerate(self._slots)
-                if r is not None and self._pf[i] is None]
+            with self._phase("block_growth"):
+                self._ensure_decode_blocks(self._spec_k + 1)
+        with self._phase("bookkeeping"):
+            live = [i for i, r in enumerate(self._slots)
+                    if r is not None and self._pf[i] is None]
         if not live:
             return
         if self.spec is not None:
             return self._step_speculative(live)
+        with self._phase("bookkeeping"):
+            with self._telemetry("launch event"):
+                self.telemetry.recorder.record(
+                    "launch", program="decode_step", live=len(live))
         t0 = time.perf_counter()
-        tok = self.engine.step(self._toks, self._t, self._temps,
-                               self._greedy, self._keydata,
-                               topks=self._topk, topps=self._topp)
-        # overlapped tick: the next tick's admissions run while the card
-        # computes this step (slots retire at commit, after this pass,
-        # so WHICH requests admit is unchanged — only when)
-        self._admit_ready()
-        toks = tok.cpu().numpy()
-        self.metrics.record_step(len(live),
-                                 self.scheduler.due_count(self._now()),
-                                 seconds=time.perf_counter() - t0)
-        for slot in live:
-            self._t[slot] += 1
-            self._toks[slot, 0] = int(toks[slot, 0])
-            self._commit_token(slot, int(toks[slot, 0]))
+        with self._phase("decode_dispatch"):
+            tok, fin = self.engine.step(self._toks, self._t, self._temps,
+                                        self._greedy, self._keydata,
+                                        topks=self._topk, topps=self._topp,
+                                        defer=True)
+        self._overlap_window(fin)
+        with self._phase("token_sync"):
+            toks = self._read_tokens(tok)
+        with self._phase("bookkeeping"):
+            self.metrics.record_step(len(live), self._backlog(self._now()),
+                                     seconds=time.perf_counter() - t0)
+            finite = self._finite_mask()
+        with self._phase("callbacks"):
+            for slot in live:
+                if finite is not None and not finite[slot]:
+                    self._quarantine_nonfinite(slot)
+                    continue
+                # per-SLOT state commit: if a later slot's commit raises
+                # and the breaker absorbs the tick, the untouched slots
+                # still hold their last committed token and offset
+                self._t[slot] += 1
+                self._toks[slot, 0] = int(toks[slot, 0])
+                self._commit_token(slot, int(toks[slot, 0]))
+
+    def _read_tokens(self, tok) -> np.ndarray:
+        """The step's tokens on the host; with the logit guard, its
+        finite mask rides the same device-to-host copy."""
+        finite = self.engine.last_step_finite
+        if not self.logit_guard or finite is None:
+            self._finite_host = None
+            return tok.cpu().numpy()
+        res = torch.cat([tok, finite[:, None].to(tok.dtype)], dim=1).cpu()
+        self._finite_host = res[:, -1].numpy().astype(bool)
+        return res[:, :-1].numpy()
 
     def _step_speculative(self, live):
-        """One draft-and-verify tick (``serving.py:6234-6350`` without
-        constraints, quarantine or telemetry): drafts from the slots'
-        contexts, one verify over all slots, the next tick's admissions
-        while the card computes, one read of ``out`` and ``accept``,
-        then every live slot commits between 1 and ``accept_cap + 1``
-        tokens — a host decision, never a shape."""
-        ctxs: List[Optional[List[int]]] = [None] * self.b
-        for i in live:
-            r = self._slots[i]
-            ctxs[i] = list(r.prompt) + r.tokens
-        drafts = self.spec.propose(ctxs, self._toks[:, 0], self._t)
+        """One draft-and-verify tick (``serving.py:6233`` without
+        constraints): drafts from the slots' contexts, one verify over
+        all slots, the next tick's admissions while the card computes,
+        one read of ``out``, ``accept`` (and the finite mask), then
+        every live slot commits between 1 and ``accept_cap + 1`` tokens
+        — a host decision, never a shape."""
+        with self._phase("bookkeeping"):
+            ctxs: List[Optional[List[int]]] = [None] * self.b
+            for i in live:
+                r = self._slots[i]
+                ctxs[i] = list(r.prompt) + r.tokens
+        with self._phase("draft"):
+            drafts = self.spec.propose(ctxs, self._toks[:, 0], self._t)
+        with self._phase("bookkeeping"):
+            with self._telemetry("launch event"):
+                self.telemetry.recorder.record(
+                    "launch", program="verify", live=len(live))
         t0 = time.perf_counter()
-        out, acc = self.engine.verify(
-            self._toks, drafts, self._t, self._temps, self._greedy,
-            self._keydata, topks=self._topk, topps=self._topp)
+        with self._phase("decode_dispatch"):
+            out, acc, fin = self.engine.verify(
+                self._toks, drafts, self._t, self._temps, self._greedy,
+                self._keydata, topks=self._topk, topps=self._topp,
+                defer=True)
+        self._overlap_window(fin)
+        with self._phase("token_sync"):
+            # one host read of all of them
+            cols = [out, acc[:, None].to(out.dtype)]
+            finite = self.engine.last_step_finite
+            if self.logit_guard and finite is not None:
+                cols.append(finite[:, None].to(out.dtype))
+            res = torch.cat(cols, dim=1).cpu().numpy()
+            k1 = out.shape[1]
+            out, acc = res[:, :k1], res[:, k1]
+            self._finite_host = res[:, k1 + 1].astype(bool) \
+                if len(cols) == 3 else None
+        with self._phase("bookkeeping"):
+            seconds = time.perf_counter() - t0
+            backlog = self._backlog(self._now())
+            cap = min(self.spec.accept_cap, self._spec_k)
+            accepted_total = committed_total = 0
+            finite = self._finite_mask()
+        with self._phase("callbacks"):
+            for slot in live:
+                if finite is not None and not finite[slot]:
+                    self._quarantine_nonfinite(slot)
+                    continue
+                req = self._slots[slot]
+                # never outrun the admitted budget; accepted counts what
+                # the verify accepted (clamped by the drafter's cap
+                # only), committed what was delivered
+                remaining = int(self._budget[slot]) - len(req.tokens)
+                va = min(int(acc[slot]), cap)
+                a = min(va, remaining - 1)
+                accepted_total += va
+                # offset and pending token advance with each append
+                for j in range(a + 1):
+                    self._t[slot] += 1
+                    self._toks[slot, 0] = int(out[slot, j])
+                    self._commit_token(slot, int(out[slot, j]))
+                    committed_total += 1
+                    if self._slots[slot] is None:
+                        break   # EOS inside the accepted prefix
+        with self._phase("bookkeeping"):
+            self.metrics.record_step(len(live), backlog, accepted_total,
+                                     committed_total, seconds=seconds)
+
+    def _overlap_window(self, fin):
+        """The tick's host/device overlap window (``serving.py:6476``),
+        between the decode or verify DISPATCH and its token read: the
+        next tick's admissions run while the step is in flight, then
+        the dispatch window closes (``fin``). The ``finally`` keeps a
+        raising window from leaking an armed watchdog timer."""
+        try:
+            if self._overlap and not self._cb_error:
+                with self._phase("overlap_window"):
+                    self._overlap_admit()
+        finally:
+            with self._phase("token_sync"):
+                self._await_dispatch(fin)
+
+    def _overlap_admit(self):
+        """One admission pass for the next tick. Slots retire at commit,
+        after this window, so WHICH requests admit is what the next tick
+        boundary would have admitted — only when moves. Counted as an
+        overlapped tick when there was due work and a free slot."""
+        worked = bool(self._free) and self._backlog(self._now()) > 0
         self._admit_ready()
-        # one host read of both
-        res = torch.cat([out, acc[:, None].to(out.dtype)], dim=1).cpu()
-        out, acc = res[:, :-1].numpy(), res[:, -1].numpy()
-        seconds = time.perf_counter() - t0
-        backlog = self.scheduler.due_count(self._now())
-        cap = min(self.spec.accept_cap, self._spec_k)
-        accepted_total = committed_total = 0
-        for slot in live:
-            req = self._slots[slot]
-            # never outrun the admitted budget; accepted counts what the
-            # verify accepted (clamped by the drafter's cap only),
-            # committed what was delivered
-            remaining = int(self._budget[slot]) - len(req.tokens)
-            va = min(int(acc[slot]), cap)
-            a = min(va, remaining - 1)
-            accepted_total += va
-            # offset and pending token advance with each append
-            for j in range(a + 1):
-                self._t[slot] += 1
-                self._toks[slot, 0] = int(out[slot, j])
-                self._commit_token(slot, int(out[slot, j]))
-                committed_total += 1
-                if self._slots[slot] is None:
-                    break   # EOS inside the accepted prefix: drop the rest
-        self.metrics.record_step(len(live), backlog, accepted_total,
-                                 committed_total, seconds=seconds)
+        if worked:
+            self.metrics.count_overlap_tick()
+
+    def _await_dispatch(self, fin):
+        """The device-completion boundary (the armed watchdog's event
+        wait; a no-op unarmed, where the token read is the sync)."""
+        if fin is not None:
+            fin()
+
+    def _finite_mask(self):
+        """The guarded step's per-slot finite mask on the host (read with
+        its tokens), or None when the guard is off."""
+        if not self.logit_guard:
+            return None
+        return self._finite_host
+
+    def _quarantine_nonfinite(self, slot: int):
+        """The logit guard flagged ``slot`` (``serving.py:6545``): retire
+        exactly that request, counted, discarding its draw, then
+        DECONTAMINATE the storage it released — the dense row, or every
+        released block no other holder kept (a trie-shared block keeps
+        its content, and the guard retires its next reader too)."""
+        req = self._slots[slot]
+        self._c_nonfinite.inc()
+        with self._telemetry("nonfinite event"):
+            self.telemetry.recorder.record(
+                "nonfinite_logits", rid=req.id, slot=slot,
+                tokens_so_far=len(req.tokens))
+        mapped = None
+        if self.paged:
+            mapped = [int(b) for b in
+                      np.unique(self.engine.table[
+                          slot, :self._nblocks[slot]]) if b != 0]
+        self._quarantine(
+            req, FloatingPointError("non-finite decode logits"),
+            "logit_guard")
+        if not self.paged:
+            self.engine.scrub_slot_kv(slot=slot)
+        elif mapped:
+            self.engine.scrub_slot_kv(
+                blocks=[b for b in mapped if self._alloc.refcount(b) == 0])
 
     def _idle_wait(self, wait: float):
         """Sleep toward the next arrival; an injected clock that does not
@@ -1589,8 +2877,235 @@ class ServingEngine:
                 "_idle_wait() to advance it (or submit requests with "
                 "arrival_time already due)")
 
+    def run(self, max_steps: Optional[int] = None,
+            keep_epoch: bool = False) -> ServingMetrics:
+        """Drive the loop until queue and slots drain (or ``max_steps``
+        ticks). A call that starts from an idle engine opens a fresh
+        metrics window and clock anchor for ``arrival_time``; a call is
+        also the operator's restart of a tripped breaker.
+        Engine-scoped tick failures count against the breaker: below
+        ``engine_failure_threshold`` consecutive ones the broken tick is
+        skipped, at it the engine dumps its flight ring and raises.
+        ``keep_epoch`` is accepted at its default only."""
+        refuse_unported("ServingEngine.run", keep_epoch=(keep_epoch, False))
+        steps = 0
+        self._breaker_open = False
+        self._engine_failures = 0
+        if not self.active_count():
+            self._t0 = self.clock()
+            self.metrics = ServingMetrics(
+                self.b, self._cache, self._alloc,
+                registry=self.telemetry.registry, slo=self.telemetry.slo)
+            self._ptimes.clear()
+            self._rep_ticks = 0
+            self._rep_busy = [0] * self.replicas
+            self._rep_tokens = [0] * self.replicas
+        self._now()
+        try:
+            while self.scheduler.depth() or self.active_count():
+                try:
+                    outcome = self._run_tick()
+                except Exception as e:
+                    if not self._quar:
+                        raise
+                    cb, self._cb_error = self._cb_error, False
+                    self._engine_failures += 1
+                    self._c_eng_err.inc()
+                    try:
+                        self.telemetry.recorder.record(
+                            "engine_error", error=repr(e),
+                            failures=self._engine_failures,
+                            client_callback=cb)
+                    except Exception as rec_err:
+                        self._warn_dump_failed("engine_error event",
+                                               rec_err)
+                    if self._engine_failures >= self._breaker_threshold:
+                        self._breaker_open = True
+                        self._c_breaker.inc()
+                        try:
+                            self.telemetry.recorder.record(
+                                "breaker_trip",
+                                failures=self._engine_failures,
+                                threshold=self._breaker_threshold)
+                        except Exception as rec_err:
+                            self._warn_dump_failed("breaker_trip event",
+                                                   rec_err)
+                        raise
+                    try:
+                        self.audit()
+                    except Exception as rec_err:
+                        self._warn_dump_failed("post-failure audit",
+                                               rec_err)
+                    continue
+                self._engine_failures = 0
+                if outcome == "done":
+                    break
+                if outcome == "stepped":
+                    steps += 1
+                    if max_steps is not None and steps >= max_steps:
+                        break
+        except BaseException as e:
+            # postmortem first, propagation second; every telemetry step
+            # is guarded, so a broken recorder neither masks ``e`` nor
+            # skips the dump
+            try:
+                self.telemetry.recorder.record(
+                    "exception", error=repr(e), steps=steps,
+                    active=self.active_count(),
+                    queued=self.queue_depth())
+            except Exception as rec_err:
+                self._warn_dump_failed("exception event", rec_err)
+            try:
+                path = self.telemetry.recorder.dump_on_crash(
+                    e, context={"steps": steps,
+                                "active": self.active_count(),
+                                "queued": self.queue_depth()})
+            except Exception as rec_err:
+                path = None
+                self._warn_dump_failed("crash dump", rec_err)
+            if path is not None:
+                print(f"[serving] flight recorder dumped to {path} "
+                      f"(render: python -m paddle_tpu_torch.observability."
+                      f"dump {path})", file=sys.stderr)
+            raise
+        return self.metrics
+
+    def _telemetry(self, what: str):
+        """Context for tracer and flight-ring EMISSION on request paths:
+        a failing write is counted (``serving_flight_dump_failed_total``)
+        and warned, never propagated."""
+        @contextlib.contextmanager
+        def scope():
+            try:
+                yield
+            except Exception as err:
+                self._warn_dump_failed(what, err)
+
+        return scope()
+
+    # -- tick-anatomy profiling ----------------------------------------------
+    def _phase(self, name: str):
+        """Guarded profiler phase span: the shared null context when
+        profiling is off, an absorb-count-warn :class:`_ProfPhase` when
+        it is on."""
+        try:
+            prof = getattr(self.telemetry, "profiler", None)
+            if prof is None or not prof.enabled:
+                return _NULL_PHASE
+        except Exception as err:
+            self._profile_failed(err)
+            return _NULL_PHASE
+        return _ProfPhase(self, name)
+
+    def _prof_tick_begin(self):
+        prof = getattr(self.telemetry, "profiler", None)
+        if prof is None or not prof.enabled:
+            return None
+        try:
+            return prof.tick_begin()
+        except Exception as err:
+            self._profile_failed(err)
+            return None
+
+    def _prof_tick_end(self, token, stepped: bool):
+        if token is None:
+            return
+        prof = getattr(self.telemetry, "profiler", None)
+        try:
+            if prof is not None:
+                prof.tick_end(token, commit=stepped)
+        except Exception as err:
+            self._profile_failed(err)
+
+    def _profile_failed(self, err: BaseException):
+        """A profiler call raised: count it every time, warn once."""
+        try:
+            self._c_prof_err.inc()
+        except Exception:
+            pass
+        if self._profile_warned:
+            return
+        self._profile_warned = True
+        try:
+            print(f"[serving] tick profiler raised and was absorbed "
+                  f"({err!r}); further failures are counted in "
+                  f"serving_profiler_errors_total without this "
+                  f"warning", file=sys.stderr)
+        except Exception:
+            pass
+
+    def replica_utilization(self) -> Dict[str, Any]:
+        """Utilization accounting for the current metrics window,
+        counted on the tick path (one replica here)."""
+        ticks = self._rep_ticks
+        busy = [int(b) for b in self._rep_busy]
+        toks = [int(t) for t in self._rep_tokens]
+        denom = ticks * self.b
+        mean = sum(busy) / len(busy) if busy else 0.0
+        return {
+            "ticks": int(ticks),
+            "busy_slot_ticks": busy,
+            "utilization": [b / denom if denom else 0.0 for b in busy],
+            "tokens": toks,
+            "tokens_per_tick": [t / ticks if ticks else 0.0
+                                for t in toks],
+            "skew": (max(busy) / mean) if mean > 0 else 1.0,
+        }
+
+    def profile_state(self) -> Dict[str, Any]:
+        """The ``/debug/profile`` snapshot (``serving.py:6832``): the
+        tick-phase breakdown, the programs ranked by cumulative warm
+        wall time from every ProgramSet's dispatch ledger, and the
+        utilization split."""
+        prof = getattr(self.telemetry, "profiler", None)
+        out: Dict[str, Any] = {
+            "enabled": bool(prof is not None and prof.enabled),
+            "profiler": prof.snapshot() if prof is not None else None,
+        }
+        programs: Dict[str, Dict[str, float]] = {}
+        for ps in self._program_sets():
+            for name, st in ps.dispatch_stats().items():
+                agg = programs.setdefault(name, {})
+                for k, v in st.items():
+                    agg[k] = agg.get(k, 0.0) + v
+        top = [dict(program=name, **st) for name, st in programs.items()]
+        top.sort(key=lambda row: -row.get("wall_s", 0.0))
+        out["top_programs"] = top
+        out["replicas"] = dict(self.replica_utilization(),
+                               count=self.replicas)
+        out["adaptations"] = None
+        return out
+
+    def _warn_dump_failed(self, what: str, err: BaseException):
+        """A telemetry write failed: count it and warn on stderr. Guarded
+        itself — the original exception stays the one the caller sees."""
+        try:
+            self._c_dump_failed.inc()
+        except Exception:
+            pass
+        try:
+            print(f"[serving] flight_dump_failed: {what} could not be "
+                  f"written ({err!r})", file=sys.stderr)
+        except Exception:
+            pass
+
+    def _run_tick(self) -> str:
+        """One iteration of the serving loop, bracketed by the tick
+        profiler; only ``"stepped"`` iterations commit as profiled
+        ticks."""
+        tok = self._prof_tick_begin()
+        if tok is None:
+            return self._tick_once()
+        outcome = "error"
+        try:
+            outcome = self._tick_once()
+            return outcome
+        finally:
+            self._prof_tick_end(tok, outcome == "stepped")
+
     def _tick_once(self) -> str:
-        self._admit_ready()
+        with self._phase("admission"):
+            self._admit_ready()
         if not self.active_count():
             if not self.scheduler.depth():
                 return "done"
@@ -1612,26 +3127,3 @@ class ServingEngine:
                 "satisfy it even when empty")
         self.step_decode()
         return "stepped"
-
-    def run(self, max_steps: Optional[int] = None,
-            keep_epoch: bool = False) -> ServingMetrics:
-        """Drive the loop until queue and slots drain (or ``max_steps``
-        ticks). A call that starts from an idle engine opens a fresh
-        metrics window and clock anchor for ``arrival_time``.
-        ``keep_epoch`` is accepted at its default only."""
-        refuse_unported("ServingEngine.run", keep_epoch=(keep_epoch, False))
-        if not self.active_count():
-            self._t0 = self.clock()
-            self.metrics = ServingMetrics(self.b, self._cache, self._alloc)
-            self._ptimes.clear()
-        self._now()
-        steps = 0
-        while self.scheduler.depth() or self.active_count():
-            outcome = self._tick_once()
-            if outcome == "done":
-                break
-            if outcome == "stepped":
-                steps += 1
-                if max_steps is not None and steps >= max_steps:
-                    break
-        return self.metrics

@@ -37,9 +37,14 @@ acceptance coin and draw are ``position_uniforms(keydata, P, lane)`` on
 lanes ``LANE_COIN`` and ``LANE_DRAW`` (``core/random.py``), so a
 request's stream depends on the request and the position only.
 
+The verify dispatches as the ``verify`` program of the engine's
+:class:`~paddle_tpu_torch.inference.program_set.ProgramSet`, beside the
+chunk prefill, so a speculative engine counts chunk + verify = 2
+executables; with ``logit_guard=True`` it also returns the per-slot
+finite mask over every candidate position (``speculative.py:559``).
+
 Not ported yet: ``DraftLenController`` (adaptive k), the constrained
-verify's masks, the logit guard, adapters and replicas, and the
-compiled-executable counts (the port compiles nothing).
+verify's masks, adapters and replicas.
 """
 
 from __future__ import annotations
@@ -50,8 +55,9 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.random import LANE_COIN, LANE_DRAW
-from paddle_tpu_torch.core.unported import refuse_unported
+from paddle_tpu_torch.inference.program_set import _weak_program
 from paddle_tpu_torch.inference.serving import DecodeEngine
+from paddle_tpu_torch.observability.sentinel import describe_args
 
 __all__ = ["NgramDrafter", "DraftModelDrafter", "SpeculativeEngine"]
 
@@ -228,6 +234,12 @@ class DraftModelDrafter:
         if self.engine is not None:
             self.engine.release_buffers()
 
+    def executable_count(self) -> Optional[int]:
+        """The draft arena's program count (0 before :meth:`begin`)."""
+        if self.engine is None:
+            return 0
+        return self.engine.executable_count()
+
 
 class SpeculativeEngine(DecodeEngine):
     """A :class:`DecodeEngine` (dense or paged) plus one verify at fixed
@@ -238,8 +250,8 @@ class SpeculativeEngine(DecodeEngine):
     blocks, and applies the acceptance rule on the device. Callers keep
     ``t + k <= max_len - 1`` for every slot (the serving engine reserves
     k rows of headroom). The reference's ``ids_dtype``, ``mesh``,
-    ``logit_guard``, ``host_tier_blocks``, ``seq_parallel`` and
-    ``adapter_pool`` are accepted at their defaults only."""
+    ``seq_parallel`` and ``adapter_pool`` are accepted at their
+    defaults only."""
 
     def __init__(self, model, max_batch_slots: int, max_len: int,
                  k: int = 4, top_k: Optional[int] = None, ids_dtype=None,
@@ -260,6 +272,9 @@ class SpeculativeEngine(DecodeEngine):
                          seq_parallel=seq_parallel,
                          adapter_pool=adapter_pool)
         self.k = int(k)
+        # same registry as the base programs: the sentinel and
+        # executable_count() see the verify beside the chunk prefill
+        self.programs.register("verify", _weak_program(self._verify_program))
 
     def verify(self, pending, drafts, t, temps, greedy, keydata,
                topks=None, topps=None, defer: bool = False):
@@ -271,9 +286,34 @@ class SpeculativeEngine(DecodeEngine):
         Returns ``(out, accept)`` as (b, k+1) and (b,) device tensors,
         WITHOUT waiting for the card: commit ``out[slot, :accept[slot] +
         1]`` (clamped by the caller's cap) and advance ``t`` by as many.
-        ``defer`` is accepted at its default only."""
-        refuse_unported("SpeculativeEngine.verify", defer=(defer, False))
+        With the logit guard, ``last_step_finite`` holds the (b,)
+        finite mask over every candidate position. ``defer=True``
+        returns ``(out, accept, finalize)``, the overlap contract of
+        :meth:`DecodeEngine.step`."""
         self._ensure_buffers()
+        topks, topps = self._sampling_vectors(self.b, topks, topps)
+        t = np.asarray(t, np.int32)
+        temps = np.asarray(temps, np.float32)
+        greedy = np.asarray(greedy, bool)
+        keydata = np.asarray(keydata, np.uint32)
+        res = self.programs.call(
+            "verify", pending, drafts, t, temps, greedy, keydata, topks,
+            topps,
+            describe=lambda: describe_args(
+                pending=pending, drafts=drafts, t=t, temps=temps,
+                greedy=greedy, keydata=keydata, topks=topks, topps=topps),
+            defer=defer)
+        fin = None
+        if defer:
+            res, fin = res
+        out, acc, self.last_step_finite = res
+        return (out, acc, fin) if defer else (out, acc)
+
+    def _verify_program(self, pending, drafts, t, temps, greedy, keydata,
+                        topks, topps):
+        """The verify program (``_build_verify``): one forward over the
+        k+1 candidate rows a slot and the acceptance rule, ``(out,
+        accept, finite or None)`` on the device."""
         k = self.k
         toks = np.concatenate(
             [np.asarray(pending, np.int64).reshape(self.b, 1),
@@ -286,13 +326,21 @@ class SpeculativeEngine(DecodeEngine):
         pos = t_np[:, None] + 1 + np.arange(k + 1)
         u_draw = self._uniforms(a, keydata, pos, LANE_DRAW)
         u_coin = self._uniforms(a, keydata, pos[:, :k], LANE_COIN)
+        ok = None
         with self._eval_mode():
             # one forward over the k+1 candidate rows per slot; all of
             # them are genuine token K/V, so with int8 pools all k+1
             # count toward the block scales (cl = k + 1)
             logits, _ = self.model(ids, caches=self._caches(table, tv, k + 1))
-            lg = self._filter_dev(logits.float(), a)    # (b, k+1, V)
-            return self._accept(lg, ids[:, 1:], a["greedy"], u_coin, u_draw)
+            lg = logits.float()                            # (b, k+1, V)
+            if self.logit_guard:
+                # a poisoned slot's acceptance and resample run on
+                # zeros: valid draws the caller discards
+                ok, lg = self._guard(lg, 2)
+            lg = self._filter_dev(lg, a)
+            out, acc = self._accept(lg, ids[:, 1:], a["greedy"], u_coin,
+                                    u_draw)
+        return out, acc, ok
 
     def _accept(self, lg, drafts, greedy, u_coin, u_draw):
         """The acceptance rule over the filtered logits ``lg`` (b, k+1,

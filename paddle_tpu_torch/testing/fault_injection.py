@@ -1,13 +1,39 @@
 """Deterministic fault injection — the port of
 ``paddle_tpu/testing/fault_injection.py``.
 
-The port exposes the reference's named *fault points* on the paths it
-has ported: the window between a checkpoint's shard writes and its
-COMMIT marker (``ckpt:pre_commit``), each host-barrier attempt
-(``ckpt:host_barrier``), each shard-file write (``ckpt:shard_write``)
-and the training batch entering the step (``trainer:batch``). A fault
-point is one call into this module's registry; with nothing armed it is
-a test of an empty dict, so the production overhead is nil.
+The port exposes the reference's named *fault points*: the window
+between a checkpoint's shard writes and its COMMIT marker
+(``ckpt:pre_commit``), each host-barrier attempt (``ckpt:host_barrier``),
+each shard-file write (``ckpt:shard_write``) and the training batch
+entering the step (``trainer:batch``). A fault point is one call into
+this module's registry; with nothing armed it is a test of an empty
+dict, so the production overhead is nil.
+
+The serving stack's fault points, the chaos harness's hooks into the
+inference engine:
+
+- ``serving:alloc`` — every :meth:`BlockAllocator.alloc` grant (``n=``,
+  ``free=``): raise to simulate an allocator failure during admission
+  or lazy decode growth;
+- ``serving:prefix_splice`` / ``serving:prefix_copy`` — the per-request
+  prefix-cache seeding in ``ServingEngine._admit`` (``rid=``,
+  ``slot=``): raise to fault one request's splice or copy;
+- ``serving:prefill_chunk`` — each request's chunk-prefill turn
+  (``rid=``, ``slot=``);
+- ``serving:dispatch`` — every program dispatch through
+  :class:`~paddle_tpu_torch.inference.program_set.ProgramSet`
+  (``program=``, ``attempt=``): raise to simulate a transient dispatch
+  error (the bounded retry absorbs it), sleep to trip the stall
+  watchdog;
+- ``serving:tick`` — the top of every ``ServingEngine.step_decode``
+  tick (``engine=``, ``step=``): raise to crash mid-tick (the
+  engine-scoped circuit breaker), or use :func:`nan_kv` to poison one
+  slot's committed KV and trip the NaN-logit guard;
+- ``serving:spill_write`` — every host-tier block write
+  (``HostTier.write``, ``n=``): the victim degrades to re-prefill;
+- ``serving:swap_in`` — every host-to-device block restore
+  (``DecodeEngine.restore_blocks``, ``n=``): fires before any device
+  write, and the resumed request falls back to a full re-prefill.
 
 Tests arm injectors with the :func:`inject` context manager:
 
@@ -18,9 +44,6 @@ Tests arm injectors with the :func:`inject` context manager:
 Injection is deterministic: triggers are expressed over the context the
 fault point passes (``step=k``, ``version=...``), never over wall clock
 or randomness, so every resilience test replays identically.
-
-``nan_kv`` (the serving tick's KV poisoning) waits for
-``ServingEngine.poison_slot_kv`` and the serving fault points.
 """
 
 from __future__ import annotations
@@ -34,7 +57,8 @@ import numpy as np
 import torch
 
 __all__ = ["InjectedCrash", "Injector", "inject", "fault_point", "transform",
-           "raise_", "sleep_", "nan_batch", "simulate_preemption", "armed"]
+           "raise_", "sleep_", "nan_batch", "nan_kv", "simulate_preemption",
+           "armed"]
 
 
 class InjectedCrash(BaseException):
@@ -162,6 +186,19 @@ def nan_batch() -> Callable:
 
     def action(ctx):
         return _poison(ctx["value"])
+
+    return action
+
+
+def nan_kv(slot: int) -> Callable:
+    """Action for ``serving:tick``: poison arena ``slot``'s committed KV
+    storage with NaN (``ServingEngine.poison_slot_kv``), so the slot's
+    next logits go non-finite through the real kernels — the NaN-logit
+    guard's trigger condition, scoped to exactly one request the way
+    real storage corruption would be."""
+
+    def action(ctx):
+        ctx["engine"].poison_slot_kv(slot)
 
     return action
 

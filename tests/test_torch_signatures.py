@@ -39,6 +39,7 @@ from paddle_tpu_torch.inference import (BlockAllocator, DraftModelDrafter,
                                         NgramDrafter, Request, ServingEngine,
                                         SpeculativeEngine)
 from paddle_tpu_torch.inference.prefix_cache import PrefixCacheNode
+from paddle_tpu_torch.inference.program_set import ProgramSet
 from paddle_tpu_torch.inference.serving import DecodeEngine, ServingMetrics
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.models.gpt import (GPTAttention, GPTBlock, GPTMLP,
@@ -134,16 +135,13 @@ CASES = {
         "inference/serving.py", "ServingEngine", ServingEngine,
         lambda **kw: ServingEngine(_tiny(), max_batch_slots=1, max_len=64,
                                    block_size=8, device="cpu", **kw),
-        {"telemetry": None, "mesh": None, "quarantine": True,
-         "logit_guard": False, "dispatch_retries": 2,
-         "dispatch_stall_s": None, "engine_failure_threshold": 3,
-         "overlap": True, "profile": False, "seq_parallel": False, "adaptive": None,
+        {"mesh": None, "seq_parallel": False, "adaptive": None,
          "adapter_pool": None}, None),
     "DecodeEngine": (
         "inference/serving.py", "DecodeEngine", DecodeEngine,
         lambda **kw: DecodeEngine(_tiny(), 1, 64, block_size=8, **kw),
-        {"ids_dtype": None, "mesh": None, "logit_guard": False,
-         "seq_parallel": False, "adapter_pool": None}, None),
+        {"ids_dtype": None, "mesh": None, "seq_parallel": False,
+         "adapter_pool": None}, None),
     # the reference's engine-owned state past finish_reason
     # (cancel_requested, spill and constraint slots, logprobs) is not
     # the port's
@@ -211,7 +209,16 @@ CASES = {
     # methods and functions (the rest of the sweep covers them by ast)
     "DecodeEngine.step": (
         "inference/serving.py", "DecodeEngine.step", _ENGINE.step,
-        lambda **kw: _ENGINE.step(*_GREEDY, **kw), {"defer": False}, None),
+        None, {}, None),
+    # the logit guard's chaos pair: one plane only
+    "DecodeEngine.scrub_slot_kv": (
+        "inference/serving.py", "DecodeEngine.scrub_slot_kv",
+        _ENGINE.scrub_slot_kv,
+        lambda **kw: _ENGINE.scrub_slot_kv(blocks=[1], **kw),
+        {"replica": 0}, None),
+    "ProgramSet": (
+        "inference/program_set.py", "ProgramSet", ProgramSet,
+        lambda **kw: ProgramSet(**kw), {"mesh": None}, None),
     "DecodeEngine.run_prefill_chunk": (
         "inference/serving.py", "DecodeEngine.run_prefill_chunk",
         _ENGINE.run_prefill_chunk,
@@ -249,14 +256,11 @@ CASES = {
         "inference/speculative.py", "SpeculativeEngine", SpeculativeEngine,
         lambda **kw: SpeculativeEngine(_tiny(), 1, 64, 2, block_size=8,
                                        **kw),
-        {"ids_dtype": None, "mesh": None, "logit_guard": False,
-         "seq_parallel": False, "adapter_pool": None}, None),
+        {"ids_dtype": None, "mesh": None, "seq_parallel": False,
+         "adapter_pool": None}, None),
     "SpeculativeEngine.verify": (
         "inference/speculative.py", "SpeculativeEngine.verify",
-        _SPEC.verify,
-        lambda **kw: _SPEC.verify(_GREEDY[0], np.zeros((2, 2), np.int64),
-                                  *_GREEDY[1:], **kw),
-        {"defer": False}, None),
+        _SPEC.verify, None, {}, None),
     "ServingEngine.run": (
         "inference/serving.py", "ServingEngine.run",
         ServingEngine(_tiny(), 1, 64, block_size=8, device="cpu").run,
@@ -264,9 +268,8 @@ CASES = {
                                    device="cpu").run(**kw),
         {"keep_epoch": False}, None),
     "ServingMetrics": (
-        "inference/serving.py", "ServingMetrics", ServingMetrics,
-        lambda **kw: ServingMetrics(1, **kw),
-        {"registry": None, "slo": None}, None),
+        "inference/serving.py", "ServingMetrics", ServingMetrics, None, {},
+        None),
     "ServingMetrics.record_step": (
         "inference/serving.py", "ServingMetrics.record_step",
         ServingMetrics(1).record_step, None, {}, None),
@@ -369,16 +372,17 @@ ABSENT = {
         "in for fold_in(slot_key, P)",
     "core/unported.py::refuse_unported": "the port's refusal of reference "
         "parameters it does not implement",
-    # a reference callable that a module ported whole lacks (``WHOLE``)
-    "testing/fault_injection.py::nan_kv": "poisons a serving slot's KV "
-        "through ServingEngine.poison_slot_kv, which arrives with the "
-        "serving fault points",
 }
 # port modules that carry every public callable of their reference but
 # the ``ABSENT`` entries named there
 WHOLE = ["core/flags.py", "testing/fault_injection.py",
          "distributed/checkpoint.py", "distributed/resilience.py",
-         "distributed/strategy.py"]
+         "distributed/strategy.py", "inference/program_set.py",
+         "observability/__init__.py", "observability/metrics.py",
+         "observability/flight_recorder.py", "observability/trace.py",
+         "observability/slo.py", "observability/profile.py",
+         "observability/sentinel.py", "observability/ops_plane.py",
+         "observability/dump.py"]
 # port modules with no reference file at their path
 ABSENT_MODULES = {
     "ops/kernels/_build.py": "nvcc build and ctypes binding of csrc/",

@@ -515,10 +515,12 @@ def _accepted_indices(eng, plen):
     verify = eng.engine.verify
 
     def wrapped(*args, **kw):
-        out, acc = verify(*args, **kw)
+        # the serving tick defers the verify: (out, acc, finalize)
+        res = verify(*args, **kw)
+        acc = res[1]
         t0, a = int(args[2][0]), min(int(acc[0]), 4)
         seen.extend(t0 - plen + 1 + j for j in range(a))
-        return out, acc
+        return res
 
     eng.engine.verify = wrapped
     return seen
