@@ -154,6 +154,26 @@ Phases, in order (any failure exits non-zero and prints no result):
    exactly the planted failure, and every serving run of phase 5 with
    nothing planted absorbs none (no retried dispatch, quarantined
    request, crashed tick, stall or degraded swap: ``_check_absorbed``);
+5k. the front door and the fleet on phase 5's fp32 model: (a) a
+   ``FrontDoor`` (tenants ``paid`` weight 4 tier 0, ``free`` weight 1
+   tier 1, the tick profiler on) takes phase 5's 16 prompts from two
+   threads mid-flight in a sampling mix (greedy, top-k 1, temperature
+   0.8, top-k 40, top-p 0.9) plus 4 top-k 1 twins of greedy requests, a
+   queued and a running cancel and a deadline no request can meet: greedy
+   and top-k 1 tokens equal phase 5's (near-ties counted), each twin its
+   greedy request's, the cancelled and expired requests release every
+   block (a clean ``audit()``), 2 argument signatures across the mix and
+   exact K2/K4/K5 launch counts; (b) a live greedy and a live sampled
+   request as byte frames mid-flight, restored on a second engine over
+   the same weights (``swap_in``) to the uninterrupted run's tokens, and a
+   flipped payload byte restoring ``corrupt_fallback``; (c) two
+   ``engine_proc`` processes on the card behind a ``FleetRouter``: phase
+   5's first 8 requests, one migrated mid-stream, the engine under
+   another killed (SIGKILL) mid-stream, both token-exact against phase 5,
+   the shutdown drained with a clean audit, and each process's own K2,
+   K4 and K5 launches (its ops plane's ``kernel_launches`` before the
+   kill, its ``EXIT`` line after) non-zero; the phase's wall, the tick's
+   shares and the decode step p50 printed (host clock);
 6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
    ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
@@ -2877,6 +2897,398 @@ def draft_phase(torch, card, model):
     del selfd, indep
 
 
+# ------------------------------------------------- 5k: front door, fleet
+# phase 5's trace, each request in the mix of 5k: the 12 greedy prompts
+# alternate greedy and top-k 1 (which must draw the argmax), the 4
+# sampled ones cycle through temperature 0.8, top-k 40 and top-p 0.9
+MIX_SAMPLED = ({"temperature": 0.8}, {"top_k": 40}, {"top_p": 0.9})
+
+
+def _mix_of(trace):
+    out, g, s = [], 0, 0
+    for kw in trace:
+        if kw.get("greedy"):
+            out.append({"greedy": True} if g % 2 == 0 else {"top_k": 1})
+            g += 1
+        else:
+            out.append(MIX_SAMPLED[s % len(MIX_SAMPLED)])
+            s += 1
+    return out
+
+
+def _wait_for(cond, what, timeout=120.0):
+    t0 = time.monotonic()
+    while not cond():
+        check(time.monotonic() - t0 < timeout, f"{what}: timed out")
+        time.sleep(0.002)
+
+
+def _same_as_phase5(torch, model, fp_reqs, i, tokens, what):
+    """Greedy tokens of phase 5's request ``i`` (``fp_reqs[i]``) equal
+    ``tokens``, or differ first at a near-tie (phase 5's rule); returns
+    1 when they diverged."""
+    got = type("R", (), {"tokens": list(tokens)})()
+    return _same_greedy(torch, model, [fp_reqs[i]], [got], what)
+
+
+def _front_door_5k(torch, card, model, fp_reqs):
+    """5k(a): a ``FrontDoor`` over phase 5's engine configuration, two
+    tenants, two threads submitting phase 5's 16 prompts mid-flight in
+    the sampling mix, four top-k 1 twins of greedy requests, a queued and
+    a running cancel and a deadline no request can meet."""
+    from paddle_tpu_torch.inference.frontend import (FrontDoor,
+                                                     SamplingParams, Tenant)
+    from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.ops.kernels import paged_attention as k4
+    import threading
+
+    cfg = model.config
+    trace = _serving_trace(cfg.vocab_size)
+    mix = _mix_of(trace)
+    twins = [i for i, kw in enumerate(trace) if kw.get("greedy")][:8:2]
+    door = FrontDoor(model, tenants=[Tenant("paid", weight=4, tier=0),
+                                     Tenant("free", weight=1, tier=1)],
+                     max_batch_slots=8, max_len=1024, block_size=16,
+                     prefill_chunk=128, seed=0, device="cuda", profile=True)
+    eng = door.engine
+    handles, twin_h, errs = {}, {}, []
+
+    def client(tenant, idx):
+        try:
+            for i in idx:
+                kw = trace[i]
+                handles[i] = door.submit(
+                    kw["prompt"], tenant=tenant,
+                    max_new_tokens=kw["max_new_tokens"],
+                    sampling=SamplingParams(**mix[i]))
+                if i in twins:
+                    twin_h[i] = door.submit(
+                        kw["prompt"], tenant=tenant,
+                        max_new_tokens=kw["max_new_tokens"],
+                        sampling=SamplingParams(top_k=1))
+        except BaseException as e:      # noqa: BLE001 - checked below
+            errs.append(repr(e))
+
+    torch.cuda.synchronize()
+    for m in (k2, k4, k5):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    door.start()
+    try:
+        threads = [threading.Thread(target=client, args=(t, range(b, 16, 2)))
+                   for t, b in (("paid", 0), ("free", 1))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        check(not errs and not any(th.is_alive() for th in threads),
+              f"front door: submitting threads failed {errs}")
+        late = door.submit(trace[1]["prompt"], max_new_tokens=64,
+                           deadline=0.05,
+                           sampling=SamplingParams(greedy=True))
+        queued = door.submit(trace[2]["prompt"], tenant="free",
+                             max_new_tokens=8)
+        check(queued.cancel(), "front door: queued cancel refused")
+        victim = handles[max(handles, key=lambda i:
+                             trace[i]["max_new_tokens"])]
+        _wait_for(lambda: len(victim.tokens) >= 2 or
+                  victim.status == "done", "front door: running victim")
+        check(victim.status != "done", "front door: the running victim "
+              "finished before its cancel")
+        check(victim.cancel(), "front door: running cancel refused")
+        for h in (list(handles.values()) + list(twin_h.values())
+                  + [late, queued, victim]):
+            check(h.wait(timeout=300), f"front door: request {h.id} "
+                  "never retired")
+    finally:
+        door.stop(drain=False, timeout=120)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K2": k2.launches, "K4": k4.launches, "K5": k5.launches,
+                "K4-int8": k4.launches_q, "K5-int8": k5.launches_q}
+    agg = eng.metrics.aggregate()
+    chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+    _check_launches("front door", launches, cfg.num_layers, chunks, steps,
+                    int8=False)
+    check(victim.finish_reason == "cancelled"
+          and len(victim.tokens) < victim.request.max_new_tokens,
+          f"front door: running cancel ended {victim.finish_reason}")
+    check(queued.finish_reason == "cancelled" and not queued.tokens,
+          f"front door: queued cancel ended {queued.finish_reason} with "
+          f"{len(queued.tokens)} tokens")
+    check(late.finish_reason == "deadline_exceeded",
+          f"front door: the late request ended {late.finish_reason}")
+    diverged = 0
+    for i, h in handles.items():
+        if h is victim:
+            continue
+        check(h.finish_reason in ("length", "eos"),
+              f"front door: request {i} ended {h.finish_reason}")
+        if trace[i].get("greedy"):
+            diverged += _same_as_phase5(torch, model, fp_reqs, i, h.tokens,
+                                        f"front door {mix[i]}")
+    for i, h in twin_h.items():
+        check(h.tokens == handles[i].tokens or handles[i] is victim,
+              f"front door: top-k 1 request {i} differs from its greedy "
+              "twin")
+        if handles[i] is victim:
+            diverged += _same_as_phase5(torch, model, fp_reqs, i, h.tokens,
+                                        "front door top-k 1 twin")
+    report = {k: v for k, v in eng.audit().items() if v}
+    check(not report and eng._alloc.free_count() == eng._alloc.capacity,
+          f"front door: audit {report}, {eng._alloc.free_count()} of "
+          f"{eng._alloc.capacity} blocks free")
+    check(eng.executable_count() == 2
+          and eng.telemetry.recompile_events() == 0,
+          f"front door: {eng.executable_count()} argument signatures, "
+          f"{eng.telemetry.recompile_events()} recompiles across the mix")
+    dropped = eng.telemetry.registry.get(
+        "serving_requests_dropped_total").snapshot()
+    done = eng.telemetry.registry.get(
+        "serving_requests_completed_total").snapshot()
+    snap = eng.telemetry.profiler.snapshot()
+    shares = ", ".join(
+        f"{name} {ph['fraction_of_tick']:.4f}"
+        for name, ph in sorted(snap["phases"].items(),
+                               key=lambda kv: -kv[1]["seconds_total"]))
+    print(f"front door: {len(handles) + len(twin_h) + 3} requests, "
+          f"{chunks} prefill chunks, {steps} decode steps, launches "
+          f"{launches}, dropped {dropped}, retired {done}, "
+          f"{diverged} greedy near-ties against phase 5", flush=True)
+    print(f"front door tick anatomy on {card} (host clock; {snap['ticks']}"
+          f" ticks): share of the tick wall: {shares}", flush=True)
+    print(f"front door on {card}: wall {wall:.2f} s, decode step p50 "
+          f"{agg['decode_step_ms_p50']:.2f} ms (host clock)", flush=True)
+
+
+def _snapshots_5k(torch, card, model, fp_reqs):
+    """5k(b): a live greedy and a live sampled request of phase 5's trace
+    as byte frames mid-flight on the card, restored on a second engine
+    over the same weights (``swap_in``); a flipped payload byte restores
+    ``corrupt_fallback``. Every continuation equals the uninterrupted
+    run's tokens."""
+    from paddle_tpu_torch.inference import Request, ServingEngine
+
+    trace = _serving_trace(model.config.vocab_size)
+    gi = next(i for i, kw in enumerate(trace) if kw.get("greedy"))
+    si = next(i for i, kw in enumerate(trace) if not kw.get("greedy"))
+    kw = dict(max_batch_slots=8, max_len=1024, block_size=16,
+              prefill_chunk=128, seed=0, device="cuda",
+              host_tier_blocks=128)
+    src = ServingEngine(model, **kw)
+    reqs = [src.submit(Request(**trace[i])) for i in (gi, si)]
+    for _ in range(400):
+        if all(len(r.tokens) >= 5 for r in reqs):
+            break
+        src.run(max_steps=1)
+    check(all(5 <= len(r.tokens) < r.max_new_tokens for r in reqs),
+          f"snapshots: requests at {[len(r.tokens) for r in reqs]} tokens")
+    frames = [src.snapshot_request_bytes(r.id) for r in reqs]
+    src.run()
+    full = [list(r.tokens) for r in reqs]
+    dst = ServingEngine(model, **kw)
+    restored = [dst.restore_request(f) for f in frames]
+    at = [len(r.tokens) for r in restored]
+    dst.run()
+    outcomes = [r._restore_outcome for r in restored]
+    check(outcomes == ["swap_in", "swap_in"],
+          f"snapshots: restore outcomes {outcomes}")
+    check([r.tokens for r in restored] == full,
+          "snapshots: a restored continuation differs from the "
+          "uninterrupted run")
+    bad = bytearray(frames[0])
+    bad[-64] ^= 0xFF
+    fb = ServingEngine(model, **kw)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fallback = fb.restore_request(bytes(bad))
+    fb.run()
+    check(fallback._restore_outcome == "corrupt_fallback",
+          f"snapshots: a corrupt frame restored "
+          f"{fallback._restore_outcome}")
+    diverged = _same_greedy(torch, model, [reqs[0]], [fallback],
+                            "corrupt fallback")
+    for eng in (src, dst, fb):
+        report = {k: v for k, v in eng.audit().items() if v}
+        check(not report and eng._alloc.free_count() == eng._alloc.capacity
+              and eng._host.free_count() == eng._host.capacity,
+              f"snapshots: audit {report}")
+    print(f"snapshots: frames of {[len(f) for f in frames]} bytes taken "
+          f"at {at} tokens, restored {outcomes} token-exact; corrupt "
+          f"payload -> corrupt_fallback, {diverged} near-ties", flush=True)
+
+
+def _metric_lines(url, name):
+    """``{label value: sample}`` of one metric family in a ``/metrics``
+    scrape."""
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        m = re.match(name + r'\{\w+="([^"]+)"\} (\S+)$', line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+class _EngineProc:
+    """One ``engine_proc`` serving process and a reader of its stdout."""
+
+    def __init__(self, config, log_dir, name):
+        import queue
+        import threading
+
+        self.name = name
+        self.log = open(os.path.join(log_dir, f"engine_{name}.log"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.inference.fleet."
+             "engine_proc", "--config", json.dumps(config)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.log,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.lines = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line.strip())
+        self.lines.put(None)
+
+    def expect(self, prefix, timeout):
+        import queue
+
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < timeout:
+            try:
+                line = self.lines.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if line is None:
+                break
+            if line.startswith(prefix + " "):
+                return json.loads(line[len(prefix) + 1:])
+        self.log.seek(0)
+        fail(f"fleet: engine {self.name} printed no {prefix} line "
+             f"(exit {self.proc.poll()}); its stderr ends:\n"
+             f"{self.log.read()[-3000:]}")
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+        self.log.close()
+
+
+def _fleet_5k(torch, card, model, fp_reqs):
+    """5k(c): two ``engine_proc`` processes on the card behind a
+    ``FleetRouter``, phase 5's first 8 requests routed through them: the
+    greedy one with the longest budget migrated mid-stream; the last
+    greedy one submitted after the migration, and its engine killed
+    (SIGKILL) under it mid-stream. Both are token-exact against phase 5,
+    the shutdown drains and audits clean, and each process's own K2, K4
+    and K5 launches are non-zero."""
+    import dataclasses
+    import signal
+    import tempfile
+
+    from paddle_tpu_torch.inference.fleet import EngineRef, FleetRouter
+
+    cfg = model.config
+    trace = _serving_trace(cfg.vocab_size)[:8]
+    config = {"model": dataclasses.asdict(cfg), "model_seed": 0,
+              "engine": dict(max_batch_slots=8, max_len=1024,
+                             block_size=16, prefill_chunk=128, seed=0,
+                             host_tier_blocks=128, device="cuda")}
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_5k_")
+    procs = {}
+    try:
+        for name in ("A", "B"):
+            procs[name] = _EngineProc(config, log_dir, name)
+        urls = {n: p.expect("READY", 300) for n, p in procs.items()}
+        router = FleetRouter(
+            [EngineRef(n, u["ingest_url"], u["ops_url"])
+             for n, u in urls.items()], seed=5, timeout=60.0,
+            breaker_cooldown=30.0)
+        greedy = [i for i, kw in enumerate(trace) if kw.get("greedy")]
+        last = greedy[-1]
+
+        def submit(i):
+            kw = trace[i]
+            return router.submit(
+                kw["prompt"], max_new_tokens=kw["max_new_tokens"],
+                sampling=({"greedy": True} if kw.get("greedy")
+                          else {"temperature": 0.8, "top_p": 0.9}))
+
+        hs = {i: submit(i) for i in range(len(trace)) if i != last}
+        mi = max(greedy[:-1], key=lambda i: trace[i]["max_new_tokens"])
+        mig = hs[mi]
+        _wait_for(lambda: len(mig.tokens) >= 3 or mig.status != "running",
+                  "fleet: migration candidate")
+        check(mig.status == "running", "fleet: the migration candidate "
+              "finished before its migration")
+        src = mig.engine
+        outcome = router.migrate(mig)
+        check(outcome == "swap_in" and mig.engine != src,
+              f"fleet: migration {src} -> {mig.engine}: {outcome}")
+        victim = hs[last] = submit(last)
+        _wait_for(lambda: victim.engine is not None,
+                  "fleet: kill victim placement")
+        dead = victim.engine
+        _wait_for(lambda: len(victim.tokens) >= 2
+                  or victim.status != "running", "fleet: kill victim")
+        dead_launches = _metric_lines(urls[dead]["ops_url"],
+                                      "kernel_launches")
+        os.kill(urls[dead]["pid"], signal.SIGKILL)
+        for h in hs.values():
+            check(h.wait(timeout=300), f"fleet: request {h.fid} never "
+                  "finished")
+        report = router.shutdown(drain=True, timeout=120)
+        alive = next(n for n in procs if n != dead)
+        procs[alive].proc.stdin.close()
+        exit_line = procs[alive].expect("EXIT", 120)
+        check(procs[alive].proc.wait(timeout=120) == 0,
+              f"fleet: engine {alive} exited "
+              f"{procs[alive].proc.returncode}")
+    finally:
+        for p in procs.values():
+            p.close()
+    diverged = 0
+    for i, h in sorted(hs.items()):
+        check(h.status == "done" and h.finish_reason in ("length", "eos"),
+              f"fleet: request {i} ended {h.status}/{h.finish_reason}")
+        if i in greedy:
+            diverged += _same_as_phase5(torch, model, fp_reqs, i, h.tokens,
+                                        f"fleet request {i}")
+    check(victim.resubmits + victim.migrations >= 1,
+          "fleet: the kill victim never failed over")
+    check(report["leaked_blocks"] == 0 and report["orphaned_pins"] == 0
+          and report["unterminated_streams"] == 0
+          and dead in report["unreachable_engines"],
+          f"fleet: shutdown report {report}")
+    for name, got in ((dead, dead_launches),
+                      (alive, exit_line["launches"])):
+        check(all(got.get(k, 0) > 0 for k in ("K2", "K4", "K5")),
+              f"fleet: engine {name} launches {got}")
+    print(f"fleet: 8 requests over 2 engine processes, {mig.fid} migrated "
+          f"{src} -> {mig.engine} ({outcome}), {dead} killed under "
+          f"request {victim.fid} (failed over to {victim.engine}), "
+          f"launches {dead}: {dead_launches}, {alive}: "
+          f"{exit_line['launches']}, {diverged} near-ties against phase 5; "
+          f"shutdown {report}", flush=True)
+
+
+def frontdoor_fleet_phase(torch, card, model, fp_reqs):
+    t0 = time.perf_counter()
+    _front_door_5k(torch, card, model, fp_reqs)
+    _snapshots_5k(torch, card, model, fp_reqs)
+    _fleet_5k(torch, card, model, fp_reqs)
+    print(f"phase 5k on {card}: wall {time.perf_counter() - t0:.1f} s "
+          "(host clock)", flush=True)
+
+
 def training_phase(torch, card):
     """``bench.py``'s training run on the port: returns the launch counts
     of the 10 timed steps and its perf (tokens/s, step p50, peak GiB)."""
@@ -3681,6 +4093,8 @@ def main():
     lap("generate")
     draft_phase(torch, card, model)
     lap("draft-model spec serving")
+    frontdoor_fleet_phase(torch, card, model, fp_reqs)
+    lap("front door and fleet")
     del model
     launches.update({"K5-bf16": bf16_launches["K5"],
                      "K5-int8-bf16": bf16_q_launches["K5-int8"],

@@ -1,6 +1,7 @@
 from paddle_tpu_torch.inference.block_pool import BlockAllocator
-from paddle_tpu_torch.inference.frontend.scheduler import (FifoScheduler,
-                                                          Scheduler)
+from paddle_tpu_torch.inference.frontend.scheduler import (FairScheduler,
+                                                          FifoScheduler,
+                                                          Scheduler, Tenant)
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 from paddle_tpu_torch.inference.serving import (DecodeEngine, Request,
                                                 ServingEngine, ServingMetrics,
@@ -8,8 +9,11 @@ from paddle_tpu_torch.inference.serving import (DecodeEngine, Request,
 from paddle_tpu_torch.inference.speculative import (DraftModelDrafter,
                                                     NgramDrafter,
                                                     SpeculativeEngine)
+from paddle_tpu_torch.inference.frontend import (  # noqa: E402
+    AdmissionRejected, FrontDoor, SamplingParams)
 
 __all__ = ["BlockAllocator", "Scheduler", "FifoScheduler", "PrefixCache",
            "DecodeEngine", "Request", "ServingEngine", "ServingMetrics",
            "apply_topk_topp", "NgramDrafter", "DraftModelDrafter",
-           "SpeculativeEngine"]
+           "SpeculativeEngine", "FrontDoor", "SamplingParams", "Tenant",
+           "FairScheduler", "AdmissionRejected"]

@@ -854,10 +854,20 @@ class Request:
     :meth:`ServingEngine.run` (0 = already queued). ``seed`` pins the
     request's sample stream (its ``keydata``); unset, the stream derives
     from the engine seed and the request id. ``top_k``/``top_p`` are
-    per-request filters. The fields keep the reference's order; its
-    ``sampling``, ``deadline``, ``tenant``, ``priority``, ``adapter``,
-    ``kind`` and ``response_format`` are accepted at their defaults
-    only."""
+    per-request filters; ``sampling`` takes a
+    :class:`~paddle_tpu_torch.inference.frontend.sampling.SamplingParams`
+    bundle that overrides the individual fields at
+    :meth:`ServingEngine.submit`.
+
+    ``tenant``/``priority`` feed the pluggable scheduler (priority
+    overrides the tenant's tier when set; lower = more urgent).
+    ``deadline`` is an ABSOLUTE offset on the run clock (the domain of
+    ``arrival_time``); past it the request retires
+    ``"deadline_exceeded"``, queued or running. ``on_finish`` fires
+    exactly once at retirement, cancellations and expiries included
+    (they deliver no final ``on_token``). The fields keep the
+    reference's order; its ``adapter``, ``kind`` and ``response_format``
+    are accepted at their defaults only."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 32
@@ -883,12 +893,18 @@ class Request:
     tokens: List[int] = field(default_factory=list)
     status: str = "new"          # new -> queued -> running -> done
     finish_reason: Optional[str] = None
+    cancel_requested: bool = field(default=False, init=False)
+    # the spill manifest of a request parked in the host tier (host
+    # block ids + covered token count), and the key data a RESTORED
+    # request continues from (the snapshot carried it: the restoring
+    # engine's seed must never enter its stream)
+    _spill: Optional[Dict[str, Any]] = field(default=None, init=False,
+                                             repr=False)
+    _keydata: Optional[Any] = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         refuse_unported(
-            "Request", sampling=(self.sampling, None),
-            deadline=(self.deadline, None), tenant=(self.tenant, "default"),
-            priority=(self.priority, None), adapter=(self.adapter, None),
+            "Request", adapter=(self.adapter, None),
             kind=(self.kind, "generate"),
             response_format=(self.response_format, None))
 
@@ -1082,8 +1098,12 @@ class ServingMetrics:
                        first_token: float, finished: float,
                        resume_wait: float = 0.0,
                        resume_wait_pre_first: float = 0.0):
-        """One retired request. Time spent back in the queue after a
-        preemption counts as queue wait, not TTFT or TPOT."""
+        """One retired request. ``resume_wait`` is the TOTAL time the
+        request spent back in the queue after preemptions; its
+        ``resume_wait_pre_first`` share fell before the first token.
+        Both count as queue wait, so a resumed request's stalls inflate
+        neither TTFT (the pre-first share) nor TPOT (the rest); only the
+        end-to-end ``latency`` keeps them."""
         self.t_first = arrival if self.t_first is None \
             else min(self.t_first, arrival)
         self.t_last = finished if self.t_last is None \
@@ -1098,6 +1118,8 @@ class ServingMetrics:
             "ttft": first_token - arrival - resume_wait_pre_first,
             "latency": finished - arrival,
             "tpot": decode_time / (n - 1) if n > 1 else None,
+            "decode_tps": (n - 1) / max(decode_time, 1e-9)
+            if n > 1 else 0.0,
         }
         self.records.append(rec)
         self._h_ttft.observe(rec["ttft"])
@@ -1118,6 +1140,37 @@ class ServingMetrics:
         self.drops.append({"id": req.id, "reason": reason,
                            "tenant": req.tenant})
         self._c_dropped.labels(reason=reason).inc()
+
+    def by_tenant(self) -> Dict[str, Dict[str, float]]:
+        """Per-tenant percentile split of the window's records
+        (``serving.py:2442``): p50/p99 TTFT and TPOT, p99 queue wait
+        and latency, completions and drops. A tenant whose every
+        request was dropped still gets a row."""
+        groups: Dict[str, List[Dict[str, Any]]] = {}
+        for r in self.records:
+            groups.setdefault(r.get("tenant", "default"), []).append(r)
+        for x in self.drops:
+            groups.setdefault(x.get("tenant", "default"), [])
+        out: Dict[str, Dict[str, float]] = {}
+        for ten, rs in groups.items():
+            d: Dict[str, float] = {"completed": float(len(rs))}
+            if rs:
+                ttft = np.asarray([r["ttft"] for r in rs])
+                qw = np.asarray([r["queue_wait"] for r in rs])
+                lat = np.asarray([r["latency"] for r in rs])
+                d["ttft_p50_s"] = float(np.percentile(ttft, 50))
+                d["ttft_p99_s"] = float(np.percentile(ttft, 99))
+                d["queue_wait_p99_s"] = float(np.percentile(qw, 99))
+                d["latency_p99_s"] = float(np.percentile(lat, 99))
+                tpot = [r["tpot"] for r in rs if r["tpot"] is not None]
+                if tpot:
+                    d["tpot_p50_s"] = float(np.percentile(tpot, 50))
+                    d["tpot_p99_s"] = float(np.percentile(tpot, 99))
+            d["dropped"] = float(sum(
+                1 for x in self.drops
+                if x.get("tenant", "default") == ten))
+            out[ten] = d
+        return out
 
     def aggregate(self) -> Dict[str, float]:
         out: Dict[str, float] = {"completed": float(len(self.records))}
@@ -1212,6 +1265,11 @@ class ServingMetrics:
 # the profiling-off fast path: ServingEngine._phase returns this shared
 # reusable null context, so an unprofiled tick allocates nothing a phase
 _NULL_PHASE = contextlib.nullcontext()
+
+# magic prefix of the request-snapshot byte frame
+# (ServingEngine.snapshot_request_bytes; ``serving.py:2612``): magic +
+# 8-byte LE header length + JSON header + npz payload
+_SNAP_MAGIC = b"PTRQSNP1"
 
 
 class _ProfPhase:
@@ -1309,10 +1367,20 @@ class ServingEngine:
     events. :meth:`audit` reconciles the pool, the host tier, the trie
     pins and the slot table after every quarantine.
 
+    Cross-thread use: :meth:`submit` and :meth:`cancel` are safe from
+    any thread and wake an idle engine; cancellations and deadline
+    expiries apply at the next tick boundary (a queued request drops,
+    a running one retires, counted under
+    ``serving_requests_dropped_total{reason}`` or
+    ``serving_requests_completed_total{reason}``).
+    :meth:`at_tick_boundary` runs a callable at that boundary and hands
+    its result (or its raise) back to the calling thread; the request
+    snapshots (:meth:`snapshot_request`, :meth:`snapshot_request_bytes`,
+    :meth:`restore_request`, :meth:`migrate_out_request`) run there.
+
     The parameters keep the reference's order; its ``mesh``,
     ``seq_parallel``, ``adaptive`` and ``adapter_pool`` are accepted at
-    their defaults only, and the port has no cancellation, deadlines,
-    tenants, request snapshots or tick-boundary jobs yet."""
+    their defaults only."""
 
     def __init__(self, model, max_batch_slots: int = 8, max_len: int = 256,
                  top_k: Optional[int] = None, eos_id: Optional[int] = None,
@@ -1411,9 +1479,21 @@ class ServingEngine:
         self.clock = clock
         self.scheduler = scheduler if scheduler is not None \
             else FifoScheduler()
-        # guards queue mutations against a scraper's reads (the ops
-        # plane's /debug/requests runs on its own threads)
+        # cross-thread submission and cancellation: the lock guards
+        # queue and flag mutations (the tick's dispatches run outside
+        # it, and the ops plane's scrapes read under it); the condition
+        # wakes an idle engine the moment work arrives
         self._lock = threading.RLock()
+        self._wake = threading.Condition()
+        self._wake_flag = False
+        self._cancels: List[Request] = []
+        # tick-boundary jobs: callables appended under _lock from any
+        # thread and drained at the top of every tick and around run()'s
+        # loop; with no run() in flight a job drains inline under the
+        # tick gate, so a bare engine needs no pump thread
+        self._boundary_jobs: List[tuple] = []
+        self._tick_gate = threading.RLock()
+        self._running = False
         self._slots: List[Optional[Request]] = [None] * self.b
         self._free: List[int] = list(range(self.b))[::-1]
         self._next_id = 0
@@ -1558,6 +1638,21 @@ class ServingEngine:
             "serving_leaked_host_blocks",
             "host-tier blocks with unaccounted references at the "
             "last audit (0 = reconciled clean)")
+        self._c_snapshots = r.counter(
+            "serving_request_snapshots_total",
+            "live requests serialized through the checkpoint "
+            "machinery (sha256-checksummed shards)")
+        self._c_restores = r.counter(
+            "serving_request_restores_total",
+            "snapshots re-enqueued, by KV outcome (swap_in = parked "
+            "for splice-back; reprefill = no tier/space; "
+            "corrupt_fallback = shard failed its checksum, tokens "
+            "recovered from metadata)", labelnames=("outcome",))
+        self._c_migrations = r.counter(
+            "serving_request_migrations_out_total",
+            "live requests snapshotted to a byte frame and retired "
+            "(finish_reason=\"migrated\") for restore on a peer "
+            "engine — the fleet router's drain/rebalance primitive")
         self._c_prof_err = r.counter(
             "serving_profiler_errors_total",
             "tick-profiler calls that raised and were absorbed "
@@ -1713,6 +1808,19 @@ class ServingEngine:
             raise ValueError(
                 f"request already {req.status}; submit a fresh Request "
                 "object per generation")
+        sp = req.sampling
+        if sp is not None:
+            # a SamplingParams bundle overrides the individual fields
+            # (already validated by its own __post_init__)
+            req.temperature = float(getattr(sp, "temperature",
+                                            req.temperature))
+            req.greedy = bool(getattr(sp, "greedy", req.greedy))
+            req.top_k = getattr(sp, "top_k", req.top_k)
+            req.top_p = getattr(sp, "top_p", req.top_p)
+            if getattr(sp, "seed", None) is not None:
+                req.seed = sp.seed
+            if getattr(sp, "response_format", None) is not None:
+                req.response_format = sp.response_format
         if req.top_k is not None and int(req.top_k) < 1:
             raise ValueError(f"top_k must be >= 1, got {req.top_k}")
         if req.top_p is not None and not 0.0 < float(req.top_p) <= 1.0:
@@ -1727,6 +1835,13 @@ class ServingEngine:
                 f"temperature must be a number and seed an int; got "
                 f"temperature={req.temperature!r}, seed={req.seed!r}"
             ) from e
+        if req.deadline is not None and \
+                req.deadline <= req.arrival_time:
+            # an already-dead request would only churn the scheduler
+            raise ValueError(
+                f"deadline {req.deadline} is not after arrival_time "
+                f"{req.arrival_time} — the request could never run "
+                "(deadline is an absolute offset on the run clock)")
         if req.max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
@@ -1781,7 +1896,34 @@ class ServingEngine:
                     "submit", rid=req.id, prompt_len=plen,
                     max_new_tokens=req.max_new_tokens,
                     tenant=req.tenant, req_kind=req.kind)
+        self._wake_up()     # an idle engine admits this within a tick
         return req
+
+    def cancel(self, req: Request) -> bool:
+        """Request cancellation from any thread (``serving.py:3845``).
+        Applied at the next TICK BOUNDARY, like admissions: a queued
+        request drops from the scheduler, a running one retires with
+        reason ``"cancelled"``, releasing its slot, blocks, trie pins
+        and parked host blocks. False when the request already retired
+        (tokens already delivered win the race)."""
+        if req.id < 0:
+            raise ValueError("request was never submitted")
+        with self._lock:
+            if req.status == "done":
+                return False
+            req.cancel_requested = True
+            self._cancels.append(req)
+            with self._telemetry("cancel events"):
+                self.telemetry.recorder.record("cancel", rid=req.id,
+                                               status=req.status)
+                self.telemetry.tracer.event(req.id, "cancel_requested")
+        self._wake_up()
+        return True
+
+    def _wake_up(self):
+        with self._wake:
+            self._wake_flag = True
+            self._wake.notify_all()
 
     def active_count(self) -> int:
         return sum(1 for r in self._slots if r is not None)
@@ -1823,8 +1965,12 @@ class ServingEngine:
         topk = int(req.top_k) if req.top_k is not None else 0
         topp = float(req.top_p) if req.top_p is not None else 1.0
         # the request's stream: a function of (seed, id) only, so a
-        # resumed request replays the draws of its first residency
-        keydata = request_keydata(self.seed, req.id, req.seed)
+        # resumed request replays the draws of its first residency; a
+        # RESTORED request draws from its original engine's key data
+        if req._keydata is not None:
+            keydata = np.asarray(req._keydata, np.uint32).reshape(2)
+        else:
+            keydata = request_keydata(self.seed, req.id, req.seed)
         nodes, hit, fresh = [], 0, []
         # a manifest covers prompt AND generated tokens, more than any
         # trie prefix could: its request skips the lookup (no phantom
@@ -2004,6 +2150,16 @@ class ServingEngine:
                         self._adm_blocked == (req.id, self._alloc.freed):
                     break   # still blocked: nothing freed since the last try
                 self.scheduler.pop(req)
+            if req.deadline is not None and self._now() > req.deadline:
+                # expired while queued (during this tick's earlier
+                # admissions, say): drop it before admission spends a
+                # trie walk and a block grant on it
+                with self._telemetry("deadline event"):
+                    self.telemetry.recorder.record(
+                        "deadline_exceeded", rid=req.id, queued=True,
+                        pre_admission=True)
+                self._drop_queued(req, "deadline_exceeded")
+                continue
             try:
                 admitted = self._admit(req)
             except Exception as e:
@@ -2379,9 +2535,11 @@ class ServingEngine:
                 tokens_so_far=len(req.tokens))
 
     def _drop_queued(self, req: Request, reason: str):
-        """Retire a request that holds no slot (a faulted admission that
-        never got one): only host state to release, plus any spill
-        manifest still parking its KV in the host tier."""
+        """Retire a request that holds no slot: cancelled or
+        deadline-expired while queued, or a faulted admission that never
+        got one. A preempted request dropped here releases only host
+        state (its blocks and trie refs recycled at preemption), plus
+        any spill manifest still parking its KV in the host tier."""
         req.status = "done"
         req.finish_reason = reason
         if self._host is not None:
@@ -2514,8 +2672,12 @@ class ServingEngine:
                 "swap_ins": self._host.swap_ins}
 
     def _req_tier(self, req: Request) -> int:
-        """The priority tier a queued request is counted under (the
-        port's requests carry no priority yet: tier 0)."""
+        """The tier the scheduler would place ``req`` in: the policy's
+        own mapping when it has one (FairScheduler's priority override
+        and tenant tiers), else priority with a 0 default."""
+        tier_of = getattr(self.scheduler, "_tier", None)
+        if tier_of is not None:
+            return int(tier_of(req))
         p = getattr(req, "priority", None)
         return int(p) if p is not None else 0
 
@@ -2625,6 +2787,444 @@ class ServingEngine:
         trigger of the ``serving:tick`` point's
         :func:`~paddle_tpu_torch.testing.fault_injection.nan_kv`."""
         self.engine.poison_slot_kv(slot)
+
+    # -- tick-boundary jobs -------------------------------------------------
+    def boundary_jobs_pending(self) -> bool:
+        """True while jobs wait for the next tick boundary — part of the
+        FrontDoor pump's wake predicate, so a parked pump serves a
+        migrate-in or -out without waiting for traffic."""
+        with self._lock:
+            return bool(self._boundary_jobs)
+
+    def at_tick_boundary(self, fn, timeout: float = 30.0):
+        """Run ``fn()`` at the engine's next iteration-level boundary and
+        return its result (``serving.py:5620``): the job queues under
+        the lock, the tick loop drains it before the next
+        admit/prefill/step, and THIS thread blocks until it ran. On an
+        idle engine (no ``run()`` in flight) it runs inline under the
+        tick gate instead. ``fn``'s raise is re-raised here, never in
+        the tick loop; ``TimeoutError`` means no boundary came within
+        ``timeout`` seconds (a wedged or dead pump)."""
+        done = threading.Event()
+        box: Dict[str, Any] = {}
+        job = (fn, box, done)
+        with self._lock:
+            self._boundary_jobs.append(job)
+        self._wake_up()
+        if not self._running:
+            # the pop under _lock makes this race-free against a run()
+            # starting concurrently: whichever drainer pops the job runs
+            # it exactly once
+            with self._tick_gate:
+                self._run_boundary_jobs()
+        if not done.wait(timeout):
+            with self._lock:
+                if job in self._boundary_jobs:
+                    # never ran: un-queue it, so a late boundary does
+                    # not run a job whose caller gave up
+                    self._boundary_jobs.remove(job)
+                    raise TimeoutError(
+                        f"no tick boundary within {timeout}s (engine "
+                        "pump wedged or dead)")
+            # popped but unfinished: mid-execution, wait it out
+            if not done.wait(timeout):
+                raise TimeoutError(
+                    f"tick-boundary job still running after "
+                    f"{2 * timeout}s")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def _run_boundary_jobs(self):
+        """Drain queued boundary jobs. A job's raise is DELIVERED to its
+        waiter, never propagated into the tick: a failed migration must
+        not trip the breaker."""
+        while True:
+            with self._lock:
+                if not self._boundary_jobs:
+                    return
+                fn, box, done = self._boundary_jobs.pop(0)
+            try:
+                box["result"] = fn()
+            except BaseException as e:  # delivered, not propagated
+                box["error"] = e
+            finally:
+                done.set()
+
+    # -- live-request snapshot and restore ----------------------------------
+    def snapshot_request(self, rid: int, path: str,
+                         version: Optional[int] = None,
+                         keep_last: int = 3) -> int:
+        """Serialize one LIVE request (``serving.py:5679``): tokens,
+        sampling parameters, key data and its committed full-block KV,
+        through :mod:`paddle_tpu_torch.distributed.checkpoint`
+        (sha256-checksummed shards, crash-safe commit, keep-last
+        retention), in the reference's on-disk format. A restored
+        request (:meth:`restore_request`, on any engine with the same
+        model, weights and block geometry) continues TOKEN-EXACT. Call
+        between ticks (from another thread, :meth:`at_tick_boundary` is
+        that boundary). ``path`` may also be a writable file object: the
+        snapshot then lands as the :meth:`snapshot_request_bytes` frame.
+        Returns the committed version."""
+        from paddle_tpu_torch.distributed import checkpoint as ckpt
+
+        state, extra, req = self._snapshot_capture(rid)
+        if version is None:
+            version = len(req.tokens)
+        if not isinstance(path, (str, bytes)) and hasattr(path, "write"):
+            path.write(self._frame_snapshot(state, extra))
+        else:
+            ckpt.save_state(state, path, extra=extra, version=int(version),
+                            keep_last=int(keep_last))
+        self._note_snapshot(rid, int(version), extra)
+        return int(version)
+
+    def _snapshot_capture(self, rid: int):
+        """One live request's restorable state as ``(arrays, extra,
+        request)``: the KV of its committed full blocks (host copies in
+        the reference's ``(n, L, bs, H, D)`` layout) and the metadata a
+        peer rebuilds the request from."""
+        if not self.paged:
+            raise RuntimeError(
+                "snapshot_request captures paged pool blocks; the "
+                "dense arena has no block enumeration to serialize")
+        slot = next((i for i, r in enumerate(self._slots)
+                     if r is not None and r.id == rid), None)
+        if slot is None:
+            raise ValueError(f"request {rid} holds no slot (snapshot "
+                             "covers LIVE requests; queued ones are "
+                             "already plain host state)")
+        if self._pf[slot] is not None:
+            raise RuntimeError(
+                f"request {rid} is still prefilling — its KV frontier "
+                "is mid-chunk; snapshot after its first token")
+        req = self._slots[slot]
+        bs = self.engine.block_size
+        nfull = int(self._t[slot]) // bs
+        blocks = self.engine.table[slot, :nfull].tolist()
+        kseg, vseg, ks, vs = self.engine.gather_blocks_to_host(blocks)
+        state = {"kv_k": kseg, "kv_v": vseg}
+        if self.quantized:
+            state["kv_kscale"] = ks
+            state["kv_vscale"] = vs
+        extra = {
+            "kind": "paddle_tpu.request_snapshot.v1",
+            "rid": int(rid), "tenant": req.tenant,
+            "prompt": [int(x) for x in req.prompt],
+            "tokens": [int(x) for x in req.tokens],
+            "max_new_tokens": int(req.max_new_tokens),
+            "temperature": float(req.temperature),
+            "greedy": bool(req.greedy),
+            "top_k": int(req.top_k) if req.top_k is not None else None,
+            "top_p": float(req.top_p) if req.top_p is not None else None,
+            "eos_id": req.eos_id if req.eos_id is not None
+            else self.eos_id,
+            "keydata": [int(x) for x in
+                        np.asarray(self._keydata[slot]).ravel()],
+            "tokens_covered": nfull * bs,
+            "block_size": bs, "quantized": bool(self.quantized),
+            "layers": self.engine.L, "heads": self.engine.heads,
+            "head_dim": self.engine.head_dim,
+        }
+        return state, extra, req
+
+    def _note_snapshot(self, rid: int, version: int, extra: Dict):
+        nfull = int(extra["tokens_covered"]) // int(extra["block_size"])
+        self._c_snapshots.inc()
+        with self._telemetry("snapshot events"):
+            self.telemetry.tracer.event(rid, "snapshot",
+                                        version=int(version), blocks=nfull)
+            self.telemetry.recorder.record(
+                "snapshot", rid=rid, version=int(version), blocks=nfull,
+                tokens_covered=int(extra["tokens_covered"]))
+        return int(version)
+
+    def snapshot_request_bytes(self, rid: int) -> bytes:
+        """:meth:`snapshot_request` into one self-verifying byte frame
+        (``serving.py:5781``): magic + length-prefixed JSON header (the
+        snapshot's metadata and the payload's sha256) + an npz payload of
+        the KV arrays. The fleet's transport: it restores on a peer
+        through :meth:`restore_request`, and a corrupt payload degrades
+        to metadata-only recovery and a re-prefill, counted."""
+        state, extra, req = self._snapshot_capture(rid)
+        frame = self._frame_snapshot(state, extra)
+        self._note_snapshot(rid, len(req.tokens), extra)
+        return frame
+
+    @staticmethod
+    def _frame_snapshot(state: Dict[str, Any], extra: Dict) -> bytes:
+        import hashlib
+        import io
+        import json as _json
+
+        from paddle_tpu_torch.distributed.checkpoint import _to_host
+
+        # bf16 rides as raw 2-byte elements ('<V2'), as numpy stores it
+        bio = io.BytesIO()
+        np.savez(bio, **{k: _to_host(v)[0] for k, v in state.items()})
+        payload = bio.getvalue()
+        header = _json.dumps({
+            "extra": extra,
+            "payload_sha256": hashlib.sha256(payload).hexdigest(),
+            "payload_len": len(payload),
+        }).encode("utf-8")
+        return (_SNAP_MAGIC + len(header).to_bytes(8, "little")
+                + header + payload)
+
+    @staticmethod
+    def _parse_snapshot_frame(data: bytes):
+        """Decode a :meth:`snapshot_request_bytes` frame into
+        ``(arrays_or_None, extra, corrupt_reason_or_None)``. A bad magic
+        or header is a ``ValueError`` (nothing recoverable); a payload
+        that fails its sha256 or does not load as npz returns
+        ``arrays=None`` with the reason."""
+        import hashlib
+        import io
+        import json as _json
+
+        data = bytes(data)
+        if len(data) < 16 or data[:8] != _SNAP_MAGIC:
+            raise ValueError(
+                "not a request-snapshot byte frame (bad magic); "
+                "expected the snapshot_request_bytes format")
+        hlen = int.from_bytes(data[8:16], "little")
+        if 16 + hlen > len(data):
+            raise ValueError(
+                "request-snapshot frame truncated inside its header")
+        try:
+            header = _json.loads(data[16:16 + hlen].decode("utf-8"))
+        except (UnicodeDecodeError, _json.JSONDecodeError) as e:
+            raise ValueError(
+                f"request-snapshot frame header is not JSON ({e})")
+        extra = header.get("extra", {})
+        payload = data[16 + hlen:]
+        if (len(payload) != header.get("payload_len")
+                or hashlib.sha256(payload).hexdigest()
+                != header.get("payload_sha256")):
+            return None, extra, "payload failed its sha256 check"
+        try:
+            with np.load(io.BytesIO(payload)) as z:
+                arrays = {k: z[k] for k in z.files}
+        except Exception as e:
+            return None, extra, f"payload did not load as npz ({e!r})"
+        return arrays, extra, None
+
+    @staticmethod
+    def _host_tensor(a) -> torch.Tensor:
+        """A snapshot array as a CPU tensor: numpy's raw 2-byte
+        elements ('<V2', how either package stores bf16) read back
+        through int16."""
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        a = np.asarray(a)
+        if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+            return torch.from_numpy(a.view(np.int16).copy()).view(
+                torch.bfloat16)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    def restore_request(self, source, **overrides) -> Request:
+        """Re-enqueue a snapshotted request on THIS engine
+        (``serving.py:5910``). ``source`` is a checkpoint directory
+        (str), a :meth:`snapshot_request_bytes` frame
+        (bytes/bytearray/memoryview) or a readable file object holding
+        one. Corrupt data falls back to the metadata (the commit's
+        ``meta.json`` or the frame header) and a full re-prefill, counted
+        ``corrupt_fallback``; with a clean read and a host tier the KV
+        parks in the tier and admission splices it back like a preempted
+        request's spill (``swap_in``); else it re-prefills
+        (``reprefill``). The continuation is token-exact by the
+        snapshot's key data; ``overrides`` patch Request fields (a new
+        ``on_token``, say). Call between ticks (from another thread,
+        :meth:`at_tick_boundary` is that boundary)."""
+        import warnings
+
+        from paddle_tpu_torch.distributed import checkpoint as ckpt
+        from paddle_tpu_torch.distributed.resilience import \
+            TransientFailureWarning
+
+        if not self.paged:
+            raise RuntimeError(
+                "restore_request needs the paged arena (the snapshot "
+                "manifest is block-shaped)")
+        if hasattr(source, "read"):
+            source = source.read()
+        if isinstance(source, (bytes, bytearray, memoryview)):
+            src_label = "<snapshot frame>"
+            arrays, extra, corrupt = self._parse_snapshot_frame(source)
+            if corrupt is not None:
+                warnings.warn(TransientFailureWarning(
+                    f"request-snapshot frame failed integrity check "
+                    f"({corrupt}); restoring from its header metadata "
+                    "with a full re-prefill"), stacklevel=2)
+        else:
+            src_label = str(source)
+            arrays = None
+            try:
+                arrays, extra = ckpt.load_state(source, verify=True,
+                                                device="cpu")
+            except ckpt.CheckpointCorruptError as e:
+                # the shard data is gone, but the commit's metadata is a
+                # file of its own: recover the REQUEST and re-prefill
+                extra = ckpt.load_meta(source).get("extra", {})
+                warnings.warn(TransientFailureWarning(
+                    f"request snapshot failed integrity check ({e}); "
+                    "restoring from metadata with a full re-prefill"),
+                    stacklevel=2)
+        if extra.get("kind") != "paddle_tpu.request_snapshot.v1":
+            raise ValueError(
+                f"{src_label} is not a request snapshot (kind="
+                f"{extra.get('kind')!r})")
+        if arrays is not None and \
+                int(extra["block_size"]) != self.engine.block_size:
+            raise ValueError(
+                f"snapshot block_size {extra['block_size']} != this "
+                f"engine's {self.engine.block_size} — KV blocks do "
+                "not remap across geometries; re-prefill instead "
+                "(restore on a matching engine, or strip the shards)")
+        if arrays is not None and \
+                bool(extra["quantized"]) != bool(self.quantized):
+            raise ValueError(
+                "snapshot and engine disagree on kv_dtype — int8 "
+                "codes only splice into an int8 pool")
+        eng = self.engine
+        geo = (extra.get("layers", eng.L), extra.get("heads", eng.heads),
+               extra.get("head_dim", eng.head_dim))
+        if arrays is not None and \
+                geo != (eng.L, eng.heads, eng.head_dim):
+            raise ValueError(
+                f"snapshot KV geometry (L, H, D) = {geo} does not "
+                f"match this engine's ({eng.L}, {eng.heads}, "
+                f"{eng.head_dim}) — snapshots restore onto the SAME "
+                "model architecture")
+        prompt = list(extra["prompt"])
+        tokens = list(extra["tokens"])
+        if len(prompt) + len(tokens) > self._plen_max:
+            raise ValueError(
+                f"snapshot context of {len(prompt) + len(tokens)} "
+                f"tokens exceeds this engine's {self._plen_max}-token "
+                "admission budget")
+        req = Request(
+            prompt=prompt,
+            max_new_tokens=int(extra["max_new_tokens"]),
+            temperature=float(extra["temperature"]),
+            greedy=bool(extra["greedy"]),
+            top_k=extra.get("top_k"), top_p=extra.get("top_p"),
+            eos_id=extra.get("eos_id"),
+            tenant=extra.get("tenant", "default"))
+        for k, v in overrides.items():
+            setattr(req, k, v)
+        # the continuation state goes on BEFORE submit(): once the
+        # scheduler sees the request, the tick loop may admit it
+        req.tokens = tokens
+        req._keydata = [int(x) for x in extra["keydata"]]
+        outcome = "reprefill"
+        covered = int(extra.get("tokens_covered", 0))
+        if arrays is None:
+            outcome = "corrupt_fallback"
+        elif covered and self._host is not None:
+            # no trie reclaim here: a short tier degrades to re-prefill
+            nblocks = covered // self.engine.block_size
+            host = self._host.alloc(nblocks)
+            if host is not None:
+                try:
+                    ht = self._host_tensor
+                    self._host.write(
+                        host, ht(arrays["kv_k"]).to(self._host.dtype),
+                        ht(arrays["kv_v"]).to(self._host.dtype),
+                        ht(arrays["kv_kscale"]) if self.quantized
+                        else None,
+                        ht(arrays["kv_vscale"]) if self.quantized
+                        else None)
+                except Exception as e:
+                    # a faulted park must neither crash the restore nor
+                    # strand the grant: only the copy saving is lost
+                    self._host.deref(host, aborted=True)
+                    self._c_swap_fb.labels(where="restore").inc()
+                    with self._telemetry("restore_park_failed event"):
+                        self.telemetry.recorder.record(
+                            "restore_park_failed", blocks=nblocks,
+                            error=repr(e))
+                else:
+                    req._spill = {"host_blocks": host, "tokens": covered}
+                    outcome = "swap_in"
+        self._c_restores.labels(outcome=outcome).inc()
+        # the fleet's migrate-in reports how the KV landed
+        req._restore_outcome = outcome
+        try:
+            self.submit(req)
+        except BaseException:
+            # a refused submission must not strand the KV it parked
+            if self._host is not None:
+                self._release_spill(req)
+            raise
+        with self._telemetry("restore events"):
+            self.telemetry.recorder.record(
+                "restore", rid=req.id, outcome=outcome,
+                tokens_covered=covered if outcome == "swap_in" else 0,
+                prior_tokens=len(tokens))
+        return req
+
+    def migrate_out_request(self, rid: int) -> bytes:
+        """Snapshot one LIVE request to a byte frame and retire it
+        (``finish_reason="migrated"``) in one step (``serving.py:6012``):
+        the fleet router's drain and rebalance primitive. The source's
+        blocks free at the retire, so ``audit()`` reconciles to zero the
+        moment the frame is in hand. From another thread, run it through
+        ``engine.at_tick_boundary(lambda: engine.migrate_out_request(
+        rid))``."""
+        frame = self.snapshot_request_bytes(rid)
+        slot = next((i for i, r in enumerate(self._slots)
+                     if r is not None and r.id == rid), None)
+        self._retire(slot, "migrated")
+        self._c_migrations.inc()
+        with self._telemetry("migrate_out event"):
+            self.telemetry.recorder.record(
+                "migrate_out", rid=rid, frame_bytes=len(frame))
+        return frame
+
+    def _process_cancellations(self):
+        """Apply cancel() flags at the tick boundary, so a cross-thread
+        cancel never races a dispatch."""
+        with self._lock:
+            if not self._cancels:
+                return
+            pending, self._cancels = self._cancels, []
+        for req in pending:
+            if req.status == "done":
+                continue        # retired normally before we got here
+            if req.status == "queued":
+                # remove() scans; a cross-thread submit() into the same
+                # queue must not race it
+                with self._lock:
+                    removed = self.scheduler.remove(req)
+                if removed:
+                    self._drop_queued(req, "cancelled")
+                continue
+            slot = next((i for i, r in enumerate(self._slots)
+                         if r is req), None)
+            if slot is not None:
+                self._retire(slot, "cancelled")
+
+    def _expire_deadlines(self):
+        """Retire everything past its deadline: queued requests drop
+        without admission, running ones retire mid-flight, freeing
+        blocks for requests that can still meet theirs."""
+        now = self._now()
+        with self._lock:
+            expired = self.scheduler.pop_expired(now)
+        for req in expired:
+            with self._telemetry("deadline event"):
+                self.telemetry.recorder.record("deadline_exceeded",
+                                               rid=req.id, queued=True)
+            self._drop_queued(req, "deadline_exceeded")
+        for slot, r in enumerate(self._slots):
+            if r is not None and r.deadline is not None \
+                    and now > r.deadline:
+                with self._telemetry("deadline event"):
+                    self.telemetry.recorder.record(
+                        "deadline_exceeded", rid=r.id,
+                        tokens_so_far=len(r.tokens))
+                self._retire(slot, "deadline_exceeded")
 
     def _select_victim(self) -> Optional[int]:
         cands = [(i, r, int(self._seq[i]))
@@ -2866,16 +3466,34 @@ class ServingEngine:
                 blocks=[b for b in mapped if self._alloc.refcount(b) == 0])
 
     def _idle_wait(self, wait: float):
-        """Sleep toward the next arrival; an injected clock that does not
-        advance fails loudly instead of spinning forever."""
+        """Park until the next event is due OR work arrives
+        (``serving.py:6191``): a condition wait that ``submit()`` and
+        ``cancel()`` from any thread notify, so an idle engine admits a
+        late arrival within one tick. An injected clock that does not
+        advance fails loudly instead of blocking for fake seconds."""
         before = self.clock()
-        time.sleep(min(wait, 0.05))
+        with self._wake:
+            if self._wake_flag:
+                self._wake_flag = False
+                return
+            notified = self._wake.wait(timeout=min(wait, 0.05))
+            self._wake_flag = False
+        if notified:
+            return
         if self.clock() <= before:
             raise RuntimeError(
                 "ServingEngine clock did not advance during an idle "
                 "wait — when injecting a simulated clock, override "
                 "_idle_wait() to advance it (or submit requests with "
                 "arrival_time already due)")
+        # the clock is real: park the remainder in ONE condition wait; a
+        # submit or cancel landing between the two waits sets the flag
+        remaining = wait - (self.clock() - before)
+        if remaining > 0:
+            with self._wake:
+                if not self._wake_flag:
+                    self._wake.wait(timeout=remaining)
+                self._wake_flag = False
 
     def run(self, max_steps: Optional[int] = None,
             keep_epoch: bool = False) -> ServingMetrics:
@@ -2886,12 +3504,17 @@ class ServingEngine:
         Engine-scoped tick failures count against the breaker: below
         ``engine_failure_threshold`` consecutive ones the broken tick is
         skipped, at it the engine dumps its flight ring and raises.
-        ``keep_epoch`` is accepted at its default only."""
-        refuse_unported("ServingEngine.run", keep_epoch=(keep_epoch, False))
+        ``keep_epoch`` keeps the EXISTING clock anchor and metrics window
+        across an idle restart: the FrontDoor pump uses it, so a
+        long-lived server's arrival stamps, deadlines and percentiles
+        live on one anchor instead of resetting per burst. Tick-boundary
+        jobs drain before the loop, at the top of every tick and after
+        the loop."""
         steps = 0
         self._breaker_open = False
         self._engine_failures = 0
-        if not self.active_count():
+        if not self.active_count() and \
+                not (keep_epoch and self._t0 is not None):
             self._t0 = self.clock()
             self.metrics = ServingMetrics(
                 self.b, self._cache, self._alloc,
@@ -2901,10 +3524,16 @@ class ServingEngine:
             self._rep_busy = [0] * self.replicas
             self._rep_tokens = [0] * self.replicas
         self._now()
+        self._running = True
         try:
+            # boundary jobs may be what woke an idle engine: a
+            # migrate-in's restore submits the work the loop then sees
+            with self._tick_gate:
+                self._run_boundary_jobs()
             while self.scheduler.depth() or self.active_count():
                 try:
-                    outcome = self._run_tick()
+                    with self._tick_gate:
+                        outcome = self._run_tick()
                 except Exception as e:
                     if not self._quar:
                         raise
@@ -2968,6 +3597,13 @@ class ServingEngine:
                       f"(render: python -m paddle_tpu_torch.observability."
                       f"dump {path})", file=sys.stderr)
             raise
+        finally:
+            # flag FIRST, then drain: a job appended after this drain
+            # saw _running False and drains itself inline, so no job
+            # waits out its timeout against an exited loop
+            self._running = False
+            with self._tick_gate:
+                self._run_boundary_jobs()
         return self.metrics
 
     def _telemetry(self, what: str):
@@ -3104,14 +3740,26 @@ class ServingEngine:
             self._prof_tick_end(tok, outcome == "stepped")
 
     def _tick_once(self) -> str:
+        # boundary jobs, cancellations and deadlines are tick-boundary
+        # work like admissions: applied before this tick's
+        # admit/prefill/step, so a cancelled slot frees THIS tick
         with self._phase("admission"):
+            self._run_boundary_jobs()
+            self._process_cancellations()
+            self._expire_deadlines()
             self._admit_ready()
         if not self.active_count():
             if not self.scheduler.depth():
                 return "done"
+            # every pending request lies in the future: park until the
+            # earliest arrival OR queued deadline, or a wake-up
             now = self._now()
             nxt = self.scheduler.next_arrival(now)
             wait = (nxt - now) if nxt is not None else 0.0
+            dls = [r.deadline for r in self.scheduler.pending()
+                   if r.deadline is not None]
+            if dls:
+                wait = min(wait, min(dls) - now)
             if wait > 0:
                 self._idle_wait(wait)
                 return "idle"

@@ -325,7 +325,9 @@ def test_port_never_imports_jax_or_the_jax_package():
               REPO / "k45_f32_fault_check.py", REPO / "k45_f32_variants.py"]
     assert len(files) > 10
     for module in ("observability/__init__.py", "observability/metrics.py",
-                   "observability/ops_plane.py", "inference/program_set.py"):
+                   "observability/ops_plane.py", "inference/program_set.py",
+                   "inference/fleet/engine_proc.py",
+                   "inference/frontend/server.py"):
         assert REPO / "paddle_tpu_torch" / module in files
     bad = []
     for f in files:

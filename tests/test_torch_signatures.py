@@ -38,6 +38,7 @@ from paddle_tpu_torch.distributed.meta_parallel import (ColumnParallelLinear,
 from paddle_tpu_torch.inference import (BlockAllocator, DraftModelDrafter,
                                         NgramDrafter, Request, ServingEngine,
                                         SpeculativeEngine)
+from paddle_tpu_torch.inference.frontend import SamplingParams
 from paddle_tpu_torch.inference.prefix_cache import PrefixCacheNode
 from paddle_tpu_torch.inference.program_set import ProgramSet
 from paddle_tpu_torch.inference.serving import DecodeEngine, ServingMetrics
@@ -109,6 +110,7 @@ def _tiny():
 
 
 _X = torch.ones(4, 64)
+_SP = SamplingParams(top_k=2)
 _ENGINE = DecodeEngine(_tiny(), 2, 32, block_size=8)
 _DENSE = DecodeEngine(_tiny(), 2, 32)
 _DRAFTER = DraftModelDrafter(_tiny(), 3)
@@ -143,13 +145,12 @@ CASES = {
         {"ids_dtype": None, "mesh": None, "seq_parallel": False,
          "adapter_pool": None}, None),
     # the reference's engine-owned state past finish_reason
-    # (cancel_requested, spill and constraint slots, logprobs) is not
-    # the port's
+    # (cancel_requested, spill and constraint slots, logprobs) is set by
+    # the engine, never by the caller: not init fields in the port
     "Request": (
         "inference/serving.py", "Request", Request,
         lambda **kw: Request([1, 2], **kw),
-        {"sampling": None, "deadline": None, "tenant": "default",
-         "priority": None, "adapter": None, "kind": "generate",
+        {"adapter": None, "kind": "generate",
          "response_format": None}, "cancel_requested"),
     "nn.Linear": (
         "nn/layers/common.py", "Linear", Linear,
@@ -266,7 +267,7 @@ CASES = {
         ServingEngine(_tiny(), 1, 64, block_size=8, device="cpu").run,
         lambda **kw: ServingEngine(_tiny(), 1, 64, block_size=8,
                                    device="cpu").run(**kw),
-        {"keep_epoch": False}, None),
+        {}, None),
     "ServingMetrics": (
         "inference/serving.py", "ServingMetrics", ServingMetrics, None, {},
         None),
@@ -382,7 +383,10 @@ WHOLE = ["core/flags.py", "testing/fault_injection.py",
          "observability/flight_recorder.py", "observability/trace.py",
          "observability/slo.py", "observability/profile.py",
          "observability/sentinel.py", "observability/ops_plane.py",
-         "observability/dump.py"]
+         "observability/dump.py", "inference/frontend/sampling.py",
+         "inference/frontend/admission.py", "inference/fleet/client.py",
+         "inference/frontend/server.py", "inference/frontend/ingest.py",
+         "inference/fleet/router.py", "inference/fleet/engine_proc.py"]
 # port modules with no reference file at their path
 ABSENT_MODULES = {
     "ops/kernels/_build.py": "nvcc build and ctypes binding of csrc/",
@@ -575,9 +579,10 @@ BINDS = {
         lambda: VocabParallelEmbedding(10, 4, 1), "weight_attr"),
     "GPTBlock(config, True)": (lambda: GPTBlock(gpt_tiny(), True),
                                "use_moe"),
+    # sampling, 7th: the SamplingParams bundle submit() folds in
     "Request(prompt, 4, 1.0, True, None, None, sampling)": (
-        lambda: Request([1], 4, 1.0, True, None, None, object()),
-        "sampling"),
+        lambda: Request([1], 4, 1.0, True, None, None, _SP).sampling is _SP,
+        None),
     # spec is ported: the drafter makes the engine speculative at its k
     "ServingEngine(model, 1, 64, None, None, 128, 0, clock, spec)": (
         lambda: ServingEngine(_tiny(), 1, 64, None, None, 128, 0,
