@@ -174,6 +174,34 @@ Phases, in order (any failure exits non-zero and prints no result):
    K4 and K5 launches (its ops plane's ``kernel_launches`` before the
    kill, its ``EXIT`` line after) non-zero; the phase's wall, the tick's
    shares and the decode step p50 printed (host clock);
+5l. adapters, grammars, score and embed on phase 5's fp32 model and
+   engine configuration: (a) an ``AdapterPool(4, 16, 12, 768)`` with
+   three adapters from ``random_weights`` at ``LORA_SCALE`` serves phase
+   5's 16 requests, 4 on the base model and 4 on each adapter, plainly
+   and under ``NgramDrafter(k=4)``: base tokens equal phase 5's (bitwise
+   without speculation), each adapter request's greedy tokens a
+   pool-less engine's over the model merged to W + A@B (near-ties
+   counted), at least half of them off the base model's, 2 argument
+   signatures, a clean audit with no adapter reference left, exact
+   launch counts; (b) phase 5's first 8 prompts under a regex,
+   ``json_object``, a ``json_schema`` and an allow-list, greedy and
+   sampled, plus a regex planted to dead-end: every token legal, every
+   accepting finish matching its grammar, greedy tokens the masked
+   argmax of a no-cache forward (near-ties counted), the dead end
+   retired ``constraint_dead_end`` and counted, phase 5's trace on the
+   same engine afterwards giving phase 5's greedy tokens, the greedy
+   four again at k = 4; (c) 8 score and embed requests alone (no decode
+   step, K4 0) and mixed with 8 generate requests (the same numbers
+   bitwise), held to a full-sequence forward (``SCORE_TOL``,
+   ``EMBED_TOL``), and ``/v1/score`` and ``/v1/embed`` through the
+   ingest answering 200 with them; (d) a live adapter request and a
+   live request under the allow-list migrated out mid-flight and
+   restored on a second engine whose own pool holds the same adapter
+   (``swap_in``): the adapter one gives the uninterrupted run's tokens
+   (near-ties held to the merged model), every token of the constrained
+   one is legal and its masked argmax, both audits are clean and no
+   adapter reference is left; the phase's wall and decode step p50
+   beside phase 5's printed (host clock);
 6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
    ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
@@ -1845,7 +1873,7 @@ def _check_absorbed(eng, what, want=None):
 
 
 def _serve(torch, model, trace, block_size=16, poison=False, arm=None,
-           **engine_kw):
+           reasons=("length", "eos"), **engine_kw):
     """One run of ``trace`` through ``ServingEngine(model, 8 slots, max_len
     1024, blocks of ``block_size`` (None: the dense arena), chunks of 128,
     **engine_kw)`` on the card, after a warm-up request (cuBLAS handles,
@@ -1858,9 +1886,10 @@ def _serve(torch, model, trace, block_size=16, poison=False, arm=None,
     returning a context manager: a planted fault) wraps the counted run;
     a request it made the engine quarantine ends ``"error"``, and the
     caller checks what the engine absorbed. With nothing armed, every
-    request must end "length" or "eos" and the engine must have
+    request must end with one of ``reasons`` and the engine must have
     absorbed nothing (``_check_absorbed``): a retried dispatch or a
-    crashed tick the breaker took fails the run as a raise would."""
+    crashed tick the breaker took fails the run as a raise would. A
+    score or embed request streams no tokens."""
     from paddle_tpu_torch.inference import Request, ServingEngine
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
     from paddle_tpu_torch.ops.kernels import layer_norm as k2
@@ -1900,10 +1929,17 @@ def _serve(torch, model, trace, block_size=16, poison=False, arm=None,
         if arm is not None and r.status == "done" and \
                 r.finish_reason == "error":
             continue
-        check(r.status == "done" and r.finish_reason in ("length", "eos"),
+        check(r.status == "done" and r.finish_reason in reasons,
               f"request {r.id} ended {r.status}/{r.finish_reason}")
+        if r.kind != "generate":
+            check(r.id not in streamed and r.tokens == [],
+                  f"{r.kind} request {r.id} streamed tokens")
+            continue
+        # a dead-ended grammar retires after a token streamed as not
+        # done (its on_finish tells the client)
         check([tk for tk, _ in streamed[r.id]] == r.tokens
-              and streamed[r.id][-1][1],
+              and (streamed[r.id][-1][1]
+                   or r.finish_reason == "constraint_dead_end"),
               f"request {r.id}: the stream differs from its tokens")
     return eng, reqs, agg, wall, launches
 
@@ -3289,6 +3325,477 @@ def frontdoor_fleet_phase(torch, card, model, fp_reqs):
           "(host clock)", flush=True)
 
 
+# ------------------------- 5l: adapters, grammars, score and embed
+# multi-LoRA: AdapterPool(4, 16, 12, 768) with three adapters drawn by
+# random_weights(seed, LORA_SCALE). At 0.02 (the reference's default)
+# A@B is ~1e-3, a tenth of gpt2_small's weights, and moves few greedy
+# tokens; at LORA_SCALE it is ~0.04, so most adapter requests' tokens
+# move and the gate below sees a dropped or misrouted delta
+LORA_RANK = 16
+LORA_SCALE = 0.1
+LORA_SEEDS = (101, 102, 103)
+# score logprobs and embed hidden states against a full-sequence fp32
+# forward of the plain model: the engine's chunks (K5 over the paged
+# pool) and the no-cache forward sum in other orders, and a logprob
+# carries its logsumexp's error over 50257 logits. On an H100 the worst
+# over 5l's 8 prompts reads 3.8e-6 (logprob) and 4.6e-6 (hidden): the
+# limits sit ~5x above
+SCORE_TOL = 2e-5
+EMBED_TOL = 2e-5
+# the grammars of 5l(b): character grammars over the byte vocabulary
+# (ids >= 256 decode to "", so only byte tokens are ever legal) and an
+# allow-list of 64 ids past the bytes; EOS is GPT-2's end of text
+EOS_5L = 50256
+GRAMMARS_5L = (
+    {"type": "regex", "pattern": "[a-z]{2,6}( [a-z]{2,6}){0,9}"},
+    {"type": "json_object"},
+    {"type": "json_schema", "schema": {
+        "type": "object", "properties": {"id": {"type": "integer"},
+                                         "ok": {"type": "boolean"}},
+        "required": ["id"]}},
+    {"type": "allowed_tokens", "tokens": list(range(1000, 1064))},
+)
+
+
+def _merged_model(torch, model, pool, name):
+    """A copy of ``model`` with adapter ``name`` folded into its
+    projections (W + A@B, the reference's ``merged_delta``): the
+    ground truth an adapter request must reproduce."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    merged = GPTForCausalLM(model.config, device="cuda")
+    merged.load_state_dict(model.state_dict())
+    merged.eval()
+    with torch.no_grad():
+        for i, blk in enumerate(merged.gpt.h):
+            for tgt, lin in (("qkv", blk.attn.qkv_proj),
+                             ("out", blk.attn.out_proj),
+                             ("fc_in", blk.mlp.fc_in),
+                             ("fc_out", blk.mlp.fc_out)):
+                lin.weight += torch.from_numpy(
+                    pool.merged_delta(name, tgt, i)).to(lin.weight)
+    return merged
+
+
+def _lora_5l(torch, card, model, fp_reqs):
+    """5l(a): phase 5's 16 requests, 4 on the base model and 4 on each of
+    three adapters, through ``ServingEngine(adapter_pool=)``, plainly and
+    with ``NgramDrafter(k=4)`` (K4 at s 5). Base requests equal phase
+    5's tokens (bitwise without speculation, near-ties counted with
+    it); each adapter request's greedy tokens equal a pool-less
+    engine's over the model merged to W + A@B (near-ties counted); 2
+    argument signatures, a clean audit with no adapter reference left,
+    and launch counts from the run's own chunks and steps. Returns the
+    plain run's aggregate."""
+    from paddle_tpu_torch.inference import NgramDrafter
+    from paddle_tpu_torch.inference.adapter_pool import AdapterPool
+
+    cfg = model.config
+    L = cfg.num_layers
+    pool = AdapterPool(4, LORA_RANK, L, cfg.hidden_size)
+    names = ("a0", "a1", "a2")
+    for n, seed in zip(names, LORA_SEEDS):
+        pool.register(n, pool.random_weights(seed=seed, scale=LORA_SCALE))
+    trace = _serving_trace(cfg.vocab_size)
+    which = [None] * 4 + [n for n in names for _ in range(4)]
+    mix = [dict(kw, adapter=a) for kw, a in zip(trace, which)]
+    runs = {}
+    for what, spec in (("5l lora", None),
+                       ("5l lora spec", NgramDrafter(k=4))):
+        eng, reqs, agg, wall, launches = _serve(torch, model, mix,
+                                                adapter_pool=pool, spec=spec)
+        chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+        print(f"{what}: {int(agg['completed'])} requests, {chunks} prefill "
+              f"chunks, {steps} {'verify' if spec else 'decode'} steps, "
+              f"{int(agg['preemptions'])} preemptions, launches {launches}",
+              flush=True)
+        _check_launches(what, launches, L, chunks, steps, int8=False)
+        check(eng.executable_count() == 2, f"{what}: "
+              f"{eng.executable_count()} argument signatures, want 2")
+        audit = eng.audit()
+        check(not any(audit.values()), f"{what}: audit {audit}")
+        check(all(pool.refcount(n) == 0 for n in names),
+              f"{what}: adapter references left")
+        if spec is None:
+            for i in range(4):
+                check(reqs[i].tokens == fp_reqs[i].tokens,
+                      f"{what}: base request {i} differs from phase 5's")
+        else:
+            nt = _same_greedy(torch, model, fp_reqs[:4], reqs[:4], what)
+            print(f"{what}: base requests against phase 5: {nt} near-tie "
+                  "divergences", flush=True)
+        runs[what] = (reqs, agg, wall)
+    reqs = runs["5l lora"][0]
+    greedy = [i for i in range(4, 16) if reqs[i].greedy]
+    moved = sum(reqs[i].tokens != fp_reqs[i].tokens for i in greedy)
+    print(f"5l lora: {moved} of {len(greedy)} greedy adapter requests "
+          f"differ from the base model's tokens (scale {LORA_SCALE})",
+          flush=True)
+    check(2 * moved >= len(greedy), f"5l lora: only {moved} of "
+          f"{len(greedy)} adapter requests moved off the base tokens")
+    for n in names:
+        merged = _merged_model(torch, model, pool, n)
+        idx = [i for i, a in enumerate(which) if a == n]
+        _, ref, _, _, _ = _serve(torch, merged, [trace[i] for i in idx])
+        for what, (got, _, _) in runs.items():
+            nt = _same_greedy(torch, merged, ref, [got[i] for i in idx],
+                              f"{what} {n}")
+            print(f"{what}: adapter {n} against the merged-weights model: "
+                  f"{nt} near-tie divergences", flush=True)
+        del merged
+        torch.cuda.empty_cache()
+    return runs["5l lora"][1]
+
+
+def _masked_check(torch, model, req, grammar, what):
+    """Every token of ``req`` legal under ``grammar`` (a compiled
+    grammar: EOS only where it accepts), and for a greedy request each
+    token the argmax of a teacher-forced no-cache forward masked by the
+    automaton's row, but at a near-tie (top-2 legal gap < 1e-3).
+    Returns (tokens checked, near-ties)."""
+    from paddle_tpu_torch.inference.constrain import (ConstraintState,
+                                                      token_in_row)
+
+    cs = ConstraintState(grammar)
+    rows = []
+    for t in req.tokens:
+        row = cs.mask_row()
+        check(token_in_row(row, t), f"{what}: request {req.id} emitted "
+              f"illegal token {t} at {len(rows)}")
+        rows.append(row)
+        if t == EOS_5L:
+            check(cs.accepting(), f"{what}: request {req.id} ended "
+                  "outside an accepting state")
+            break
+        cs.advance(t)
+    if not req.greedy or not req.tokens:
+        return len(rows), 0
+    near = 0
+    with torch.inference_mode():
+        ids = torch.tensor([list(req.prompt) + req.tokens[:-1]],
+                           device="cuda")
+        logits = model(ids)[0, len(req.prompt) - 1:].float()
+        V = logits.shape[-1]
+        idx = torch.arange(V, device="cuda")
+        masks = torch.from_numpy(np.stack(rows)).to("cuda")
+        bit = (masks[:, idx // 32] >> (idx % 32).to(torch.int32)) & 1
+        lg = logits[:len(rows)].masked_fill(bit == 0, float("-inf"))
+        top2 = torch.topk(lg, 2, dim=-1).values
+        arg = lg.argmax(-1).cpu().numpy()
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    for pos, (a, t, g) in enumerate(zip(arg, req.tokens, gap)):
+        if a != t:
+            check(g < 1e-3, f"{what}: request {req.id} position {pos}: "
+                  f"emitted {t}, masked argmax {a}, top-2 gap {g}")
+            near += 1
+    return len(rows), near
+
+
+def _accepted_text_ok(req, rf) -> bool:
+    """An accepting finish (EOS) of ``req`` matches its grammar's own
+    meaning: the regex; for ``json_object`` any JSON value (the
+    reference's grammar, ``constrain.py`` ``from_response_format``); for
+    the schema an object with an integer ``id`` and a boolean ``ok``;
+    the allow-list."""
+    body = req.tokens[:-1]
+    if rf["type"] == "allowed_tokens":
+        return set(body) <= set(rf["tokens"])
+    text = bytes(body).decode("latin-1")
+    if rf["type"] == "regex":
+        return re.fullmatch(rf["pattern"], text) is not None
+    try:
+        obj = json.loads(text)
+    except ValueError:
+        return False
+    if rf["type"] == "json_object":
+        return True
+    return isinstance(obj, dict) and type(obj.get("id")) is int \
+        and type(obj.get("ok")) is bool
+
+
+def _constraints_5l(torch, card, model, fp_reqs):
+    """5l(b): phase 5's first 8 prompts under a regex, ``json_object``, a
+    ``json_schema`` and an allow-list, greedy (the first 4) and sampled,
+    plus a regex planted to dead-end (``"ab"`` without EOS). Every token
+    legal, every accepting finish matching its grammar, greedy tokens the
+    masked argmax of a no-cache forward (near-ties counted), the dead end
+    retired and counted; the 4 greedy ones again under
+    ``NgramDrafter(k=4)``, the same checks; then phase 5's trace on the
+    same engine with no constraint, to phase 5's greedy tokens."""
+    from paddle_tpu_torch.inference import NgramDrafter
+    from paddle_tpu_torch.inference.constrain import from_response_format
+
+    cfg = model.config
+    L = cfg.num_layers
+    trace = _serving_trace(cfg.vocab_size)
+    con = []
+    for i in range(8):
+        kw = dict(prompt=trace[i]["prompt"],
+                  max_new_tokens=trace[i]["max_new_tokens"],
+                  response_format=GRAMMARS_5L[i % 4], eos_id=EOS_5L)
+        kw.update(greedy=True) if i < 4 else kw.update(
+            temperature=0.8, top_p=0.9, seed=i)
+        con.append(kw)
+    planted = dict(prompt=trace[8]["prompt"], max_new_tokens=8, greedy=True,
+                   response_format={"type": "regex", "pattern": "ab"})
+    reasons = ("length", "eos", "constraint_dead_end")
+    eng, reqs, agg, wall, launches = _serve(torch, model, con + [planted],
+                                            reasons=reasons)
+    chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+    _check_launches("5l constrained", launches, L, chunks, steps, int8=False)
+    grammars = [from_response_format(kw["response_format"]).compile(
+        cfg.vocab_size, kw.get("eos_id")) for kw in con]
+    checked = near = accepted = 0
+    for r, g, kw in zip(reqs, grammars, con):
+        c, n = _masked_check(torch, model, r, g, "5l constrained")
+        checked, near = checked + c, near + n
+        if r.finish_reason == "eos":
+            accepted += 1
+            check(_accepted_text_ok(r, kw["response_format"]),
+                  f"5l constrained: request {r.id} accepted "
+                  f"{r.tokens} outside {kw['response_format']}")
+    dead = reqs[-1]
+    check(dead.finish_reason == "constraint_dead_end"
+          and dead.tokens == [97, 98], f"5l constrained: the planted dead "
+          f"end ended {dead.finish_reason} with {dead.tokens}")
+    check(agg["constraint_dead_ends"] == 1.0 and eng.telemetry.registry.get(
+        "serving_constraint_dead_ends_total").value == 1.0,
+        "5l constrained: the dead end was not counted once")
+    print(f"5l constrained: {checked} tokens legal, {near} masked near-tie "
+          f"mismatches, {accepted} accepting finishes, "
+          f"{sum(r.finish_reason == 'length' for r in reqs)} at length, the "
+          f"dead end retired and counted; constrained_tokens "
+          f"{int(agg['constrained_tokens'])}, mask_builds "
+          f"{int(agg['mask_builds'])}, in-window fraction "
+          f"{agg['mask_in_window_fraction']:.3f}; launches {launches}",
+          flush=True)
+    # phase 5's trace, unconstrained, on the same engine
+    from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.ops.kernels import paged_attention as k4
+
+    plain = [eng.submit(Request(**kw)) for kw in trace]
+    for m in (k2, k4, k5):
+        m.reset_launches()
+    agg2 = eng.run().aggregate()
+    torch.cuda.synchronize()
+    _check_launches("5l constrained, then plain", {
+        "K2": k2.launches, "K4": k4.launches, "K5": k5.launches,
+        "K4-int8": k4.launches_q, "K5-int8": k5.launches_q}, L,
+        int(agg2["prefill_chunks"]), int(agg2["decode_steps"]), int8=False)
+    nt = _same_greedy(torch, model, fp_reqs, plain, "5l constrained, then "
+                      "plain")
+    check(eng.executable_count() == 2, f"5l constrained: "
+          f"{eng.executable_count()} argument signatures, want 2")
+    check((eng.engine.vocab_masks == -1).all(),
+          "5l constrained: a retired lane kept its mask row")
+    print(f"5l constrained, then phase 5's trace on the same engine: "
+          f"greedy tokens equal phase 5's ({nt} near-tie divergences), "
+          "2 argument signatures", flush=True)
+    # the greedy four under k = 4 speculation
+    eng, sreqs, sagg, _, slaunches = _serve(torch, model, con[:4],
+                                            reasons=reasons,
+                                            spec=NgramDrafter(k=4))
+    _check_launches("5l constrained spec", slaunches, L,
+                    int(sagg["prefill_chunks"]), int(sagg["decode_steps"]),
+                    int8=False)
+    near_s = 0
+    for r, g in zip(sreqs, grammars):
+        near_s += _masked_check(torch, model, r, g,
+                                "5l constrained spec")[1]
+    same = sum(a.tokens == b.tokens for a, b in zip(reqs[:4], sreqs))
+    print(f"5l constrained spec (k = 4): {int(sagg['spec_verify_steps'])} "
+          f"verify steps, {same} of 4 equal the plain run, {near_s} masked "
+          f"near-tie mismatches; launches {slaunches}", flush=True)
+
+
+def _post_json(url, payload):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
+def _batch_5l(torch, card, model, fp_reqs):
+    """5l(c): 8 score and embed requests (phase 5's first 8 prompts)
+    alone and then mixed with 8 generate requests (its last 8). Score
+    logprobs against a full-sequence forward's log-softmax at the next
+    tokens (SCORE_TOL), embeddings against its final hidden state
+    (EMBED_TOL); alone they dispatch no decode step (K4 0); mixed they
+    give the same numbers bitwise and the generate requests phase 5's
+    greedy tokens; ``/v1/score`` and ``/v1/embed`` answer 200 with them."""
+    from paddle_tpu_torch.inference.frontend import FrontDoor
+
+    cfg = model.config
+    L = cfg.num_layers
+    trace = _serving_trace(cfg.vocab_size)
+    batch = [dict(prompt=trace[i]["prompt"],
+                  kind="score" if i % 2 == 0 else "embed") for i in range(8)]
+    eng, reqs, agg, wall, launches = _serve(torch, model, batch,
+                                            reasons=("complete",))
+    chunks = int(agg["prefill_chunks"])
+    check(agg.get("decode_steps", 0.0) == 0.0,
+          f"5l batch: {agg.get('decode_steps')} decode steps dispatched")
+    _check_launches("5l batch", launches, L, chunks, 0, int8=False)
+    worst = {"score": 0.0, "embed": 0.0}
+    with torch.inference_mode():
+        for r in reqs:
+            ids = torch.tensor([list(r.prompt)], device="cuda")
+            logits, hidden = model(ids, output_hidden=True)
+            if r.kind == "score":
+                lp = torch.log_softmax(logits[0, :-1].float(), -1)
+                want = lp.gather(-1, ids[0, 1:, None])[:, 0].cpu().numpy()
+                got = np.asarray(r.logprobs)
+                check(got.shape == want.shape, f"5l batch: request {r.id} "
+                      f"has {got.shape} logprobs, want {want.shape}")
+            else:
+                want = hidden[0, -1].float().cpu().numpy()
+                got = r.embedding
+            worst[r.kind] = max(worst[r.kind],
+                                float(np.abs(got - want).max()))
+    check(worst["score"] < SCORE_TOL and worst["embed"] < EMBED_TOL,
+          f"5l batch: worst errors {worst} past {SCORE_TOL}/{EMBED_TOL}")
+    print(f"5l batch: {len(reqs)} score/embed requests, {chunks} chunks, 0 "
+          f"decode steps, launches {launches}; worst |logprob - full "
+          f"forward| {worst['score']:.3e} (limit {SCORE_TOL}), worst "
+          f"|embedding - full forward| {worst['embed']:.3e} (limit "
+          f"{EMBED_TOL})", flush=True)
+    mix = batch + trace[8:]
+    _, mreqs, magg, _, mlaunches = _serve(torch, model, mix,
+                                          reasons=("length", "eos",
+                                                   "complete"))
+    _check_launches("5l batch mix", mlaunches, L,
+                    int(magg["prefill_chunks"]), int(magg["decode_steps"]),
+                    int8=False)
+    for a, b in zip(reqs, mreqs[:8]):
+        check(a.logprobs == b.logprobs and (a.embedding is None or
+                                            np.array_equal(a.embedding,
+                                                           b.embedding)),
+              f"5l batch mix: request {b.id}'s numbers moved with its "
+              "neighbours")
+    nt = _same_greedy(torch, model, fp_reqs[8:], mreqs[8:], "5l batch mix")
+    print(f"5l batch mix: 8 batch + 8 generate requests, numbers equal "
+          f"the batch-only run bitwise, generate tokens equal phase 5's "
+          f"({nt} near-tie divergences), launches {mlaunches}", flush=True)
+    door = FrontDoor(model, ingest_port=0, max_batch_slots=8, max_len=1024,
+                     block_size=16, prefill_chunk=128, seed=0,
+                     device="cuda").start()
+    try:
+        diffs = []
+        for r in reqs[:2]:
+            code, body = _post_json(f"{door.ingest.url}/v1/{r.kind}",
+                                    {"prompt": list(r.prompt)})
+            check(code == 200, f"5l ingest: /v1/{r.kind} answered {code}")
+            got = body["logprobs"] if r.kind == "score" else \
+                body["embedding"]
+            want = r.logprobs if r.kind == "score" else r.embedding
+            diffs.append(float(np.abs(np.asarray(got) -
+                                      np.asarray(want)).max()))
+        check(max(diffs) <= 1e-6, f"5l ingest: answers differ by {diffs}")
+    finally:
+        door.stop(drain=False)
+    print(f"5l ingest: /v1/score and /v1/embed answered 200, max |diff| "
+          f"from the engine's {max(diffs):.1e}", flush=True)
+
+
+def _migrate_5l(torch, card, model):
+    """5l(d): phase 5's first two greedy requests, one on adapter a0 and
+    one under the allow-list, run uninterrupted on one engine; then the
+    same pair on a second engine, migrated out mid-flight
+    (``migrate_out_request``) and restored on a third whose own pool
+    holds a0 (``swap_in``). The snapshot carries the adapter and the
+    grammar: the adapter request gives the uninterrupted tokens (a
+    divergence only at a near-tie of the merged model), the constrained
+    one only legal tokens, each its masked argmax; audits clean, no
+    adapter reference left, and K2, K4 and K5 launched by the restored
+    run."""
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    from paddle_tpu_torch.inference.adapter_pool import AdapterPool
+    from paddle_tpu_torch.inference.constrain import from_response_format
+    from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.ops.kernels import paged_attention as k4
+
+    cfg = model.config
+    greedy = [kw for kw in _serving_trace(cfg.vocab_size)
+              if kw.get("greedy")][:2]
+    rf = GRAMMARS_5L[3]
+    mix = [dict(greedy[0], adapter="a0"),
+           dict(greedy[1], response_format=rf, eos_id=EOS_5L)]
+    pools = []
+    for _ in range(2):
+        p = AdapterPool(4, LORA_RANK, cfg.num_layers, cfg.hidden_size)
+        p.register("a0", p.random_weights(seed=LORA_SEEDS[0],
+                                          scale=LORA_SCALE))
+        pools.append(p)
+    kw = dict(max_batch_slots=8, max_len=1024, block_size=16,
+              prefill_chunk=128, seed=0, device="cuda",
+              host_tier_blocks=128)
+    whole = ServingEngine(model, adapter_pool=pools[0], **kw)
+    full = [whole.submit(Request(**m)) for m in mix]
+    whole.run()
+    src = ServingEngine(model, adapter_pool=pools[0], **kw)
+    reqs = [src.submit(Request(**m)) for m in mix]
+    for _ in range(400):
+        if all(len(r.tokens) >= 5 for r in reqs):
+            break
+        src.run(max_steps=1)
+    at = [len(r.tokens) for r in reqs]
+    check(all(5 <= n < r.max_new_tokens for n, r in zip(at, reqs)),
+          f"5l migrate: requests at {at} tokens")
+    frames = [src.migrate_out_request(r.id) for r in reqs]
+    dst = ServingEngine(model, adapter_pool=pools[1], **kw)
+    restored = [dst.restore_request(f) for f in frames]
+    torch.cuda.synchronize()
+    for m in (k2, k4, k5):
+        m.reset_launches()
+    dst.run()
+    torch.cuda.synchronize()
+    launches = {"K2": k2.launches, "K4": k4.launches, "K5": k5.launches}
+    outcomes = [r._restore_outcome for r in restored]
+    check(outcomes == ["swap_in", "swap_in"],
+          f"5l migrate: restore outcomes {outcomes}")
+    check(all(v > 0 for v in launches.values()),
+          f"5l migrate: the restored run launched {launches}")
+    check(restored[0].adapter == "a0" and restored[1].response_format == rf,
+          "5l migrate: the restored requests lost their adapter or grammar")
+    merged = _merged_model(torch, model, pools[1], "a0")
+    nt = _same_greedy(torch, merged, [full[0]], [restored[0]],
+                      "5l migrate adapter")
+    del merged
+    torch.cuda.empty_cache()
+    grammar = from_response_format(rf).compile(cfg.vocab_size, EOS_5L)
+    checked, near = _masked_check(torch, model, restored[1], grammar,
+                                  "5l migrate constrained")
+    for eng in (whole, src, dst):
+        report = {k: v for k, v in eng.audit().items() if v}
+        check(not report and eng._host.free_count() == eng._host.capacity,
+              f"5l migrate: audit {report}")
+    check(all(p.refcount("a0") == 0 for p in pools),
+          "5l migrate: adapter references left")
+    exact = [r.tokens == f.tokens for r, f in zip(restored, full)]
+    print(f"5l migrate: an adapter and a constrained request moved at {at} "
+          f"tokens, restored {outcomes}; equal to the uninterrupted run "
+          f"{exact}, {nt} adapter near-ties against the merged model, "
+          f"{checked} constrained tokens legal with {near} masked "
+          f"near-ties; launches {launches}", flush=True)
+
+
+def lora_constrained_phase(torch, card, model, fp_reqs, fp_agg):
+    t0 = time.perf_counter()
+    agg = _lora_5l(torch, card, model, fp_reqs)
+    _constraints_5l(torch, card, model, fp_reqs)
+    _batch_5l(torch, card, model, fp_reqs)
+    _migrate_5l(torch, card, model)
+    print(f"phase 5l on {card}: wall {time.perf_counter() - t0:.1f} s; "
+          f"5l(a)'s decode step p50 {agg['decode_step_ms_p50']:.2f} ms "
+          f"beside phase 5's {fp_agg['decode_step_ms_p50']:.2f} ms (host "
+          "clock, not gated)", flush=True)
+
+
 def training_phase(torch, card):
     """``bench.py``'s training run on the port: returns the launch counts
     of the 10 timed steps and its perf (tokens/s, step p50, peak GiB)."""
@@ -4095,6 +4602,8 @@ def main():
     lap("draft-model spec serving")
     frontdoor_fleet_phase(torch, card, model, fp_reqs)
     lap("front door and fleet")
+    lora_constrained_phase(torch, card, model, fp_reqs, fp_agg)
+    lap("adapters, grammars, score and embed")
     del model
     launches.update({"K5-bf16": bf16_launches["K5"],
                      "K5-int8-bf16": bf16_q_launches["K5-int8"],

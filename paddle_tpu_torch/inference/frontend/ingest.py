@@ -1,9 +1,6 @@
 """HTTP request ingest: the fleet-facing front door over the wire.
 
-The port's copy of ``paddle_tpu/inference/frontend/ingest.py``. The
-port's requests have no ``kind`` yet, so ``/v1/score`` and
-``/v1/embed`` answer the reference's 400 for a malformed body, with the
-refusal's message and the counted reason ``unported``.
+The port's copy of ``paddle_tpu/inference/frontend/ingest.py``.
 
 :class:`~paddle_tpu_torch.inference.frontend.server.FrontDoor` made the
 engine a live server for IN-PROCESS callers; this module is the same
@@ -492,8 +489,6 @@ class IngestServer:
                               f"{sorted(unknown)}")
             try:
                 kwargs["sampling"] = SamplingParams(**sampling)
-            except NotImplementedError as e:
-                raise _Reject(400, "unported", str(e))
             except (TypeError, ValueError) as e:
                 raise _Reject(400, "bad_field",
                               f"bad sampling params: {e}")
@@ -507,11 +502,6 @@ class IngestServer:
         except AdmissionRejected as e:
             code = 503 if e.reason == "draining" else 429
             raise _Reject(code, e.reason, str(e))
-        except NotImplementedError as e:
-            # a reference field the port refuses off its default (the
-            # score/embed kinds, adapters, grammars): the client asked
-            # for something this engine cannot serve
-            raise _Reject(400, "unported", str(e))
         except RuntimeError as e:
             if "pump died" in str(e):
                 raise _Reject(503, "pump_dead", str(e))

@@ -16,8 +16,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-from paddle_tpu_torch.core.unported import refuse_unported
-
 __all__ = ["SamplingParams"]
 
 
@@ -46,8 +44,12 @@ class SamplingParams:
         the stream is independent of co-running neighbours). Unset, it
         derives from the engine seed and the request id.
     response_format : optional
-        Constrained decoding in the reference; the port has no
-        grammar compiler yet, so it is accepted at None only.
+        Constrained decoding: a
+        :class:`~paddle_tpu_torch.inference.constrain.GrammarConstraint`
+        or the wire dict ``{"type": "regex"|"json_object"|
+        "json_schema"|"allowed_tokens", ...}``. Compiled once at submit
+        into a token automaton whose per-step legality rides the
+        engine's programs as a packed runtime vocab bitmask.
     """
 
     temperature: float = 1.0
@@ -67,5 +69,10 @@ class SamplingParams:
         if self.top_p is not None and not 0.0 < float(self.top_p) <= 1.0:
             raise ValueError(
                 f"top_p must be in (0, 1], got {self.top_p}")
-        refuse_unported("SamplingParams",
-                        response_format=(self.response_format, None))
+        if self.response_format is not None:
+            # resolve NOW: a bad wire dict fails at parameter
+            # construction, not deep inside submit (the compile against
+            # the model's vocab still runs there)
+            from paddle_tpu_torch.inference.constrain import (
+                from_response_format)
+            from_response_format(self.response_format)

@@ -84,10 +84,14 @@ retries, stall watchdog and ledger, request-scoped fault quarantine,
 the NaN/inf logit guard, the engine-scoped circuit breaker,
 ``audit()``, and the tick profiler.
 
+Multi-LoRA serving (``adapter_pool=``), constrained decoding
+(``Request.response_format``) and the ``score`` and ``embed`` request
+kinds ride the same programs as runtime arguments: per-slot adapter ids
+into the stacked pools, packed vocab bitmasks folded in the sampler,
+and the chunk program's target logprobs and final hidden state.
+
 Out of the port so far (each queued in ROADMAP.md): meshes and
-replicas, snapshot/restore/migration of a request and the tick-boundary
-jobs, the swap-threshold controller, cancellation, deadlines and
-tenants, the front door and fleet, LoRA, constraints, score/embed.
+replicas, and the adaptive controllers (``adaptive=``).
 """
 
 from __future__ import annotations
@@ -160,6 +164,43 @@ def _is_int8(kv_dtype) -> bool:
         return False
 
 
+class _MaskMirror:
+    """Packed vocab-mask rows, one block a slot, on the host and on the
+    device (``serving.py:1289-1330``). A write dirties the device copy
+    and the next :meth:`arg` re-sends the whole mirror, a blocking copy
+    from pageable memory, so a later host write cannot race it. -1 per
+    lane is the identity."""
+
+    def __init__(self, shape, device):
+        self.host = np.full(shape, -1, np.int32)
+        self.device = device
+        self._dev: Optional[torch.Tensor] = None
+        self._any = False
+        self._dirty = True
+
+    def set(self, slot: int, rows) -> None:
+        self.host[int(slot)] = rows
+        self._dirty = True
+
+    def reset(self, slot: int) -> None:
+        """Back to the identity; the device copy stays clean when the
+        slot already is."""
+        block = self.host[int(slot)]
+        if (block != -1).any():
+            block.fill(-1)
+            self._dirty = True
+
+    def arg(self):
+        """``(device tensor, fold)``: ``fold`` is whether any row is not
+        the identity (folding identity rows changes nothing, so the
+        programs skip it)."""
+        if self._dev is None or self._dirty:
+            self._dev = torch.from_numpy(self.host.copy()).to(self.device)
+            self._any = bool((self.host != -1).any())
+            self._dirty = False
+        return self._dev, self._any
+
+
 class DecodeEngine:
     """Per-slot decode over a dense arena or one KV block pool per layer.
 
@@ -190,9 +231,23 @@ class DecodeEngine:
     (``torch.isfinite(logits).all(-1)``); a row that fails samples from
     zeros instead (a valid draw the caller discards), and the mask
     lands in ``last_step_finite`` / ``last_prefill_finite`` as a
-    device tensor the caller reads with the tokens. The reference's
-    ``ids_dtype``, ``mesh``, ``seq_parallel`` and ``adapter_pool`` are
-    accepted at their defaults only."""
+    device tensor the caller reads with the tokens.
+
+    ``adapter_pool`` (an :class:`~paddle_tpu_torch.inference.
+    adapter_pool.AdapterPool`) adds multi-LoRA serving: every program
+    takes the pool's resident device tensors and the per-slot adapter
+    ids (host mirror ``adapter_ids``, 0 = the identity row) as runtime
+    arguments (``serving.py:477-498``). The vocab bitmasks of
+    constrained decoding (``serving.py:499-520``) ride every sampling
+    program the same way: a packed ``(b, ceil(V/32))`` int32 row a slot
+    (host mirror ``vocab_masks``, -1 per lane = no constraint), cached
+    on the device behind a dirty flag and folded ``mask ? logit :
+    -inf`` before temperature and every filter. The chunk program also
+    returns the chunk's per-position target logprobs
+    (``last_prefill_scores``, score requests) and, when the model takes
+    ``output_hidden``, the last real row's final hidden state
+    (``last_prefill_hidden``). The reference's ``ids_dtype``, ``mesh``
+    and ``seq_parallel`` are accepted at their defaults only."""
 
     def __init__(self, model, max_batch_slots: int, max_len: int,
                  top_k: Optional[int] = None, ids_dtype=None,
@@ -204,8 +259,7 @@ class DecodeEngine:
                  seq_parallel: bool = False, adapter_pool=None):
         refuse_unported(
             "DecodeEngine", ids_dtype=(ids_dtype, None), mesh=(mesh, None),
-            seq_parallel=(seq_parallel, False),
-            adapter_pool=(adapter_pool, None))
+            seq_parallel=(seq_parallel, False))
         spec = model.kv_cache_spec()
         mpe = spec.get("max_position_embeddings")
         if mpe is not None and max_len > mpe:
@@ -239,6 +293,10 @@ class DecodeEngine:
         self.logit_guard = bool(logit_guard)
         self.last_step_finite: Optional[torch.Tensor] = None
         self.last_prefill_finite: Optional[torch.Tensor] = None
+        # the last chunk's (1, C) target logprobs and (1, H) final hidden
+        # state at its last real row, device tensors
+        self.last_prefill_scores: Optional[torch.Tensor] = None
+        self.last_prefill_hidden: Optional[torch.Tensor] = None
         self.b = int(max_batch_slots)
         self.max_len = int(max_len)
         self.top_k = top_k
@@ -271,6 +329,17 @@ class DecodeEngine:
                 self.head_dim, dtype=self.pool_dtype,
                 quantized=self.quantized,
                 pin_memory=self.device.type == "cuda")
+        self._init_adapters(adapter_pool)
+        self._init_masks(model)
+        # the embedding surface: a static property of the model, never
+        # of the traffic mix
+        self.supports_hidden = False
+        try:
+            import inspect
+            self.supports_hidden = "output_hidden" in \
+                inspect.signature(model.forward).parameters
+        except (TypeError, ValueError):
+            pass
         # the program registry: dispatch, retries, the watchdog, the
         # ledger and the sentinel's signatures in one home
         self.programs = ProgramSet(mesh)
@@ -296,6 +365,107 @@ class DecodeEngine:
         so far (``serving.py:1767``): 2 for a plain serving engine, the
         padded chunk and the lockstep step."""
         return self.programs.executable_count()
+
+    def _init_adapters(self, adapter_pool):
+        """The multi-LoRA pool (``serving.py:477-498``): the pool's
+        device tensors and the per-slot id vector are runtime arguments
+        of every program, so no adapter mix changes a signature."""
+        self.adapter_pool = adapter_pool
+        self.adapter_ids: Optional[np.ndarray] = None
+        # the ids' device copy and the host values it was made from
+        self._aids_dev: Optional[torch.Tensor] = None
+        self._aids_sent: Optional[np.ndarray] = None
+        if adapter_pool is None:
+            return
+        if int(adapter_pool.L) != self.L:
+            raise ValueError(
+                f"adapter pool is stacked for {adapter_pool.L} layers, "
+                f"model has {self.L}")
+        self.adapter_ids = np.zeros((self.b,), np.int32)
+        adapter_pool.bind(self)
+
+    def _init_masks(self, model):
+        """The runtime vocab bitmasks (``serving.py:499-520``): one
+        packed int32 row of ``ceil(V/32)`` lanes a slot (bit ``t % 32``
+        of lane ``t // 32`` set = token t legal), -1 per lane = the
+        identity. Models without a ``config.vocab_size`` get none."""
+        cfg = getattr(model, "config", None)
+        self.vocab_size = int(getattr(cfg, "vocab_size", 0)) or None
+        self.mask_lanes = 0
+        self._masks: Optional[_MaskMirror] = None
+        self.vocab_masks: Optional[np.ndarray] = None   # its host rows
+        self._mask_unpack: Optional[tuple] = None
+        if self.vocab_size is not None:
+            self.mask_lanes = (self.vocab_size + 31) // 32
+            self._masks = _MaskMirror((self.b, self.mask_lanes),
+                                      self.device)
+            self.vocab_masks = self._masks.host
+
+    def _adapter_args(self):
+        """The ``(adapters, ids)`` runtime-argument pair of a dispatch
+        (``serving.py:650-660``): the pool's resident device tensors and
+        the (b,) int32 id vector on the device, re-sent only when the
+        host mirror changed — (None, None) without a pool."""
+        if self.adapter_pool is None:
+            return None, None
+        if self._aids_dev is None or \
+                not np.array_equal(self._aids_sent, self.adapter_ids):
+            self._aids_sent = self.adapter_ids.copy()
+            self._aids_dev = torch.from_numpy(self._aids_sent).to(
+                self.device)
+        return self.adapter_pool.device_arrays(), self._aids_dev
+
+    @staticmethod
+    def _forward_adapters(adapters, aids):
+        """The model's ``adapters=`` keyword from a program's pair; none
+        without a pool, so a pool-less engine calls the model as
+        before."""
+        return {} if adapters is None else \
+            {"adapters": dict(adapters, ids=aids)}
+
+    # -- vocab bitmask plumbing (serving.py:1289-1330) ----------------------
+    def set_mask_row(self, slot: int, row) -> None:
+        """Write one slot's packed vocab-mask row into the host mirror
+        and invalidate the device copy (constrained slots only: a run
+        without constraints never dirties it)."""
+        self._masks.set(slot, row)
+
+    def reset_mask_row(self, slot: int) -> None:
+        """Back to the identity row at retirement; a no-op that leaves
+        the device copy clean when the row already is the identity."""
+        if self._masks is not None:
+            self._masks.reset(slot)
+
+    def _masks_arg(self):
+        """The step's ``(masks, fold)`` pair: (None, False) when the
+        model declares no vocab size."""
+        return (None, False) if self._masks is None else self._masks.arg()
+
+    def decode_masks(self):
+        """The (b, ceil(V/32)) mask argument of the step and verify, a
+        device copy cached behind the dirty flag; None when the model
+        declares no vocab size."""
+        return self._masks_arg()[0]
+
+    def mask_row_arg(self, slot: int):
+        """One slot's (1, ceil(V/32)) mask row for the chunk program: a
+        view of the cached device copy."""
+        masks = self.decode_masks()
+        return None if masks is None else masks[int(slot):int(slot) + 1]
+
+    def _fold_masks(self, last, masks):
+        """``mask ? logit : -inf`` over the last axis (``serving.py:
+        843-870``): ``masks`` (..., ceil(V/32)) int32 broadcasts over the
+        logits' leading axes. ``& 1`` keeps the arithmetic shift of a
+        negative lane to one bit."""
+        V = last.shape[-1]
+        if self._mask_unpack is None or \
+                self._mask_unpack[0].device != last.device:
+            idx = torch.arange(V, device=last.device)
+            self._mask_unpack = (idx // 32, (idx % 32).to(torch.int32))
+        lane, shift = self._mask_unpack
+        bit = (masks.index_select(-1, lane) >> shift) & 1
+        return last.masked_fill(bit == 0, float("-inf"))
 
     def _init_paged(self, bs: int, num_blocks: Optional[int]):
         """The block pool's geometry, allocator and host table."""
@@ -459,9 +629,14 @@ class DecodeEngine:
         return self._sample_dev(last, a)
 
     def _filter_dev(self, last, a):
-        """The target distribution's logits: temperature, the static
-        ``top_k`` and the per-slot runtime top-k/top-p, over ``(b, V)``
-        or ``(b, s, V)`` logits (per-slot vectors broadcast over s)."""
+        """The target distribution's logits: the vocab masks
+        (``a["masks"]``, None = unconstrained), temperature, the static
+        ``top_k`` and the per-slot runtime top-k/top-p, in the
+        reference's order, over ``(b, V)`` or ``(b, s, V)`` logits
+        (per-slot vectors broadcast over s; ``(b, s, lanes)`` masks per
+        position)."""
+        if a.get("masks") is not None:
+            last = self._fold_masks(last, a["masks"])
         last = last / a["temps"].reshape((-1,) + (1,) * (last.dim() - 1))
         if self.top_k is not None:
             kth = torch.topk(last, self.top_k, dim=-1).values[..., -1:]
@@ -495,17 +670,28 @@ class DecodeEngine:
         """Run the zero-padded ``(1, prefill_chunk)`` prompt chunk
         covering ``[pos, min(pos+C, plen))`` for ``slot``; returns
         ``(tok, next_pos)`` — ``tok`` a (1, 1) device tensor, meaningful
-        only for the prompt's final chunk. ``targets_row`` (scoring) is
-        accepted at its default only."""
-        refuse_unported("prefill_chunk_at", targets_row=(targets_row, None))
+        only for the prompt's final chunk. ``targets_row`` (score
+        requests) is the full per-position target-id row scored
+        alongside: position p's logprob of ``targets_row[p]`` lands in
+        ``last_prefill_scores``."""
+        chunk, n = self.chunk_slice(ids_row, pos, plen)
+        targets = None
+        if targets_row is not None:
+            targets, _ = self.chunk_slice(targets_row, pos, plen)
+        tok = self.run_prefill_chunk(chunk, slot, pos, n - 1, temps,
+                                     greedy, keydata, topks=topks,
+                                     topps=topps, targets=targets)
+        return tok, pos + n
+
+    def chunk_slice(self, ids_row, pos: int, plen: int):
+        """The zero-padded (1, C) chunk of ``ids_row`` covering ``[pos,
+        min(pos+C, plen))`` and its real-token count (``serving.py:
+        1336``): the one home of the chunk slice and pad arithmetic."""
         C = self.prefill_chunk
         n = min(C, int(plen) - int(pos))
         chunk = np.zeros((1, C), np.int64)
         chunk[0, :n] = np.asarray(ids_row[pos:pos + n])
-        tok = self.run_prefill_chunk(chunk, slot, pos, n - 1, temps,
-                                     greedy, keydata, topks=topks,
-                                     topps=topps)
-        return tok, pos + n
+        return chunk, n
 
     def run_prefill_chunk(self, ids_chunk, slot: int, start: int,
                           last_idx: int, temps, greedy, keydata,
@@ -516,9 +702,11 @@ class DecodeEngine:
         from ``keydata`` ((1, 2) uint32). The pad tail of a short final
         chunk computes discarded rows whose K/V past the table's reach
         is dropped. With the logit guard, ``last_prefill_finite`` holds
-        the chunk's (1,) finite mask. ``targets`` is accepted at its
-        default only."""
-        refuse_unported("run_prefill_chunk", targets=(targets, None))
+        the chunk's (1,) finite mask. ``targets`` is the (1, C)
+        target-id chunk of a score request: its per-position logprobs
+        (``logit[target] - logsumexp(logits)``) land in
+        ``last_prefill_scores``; without it the scores are not computed.
+        The slot's adapter and mask row ride the chunk."""
         self._ensure_buffers()
         topks, topps = self._sampling_vectors(1, topks, topps)
         ids_chunk = ids_chunk if isinstance(ids_chunk, torch.Tensor) \
@@ -526,41 +714,70 @@ class DecodeEngine:
         temps = np.asarray(temps, np.float32)
         greedy = np.asarray(greedy, bool)
         keydata = np.asarray(keydata, np.uint32)
-        tok, self.last_prefill_finite = self.programs.call(
+        score = targets is not None
+        tgt = np.asarray(targets, np.int64) if score \
+            else np.zeros((1, int(ids_chunk.shape[-1])), np.int64)
+        masks = self.mask_row_arg(slot)
+        constrained = masks is not None and \
+            bool((self.vocab_masks[int(slot)] != -1).any())
+        adapters, aid_vec = self._adapter_args()
+        aids = None if aid_vec is None else aid_vec[int(slot):int(slot) + 1]
+        (tok, self.last_prefill_finite, self.last_prefill_scores,
+         self.last_prefill_hidden) = self.programs.call(
             "chunk_prefill", ids_chunk, int(slot), int(start),
             int(last_idx), temps, greedy, keydata, topks, topps,
+            masks, constrained, tgt, score, adapters, aids,
             describe=lambda: describe_args(
                 ids_chunk=ids_chunk, slot=slot, start=start,
                 last_idx=last_idx, temps=temps, greedy=greedy,
-                keydata=keydata, topks=topks, topps=topps))
+                keydata=keydata, topks=topks, topps=topps, masks=masks,
+                targets=tgt, aids=aids))
         return tok
 
     def _chunk_program(self, ids_chunk, slot: int, start: int,
                        last_idx: int, temps, greedy, keydata, topks,
-                       topps):
+                       topps, masks, fold: bool, targets, score: bool,
+                       adapters, aids):
         """The chunk-prefill program (``_build_chunk_prefill``): the
-        forward and the sampler, ``(tok (1, 1), finite (1,) or None)``
-        on the device."""
+        forward and the sampler, ``(tok (1, 1), finite (1,) or None,
+        scores (1, C) or None, hidden (1, H) or None)`` on the
+        device."""
         ids = self._vec(ids_chunk, torch.int64)
         table = self._table(slice(slot, slot + 1))
         t = torch.tensor(int(start), dtype=torch.int32, device=self.device)
         args = self._sampler_args(temps, greedy, topks, topps)
         args["uniforms"] = self._uniforms(
             args, keydata, [int(start) + int(last_idx) + 1], LANE_DRAW)
-        ok = None
+        # folding an all-identity row would change nothing: skipped
+        args["masks"] = masks if fold else None
+        tgt = self._vec(targets, torch.int64) if score else None
+        ok = scores = hidden = None
         with self._eval_mode():
             # last_idx + 1 real rows: the pad tail of a short final
             # chunk never shapes a block scale
-            logits, _ = self.model(
+            out = self.model(
                 ids, caches=self._caches(table, t, int(last_idx) + 1,
-                                         slot=int(slot)))
+                                         slot=int(slot)),
+                **self._forward_adapters(adapters, aids),
+                **({"output_hidden": True} if self.supports_hidden
+                   else {}))
+            logits = out[0]
+            if self.supports_hidden:
+                # the final hidden state at the chunk's last real row
+                hidden = out[1][:, int(last_idx)].float()
+            if score:
+                # per-position target logprobs: the one-reduction gather,
+                # never a (C, V) log-softmax held whole
+                lg32 = logits.float()
+                picked = torch.gather(lg32, -1, tgt[..., None])[..., 0]
+                scores = picked - torch.logsumexp(lg32, dim=-1)
             last = logits[:, int(last_idx)].float()
             if self.logit_guard:
                 # the guard covers the FIRST token too: a chunk over a
                 # poisoned shared prefix must not stream a garbage token
                 ok, last = self._guard(last, 1)
             tok = self._sample_dev(last, args)
-        return tok[:, None], ok
+        return tok[:, None], ok, scores, hidden
 
     def prefill(self, ids, slots, prompt_lens, temps, greedy, keydata,
                 topks=None, topps=None):
@@ -620,11 +837,15 @@ class DecodeEngine:
         temps = np.asarray(temps, np.float32)
         greedy = np.asarray(greedy, bool)
         keydata = np.asarray(keydata, np.uint32)
+        masks, fold = self._masks_arg()
+        adapters, aids = self._adapter_args()
         out = self.programs.call(
             "decode_step", toks, t, temps, greedy, keydata, topks, topps,
+            masks, fold, adapters, aids,
             describe=lambda: describe_args(
                 toks=toks, t=t, temps=temps, greedy=greedy,
-                keydata=keydata, topks=topks, topps=topps),
+                keydata=keydata, topks=topks, topps=topps, masks=masks,
+                aids=aids),
             defer=defer)
         fin = None
         if defer:
@@ -632,7 +853,8 @@ class DecodeEngine:
         tok, self.last_step_finite = out
         return (tok, fin) if defer else tok
 
-    def _step_program(self, toks, t, temps, greedy, keydata, topks, topps):
+    def _step_program(self, toks, t, temps, greedy, keydata, topks, topps,
+                      masks, fold: bool, adapters, aids):
         """The decode-step program (``_build_step``): the forward over
         every slot and the sampler, ``(tok (b, 1), finite (b,) or
         None)`` on the device."""
@@ -642,10 +864,12 @@ class DecodeEngine:
         args = self._sampler_args(temps, greedy, topks, topps)
         args["uniforms"] = self._uniforms(
             args, keydata, np.asarray(t, np.int64) + 1, LANE_DRAW)
+        args["masks"] = masks if fold else None
         ok = None
         with self._eval_mode():
             logits, _ = self.model(
-                ids, caches=self._caches(table, tv, ids.shape[1]))
+                ids, caches=self._caches(table, tv, ids.shape[1]),
+                **self._forward_adapters(adapters, aids))
             last = logits[:, -1].float()
             if self.logit_guard:
                 # NaN never reaches the argmax or the draw of ANY slot
@@ -859,6 +1083,19 @@ class Request:
     bundle that overrides the individual fields at
     :meth:`ServingEngine.submit`.
 
+    ``adapter`` names a LoRA adapter registered in the engine's
+    :class:`~paddle_tpu_torch.inference.adapter_pool.AdapterPool`
+    (None = the base model). ``kind`` is ``"generate"``, ``"score"``
+    (the prompt's teacher-forced next-token logprobs land in
+    ``logprobs``: ``logprobs[p]`` scores ``prompt[p+1]``) or
+    ``"embed"`` (the final prompt position's hidden state lands in
+    ``embedding``); both retire ``"complete"`` at prefill completion.
+    ``response_format`` constrains decoding: a
+    :class:`~paddle_tpu_torch.inference.constrain.GrammarConstraint` or
+    the wire dict :func:`~paddle_tpu_torch.inference.constrain.
+    from_response_format` takes; a grammar with no legal continuation
+    retires ``"constraint_dead_end"``.
+
     ``tenant``/``priority`` feed the pluggable scheduler (priority
     overrides the tenant's tier when set; lower = more urgent).
     ``deadline`` is an ABSOLUTE offset on the run clock (the domain of
@@ -866,8 +1103,7 @@ class Request:
     ``"deadline_exceeded"``, queued or running. ``on_finish`` fires
     exactly once at retirement, cancellations and expiries included
     (they deliver no final ``on_token``). The fields keep the
-    reference's order; its ``adapter``, ``kind`` and ``response_format``
-    are accepted at their defaults only."""
+    reference's order."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 32
@@ -901,12 +1137,17 @@ class Request:
     _spill: Optional[Dict[str, Any]] = field(default=None, init=False,
                                              repr=False)
     _keydata: Optional[Any] = field(default=None, init=False, repr=False)
-
-    def __post_init__(self):
-        refuse_unported(
-            "Request", adapter=(self.adapter, None),
-            kind=(self.kind, "generate"),
-            response_format=(self.response_format, None))
+    # the adapter-pool slot acquired at submit (0 = no adapter)
+    _adapter_sid: int = field(default=0, init=False, repr=False)
+    # score/embed results: logprobs[p] = log P(prompt[p+1] |
+    # prompt[:p+1]) for p in [0, plen-2]; the final prompt position's
+    # hidden state
+    logprobs: Optional[List[float]] = field(default=None, init=False)
+    embedding: Optional[Any] = field(default=None, init=False)
+    # the grammar compiled at submit; each residency walks a fresh
+    # cursor over it
+    _constraint: Optional[Any] = field(default=None, init=False,
+                                       repr=False)
 
 
 class ServingMetrics:
@@ -950,6 +1191,14 @@ class ServingMetrics:
         self.swap_in_tokens = 0
         # host reads of a prefill's sampled token (final chunks only)
         self.prefill_token_syncs = 0
+        # constrained decoding: committed tokens that advanced a
+        # grammar, mask builds by where they ran, boundary fallbacks and
+        # dead-end retirements
+        self.constrained_tokens = 0
+        self.mask_builds_in_window = 0
+        self.mask_builds_boundary = 0
+        self.mask_fallback_syncs = 0
+        self.constraint_dead_ends = 0
         self._cache = cache
         self._evict_base = cache.evictions if cache is not None else 0
         self._alloc = allocator
@@ -1018,6 +1267,27 @@ class ServingMetrics:
             "serving_prefill_token_syncs_total",
             "host syncs materializing a prefill chunk's sampled token "
             "(final chunks only — non-final draws stay on device)")
+        self._c_con_tokens = r.counter(
+            "serving_constrained_tokens_total",
+            "committed tokens that advanced a grammar automaton "
+            "(constrained slots only — unconstrained traffic never "
+            "touches the mask path)")
+        self._c_mask_builds = r.counter(
+            "serving_mask_builds_total",
+            "next-step vocab-mask builds by where the automaton "
+            "stepped (overlap_window = hidden under the in-flight "
+            "dispatch; boundary = serialized at the tick boundary)",
+            labelnames=("where",))
+        self._c_mask_fallback = r.counter(
+            "serving_mask_fallback_syncs_total",
+            "constrained ticks whose mask build could not ride the "
+            "overlap window (overlap disabled or the window skipped) "
+            "and ran at the token-sync boundary instead")
+        self._c_dead_end = r.counter(
+            "serving_constraint_dead_ends_total",
+            "requests retired because their grammar reached a state "
+            "with no legal continuation (a counted typed retirement, "
+            "never a crash)")
         self._g_queue = r.gauge(
             "serving_queue_depth", "due requests waiting for admission")
         self._g_occ = r.gauge(
@@ -1062,6 +1332,26 @@ class ServingMetrics:
     def count_prefill_token_sync(self):
         self.prefill_token_syncs += 1
         self._c_tok_syncs.inc()
+
+    def count_constrained_token(self):
+        self.constrained_tokens += 1
+        self._c_con_tokens.inc()
+
+    def count_mask_build(self, in_window: bool):
+        if in_window:
+            self.mask_builds_in_window += 1
+            self._c_mask_builds.labels(where="overlap_window").inc()
+        else:
+            self.mask_builds_boundary += 1
+            self._c_mask_builds.labels(where="boundary").inc()
+
+    def count_mask_fallback_sync(self):
+        self.mask_fallback_syncs += 1
+        self._c_mask_fallback.inc()
+
+    def count_constraint_dead_end(self):
+        self.constraint_dead_ends += 1
+        self._c_dead_end.inc()
 
     def record_tick(self, occupied: int, queued: int,
                     blocks: Optional[int] = None):
@@ -1247,6 +1537,17 @@ class ServingMetrics:
         out["blocks_swapped_in"] = float(self.blocks_swapped_in)
         out["reprefill_tokens_avoided"] = float(self.swap_in_tokens)
         out["prefill_token_syncs"] = float(self.prefill_token_syncs)
+        # constrained decoding (serving.py:2565-2577): reported only when
+        # the window saw constrained traffic, so an unconstrained run
+        # keeps the same set of keys
+        builds = self.mask_builds_in_window + self.mask_builds_boundary
+        if builds or self.constrained_tokens or self.constraint_dead_ends:
+            out["constrained_tokens"] = float(self.constrained_tokens)
+            out["mask_builds"] = float(builds)
+            out["mask_in_window_fraction"] = (
+                self.mask_builds_in_window / builds if builds else 0.0)
+            out["mask_fallback_syncs"] = float(self.mask_fallback_syncs)
+            out["constraint_dead_ends"] = float(self.constraint_dead_ends)
         if self._cache is not None:
             out["evictions"] = float(self._cache.evictions
                                      - self._evict_base)
@@ -1378,9 +1679,23 @@ class ServingEngine:
     snapshots (:meth:`snapshot_request`, :meth:`snapshot_request_bytes`,
     :meth:`restore_request`, :meth:`migrate_out_request`) run there.
 
+    ``adapter_pool`` (an :class:`~paddle_tpu_torch.inference.
+    adapter_pool.AdapterPool`) serves ``Request(adapter=)`` traffic
+    through the engine's one set of programs: a request acquires its
+    adapter at submit (an unknown one is a counted typed rejection,
+    ``serving_adapter_rejected_total``) and releases it at retirement;
+    its tenant defaults to ``adapter:<name>``. Its prompt never meets
+    the prefix cache: the adapter's qkv delta changes K and V, so KV
+    computed for another adapter (or none) is wrong for it. A
+    ``response_format`` compiles at submit (failures counted in
+    ``serving_constraint_rejected_total``) and its per-step mask row
+    rides the step, the chunk and the verify; ``kind="score"`` and
+    ``"embed"`` requests retire ``"complete"`` at prefill completion
+    with one host read and never dispatch a decode step.
+
     The parameters keep the reference's order; its ``mesh``,
-    ``seq_parallel``, ``adaptive`` and ``adapter_pool`` are accepted at
-    their defaults only."""
+    ``seq_parallel`` and ``adaptive`` are accepted at their defaults
+    only."""
 
     def __init__(self, model, max_batch_slots: int = 8, max_len: int = 256,
                  top_k: Optional[int] = None, eos_id: Optional[int] = None,
@@ -1401,7 +1716,7 @@ class ServingEngine:
         refuse_unported(
             "ServingEngine", mesh=(mesh, None),
             seq_parallel=(seq_parallel, False),
-            adaptive=(adaptive, None), adapter_pool=(adapter_pool, None))
+            adaptive=(adaptive, None))
         dev = resolve_device(device)
         mdev = module_device(model)
         if mdev.type != dev.type:
@@ -1415,7 +1730,8 @@ class ServingEngine:
         kw = dict(top_k=top_k, prefill_chunk=prefill_chunk,
                   block_size=block_size, num_blocks=num_blocks,
                   kv_dtype=kv_dtype, logit_guard=logit_guard,
-                  host_tier_blocks=host_tier_blocks)
+                  host_tier_blocks=host_tier_blocks,
+                  adapter_pool=adapter_pool)
         if spec is None:
             self.engine = DecodeEngine(model, max_batch_slots, max_len, **kw)
         else:
@@ -1428,6 +1744,7 @@ class ServingEngine:
                                             k=spec.k, **kw)
             spec.begin(self.engine.b, self.engine.max_len)
         self._spec_k = spec.k if spec is not None else 0
+        self.adapter_pool = adapter_pool
         self.replicas = 1
         self.paged = self.engine.paged
         self._alloc = self.engine.allocator   # None on the dense arena
@@ -1508,6 +1825,15 @@ class ServingEngine:
         self._keydata = np.zeros((self.b, 2), np.uint32)
         # chunked-prefill state per slot (None = past prefill)
         self._pf: List[Optional[Dict[str, Any]]] = [None] * self.b
+        # constrained decoding per slot: the grammar cursor (advances
+        # only at commit), the dead-end flag the commit loop retires on,
+        # and the speculative commit clamp (first dead position + 1);
+        # _mask_work_done / _in_mask_window count where mask builds ran
+        self._constraints: List[Optional[Any]] = [None] * self.b
+        self._con_dead = [False] * self.b
+        self._con_commit: List[Optional[int]] = [None] * self.b
+        self._mask_work_done = False
+        self._in_mask_window = False
         self._times: Dict[int, Dict[str, float]] = {}
         self._t0: Optional[float] = None
         # paged bookkeeping: mapped-block count per slot (table entries
@@ -1584,6 +1910,17 @@ class ServingEngine:
         self._c_submitted = telemetry.registry.counter(
             "serving_requests_submitted_total",
             "requests accepted into the queue")
+        self._c_adapter_rejected = telemetry.registry.counter(
+            "serving_adapter_rejected_total",
+            "submissions refused at the door for adapter reasons "
+            "(named adapter missing/evicted, or no pool configured) — "
+            "typed rejections, never a crash")
+        self._c_constraint_rejected = telemetry.registry.counter(
+            "serving_constraint_rejected_total",
+            "submissions refused at the door for structured-output "
+            "reasons (bad response_format, unknown model vocab, "
+            "embed without hidden-state support, unsatisfiable "
+            "grammar) — typed rejections, never a crash-in-flight")
 
     def _arm_resilience_telemetry(self, telemetry):
         """Register the resilience counters and gauges on ``telemetry``
@@ -1638,6 +1975,10 @@ class ServingEngine:
             "serving_leaked_host_blocks",
             "host-tier blocks with unaccounted references at the "
             "last audit (0 = reconciled clean)")
+        self._g_leaked_adapters = r.gauge(
+            "serving_leaked_adapters",
+            "adapter-pool slot references no live or queued request "
+            "accounts for at the last audit (0 = reconciled clean)")
         self._c_snapshots = r.counter(
             "serving_request_snapshots_total",
             "live requests serialized through the checkpoint "
@@ -1768,6 +2109,36 @@ class ServingEngine:
                 float(self._cache.bytes))
             self._g_pfx_hit_tokens.labels(replica="0").set(
                 float(self._cache.hit_tokens))
+        # the adapter pool's occupancy and load economics, registered
+        # only with a pool (a pool-less scrape keeps its families)
+        self._g_ad_in_use = self._g_ad_loads = None
+        self._g_ad_evictions = self._g_ad_bytes = None
+        if self.adapter_pool is not None:
+            self._g_ad_in_use = r.gauge(
+                "serving_adapter_slots_in_use",
+                "adapter-pool slots holding a registered adapter at "
+                "the last scrape (slot 0, the identity row, excluded)")
+            self._g_ad_loads = r.gauge(
+                "serving_adapter_loads_total",
+                "adapters registered into the pool, cumulative "
+                "(re-registrations after eviction count again)")
+            self._g_ad_evictions = r.gauge(
+                "serving_adapter_evictions_total",
+                "adapters evicted from the pool, cumulative (LRU "
+                "pressure evictions and explicit evict() calls)")
+            self._g_ad_bytes = r.gauge(
+                "serving_adapter_bytes_loaded_total",
+                "host bytes copied into adapter-pool rows, cumulative")
+            self._publish_adapter_gauges()
+
+    def _publish_adapter_gauges(self):
+        if self._g_ad_in_use is None:
+            return
+        pool = self.adapter_pool
+        self._g_ad_in_use.set(float(pool.slots_in_use()))
+        self._g_ad_loads.set(float(pool.loads))
+        self._g_ad_evictions.set(float(pool.evictions))
+        self._g_ad_bytes.set(float(pool.bytes_loaded))
 
     def prefill_backlog_tokens(self) -> int:
         """Unprefilled prompt tokens summed over prefilling slots (queued
@@ -1821,6 +2192,27 @@ class ServingEngine:
                 req.seed = sp.seed
             if getattr(sp, "response_format", None) is not None:
                 req.response_format = sp.response_format
+        if req.kind not in ("generate", "score", "embed"):
+            raise ValueError(
+                f"kind must be 'generate', 'score' or 'embed', got "
+                f"{req.kind!r}")
+        if req.kind != "generate":
+            # score/embed never decode: the budget is the one token the
+            # chunk program samples (and discards), so the pool checks
+            # below price the true footprint
+            req.max_new_tokens = 1
+            if req.response_format is not None:
+                self._c_constraint_rejected.inc()
+                raise ValueError(
+                    f"response_format only applies to kind='generate' "
+                    f"(got kind={req.kind!r}) — a {req.kind} request "
+                    "emits no tokens to constrain")
+        if req.kind == "embed" and not self.engine.supports_hidden:
+            self._c_constraint_rejected.inc()
+            raise ValueError(
+                "kind='embed' needs a model whose forward exposes "
+                "hidden states (output_hidden=) — this engine's model "
+                "does not; score and generate still work")
         if req.top_k is not None and int(req.top_k) < 1:
             raise ValueError(f"top_k must be >= 1, got {req.top_k}")
         if req.top_p is not None and not 0.0 < float(req.top_p) <= 1.0:
@@ -1881,6 +2273,12 @@ class ServingEngine:
                     f"{self._alloc.capacity} allocatable blocks — it "
                     "could never be scheduled; grow num_blocks or "
                     "shrink the request")
+        if req.response_format is not None:
+            req._constraint = self._compile_constraint(req)
+        if req.adapter is not None:
+            # LAST validation on purpose: the acquire is the request's
+            # one reference, and nothing below can fail
+            self._acquire_adapter(req)
         with self._lock:
             req.id = self._next_id
             self._next_id += 1
@@ -1898,6 +2296,77 @@ class ServingEngine:
                     tenant=req.tenant, req_kind=req.kind)
         self._wake_up()     # an idle engine admits this within a tick
         return req
+
+    def _compile_constraint(self, req: Request):
+        """Resolve and compile ``req.response_format`` against the
+        model's vocabulary (``serving.py:3757-3793``): a bad pattern or
+        schema, a model without a vocab size, or a grammar with no legal
+        first token is a counted typed rejection here, never a fault in
+        flight."""
+        from paddle_tpu_torch.inference.constrain import from_response_format
+
+        V = self.engine.vocab_size
+        if V is None:
+            self._c_constraint_rejected.inc()
+            raise ValueError(
+                "response_format needs a model with a declared "
+                "vocab_size (model.config.vocab_size) — this engine "
+                "cannot map token ids to a grammar alphabet")
+        eos = req.eos_id if req.eos_id is not None else self.eos_id
+        try:
+            grammar = from_response_format(req.response_format).compile(
+                V, eos)
+            first_row = grammar.mask(grammar.start)
+        except ValueError:
+            self._c_constraint_rejected.inc()
+            raise
+        except Exception as e:
+            self._c_constraint_rejected.inc()
+            raise ValueError(
+                f"response_format failed to compile: {e!r}") from e
+        if grammar.is_dead(grammar.start) or not first_row.any():
+            self._c_constraint_rejected.inc()
+            raise ValueError(
+                "response_format admits no legal first token under this "
+                "model's vocabulary (and no EOS) — the request could "
+                "never emit anything")
+        return grammar
+
+    def _acquire_adapter(self, req: Request):
+        """The request's one adapter reference (``serving.py:
+        3794-3826``), held until retirement; an unknown adapter or a
+        pool-less engine is a counted typed rejection."""
+        if not isinstance(req.adapter, str):
+            self._c_adapter_rejected.inc()
+            raise ValueError(
+                f"adapter must be a registered adapter name (str), got "
+                f"{type(req.adapter).__name__}")
+        if self.adapter_pool is None:
+            self._c_adapter_rejected.inc()
+            raise ValueError(
+                f"adapter {req.adapter!r} requested but this engine has "
+                "no adapter_pool — construct "
+                "ServingEngine(adapter_pool=AdapterPool(...))")
+        try:
+            req._adapter_sid = self.adapter_pool.acquire(req.adapter)
+        except KeyError as e:
+            self._c_adapter_rejected.inc()
+            raise ValueError(
+                f"adapter {req.adapter!r} is not registered (missing or "
+                "already evicted) — register it before submitting") from e
+        # the adapter IS the tenant unless the caller named one
+        if req.tenant == "default":
+            req.tenant = f"adapter:{req.adapter}"
+
+    def _release_adapter(self, req: Request):
+        """Drop the request's adapter reference: the one release point
+        of every terminal path, idempotent per request."""
+        if req._adapter_sid and self.adapter_pool is not None:
+            try:
+                self.adapter_pool.release(req._adapter_sid)
+            except KeyError:
+                pass    # evicted out of band: the reference is gone
+            req._adapter_sid = 0
 
     def cancel(self, req: Request) -> bool:
         """Request cancellation from any thread (``serving.py:3845``).
@@ -1971,12 +2440,21 @@ class ServingEngine:
             keydata = np.asarray(req._keydata, np.uint32).reshape(2)
         else:
             keydata = request_keydata(self.seed, req.id, req.seed)
+        # score: row p's logits score prompt[p+1], so the targets are the
+        # prompt shifted left (the last row's draw is discarded)
+        targets_row = None
+        if req.kind == "score":
+            targets_row = np.zeros_like(ids)
+            targets_row[:-1] = ids[1:]
         nodes, hit, fresh = [], 0, []
         # a manifest covers prompt AND generated tokens, more than any
         # trie prefix could: its request skips the lookup (no phantom
         # hits, no trie refs to undo) and takes a whole fresh grant
         spill = getattr(req, "_spill", None)
-        if self._cache is not None and spill is None:
+        # a score request computes every position: a spliced prefix is
+        # never run through the model, so it would get no logprobs
+        if self._shares_prefix(req) and spill is None and \
+                req.kind != "score":
             with self._phase("trie_lookup"):
                 nodes, hit = self._cache.lookup(ids)
         block_snap = None
@@ -1996,6 +2474,12 @@ class ServingEngine:
         # REGISTER first: once the slot holds the request and its held
         # nodes, a later fault tears down completely through _retire
         st = {"ids": ids, "pos": 0, "nodes": nodes, "seq": req.id}
+        if targets_row is not None:
+            # per-chunk device score slices, read once at completion
+            st["targets"] = targets_row
+            st["scores"] = []
+        if req.kind == "embed":
+            st["embed"] = True
         self._slots[slot] = req
         self._pf[slot] = st
         self._seq[slot] = self._adm_seq
@@ -2018,6 +2502,12 @@ class ServingEngine:
         # one no spliced prefix covers (hit <= plen-1)
         self._t[slot] = plen - 1
         self._toks[slot, 0] = 0
+        if self.engine.adapter_ids is not None:
+            # the submit-time acquire pins the slot id against eviction;
+            # 0 is the identity row, the no-adapter default
+            self.engine.adapter_ids[slot] = req._adapter_sid
+        if req._constraint is not None:
+            self._start_constraint(req, slot)
         try:
             self.metrics.count_prompt_tokens(plen)
             with self._telemetry("admit events"):
@@ -2055,6 +2545,36 @@ class ServingEngine:
                 fresh.clear()
             raise
         return True
+
+    def _shares_prefix(self, req: Request) -> bool:
+        """Whether ``req``'s KV meets the prefix cache. An adapter
+        request's does not: its qkv delta changes K and V, so another
+        request's cached KV for the same tokens is wrong for it, and its
+        own is wrong for everyone else (the reference keys the trie on
+        token ids alone, ``serving.py:4025-4029`` and ``:4690-4720``)."""
+        return self._cache is not None and not req._adapter_sid
+
+    def _start_constraint(self, req: Request, slot: int):
+        """A fresh grammar cursor for this residency (``serving.py:
+        4240-4262``), re-walked over the committed tokens so a resumed
+        request lands on the state an uninterrupted run had; the first
+        mask row lands before any dispatch (a boundary build)."""
+        from paddle_tpu_torch.inference.constrain import ConstraintState
+
+        cs = ConstraintState(req._constraint)
+        row = cs.mask_row()
+        for t in req.tokens:
+            row = cs.advance(t)
+            if row is None:
+                self._con_dead[slot] = True
+                break
+        self._constraints[slot] = cs
+        if row is not None and row.any():
+            self.engine.set_mask_row(slot, row)
+        else:
+            self._con_dead[slot] = True
+            self.engine.reset_mask_row(slot)
+        self.metrics.count_mask_build(self._in_mask_window)
 
     def _grant_prompt_blocks(self, req: Request, plen: int, nodes, hit: int):
         """The fresh blocks behind rows [hit, plen) of an admission (the
@@ -2220,16 +2740,25 @@ class ServingEngine:
             # tracer's clock (the engine clock)
             tracer = self.telemetry.tracer
             t_span = tracer.clock()
+            pos0 = int(st["pos"])
             try:
                 tok, st["pos"] = self.engine.prefill_chunk_at(
                     st["ids"], slot, st["pos"], plen, self._temps[sl],
                     self._greedy[sl], self._keydata[sl],
-                    topks=self._topk[sl], topps=self._topp[sl])
+                    topks=self._topk[sl], topps=self._topp[sl],
+                    targets_row=st.get("targets"))
             finally:
                 with self._telemetry("prefill span"):
                     tracer.record_event_sink("serving:prefill_chunk", rid,
                                              t_span,
                                              tracer.clock() - t_span)
+            if "scores" in st:
+                # device slices stay unread until the prompt completes
+                st["scores"].append((int(st["pos"]) - pos0,
+                                     self.engine.last_prefill_scores))
+            if st.get("embed"):
+                # only the final chunk's last-row hidden state matters
+                st["hidden"] = self.engine.last_prefill_hidden
             self.metrics.count_prefill_chunk()
             finite = self.engine.last_prefill_finite
             if self.logit_guard and finite is not None:
@@ -2258,7 +2787,7 @@ class ServingEngine:
         held list, so a retry or a teardown never double-releases."""
         req = self._slots[slot]
         st = self._pf[slot]
-        if self._cache is not None:
+        if self._shares_prefix(req):
             cc = self._cache.chunk_tokens
             bpc = cc // self.engine.block_size if self.paged else 0
             ids = st["ids"]
@@ -2287,6 +2816,9 @@ class ServingEngine:
                 # held refs drop even if an insert raises: pinned nodes
                 # would shrink the evictable budget for good
                 self._cache.release(path)
+        if req.kind != "generate":
+            self._finish_batch_request(slot, req, st)
+            return
         with self._phase("token_sync"):
             first = int(st["tok"][0, 0])
         self.metrics.count_prefill_token_sync()
@@ -2306,7 +2838,39 @@ class ServingEngine:
             with self._telemetry("first_token event"):
                 self.telemetry.tracer.lifecycle(req.id, "first_token",
                                                 token=first)
+        if self._constraints[slot] is not None:
+            # the decode that follows dispatches under the
+            # post-first-token mask (a boundary build)
+            with self._phase("mask_build"):
+                self._advance_constraint(slot, first)
         self._commit_token(slot, first)
+        if self._slots[slot] is req and self._con_dead[slot]:
+            self._retire_constraint_dead_end(slot)
+
+    def _finish_batch_request(self, slot: int, req: Request, st):
+        """A score or embed request retires ``"complete"`` at prefill
+        completion (``serving.py:4724-4760``): ONE host read brings back
+        every chunk's score slice and the final hidden state, and its
+        sampled token is discarded unread."""
+        plen = len(st["ids"])
+        parts = [dev.reshape(-1)[:n] for n, dev in st.get("scores", ())
+                 if n > 0]
+        if st.get("embed") and st.get("hidden") is not None:
+            parts.append(st["hidden"].reshape(-1).float())
+        with self._phase("token_sync"):
+            flat = torch.cat(parts).cpu().numpy() if parts \
+                else np.zeros(0, np.float32)
+        if "scores" in st:
+            # row p scored prompt[p+1]; the final row's target was
+            # padding: plen - 1 real scores
+            req.logprobs = [float(x) for x in flat[:plen - 1]]
+        if st.get("embed"):
+            h = st.get("hidden")
+            req.embedding = None if h is None else \
+                flat[flat.shape[0] - h.numel():].astype(np.float32)
+        self._pf[slot] = None
+        self._adm_blocked = None
+        self._retire(slot, "complete")
 
     def _commit_token(self, slot: int, token: int):
         req = self._slots[slot]
@@ -2346,6 +2910,12 @@ class ServingEngine:
         req.finish_reason = reason
         self._slots[slot] = None
         self._free.append(slot)
+        self._release_adapter(req)
+        if self.engine.adapter_ids is not None:
+            # the freed lane gathers the identity row again (hygiene: an
+            # idle lane's draw is discarded either way)
+            self.engine.adapter_ids[slot] = 0
+        self._clear_constraint(slot)
         self._release_held_nodes(slot)
         self._release_blocks(slot)
         if self._host is not None:
@@ -2375,6 +2945,88 @@ class ServingEngine:
             except BaseException:
                 self._cb_error = True   # client fault: engine-scoped
                 raise
+
+    def _clear_constraint(self, slot: int):
+        """The slot's grammar state dies with its residency; the mask
+        lane returns to the identity row (a no-op for a lane that never
+        left it)."""
+        if self._constraints[slot] is not None or self._con_dead[slot]:
+            self._constraints[slot] = None
+            self._con_dead[slot] = False
+            self._con_commit[slot] = None
+            self.engine.reset_mask_row(slot)
+
+    def _advance_constraint(self, slot: int, token: int):
+        """Advance ``slot``'s grammar cursor on a token being committed
+        and write its next mask row into the engine's host mirror
+        (``serving.py:4888-4907``). A dead end flags the slot for a
+        counted retirement and parks the lane on the identity row: an
+        all-zero row must never reach the sampler."""
+        cs = self._constraints[slot]
+        if cs is None or self._con_dead[slot]:
+            return
+        row = cs.advance(int(token))
+        self.metrics.count_constrained_token()
+        self.metrics.count_mask_build(self._in_mask_window)
+        if row is None or not row.any():
+            self._con_dead[slot] = True
+            self.engine.reset_mask_row(slot)
+        else:
+            self.engine.set_mask_row(slot, row)
+
+    def _retire_constraint_dead_end(self, slot: int):
+        """The grammar has no legal continuation: retire the slot with
+        the typed ``constraint_dead_end`` reason, counted."""
+        req = self._slots[slot]
+        self.metrics.count_constraint_dead_end()
+        with self._telemetry("dead_end event"):
+            self.telemetry.recorder.record(
+                "constraint_dead_end", rid=req.id, slot=slot,
+                new_tokens=len(req.tokens))
+        self._retire(slot, "constraint_dead_end")
+
+    def _decode_mask_work(self, toks, con, in_window: bool):
+        """Advance each constrained slot's cursor on the step's host
+        tokens, so the next dispatch's masks are ready before it
+        (``serving.py:4920-4941``)."""
+        with self._phase("mask_build"):
+            self._in_mask_window = in_window
+            try:
+                for slot in con:
+                    if self._slots[slot] is not None:
+                        self._advance_constraint(slot, int(toks[slot, 0]))
+            finally:
+                self._in_mask_window = False
+            self._mask_work_done = True
+
+    def _spec_mask_work(self, out, acc, con, in_window: bool):
+        """The speculative twin (``serving.py:4943-4977``): walk each
+        constrained cursor along exactly the tokens the commit loop
+        will deliver, stopping at EOS or a dead end; a dead end at
+        position j clamps the commit to j + 1 tokens."""
+        with self._phase("mask_build"):
+            cap = min(self.spec.accept_cap, self._spec_k)
+            self._in_mask_window = in_window
+            try:
+                for slot in con:
+                    req = self._slots[slot]
+                    if req is None or self._constraints[slot] is None:
+                        continue
+                    remaining = int(self._budget[slot]) - len(req.tokens)
+                    a = min(min(int(acc[slot]), cap), remaining - 1)
+                    eid = req.eos_id if req.eos_id is not None \
+                        else self.eos_id
+                    for j in range(a + 1):
+                        t = int(out[slot, j])
+                        self._advance_constraint(slot, t)
+                        if self._con_dead[slot]:
+                            self._con_commit[slot] = j + 1
+                            break
+                        if eid is not None and t == eid:
+                            break   # the commit loop retires here
+            finally:
+                self._in_mask_window = False
+            self._mask_work_done = True
 
     def _release_blocks(self, slot: int):
         """Drop the slot's blocks and point its table row back at the
@@ -2519,6 +3171,9 @@ class ServingEngine:
         self._slots[slot] = None
         self._free.append(slot)
         self._t[slot] = 0
+        # the cursor dies with the residency; re-admission re-walks the
+        # committed tokens
+        self._clear_constraint(slot)
         tm = self._times.pop(req.id)
         tm["preempted_at"] = self._now()
         self._ptimes[req.id] = tm
@@ -2542,6 +3197,7 @@ class ServingEngine:
         any spill manifest still parking its KV in the host tier."""
         req.status = "done"
         req.finish_reason = reason
+        self._release_adapter(req)
         if self._host is not None:
             self._release_spill(req)
         self._ptimes.pop(req.id, None)
@@ -2593,8 +3249,9 @@ class ServingEngine:
         """State reconciliation (``serving.py:5283``): the block pool's
         refcounts, the host tier's, the trie's pins and the slot table
         against what the scheduler can account for, published as the
-        ``serving_leaked_blocks``, ``serving_orphaned_pins`` and
-        ``serving_leaked_host_blocks`` gauges. Pure read.
+        ``serving_leaked_blocks``, ``serving_orphaned_pins``,
+        ``serving_leaked_host_blocks`` and ``serving_leaked_adapters``
+        gauges. Pure read.
 
         A block's holders are the live slots whose table maps it (one
         reference a mapped entry) plus each trie node listing it; a trie
@@ -2646,9 +3303,22 @@ class ServingEngine:
                 for b in (sp or {}).get("host_blocks", ()):
                     host_expected[int(b)] = host_expected.get(int(b), 0) + 1
             report.update(self._host.reconcile(host_expected))
+        if self.adapter_pool is not None:
+            # a slot reference's holders are the requests carrying its
+            # sid: live slots AND the queue (submit acquires before
+            # admission, and a preempted request keeps its reference)
+            ad_expected: Dict[int, int] = {}
+            with self._lock:
+                pending = list(self.scheduler.pending())
+            for r in pending + [r for r in self._slots if r is not None]:
+                if r._adapter_sid:
+                    ad_expected[r._adapter_sid] = \
+                        ad_expected.get(r._adapter_sid, 0) + 1
+            report.update(self.adapter_pool.reconcile(ad_expected))
         self._g_leaked.set(report["leaked_blocks"])
         self._g_orphaned.set(report["orphaned_pins"])
         self._g_leaked_host.set(report["leaked_host_blocks"])
+        self._g_leaked_adapters.set(report["leaked_adapters"])
         if record:
             self.telemetry.recorder.record("audit", **report)
         return report
@@ -2703,7 +3373,7 @@ class ServingEngine:
         return {"leaked_blocks": int(self._g_leaked.value),
                 "orphaned_pins": int(self._g_orphaned.value),
                 "leaked_host_blocks": int(self._g_leaked_host.value),
-                "leaked_adapters": 0}
+                "leaked_adapters": int(self._g_leaked_adapters.value)}
 
     def dispatch_stalled(self) -> int:
         """Dispatches CURRENTLY past the stall watchdog, across every
@@ -2745,6 +3415,7 @@ class ServingEngine:
             self._g_pfx_bytes.labels(replica="0").set(float(cache.bytes))
             self._g_pfx_hit_tokens.labels(replica="0").set(
                 float(cache.hit_tokens))
+        self._publish_adapter_gauges()
 
     def debug_requests(self) -> Dict[str, Any]:
         """The live slot and queue table plus the reconciliation report
@@ -2899,6 +3570,12 @@ class ServingEngine:
                 f"request {rid} is still prefilling — its KV frontier "
                 "is mid-chunk; snapshot after its first token")
         req = self._slots[slot]
+        rf = req.response_format
+        if rf is not None and not isinstance(rf, dict):
+            raise ValueError(
+                f"request {rid} is constrained by a "
+                f"{type(rf).__name__} object, which a snapshot cannot "
+                "carry; submit its response_format as the wire dict")
         bs = self.engine.block_size
         nfull = int(self._t[slot]) // bs
         blocks = self.engine.table[slot, :nfull].tolist()
@@ -2925,6 +3602,9 @@ class ServingEngine:
             "block_size": bs, "quantized": bool(self.quantized),
             "layers": self.engine.L, "heads": self.engine.heads,
             "head_dim": self.engine.head_dim,
+            # the reference drops these two (serving.py:5748-5766), so
+            # its restore serves the base model with no grammar
+            "adapter": req.adapter, "response_format": rf,
         }
         return state, extra, req
 
@@ -3033,7 +3713,10 @@ class ServingEngine:
         parks in the tier and admission splices it back like a preempted
         request's spill (``swap_in``); else it re-prefills
         (``reprefill``). The continuation is token-exact by the
-        snapshot's key data; ``overrides`` patch Request fields (a new
+        snapshot's key data. An adapter request re-acquires its adapter
+        here (it must be registered on this engine), and a constrained
+        one recompiles its grammar, which admission re-walks over the
+        committed tokens. ``overrides`` patch Request fields (a new
         ``on_token``, say). Call between ticks (from another thread,
         :meth:`at_tick_boundary` is that boundary)."""
         import warnings
@@ -3110,7 +3793,9 @@ class ServingEngine:
             greedy=bool(extra["greedy"]),
             top_k=extra.get("top_k"), top_p=extra.get("top_p"),
             eos_id=extra.get("eos_id"),
-            tenant=extra.get("tenant", "default"))
+            tenant=extra.get("tenant", "default"),
+            adapter=extra.get("adapter"),
+            response_format=extra.get("response_format"))
         for k, v in overrides.items():
             setattr(req, k, v)
         # the continuation state goes on BEFORE submit(): once the
@@ -3299,15 +3984,31 @@ class ServingEngine:
             with self._telemetry("launch event"):
                 self.telemetry.recorder.record(
                     "launch", program="decode_step", live=len(live))
+        con = [i for i in live if self._constraints[i] is not None]
         t0 = time.perf_counter()
         with self._phase("decode_dispatch"):
             tok, fin = self.engine.step(self._toks, self._t, self._temps,
                                         self._greedy, self._keydata,
                                         topks=self._topk, topps=self._topp,
                                         defer=True)
-        self._overlap_window(fin)
+        read: Dict[str, np.ndarray] = {}
+
+        def mask_work():
+            # the tick's one token read, moved into the window: the next
+            # dispatch's masks are built while the host would wait anyway
+            read["toks"] = self._read_tokens(tok)
+            self._decode_mask_work(read["toks"], con, True)
+
+        self._mask_work_done = False
+        self._overlap_window(fin, mask_work=mask_work if con else None)
         with self._phase("token_sync"):
-            toks = self._read_tokens(tok)
+            toks = read["toks"] if "toks" in read \
+                else self._read_tokens(tok)
+        if con and not self._mask_work_done:
+            # overlap off (or the window skipped): the automaton work
+            # serializes at the boundary, counted
+            self.metrics.count_mask_fallback_sync()
+            self._decode_mask_work(toks, con, False)
         with self._phase("bookkeeping"):
             self.metrics.record_step(len(live), self._backlog(self._now()),
                                      seconds=time.perf_counter() - t0)
@@ -3323,6 +4024,10 @@ class ServingEngine:
                 self._t[slot] += 1
                 self._toks[slot, 0] = int(toks[slot, 0])
                 self._commit_token(slot, int(toks[slot, 0]))
+                if self._slots[slot] is not None and self._con_dead[slot]:
+                    # the committed token was legal, but the grammar has
+                    # no continuation: a typed retirement
+                    self._retire_constraint_dead_end(slot)
 
     def _read_tokens(self, tok) -> np.ndarray:
         """The step's tokens on the host; with the logit guard, its
@@ -3336,12 +4041,14 @@ class ServingEngine:
         return res[:, :-1].numpy()
 
     def _step_speculative(self, live):
-        """One draft-and-verify tick (``serving.py:6233`` without
-        constraints): drafts from the slots' contexts, one verify over
-        all slots, the next tick's admissions while the card computes,
-        one read of ``out``, ``accept`` (and the finite mask), then
-        every live slot commits between 1 and ``accept_cap + 1`` tokens
-        — a host decision, never a shape."""
+        """One draft-and-verify tick (``serving.py:6233``): drafts from
+        the slots' contexts, one verify over all slots, the next tick's
+        admissions while the card computes, one read of ``out``,
+        ``accept`` (and the finite mask), then every live slot commits
+        between 1 and ``accept_cap + 1`` tokens — a host decision, never
+        a shape. A constrained slot's verify runs under per-position
+        masks from a non-mutating walk of its cursor along its draft;
+        the authoritative cursor advances only along what commits."""
         with self._phase("bookkeeping"):
             ctxs: List[Optional[List[int]]] = [None] * self.b
             for i in live:
@@ -3349,28 +4056,51 @@ class ServingEngine:
                 ctxs[i] = list(r.prompt) + r.tokens
         with self._phase("draft"):
             drafts = self.spec.propose(ctxs, self._toks[:, 0], self._t)
+        con = [i for i in live if self._constraints[i] is not None]
+        if con:
+            with self._phase("mask_build"):
+                dr = np.asarray(drafts)
+                for slot in con:
+                    self.engine.set_verify_mask_rows(
+                        slot, self._constraints[slot].draft_masks(
+                            dr[slot], dr.shape[1]))
         with self._phase("bookkeeping"):
             with self._telemetry("launch event"):
                 self.telemetry.recorder.record(
                     "launch", program="verify", live=len(live))
         t0 = time.perf_counter()
         with self._phase("decode_dispatch"):
-            out, acc, fin = self.engine.verify(
+            out_d, acc_d, fin = self.engine.verify(
                 self._toks, drafts, self._t, self._temps, self._greedy,
                 self._keydata, topks=self._topk, topps=self._topp,
                 defer=True)
-        self._overlap_window(fin)
-        with self._phase("token_sync"):
-            # one host read of all of them
-            cols = [out, acc[:, None].to(out.dtype)]
+        read: Dict[str, np.ndarray] = {}
+
+        def read_verify():
+            # one host read of out, accept and the finite mask
+            cols = [out_d, acc_d[:, None].to(out_d.dtype)]
             finite = self.engine.last_step_finite
             if self.logit_guard and finite is not None:
-                cols.append(finite[:, None].to(out.dtype))
+                cols.append(finite[:, None].to(out_d.dtype))
             res = torch.cat(cols, dim=1).cpu().numpy()
-            k1 = out.shape[1]
-            out, acc = res[:, :k1], res[:, k1]
+            k1 = out_d.shape[1]
+            read["out"], read["acc"] = res[:, :k1], res[:, k1]
             self._finite_host = res[:, k1 + 1].astype(bool) \
                 if len(cols) == 3 else None
+
+        def mask_work():
+            read_verify()
+            self._spec_mask_work(read["out"], read["acc"], con, True)
+
+        self._mask_work_done = False
+        self._overlap_window(fin, mask_work=mask_work if con else None)
+        with self._phase("token_sync"):
+            if "out" not in read:
+                read_verify()
+            out, acc = read["out"], read["acc"]
+        if con and not self._mask_work_done:
+            self.metrics.count_mask_fallback_sync()
+            self._spec_mask_work(out, acc, con, False)
         with self._phase("bookkeeping"):
             seconds = time.perf_counter() - t0
             backlog = self._backlog(self._now())
@@ -3389,6 +4119,13 @@ class ServingEngine:
                 remaining = int(self._budget[slot]) - len(req.tokens)
                 va = min(int(acc[slot]), cap)
                 a = min(va, remaining - 1)
+                cc = self._con_commit[slot]
+                if cc is not None:
+                    # a grammar dead end at position cc - 1: tokens past
+                    # it were verified under draft-path masks that no
+                    # longer bind
+                    a = min(a, cc - 1)
+                    self._con_commit[slot] = None
                 accepted_total += va
                 # offset and pending token advance with each append
                 for j in range(a + 1):
@@ -3398,20 +4135,27 @@ class ServingEngine:
                     committed_total += 1
                     if self._slots[slot] is None:
                         break   # EOS inside the accepted prefix
+                if self._slots[slot] is not None and self._con_dead[slot]:
+                    self._retire_constraint_dead_end(slot)
         with self._phase("bookkeeping"):
             self.metrics.record_step(len(live), backlog, accepted_total,
                                      committed_total, seconds=seconds)
 
-    def _overlap_window(self, fin):
+    def _overlap_window(self, fin, mask_work=None):
         """The tick's host/device overlap window (``serving.py:6476``),
         between the decode or verify DISPATCH and its token read: the
         next tick's admissions run while the step is in flight, then
-        the dispatch window closes (``fin``). The ``finally`` keeps a
-        raising window from leaking an armed watchdog timer."""
+        ``mask_work`` (the constrained slots' next masks, whose token
+        read is the tick's sync), then the dispatch window closes
+        (``fin``). A skipped window leaves the mask work to the caller,
+        counted as a fallback. The ``finally`` keeps a raising window
+        from leaking an armed watchdog timer."""
         try:
             if self._overlap and not self._cb_error:
                 with self._phase("overlap_window"):
                     self._overlap_admit()
+                if mask_work is not None:
+                    mask_work()
         finally:
             with self._phase("token_sync"):
                 self._await_dispatch(fin)

@@ -56,7 +56,7 @@ import torch
 
 from paddle_tpu_torch.core.random import LANE_COIN, LANE_DRAW
 from paddle_tpu_torch.inference.program_set import _weak_program
-from paddle_tpu_torch.inference.serving import DecodeEngine
+from paddle_tpu_torch.inference.serving import DecodeEngine, _MaskMirror
 from paddle_tpu_torch.observability.sentinel import describe_args
 
 __all__ = ["NgramDrafter", "DraftModelDrafter", "SpeculativeEngine"]
@@ -249,9 +249,14 @@ class SpeculativeEngine(DecodeEngine):
     d_1..d_k]`` per slot, written at rows t..t+k of the slot's row or
     blocks, and applies the acceptance rule on the device. Callers keep
     ``t + k <= max_len - 1`` for every slot (the serving engine reserves
-    k rows of headroom). The reference's ``ids_dtype``, ``mesh``,
-    ``seq_parallel`` and ``adapter_pool`` are accepted at their
-    defaults only."""
+    k rows of headroom). The target's adapters apply at every verify
+    offset, and the constrained verify folds per-position vocab masks
+    (``verify_masks``, ``(b, k+1, ceil(V/32))``: position j's row is the
+    grammar's mask after stepping along d_1..d_j) before every filter,
+    so acceptance, the residual and the bonus draw all see the
+    grammar-filtered target (``speculative.py:311-360``). The
+    reference's ``ids_dtype``, ``mesh`` and ``seq_parallel`` are
+    accepted at their defaults only."""
 
     def __init__(self, model, max_batch_slots: int, max_len: int,
                  k: int = 4, top_k: Optional[int] = None, ids_dtype=None,
@@ -272,9 +277,38 @@ class SpeculativeEngine(DecodeEngine):
                          seq_parallel=seq_parallel,
                          adapter_pool=adapter_pool)
         self.k = int(k)
+        # the constrained verify's per-(slot, position) rows, mirrored
+        # on the device like the base masks
+        self._vmasks: Optional[_MaskMirror] = None
+        self.verify_masks: Optional[np.ndarray] = None  # its host rows
+        if self._masks is not None:
+            self._vmasks = _MaskMirror(
+                (self.b, self.k + 1, self.mask_lanes), self.device)
+            self.verify_masks = self._vmasks.host
         # same registry as the base programs: the sentinel and
         # executable_count() see the verify beside the chunk prefill
         self.programs.register("verify", _weak_program(self._verify_program))
+
+    def set_verify_mask_rows(self, slot: int, rows) -> None:
+        """Write one slot's (k+1, ceil(V/32)) per-position mask block
+        and invalidate the device copy."""
+        self._vmasks.set(slot, rows)
+
+    def reset_mask_row(self, slot: int) -> None:
+        """Retire hygiene: the base row AND the verify block back to the
+        identity (no dirtying when already identity)."""
+        super().reset_mask_row(slot)
+        if self._vmasks is not None:
+            self._vmasks.reset(slot)
+
+    def _vmasks_arg(self):
+        return (None, False) if self._vmasks is None else \
+            self._vmasks.arg()
+
+    def verify_mask_arg(self):
+        """The (b, k+1, ceil(V/32)) verify-mask argument, a device copy
+        cached behind the dirty flag; None when masks are unsupported."""
+        return self._vmasks_arg()[0]
 
     def verify(self, pending, drafts, t, temps, greedy, keydata,
                topks=None, topps=None, defer: bool = False):
@@ -296,12 +330,15 @@ class SpeculativeEngine(DecodeEngine):
         temps = np.asarray(temps, np.float32)
         greedy = np.asarray(greedy, bool)
         keydata = np.asarray(keydata, np.uint32)
+        vmasks, fold = self._vmasks_arg()
+        adapters, aids = self._adapter_args()
         res = self.programs.call(
             "verify", pending, drafts, t, temps, greedy, keydata, topks,
-            topps,
+            topps, vmasks, fold, adapters, aids,
             describe=lambda: describe_args(
                 pending=pending, drafts=drafts, t=t, temps=temps,
-                greedy=greedy, keydata=keydata, topks=topks, topps=topps),
+                greedy=greedy, keydata=keydata, topks=topks, topps=topps,
+                vmasks=vmasks, aids=aids),
             defer=defer)
         fin = None
         if defer:
@@ -310,7 +347,7 @@ class SpeculativeEngine(DecodeEngine):
         return (out, acc, fin) if defer else (out, acc)
 
     def _verify_program(self, pending, drafts, t, temps, greedy, keydata,
-                        topks, topps):
+                        topks, topps, vmasks, fold: bool, adapters, aids):
         """The verify program (``_build_verify``): one forward over the
         k+1 candidate rows a slot and the acceptance rule, ``(out,
         accept, finite or None)`` on the device."""
@@ -326,12 +363,16 @@ class SpeculativeEngine(DecodeEngine):
         pos = t_np[:, None] + 1 + np.arange(k + 1)
         u_draw = self._uniforms(a, keydata, pos, LANE_DRAW)
         u_coin = self._uniforms(a, keydata, pos[:, :k], LANE_COIN)
+        a["masks"] = vmasks if fold else None
         ok = None
         with self._eval_mode():
             # one forward over the k+1 candidate rows per slot; all of
             # them are genuine token K/V, so with int8 pools all k+1
-            # count toward the block scales (cl = k + 1)
-            logits, _ = self.model(ids, caches=self._caches(table, tv, k + 1))
+            # count toward the block scales (cl = k + 1); the TARGET's
+            # adapter applies at every verify offset
+            logits, _ = self.model(
+                ids, caches=self._caches(table, tv, k + 1),
+                **self._forward_adapters(adapters, aids))
             lg = logits.float()                            # (b, k+1, V)
             if self.logit_guard:
                 # a poisoned slot's acceptance and resample run on

@@ -281,6 +281,22 @@ def _upd_dense(kb, vb, kn, vn, plan: _DensePlan):
     return kb, vb
 
 
+def _lora_delta(x, ab, ids):
+    """Per-slot low-rank delta ``x @ A[id] @ B[id]`` (``gpt.py:227-247``,
+    multi-LoRA serving): ``ab`` is ONE layer's stacked pools ``(A
+    (num_slots, din, r), B (num_slots, r, dout))`` and ``ids`` the (b,)
+    per-slot adapter ids, a device tensor. Slot 0 is the all-zero
+    identity row, so an adapter-less row adds an exact zero. A gather
+    and two batched matmuls, never the densified (din, dout) delta; the
+    gathered factors take the activation's dtype, as the reference casts
+    them."""
+    a, b_ = ab
+    ids = ids.long()
+    ag = a.index_select(0, ids).to(x.dtype)          # (b, din, r)
+    bg = b_.index_select(0, ids).to(x.dtype)         # (b, r, dout)
+    return torch.bmm(torch.bmm(x, ag), bg)
+
+
 def _cache_plan(c0, s: int):
     """The commit plan of one forward over caches whose first layer's
     tuple is ``c0``: the quantized, paged or dense plan, or None for the
@@ -310,14 +326,18 @@ class GPTAttention(Layer):
     def forward(self, x, cache=None, lora=None, *, write_rows=None):
         """``write_rows``: the commit's plan, shared by the layers of one
         forward (:func:`_paged_write_rows` / :class:`_QuantPlan` /
-        :class:`_DensePlan`; computed here when None); ``lora`` is
-        accepted at its default only."""
-        refuse_unported("GPTAttention.forward", lora=(lora, None))
+        :class:`_DensePlan`; computed here when None). ``lora`` is this
+        layer's ``{"ids": (b,), "qkv": (A, B), "out": (A, B), ...}``
+        adapter slice (:func:`_lora_delta`)."""
         b, s = x.shape[0], x.shape[1]
+        qkv = self.qkv_proj(x)
+        if lora is not None and lora.get("qkv") is not None:
+            # delta BEFORE the head split, so an adapted K/V lands in
+            # the cache exactly as a merged-weights model writes it
+            qkv = qkv + _lora_delta(x, lora["qkv"], lora["ids"])
         # the split is PER HEAD (gpt.py:276-277): each head's 3*D slice
         # holds its q, k, v — not three hidden-wide thirds
-        qkv = self.qkv_proj(x).reshape(b, s, self.num_heads,
-                                       3 * self.head_dim)
+        qkv = qkv.reshape(b, s, self.num_heads, 3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
         mask, causal, out = None, True, None
         if cache is not None and len(cache) not in (2, 3, 4, 7):
@@ -357,8 +377,11 @@ class GPTAttention(Layer):
             out = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=causal,
                 dropout_p=self.attn_dropout_p, training=self.training)
-        out = self.resid_dropout(self.out_proj(
-            out.reshape(b, s, self.num_heads * self.head_dim)))
+        out = out.reshape(b, s, self.num_heads * self.head_dim)
+        proj = self.out_proj(out)
+        if lora is not None and lora.get("out") is not None:
+            proj = proj + _lora_delta(out, lora["out"], lora["ids"])
+        out = self.resid_dropout(proj)
         return out if cache is None else (out, cache)
 
 
@@ -372,9 +395,14 @@ class GPTMLP(Layer):
         self.dropout = Dropout(config.hidden_dropout)
 
     def forward(self, x, lora=None):
-        refuse_unported("GPTMLP.forward", lora=(lora, None))
-        return self.dropout(self.fc_out(F.gelu(self.fc_in(x),
-                                               approximate=True)))
+        h = self.fc_in(x)
+        if lora is not None and lora.get("fc_in") is not None:
+            h = h + _lora_delta(x, lora["fc_in"], lora["ids"])
+        h = F.gelu(h, approximate=True)
+        out = self.fc_out(h)
+        if lora is not None and lora.get("fc_out") is not None:
+            out = out + _lora_delta(h, lora["fc_out"], lora["ids"])
+        return self.dropout(out)
 
 
 class GPTBlock(Layer):
@@ -391,14 +419,13 @@ class GPTBlock(Layer):
         self.mlp = GPTMLP(config, device=device, dtype=dtype)
 
     def forward(self, x, cache=None, lora=None, *, write_rows=None):
-        refuse_unported("GPTBlock.forward", lora=(lora, None))
         if cache is None:
-            x = x + self.attn(self.ln_1(x))
+            x = x + self.attn(self.ln_1(x), lora=lora)
         else:
-            a, cache = self.attn(self.ln_1(x), cache=cache,
+            a, cache = self.attn(self.ln_1(x), cache=cache, lora=lora,
                                  write_rows=write_rows)
             x = x + a
-        x = x + self.mlp(self.ln_2(x))
+        x = x + self.mlp(self.ln_2(x), lora=lora)
         return x if cache is None else (x, cache)
 
 
@@ -421,7 +448,11 @@ class GPTModel(Layer):
 
     def forward(self, input_ids, position_ids=None, caches=None,
                 adapters=None):
-        refuse_unported("GPTModel.forward", adapters=(adapters, None))
+        """``adapters``: the multi-LoRA runtime arguments (``gpt.py:
+        535-584``), ``{"ids": (b,) per-slot adapter ids, target: (A (L,
+        N, din, r), B (L, N, r, dout))}`` (``inference/adapter_pool.
+        py``); each block takes its layer's slice of the stacked
+        pools."""
         b, s = input_ids.shape[0], input_ids.shape[1]
         steps = torch.arange(s, device=input_ids.device)
         if position_ids is None:
@@ -444,20 +475,33 @@ class GPTModel(Layer):
         position_ids = position_ids.long().clamp(
             max=self.config.max_position_embeddings - 1)
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        loras = [self._layer_lora(adapters, i) for i in range(len(self.h))]
         if caches is None:
             # per-BLOCK remat (gpt.py:563-582): only while training with
             # no cache; each block's forward is replayed in the backward
             remat = (self.config.recompute_granularity == "full"
                      and self.training)
-            for block in self.h:
-                x = recompute(block, x) if remat else block(x)
+            for block, lora in zip(self.h, loras):
+                x = recompute(block, x) if remat else block(x, lora=lora)
             return self.ln_f(x)
         rows = _cache_plan(caches[0], s)
         new_caches = []
-        for block, cache in zip(self.h, caches):
-            x, c = block(x, cache=cache, write_rows=rows)
+        for block, cache, lora in zip(self.h, caches, loras):
+            x, c = block(x, cache=cache, lora=lora, write_rows=rows)
             new_caches.append(c)
         return self.ln_f(x), new_caches
+
+    @staticmethod
+    def _layer_lora(adapters, i: int):
+        """Layer ``i``'s slice of the stacked adapter pools (None
+        without adapters)."""
+        if adapters is None:
+            return None
+        lora = {"ids": adapters["ids"]}
+        for key in ("qkv", "out", "fc_in", "fc_out"):
+            ab = adapters.get(key)
+            lora[key] = None if ab is None else (ab[0][i], ab[1][i])
+        return lora
 
 
 class GPTForCausalLM(Layer):
@@ -498,10 +542,11 @@ class GPTForCausalLM(Layer):
         ``labels`` (integer ids of ``input_ids``' shape) the mean
         next-token loss instead, through the fused chunked head and
         cross entropy — the (N, vocab) logits never exist at once.
-        ``adapters`` and ``output_hidden`` are accepted at their
-        defaults only."""
-        refuse_unported("GPTForCausalLM.forward", adapters=(adapters, None),
-                        output_hidden=(output_hidden, False))
+        ``adapters`` are the multi-LoRA arguments of
+        :meth:`GPTModel.forward`; ``output_hidden=True`` also returns
+        the final hidden states (after ``ln_f``, before the head):
+        ``(logits, hidden)``, or ``(logits, hidden, new_caches)`` with
+        ``caches`` (``gpt.py:639-648``)."""
         if labels is not None and (
                 tuple(labels.shape) != tuple(input_ids.shape)
                 or labels.dtype not in _INT_DTYPES):
@@ -510,7 +555,7 @@ class GPTForCausalLM(Layer):
                 f"shape {tuple(labels.shape)}; if you meant position_ids, "
                 "pass it by keyword (forward(input_ids, labels=None, "
                 "position_ids=None, caches=None))")
-        out = self.gpt(input_ids, position_ids, caches)
+        out = self.gpt(input_ids, position_ids, caches, adapters=adapters)
         hidden = out if caches is None else out[0]
         if labels is not None:
             return F.linear_cross_entropy(
@@ -519,6 +564,9 @@ class GPTForCausalLM(Layer):
         # tied head: hidden @ wte^T, the white-listed op "matmul"
         h, w = maybe_cast_inputs("matmul", (hidden, self.gpt.wte.weight))
         logits = torch.matmul(h, w.t())
+        if output_hidden:
+            return (logits, hidden) if caches is None \
+                else (logits, hidden, out[1])
         return logits if caches is None else (logits, out[1])
 
     @staticmethod

@@ -7,7 +7,7 @@ the JAX model), real tick loops on pump threads, real loopback HTTP:
 - the ingest plane: submit, SSE stream (and its resume from an offset),
   status, cancel, migrate out (409 once finished) and in, drain, every
   rejection typed and counted (400, 401, 404, 413, 429, 503), and
-  ``/v1/score`` and ``/v1/embed`` answering 400 with the port's refusal;
+  ``/v1/score`` answering with the prompt's logprobs;
 - the router: placement from scraped load serving the JAX engine's
   greedy tokens; a live migration token-identical under seeded
   temperature; a corrupt transfer falling back engine-side; a scrape
@@ -180,25 +180,30 @@ def test_ingest_rejections_typed_and_counted(solo, weights):
                  "temperature": -1}}).encode(), 400, "bad_field"),
              ("/v1/submit", json.dumps({"prompt": [1] * 80}).encode(), 400,
               "bad_field"),
-             ("/v1/score", json.dumps({"prompt": [1, 2]}).encode(), 400,
-              "unported"),
-             ("/v1/embed", json.dumps({"prompt": [1, 2]}).encode(), 400,
-              "unported"),
+             # the batch surfaces set kind themselves and take no
+             # sampling; a grammar the compiler cannot read is typed
+             ("/v1/score", json.dumps({"prompt": [1, 2],
+                                       "kind": "score"}).encode(), 400,
+              "bad_field"),
+             ("/v1/embed", json.dumps({"prompt": [1, 2], "sampling": {
+                 "greedy": True}}).encode(), 400, "bad_field"),
              ("/v1/submit", json.dumps({"prompt": [1], "sampling": {
-                 "response_format": {"type": "json_object"}}}).encode(),
-              400, "unported"),
+                 "response_format": {"type": "nope"}}}).encode(),
+              400, "bad_field"),
              ("/v1/migrate_out/99999", b"", 404, "unknown_id")]
     for path, data, code, reason in cases:
         got, body = _post(base + path, data)
         assert (got, json.loads(body)["reason"]) == (code, reason), path
-    assert "Request" in json.loads(_post(base + "/v1/score", json.dumps(
-        {"prompt": [1, 2]}).encode())[1])["error"]
+    # the score and embed surfaces answer since the engine takes kinds
+    got, body = _post(base + "/v1/score", json.dumps(
+        {"prompt": [1, 2, 3]}).encode())
+    assert got == 200 and len(json.loads(body)["logprobs"]) == 2
     try:
         assert _post(base + "/v1/submit", b"x" * (2 << 20))[0] == 413
     except urllib.error.URLError:
         pass    # the server may reset before reading the body
     after = dict(reg.get("ingest_rejections_total").snapshot())
-    for reason in ("bad_json", "unknown_id", "bad_field", "unported",
+    for reason in ("bad_json", "unknown_id", "bad_field",
                    "body_too_large"):
         assert after.get(reason, 0) > before.get(reason, 0), reason
 

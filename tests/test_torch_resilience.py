@@ -341,8 +341,11 @@ def test_host_barrier_retry_async(tmp_path):
 def test_host_barrier_hang_surfaces_after_budget(tmp_path):
     ac = checkpoint.AsyncCheckpointer()
     with fi.inject("ckpt:host_barrier", fi.raise_(TimeoutError("hung"))):
-        ac.save({"w": torch.ones(2)}, str(tmp_path), extra={"step": 1})
+        # the commit thread warns on each retry: the capture must be
+        # live before save() starts it, or a thread that finishes its
+        # retries first leaves nothing to catch
         with pytest.warns(TransientFailureWarning):
+            ac.save({"w": torch.ones(2)}, str(tmp_path), extra={"step": 1})
             with pytest.raises(TimeoutError, match="hung"):
                 ac.wait_until_finished()
     assert not ac.in_flight

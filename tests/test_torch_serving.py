@@ -327,7 +327,8 @@ def test_port_never_imports_jax_or_the_jax_package():
     for module in ("observability/__init__.py", "observability/metrics.py",
                    "observability/ops_plane.py", "inference/program_set.py",
                    "inference/fleet/engine_proc.py",
-                   "inference/frontend/server.py"):
+                   "inference/frontend/server.py",
+                   "inference/adapter_pool.py", "inference/constrain.py"):
         assert REPO / "paddle_tpu_torch" / module in files
     bad = []
     for f in files:

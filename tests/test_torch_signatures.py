@@ -137,21 +137,17 @@ CASES = {
         "inference/serving.py", "ServingEngine", ServingEngine,
         lambda **kw: ServingEngine(_tiny(), max_batch_slots=1, max_len=64,
                                    block_size=8, device="cpu", **kw),
-        {"mesh": None, "seq_parallel": False, "adaptive": None,
-         "adapter_pool": None}, None),
+        {"mesh": None, "seq_parallel": False, "adaptive": None}, None),
     "DecodeEngine": (
         "inference/serving.py", "DecodeEngine", DecodeEngine,
         lambda **kw: DecodeEngine(_tiny(), 1, 64, block_size=8, **kw),
-        {"ids_dtype": None, "mesh": None, "seq_parallel": False,
-         "adapter_pool": None}, None),
+        {"ids_dtype": None, "mesh": None, "seq_parallel": False}, None),
     # the reference's engine-owned state past finish_reason
     # (cancel_requested, spill and constraint slots, logprobs) is set by
     # the engine, never by the caller: not init fields in the port
     "Request": (
         "inference/serving.py", "Request", Request,
-        lambda **kw: Request([1, 2], **kw),
-        {"adapter": None, "kind": "generate",
-         "response_format": None}, "cancel_requested"),
+        lambda **kw: Request([1, 2], **kw), {}, "cancel_requested"),
     "nn.Linear": (
         "nn/layers/common.py", "Linear", Linear,
         lambda **kw: Linear(4, 8, device="cpu", **kw),
@@ -223,13 +219,11 @@ CASES = {
     "DecodeEngine.run_prefill_chunk": (
         "inference/serving.py", "DecodeEngine.run_prefill_chunk",
         _ENGINE.run_prefill_chunk,
-        lambda **kw: _ENGINE.run_prefill_chunk(*_CHUNK, **kw),
-        {"targets": None}, None),
+        lambda **kw: _ENGINE.run_prefill_chunk(*_CHUNK, **kw), {}, None),
     "DecodeEngine.prefill_chunk_at": (
         "inference/serving.py", "DecodeEngine.prefill_chunk_at",
         _ENGINE.prefill_chunk_at,
-        lambda **kw: _ENGINE.prefill_chunk_at(*_ROW, **kw),
-        {"targets_row": None}, None),
+        lambda **kw: _ENGINE.prefill_chunk_at(*_ROW, **kw), {}, None),
     # the dense arena, generate() and the draft-model drafter: no
     # unported parameter among them
     "DecodeEngine.prefill": (
@@ -257,8 +251,7 @@ CASES = {
         "inference/speculative.py", "SpeculativeEngine", SpeculativeEngine,
         lambda **kw: SpeculativeEngine(_tiny(), 1, 64, 2, block_size=8,
                                        **kw),
-        {"ids_dtype": None, "mesh": None, "seq_parallel": False,
-         "adapter_pool": None}, None),
+        {"ids_dtype": None, "mesh": None, "seq_parallel": False}, None),
     "SpeculativeEngine.verify": (
         "inference/speculative.py", "SpeculativeEngine.verify",
         _SPEC.verify, None, {}, None),
@@ -305,21 +298,19 @@ CASES = {
         {"replica": None}, None),
     "GPTAttention.forward": (
         "models/gpt.py", "GPTAttention.forward", _GPT.gpt.h[0].attn.forward,
-        lambda **kw: _GPT.gpt.h[0].attn(_H, None, **kw), {"lora": None},
-        None),
+        lambda **kw: _GPT.gpt.h[0].attn(_H, None, **kw), {}, None),
     "GPTMLP.forward": (
         "models/gpt.py", "GPTMLP.forward", _GPT.gpt.h[0].mlp.forward,
-        lambda **kw: _GPT.gpt.h[0].mlp(_H, **kw), {"lora": None}, None),
+        lambda **kw: _GPT.gpt.h[0].mlp(_H, **kw), {}, None),
     "GPTBlock.forward": (
         "models/gpt.py", "GPTBlock.forward", _GPT.gpt.h[0].forward,
-        lambda **kw: _GPT.gpt.h[0](_H, None, **kw), {"lora": None}, None),
+        lambda **kw: _GPT.gpt.h[0](_H, None, **kw), {}, None),
     "GPTModel.forward": (
         "models/gpt.py", "GPTModel.forward", _GPT.gpt.forward,
-        lambda **kw: _GPT.gpt(_IDS, **kw), {"adapters": None}, None),
+        lambda **kw: _GPT.gpt(_IDS, **kw), {}, None),
     "GPTForCausalLM.forward": (
         "models/gpt.py", "GPTForCausalLM.forward", _GPT.forward,
-        lambda **kw: _GPT(_IDS, **kw),
-        {"adapters": None, "output_hidden": False}, None),
+        lambda **kw: _GPT(_IDS, **kw), {}, None),
     "F.linear": ("nn/functional/common.py", "linear", F.linear, None, {},
                  None),
     "F.embedding": (
@@ -386,7 +377,8 @@ WHOLE = ["core/flags.py", "testing/fault_injection.py",
          "observability/dump.py", "inference/frontend/sampling.py",
          "inference/frontend/admission.py", "inference/fleet/client.py",
          "inference/frontend/server.py", "inference/frontend/ingest.py",
-         "inference/fleet/router.py", "inference/fleet/engine_proc.py"]
+         "inference/fleet/router.py", "inference/fleet/engine_proc.py",
+         "inference/adapter_pool.py", "inference/constrain.py"]
 # port modules with no reference file at their path
 ABSENT_MODULES = {
     "ops/kernels/_build.py": "nvcc build and ctypes binding of csrc/",
@@ -595,9 +587,11 @@ BINDS = {
     "verify(pending, drafts, t, temps, greedy, keydata)": (
         lambda: tuple(_SPEC.verify(_GREEDY[0], np.zeros((2, 2), np.int64),
                                    *_GREEDY[1:])[0].shape) == (2, 3), None),
-    # lora, not the port's write_rows, 3rd
+    # lora, not the port's write_rows, 3rd: a slice with no target
+    # perturbs nothing
     "GPTAttention.forward(x, None, lora)": (
-        lambda: _GPT.gpt.h[0].attn(_H, None, {}), "lora"),
+        lambda: torch.equal(_GPT.gpt.h[0].attn(_H, None, {"ids": None}),
+                            _GPT.gpt.h[0].attn(_H)), None),
     # op_name is the port's own: a 4th positional is one too many
     "linear(x, w, b, 'linear')": (
         lambda: pytest.raises(TypeError, F.linear, _X, torch.ones(64, 2),
