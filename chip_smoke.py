@@ -19,8 +19,9 @@ Phases, in order (any failure exits non-zero and prints no result):
    the fp32 body), and the bf16 K1's, K3 and K5 bodies' shared memory and
    CTAs per SM from the CUDA runtime (K4's: the clusters the card holds
    at once);
-3. kernels: K2 LayerNorm (also at a large mean, an odd C and on an
-   offset view, with and without w and b, each held to K2_TOL as well),
+3. kernels: K2 LayerNorm (also at a large mean, an odd C, on an
+   offset view and at phase 7's shapes and epsilons, K2_PATH, with and
+   without w and b, each held to K2_TOL as well),
    K4 paged decode and K5 chunk prefill, each
    against its plain PyTorch version in fp32 and bf16 (and fp16 at
    FP16_CASES' shapes) at the serving
@@ -47,7 +48,8 @@ Phases, in order (any failure exits non-zero and prints no result):
    dK/dV and dQ passes) against their plain versions in fp32 and bf16
    (and in fp16 at the training shape and S 8320, with q and k scaled
    so the largest logits reach ~1e4, each held to the fp16 gates)
-   at the training shape, non-causal, at head_dim 128, and on the
+   at the training shape, non-causal, at head_dim 128, at BERT-base's
+   (32, 512, 12, 64) non-causal in bf16 (phase 7a's), and on the
    long-context route (S 8320, through ``F.scaled_dot_product_attention``
    and ``.backward()``, whose launch counters must show the streaming
    pair and not the fused kernel), with the same timings; K1 also on
@@ -240,7 +242,30 @@ Phases, in order (any failure exits non-zero and prints no result):
    slots, step, scheduler) whose next 3 losses agree within RESUME_RTOL;
    the checkpoint's bytes, the async save's stall and commit, a blocking
    save, the sha256 verify and a restore, timed;
-7. the ``kernels`` JSON line, then the ``ok`` line.
+7. encoders, at full width and depth with random weights from a seed
+   and synthetic ids: (7a) ``BertForPretraining(BertConfig())``
+   (BERT-base, 12 layers, hidden 768, vocab 30522) at dropout 0, batch
+   32 x 512 with 15% of the positions masked and NSP labels, trained by
+   ``ShardedTrainer(amp=True)`` with AdamW, 2 warm-up and 10 timed
+   steps: a finite, falling loss, K1 = K3a = 12 and K2 = 26 a step (the
+   non-causal flash route, LayerNorm at epsilon 1e-12); tokens/s, step
+   p50, MFU, peak memory and one profiled step; (7b) one forward and
+   backward of 7a's model with no mask (K1/K3a) against an all-ones
+   padding mask (the plain attention), in fp32 and under bf16 AMP: the
+   loss and every gradient within limits from FLASH_TOL (ROUTE_DTYPES);
+   (7c) the model at its defaults (0.1 dropouts) on batches with 10-20%
+   padding: K1 = K3a = 0, K2 = 26 a step, finite losses; (7d)
+   ``ErnieForSequenceClassification(ernie_1_0())`` at dropout 0, batch
+   32 x 128 with task-type ids, 2 + 10 fine-tuning steps (K1 = K3a = 12,
+   K2 = 25 a step; tokens/s, step p50, MFU, peak memory), then
+   ``eval_step`` and ``predict_step`` (K1 = 12, K2 = 25 a forward);
+   (7e) ``nn.Transformer()`` at its defaults, dropout 0, batch 16 with
+   source and target 256 and ``generate_square_subsequent_mask`` as
+   ``tgt_mask``, one training step: K1 = K3a = 12 (the encoder's
+   self-attention and the decoder's cross-attention; the masked decoder
+   self-attention takes the plain route), K2 = 30;
+8. the ``kernels`` JSON line (K1's, K3a's and K2's launches include
+   phase 7's), then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -757,6 +782,12 @@ FP16_CASES = {"K2": ([8, 768], [16384, 768]),
                      [8, 17, 12, 64, 16, 64]),
               "K5": ([128, 0, 12, 64, 16, 64], [128, 517, 12, 64, 16, 64])}
 K2_WIDE = ((64, 2048), (16, 16384), (4, 65536))
+# K2 at the shapes and epsilons phase 7 gives it, fp32 (LayerNorm is on
+# AMP's black list): BERT's 32 x 512 and ERNIE's 32 x 128 rows of 768 at
+# epsilon 1e-12, and nn.Transformer's 16 x 256 rows of 512 at 1e-5,
+# which take the warp kernel at 4 vectors a lane (no other case does)
+K2_PATH = (("7a", 16384, 768, 1e-12), ("7d", 4096, 768, 1e-12),
+           ("7e", 4096, 512, 1e-5))
 
 
 def k2_case_inputs(torch, dtype):
@@ -787,6 +818,11 @@ def k2_case_inputs(torch, dtype):
         x = torch.randn(R, C, device="cuda", generator=g) * 2 + 0.5
         yield dict(x=x.to(dtype), wb=affine(C), shape=["wide", R, C],
                    timed=False)
+    if dtype == torch.float32:
+        for tag, R, C, eps in K2_PATH:
+            x = torch.randn(R, C, device="cuda", generator=g) * 2 + 0.5
+            yield dict(x=x, wb=affine(C), shape=[tag, R, C, eps],
+                       timed=False, eps=eps)
 
 
 def _ln_exact(torch, x, w, b, eps):
@@ -813,13 +849,14 @@ def k2_run(torch, case):
     from paddle_tpu_torch.ops.kernels import layer_norm as k2
 
     x, (w, b) = case["x"], case["wb"]
+    eps = case.get("eps", 1e-5)
     f32 = (lambda t: None if t is None else t.float())
     outs, plain, exact = [], [], []
     for wi, bi in ((w, b), (w, None), (None, b), (None, None)):
         torch.full_like(x, float("nan"))
-        outs.append(k2.layer_norm_fwd(x, wi, bi, 1e-5))
-        plain.append(k2.layer_norm_ref(f32(x), f32(wi), f32(bi), 1e-5))
-        exact.append(_ln_exact(torch, x, wi, bi, 1e-5))
+        outs.append(k2.layer_norm_fwd(x, wi, bi, eps))
+        plain.append(k2.layer_norm_ref(f32(x), f32(wi), f32(bi), eps))
+        exact.append(_ln_exact(torch, x, wi, bi, eps))
     torch.cuda.synchronize()
     return outs, plain, exact
 
@@ -1368,9 +1405,12 @@ def _refuses_misaligned(torch, name, mod, kernel_fn, case):
 FLASH_CASES = [(16, 1024, 12, 64, True), (2, 1024, 12, 64, False),
                (2, 1024, 6, 128, True)]
 FLASH_LONG = (1, 8320, 2, 64, True)
+# BERT-base's attention in phase 7a: batch 32 x 512, 12 heads, non-causal
+FLASH_BERT = (32, 512, 12, 64, False)
 # the timed shapes of each dtype: fp16 (fp16 AMP's dtype) at the
-# training shape (and, as every dtype, the long-context route)
-FLASH_TIMED = {"float32": FLASH_CASES, "bfloat16": FLASH_CASES,
+# training shape, bf16 (AMP's) also at BERT's (and, as every dtype, the
+# long-context route)
+FLASH_TIMED = {"float32": FLASH_CASES, "bfloat16": FLASH_CASES + [FLASH_BERT],
                "float16": FLASH_CASES[:1]}
 
 
@@ -4425,6 +4465,352 @@ def training_resilience_phase(torch, card, base):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 7
+# BERT-base pretraining (7a-7c), ERNIE-1.0 fine-tuning (7d) and
+# nn.Transformer (7e) at full width and depth: the non-causal flash
+# route of K1 and K3a, and K2 at epsilon 1e-12, on a training path
+BERT_BATCH = (32, 512)        # batch, sequence
+ERNIE_BATCH = (32, 128)
+TRANSFORMER_BATCH = (16, 256)
+MLM_MASK_ID = 103             # [MASK] in the BERT vocabulary
+# 7b: the flash route against the plain one on the same function. Each
+# route lies within FLASH_TOL of exact attention at every call (the
+# flash kernels by their gate; the plain one in bf16 rounds logits and P
+# to bf16, which is why FLASH_TOL's bf16 reference is the plain version
+# in fp32), so the two within twice that, in the forward and again in
+# the backward of each of the L calls; independent across layers, these
+# add in quadrature: the loss within 2 FLASH_TOL sqrt(L) relatively,
+# every gradient within 2 FLASH_TOL sqrt(2L) in norm relative to the
+# plain route's. As FLASH_TOL's scale has a floor (max(1, max |plain|)),
+# so does a gradient's: the root mean square of the gradients' norms,
+# which a gradient that is zero in exact arithmetic (the key
+# projection's bias: softmax ignores a shift shared by every key) would
+# otherwise lack
+ROUTE_DTYPES = ("float32", "bfloat16")
+
+
+def _phase7_counts(fa, k2):
+    return {"K1": fa.launches["fwd"], "K3a": fa.launches["bwd_fused"],
+            "K3b-dkv": fa.launches["bwd_dkv"],
+            "K3b-dq": fa.launches["bwd_dq"], "K2": k2.launches}
+
+
+def _mlm_batch(torch, vocab, batch, seq, seed, pad=False):
+    """Synthetic pretraining inputs: token ids, two segments, 15% of the
+    (unpadded) positions masked (label the original id, -100 elsewhere)
+    and an NSP label, packed as labels (batch, seq + 1); with ``pad``,
+    10-20% of each row padded behind an ``attention_mask``."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1000, vocab, (batch, seq))
+    split = rs.randint(seq // 4, 3 * seq // 4, (batch, 1))
+    tt = (np.arange(seq)[None, :] >= split).astype(np.int64)
+    keep = np.ones((batch, seq), bool)
+    if pad:
+        lengths = seq - rs.randint(int(0.1 * seq), int(0.2 * seq) + 1,
+                                   (batch, 1))
+        keep = np.arange(seq)[None, :] < lengths
+    masked = (rs.rand(batch, seq) < 0.15) & keep
+    mlm = np.where(masked, ids, -100)
+    ids = np.where(masked, MLM_MASK_ID, np.where(keep, ids, 0))
+    labels = np.concatenate([mlm, rs.randint(0, 2, (batch, 1))], axis=1)
+    dev = [torch.from_numpy(a).cuda() for a in (ids, tt, labels)]
+    mask = torch.from_numpy(keep.astype(np.int64)).cuda() if pad else None
+    return dev[0], dev[1], mask, dev[2]
+
+
+def _mlm_nsp_loss(out, label):
+    from paddle_tpu_torch.nn import functional as F
+
+    mlm_logits, nsp_logits = out
+    return (F.cross_entropy(mlm_logits, label[:, :-1], ignore_index=-100)
+            + F.cross_entropy(nsp_logits, label[:, -1]))
+
+
+def _positional(torch, model, fn):
+    """``model`` behind a forward that takes tensors only, as the
+    trainer calls ``model(*inputs)``: ``fn(model, *inputs)``."""
+    class Positional(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.m = model
+
+        def forward(self, *xs):
+            return fn(self.m, *xs)
+
+    return Positional()
+
+
+def _timed_steps(torch, trainer, batch, warm, steps, counters):
+    """``warm`` steps, then ``steps`` timed on CUDA events with the
+    launch counters set to 0 just before; returns (losses, step ms, total
+    ms, launches of the timed steps)."""
+    fa, k2 = counters
+    losses = [trainer.train_step(*batch) for _ in range(warm)]
+    torch.cuda.synchronize()
+    for m in (fa, k2):
+        m.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    for start, end in ev:
+        start.record()
+        losses.append(trainer.train_step(*batch))
+        end.record()
+    torch.cuda.synchronize()
+    launches = _phase7_counts(fa, k2)
+    return ([float(x) for x in losses], [s.elapsed_time(e) for s, e in ev],
+            ev[0][0].elapsed_time(ev[-1][1]), launches)
+
+
+def _train_perf(torch, card, what, n_params, tokens, step_ms, total_ms,
+                launches):
+    tokens_per_s = tokens * len(step_ms) / (total_ms / 1e3)
+    perf = {"tokens_per_s": tokens_per_s,
+            "step_p50_ms": float(np.median(step_ms)),
+            "mfu": tokens_per_s * 6 * n_params / PEAK_FLOPS["bfloat16"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"{what} on {card}: {tokens_per_s:.1f} tokens/s, step p50 "
+          f"{perf['step_p50_ms']:.2f} ms (min {min(step_ms):.2f}, max "
+          f"{max(step_ms):.2f}), MFU {perf['mfu']:.4f} (6 x {n_params} "
+          f"params / 989 TFLOP/s), peak memory {perf['peak_gib']:.2f} GiB, "
+          f"launches over {len(step_ms)} steps {launches}", flush=True)
+    return perf
+
+
+def _check_counts(what, got, want):
+    check(got == want, f"{what}: launch counts {got} != {want}")
+
+
+def bert_phase(torch, card):
+    """7a, 7b, 7c: returns the launch counts of 7a's timed steps and 7c's
+    steps, and 7a's model."""
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    cfg = BertConfig(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    L = cfg.num_hidden_layers
+    model = BertForPretraining(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    b, s = BERT_BATCH
+    batch = _mlm_batch(torch, cfg.vocab_size, b, s, seed=70)
+    ids, tt, _, labels = batch
+    trainer = ShardedTrainer(model, AdamW(learning_rate=1e-4,
+                                          parameters=model.parameters(),
+                                          weight_decay=0.01),
+                             _mlm_nsp_loss, amp=True)
+    losses, step_ms, total_ms, launches = _timed_steps(
+        torch, trainer, (ids, tt, labels), 2, 10, (fa, k2))
+    print(f"7a BERT-base losses: {losses}", flush=True)
+    check(all(np.isfinite(losses)), "7a: non-finite loss")
+    check(losses[-1] < losses[0], f"7a: loss did not fall: {losses[0]} -> "
+          f"{losses[-1]}")
+    _check_counts("7a", launches, {"K1": 10 * L, "K3a": 10 * L,
+                                   "K3b-dkv": 0, "K3b-dq": 0,
+                                   "K2": 10 * (2 * L + 2)})
+    perf = _train_perf(torch, card, "7a BERT-base pretraining", n_params,
+                       b * s, step_ms, total_ms, launches)
+    _profile_step(torch, lambda: trainer.train_step(ids, tt, labels),
+                  perf["step_p50_ms"])
+    print(f"7a: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    route_phase(torch, model, batch, L, (fa, k2))
+    defaults = bert_defaults_phase(torch, card, (fa, k2))
+    return launches, defaults, perf
+
+
+def route_phase(torch, model, batch, L, counters):
+    """7b: one forward and backward of 7a's model with no mask (K1a,
+    K3a) and with an all-ones padding mask (the plain attention), in fp32
+    and under bf16 AMP: the loss and every gradient held to each other."""
+    from paddle_tpu_torch.amp import auto_cast
+
+    fa, k2 = counters
+    ids, tt, _, labels = batch
+    ones = torch.ones_like(ids)
+    params = [p for p in model.parameters()]
+    names = [n for n, _ in model.named_parameters()]
+    for dn in ROUTE_DTYPES:
+        got = {}
+        for route, mask in (("flash", None), ("plain", ones)):
+            fa.reset_launches()
+            with auto_cast(enable=dn != "float32", dtype="bfloat16"):
+                loss = _mlm_nsp_loss(model(ids, tt, mask), labels).float()
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            got[route] = (float(loss), grads, dict(fa.launches))
+        check(got["flash"][2]["fwd"] == L and got["flash"][2]["bwd_fused"]
+              == L and got["plain"][2]["fwd"] == 0
+              and got["plain"][2]["bwd_fused"] == 0,
+              f"7b {dn}: routes launched {got['flash'][2]} (flash) and "
+              f"{got['plain'][2]} (masked)")
+        loss_f, loss_p = got["flash"][0], got["plain"][0]
+        loss_rel = abs(loss_f - loss_p) / abs(loss_p)
+        loss_lim = 2 * FLASH_TOL[dn] * L ** 0.5
+        grad_lim = 2 * FLASH_TOL[dn] * (2 * L) ** 0.5
+        norms = torch.stack([gp.float().norm() for gp in got["plain"][1]])
+        floor = norms.norm() / len(names) ** 0.5
+        worst, worst_name = 0.0, None
+        for n, gf, gp, gn in zip(names, got["flash"][1], got["plain"][1],
+                                 norms):
+            check(bool(torch.isfinite(gf).all()), f"7b {dn}: non-finite {n}")
+            rel = float((gf.float() - gp.float()).norm()
+                        / torch.maximum(gn, floor))
+            if rel > worst:
+                worst, worst_name = rel, n
+        print(f"7b {dn}: loss flash {loss_f!r}, plain {loss_p!r}, relative "
+              f"{loss_rel:.3g} (limit {loss_lim:.3g}); worst gradient "
+              f"{worst_name} {worst:.3g} in norm (limit {grad_lim:.3g}) "
+              f"over {len(names)} parameters", flush=True)
+        check(loss_rel <= loss_lim, f"7b {dn}: loss {loss_f} vs {loss_p}")
+        check(worst <= grad_lim, f"7b {dn}: gradient {worst_name} differs "
+              f"by {worst} > {grad_lim}")
+        del got
+
+
+def bert_defaults_phase(torch, card, counters):
+    """7c: BERT-base at its defaults (0.1 dropouts) on padded batches:
+    attention takes the plain route (K1 = K3a = 0), K2 exact."""
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    fa, k2 = counters
+    cfg = BertConfig()
+    L = cfg.num_hidden_layers
+    model = BertForPretraining(cfg, device="cuda", seed=1)
+    trainer = ShardedTrainer(model, AdamW(learning_rate=1e-4,
+                                          parameters=model.parameters()),
+                             _mlm_nsp_loss, amp=True)
+    b, s = BERT_BATCH
+    batches = [_mlm_batch(torch, cfg.vocab_size, b, s, seed=80 + i, pad=True)
+               for i in range(3)]
+    pad = float(np.mean([1.0 - float(m.float().mean())
+                         for _, _, m, _ in batches]))
+    fa.reset_launches()
+    k2.reset_launches()
+    losses = [float(trainer.train_step(*bt)) for bt in batches]
+    torch.cuda.synchronize()
+    launches = _phase7_counts(fa, k2)
+    print(f"7c BERT-base at its defaults, {pad:.3f} of the positions "
+          f"padded: losses {losses}, launches {launches}", flush=True)
+    check(all(np.isfinite(losses)), "7c: non-finite loss")
+    _check_counts("7c", launches, {"K1": 0, "K3a": 0, "K3b-dkv": 0,
+                                   "K3b-dq": 0, "K2": 3 * (2 * L + 2)})
+    return launches
+
+
+def ernie_phase(torch, card):
+    """7d: ERNIE-1.0 fine-tuning (task-type ids, dropout 0), then
+    ``eval_step`` and ``predict_step``; returns the launch counts of the
+    10 timed steps and of the eval and predict forwards, and the perf."""
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                         ernie_1_0)
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    cfg = ernie_1_0()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    L = cfg.num_hidden_layers
+    clf = ErnieForSequenceClassification(cfg, device="cuda", seed=2)
+    n_params = sum(p.numel() for p in clf.parameters())
+    model = _positional(torch, clf, lambda m, ids, tt, task: m(
+        ids, tt, None, task))
+    b, s = ERNIE_BATCH
+    rs = np.random.RandomState(90)
+    ids, tt, task = (torch.from_numpy(a).cuda() for a in (
+        rs.randint(1, cfg.vocab_size, (b, s)), rs.randint(0, 2, (b, s)),
+        rs.randint(0, cfg.task_type_vocab_size, (b, s))))
+    labels = torch.from_numpy(rs.randint(0, cfg.num_labels, b)).cuda()
+    trainer = ShardedTrainer(model, AdamW(learning_rate=5e-5,
+                                          parameters=model.parameters()),
+                             lambda out, y: F.cross_entropy(out, y),
+                             amp=True)
+    losses, step_ms, total_ms, launches = _timed_steps(
+        torch, trainer, (ids, tt, task, labels), 2, 10, (fa, k2))
+    print(f"7d ERNIE-1.0 losses: {losses}", flush=True)
+    check(all(np.isfinite(losses)), "7d: non-finite loss")
+    check(losses[-1] < losses[0], f"7d: loss did not fall: {losses[0]} -> "
+          f"{losses[-1]}")
+    _check_counts("7d", launches, {"K1": 10 * L, "K3a": 10 * L,
+                                   "K3b-dkv": 0, "K3b-dq": 0,
+                                   "K2": 10 * (2 * L + 1)})
+    perf = _train_perf(torch, card, "7d ERNIE-1.0 fine-tuning", n_params,
+                       b * s, step_ms, total_ms, launches)
+    fa.reset_launches()
+    k2.reset_launches()
+    ev = float(trainer.eval_step(ids, tt, task, labels))
+    logits = trainer.predict_step(ids, tt, task)
+    torch.cuda.synchronize()
+    inference = _phase7_counts(fa, k2)
+    check(np.isfinite(ev) and tuple(logits.shape) == (b, cfg.num_labels)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"7d: eval loss {ev}, predict {tuple(logits.shape)}")
+    _check_counts("7d eval + predict", inference,
+                  {"K1": 2 * L, "K3a": 0, "K3b-dkv": 0, "K3b-dq": 0,
+                   "K2": 2 * (2 * L + 1)})
+    print(f"7d: eval loss {ev!r}, predict logits {tuple(logits.shape)}, "
+          f"launches {inference}; {time.perf_counter() - t0:.1f} s wall",
+          flush=True)
+    return launches, inference, perf
+
+
+def transformer_phase(torch, card):
+    """7e: ``nn.Transformer()`` at its defaults, dropout 0, one training
+    step with the causal ``tgt_mask``: encoder self-attention and decoder
+    cross-attention on K1/K3a, the masked decoder self-attention plain."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.optimizer import AdamW
+
+    net = nn.Transformer(dropout=0.0, device="cuda")
+    enc, dec = len(net.encoder.layers), len(net.decoder.layers)
+    model = _positional(torch, net, lambda m, src, tgt, tgt_mask: m(
+        src, tgt, None, tgt_mask))
+    b, s = TRANSFORMER_BATCH
+    g = torch.Generator(device="cuda").manual_seed(100)
+    src, tgt, target = (torch.randn(b, s, net.d_model, device="cuda",
+                                    generator=g) for _ in range(3))
+    tgt_mask = nn.Transformer.generate_square_subsequent_mask(s,
+                                                              device="cuda")
+    trainer = ShardedTrainer(model, AdamW(learning_rate=1e-4,
+                                          parameters=model.parameters()),
+                             lambda out, y: ((out.float() - y) ** 2).mean(),
+                             amp=True)
+    fa.reset_launches()
+    k2.reset_launches()
+    loss = float(trainer.train_step(src, tgt, tgt_mask, target))
+    torch.cuda.synchronize()
+    launches = _phase7_counts(fa, k2)
+    print(f"7e nn.Transformer (d_model {net.d_model}, {net.nhead} heads, "
+          f"{enc} + {dec} layers), batch {b} x {s}: loss {loss!r}, launches "
+          f"{launches}", flush=True)
+    check(np.isfinite(loss), "7e: non-finite loss")
+    _check_counts("7e", launches, {"K1": enc + dec, "K3a": enc + dec,
+                                   "K3b-dkv": 0, "K3b-dq": 0,
+                                   "K2": 2 * enc + 3 * dec})
+    return launches
+
+
+def encoder_phase(torch, card):
+    """Phase 7; returns the K1, K3a and K2 launches of its main paths
+    (7a's timed steps, 7c, 7d's steps and forwards, 7e)."""
+    bert, defaults, bert_perf = bert_phase(torch, card)
+    ernie, ernie_inf, ernie_perf = ernie_phase(torch, card)
+    tf = transformer_phase(torch, card)
+    return {k: bert[k] + defaults[k] + ernie[k] + ernie_inf[k] + tf[k]
+            for k in ("K1", "K3a", "K2")}
+
+
 def _profile_step(torch, run, step_ms):
     """Device time of one more training step (``run()``) by kernel, from
     ``torch.profiler`` (CUPTI): the largest kernels, and the device's
@@ -4623,7 +5009,11 @@ def main():
     lap("training at the model's defaults")
     training_resilience_phase(torch, card, train_perf)
     lap("fault-tolerant training")
-    launches.update({"K1": train_launches["K1"], "K3a": train_launches["K3a"],
+    enc_launches = encoder_phase(torch, card)
+    lap("encoders (BERT, ERNIE, nn.Transformer)")
+    launches["K2"] += enc_launches["K2"]
+    launches.update({"K1": train_launches["K1"] + enc_launches["K1"],
+                     "K3a": train_launches["K3a"] + enc_launches["K3a"],
                      "K3b-dkv": long_launches["bwd_dkv"],
                      "K3b-dq": long_launches["bwd_dq"],
                      "K1-fp16": fp16_launches["K1"],

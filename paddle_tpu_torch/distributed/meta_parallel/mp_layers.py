@@ -7,19 +7,21 @@ exist so GPT's parameter names (``qkv_proj``, ``out_proj``, ``fc_in``,
 ``fc_out``, ``wte``) and (in, out) weight layouts match the reference.
 Sharding over NCCL is later work. On one card ``gather_output``,
 ``input_is_parallel`` and ``fuse_matmul_bias`` give the same result at
-every value (the model-parallel degree is 1); ``weight_attr``,
-``mp_group`` and ``name`` are accepted at their defaults only.
+every value (the model-parallel degree is 1). ``weight_attr`` takes a
+``ParamAttr``, an initializer or a name, as ``nn.Linear``'s does;
+``mp_group`` is accepted at its default only, and ``name`` is accepted
+and, as in the reference, not read.
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn.layer import Layer
-from paddle_tpu_torch.nn.layers.common import Linear, _xavier_uniform_
+from paddle_tpu_torch.nn.layers.common import Linear
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding"]
@@ -30,9 +32,8 @@ class _DenseLinear(Linear):
 
     def __init__(self, in_features: int, out_features: int, weight_attr,
                  has_bias: bool, mp_group, name, device, dtype):
-        refuse_unported(type(self).__name__, weight_attr=(weight_attr, None),
-                        mp_group=(mp_group, None), name=(name, None))
-        super().__init__(in_features, out_features,
+        refuse_unported(type(self).__name__, mp_group=(mp_group, None))
+        super().__init__(in_features, out_features, weight_attr,
                          bias_attr=None if has_bias else False,
                          device=device, dtype=dtype)
 
@@ -73,13 +74,12 @@ class VocabParallelEmbedding(Layer):
                  weight_attr=None, mp_group=None, name=None, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        refuse_unported("VocabParallelEmbedding",
-                        weight_attr=(weight_attr, None),
-                        mp_group=(mp_group, None), name=(name, None))
+        refuse_unported("VocabParallelEmbedding", mp_group=(mp_group, None))
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        self.weight = nn.Parameter(_xavier_uniform_(torch.empty(
-            (num_embeddings, embedding_dim), device=device, dtype=dtype)))
+        self.weight = self.create_parameter(
+            (num_embeddings, embedding_dim), attr=weight_attr, dtype=dtype,
+            default_initializer=I.XavierUniform(), device=device)
 
     def forward(self, x):
         return F.embedding(x, self.weight)

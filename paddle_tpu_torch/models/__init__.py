@@ -1,5 +1,13 @@
+from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                          BertForSequenceClassification,
+                                          BertModel)
+from paddle_tpu_torch.models.ernie import (ErnieConfig,
+                                           ErnieForSequenceClassification,
+                                           ErnieModel, ernie_1_0)
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM, GPTModel,
                                         gpt2_small, gpt_tiny)
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
-           "gpt2_small"]
+           "gpt2_small", "BertConfig", "BertModel", "BertForPretraining",
+           "BertForSequenceClassification", "ErnieConfig", "ErnieModel",
+           "ErnieForSequenceClassification", "ernie_1_0"]

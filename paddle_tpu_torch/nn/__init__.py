@@ -1,10 +1,10 @@
-from paddle_tpu_torch.nn import functional
+from paddle_tpu_torch.nn import functional, initializer  # noqa: F401
 from paddle_tpu_torch.nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                                       ClipGradByValue, clip_grad_norm_)
-from paddle_tpu_torch.nn.layer import Layer
-from paddle_tpu_torch.nn.layers import (Dropout, Embedding, LayerList,
-                                        LayerNorm, Linear)
+from paddle_tpu_torch.nn.layer import Layer, ParamAttr
+from paddle_tpu_torch.nn.layers import *  # noqa: F401,F403
+from paddle_tpu_torch.nn.layers import __all__ as _layers
 
-__all__ = ["functional", "Layer", "Linear", "Embedding", "Dropout",
-           "LayerNorm", "LayerList", "ClipGradByValue", "ClipGradByNorm",
-           "ClipGradByGlobalNorm", "clip_grad_norm_"]
+__all__ = (["functional", "initializer", "Layer", "ParamAttr",
+            "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+            "clip_grad_norm_"] + _layers)

@@ -28,9 +28,8 @@ def embedding(x, weight, padding_idx=None, sparse: bool = False):
     """Gather rows of ``weight`` by id. Ids equal to ``padding_idx``
     (negative counts from the end) give zero rows, so those rows of
     ``weight`` get a zero gradient — the reference masks the output the
-    same way (``nn/functional/common.py:96``). ``sparse`` is accepted at
-    its default only."""
-    refuse_unported("embedding", sparse=(sparse, False))
+    same way (``nn/functional/common.py:96``). ``sparse`` is accepted and,
+    as in the reference, the gradient is dense."""
     out = TF.embedding(x, weight)
     if padding_idx is not None:
         if padding_idx < 0:

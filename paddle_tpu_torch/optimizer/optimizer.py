@@ -12,10 +12,21 @@ place in the optimizer's order).
 lr.LRScheduler`, read by :meth:`get_lr` at every step; the user steps
 the scheduler, as in paddle.
 
+A parameter made by ``Layer.create_parameter`` carries
+``optimize_attr["learning_rate"]``, its ``ParamAttr``'s multiplier of
+the group's rate (optimizer.py:197), and ``regularizer``, its
+``ParamAttr``'s ``L1Decay``/``L2Decay`` (``paddle_tpu_torch.
+regularizer``), which takes priority over the group's ``weight_decay``
+(optimizer.py:147-152). ``weight_decay`` is a float (L2) or such a
+regularizer.
+
 One :meth:`step`, in the reference's order (optimizer.py:158-212):
 ``grad_clip`` over the raw gradients of every group at once, then the
-gradients cast to the compute dtype, then L2 decay folded in (not for
-AdamW, whose decay is decoupled), then the rule. With
+gradients cast to the compute dtype, then the decay folded in: the
+parameter's own regularizer, else the group's ``weight_decay`` (not for
+AdamW, whose ``weight_decay`` is decoupled; a parameter's regularizer
+is folded in under AdamW too, as the reference's trainer folds it,
+trainer.py:457-466), then the rule. With
 ``multi_precision`` a bf16 or fp16 parameter is updated through an fp32
 master copy with fp32 state (the reference's ``@master`` slot), and the
 parameter receives the master rounded to its dtype.
@@ -36,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from paddle_tpu_torch.optimizer.lr import LRScheduler
+from paddle_tpu_torch.regularizer import WeightDecayRegularizer
 
 __all__ = ["Optimizer"]
 
@@ -46,6 +58,14 @@ _LOW = (torch.bfloat16, torch.float16)
 def _named(params) -> _Named:
     return [(p[0], p[1]) if isinstance(p, tuple) else (None, p)
             for p in params]
+
+
+def _decayed(decay, value, grad):
+    """``grad`` with ``decay`` (a regularizer, an L2 coefficient, or
+    None) folded in at ``value``."""
+    if isinstance(decay, WeightDecayRegularizer):
+        return decay.apply_to_grad(value, grad)
+    return grad + float(decay) * value if decay else grad
 
 
 class Optimizer:
@@ -64,10 +84,10 @@ class Optimizer:
         if not isinstance(learning_rate, (int, float, LRScheduler)):
             raise TypeError("learning_rate must be a float or an "
                             f"LRScheduler, got {type(learning_rate)}")
-        if weight_decay is not None and not isinstance(weight_decay,
-                                                       (int, float)):
-            raise NotImplementedError(
-                "only a float weight_decay (L2) is ported")
+        if weight_decay is not None and not isinstance(
+                weight_decay, (int, float, WeightDecayRegularizer)):
+            raise TypeError("weight_decay must be a float or an "
+                            f"L1Decay/L2Decay, got {type(weight_decay)}")
         items = list(parameters)
         if items and isinstance(items[0], dict):
             self._param_groups = [dict(g, params=_named(g["params"]))
@@ -158,21 +178,34 @@ class Optimizer:
             # on the raw gradients of every group at once, before decay
             grads = [g for _, g in self._grad_clip(
                 [(p, g) for (_, _, p), g in zip(live, grads)])]
-        by_group: Dict[int, list] = {}
+        # one update per group and per-parameter rate multiplier
+        # (``ParamAttr.learning_rate``, optimizer.py:197)
+        by_group: Dict[tuple, list] = {}
         for (group, name, p), g in zip(live, grads):
-            by_group.setdefault(id(group), [group, []])[1].append((name, p, g))
-        for group, items in by_group.values():
+            mult = float(getattr(p, "optimize_attr", {}).get(
+                "learning_rate", 1.0))
+            by_group.setdefault((id(group), mult), [group, mult, []])[2] \
+                .append((name, p, g))
+        for group, mult, items in by_group.values():
             states = [self._state(p) for _, p, _ in items]
             named = [(name, st.get("@master", p))
                      for (name, p, _), st in zip(items, states)]
             gs = [g.to(t.dtype) for (_, _, g), (_, t) in zip(items, named)]
-            decay = group.get("weight_decay", self._weight_decay)
-            if decay and not self._decoupled:
+            decay = None if self._decoupled else group.get(
+                "weight_decay", self._weight_decay)
+            own = [getattr(p, "regularizer", None) for _, p, _ in items]
+            if isinstance(decay, WeightDecayRegularizer) or any(
+                    r is not None for r in own):
+                # a parameter's regularizer before the group's decay
+                # (optimizer.py:147-152)
+                gs = [_decayed(decay if r is None else r, t, g)
+                      for r, (_, t), g in zip(own, named, gs)]
+            elif decay:
                 # L2 folded into the gradient (optimizer.py:139-155), on
                 # the compute value (the master under multi_precision)
                 gs = torch._foreach_add(gs, [t for _, t in named],
                                         alpha=float(decay))
-            lr = self.get_lr() * group.get("learning_rate", 1.0)
+            lr = self.get_lr() * group.get("learning_rate", 1.0) * mult
             self._update(group, named, gs, states, lr)
             masters = [(p, st["@master"]) for (_, p, _), st in
                        zip(items, states) if "@master" in st]

@@ -134,7 +134,7 @@ class AdamW(Adam):
                  weight_decay: float = 0.01, lr_ratio=None,
                  apply_decay_param_fun=None, grad_clip=None, lazy_mode=False,
                  multi_precision=False, name=None):
-        self._coeff = float(weight_decay)
+        self._coeff = float(getattr(weight_decay, "coeff", weight_decay))
         self._apply_decay_param_fun = apply_decay_param_fun
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision, name)

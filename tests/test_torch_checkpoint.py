@@ -50,6 +50,9 @@ from paddle_tpu_torch.distributed import (DistributedStrategy,
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.optimizer import SGD, AdamW, lr
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 jckpt = importlib.import_module("paddle_tpu.distributed.checkpoint")
 
 

@@ -45,6 +45,9 @@ from paddle_tpu.ops.pallas.chunk_prefill import chunk_prefill_xla
 from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
 from test_torch_flash_bwd_layout import G, T, _at, _bf16, ldsm, mma, pack_a
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 SRC = (Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
        / "chunk_prefill.cu").read_text()
 LOG2E = np.float32(1.4426950408889634)

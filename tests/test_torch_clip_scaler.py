@@ -44,6 +44,9 @@ from paddle_tpu_torch.nn import (ClipGradByGlobalNorm, ClipGradByNorm,
                                  ClipGradByValue, clip_grad_norm_)
 from paddle_tpu_torch.optimizer import Adam, AdamW
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 jax_clip = importlib.import_module("paddle_tpu.nn.clip")
 jax_decorate = importlib.import_module("paddle_tpu.amp.auto_cast").decorate
 

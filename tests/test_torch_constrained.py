@@ -49,6 +49,9 @@ from paddle_tpu_torch.inference.frontend import FrontDoor
 from paddle_tpu_torch.inference.speculative import NgramDrafter
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 T = 30              # seconds: every HTTP call and wait below
 TOL = 1e-4          # score and embed, absolute, against the JAX engine
 ENGINE_KW = dict(max_batch_slots=2, max_len=64, top_k=1, prefill_chunk=16,

@@ -55,6 +55,9 @@ from paddle_tpu_torch.ops.kernels import paged_attention as k4
 from test_torch_chunk_layout import pack_a_f16
 from test_torch_flash_bwd_layout import G, T, _at, _bf16, ldsm, mma, pack_a
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 SRC = (Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
        / "paged_attention.cu").read_text()
 BODY = SRC[SRC.index("paged_decode_mma_kernel(const T*"):]

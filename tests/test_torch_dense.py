@@ -40,6 +40,9 @@ from paddle_tpu_torch.inference import (DecodeEngine, PrefixCache, Request,
                                         ServingEngine)
 from test_torch_serving import SYS, models  # noqa: F401  (fixture)
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 L, H, D = 2, 4, 16                    # gpt_tiny's layers, heads, head_dim
 

@@ -40,6 +40,9 @@ from paddle_tpu_torch.inference import (NgramDrafter, PrefixCache, Request,
                                         ServingEngine)
 from test_torch_serving import SYS, models  # noqa: F401  (fixture)
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 COUNTS = ("prefix_hit_tokens", "prefill_chunks", "decode_steps",
           "prompt_tokens", "prefill_tokens_computed")
 

@@ -24,6 +24,9 @@ import torch
 from paddle_tpu_torch.nn.functional import attention as port_attention
 from paddle_tpu_torch.ops.kernels import flash_attention as port_fa
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 # by module path: the packages' __init__ re-export functions of the
 # same names
 jax_attention = importlib.import_module("paddle_tpu.nn.functional.attention")

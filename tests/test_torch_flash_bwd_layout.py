@@ -47,6 +47,9 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import flash_attention as port_fa
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 CSRC = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
 MMA_CUH = CSRC / "flash_mma.cuh"
 

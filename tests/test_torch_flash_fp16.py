@@ -28,6 +28,9 @@ from paddle_tpu_torch.amp import auto_cast
 from paddle_tpu_torch.nn.functional import attention as port_attention
 from paddle_tpu_torch.ops.kernels import flash_attention as port_fa
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 jax_fa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 
 B, S, H = 2, 128, 2

@@ -47,6 +47,9 @@ from paddle_tpu_torch.inference.frontend import FrontDoor, SamplingParams
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.testing.fault_injection import inject, raise_, sleep_
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPT = [5, 9, 2, 11, 4, 7, 8, 3] * 3
 SAMP = {"temperature": 0.9, "seed": 3}

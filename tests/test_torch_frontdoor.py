@@ -49,6 +49,9 @@ from paddle_tpu_torch.inference.frontend import (AdmissionController,
                                                  Tenant)
 from test_torch_serving import models  # noqa: F401  (fixture)
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 PROMPTS = [[5, 9, 2, 11, 4, 7, 8, 3] * 3, [3, 3, 7, 1, 8, 2, 9, 4] * 2,
            [17, 23, 2, 9, 14, 6, 1, 12, 4], [1, 2, 3, 4, 5, 6, 7, 8] * 3]
 KW = dict(max_batch_slots=3, max_len=64, prefill_chunk=16, seed=7,

@@ -30,6 +30,9 @@ from paddle_tpu_torch.inference import DraftModelDrafter
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, gpt_tiny
 from test_torch_serving import models  # noqa: F401  (fixture)
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 MODELS_BATCH = [[5, 9, 2, 11], [3, 3, 7, 1]]                # test_models.py
 SPEC_BATCH = [[1, 2, 3, 4] * 3,                            # test_speculative
               [7, 8, 9, 7, 8, 9, 3, 1, 4, 1, 5, 9]]

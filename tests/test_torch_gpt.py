@@ -23,6 +23,9 @@ from paddle_tpu.models.gpt import _upd_paged as jax_upd_paged
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.models.gpt import _upd_paged
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 
 

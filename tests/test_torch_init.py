@@ -36,6 +36,9 @@ import paddle_tpu_torch
 from paddle_tpu_torch.distributed import meta_parallel as pmp
 from paddle_tpu_torch.nn.layers import Embedding, Linear
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 # layer, reference builder, port builder, shapes
 LAYERS = {
     "Linear": (JaxLinear, lambda i, o: Linear(i, o, device="cpu")),

@@ -42,6 +42,9 @@ from paddle_tpu_torch.models.gpt import _upd_paged_q
 from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
 from paddle_tpu_torch.ops.kernels import paged_attention as k4
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 SYS = [7, 3, 9, 11, 2, 5, 8, 4] * 4          # 32-token shared prefix
 

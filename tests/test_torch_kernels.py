@@ -26,6 +26,9 @@ from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
 from paddle_tpu_torch.ops.kernels import layer_norm as k2
 from paddle_tpu_torch.ops.kernels import paged_attention as k4
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 # pool geometry: 3 slots, 4 heads, head_dim 64, blocks of 8 rows,

@@ -41,6 +41,9 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import layer_norm as k2
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 SRC = (Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
        / "layer_norm.cu").read_text()
 F32 = np.float32

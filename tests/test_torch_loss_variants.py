@@ -27,6 +27,9 @@ from paddle_tpu.core.tensor import Tensor
 from paddle_tpu_torch.amp import auto_cast
 from paddle_tpu_torch.nn import functional as F
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 jax_loss = importlib.import_module("paddle_tpu.nn.functional.loss")
 
 N, C = 12, 7

@@ -22,6 +22,9 @@ import paddle_tpu as paddle
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import lr as port_lr
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 jax_lr = importlib.import_module("paddle_tpu.optimizer.lr")
 
 STEPS = 40

@@ -39,6 +39,9 @@ from paddle_tpu_torch.inference.adapter_pool import AdapterPool
 from paddle_tpu_torch.inference.speculative import NgramDrafter
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 PROMPTS = [[5, 9, 2, 11, 4] * 3, [3, 3, 7, 1, 8, 2, 6] * 2,
            list(range(1, 20)), [17, 23]]
 MIX = ["a", None, "b", "a"]

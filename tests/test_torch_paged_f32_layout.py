@@ -47,6 +47,9 @@ from paddle_tpu.ops.pallas.chunk_prefill import chunk_prefill_xla
 from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
 from paddle_tpu_torch.ops.kernels import paged_attention as k4
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 CSRC = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
 SRC = (CSRC / "paged_common.cuh").read_text()
 K5_SRC = (CSRC / "chunk_prefill.cu").read_text()

@@ -32,6 +32,9 @@ from paddle_tpu_torch.inference import (BlockAllocator, PrefixCache, Request,
                                         ServingEngine)
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 SYS = [7, 3, 9, 11, 2, 5, 8, 4] * 4          # 32-token shared prefix
 TRIE_STATS = ("lookups", "hits", "hit_tokens", "inserts", "evictions",
               "bytes", "nodes")

@@ -50,6 +50,9 @@ from paddle_tpu_torch.ops.kernels import layer_norm as port_k2
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import lr as port_lr
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 jax_attention = importlib.import_module("paddle_tpu.nn.functional.attention")
 jax_lr = importlib.import_module("paddle_tpu.optimizer.lr")
 

@@ -43,6 +43,9 @@ from paddle_tpu_torch.nn.layers import Linear
 from paddle_tpu_torch.optimizer import SGD, AdamW
 from paddle_tpu_torch.testing import fault_injection as fi
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _fast_backoff():

@@ -48,6 +48,9 @@ from paddle_tpu_torch.models.gpt import (GPTAttention, GPTBlock, GPTMLP,
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 REF = Path(__file__).resolve().parents[1] / "paddle_tpu"
 PORT = REF.parent / "paddle_tpu_torch"
 _EMPTY = object()    # a parameter without a default
@@ -148,40 +151,36 @@ CASES = {
     "Request": (
         "inference/serving.py", "Request", Request,
         lambda **kw: Request([1, 2], **kw), {}, "cancel_requested"),
+    # weight_attr, bias_attr (ParamAttr), padding_idx, sparse and name
+    # are ported
     "nn.Linear": (
         "nn/layers/common.py", "Linear", Linear,
-        lambda **kw: Linear(4, 8, device="cpu", **kw),
-        # bias_attr: None (a bias) and False (none) are ported, a
-        # ParamAttr is not
-        {"weight_attr": None, "bias_attr": None, "name": None}, None),
+        lambda **kw: Linear(4, 8, device="cpu", **kw), {}, None),
     "nn.Embedding": (
         "nn/layers/common.py", "Embedding", Embedding,
-        lambda **kw: Embedding(10, 4, device="cpu", **kw),
-        {"padding_idx": None, "sparse": False, "weight_attr": None,
-         "name": None}, None),
+        lambda **kw: Embedding(10, 4, device="cpu", **kw), {}, None),
     "nn.Dropout": (
         "nn/layers/common.py", "Dropout", Dropout,
         lambda **kw: Dropout(0.1, **kw),
         {"axis": None, "mode": "upscale_in_train", "name": None}, None),
     "nn.LayerNorm": (
         "nn/layers/norm.py", "LayerNorm", LayerNorm,
-        lambda **kw: LayerNorm(8, device="cpu", **kw),
-        {"weight_attr": None, "bias_attr": None, "name": None}, None),
+        lambda **kw: LayerNorm(8, device="cpu", **kw), {}, None),
     "VocabParallelEmbedding": (
         "distributed/meta_parallel/mp_layers.py", "VocabParallelEmbedding",
         VocabParallelEmbedding,
         lambda **kw: VocabParallelEmbedding(10, 4, device="cpu", **kw),
-        {"weight_attr": None, "mp_group": None, "name": None}, None),
+        {"mp_group": None}, None),
     "ColumnParallelLinear": (
         "distributed/meta_parallel/mp_layers.py", "ColumnParallelLinear",
         ColumnParallelLinear,
         lambda **kw: ColumnParallelLinear(4, 8, device="cpu", **kw),
-        {"weight_attr": None, "mp_group": None, "name": None}, None),
+        {"mp_group": None}, None),
     "RowParallelLinear": (
         "distributed/meta_parallel/mp_layers.py", "RowParallelLinear",
         RowParallelLinear,
         lambda **kw: RowParallelLinear(4, 8, device="cpu", **kw),
-        {"weight_attr": None, "mp_group": None, "name": None}, None),
+        {"mp_group": None}, None),
     "F.dropout": (
         "nn/functional/common.py", "dropout", F.dropout,
         lambda **kw: F.dropout(_X, 0.1, **kw),
@@ -315,8 +314,7 @@ CASES = {
                  None),
     "F.embedding": (
         "nn/functional/common.py", "embedding", F.embedding,
-        lambda **kw: F.embedding(_IDS, _H[0], **kw), {"sparse": False},
-        None),
+        lambda **kw: F.embedding(_IDS, _H[0], **kw), {}, None),
 }
 
 
@@ -347,6 +345,8 @@ KW_ONLY = {
     "seconds": "the host step time behind decode_step_ms_p50",
     "pin_memory": "the host tier's blocks pinned for the card's copy "
                   "engines (numpy buffers in the reference)",
+    "generator": "the torch.Generator an initializer draws from; the "
+                 "reference threads JAX keys",
 }
 # port callables the reference file at the same path lacks
 ABSENT = {
@@ -364,6 +364,14 @@ ABSENT = {
         "in for fold_in(slot_key, P)",
     "core/unported.py::refuse_unported": "the port's refusal of reference "
         "parameters it does not implement",
+    "ops/manipulation.py::lax_complex": "a jax.lax helper the reference "
+        "registers as as_complex's kernel; the port's as_complex is "
+        "torch.complex",
+    "models/bert.py::BertMLMHeadStage.forward": "the pipeline stage "
+        "raises at construction: Pipeline1F1B is ROADMAP Queue 1 item 6",
+    "models/bert.py::BertForPretrainingPipe.mlm_loss": "the pipeline "
+        "model raises at construction: Pipeline1F1B is ROADMAP Queue 1 "
+        "item 6",
 }
 # port modules that carry every public callable of their reference but
 # the ``ABSENT`` entries named there
@@ -378,7 +386,13 @@ WHOLE = ["core/flags.py", "testing/fault_injection.py",
          "inference/frontend/admission.py", "inference/fleet/client.py",
          "inference/frontend/server.py", "inference/frontend/ingest.py",
          "inference/fleet/router.py", "inference/fleet/engine_proc.py",
-         "inference/adapter_pool.py", "inference/constrain.py"]
+         "inference/adapter_pool.py", "inference/constrain.py",
+         "ops/creation.py", "ops/math.py", "ops/reduction.py",
+         "ops/manipulation.py", "nn/initializer.py",
+         "nn/functional/activation.py", "nn/layers/activation.py",
+         "nn/functional/loss.py", "nn/layers/loss.py",
+         "nn/layers/container.py", "nn/layers/transformer.py",
+         "models/bert.py", "models/ernie.py", "regularizer.py"]
 # port modules with no reference file at their path
 ABSENT_MODULES = {
     "ops/kernels/_build.py": "nvcc build and ctypes binding of csrc/",
@@ -406,6 +420,14 @@ DEFAULTED = {
         {"dtype"}, "the tier's blocks are torch tensors: np.float32 "
         "becomes torch.float32, the same element type"),
 }
+# the initializers draw torch tensors: jnp.float32 becomes torch.float32
+DEFAULTED.update({
+    f"nn/initializer.py::{cls}.__call__": (
+        {"dtype"}, "an initializer draws a torch tensor: jnp.float32 "
+        "becomes torch.float32, the same element type")
+    for cls in ("Initializer", "Constant", "Normal", "TruncatedNormal",
+                "Uniform", "XavierNormal", "XavierUniform", "KaimingNormal",
+                "KaimingUniform", "Assign", "Orthogonal", "Dirac")})
 
 
 def _public(path):
@@ -546,6 +568,12 @@ def test_unported_parameter_accepted_at_its_default(case, name):
     CASES[case][3](**{name: default})
 
 
+def _type_error(match, fn, *args):
+    with pytest.raises(TypeError, match=match):
+        fn(*args)
+    return True
+
+
 def _dropped(out):
     kept = out != 0
     assert 0 < int(kept.sum()) < out.numel()
@@ -555,8 +583,9 @@ def _dropped(out):
 
 # positional calls, each binding the reference's parameter at its place
 BINDS = {
-    # padding_idx, not the device: refused, never built on cuda:0
-    "Embedding(V, D, 0)": (lambda: Embedding(10, 4, 0), "padding_idx"),
+    # padding_idx, not the device: never built on cuda:0
+    "Embedding(V, D, 0)": (
+        lambda: Embedding(10, 4, 0, device="cpu").padding_idx == 0, None),
     # axis=None, training=True: a dropout, not the identity
     "dropout(x, 0.1, None)": (
         lambda: _dropped(F.dropout(_X, 0.1, None)), None),
@@ -566,9 +595,12 @@ BINDS = {
     "ColumnParallelLinear(4, 8, None, False)": (
         lambda: ColumnParallelLinear(4, 8, None, False,
                                      device="cpu").bias is None, None),
-    "LayerNorm(8, 1e-5, 1)": (lambda: LayerNorm(8, 1e-5, 1), "weight_attr"),
+    # weight_attr, third: 1 is no ParamAttr, as the reference says
+    "LayerNorm(8, 1e-5, 1)": (
+        lambda: _type_error("ParamAttr", LayerNorm, 8, 1e-5, 1), None),
     "VocabParallelEmbedding(10, 4, 1)": (
-        lambda: VocabParallelEmbedding(10, 4, 1), "weight_attr"),
+        lambda: _type_error("ParamAttr", VocabParallelEmbedding, 10, 4, 1),
+        None),
     "GPTBlock(config, True)": (lambda: GPTBlock(gpt_tiny(), True),
                                "use_moe"),
     # sampling, 7th: the SamplingParams bundle submit() folds in
@@ -596,8 +628,10 @@ BINDS = {
     "linear(x, w, b, 'linear')": (
         lambda: pytest.raises(TypeError, F.linear, _X, torch.ones(64, 2),
                               None, "linear") is not None, None),
+    # sparse, fourth: dense gradients, the same rows
     "embedding(x, w, None, True)": (
-        lambda: F.embedding(_IDS, _H[0], None, True), "sparse"),
+        lambda: torch.equal(F.embedding(_IDS, _H[0], None, True),
+                            F.embedding(_IDS, _H[0])), None),
     # kseg, vseg: the dense arena's cached segment pair
     "PrefixCacheNode(key, parent, kseg, vseg)": (
         lambda: PrefixCacheNode((), None, _X, _X[:1]).kseg is _X, None),

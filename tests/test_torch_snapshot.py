@@ -32,6 +32,9 @@ from paddle_tpu_torch.inference import Request, ServingEngine
 from test_torch_serving import models  # noqa: F401  (fixture)
 from test_torch_serving_bf16 import models as bf16_models  # noqa: F401
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 PROMPTS = [[5, 9, 2, 11, 4, 7, 8, 3] * 3, [3, 3, 7, 1, 8, 2, 9, 4] * 2]
 KW = dict(max_batch_slots=2, max_len=64, prefill_chunk=16, seed=7,
           block_size=8, host_tier_blocks=16)

@@ -47,6 +47,9 @@ from paddle_tpu_torch.inference import (NgramDrafter, PrefixCache, Request,
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from test_torch_int8 import _read_jax_positions_from_t
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 SYS = [7, 3, 9, 11, 2, 5, 8, 4] * 4          # 32-token shared prefix
 MIXED = [[1, 2, 3, 4] * 5, [3, 3, 7, 1, 8, 2, 6], [9] * 11,
          [10, 20, 30, 40, 50], list(range(1, 40))]

@@ -39,6 +39,9 @@ from paddle_tpu_torch.distributed import fleet
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.optimizer import SGD, AdamW, Momentum
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 
 def _mesh1():
     return build_mesh([1, 1, 1, 1], ["dp", "pp", "sharding", "mp"],

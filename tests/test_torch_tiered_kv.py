@@ -43,6 +43,9 @@ from paddle_tpu_torch.inference.serving import DecodeEngine
 from test_torch_int8 import _read_jax_positions_from_t
 from test_torch_serving import models  # noqa: F401  (fixture)
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 PROMPTS = [[5, 9, 2, 11, 4, 7, 8, 3] * 3, [3, 3, 7, 1, 8, 2, 9, 4] * 3,
            [17, 23, 2, 9, 14, 6, 1, 12] * 3]
 COUNTS = ("preemptions", "blocks_spilled", "blocks_swapped_in",

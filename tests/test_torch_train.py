@@ -42,6 +42,9 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional import attention as port_attention
 from paddle_tpu_torch.optimizer import Adam, AdamW
 
+# one torch intra-op thread a test process (test_torch_cpu_threads.py)
+torch.set_num_threads(1)
+
 # by module path: the packages' __init__ re-export functions of the
 # same names
 jax_amp = importlib.import_module("paddle_tpu.amp.auto_cast")
