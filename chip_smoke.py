@@ -204,6 +204,21 @@ Phases, in order (any failure exits non-zero and prints no result):
    one is legal and its masked argmax, both audits are clean and no
    adapter reference is left; the phase's wall and decode step p50
    beside phase 5's printed (host clock);
+5m. adaptive serving on phase 5's fp32 model: (a) a forced chunk budget
+   (1 -> 2 -> 4, one step a window of 8 ticks) on phase 5's trace:
+   greedy tokens phase 5's (near-ties counted), K5 launches phase 5's
+   exactly (only the ticks they fall in move), K4 and K2 exact for the
+   run's own steps, 2 counted decisions, 2 ``adapt`` flight events and no
+   absorbed controller error; (b) ``AdaptiveSuite()`` at its defaults on
+   the same trace: tokens as in (a), each controller's decisions, value
+   and last signal, and the wall, TTFT p50 and decode step p50 beside
+   phase 5's (host clock, not gated); (c) 5d's ``NgramDrafter(k=4)``
+   trace at a forced ``k_eff`` of 2 and under a ``DraftLenController``:
+   greedy tokens 5d's, K4 at L a verify step on the verify of k + 1 = 5
+   rows, no recompile; (d) 5i's poisoned starved pool with a host tier
+   under a ``SwapMinController``: greedy tokens 5i's, the swap meters
+   above 0 and equal to the tier's spills plus swap-ins, the copy's
+   seconds a block by CUDA events and by the host clock;
 6. training: ``gpt2_small`` at full width and depth, batch 16 x 1024,
    ``AdamW`` and ``ShardedTrainer(amp=True)`` (the configuration of
    ``bench.py``), 2 warm-up and 10 timed steps: a finite, falling loss,
@@ -242,6 +257,27 @@ Phases, in order (any failure exits non-zero and prints no result):
    slots, step, scheduler) whose next 3 losses agree within RESUME_RTOL;
    the checkpoint's bytes, the async save's stall and commit, a blocking
    save, the sha256 verify and a restore, timed;
+6e. ZeRO offload, phase 6's configuration under
+   ``DistributedStrategy(sharding=True, sharding_configs={"offload":
+   True})``: 12 steps (2 + 10) in lockstep with 12 without offload, both
+   updates fed the same gradients (K3a's dQ atomics differ run to run):
+   losses, parameters, every AdamW slot and the offloaded trainer's
+   checkpoint (read back) bitwise equal to the plain trainer's, and
+   every non-scalar slot pinned host memory after each step; then the
+   offloaded trainer alone on its own gradients, 10 timed steps:
+   tokens/s, step p50, peak memory, one profiled step and the slots'
+   copy in and out on their own, beside phase 6's; exact K1, K3a and K2
+   launches;
+6f. the other optimizers, fleet and ASP: ``gpt2_small`` at 4 x 1024
+   under AMP bf16 through ``ShardedTrainer`` for 3 steps each with
+   Adagrad, Adamax, RMSProp (plain; centered with momentum), Lamb,
+   Adadelta, ``fleet.distributed_optimizer`` over a Momentum with
+   ``lars`` (a Lars inside), over AdamW with ``localsgd`` (k 2: one
+   sync), and AdamW decorated by ASP after ``prune_model`` (every pruned
+   weight 2:4 sparse after every step): finite losses and exact K1, K3a
+   and K2 launches; each one's first update at ``gpt_tiny`` with one
+   head of 64 in fp32 on the card against the CPU within OPT_TOL in
+   global norm;
 7. encoders, at full width and depth with random weights from a seed
    and synthetic ids: (7a) ``BertForPretraining(BertConfig())``
    (BERT-base, 12 layers, hidden 768, vocab 30522) at dropout 0, batch
@@ -265,7 +301,8 @@ Phases, in order (any failure exits non-zero and prints no result):
    self-attention and the decoder's cross-attention; the masked decoder
    self-attention takes the plain route), K2 = 30;
 8. the ``kernels`` JSON line (K1's, K3a's and K2's launches include
-   phase 7's), then the ``ok`` line.
+   phases 6e, 6f and 7's; K2's, K4's and K5's 5m's), then the ``ok``
+   line.
 """
 
 from __future__ import annotations
@@ -1913,7 +1950,7 @@ def _check_absorbed(eng, what, want=None):
 
 
 def _serve(torch, model, trace, block_size=16, poison=False, arm=None,
-           reasons=("length", "eos"), **engine_kw):
+           reasons=("length", "eos"), prepare=None, **engine_kw):
     """One run of ``trace`` through ``ServingEngine(model, 8 slots, max_len
     1024, blocks of ``block_size`` (None: the dense arena), chunks of 128,
     **engine_kw)`` on the card, after a warm-up request (cuBLAS handles,
@@ -1929,7 +1966,8 @@ def _serve(torch, model, trace, block_size=16, poison=False, arm=None,
     request must end with one of ``reasons`` and the engine must have
     absorbed nothing (``_check_absorbed``): a retried dispatch or a
     crashed tick the breaker took fails the run as a raise would. A
-    score or embed request streams no tokens."""
+    score or embed request streams no tokens. ``prepare(eng)`` runs after
+    the warm-up (a knob set for the counted run)."""
     from paddle_tpu_torch.inference import Request, ServingEngine
     from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
     from paddle_tpu_torch.ops.kernels import layer_norm as k2
@@ -1946,6 +1984,8 @@ def _serve(torch, model, trace, block_size=16, poison=False, arm=None,
             b.fill_(127 if e.quantized else 1e9)
         for x in (e.kscales or []) + (e.vscales or []):
             x.fill_(1e7)
+    if prepare is not None:
+        prepare(eng)
     streamed = {}
     reqs = [eng.submit(Request(on_token=lambda r, tok, done: streamed.
                                setdefault(r.id, []).append((tok, bool(done))),
@@ -2263,7 +2303,7 @@ def serving_spec_phase(torch, card, model, bf16_model, fp_agg, bf16_aggs,
                   f"{total} = {rate:.4f} (limit 0.9)", flush=True)
             check(rate >= 0.9, f"{what}: greedy agreement {rate} < 0.9")
         print(_perf_line(what, card, agg, wall), flush=True)
-        runs[what] = (agg, launches["K4-int8" if kv else "K4"])
+        runs[what] = (agg, launches["K4-int8" if kv else "K4"], reqs)
     base = {"fp32 spec serving": ("phase 5", fp_agg),
             "bf16 spec serving": ("5c", bf16_aggs[None]),
             "bf16 spec serving, int8 pools": ("5c", bf16_aggs["int8"]),
@@ -2274,7 +2314,7 @@ def serving_spec_phase(torch, card, model, bf16_model, fp_agg, bf16_aggs,
               f"step p50 {a['decode_step_ms_p50']:.2f} ms ({base[w][0]}: "
               f"{base[w][1]['aggregate_tokens_per_s']:.1f}, "
               f"{base[w][1]['decode_step_ms_p50']:.2f} ms)"
-              for w, (a, _) in runs.items()), flush=True)
+              for w, (a, _, _) in runs.items()), flush=True)
     # K4 at the verify shapes: phase 3's cases of 8 slots at s 5 and s 17
     # over the decode step's table, beside the verify launches of this
     # phase
@@ -2290,7 +2330,8 @@ def serving_spec_phase(torch, card, model, bf16_model, fp_agg, bf16_aggs,
             print("verify shape: " + json.dumps(dict(
                 r, spec_launches=launches.get(
                     (r["kernel"], r["dtype"], r["shape"][1])))), flush=True)
-    return runs["bf16 spec serving, k = 16"][1]
+    return runs["bf16 spec serving, k = 16"][1], \
+        runs["fp32 spec serving"][2]
 
 
 def serving_dense_phase(torch, card, model, fp_agg):
@@ -2476,6 +2517,8 @@ def serving_tier_phase(torch, card, model):
         n_no = _same_greedy(torch, model, roomy, starved,
                             f"{what}, starved without a tier")
         n_tier = _same_greedy(torch, model, roomy, reqs, f"{what}, tiered")
+        if kv is None:
+            tiered = reqs
         print(f"{what}: greedy tokens of the roomy run in the starved runs "
               f"but at {n_no} (no tier) and {n_tier} (tier) near-tie "
               "divergences; " + _perf_line(what, card, agg, wall),
@@ -2505,6 +2548,7 @@ def serving_tier_phase(torch, card, model):
                   f"{r.tokens[:8]}... != cache off {c.tokens[:8]}...")
     print("host tier + prefix cache: greedy tokens equal to the cache-off "
           "run", flush=True)
+    return tiered
 
 
 def _live_slot_past_prefill(slot):
@@ -3836,6 +3880,178 @@ def lora_constrained_phase(torch, card, model, fp_reqs, fp_agg):
           "clock, not gated)", flush=True)
 
 
+# -- phase 5m: adaptive serving -----------------------------------------------
+
+def _adaptive_counts(eng):
+    """(decisions by controller, adapt flight events, absorbed errors)."""
+    reg = eng.telemetry.registry
+    return (reg.get("serving_adaptive_decisions_total").snapshot(),
+            eng.telemetry.recorder.events(kind="adapt"),
+            reg.get("serving_adaptive_errors_total").value)
+
+
+def _forced_budget():
+    """A controller in the manner of the reference's ``_ForceChunk``
+    (``tests/test_adaptive.py``): the chunk budget 1 -> 2 -> 4, one step
+    a window, then held."""
+    from paddle_tpu_torch.inference.adaptive import AdaptiveController
+
+    class _ForceBudget(AdaptiveController):
+        name = "chunk_budget"
+        unit = "chunks/tick"
+
+        def __init__(self):
+            super().__init__(dwell=1)
+
+        def value(self, engine):
+            return engine._chunks_per_tick
+
+        def propose(self, engine, window):
+            self.last_signal = {"forced": True,
+                                "backlog": window["prefill_backlog"]}
+            return {1: 2, 2: 4}.get(engine._chunks_per_tick)
+
+        def apply(self, engine, value):
+            engine._chunks_per_tick = int(value)
+
+    return _ForceBudget()
+
+
+def _controllers_line(suite, eng):
+    return "; ".join(
+        f"{name}: value {st['value']} {st['unit']}, {st['decisions']} "
+        f"decisions, last {st['last']}"
+        for name, st in suite.state(eng)["controllers"].items())
+
+
+def adaptive_phase(torch, card, model, fp_reqs, fp_agg, fp_launches,
+                   spec_reqs, tier_reqs):
+    """Phase 5m: the adaptive controllers on phase 5's fp32 model. (a) A
+    forced chunk budget (1 -> 2 -> 4) on phase 5's trace: greedy tokens
+    phase 5's (near-ties counted), K5 launches phase 5's exactly, K4 and
+    K2 exact for the run's own steps, 2 counted decisions and 2 ``adapt``
+    flight events, no absorbed error. (b) ``AdaptiveSuite()`` at its
+    defaults on the same trace: tokens as in (a), each controller's
+    decisions and value, and the wall, TTFT p50 and decode step p50
+    beside phase 5's (host clock; not gated). (c) 5d's ``NgramDrafter(k=
+    4)`` trace at a forced ``k_eff`` of 2 and then under a
+    ``DraftLenController``: tokens 5d's, K4 at L a verify step (the
+    verify keeps k + 1 = 5 rows), no recompile. (d) 5i's poisoned
+    starved pool with a host tier under a ``SwapMinController``: tokens
+    5i's, the copy meters above 0 and equal to the tier's counts, the
+    copy's seconds a block by CUDA events and by the host clock. Returns
+    the phase's K2, K4 and K5 launches."""
+    from paddle_tpu_torch.inference import NgramDrafter
+    from paddle_tpu_torch.inference.adaptive import (AdaptiveSuite,
+                                                     DraftLenController,
+                                                     SwapMinController)
+
+    cfg = model.config
+    L = cfg.num_layers
+    trace = _serving_trace(cfg.vocab_size)
+    total = {"K2": 0, "K4": 0, "K5": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    # (a) the forced budget; interval 8 leaves the warm-up request's few
+    # ticks without a window
+    forced = AdaptiveSuite([_forced_budget()], interval=8)
+    eng, reqs, agg, wall, launches = _serve(torch, model, trace,
+                                            adaptive=forced)
+    add(launches)
+    chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+    dec, events, errs = _adaptive_counts(eng)
+    print(f"5m(a) forced budget: {chunks} prefill chunks, {steps} decode "
+          f"steps (phase 5: {int(fp_agg['prefill_chunks'])}, "
+          f"{int(fp_agg['decode_steps'])}), {eng._ticks_total} ticks, "
+          f"budget {eng._chunks_per_tick}, decisions {dec}, adapt events "
+          f"{[(e['old'], e['new']) for e in events]}, errors {errs}, "
+          f"launches {launches}", flush=True)
+    _check_launches("5m(a)", launches, L, chunks, steps, int8=False)
+    check(launches["K5"] == fp_launches["K5"],
+          f"5m(a): K5 {launches['K5']} != phase 5's {fp_launches['K5']}")
+    check(dec == {"chunk_budget": 2.0} and len(events) == 2 and errs == 0
+          and [(e["old"], e["new"]) for e in events] == [(1, 2), (2, 4)]
+          and eng._chunks_per_tick == 4,
+          f"5m(a): decisions {dec}, events {events}, errors {errs}")
+    n_a = _same_greedy(torch, model, fp_reqs, reqs, "5m(a)")
+    print(f"5m(a): greedy tokens phase 5's but at {n_a} near-tie "
+          "divergences; " + _perf_line("5m(a)", card, agg, wall), flush=True)
+
+    # (b) the default suite
+    suite = AdaptiveSuite()
+    eng, reqs, agg, wall, launches = _serve(torch, model, trace,
+                                            adaptive=suite)
+    add(launches)
+    chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+    _check_launches("5m(b)", launches, L, chunks, steps, int8=False)
+    dec, events, errs = _adaptive_counts(eng)
+    check(errs == 0 and len(events) == suite.decisions_total,
+          f"5m(b): errors {errs}, {len(events)} events for "
+          f"{suite.decisions_total} decisions")
+    n_b = _same_greedy(torch, model, fp_reqs, reqs, "5m(b)")
+    sig = suite.controllers[0].last_signal
+    print(f"5m(b) AdaptiveSuite() defaults: {_controllers_line(suite, eng)}"
+          f"; the chunk budget's last signal {sig}; {chunks} chunks, "
+          f"{steps} steps, {eng._ticks_total} ticks; greedy tokens phase "
+          f"5's but at {n_b} near-tie divergences", flush=True)
+    print(f"5m(b) on {card} (host clock, not gated): wall {wall:.3f} s, "
+          f"TTFT p50 {agg['ttft_p50_s'] * 1e3:.1f} ms, decode step p50 "
+          f"{agg['decode_step_ms_p50']:.2f} ms (phase 5: TTFT p50 "
+          f"{fp_agg['ttft_p50_s'] * 1e3:.1f} ms, decode step p50 "
+          f"{fp_agg['decode_step_ms_p50']:.2f} ms)", flush=True)
+
+    # (c) speculation: a forced k_eff, then the accept signal
+    def force_k2(e):
+        e._k_eff = 2
+        e.spec.set_draft_len(2)
+
+    for what, kw in (("5m(c) k_eff 2", dict(prepare=force_k2)),
+                     ("5m(c) DraftLenController",
+                      dict(adaptive=AdaptiveSuite([DraftLenController()])))):
+        eng, reqs, agg, wall, launches = _serve(
+            torch, model, trace, spec=NgramDrafter(k=4), **kw)
+        add(launches)
+        chunks, steps = int(agg["prefill_chunks"]), \
+            int(agg["spec_verify_steps"])
+        _check_launches(what, launches, L, chunks, steps, int8=False)
+        check(eng.engine.k == 4 and eng.telemetry.recompile_events() == 0,
+              f"{what}: verify k {eng.engine.k}, "
+              f"{eng.telemetry.recompile_events()} recompiles")
+        if "prepare" in kw:
+            check(eng._k_eff == 2, f"{what}: k_eff {eng._k_eff}")
+        n_c = _same_greedy(torch, model, spec_reqs, reqs, what)
+        print(f"{what}: k_eff {eng._k_eff}, drafter {eng.spec.k_eff}, "
+              f"{chunks} chunks, {steps} verify steps, {_spec_keys(agg)}, "
+              f"launches {launches}; greedy tokens 5d's but at {n_c} "
+              f"near-tie divergences", flush=True)
+
+    # (d) the host tier under the swap controller
+    ctrl = SwapMinController()
+    eng, reqs, agg, wall, launches = _serve(
+        torch, model, trace, poison=True, num_blocks=TIER_POOL,
+        host_tier_blocks=TIER_POOL,
+        adaptive=AdaptiveSuite([ctrl], interval=4))
+    add(launches)
+    chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+    _check_launches("5m(d)", launches, L, chunks, steps, int8=False)
+    st = eng.host_tier_state()
+    blocks, secs, host = (eng._swap_cost_blocks, eng._swap_cost_s,
+                          eng._swap_cost_host_s)
+    check(blocks > 0 and secs > 0 and blocks == st["spills"] + st["swap_ins"],
+          f"5m(d): meters {blocks} blocks, {secs} s; tier {st}")
+    n_d = _same_greedy(torch, model, tier_reqs, reqs, "5m(d)")
+    print(f"5m(d) swap controller: swap_min {eng._swap_min} tokens, "
+          f"{ctrl.decisions} decisions, last signal {ctrl.last_signal}; "
+          f"tier spills {st['spills']} + swap-ins {st['swap_ins']} = "
+          f"{blocks} blocks metered; copy seconds a block {secs / blocks:.3e}"
+          f" (CUDA events) vs {host / blocks:.3e} (host clock) on {card}; "
+          f"greedy tokens 5i's but at {n_d} near-tie divergences", flush=True)
+    return total
+
+
 def training_phase(torch, card):
     """``bench.py``'s training run on the port: returns the launch counts
     of the 10 timed steps and its perf (tokens/s, step p50, peak GiB)."""
@@ -4811,6 +5027,355 @@ def encoder_phase(torch, card):
             for k in ("K1", "K3a", "K2")}
 
 
+# -- phase 6e: ZeRO offload ----------------------------------------------------
+
+class _GradTap:
+    """An optimizer wrapper for 6e's bitwise comparison: ``record`` keeps
+    a copy of each gradient the update gets; ``replay`` (another tap)
+    overwrites its own gradients with those first. K3a's dQ atomics make
+    the backward's last bits differ from run to run (csrc/flash_bwd.cu),
+    so two runs of the same steps are bitwise equal only when their
+    updates see the same gradients; the forwards, the updates and the
+    offload's copies are then all that remain to compare."""
+
+    def __init__(self, inner, source=None):
+        self._inner = inner
+        self._source = source
+        self.grads = None
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    @property
+    def inner_opt(self):
+        return self._inner
+
+    def step(self):
+        params = [p for p in self._inner._parameter_list
+                  if p.grad is not None]
+        if self._source is None:
+            self.grads = [p.grad.detach().clone() for p in params]
+        else:
+            for p, g in zip(params, self._source.grads):
+                p.grad.copy_(g)
+        self._inner.step()
+
+    def clear_grad(self):
+        self._inner.clear_grad()
+
+
+def _slots_pinned(trainer) -> bool:
+    """Every non-scalar slot of ``trainer``'s optimizer in pinned host
+    memory, every 0-dim slot on the card."""
+    for st in trainer.optimizer._named_state(trainer._names).values():
+        for v in st.values():
+            if v.dim() == 0:
+                if v.device.type != "cuda":
+                    return False
+            elif v.device.type != "cpu" or not v.is_pinned():
+                return False
+    return True
+
+
+def _phase6_trainer(torch, cfg, offload, tap=None):
+    from paddle_tpu_torch.distributed import DistributedStrategy, ShardedTrainer
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                weight_decay=0.01)
+    if tap is not None:
+        opt = tap(opt)
+    st = DistributedStrategy(sharding=offload,
+                             sharding_configs={"offload": offload})
+    return ShardedTrainer(model, opt, None, amp=True, strategy=st)
+
+
+def offload_phase(torch, card, base):
+    """Phase 6e: phase 6's configuration (``gpt2_small``, 16 x 1024, AMP
+    bf16, AdamW) under ``sharding_configs={"offload": True}``. Bitwise: 12
+    steps of an offloaded trainer in lockstep with 12 of one without, the
+    same gradients fed to both updates (``_GradTap``): every loss, every
+    parameter, every slot equal, the offloaded trainer's checkpoint read
+    back equal to the state the plain trainer's save writes, and
+    every non-scalar slot pinned host memory after each step. Then the
+    offloaded trainer alone, its gradients its own again: 10 timed steps
+    (CUDA events), the peak memory, one profiled step, and the slots'
+    copy in and out timed on their own, beside phase 6's ``base``.
+    Returns the launches of all 35 offloaded and plain steps."""
+    import gc
+    import tempfile
+
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+
+    cfg = gpt2_small()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    batch, seq, warm, steps = 16, 1024, 2, 10
+    L = cfg.num_layers
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    fa.reset_launches()
+    k2.reset_launches()
+
+    plain = _phase6_trainer(torch, cfg, False, _GradTap)
+    off = _phase6_trainer(torch, cfg, True,
+                          lambda o: _GradTap(o, source=plain.optimizer))
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in off._host_slots.values())
+    check(_slots_pinned(off), "6e: a slot is not in pinned host memory")
+    for i in range(warm + steps):
+        lp = plain.train_step(ids, ids)
+        lo = off.train_step(ids, ids)
+        check(torch.equal(lp, lo), f"6e: step {i + 1} loss {float(lo)!r} "
+              f"offloaded, {float(lp)!r} not")
+        check(_slots_pinned(off), f"6e: after step {i + 1} a slot is not "
+              "in pinned host memory")
+    for n, p in plain.param_tensors.items():
+        check(torch.equal(p, off.param_tensors[n]),
+              f"6e: parameter {n} differs after 12 steps")
+    a_st, b_st = plain._opt_states(), off._opt_states()
+    for n in a_st:
+        for slot, v in a_st[n].items():
+            check(torch.equal(v.cpu(), b_st[n][slot].cpu()),
+                  f"6e: slot {n}/{slot} differs after 12 steps")
+    # the offloaded trainer's checkpoint, read back, against what the
+    # plain trainer's save writes (its state as the save snapshots it;
+    # 6d holds a save and its load to each other bitwise)
+    a = {k: v.cpu() for k, v in plain._checkpoint_state().items()}
+    with tempfile.TemporaryDirectory() as root:
+        off.save_checkpoint(root)
+        b, eb = ckpt.load_state(root, verify=False, device="cpu")
+    check(a.keys() == b.keys() and eb["step"] == warm + steps
+          and all(torch.equal(a[k], b[k]) for k in a),
+          "6e: the offloaded trainer's checkpoint differs")
+    print(f"6e: 12 lockstep steps on {card}: losses, {len(a_st)} "
+          f"parameters, their slots and the checkpoint ({len(a)} arrays) "
+          f"bitwise equal with and without offload; {len(off._host_slots)} "
+          f"slots, {nbytes} bytes, in pinned host memory after every step",
+          flush=True)
+    # the offloaded trainer alone, warm, on its own gradients
+    t = off
+    t.optimizer = t.optimizer.inner_opt
+    first = float(lo)
+    del plain, off, a, b, a_st, b_st, lp, lo
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    for start, end in ev:
+        start.record()
+        losses.append(t.train_step(ids, ids))
+        end.record()
+    torch.cuda.synchronize()
+    t._offload_wait()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [s.elapsed_time(e) for s, e in ev]
+    total_ms = ev[0][0].elapsed_time(ev[-1][1])
+    vals = [float(x) for x in losses]
+    check(all(np.isfinite(vals)) and vals[-1] < first,
+          f"6e: losses {vals} after {first}")
+    tok_s = batch * seq * steps / (total_ms / 1e3)
+    p50 = float(np.median(step_ms))
+    # the copies alone: in on the compute stream (CUDA events), out on
+    # the side stream (host clock to its event)
+    t._stream_in()
+    s0, s1 = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+    torch.cuda.synchronize()
+    t._stream_out()
+    torch.cuda.synchronize()
+    s0.record()
+    t._stream_in()
+    s1.record()
+    torch.cuda.synchronize()
+    in_ms = s0.elapsed_time(s1)
+    h0 = time.perf_counter()
+    t._stream_out()
+    t._offload_wait()
+    out_ms = (time.perf_counter() - h0) * 1e3
+    check(_slots_pinned(t), "6e: a slot left pinned memory")
+    print(f"6e offload on {card}: {tok_s:.1f} tokens/s, step p50 {p50:.2f} "
+          f"ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}), peak memory "
+          f"{peak:.2f} GiB; phase 6: {base['tokens_per_s']:.1f} tokens/s, "
+          f"p50 {base['step_p50_ms']:.2f} ms, peak {base['peak_gib']:.2f} "
+          f"GiB ({resident:.2f} GiB of it the trainer's before the steps); "
+          f"the "
+          f"slots' {nbytes} bytes each way: in {in_ms:.2f} ms "
+          f"({nbytes / in_ms / 1e6:.1f} GB/s, CUDA events), out "
+          f"{out_ms:.2f} ms ({nbytes / out_ms / 1e6:.1f} GB/s, host clock); "
+          f"losses {vals}", flush=True)
+    _profile_step(torch, lambda: t.train_step(ids, ids), p50)
+    t._offload_wait()
+    launches = {"K1": fa.launches["fwd"], "K3a": fa.launches["bwd_fused"],
+                "K2": k2.launches}
+    n = 2 * (warm + steps) + steps + 1
+    want = {"K1": L * n, "K3a": L * n, "K2": (2 * L + 1) * n}
+    check(launches == want, f"6e: launches {launches} != {want} for {n} "
+          "steps")
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 6f: the other optimizers, fleet and ASP ------------------------------
+
+# 6f's parity: the update of one step on the card (fp32, no AMP) against
+# the same step on the CPU, both at gpt_tiny with one head of 64 (the
+# card's flash kernels take head dims 64 and 128; gpt_tiny's 4 heads of
+# 16 would raise in K1's wrapper at S 128) from the same weights, in
+# global L2 norm: the two differ in summation order (cuBLAS and the flash
+# kernels against the CPU's plain versions), ~1e-6 relatively in the
+# gradients, and no rule here amplifies that past 1e-4
+OPT_TOL = 1e-3
+
+
+def _optimizer_cases():
+    """(label, factory(named parameters) -> optimizer, check(wrapper)) of
+    6f: the five new optimizers (RMSProp centered and not), Lars through
+    ``fleet.distributed_optimizer`` over a Momentum, LocalSGD (k 2) over
+    AdamW, and AdamW decorated by ASP (after ``prune_model``)."""
+    from paddle_tpu_torch.distributed import DistributedStrategy, fleet
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.optimizer import (Adadelta, Adagrad, Adamax, AdamW,
+                                            Lamb, Lars, Momentum, RMSProp)
+
+    lars = DistributedStrategy(lars=True, lars_configs={
+        "lars_coeff": 0.001, "exclude_from_weight_decay": ["bias", "ln_"]})
+    local = DistributedStrategy(localsgd=True,
+                                localsgd_configs={"k_steps": 2})
+    return [
+        ("Adagrad", lambda ps: Adagrad(1e-3, parameters=ps), None),
+        ("Adamax", lambda ps: Adamax(1e-4, parameters=ps), None),
+        ("RMSProp", lambda ps: RMSProp(1e-4, parameters=ps), None),
+        ("RMSProp centered", lambda ps: RMSProp(
+            1e-4, centered=True, momentum=0.9, parameters=ps), None),
+        ("Lamb", lambda ps: Lamb(1e-3, parameters=ps), None),
+        ("Adadelta", lambda ps: Adadelta(1.0, parameters=ps), None),
+        ("fleet Lars", lambda ps: fleet.distributed_optimizer(
+            Momentum(0.1, parameters=ps), strategy=lars),
+         lambda o: isinstance(o.inner_opt, Lars)),
+        ("fleet LocalSGD", lambda ps: fleet.distributed_optimizer(
+            AdamW(1e-4, parameters=ps), strategy=local),
+         lambda o: o._sync_count == 1),
+        ("ASP", lambda ps: asp.decorate(AdamW(1e-4, parameters=ps)), None),
+    ]
+
+
+def _one_step_update(torch, cfg, label, make, ids, device, prune):
+    """The change one training step (fp32, no AMP) makes to every
+    parameter of ``cfg`` built from seed 0 on ``device``."""
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    model = GPTForCausalLM(cfg, device="cpu", seed=0).to(device)
+    model.train()
+    if prune:
+        asp.prune_model(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    t = ShardedTrainer(model, make(model.named_parameters()), None)
+    x = ids.to(device)
+    t.train_step(x, x)
+    return {n: (p.detach() - before[n]).cpu()
+            for n, p in model.named_parameters()}
+
+
+def optimizers_phase(torch, card):
+    """Phase 6f: each of ``_optimizer_cases`` trains ``gpt2_small`` at 4 x
+    1024 under AMP bf16 through ``ShardedTrainer`` for 3 steps from the
+    same weights: finite losses, K1 = K3a = L and K2 = 2L + 1 a step,
+    the wrapper's own check (Lars inside, one LocalSGD sync), every
+    pruned weight 2:4 sparse after every step (ASP); then each one's
+    first update at ``gpt_tiny`` with one head of 64 (fp32, TF32 off) on
+    the card against the CPU within OPT_TOL in global norm. Returns the
+    phase's launches."""
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small, gpt_tiny
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+
+    cfg = gpt2_small()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    L, steps = cfg.num_layers, 3
+    ids = torch.from_numpy(np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (4, 1024))).cuda()
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    total = {"K1": 0, "K3a": 0, "K2": 0}
+    for label, make, extra in _optimizer_cases():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        masks = {}
+        t0 = time.perf_counter()
+        if label == "ASP":
+            asp.reset_excluded_layers()
+            masks = asp.prune_model(model)
+        prune_s = time.perf_counter() - t0
+        opt = make(model.named_parameters())
+        t = ShardedTrainer(model, opt, None, amp=True)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        k2.reset_launches()
+        params = dict(model.named_parameters())
+        losses = []
+        for _ in range(steps):
+            losses.append(float(t.train_step(ids, ids)))
+            if masks:
+                check(all(asp.check_sparsity(params[n]) for n in masks),
+                      "6f ASP: a pruned weight lost its 2:4 pattern")
+        launches = {"K1": fa.launches["fwd"], "K3a": fa.launches["bwd_fused"],
+                    "K2": k2.launches}
+        for k in total:
+            total[k] += launches[k]
+        want = {"K1": L * steps, "K3a": L * steps, "K2": (2 * L + 1) * steps}
+        check(all(np.isfinite(losses)) and launches == want
+              and (extra is None or extra(opt)),
+              f"6f {label}: losses {losses}, launches {launches} != {want}")
+        print(f"6f {label}: losses {losses}, launches {launches}"
+              + (f", {len(masks)} weights pruned 2:4 in {prune_s:.2f} s, "
+                 "sparse after every step" if masks else ""), flush=True)
+        del t, opt
+    del model, init
+    torch.cuda.empty_cache()
+
+    tiny = gpt_tiny()
+    tiny.num_heads = 1
+    tiny.hidden_dropout = tiny.attention_dropout = 0.0
+    tids = torch.from_numpy(np.random.RandomState(7).randint(
+        0, tiny.vocab_size, (2, 128)))
+    worst = []
+    for label, make, _ in _optimizer_cases():
+        got = _one_step_update(torch, tiny, label, make, tids, "cuda",
+                               label == "ASP")
+        want = _one_step_update(torch, tiny, label, make, tids, "cpu",
+                                label == "ASP")
+        num = sum(float((got[n] - want[n]).double().pow(2).sum())
+                  for n in want) ** 0.5
+        den = sum(float(want[n].double().pow(2).sum()) for n in want) ** 0.5
+        rel = num / den
+        worst.append((label, rel))
+        check(rel <= OPT_TOL, f"6f {label}: the card's first update differs "
+              f"from the CPU's by {rel:.3g} in norm (limit {OPT_TOL})")
+    print("6f first update, card vs CPU at gpt_tiny, one head of 64 (fp32, "
+          "relative in "
+          f"global norm, limit {OPT_TOL}): "
+          + ", ".join(f"{lb} {r:.3g}" for lb, r in worst), flush=True)
+    return total
+
+
 def _profile_step(torch, run, step_ms):
     """Device time of one more training step (``run()``) by kernel, from
     ``torch.profiler`` (CUPTI): the largest kernels, and the device's
@@ -4968,8 +5533,8 @@ def main():
     bf16_launches, bf16_q_launches, bf16_model, bf16_aggs, bf16_reqs = \
         serving_bf16_phase(torch, card)
     lap("bf16 serving")
-    k16_launches = serving_spec_phase(torch, card, model, bf16_model, fp_agg,
-                                      bf16_aggs, rows)
+    k16_launches, spec_reqs = serving_spec_phase(
+        torch, card, model, bf16_model, fp_agg, bf16_aggs, rows)
     lap("spec serving")
     serving_resilience_phase(torch, card, model, bf16_model, fp_launches,
                              fp_reqs, bf16_launches, bf16_reqs)
@@ -4980,7 +5545,7 @@ def main():
     lap("dense serving")
     fp16_serve, fp16_q_serve = serving_fp16_phase(torch, card)
     lap("fp16 serving")
-    serving_tier_phase(torch, card, model)
+    tier_reqs = serving_tier_phase(torch, card, model)
     lap("host tier")
     generate_phase(torch, card, model)
     lap("generate")
@@ -4990,7 +5555,12 @@ def main():
     lap("front door and fleet")
     lora_constrained_phase(torch, card, model, fp_reqs, fp_agg)
     lap("adapters, grammars, score and embed")
-    del model
+    adaptive_launches = adaptive_phase(torch, card, model, fp_reqs, fp_agg,
+                                       fp_launches, spec_reqs, tier_reqs)
+    lap("adaptive serving")
+    for k in ("K2", "K4", "K5"):
+        launches[k] += adaptive_launches[k]
+    del model, spec_reqs, tier_reqs
     launches.update({"K5-bf16": bf16_launches["K5"],
                      "K5-int8-bf16": bf16_q_launches["K5-int8"],
                      "K4-bf16": bf16_launches["K4"],
@@ -5009,11 +5579,18 @@ def main():
     lap("training at the model's defaults")
     training_resilience_phase(torch, card, train_perf)
     lap("fault-tolerant training")
+    offload_launches = offload_phase(torch, card, train_perf)
+    lap("ZeRO offload")
+    opt_launches = optimizers_phase(torch, card)
+    lap("optimizers, fleet and ASP")
     enc_launches = encoder_phase(torch, card)
     lap("encoders (BERT, ERNIE, nn.Transformer)")
-    launches["K2"] += enc_launches["K2"]
-    launches.update({"K1": train_launches["K1"] + enc_launches["K1"],
-                     "K3a": train_launches["K3a"] + enc_launches["K3a"],
+    launches["K2"] += (enc_launches["K2"] + offload_launches["K2"]
+                       + opt_launches["K2"])
+    launches.update({"K1": train_launches["K1"] + enc_launches["K1"]
+                     + offload_launches["K1"] + opt_launches["K1"],
+                     "K3a": train_launches["K3a"] + enc_launches["K3a"]
+                     + offload_launches["K3a"] + opt_launches["K3a"],
                      "K3b-dkv": long_launches["bwd_dkv"],
                      "K3b-dq": long_launches["bwd_dq"],
                      "K1-fp16": fp16_launches["K1"],

@@ -24,9 +24,25 @@ gradients into fp32 accumulators, one per parameter, and every
 ``avg``) and steps the optimizer (clip, decay, update) with the
 learning rate read at that call; the step counter counts micro-steps.
 ``sharding`` is a no-op on one device, as in the reference (its
-``sharding`` axis has one member). ZeRO offload, pipelines, MoE and a
-mesh of more than one device are later work and raise
-``NotImplementedError``.
+``sharding`` axis has one member). Pipelines, MoE and a mesh of more
+than one device are later work and raise ``NotImplementedError``.
+
+ZeRO offload (``sharding=True, sharding_configs={"offload": True}``):
+every non-scalar optimizer slot (``moment1``, ``moment2``, ``velocity``,
+``@master`` ...) lives in pinned host memory between steps; the 0-dim
+slots (beta powers) stay on the device, as in the reference. Around each
+``optimizer.step()`` the slots stream in (host to device on the current
+stream, into fresh device buffers the update works on) and back out
+(device to host on a side stream, which first waits for the update, so
+the copy-out overlaps the next step's forward; the buffers are marked
+used by the side stream so the allocator keeps them until it is done).
+The next copy-in waits for that copy-out on the device, and every host
+reader or writer of the slots (a checkpoint's save or load,
+``_opt_states``, ``eval_step``, ``predict_step``) first waits for it on
+the host. A failed pin or copy raises; the state is never kept on the
+device instead. On ``device="cpu"`` the host buffers are plain CPU
+tensors (pinning needs a card) and the same copies run synchronously, so
+the arithmetic is the same with and without offload.
 
 ``enable_anomaly_policy`` arms the reference's step-level guard
 (``resilience.AnomalyConfig``): the fp32 global norm of the raw
@@ -86,10 +102,6 @@ class ShardedTrainer:
         refuse_unported("ShardedTrainer", batch_spec=(batch_spec, None))
         self.strategy = strategy or DistributedStrategy()
         st = self.strategy
-        if st.sharding and st.sharding_configs.offload:
-            raise NotImplementedError(
-                "ShardedTrainer: ZeRO offload (sharding_configs.offload) "
-                "is not ported yet")
         for feature in ("pipeline", "moe"):
             if getattr(st, feature):
                 raise NotImplementedError(
@@ -106,7 +118,12 @@ class ShardedTrainer:
         self._names = {id(p): n for n, p in self.param_tensors.items()}
         # every slot exists from the start, as the reference's state
         # pytree does: a checkpoint before the first step holds them all
-        self._opt_states()
+        self._offload = bool(st.sharding and st.sharding_configs.offload)
+        self._host_slots = {}
+        self._copy_stream = self._out_done = None
+        live = self.optimizer._named_state(self._names)
+        if self._offload:
+            self._offload_init(live)
         self._global_step = 0
         gm = st.gradient_merge_configs
         self._gm_k, self._gm_avg = 1, True
@@ -140,8 +157,92 @@ class ShardedTrainer:
         return loss.detach()
 
     def _opt_states(self):
-        """The optimizer's live slots by parameter name (``opt/<n>/...``)."""
+        """The optimizer's live slots by parameter name (``opt/<n>/...``);
+        under offload the host buffers, once any copy-out has landed."""
+        self._offload_wait()
         return self.optimizer._named_state(self._names)
+
+    def _inner_optimizer(self):
+        """The optimizer under any fleet or ASP wrappers."""
+        opt = self.optimizer
+        while hasattr(opt, "inner_opt"):
+            opt = opt.inner_opt
+        return opt
+
+    # -- ZeRO offload ---------------------------------------------------------
+    def _offload_init(self, live):
+        """Move every non-scalar slot into a pinned host buffer, which
+        takes the slot's place in the optimizer between steps."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        for n, slots in live.items():
+            for slot, v in slots.items():
+                if v.dim() == 0:
+                    continue
+                host = torch.empty(v.shape, dtype=v.dtype, device="cpu",
+                                   pin_memory=cuda)
+                if cuda and not host.is_pinned():
+                    raise RuntimeError(
+                        f"ZeRO offload: the host buffer of {n}/{slot} is "
+                        "not pinned")
+                host.copy_(v)
+                slots[slot] = host
+                self._host_slots[(n, slot)] = host
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _offload_wait(self):
+        """Block the host until the last copy-out has landed."""
+        if self._out_done is not None:
+            self._out_done.synchronize()
+            self._out_done = None
+
+    def _stream_in(self):
+        """The offloaded slots into fresh device buffers for the update,
+        after the last copy-out on the device."""
+        if not self._offload:
+            return
+        live = self.optimizer._named_state(self._names)
+        cuda = self.device.type == "cuda"
+        if cuda and self._out_done is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._out_done)
+        for (n, slot), host in self._host_slots.items():
+            live[n][slot] = host.to(self.device, non_blocking=cuda,
+                                    copy=True)
+
+    def _stream_out(self):
+        """The updated slots back into their host buffers, on the side
+        stream after the update; the host buffers take their place."""
+        if not self._offload:
+            return
+        live = self.optimizer._named_state(self._names)
+        if self.device.type != "cuda":
+            for (n, slot), host in self._host_slots.items():
+                host.copy_(live[n][slot])
+                live[n][slot] = host
+            return
+        side = self._copy_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for (n, slot), host in self._host_slots.items():
+                dev = live[n][slot]
+                host.copy_(dev, non_blocking=True)
+                dev.record_stream(side)
+                live[n][slot] = host
+            self._out_done = torch.cuda.Event()
+            self._out_done.record(side)
+
+    def _optimizer_step(self):
+        """``optimizer.step()`` and ``clear_grad()``, the offloaded slots
+        streamed in before and out after."""
+        self._stream_in()
+        try:
+            self.optimizer.step()
+        finally:
+            self._stream_out()
+        self.optimizer.clear_grad()
 
     def _merge_step(self):
         """Gradient merge: add this call's raw gradients into the fp32
@@ -160,8 +261,7 @@ class ShardedTrainer:
             for n, a in self._gm_accum.items():
                 p = self.param_tensors[n]
                 p.grad = (a * scale).to(p.dtype)
-        self.optimizer.step()
-        self.optimizer.clear_grad()
+        self._optimizer_step()
         torch._foreach_zero_(list(self._gm_accum.values()))
 
     def _guarded_step(self, loss: torch.Tensor, buffers):
@@ -181,8 +281,7 @@ class ShardedTrainer:
                 for n, b in self.model.named_buffers():
                     b.copy_(buffers[n])
             return self._handle_anomaly(loss, gnorm)
-        self.optimizer.step()
-        self.optimizer.clear_grad()
+        self._optimizer_step()
         self._bad_streak = 0
         if self._anomaly.spike_window:
             self._loss_history.append(float(loss))
@@ -206,10 +305,9 @@ class ShardedTrainer:
             if self._guarded_step(loss, buffers):
                 return loss
         else:
-            self.optimizer.step()
-            self.optimizer.clear_grad()
+            self._optimizer_step()
         self._global_step += 1
-        self.optimizer._global_step = self._global_step
+        self._inner_optimizer()._global_step = self._global_step
         self.maybe_auto_checkpoint()
         return loss
 
@@ -301,6 +399,7 @@ class ShardedTrainer:
         """Eval-mode semantics (dropout off) under no grad and the
         trainer's AMP for the call, then each sublayer's training flag
         restored."""
+        self._offload_wait()
         layers = list(self.model.modules())
         saved = [m.training for m in layers]
         for m in layers:
@@ -394,7 +493,7 @@ class ShardedTrainer:
                 if key in arrays:
                     a.copy_(arrays[key])
         self._global_step = int(extra.get("step", 0))
-        self.optimizer._global_step = self._global_step
+        self._inner_optimizer()._global_step = self._global_step
         if "torch_rng" in extra:
             ckpt.load_rng_state(extra["torch_rng"])
         lr = self.optimizer._learning_rate

@@ -1,3 +1,9 @@
+from paddle_tpu_torch.inference import adaptive
+from paddle_tpu_torch.inference.adaptive import (AdaptiveController,
+                                                 AdaptiveSuite,
+                                                 ChunkBudgetController,
+                                                 DraftLenController,
+                                                 SwapMinController)
 from paddle_tpu_torch.inference.block_pool import BlockAllocator
 from paddle_tpu_torch.inference.frontend.scheduler import (FairScheduler,
                                                           FifoScheduler,
@@ -16,4 +22,6 @@ __all__ = ["BlockAllocator", "Scheduler", "FifoScheduler", "PrefixCache",
            "DecodeEngine", "Request", "ServingEngine", "ServingMetrics",
            "apply_topk_topp", "NgramDrafter", "DraftModelDrafter",
            "SpeculativeEngine", "FrontDoor", "SamplingParams", "Tenant",
-           "FairScheduler", "AdmissionRejected"]
+           "FairScheduler", "AdmissionRejected", "adaptive",
+           "AdaptiveController", "AdaptiveSuite", "ChunkBudgetController",
+           "SwapMinController", "DraftLenController"]

@@ -90,8 +90,17 @@ kinds ride the same programs as runtime arguments: per-slot adapter ids
 into the stacked pools, packed vocab bitmasks folded in the sampler,
 and the chunk program's target logprobs and final hidden state.
 
-Out of the port so far (each queued in ROADMAP.md): meshes and
-replicas, and the adaptive controllers (``adaptive=``).
+``adaptive=`` (an :class:`~paddle_tpu_torch.inference.adaptive.
+AdaptiveSuite`) closes the loop over three host-side knobs, each live
+without a suite too: the prefill chunks a tick dispatches
+(``_chunks_per_tick``), the speculative commit cap (``_k_eff``) and the
+host tier's swap threshold (``_swap_min``), the last from the measured
+time of the tier's copies (``_swap_cost_s`` over ``_swap_cost_blocks``:
+CUDA events around each copy on the card, read at the next window
+boundary, since the copy's blocking host call also waits for the device
+work queued before it; the host clock on the CPU).
+
+Out of the port so far (queued in ROADMAP.md): meshes and replicas.
 """
 
 from __future__ import annotations
@@ -100,6 +109,7 @@ import contextlib
 import sys
 import threading
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -1609,6 +1619,52 @@ class _ProfPhase:
         return False
 
 
+class _CopyMeter:
+    """Seconds and blocks of the host tier's copies (spills and
+    swap-backs), the swap side of ``SwapMinController``'s crossover.
+
+    On the card each copy is bracketed by two CUDA events on the current
+    stream, so its time is the copy's (the gather and the transfer), not
+    the device work queued before it, which the copy's blocking host
+    call also waits for; the pairs are read at the next window boundary
+    (:meth:`resolve`). The host clock's reading is kept beside it
+    (``host_seconds``). On the CPU the host clock is the copy's time."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.seconds = 0.0
+        self.host_seconds = 0.0
+        self.blocks = 0
+        self._pending: List[tuple] = []
+
+    def start(self):
+        ev = None
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        return time.perf_counter(), ev
+
+    def stop(self, mark, nblocks: int):
+        t0, ev = mark
+        dt = time.perf_counter() - t0
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._pending.append((ev, end))
+        else:
+            self.seconds += dt
+        self.host_seconds += dt
+        self.blocks += int(nblocks)
+
+    def resolve(self) -> float:
+        """The summed copy seconds, the pending event pairs read in."""
+        for start, end in self._pending:
+            end.synchronize()
+            self.seconds += start.elapsed_time(end) / 1e3
+        self._pending.clear()
+        return self.seconds
+
+
 class ServingEngine:
     """Continuous-batching scheduler over a :class:`DecodeEngine`
     (``serving.py:2653``), dense (``block_size=None``, the default) or
@@ -1693,9 +1749,14 @@ class ServingEngine:
     ``"embed"`` requests retire ``"complete"`` at prefill completion
     with one host read and never dispatch a decode step.
 
-    The parameters keep the reference's order; its ``mesh``,
-    ``seq_parallel`` and ``adaptive`` are accepted at their defaults
-    only."""
+    ``adaptive`` arms an :class:`~paddle_tpu_torch.inference.adaptive.
+    AdaptiveSuite`: one evaluation a tick behind an absorb-count-warn
+    guard (a raising controller is counted on
+    ``serving_adaptive_errors_total``; a suite that raises is warned
+    once and dropped), its state in ``profile_state()["adaptations"]``.
+
+    The parameters keep the reference's order; its ``mesh`` and
+    ``seq_parallel`` are accepted at their defaults only."""
 
     def __init__(self, model, max_batch_slots: int = 8, max_len: int = 256,
                  top_k: Optional[int] = None, eos_id: Optional[int] = None,
@@ -1715,8 +1776,7 @@ class ServingEngine:
                  adapter_pool=None, *, device=None):
         refuse_unported(
             "ServingEngine", mesh=(mesh, None),
-            seq_parallel=(seq_parallel, False),
-            adaptive=(adaptive, None))
+            seq_parallel=(seq_parallel, False))
         dev = resolve_device(device)
         mdev = module_device(model)
         if mdev.type != dev.type:
@@ -1744,6 +1804,11 @@ class ServingEngine:
                                             k=spec.k, **kw)
             spec.begin(self.engine.b, self.engine.max_len)
         self._spec_k = spec.k if spec is not None else 0
+        # the adaptive knobs, live without a suite too: the commit cap
+        # k_eff <= k rides the one verify shape, and the chunk budget is
+        # how many times the one chunk program launches a tick
+        self._k_eff = self._spec_k
+        self._chunks_per_tick = 1
         self.adapter_pool = adapter_pool
         self.replicas = 1
         self.paged = self.engine.paged
@@ -1762,6 +1827,8 @@ class ServingEngine:
             is not None else (self.engine.block_size
                               if self._host is not None else 0)
         self._swaps_in_flight = 0
+        # the measured cost of the tier's copies (SwapMinController)
+        self._swap_meter = _CopyMeter(dev)
         self._cache = prefix_cache
         if prefix_cache is not None and \
                 prefix_cache.chunk_tokens > self.engine.max_len:
@@ -1883,6 +1950,27 @@ class ServingEngine:
                                       slo=self.telemetry.slo)
         self._arm_resilience_telemetry(self.telemetry)
         self._arm_load_gauges(self.telemetry)
+        # the adaptation loop (None: the pinned knobs above)
+        self._adaptive = adaptive
+        self._adaptive_warned = False
+        if adaptive is not None:
+            adaptive.arm(self)
+
+    @property
+    def _swap_cost_s(self) -> float:
+        """Seconds the host tier's spills and swap-backs took, summed."""
+        return self._swap_meter.resolve()
+
+    @property
+    def _swap_cost_blocks(self) -> int:
+        """Blocks those copies moved."""
+        return self._swap_meter.blocks
+
+    @property
+    def _swap_cost_host_s(self) -> float:
+        """The same copies on the host clock: on the card it also counts
+        the device work queued before each blocking copy."""
+        return self._swap_meter.host_seconds
 
     def _program_sets(self):
         """Every ProgramSet this engine dispatches through: its own,
@@ -2168,6 +2256,9 @@ class ServingEngine:
                                       slo=telemetry.slo)
         self._arm_resilience_telemetry(telemetry)
         self._arm_load_gauges(telemetry)
+        if self._adaptive is not None:
+            # the suite's families and flight ring on the new bundle
+            self._adaptive.arm(self)
         if self._profile:
             prof = getattr(telemetry, "profiler", None)
             if prof is not None:
@@ -3005,7 +3096,7 @@ class ServingEngine:
         will deliver, stopping at EOS or a dead end; a dead end at
         position j clamps the commit to j + 1 tokens."""
         with self._phase("mask_build"):
-            cap = min(self.spec.accept_cap, self._spec_k)
+            cap = min(self.spec.accept_cap, self._spec_k, self._k_eff)
             self._in_mask_window = in_window
             try:
                 for slot in con:
@@ -3051,9 +3142,11 @@ class ServingEngine:
         host_blocks = spill["host_blocks"]
         nfull = len(host_blocks)
         self._swaps_in_flight += 1
+        mark = self._swap_meter.start()
         try:
             with self._phase("swap_in"):
                 self.engine.restore_blocks(host_blocks, fresh[:nfull])
+            self._swap_meter.stop(mark, nfull)
         except Exception as e:
             req._spill = None
             self._host.deref(host_blocks)
@@ -3093,6 +3186,7 @@ class ServingEngine:
             return False
         blocks = self.engine.table[slot, :nfull].tolist()
         self._swaps_in_flight += 1
+        mark = self._swap_meter.start()
         try:
             with self._phase("spill"):
                 host = self.engine.spill_blocks(blocks)
@@ -3114,6 +3208,8 @@ class ServingEngine:
         if host is None:
             self._c_swap_dec.labels(choice="host_full").inc()
             return False
+        # the spill half of the copy bill SwapMinController weighs
+        self._swap_meter.stop(mark, nfull)
         req._spill = {"host_blocks": host, "tokens": tokens}
         self.metrics.count_spill(nfull)
         self._c_swap_dec.labels(choice="swap").inc()
@@ -3952,10 +4048,11 @@ class ServingEngine:
         return self.scheduler.due_count(now)
 
     def step_decode(self):
-        """One tick: one prefill chunk (oldest-admitted prefilling slot)
-        plus one lockstep decode step committing a token to every live
-        slot past prefill. A slot whose prompt completed this very tick
-        joins the decode half immediately."""
+        """One tick: up to ``_chunks_per_tick`` prefill chunks (one by
+        default; each for the oldest-admitted prefilling slot) plus one
+        lockstep decode step committing a token to every live slot past
+        prefill. A slot whose prompt completed this very tick joins the
+        decode half immediately."""
         # chaos hook: crash mid-tick, or storage corruption (nan_kv)
         self._ticks_total += 1
         fault_point("serving:tick", engine=self, step=self._ticks_total)
@@ -3969,7 +4066,27 @@ class ServingEngine:
                     occupied, self._backlog(self._now()),
                     blocks=self._alloc.blocks_in_use() if self.paged
                     else None)
-        self._run_prefill_chunk()
+        if self._adaptive is not None:
+            # one evaluation a tick; adaptation is policy, never control
+            # flow: a raising controller is counted inside the suite, and
+            # a suite that raises is warned once and dropped, the tick
+            # going on with the knobs it had
+            try:
+                self._adaptive._snapshot_backlog(self)
+                self._adaptive.on_tick(self)
+            except Exception as e:
+                if not self._adaptive_warned:
+                    self._adaptive_warned = True
+                    warnings.warn(
+                        f"adaptive suite disabled after error: {e!r}",
+                        RuntimeWarning)
+                self._adaptive = None
+        # the chunk budget: the same chunk program up to
+        # _chunks_per_tick times, stopping once nothing is prefilling
+        for _ in range(max(1, int(self._chunks_per_tick))):
+            self._run_prefill_chunk()
+            if not any(st is not None for st in self._pf):
+                break
         if self.paged:
             with self._phase("block_growth"):
                 self._ensure_decode_blocks(self._spec_k + 1)
@@ -4104,7 +4221,10 @@ class ServingEngine:
         with self._phase("bookkeeping"):
             seconds = time.perf_counter() - t0
             backlog = self._backlog(self._now())
-            cap = min(self.spec.accept_cap, self._spec_k)
+            # the DraftLenController's k_eff clamps the commit as the
+            # drafter's own cap does: the verify ran over k + 1 rows,
+            # the host takes no draft position past k_eff
+            cap = min(self.spec.accept_cap, self._spec_k, self._k_eff)
             accepted_total = committed_total = 0
             finite = self._finite_mask()
         with self._phase("callbacks"):
@@ -4453,7 +4573,9 @@ class ServingEngine:
         out["top_programs"] = top
         out["replicas"] = dict(self.replica_utilization(),
                                count=self.replicas)
-        out["adaptations"] = None
+        # what the engine has tuned itself to (None without a suite)
+        out["adaptations"] = self._adaptive.state(self) \
+            if self._adaptive is not None else None
         return out
 
     def _warn_dump_failed(self, what: str, err: BaseException):

@@ -325,7 +325,8 @@ def test_port_never_imports_jax_or_the_jax_package():
               REPO / "k4_fault_check.py", REPO / "k4_variants.py",
               REPO / "k5_fault_check.py", REPO / "k5_variants.py",
               REPO / "k2_fault_check.py", REPO / "k2_variants.py",
-              REPO / "k45_f32_fault_check.py", REPO / "k45_f32_variants.py"]
+              REPO / "k45_f32_fault_check.py", REPO / "k45_f32_variants.py",
+              REPO / "offload_fault_check.py"]
     assert len(files) > 10
     for module in ("observability/__init__.py", "observability/metrics.py",
                    "observability/ops_plane.py", "inference/program_set.py",
@@ -337,7 +338,11 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "nn/initializer.py", "nn/functional/activation.py",
                    "nn/layers/activation.py", "nn/layers/loss.py",
                    "nn/layers/container.py", "nn/layers/transformer.py",
-                   "models/bert.py", "models/ernie.py", "regularizer.py"):
+                   "models/bert.py", "models/ernie.py", "regularizer.py",
+                   "inference/adaptive.py", "optimizer/optimizers.py",
+                   "distributed/fleet/meta_optimizers.py",
+                   "distributed/fleet/__init__.py", "incubate/asp.py",
+                   "incubate/__init__.py"):
         assert REPO / "paddle_tpu_torch" / module in files
     bad = []
     for f in files:

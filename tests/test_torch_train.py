@@ -354,16 +354,14 @@ def test_three_train_steps_match_jax_trainer(amp, rtol):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """A mesh of more than one device, ZeRO offload, pipelines, MoE and
-    a batch spec are later work; a one-device mesh is accepted."""
+    """A mesh of more than one device, pipelines, MoE and a batch spec
+    are later work; a one-device mesh is accepted (ZeRO offload is
+    ported: tests/test_torch_offload.py)."""
     from paddle_tpu_torch.distributed import DistributedStrategy
 
     pm = GPTForCausalLM(gpt_tiny(), device="cpu")
     opt = AdamW(parameters=pm.parameters())
-    offload = DistributedStrategy(sharding=True,
-                                  sharding_configs={"offload": True})
     for kw, match in ((dict(mesh=np.zeros(4)), "more than one device"),
-                      (dict(strategy=offload), "offload"),
                       (dict(strategy=DistributedStrategy(pipeline=True)),
                        "pipeline"),
                       (dict(strategy=DistributedStrategy(moe=True)), "moe"),
