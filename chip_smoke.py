@@ -43,7 +43,12 @@ Phases, in order (any failure exits non-zero and prints no result):
    and fp16 K5 case to K5_TOL and every fp32 K4 and K5 case to
    F32_PAGED_TOL as well, element by element, and a bf16 or fp16 q, or
    an fp32 q's K pool, misaligned for cp.async must be refused by K4's
-   and by K5's C entry point;
+   and by K5's C entry point; K4 (the decode step, a verify of 4, the
+   table of 3 blocks of 11 rows) and K5 (the deepest prefix, a chunk of
+   100) also at the other head dims, HEAD_DIM_GEOMETRIES (128 at 16
+   heads, 16, 8 and 32), over both pools in fp32, bf16 and fp16, each to
+   the same gates (the shared one, over int8 pools, against the fp32
+   plain version there);
 4. flash: K1 (forward), K3a (fused backward) and K3b (the streaming
    dK/dV and dQ passes) against their plain versions in fp32 and bf16
    (and in fp16 at the training shape and S 8320, with q and k scaled
@@ -54,7 +59,9 @@ Phases, in order (any failure exits non-zero and prints no result):
    and ``.backward()``, whose launch counters must show the streaming
    pair and not the fused kernel), with the same timings; K1 also on
    ragged lengths, Sq != Sk, GPT's per-head qkv views (taken without a
-   copy), a view misaligned by one element (copied for bf16) and inputs
+   copy; also gpt_tiny's 4 heads of 16), ragged lengths at head dims
+   8, 16 and 32, a view misaligned by one element (copied for bf16) and
+   inputs
    with NaN past S, and a misaligned pointer that its C entry point must
    refuse; every K1 case is held to FLASH_TOL and to K1_TOL (lse
    absolutely, O element by element); K3a, K3b-dkv and K3b-dq on the
@@ -204,6 +211,11 @@ Phases, in order (any failure exits non-zero and prints no result):
    one is legal and its masked argmax, both audits are clean and no
    adapter reference is left; the phase's wall and decode step p50
    beside phase 5's printed (host clock);
+5o. (after 5m) the small head dims: the paged engine serves
+   ``gpt_tiny`` (4 heads of 16) and ``gpt_tiny8`` (8 heads of 8), fp32,
+   8 greedy requests each on fp32 pools (every token the teacher-forced
+   argmax but at near-ties) and on int8 pools (agreement >= 0.9), exact
+   K4 and K5 launches;
 5m. adaptive serving on phase 5's fp32 model: (a) a forced chunk budget
    (1 -> 2 -> 4, one step a window of 8 ticks) on phase 5's trace:
    greedy tokens phase 5's (near-ties counted), K5 launches phase 5's
@@ -275,9 +287,9 @@ Phases, in order (any failure exits non-zero and prints no result):
    ``lars`` (a Lars inside), over AdamW with ``localsgd`` (k 2: one
    sync), and AdamW decorated by ASP after ``prune_model`` (every pruned
    weight 2:4 sparse after every step): finite losses and exact K1, K3a
-   and K2 launches; each one's first update at ``gpt_tiny`` with one
-   head of 64 in fp32 on the card against the CPU within OPT_TOL in
-   global norm;
+   and K2 launches; each one's first update at ``gpt_tiny`` (4 heads of
+   16) in fp32 on the card against the CPU within OPT_TOL in global
+   norm;
 7. encoders, at full width and depth with random weights from a seed
    and synthetic ids: (7a) ``BertForPretraining(BertConfig())``
    (BERT-base, 12 layers, hidden 768, vocab 30522) at dropout 0, batch
@@ -300,9 +312,21 @@ Phases, in order (any failure exits non-zero and prints no result):
    ``tgt_mask``, one training step: K1 = K3a = 12 (the encoder's
    self-attention and the decoder's cross-attention; the masked decoder
    self-attention takes the plain route), K2 = 30;
+6g. GPT-3 XL: ``GPTForCausalLM(gpt3_1p3b())`` at full width and depth
+   (24 layers, hidden 2048, 16 heads of 128, vocab 50304), dropout 0,
+   trained by ``ShardedTrainer`` with AdamW under AMP bf16 at 8 x 2048,
+   2 warm-up and 5 timed steps, no recompute: the first loss finite and
+   within 0.5 of ln 50304, a falling loss, K1 = K3a = 24 and K2 = 49 a
+   step; tokens/s, step p50, MFU, peak memory, one profiled step and the
+   fp32 head's device time alone;
+5n. GPT-3 in bf16: (a) ``gpt3_1p3b`` serves phase 5c's 8 greedy
+   requests on bf16 pools, then int8 pools (K4 and K5 at head dim 128);
+   (b) ``gpt3_13b``, built on the card in bf16 once 6g's trainer and
+   (a)'s model are freed, serves 4 of them on bf16 pools, its peak
+   memory printed: exact launches, greedy agreement >= 0.9 each;
 8. the ``kernels`` JSON line (K1's, K3a's and K2's launches include
-   phases 6e, 6f and 7's; K2's, K4's and K5's 5m's), then the ``ok``
-   line.
+   phases 6e, 6f, 6g and 7's; K2's, K4's and K5's 5m's, 5n's and 5o's),
+   then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1115,6 +1139,17 @@ K4_CASES = ((8, 1, None, 64, 16), (1, 1, (1000,), 64, 16),
             (1, 16, (32,), 3, 11), (8, 17, None, 64, 16),
             (8, 32, None, 64, 16), (2, 80, (3, 940), 64, 16))
 K4_GEOMETRY = (12, 64)                  # H, D: gpt2_small's
+# the other head dims the kernels take (8 to 128 in steps of 8, each body
+# at a padded head dim of 64 or 128 with the columns past the real one
+# zero-filled): gpt3_1p3b's and gpt3_13b's 128 at gpt3_1p3b's 16 heads,
+# gpt_tiny's 16 (4 heads), gpt_tiny8's 8 (8 heads) and 32; K4 at the
+# decode step, a verify of 4 drafts and the table of 3 blocks of 11 rows
+# (an int8 code row of 8 or 24 bytes staged in 8-byte copies), K5 at
+# the deepest prefix and a chunk of no power of two
+HEAD_DIM_GEOMETRIES = ((16, 128), (4, 16), (8, 8), (4, 32))
+K4_DIM_CASES = ((8, 1, None, 64, 16), (8, 5, None, 64, 16),
+                (1, 16, (32,), 3, 11))
+K5_DIM_SHAPES = ((128, 517), (100, 300))
 
 
 def k4_case_inputs(torch, dtype, int8):
@@ -1123,9 +1158,12 @@ def k4_case_inputs(torch, dtype, int8):
     step's offsets are ``linspace(0, 1000, b)`` shuffled; its inputs at s
     1 are drawn as they were before the other cases existed (seed 21, 22
     over int8 pools: pools, then offsets, then q)."""
-    H, D = K4_GEOMETRY
-    for ci, (b, s, starts, bp, bs) in enumerate(K4_CASES):
-        rs = np.random.RandomState((22 if int8 else 21) + 100 * ci)
+    cases = [(K4_GEOMETRY, c, 100 * ci) for ci, c in enumerate(K4_CASES)]
+    cases += [(g, c, 7 + 100 * ci + 1000 * gi)
+              for gi, g in enumerate(HEAD_DIM_GEOMETRIES)
+              for ci, c in enumerate(K4_DIM_CASES)]
+    for (H, D), (b, s, starts, bp, bs), seed in cases:
+        rs = np.random.RandomState((22 if int8 else 21) + seed)
         if int8:
             codes, scales, table_t, table = _pool_case_q(torch, rs, b, bp,
                                                          bs, H, D)
@@ -1148,7 +1186,8 @@ def k4_case_inputs(torch, dtype, int8):
             [b, s, list(starts), H, D, bs, bp]
         yield dict(q=q, pools=pools, table_t=table_t, table=table, t=t,
                    reach=t_np + s - 1, int8=int8, shape=shape,
-                   nbytes=nbytes, flops=flops)
+                   nbytes=nbytes, flops=flops,
+                   head_dim_case=(H, D) != K4_GEOMETRY)
 
 
 def k4_run(torch, case):
@@ -1210,7 +1249,7 @@ def k5_case_inputs(torch, dtype, int8, shapes=None):
     (s, start) ``shapes``), over fp pools (q's dtype) or int8 code pools:
     dicts of the inputs, the shape label and the bytes and operations a
     case must move and do."""
-    H, D, bs, bp0 = K5_GEOMETRY
+    H0, D0, bs, bp0 = K5_GEOMETRY
     if shapes is not None:
         cases = [(1, s, (start,), bp0) for s, start in shapes]
     else:
@@ -1220,9 +1259,14 @@ def k5_case_inputs(torch, dtype, int8, shapes=None):
                       K5_OFF_TABLE[2]))
         if dtype != torch.float32:
             cases.append((len(K5_SLOTS[1]), K5_SLOTS[0], K5_SLOTS[1], bp0))
-    for b, s, starts, bp in cases:
+    cases = [((H0, D0), c, 0) for c in cases]
+    if shapes is None:
+        cases += [(g, (1, s, (start,), bp0), 77 + 1000 * gi)
+                  for gi, g in enumerate(HEAD_DIM_GEOMETRIES)
+                  for s, start in K5_DIM_SHAPES]
+    for (H, D), (b, s, starts, bp), seed in cases:
         rs = np.random.RandomState((32 if int8 else 31) + starts[0] + s
-                                   + 1000 * (b - 1))
+                                   + 1000 * (b - 1) + seed)
         if int8:
             codes, scales, table_t, table = _pool_case_q(torch, rs, b, bp,
                                                          bs, H, D)
@@ -1243,7 +1287,8 @@ def k5_case_inputs(torch, dtype, int8, shapes=None):
             [b, s, list(starts), H, D, bs, bp]
         yield dict(q=q, pools=pools, table_t=table_t, table=table, t=t,
                    reach=t_np + s - 1, int8=int8, shape=shape,
-                   nbytes=nbytes, flops=flops)
+                   nbytes=nbytes, flops=flops,
+                   head_dim_case=(H, D) != (H0, D0))
 
 
 def k5_run(torch, case):
@@ -1259,7 +1304,8 @@ def _paged_run(torch, case, kernel_fn, ref_fn):
     may read (1e9 rows or saturated codes, 1e7 scales in blocks no table
     names) and on pools with NaN there; the plain version in q's dtype
     (the shared gate's, the reference's order: int8 codes dequantized to
-    q's dtype) and in fp32 (the own gates'), clean and poisoned."""
+    q's dtype; at the other head dims the fp32 one) and in fp32 (the own
+    gates'), clean and poisoned."""
     q, table_t, t = case["q"], case["table_t"], case["t"]
 
     def kern(a, b, sc=(None, None)):
@@ -1276,6 +1322,14 @@ def _paged_run(torch, case, kernel_fn, ref_fn):
         outs = (kern(*codes, scales), kern(*pc, px), kern(*nc, nx))
         shared = (plain(q, *codes, scales), plain(q, *pc, px))
         exact = (plain(q.float(), *codes, scales), plain(q.float(), *pc, px))
+        if case["head_dim_case"]:
+            # the other head dims' shared gate reads the fp32 plain
+            # version: a bf16 plain version's own rounding of the
+            # dequantized view (|v| up to ~4) reaches 2e-2 of the few
+            # heads' largest output there (2.1e-2 to 2.8e-2 at d 8-32,
+            # while the kernel stays within 0.39 of K4_TOL and K5_TOL of
+            # the fp32 version), so it would gate the plain version
+            shared = exact
     else:
         kp, vp = case["pools"]
         kpp, vpp = _poison(torch, kp, vp, case["table"], case["reach"])
@@ -1366,7 +1420,8 @@ def _paged_phase(torch, timer, rows, name, cases, run, tols, kid, int8,
         dn = str(dtype).split(".")[1]
         for case in cases(torch, dtype, int8):
             shape = case["shape"]
-            if dn == "float16" and shape not in FP16_CASES[name[:2]]:
+            if dn == "float16" and shape not in FP16_CASES[name[:2]] \
+                    and not case["head_dim_case"]:
                 continue
             outs, shared, exact = run(torch, case)
             check(all(_finite(o) for o in outs),
@@ -1444,10 +1499,18 @@ FLASH_CASES = [(16, 1024, 12, 64, True), (2, 1024, 12, 64, False),
 FLASH_LONG = (1, 8320, 2, 64, True)
 # BERT-base's attention in phase 7a: batch 32 x 512, 12 heads, non-causal
 FLASH_BERT = (32, 512, 12, 64, False)
+# gpt3_1p3b's attention in phase 6g: batch 8 x 2048, 16 heads of 128,
+# causal; and the small head dims at 8 x 1024, causal, as many heads as
+# gpt_tiny8 (8 of 8), gpt_tiny (4 of 16) and 2 of 32 (a hidden of 64)
+FLASH_GPT3 = (8, 2048, 16, 128, True)
+FLASH_SMALL_D = [(8, 1024, 8, 8, True), (8, 1024, 4, 16, True),
+                 (8, 1024, 2, 32, True)]
 # the timed shapes of each dtype: fp16 (fp16 AMP's dtype) at the
-# training shape, bf16 (AMP's) also at BERT's (and, as every dtype, the
-# long-context route)
-FLASH_TIMED = {"float32": FLASH_CASES, "bfloat16": FLASH_CASES + [FLASH_BERT],
+# training shape, bf16 (AMP's) also at BERT's, GPT-3 XL's and the small
+# head dims (and, as every dtype, the long-context route)
+FLASH_TIMED = {"float32": FLASH_CASES,
+               "bfloat16": FLASH_CASES + [FLASH_BERT, FLASH_GPT3]
+               + FLASH_SMALL_D,
                "float16": FLASH_CASES[:1]}
 
 
@@ -1733,7 +1796,12 @@ def k1_case_inputs(torch, dtype):
 
     # ragged: the public gate sends S 1000 to flash (_pick_block(1000,
     # 256) = 250); neither length is a multiple of a 64- or 128-row tile
-    for S, D, causal in ((1000, 64, True), (200, 128, False)):
+    # (and the small head dims of gpt_tiny8, gpt_tiny and 32, each body
+    # at its padded head dim of 64 with the columns past d zero-filled)
+    for S, D, causal in ((1000, 64, True), (200, 128, False),
+                         (1000, 8, True), (200, 8, False), (1000, 16, True),
+                         (200, 16, False), (1000, 32, True),
+                         (200, 32, False)):
         yield (f"ragged S {S} D {D} causal {causal}",
                (rand(2, S, 4, D), rand(2, S, 4, D), rand(2, S, 4, D)),
                causal, None)
@@ -1741,7 +1809,10 @@ def k1_case_inputs(torch, dtype):
         yield (f"Sq 256 Sk 1024 causal {causal}",
                (rand(2, 256, 4, 64), rand(2, 1024, 4, 64),
                 rand(2, 1024, 4, 64)), causal, None)
-    # GPT's views (models/gpt.py: qkv.split(head_dim, -1) per head)
+    # GPT's views (models/gpt.py: qkv.split(head_dim, -1) per head), and
+    # gpt_tiny's 4 heads of 16
+    yield ("GPT qkv views D 16", rand(2, 512, 4, 3 * 16).split(16, dim=-1),
+           True, "kept")
     B, S, H, D = 2, 1024, 12, 64
     yield ("GPT qkv views", rand(B, S, H, 3 * D).split(D, dim=-1), True,
            "kept")
@@ -5230,12 +5301,11 @@ def offload_phase(torch, card, base):
 # -- phase 6f: the other optimizers, fleet and ASP ------------------------------
 
 # 6f's parity: the update of one step on the card (fp32, no AMP) against
-# the same step on the CPU, both at gpt_tiny with one head of 64 (the
-# card's flash kernels take head dims 64 and 128; gpt_tiny's 4 heads of
-# 16 would raise in K1's wrapper at S 128) from the same weights, in
-# global L2 norm: the two differ in summation order (cuBLAS and the flash
-# kernels against the CPU's plain versions), ~1e-6 relatively in the
-# gradients, and no rule here amplifies that past 1e-4
+# the same step on the CPU, both at gpt_tiny (4 heads of 16: the forward
+# kernel at its run-time head dim, the backward's padded to 64) from the
+# same weights, in global L2 norm: the two differ in summation order
+# (cuBLAS and the flash kernels against the CPU's plain versions), ~1e-6
+# relatively in the gradients, and no rule here amplifies that past 1e-4
 OPT_TOL = 1e-3
 
 
@@ -5296,8 +5366,8 @@ def optimizers_phase(torch, card):
     same weights: finite losses, K1 = K3a = L and K2 = 2L + 1 a step,
     the wrapper's own check (Lars inside, one LocalSGD sync), every
     pruned weight 2:4 sparse after every step (ASP); then each one's
-    first update at ``gpt_tiny`` with one head of 64 (fp32, TF32 off) on
-    the card against the CPU within OPT_TOL in global norm. Returns the
+    first update at ``gpt_tiny`` (fp32, TF32 off) on the card against the
+    CPU within OPT_TOL in global norm. Returns the
     phase's launches."""
     from paddle_tpu_torch.distributed import ShardedTrainer
     from paddle_tpu_torch.incubate import asp
@@ -5352,7 +5422,6 @@ def optimizers_phase(torch, card):
     torch.cuda.empty_cache()
 
     tiny = gpt_tiny()
-    tiny.num_heads = 1
     tiny.hidden_dropout = tiny.attention_dropout = 0.0
     tids = torch.from_numpy(np.random.RandomState(7).randint(
         0, tiny.vocab_size, (2, 128)))
@@ -5369,11 +5438,269 @@ def optimizers_phase(torch, card):
         worst.append((label, rel))
         check(rel <= OPT_TOL, f"6f {label}: the card's first update differs "
               f"from the CPU's by {rel:.3g} in norm (limit {OPT_TOL})")
-    print("6f first update, card vs CPU at gpt_tiny, one head of 64 (fp32, "
-          "relative in "
-          f"global norm, limit {OPT_TOL}): "
+    print("6f first update, card vs CPU at gpt_tiny, 4 heads of 16 (fp32, "
+          f"relative in global norm, limit {OPT_TOL}): "
           + ", ".join(f"{lb} {r:.3g}" for lb, r in worst), flush=True)
     return total
+
+
+# -- phase 5o: the small head dims on the paged engine --------------------------
+
+# 5o's trace: 8 greedy requests from RandomState(5), prompts of 8-60
+# tokens and 24-60 new, within gpt_tiny's 128 positions
+SMALL_HEADS_TRACE = (8, (8, 60), (24, 60))
+
+
+def _small_trace(vocab):
+    n, (p_lo, p_hi), (g_lo, g_hi) = SMALL_HEADS_TRACE
+    rs = np.random.RandomState(5)
+    out = []
+    for _ in range(n):
+        p = int(rs.randint(p_lo, p_hi + 1))
+        g = min(int(rs.randint(g_lo, g_hi + 1)), 127 - p)
+        out.append(dict(prompt=rs.randint(0, vocab, p).tolist(),
+                        max_new_tokens=g, greedy=True))
+    return out
+
+
+def small_heads_phase(torch, card):
+    """Phase 5o: the paged engine serves ``gpt_tiny`` (4 heads of 16) and
+    ``gpt_tiny8`` (8 heads of 8) at full width, fp32, on fp32 pools and
+    on int8 pools: K4 and K5 at their run-time head dims. Gates: exact
+    launch counts; on fp32 pools every greedy token the teacher-forced
+    argmax but at a near-tie; on int8 pools greedy agreement with it >=
+    0.9 (the int8 arena's contract, test_paged_kv.py:502). Returns the
+    launch counts of the four runs, summed."""
+    from paddle_tpu_torch.inference import Request, ServingEngine
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny, gpt_tiny8
+    from paddle_tpu_torch.ops.kernels import chunk_prefill as k5
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.ops.kernels import paged_attention as k4
+
+    total = {"K2": 0, "K4": 0, "K5": 0, "K4-int8": 0, "K5-int8": 0}
+    for name, make in (("gpt_tiny", gpt_tiny), ("gpt_tiny8", gpt_tiny8)):
+        cfg = make()
+        model = GPTForCausalLM(cfg, device="cuda", seed=0)
+        model.eval()
+        trace = _small_trace(cfg.vocab_size)
+        d = cfg.hidden_size // cfg.num_heads
+        for kv in (None, "int8"):
+            what = f"5o {name} (head dim {d}){', int8 pools' if kv else ''}"
+            eng = ServingEngine(model, max_batch_slots=4, max_len=128,
+                                block_size=16, prefill_chunk=32, seed=0,
+                                device="cuda", kv_dtype=kv)
+            eng.submit(Request(prompt=[1, 2, 3], max_new_tokens=4,
+                               greedy=True))
+            eng.run()
+            reqs = [eng.submit(Request(**kw)) for kw in trace]
+            torch.cuda.synchronize()
+            for m in (k2, k4, k5):
+                m.reset_launches()
+            agg = eng.run().aggregate()
+            torch.cuda.synchronize()
+            launches = {"K2": k2.launches, "K4": k4.launches,
+                        "K5": k5.launches, "K4-int8": k4.launches_q,
+                        "K5-int8": k5.launches_q}
+            check(all(r.status == "done" for r in reqs),
+                  f"{what}: a request did not finish")
+            chunks = int(agg["prefill_chunks"])
+            steps = int(agg["decode_steps"])
+            _check_launches(what, launches, cfg.num_layers, chunks, steps,
+                            int8=kv is not None)
+            for k in total:
+                total[k] += launches[k]
+            if kv is None:
+                _greedy_consistency(torch, model, reqs, what)
+            else:
+                agree, n = _agreement(torch, model, reqs)
+                print(f"{what}: greedy agreement with the fp32 argmax "
+                      f"{agree}/{n} = {agree / n:.4f} (limit 0.9)",
+                      flush=True)
+                check(agree / n >= 0.9, f"{what}: greedy agreement "
+                      f"{agree / n} < 0.9")
+            print(f"{what}: {len(reqs)} requests, {chunks} prefill chunks, "
+                  f"{steps} decode steps, launches {launches}", flush=True)
+        del model
+    return total
+
+
+# -- phase 6g: GPT-3 XL trained at full width -----------------------------------
+
+GPT3_BATCH = (8, 2048, 2, 5)     # batch, sequence, warm-up, timed steps
+
+
+def _head_ms(torch, model, ids):
+    """Device ms of the fused fp32 head (``F.linear_cross_entropy``,
+    forward and backward) alone at the step's shape, median of 3."""
+    import paddle_tpu_torch.nn.functional as F
+
+    h = torch.randn(ids.shape[0], ids.shape[1] - 1,
+                    model.config.hidden_size, device="cuda",
+                    requires_grad=True)
+    w = model.gpt.wte.weight
+    times = []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = F.linear_cross_entropy(h, w, ids[:, 1:], reduction="mean",
+                                      w_vocab_major=True)
+        torch.autograd.grad(loss, (h, w))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[1:]))
+
+
+def gpt3_training_phase(torch, card):
+    """Phase 6g: ``GPTForCausalLM(gpt3_1p3b())`` at full width and depth
+    (24 layers, hidden 2048, 16 heads of 128, vocab 50304), dropout 0,
+    trained by ``ShardedTrainer`` with AdamW under AMP bf16 at 8 x 2048
+    for 2 warm-up and 5 timed steps, no recompute: the first loss finite
+    and within 0.5 of ln 50304, the loss falling on the fixed batch, K1 =
+    K3a = 24 and K2 = 49 a timed step. Prints tokens/s, step p50, MFU,
+    peak memory, one profiled step and the fp32 head's share of the
+    step. Returns the timed steps' launches."""
+    import gc
+    import math
+
+    from paddle_tpu_torch.distributed import ShardedTrainer
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt3_1p3b()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    batch, seq, warm, steps = GPT3_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01)
+    trainer = ShardedTrainer(model, opt, None, amp=True)
+    losses = [trainer.train_step(ids, ids) for _ in range(warm)]
+    torch.cuda.synchronize()
+    first = float(losses[0])
+    check(np.isfinite(first) and abs(first - math.log(cfg.vocab_size))
+          <= 0.5, f"6g: first loss {first} not within 0.5 of ln "
+          f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}")
+    for m in (fa, k2):
+        m.reset_launches()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    for start, end in ev:
+        start.record()
+        losses.append(trainer.train_step(ids, ids))
+        end.record()
+    torch.cuda.synchronize()
+    launches = {"K1": fa.launches["fwd"], "K3a": fa.launches["bwd_fused"],
+                "K3b-dkv": fa.launches["bwd_dkv"],
+                "K3b-dq": fa.launches["bwd_dq"], "K2": k2.launches}
+    vals = [float(x) for x in losses]
+    print(f"6g losses: {vals}", flush=True)
+    check(all(np.isfinite(vals)), "6g: non-finite training loss")
+    check(vals[-1] < vals[0], f"6g: loss did not fall: {vals[0]} -> "
+          f"{vals[-1]}")
+    L = cfg.num_layers
+    want = {"K1": L * steps, "K3a": L * steps, "K3b-dkv": 0, "K3b-dq": 0,
+            "K2": (2 * L + 1) * steps}
+    check(launches == want, f"6g launch counts {launches} != {want} for "
+          f"{steps} steps")
+    step_ms = [s.elapsed_time(e) for s, e in ev]
+    total_ms = ev[0][0].elapsed_time(ev[-1][1])
+    tokens_per_s = batch * seq * steps / (total_ms / 1e3)
+    n_params = cfg.num_params()
+    mfu = tokens_per_s * 6 * n_params / PEAK_FLOPS["bfloat16"]
+    p50 = float(np.median(step_ms))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"6g gpt3_1p3b training on {card}: {tokens_per_s:.1f} tokens/s, "
+          f"step p50 {p50:.2f} ms (min {min(step_ms):.2f}, max "
+          f"{max(step_ms):.2f}), MFU {mfu:.4f} (6 x {n_params} params / "
+          f"989 TFLOP/s), peak memory {peak:.2f} GiB (no recompute), "
+          f"launches over {steps} steps {launches}", flush=True)
+    _profile_step(torch, lambda: trainer.train_step(ids, ids), p50)
+    head = _head_ms(torch, model, ids)
+    print(f"6g: the fp32 head (linear_cross_entropy forward and backward "
+          f"at {batch} x {seq - 1} x {cfg.hidden_size} against "
+          f"{cfg.vocab_size} rows) alone {head:.2f} ms = {head / p50:.3f} "
+          f"of the step p50; the rest (blocks, optimizer) {p50 - head:.2f} "
+          "ms", flush=True)
+    del trainer, opt, model, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 5n: GPT-3 served in bf16 -------------------------------------------------
+
+def _bf16_serving(torch, card, model, trace, what, pools):
+    """``trace`` through ``_serve`` on ``model`` (bf16) over each of
+    ``pools`` (None: bf16 pools, "int8"): exact launch counts and greedy
+    agreement with the bf16 teacher-forced argmax >= 0.9. Returns the
+    launches of each run by pool."""
+    out = {}
+    L = model.config.num_layers
+    for kv in pools:
+        label = f"{what}{', int8 pools' if kv else ''}"
+        _, reqs, agg, wall, launches = _serve(torch, model, trace,
+                                              kv_dtype=kv)
+        chunks, steps = int(agg["prefill_chunks"]), int(agg["decode_steps"])
+        print(f"{label}: {int(agg['completed'])} requests, {chunks} prefill "
+              f"chunks, {steps} decode steps, launches {launches}",
+              flush=True)
+        _check_launches(label, launches, L, chunks, steps,
+                        int8=kv is not None)
+        agree, total = _agreement(torch, model, reqs)
+        print(f"{label}: greedy agreement with the bf16 argmax {agree}/"
+              f"{total} = {agree / total:.4f} (limit 0.9)", flush=True)
+        check(agree / total >= 0.9, f"{label}: greedy agreement "
+              f"{agree / total} < 0.9")
+        print(_perf_line(label, card, agg, wall), flush=True)
+        out[kv] = launches
+    return out
+
+
+def gpt3_serving_phase(torch, card):
+    """Phase 5n: (a) ``gpt3_1p3b`` in bf16 serves phase 5c's 8 greedy
+    requests on bf16 pools, then on int8 pools (K4 and K5 at head dim
+    128); (b) ``gpt3_13b`` built on the card in bf16 (26 GB of weights)
+    serves 4 of them on bf16 pools, after (a)'s model is freed, with its
+    peak memory printed. Each run: exact launch counts and greedy
+    agreement >= 0.9. Returns the launches of (a)'s bf16-pool and (b)'s
+    runs summed, and (a)'s int8-pool run's."""
+    import gc
+
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_13b, gpt3_1p3b
+
+    cfg = gpt3_1p3b()
+    trace = [kw for kw in _serving_trace(cfg.vocab_size)
+             if kw.get("greedy")][:8]
+    model = GPTForCausalLM(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
+    model.eval()
+    a = _bf16_serving(torch, card, model, trace, "5n(a) gpt3_1p3b bf16",
+                      (None, "int8"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = gpt3_13b()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
+    model.eval()
+    built = torch.cuda.memory_allocated() / 2**30
+    b = _bf16_serving(torch, card, model, trace[:4], "5n(b) gpt3_13b bf16",
+                      (None,))
+    print(f"5n(b) gpt3_13b: {cfg.num_params()} parameters, "
+          f"{built:.2f} GiB allocated once built, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp = {k: a[None][k] + b[None][k] for k in a[None]}
+    return fp, a["int8"]
 
 
 def _profile_step(torch, run, step_ms):
@@ -5560,6 +5887,10 @@ def main():
     lap("adaptive serving")
     for k in ("K2", "K4", "K5"):
         launches[k] += adaptive_launches[k]
+    small_launches = small_heads_phase(torch, card)
+    lap("small head dims on the paged engine")
+    for k in ("K2", "K4", "K5", "K4-int8", "K5-int8"):
+        launches[k] += small_launches[k]
     del model, spec_reqs, tier_reqs
     launches.update({"K5-bf16": bf16_launches["K5"],
                      "K5-int8-bf16": bf16_q_launches["K5-int8"],
@@ -5585,12 +5916,24 @@ def main():
     lap("optimizers, fleet and ASP")
     enc_launches = encoder_phase(torch, card)
     lap("encoders (BERT, ERNIE, nn.Transformer)")
+    gpt3_launches = gpt3_training_phase(torch, card)
+    lap("GPT-3 XL training")
+    n5_launches, n5_q_launches = gpt3_serving_phase(torch, card)
+    lap("GPT-3 serving in bf16")
     launches["K2"] += (enc_launches["K2"] + offload_launches["K2"]
-                       + opt_launches["K2"])
+                       + opt_launches["K2"] + gpt3_launches["K2"]
+                       + n5_launches["K2"] + n5_q_launches["K2"])
+    for k, n in (("K4-bf16", n5_launches["K4"]),
+                 ("K5-bf16", n5_launches["K5"]),
+                 ("K4-int8-bf16", n5_q_launches["K4-int8"]),
+                 ("K5-int8-bf16", n5_q_launches["K5-int8"])):
+        launches[k] += n
     launches.update({"K1": train_launches["K1"] + enc_launches["K1"]
-                     + offload_launches["K1"] + opt_launches["K1"],
+                     + offload_launches["K1"] + opt_launches["K1"]
+                     + gpt3_launches["K1"],
                      "K3a": train_launches["K3a"] + enc_launches["K3a"]
-                     + offload_launches["K3a"] + opt_launches["K3a"],
+                     + offload_launches["K3a"] + opt_launches["K3a"]
+                     + gpt3_launches["K3a"],
                      "K3b-dkv": long_launches["bwd_dkv"],
                      "K3b-dq": long_launches["bwd_dq"],
                      "K1-fp16": fp16_launches["K1"],

@@ -76,11 +76,10 @@ FAULTS = {
         "  const int base = tv[slot];  // position of this tile's row 0\n"),
     # every row tile computes with the q rows of the chunk's first tile
     "the row tile mapped to the wrong q rows": (
-        "      qs[i * KP + d] = i < nrows ? q[(q_row0 + i) * rs + h * D + d] * "
+        "          i < nrows && d < dh ? q[(q_row0 + i) * rs + h * dh + d] * "
         "sl : 0.f;\n",
-        "      qs[i * KP + d] =\n"
-        "          i < nrows ? q[(q_row0 - row0 + i) * rs + h * D + d] * sl : "
-        "0.f;\n"),
+        "          i < nrows && d < dh ? q[(q_row0 - row0 + i) * rs + h * dh + "
+        "d] * sl : 0.f;\n"),
 }
 
 # for the sound kernel: the atol each rtol would need

@@ -97,7 +97,7 @@ FAULTS = {
         "  const int t0 = tv[slot];         "),
     # every row tile computes with the slot's first 16 q rows
     "the row tile mapped to the wrong q rows": (
-        "h * D, row0, s, rs);", "h * D, 0, s, rs);"),
+        "h * dh, row0, s, rs, dh);", "h * dh, 0, s, rs, dh);"),
 }
 
 # for the sound kernel: the atol each rtol would need

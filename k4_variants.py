@@ -156,9 +156,9 @@ _V2 = [
      "  }\n"
      "  cudaLaunchAttribute attr;\n"
      "  const cudaLaunchConfig_t cfg = decode_config<D, TP>(b, s, H, st, &attr);\n"),
-    ("                         static_cast<T*>(out), s, H, bs, bp, scale);\n"
+    ("                         static_cast<T*>(out), s, H, dh, bs, bp, scale);\n"
      "  if (e != cudaSuccess) return e;\n",
-     "                         static_cast<T*>(out), s, H, bs, bp, scale);\n"
+     "                         static_cast<T*>(out), s, H, dh, bs, bp, scale);\n"
      "  if (e != cudaSuccess) return e;\n"
      "  decode_merge_kernel<D><<<dim3(b * H, (s + kMaxRows - 1) / kMaxRows),\n"
      "                           128, 0, st>>>(static_cast<bf16*>(out), s, H);\n"),

@@ -72,8 +72,9 @@ FAULTS = {
         "    mma::cp_async_wait<kStages - 1>();\n"),
     # the last warp's 16 rows of each tile are never stored
     "one warp's store skipped": (
-        "    if (row < s)\n      *reinterpret_cast<uint4*>(oh",
-        "    if (row < s && warp != 3)\n      *reinterpret_cast<uint4*>(oh"),
+        "    if (row < s && c * 8 < dh)\n      *reinterpret_cast<uint4*>(oh",
+        "    if (row < s && c * 8 < dh && warp != 3)\n"
+        "      *reinterpret_cast<uint4*>(oh"),
 }
 
 # for the sound kernel: the atol each rtol would need

@@ -138,8 +138,8 @@ _SPLIT = [
     ("  const dim3 grid(b * ntile, H);\n",
      "  const int tiles = (bp * bs + kKeys - 1) / kKeys;\n"
      "  const dim3 grid(b * ntile, H, g_nsplit);\n"),
-    ("      ntile, H, bs, bp, scale);\n",
-     "      ntile, H, bs, bp, scale, g_part, g_sem,\n"
+    ("      ntile, H, dh, bs, bp, scale);\n",
+     "      ntile, H, dh, bs, bp, scale, g_part, g_sem,\n"
      "      (tiles + g_nsplit - 1) / g_nsplit);\n"),
     ("                                     float scale, int dtype, int pool,\n"
      "                                     void* stream) {\n",

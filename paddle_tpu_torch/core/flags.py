@@ -138,3 +138,7 @@ define_flag("FLAGS_ckpt_verify", True,
             help="Verify per-shard checksums when loading a checkpoint "
                  "(corruption is detected at restore instead of as garbage "
                  "parameters mid-run).")
+
+# -- dtype defaults (core/dtype.py default_float_dtype) ------------------------
+define_flag("FLAGS_default_dtype", "float32",
+            help="Default floating dtype for new tensors.")

@@ -1,7 +1,9 @@
-"""``to_tensor`` of the port (counterpart of ``core/tensor.py:318``).
+"""The tensor API of the port (counterpart of ``core/tensor.py``).
 
-The port's tensors are torch tensors, so of the reference's module only
-its constructor function has a counterpart here.
+The port's tensors are torch tensors: ``Tensor`` is ``torch.Tensor``,
+``Parameter`` ``torch.nn.Parameter``, and ``no_grad`` / ``enable_grad``
+/ ``is_grad_enabled`` torch's own. Of the reference's module only its
+constructor function, ``to_tensor``, is code of the port's.
 """
 
 from __future__ import annotations
@@ -11,14 +13,25 @@ import torch
 
 from paddle_tpu_torch.core.place import resolve_device
 
-__all__ = ["to_tensor"]
+__all__ = ["Tensor", "Parameter", "to_tensor", "is_grad_enabled", "no_grad",
+           "enable_grad"]
+
+Tensor = torch.Tensor
+Parameter = torch.nn.Parameter
+no_grad = torch.no_grad
+enable_grad = torch.enable_grad
+
+
+def is_grad_enabled() -> bool:
+    return torch.is_grad_enabled()
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient: bool = True):
     """``paddle.to_tensor``: float64 data becomes float32 unless
-    ``dtype`` says otherwise; ``place`` is a device (or its name),
-    ``"cuda"`` unless given (it raises on a host without a card, naming
-    ``device="cpu"``); ``stop_gradient=False`` makes a leaf that
+    ``dtype`` says otherwise; ``place`` is a device, its name or a
+    ``Place``, the default place (``gpu:0`` unless ``set_device`` named
+    another) unless given (a card's place raises on a host without one,
+    naming ``device="cpu"``); ``stop_gradient=False`` makes a leaf that
     requires grad."""
     if isinstance(data, torch.Tensor):
         out = data.detach().clone()
@@ -31,7 +44,5 @@ def to_tensor(data, dtype=None, place=None, stop_gradient: bool = True):
         from paddle_tpu_torch.ops.creation import _dtype
 
         out = out.to(_dtype(dtype))
-    out = out.to(resolve_device(
-        place if place is None or isinstance(place, (str, torch.device))
-        else str(place)))
+    out = out.to(resolve_device(place))
     return out.requires_grad_(not stop_gradient)

@@ -30,8 +30,9 @@
 //  - Q is staged once by cp.async and held as A fragments. 64-key K and
 //    V tiles come through a cp.async ring of kStages stages, gathered row
 //    by row through the table: key row col of the slot sits at
-//    (table[col / bs] * bs + col % bs) * H * D + h * D, D contiguous
-//    elements, so 16-byte chunks. Each thread reads the table entry of
+//    (table[col / bs] * bs + col % bs) * H * dh + h * dh, dh contiguous
+//    elements, so 16-byte chunks (8-byte ones over int8 codes of a head
+//    dim no multiple of 16; paged_common.cuh's head-dim note). Each thread reads the table entry of
 //    every key row it copies once a tile, for K and V together. Rows
 //    past the CTA's reach, min(base + rows - 1, bp * bs - 1), are
 //    zero-filled from the address of row `reach` (src-size 0): no row,
@@ -60,8 +61,10 @@
 //    moves it to the next tile's, and the store divides by l / fv.
 //  - O / l is written in T through the warp's own rows of the Q tile
 //    into 16-byte stores. Every row reads column 0, so l > 0.
-//  - cp.async needs 16-byte aligned q, out and pools and row strides of
-//    16 bytes: the C entry refuses anything else (cudaErrorInvalidValue).
+//  - cp.async needs 16-byte aligned q, out and pools (pool rows of a head
+//    dim dh % 16 != 0 over int8 codes go as 8-byte copies, paged_common.cuh
+//    cp_row_chunk): the C entry refuses anything else
+//    (cudaErrorInvalidValue).
 //
 // fp32 q: paged_f32_kernel (paged_common.cuh), K4's fp32 body, on the
 // CUDA cores in fp32 (no TF32: the fp32 contract is 2e-5 of the plain
@@ -106,7 +109,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                              const int* __restrict__ table,
                              const int* __restrict__ tv,
                              T* __restrict__ out, int s, int ntile, int H,
-                             int bs, int bp, float scale) {
+                             int dh, int bs, int bp, float scale) {
   namespace mma = ptt::mma;
   using E = mma::Elem<T>;
   constexpr bool kCode = ptt::IsCode<TP>::value;
@@ -136,7 +139,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   // the chunk's last tile reads the most keys: it launches first
   const int tile = ntile - 1 - blockIdx.x % ntile;
   const int h = blockIdx.y;
-  const int64_t rs = static_cast<int64_t>(H) * D;  // row stride, elements
+  const int64_t rs = static_cast<int64_t>(H) * dh;  // row stride, elements
   const int r0 = tile * kRows;
   const int rows = min(kRows, s - r0);
   const int base = tv[slot] + r0;                  // position of row 0
@@ -155,11 +158,10 @@ __global__ void __launch_bounds__(kMmaThreads)
                 c = idx % CPR;
       const int col = j0 + r, cl = min(col, reach);
       const int64_t off =
-          (static_cast<int64_t>(trow[cl / bs]) * bs + cl % bs) * rs + h * D +
-          c * EPC;
+          (static_cast<int64_t>(trow[cl / bs]) * bs + cl % bs) * rs + h * dh;
       const int at = (st * kKeys + r) * PLD + c * EPC;
-      mma::cp_async_16(kr + at, kp + off, col <= reach);
-      mma::cp_async_16(vr + at, vp + off, col <= reach);
+      ptt::cp_row_chunk(kr + at, kp + off, c, dh, col <= reach);
+      ptt::cp_row_chunk(vr + at, vp + off, c, dh, col <= reach);
     }
     if constexpr (kCode) {  // threads 0-63: k scales, 64-127: v scales
       const int r = threadIdx.x % kKeys, col = j0 + r, cl = min(col, reach);
@@ -174,7 +176,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   // groups in flight: Q, then tiles 0 .. kStages - 2 (one group each,
   // empty past the last tile, so the count stays fixed)
   mma::tile_async<kRows, D, LDS, kMmaThreads>(
-      qs, q + static_cast<int64_t>(slot) * s * rs + h * D, r0, s, rs);
+      qs, q + static_cast<int64_t>(slot) * s * rs + h * dh, r0, s, rs, dh);
   mma::cp_async_commit();
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
@@ -351,12 +353,12 @@ __global__ void __launch_bounds__(kMmaThreads)
         E::pack(o[n][2] / l[1], o[n][3] / l[1]);
   }
   __syncwarp();
-  T* oh = out + static_cast<int64_t>(slot) * s * rs + h * D;
+  T* oh = out + static_cast<int64_t>(slot) * s * rs + h * dh;
   constexpr int OCR = D / 8;  // 16-byte chunks of an output row
 #pragma unroll
   for (int idx = lane; idx < 16 * OCR; idx += 32) {
     const int r = idx / OCR, c = idx % OCR, row = r0 + warp * 16 + r;
-    if (row < s)
+    if (row < s && c * 8 < dh)
       *reinterpret_cast<uint4*>(oh + row * rs + c * 8) =
           *reinterpret_cast<const uint4*>(os + r * LDS + c * 8);
   }
@@ -372,8 +374,8 @@ cudaError_t allow_mma_smem() {
 template <int D, typename T, typename TP>
 cudaError_t launch_mma(const void* q, const void* kp, const void* vp,
                        const float* ks, const float* vs, const int* table,
-                       const int* t, void* out, int b, int s, int H, int bs,
-                       int bp, float scale, cudaStream_t st) {
+                       const int* t, void* out, int b, int s, int H, int dh,
+                       int bs, int bp, float scale, cudaStream_t st) {
   cudaError_t e = allow_mma_smem<D, T, TP>();
   if (e != cudaSuccess) return e;
   const int ntile = (s + kRows - 1) / kRows;
@@ -382,47 +384,45 @@ cudaError_t launch_mma(const void* q, const void* kp, const void* vp,
                                        st>>>(
       static_cast<const T*>(q), static_cast<const TP*>(kp),
       static_cast<const TP*>(vp), ks, vs, table, t, static_cast<T*>(out), s,
-      ntile, H, bs, bp, scale);
+      ntile, H, dh, bs, bp, scale);
   return cudaGetLastError();
 }
 
-// The tensor-core body stages 16-byte chunks by cp.async: q, out and both pools
-// 16-byte aligned, a pool row (H * D elements; q's rows are as long or
-// twice as long) a multiple of 16 bytes; int8 scales 4-byte aligned.
+// The tensor-core body stages 16-byte chunks by cp.async: q, out and both
+// pools 16-byte aligned (a 16-bit row of dh % 8 == 0 elements keeps every
+// row 16-byte aligned; an int8 row 8-byte, which cp_row_chunk's 8-byte
+// copies take); int8 scales 4-byte aligned.
 bool mma_aligned(const void* q, const void* kp, const void* vp,
-                 const void* ks, const void* vs, const void* out, int pool,
-                 int H, int D) {
+                 const void* ks, const void* vs, const void* out, int pool) {
   const auto al = [](const void* p, uintptr_t n) {
     return reinterpret_cast<uintptr_t>(p) % n == 0;
   };
-  const int row = H * D * (pool == ptt::kInt8 ? 1 : 2);
   return al(q, 16) && al(out, 16) && al(kp, 16) && al(vp, 16) &&
-         (pool != ptt::kInt8 || (al(ks, 4) && al(vs, 4))) && row % 16 == 0;
+         (pool != ptt::kInt8 || (al(ks, 4) && al(vs, 4)));
 }
 
 // q of type T over pools of type code `pool` (T's, or kInt8 with both
-// scales), at head dim D
+// scales), at head dim dh (head_dim_ok), on the body of its padded one
 template <typename T>
 cudaError_t mma_by_pool(int pool, const void* q, const void* kp,
                         const void* vp, const float* ks, const float* vs,
                         const int* table, const int* t, void* out, int b,
-                        int s, int H, int D, int bs, int bp, float scale,
+                        int s, int H, int dh, int bs, int bp, float scale,
                         cudaStream_t st) {
-  if (!mma_aligned(q, kp, vp, ks, vs, out, pool, H, D))
+  if (!mma_aligned(q, kp, vp, ks, vs, out, pool))
     return cudaErrorInvalidValue;
+  const bool d64 = ptt::padded_head_dim(dh) == 64;
   if (pool == ptt::kInt8) {
     if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
-    return D == 64 ? launch_mma<64, T, int8_t>(q, kp, vp, ks, vs, table, t,
-                                               out, b, s, H, bs, bp, scale,
-                                               st)
-                   : launch_mma<128, T, int8_t>(q, kp, vp, ks, vs, table, t,
-                                                out, b, s, H, bs, bp, scale,
-                                                st);
+    return d64 ? launch_mma<64, T, int8_t>(q, kp, vp, ks, vs, table, t, out,
+                                           b, s, H, dh, bs, bp, scale, st)
+               : launch_mma<128, T, int8_t>(q, kp, vp, ks, vs, table, t, out,
+                                            b, s, H, dh, bs, bp, scale, st);
   }
-  return D == 64 ? launch_mma<64, T, T>(q, kp, vp, nullptr, nullptr, table, t,
-                                        out, b, s, H, bs, bp, scale, st)
-                 : launch_mma<128, T, T>(q, kp, vp, nullptr, nullptr, table,
-                                         t, out, b, s, H, bs, bp, scale, st);
+  return d64 ? launch_mma<64, T, T>(q, kp, vp, nullptr, nullptr, table, t,
+                                    out, b, s, H, dh, bs, bp, scale, st)
+             : launch_mma<128, T, T>(q, kp, vp, nullptr, nullptr, table, t,
+                                     out, b, s, H, dh, bs, bp, scale, st);
 }
 
 template <int D, typename TP>
@@ -437,8 +437,9 @@ cudaError_t mma_occupancy(int* ctas, int* smem) {
 
 }  // namespace
 
-// Returns the launch's cudaError_t (0 = launched). `dtype` is q's type
-// code, `pool` the pools' (equal to dtype, or kInt8 with both scales).
+// Returns the launch's cudaError_t (0 = launched). D is any head dim of
+// head_dim_ok (common.cuh); `dtype` is q's type code, `pool` the pools'
+// (equal to dtype, or kInt8 with both scales).
 // Both bodies tile the chunk by rows of their own (qbs is checked, not
 // used): bf16 and fp16 q run the tensor-core body in 64-row tiles, fp32
 // q runs paged_f32_kernel, whose pools and out must be 16-byte aligned (else
@@ -451,7 +452,7 @@ extern "C" int ptt_chunk_prefill_fwd(const void* q, const void* k_pool,
                                      float scale, int dtype, int pool,
                                      void* stream) {
   if (b < 1 || s < 1 || qbs < 1 || qbs > kMaxQbs || s % qbs != 0 ||
-      H < 1 || H > 65535 || bs < 1 || bp < 1 || (D != 64 && D != 128) ||
+      H < 1 || H > 65535 || bs < 1 || bp < 1 || !ptt::head_dim_ok(D) ||
       (pool != dtype && pool != ptt::kInt8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -39,6 +39,16 @@ __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half_rn(x);
 }
 
+// The head dims every attention kernel (K1, K3, K4, K5) takes: 8 to 128
+// in steps of 8, so a 16-bit row is whole 16-byte chunks. Each body is
+// instantiated at a padded head dim, 64 or 128 (padded_head_dim), and
+// takes the real one at run time: loads past it are zero-filled in
+// shared memory, so the padded columns add 0 to every product over the
+// head dim, and stores past it are predicated off. The Python wrappers
+// apply the same predicate (ops/kernels/flash_attention.py HEAD_DIMS).
+inline bool head_dim_ok(int d) { return d >= 8 && d <= 128 && d % 8 == 0; }
+inline int padded_head_dim(int d) { return d <= 64 ? 64 : 128; }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

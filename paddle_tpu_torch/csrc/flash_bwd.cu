@@ -187,9 +187,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
   const int64_t o_ss = static_cast<int64_t>(a.H) * D;  // dO is contiguous
 
   load_tile<D, LDS>(ks, static_cast<const float*>(a.k), b, h, k0, a.Sk,
-                    a.kv_sb, a.kv_ss, a.kv_sh);
+                    a.kv_sb, a.kv_ss, a.kv_sh, D);
   load_tile<D, LDS>(vs, static_cast<const float*>(a.v), b, h, k0, a.Sk,
-                    a.kv_sb, a.kv_ss, a.kv_sh);
+                    a.kv_sb, a.kv_ss, a.kv_sh, D);
   // keys ty + 16i, dims tx + 16j
   float dk[4][DJ], dv[4][DJ];
 #pragma unroll
@@ -201,8 +201,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
   // and key tiles are the same height, so the sweep starts at tile k0/64
   const int nq = (a.Sq + kTile - 1) / kTile;
   for (int q0 = a.causal ? k0 : 0; q0 < nq * kTile; q0 += kTile) {
-    load_tile<D, LDS>(qs, q, b, h, q0, a.Sq, a.q_sb, a.q_ss, a.q_sh);
-    load_tile<D, LDS>(dos, dout, b, h, q0, a.Sq, a.Sq * o_ss, o_ss, D);
+    load_tile<D, LDS>(qs, q, b, h, q0, a.Sq, a.q_sb, a.q_ss, a.q_sh, D);
+    load_tile<D, LDS>(dos, dout, b, h, q0, a.Sq, a.Sq * o_ss, o_ss, D, D);
     load_rows(lse_s, a.lse, bh, q0, a.Sq);
     load_rows(delta_s, a.delta, bh, q0, a.Sq);
     __syncthreads();
@@ -326,17 +326,17 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   const auto stage_tile = [&](int j) {
     const int st = j & 1, r0 = q_first + j * kTile;
     mma::tile_async<kTile, D, LDS, kMmaThreads>(qs + st * TILE, q, r0, a.Sq,
-                                                a.q_ss);
+                                                a.q_ss, D);
     mma::tile_async<kTile, D, LDS, kMmaThreads>(dos + st * TILE, dout, r0,
-                                                a.Sq, o_ss);
+                                                a.Sq, o_ss, D);
     mma::rows_async<kTile>(lse_s + st * kTile, lse, r0, a.Sq);
     mma::rows_async<kTile>(delta_s + st * kTile, delta, r0, a.Sq);
     mma::cp_async_commit();
   };
 
   // groups in flight: K and V, then query tile 0
-  mma::tile_async<kTile, D, LDS, kMmaThreads>(ks, k, k0, a.Sk, a.kv_ss);
-  mma::tile_async<kTile, D, LDS, kMmaThreads>(vs, v, k0, a.Sk, a.kv_ss);
+  mma::tile_async<kTile, D, LDS, kMmaThreads>(ks, k, k0, a.Sk, a.kv_ss, D);
+  mma::tile_async<kTile, D, LDS, kMmaThreads>(vs, v, k0, a.Sk, a.kv_ss, D);
   mma::cp_async_commit();
   stage_tile(0);
   mma::cp_async_wait<1>();
@@ -541,9 +541,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
   const int64_t o_ss = static_cast<int64_t>(a.H) * D;
 
   load_tile<D, LDS>(qs, static_cast<const float*>(a.q), b, h, q0, a.Sq,
-                    a.q_sb, a.q_ss, a.q_sh);
+                    a.q_sb, a.q_ss, a.q_sh, D);
   load_tile<D, LDS>(dos, static_cast<const float*>(a.dout), b, h, q0, a.Sq,
-                    a.Sq * o_ss, o_ss, D);
+                    a.Sq * o_ss, o_ss, D, D);
   load_rows(lse_s, a.lse, bh, q0, a.Sq);
   load_rows(delta_s, a.delta, bh, q0, a.Sq);
   float dq[4][DJ];
@@ -554,8 +554,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
 
   const int k_end = a.causal ? min(q0 + kTile, a.Sk) : a.Sk;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    load_tile<D, LDS>(ks, k, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
-    load_tile<D, LDS>(vs, v, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
+    load_tile<D, LDS>(ks, k, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh, D);
+    load_tile<D, LDS>(vs, v, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh, D);
     __syncthreads();
     p_and_ds<D, LDS>(a, qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0,
                      k0, ty, tx);
@@ -619,15 +619,15 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   const auto stage_kv = [&](int j) {
     const int st = j & 1;
     mma::tile_async<kTile, D, LDS, kMmaThreads>(ks + st * TILE, k, j * kTile,
-                                                a.Sk, a.kv_ss);
+                                                a.Sk, a.kv_ss, D);
     mma::tile_async<kTile, D, LDS, kMmaThreads>(vs + st * TILE, v, j * kTile,
-                                                a.Sk, a.kv_ss);
+                                                a.Sk, a.kv_ss, D);
     mma::cp_async_commit();
   };
 
   // groups in flight: Q and dO, then key tile 0
-  mma::tile_async<kTile, D, LDS, kMmaThreads>(qs, q, q0, a.Sq, a.q_ss);
-  mma::tile_async<kTile, D, LDS, kMmaThreads>(dos, dout, q0, a.Sq, o_ss);
+  mma::tile_async<kTile, D, LDS, kMmaThreads>(qs, q, q0, a.Sq, a.q_ss, D);
+  mma::tile_async<kTile, D, LDS, kMmaThreads>(dos, dout, q0, a.Sq, o_ss, D);
   mma::cp_async_commit();
   stage_kv(0);
   // this lane's rows, w0 + g (accumulator entries 0, 1) and w0 + g + 8
@@ -806,7 +806,8 @@ cudaError_t dispatch(const Args& a, int D, int dtype, Kind kind,
 }
 
 int run(const Args& a, int D, int dtype, Kind kind, void* stream) {
-  if (!valid_args(a, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_args(a) || (D != 64 && D != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       dispatch(a, D, dtype, kind, static_cast<cudaStream_t>(stream)));
 }
@@ -827,8 +828,10 @@ cudaError_t mma_occupancy(K kern, size_t bytes, int* ctas, int* smem) {
 }  // namespace
 
 // Common arguments: q, k, v (B, S, H, D) with strides (sb, ss, sh, 1), k
-// and v sharing theirs; dO contiguous (B, Sq, H, D); lse and delta fp32
-// (B, H, Sq); dK, dV contiguous (B, Sk, H, D) in the input dtype. The
+// and v sharing theirs, D 64 or 128 (the wrapper pads any other head dim
+// it takes to one of them with zero columns); dO contiguous (B, Sq, H,
+// D); lse and delta fp32 (B, H, Sq); dK, dV contiguous (B, Sk, H, D) in
+// the input dtype. The
 // bf16 and fp16 bodies also need the alignment of mma_aligned (q, k, v,
 // dO).
 // Each returns the launch's cudaError_t (0 = launched).
@@ -837,8 +840,8 @@ cudaError_t mma_occupancy(K kern, size_t bytes, int* ctas, int* smem) {
       int64_t q_sh, int64_t kv_sb, int64_t kv_ss, int64_t kv_sh, float scale, \
       int causal, int dtype, void *stream
 #define PTT_FLASH_BWD_ARGS                                                  \
-  Args a = make_args(q, k, v, B, H, Sq, Sk, q_sb, q_ss, q_sh, kv_sb, kv_ss, \
-                     kv_sh, scale, causal);                                 \
+  Args a = make_args(q, k, v, B, H, Sq, Sk, D, q_sb, q_ss, q_sh, kv_sb,   \
+                     kv_ss, kv_sh, scale, causal);                          \
   a.dout = dout;                                                            \
   a.lse = static_cast<const float*>(lse);                                   \
   a.delta = static_cast<const float*>(delta)

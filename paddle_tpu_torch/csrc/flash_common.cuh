@@ -1,11 +1,22 @@
 // Flash attention for Hopper (sm_90a): what the forward (flash_fwd.cu)
 // and the backward kernels (flash_bwd.cu) share.
 //
-// Layouts. q, k, v are paddle's (B, S, H, D) with the last dim
+// Layouts. q, k, v are paddle's (B, S, H, dh) with the last dim
 // contiguous and any strides on (B, S, H) (GPT passes the per-head
 // q/k/v slices of one qkv projection, no copies); k and v share
-// strides. O, dO, dQ, dK and dV are contiguous (B, S, H, D); lse and
+// strides. O, dO, dQ, dK and dV are contiguous (B, S, H, dh); lse and
 // delta are fp32 (B, H, Sq).
+//
+// Head dims. The forward's bodies are instantiated at a padded head dim
+// D, 64 or 128, and take the real one, dh (8 to 128 in steps of 8,
+// common.cuh head_dim_ok), at run time: tiles are staged with the
+// columns past dh zero-filled, so they add 0 to Q.K^T and P.V, and every
+// store past dh is predicated off. The caller's softmax scale
+// (1/sqrt(dh) for paddle's attention) is used as given, never
+// 1/sqrt(D). The backward's bodies take dh = D, 64 or 128, only: the
+// D-128 dK/dV body already uses 253-255 registers, and a run-time bound
+// spilled it; the wrapper pads q, k, v and dO of another head dim with
+// zero columns (ops/kernels/flash_attention.py BWD_HEAD_DIMS).
 //
 // Tiles of the CUDA-core kernels (the fp32 kernels): 64-row query tiles
 // against 64-row key tiles of one (batch, head), staged in shared memory.
@@ -58,20 +69,23 @@ struct Args {
   void* dv;
   float* lse_out;       // forward output
   int B, H, Sq, Sk;
+  int dh;               // the real head dim; the body's D is padded
   int64_t q_sb, q_ss, q_sh, kv_sb, kv_ss, kv_sh;
   float scale;
   int causal;
 };
 
-// Stage rows [r0, r0 + kTile) of head h, batch b of a fp32 (B, S, H, D)
-// tensor with strides (sb, ss, sh, 1) into `dst`, row stride LDS. Rows
-// at or past S are zero and never read from memory. Every load is issued
-// before the first store, so a thread's loads are in flight together.
+// Stage rows [r0, r0 + kTile) of head h, batch b of a fp32 (B, S, H, dh)
+// tensor with strides (sb, ss, sh, 1) into `dst`, row stride LDS, D >= dh
+// columns. Rows at or past S and columns at or past dh are zero and never
+// read from memory. Every load is issued before the first store, so a
+// thread's loads are in flight together.
 template <int D, int LDS>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
                                           const float* __restrict__ src,
                                           int b, int h, int r0, int S,
-                                          int64_t sb, int64_t ss, int64_t sh) {
+                                          int64_t sb, int64_t ss, int64_t sh,
+                                          int dh) {
   constexpr int N = kTile * D / kThreads;  // elements per thread
   constexpr int RP = kThreads / D;         // rows covered per step
   const int d = threadIdx.x % D, r = threadIdx.x / D;
@@ -80,7 +94,7 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
 #pragma unroll
   for (int u = 0; u < N; ++u) {
     const int row = r0 + r + u * RP;
-    reg[u] = row < S ? base[row * ss] : 0.f;
+    reg[u] = row < S && d < dh ? base[row * ss] : 0.f;
   }
 #pragma unroll
   for (int u = 0; u < N; ++u) dst[(r + u * RP) * LDS + d] = reg[u];
@@ -152,8 +166,8 @@ cudaError_t launch(K kern, dim3 grid, size_t smem, cudaStream_t stream,
 
 // The shape and stride fields every entry point fills the same way.
 inline Args make_args(const void* q, const void* k, const void* v, int B,
-                      int H, int Sq, int Sk, int64_t q_sb, int64_t q_ss,
-                      int64_t q_sh, int64_t kv_sb, int64_t kv_ss,
+                      int H, int Sq, int Sk, int dh, int64_t q_sb,
+                      int64_t q_ss, int64_t q_sh, int64_t kv_sb, int64_t kv_ss,
                       int64_t kv_sh, float scale, int causal) {
   Args a{};
   a.q = q;
@@ -163,6 +177,7 @@ inline Args make_args(const void* q, const void* k, const void* v, int B,
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;
+  a.dh = dh;
   a.q_sb = q_sb;
   a.q_ss = q_ss;
   a.q_sh = q_sh;
@@ -175,9 +190,9 @@ inline Args make_args(const void* q, const void* k, const void* v, int B,
 }
 
 // The checks every entry point makes before it launches.
-inline bool valid_args(const Args& a, int D) {
+inline bool valid_args(const Args& a) {
   return a.B >= 1 && a.H >= 1 && a.Sq >= 1 && a.Sk >= 1 &&
-         (D == 64 || D == 128) && static_cast<int64_t>(a.B) * a.H <= 65535;
+         head_dim_ok(a.dh) && static_cast<int64_t>(a.B) * a.H <= 65535;
 }
 
 // The tensor-core kernels stage 16-byte chunks by cp.async: q, k, v and

@@ -75,7 +75,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
 
-  load_tile<D, LDS>(qs, q, b, h, q0, a.Sq, a.q_sb, a.q_ss, a.q_sh);
+  load_tile<D, LDS>(qs, q, b, h, q0, a.Sq, a.q_sb, a.q_ss, a.q_sh, a.dh);
   // rows warp + 8r (r < 8) belong to this warp in the softmax step
   float m_row[8], l_row[8];
 #pragma unroll
@@ -92,8 +92,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   // causal: the tile's last row is q0 + 63, so keys past it are dead
   const int k_end = a.causal ? min(q0 + kTile, a.Sk) : a.Sk;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    load_tile<D, LDS>(ks, k, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
-    load_tile<D, LDS>(vs, v, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh);
+    load_tile<D, LDS>(ks, k, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh,
+                      a.dh);
+    load_tile<D, LDS>(vs, v, b, h, k0, a.Sk, a.kv_sb, a.kv_ss, a.kv_sh,
+                      a.dh);
     __syncthreads();
     float s[4][4];
     dot_tile<D, LDS>(s, qs, ks, ty, tx);
@@ -167,10 +169,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     const int row = q0 + ty + 16 * i;
     if (row >= a.Sq) continue;
     const float l = l_s[ty + 16 * i];
-    float* orow = o + ((static_cast<int64_t>(b) * a.Sq + row) * a.H + h) * D;
+    float* orow =
+        o + ((static_cast<int64_t>(b) * a.Sq + row) * a.H + h) * a.dh;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      orow[tx + 16 * j] = acc[i][j] / l;
+      if (tx + 16 * j < a.dh) orow[tx + 16 * j] = acc[i][j] / l;
   }
 }
 
@@ -210,11 +213,11 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (k_end + kTile - 1) / kTile;
 
   // groups in flight: Q, then K and V of tile 0
-  mma::tile_async<kRowsQ, D, LDS, kThreads>(qs, q, q0, a.Sq, a.q_ss);
+  mma::tile_async<kRowsQ, D, LDS, kThreads>(qs, q, q0, a.Sq, a.q_ss, a.dh);
   mma::cp_async_commit();
-  mma::tile_async<kTile, D, LDS, kThreads>(ks, k, 0, a.Sk, a.kv_ss);
+  mma::tile_async<kTile, D, LDS, kThreads>(ks, k, 0, a.Sk, a.kv_ss, a.dh);
   mma::cp_async_commit();
-  mma::tile_async<kTile, D, LDS, kThreads>(vs, v, 0, a.Sk, a.kv_ss);
+  mma::tile_async<kTile, D, LDS, kThreads>(vs, v, 0, a.Sk, a.kv_ss, a.dh);
   mma::cp_async_commit();
   mma::cp_async_wait<2>();
   __syncthreads();
@@ -244,10 +247,10 @@ __global__ void __launch_bounds__(kThreads)
       T* kn = ks + ((j + 1) & 1) * kTile * LDS;
       T* vn = vs + ((j + 1) & 1) * kTile * LDS;
       mma::tile_async<kTile, D, LDS, kThreads>(kn, k, k0 + kTile, a.Sk,
-                                               a.kv_ss);
+                                               a.kv_ss, a.dh);
       mma::cp_async_commit();
       mma::tile_async<kTile, D, LDS, kThreads>(vn, v, k0 + kTile, a.Sk,
-                                               a.kv_ss);
+                                               a.kv_ss, a.dh);
       mma::cp_async_commit();
     }
     // warp-uniform: under causal masking every key of the tile lies
@@ -360,9 +363,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int idx = lane; idx < 16 * CPR; idx += 32) {
     const int r = idx / CPR, c = idx % CPR, row = w0 + r;
-    if (row < a.Sq)
+    if (row < a.Sq && c * 8 < a.dh)
       *reinterpret_cast<uint4*>(
-          out + ((static_cast<int64_t>(b) * a.Sq + row) * a.H + h) * D +
+          out + ((static_cast<int64_t>(b) * a.Sq + row) * a.H + h) * a.dh +
           c * 8) = *reinterpret_cast<const uint4*>(os + r * LDS + c * 8);
   }
 }
@@ -390,9 +393,10 @@ cudaError_t fwd_mma(const Args& a, cudaStream_t st) {
 }
 
 template <typename T>
-cudaError_t fwd_mma(const Args& a, int D, cudaStream_t st) {
+cudaError_t fwd_mma(const Args& a, cudaStream_t st) {
   if (!mma_aligned(a, a.out)) return cudaErrorInvalidValue;
-  return D == 64 ? fwd_mma<64, T>(a, st) : fwd_mma<128, T>(a, st);
+  return padded_head_dim(a.dh) == 64 ? fwd_mma<64, T>(a, st)
+                                     : fwd_mma<128, T>(a, st);
 }
 
 template <int D, typename T>
@@ -407,28 +411,29 @@ cudaError_t mma_occupancy(int* ctas, int* smem) {
 }  // namespace
 
 // q, k, v (B, S, H, D) with strides (sb, ss, sh, 1), k and v sharing
-// theirs; o contiguous (B, Sq, H, D) in the input dtype; lse fp32
-// (B, H, Sq). bf16 and fp16 also need the alignment of mma_aligned.
-// Returns the launch's cudaError_t (0 = launched).
+// theirs, D any head dim of head_dim_ok (common.cuh); o contiguous
+// (B, Sq, H, D) in the input dtype; lse fp32 (B, H, Sq). bf16 and fp16
+// also need the alignment of mma_aligned. Returns the launch's
+// cudaError_t (0 = launched).
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int H, int Sq, int Sk,
                              int D, int64_t q_sb, int64_t q_ss, int64_t q_sh,
                              int64_t kv_sb, int64_t kv_ss, int64_t kv_sh,
                              float scale, int causal, int dtype, void* stream) {
-  Args a = make_args(q, k, v, B, H, Sq, Sk, q_sb, q_ss, q_sh, kv_sb, kv_ss,
-                     kv_sh, scale, causal);
+  Args a = make_args(q, k, v, B, H, Sq, Sk, D, q_sb, q_ss, q_sh, kv_sb,
+                     kv_ss, kv_sh, scale, causal);
   a.out = o;
   a.lse_out = static_cast<float*>(lse);
-  if (!valid_args(a, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_args(a)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ptt::kFloat32:
-      return static_cast<int>(D == 64 ? fwd_f32<64>(a, st)
-                                      : fwd_f32<128>(a, st));
+      return static_cast<int>(padded_head_dim(D) == 64 ? fwd_f32<64>(a, st)
+                                                       : fwd_f32<128>(a, st));
     case ptt::kBFloat16:
-      return static_cast<int>(fwd_mma<__nv_bfloat16>(a, D, st));
+      return static_cast<int>(fwd_mma<__nv_bfloat16>(a, st));
     case ptt::kFloat16:
-      return static_cast<int>(fwd_mma<__half>(a, D, st));
+      return static_cast<int>(fwd_mma<__half>(a, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -70,6 +70,17 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                : "memory");
 }
 
+// 8 bytes from global to shared memory, asynchronously (.ca), zero-filled
+// when !valid, `src` clamped by the caller as for cp_async_16: the int8
+// pool rows of a head dim that is no multiple of 16 (paged_common.cuh).
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
 // 4 bytes (one fp32 value) from global to shared memory, asynchronously
 // (.ca: the .cg form takes 16 bytes only); zero-filled when !valid, with
 // `src` clamped by the caller as for cp_async_16.
@@ -241,24 +252,30 @@ __device__ __forceinline__ const T* at_x4(const T* s, int r0, int c0,
          ((lane / 8) % 2) * 8;
 }
 
-// Stage rows [r0, r0 + ROWS) of one (batch, head) of a 16-bit (B, S, H, D)
-// tensor into `dst` (row stride LDS) with NT threads, 16 bytes a thread
-// per step. `src` points at row 0 of the (batch, head); rows are `ss`
-// elements apart. Rows at or past S are zero-filled and never read.
-// Needs `src` 16-byte aligned and `ss` a multiple of 8 elements.
+// Stage rows [r0, r0 + ROWS) of one (batch, head) of a 16-bit (B, S, H, dh)
+// tensor into `dst` (row stride LDS, D >= dh columns) with NT threads, 16
+// bytes a thread per step. `src` points at row 0 of the (batch, head);
+// rows are `ss` elements apart. Rows at or past S, and the columns past
+// the head dim dh (a multiple of 8, so whole 16-byte chunks), are
+// zero-filled and never read: the padded columns add 0 to every product
+// over the head dim. Needs `src` 16-byte aligned and `ss` a multiple of 8
+// elements.
 template <int ROWS, int D, int LDS, int NT, typename T>
 __device__ __forceinline__ void tile_async(T* __restrict__ dst,
                                            const T* __restrict__ src,
-                                           int r0, int S, int64_t ss) {
+                                           int r0, int S, int64_t ss,
+                                           int dh) {
   constexpr int CPR = D / 8;  // 16-byte chunks per row
   static_assert(ROWS * CPR % NT == 0, "chunks must split evenly");
 #pragma unroll
   for (int u = 0; u < ROWS * CPR / NT; ++u) {
     const int idx = threadIdx.x + u * NT, r = idx / CPR, c = idx % CPR;
     const int row = r0 + r;
+    const bool col = c * 8 < dh;
     cp_async_16(dst + r * LDS + c * 8,
-                src + static_cast<int64_t>(min(row, S - 1)) * ss + c * 8,
-                row < S);
+                src + static_cast<int64_t>(min(row, S - 1)) * ss +
+                    (col ? c * 8 : 0),
+                row < S && col);
   }
 }
 

@@ -50,7 +50,7 @@
 //    ring waits are the warp's, ordered by __syncwarp.
 //  - Key rows are gathered row by row through the table as K5's body
 //    gathers them: 16-byte chunks of (table[col / bs] * bs + col % bs) *
-//    H * D + h * D; rows past the reach are zero-filled from the address
+//    H * dh + h * dh (paged_common.cuh's head-dim note); rows past the reach are zero-filled from the address
 //    of row `reach` (src-size 0). No row, table entry or scale past the
 //    reach is ever read. A rank's keys end at the reach, so the reach mask
 //    has keys to mask only where the table's end falls inside a warp's
@@ -81,8 +81,9 @@
 //    workspace, counter, fence or second launch), into 16-byte stores of
 //    T. A second cluster.sync() follows the last remote read: no CTA
 //    exits while another reads its shared memory.
-//  - cp.async needs 16-byte aligned q, out and pools and pool rows of a
-//    multiple of 16 bytes: the C entry refuses anything else
+//  - cp.async needs 16-byte aligned q, out and pools (pool rows of a head
+//    dim dh % 16 != 0 over int8 codes go as 8-byte copies, paged_common.cuh
+//    cp_row_chunk): the C entry refuses anything else
 //    (cudaErrorInvalidValue).
 //
 // fp32 q: paged_f32_kernel (paged_common.cuh), on the CUDA cores in fp32
@@ -145,8 +146,8 @@ __global__ void __launch_bounds__(kMmaThreads)
                             const float* __restrict__ vsp,
                             const int* __restrict__ table,
                             const int* __restrict__ tv,
-                            T* __restrict__ out, int s, int H, int bs,
-                            int bp, float scale) {
+                            T* __restrict__ out, int s, int H, int dh,
+                            int bs, int bp, float scale) {
   namespace mma = ptt::mma;
   using E = mma::Elem<T>;
   using L = DecodeSmem<D, TP>;
@@ -183,8 +184,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int slot = blockIdx.y / H, h = blockIdx.y % H;
   // the CTA's row tile: rows [row0, row0 + nrows) of the slot's s
   const int row0 = blockIdx.z * kMaxRows, nrows = min(kMaxRows, s - row0);
-  const int64_t rs = static_cast<int64_t>(H) * D;  // row stride, elements
-  const int t0 = tv[slot] + row0;                   // position of row0
+  const int64_t rs = static_cast<int64_t>(H) * dh;  // row stride, elements
+  const int t0 = tv[slot] + row0;                    // position of row0
   const int reach = min(t0 + nrows - 1, bp * bs - 1);
   const int n_tiles = reach / kTile + 1;
   // this rank's tiles: an even share of the slot's, whatever its length
@@ -207,11 +208,10 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int idx = lane + x * 32, r = idx / CPR, c = idx % CPR;
       const int col = k0 + r, cl = min(col, reach);
       const int64_t off =
-          (static_cast<int64_t>(trow[cl / bs]) * bs + cl % bs) * rs + h * D +
-          c * EPC;
+          (static_cast<int64_t>(trow[cl / bs]) * bs + cl % bs) * rs + h * dh;
       const int at = (st * kWarpKeys + r) * PLD + c * EPC;
-      mma::cp_async_16(kr + at, kp + off, col <= reach);
-      mma::cp_async_16(vr + at, vp + off, col <= reach);
+      ptt::cp_row_chunk(kr + at, kp + off, c, dh, col <= reach);
+      ptt::cp_row_chunk(vr + at, vp + off, c, dh, col <= reach);
     }
     if constexpr (kCode) {  // k scales, then v scales, one a key row
 #pragma unroll
@@ -229,7 +229,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   // groups in flight: Q, then the warp's slices 0 .. kStages - 2 (one
   // group each, empty past its last, so the count stays fixed)
   mma::tile_async<kMaxRows, D, LDS, kMmaThreads>(
-      qs, q + static_cast<int64_t>(slot) * s * rs + h * D, row0, s, rs);
+      qs, q + static_cast<int64_t>(slot) * s * rs + h * dh, row0, s, rs, dh);
   mma::cp_async_commit();
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
@@ -440,9 +440,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   // every rank's partial is in its shared memory
   cluster.sync();
   // rank r merges the 8-column chunks idx = r, r + kSplits, ... of the
-  // tile's rows: m = max m_r, l = sum l_r 2^(m_r - m), O = sum o_r 2^(m_r - m)
-  // / l. Every row reads column 0 (rank 0's), so l > 0.
-  constexpr int OC = D / 8;
+  // tile's rows, the head dim's only: m = max m_r, l = sum l_r 2^(m_r -
+  // m), O = sum o_r 2^(m_r - m) / l. Every row reads column 0 (rank 0's),
+  // so l > 0.
+  const int OC = dh / 8;
   for (int idx = rank + kSplits * threadIdx.x; idx < nrows * OC;
        idx += kSplits * kMmaThreads) {
     const int row = idx / OC, c = idx % OC;
@@ -474,7 +475,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     const float inv = 1.f / ls;
     *reinterpret_cast<uint4*>(
-        out + (static_cast<int64_t>(slot) * s + row0 + row) * rs + h * D +
+        out + (static_cast<int64_t>(slot) * s + row0 + row) * rs + h * dh +
         c * 8) =
         make_uint4(E::pack(acc[0] * inv, acc[1] * inv),
                    E::pack(acc[2] * inv, acc[3] * inv),
@@ -515,7 +516,8 @@ template <int D, typename T, typename TP>
 cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
                           const float* ks, const float* vs, const int* table,
                           const int* t, void* out, int b, int s, int H,
-                          int bs, int bp, float scale, cudaStream_t st) {
+                          int dh, int bs, int bp, float scale,
+                          cudaStream_t st) {
   cudaError_t e = prepare_decode<D, T, TP>();
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
@@ -524,48 +526,48 @@ cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
                          static_cast<const T*>(q),
                          static_cast<const TP*>(kp),
                          static_cast<const TP*>(vp), ks, vs, table, t,
-                         static_cast<T*>(out), s, H, bs, bp, scale);
+                         static_cast<T*>(out), s, H, dh, bs, bp, scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // q of type T over pools of type code `pool` (T's, or kInt8 with both
-// scales), at head dim D
+// scales), at head dim dh (head_dim_ok), on the body of its padded one
 template <typename T>
 cudaError_t decode_by_pool(int pool, const void* q, const void* kp,
                            const void* vp, const float* ks, const float* vs,
                            const int* table, const int* t, void* out, int b,
-                           int s, int H, int D, int bs, int bp, float scale,
+                           int s, int H, int dh, int bs, int bp, float scale,
                            cudaStream_t st) {
+  const bool d64 = ptt::padded_head_dim(dh) == 64;
   if (pool == ptt::kInt8) {
     if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
-    return D == 64 ? launch_decode<64, T, int8_t>(q, kp, vp, ks, vs, table,
-                                                  t, out, b, s, H, bs, bp,
-                                                  scale, st)
-                   : launch_decode<128, T, int8_t>(q, kp, vp, ks, vs, table,
-                                                   t, out, b, s, H, bs, bp,
-                                                   scale, st);
+    return d64 ? launch_decode<64, T, int8_t>(q, kp, vp, ks, vs, table, t,
+                                              out, b, s, H, dh, bs, bp, scale,
+                                              st)
+               : launch_decode<128, T, int8_t>(q, kp, vp, ks, vs, table, t,
+                                               out, b, s, H, dh, bs, bp,
+                                               scale, st);
   }
-  return D == 64 ? launch_decode<64, T, T>(q, kp, vp, nullptr, nullptr,
-                                           table, t, out, b, s, H, bs, bp,
-                                           scale, st)
-                 : launch_decode<128, T, T>(q, kp, vp, nullptr, nullptr,
-                                            table, t, out, b, s, H, bs, bp,
-                                            scale, st);
+  return d64 ? launch_decode<64, T, T>(q, kp, vp, nullptr, nullptr, table, t,
+                                       out, b, s, H, dh, bs, bp, scale, st)
+             : launch_decode<128, T, T>(q, kp, vp, nullptr, nullptr, table,
+                                        t, out, b, s, H, dh, bs, bp, scale,
+                                        st);
 }
 
-// cp.async takes 16-byte chunks: q, out and both pools 16-byte aligned, a
-// pool row (H * D elements; q's rows are as long or longer) a multiple of
-// 16 bytes; int8 scales 4-byte aligned.
+// cp.async takes 16-byte chunks: q, out and both pools 16-byte aligned (a
+// 16-bit row of dh % 8 == 0 elements keeps every row 16-byte aligned; an
+// int8 row 8-byte, which cp_row_chunk's 8-byte copies take); int8
+// scales 4-byte aligned.
 bool decode_aligned(const void* q, const void* kp, const void* vp,
                     const void* ks, const void* vs, const void* out,
-                    int pool, int H, int D) {
+                    int pool) {
   const auto al = [](const void* p, uintptr_t n) {
     return reinterpret_cast<uintptr_t>(p) % n == 0;
   };
-  const int row = H * D * (pool == ptt::kInt8 ? 1 : 2);
   return al(q, 16) && al(out, 16) && al(kp, 16) && al(vp, 16) &&
-         (pool != ptt::kInt8 || (al(ks, 4) && al(vs, 4))) && row % 16 == 0;
+         (pool != ptt::kInt8 || (al(ks, 4) && al(vs, 4)));
 }
 
 template <int D, typename TP>
@@ -582,6 +584,7 @@ cudaError_t decode_occupancy(int* clusters, int* smem) {
 
 }  // namespace
 
+// D: any head dim of head_dim_ok (common.cuh), on both entry points.
 // fp32 q: returns the launch's cudaError_t (0 = launched). `dtype` is q's
 // type code (kFloat32 only: bf16 and fp16 q have ptt_paged_decode_fwd),
 // `pool` the
@@ -597,7 +600,7 @@ extern "C" int ptt_paged_attention_fwd(const void* q, const void* k_pool,
                                        float scale, int dtype, int pool,
                                        void* stream) {
   if (b < 1 || s < 1 || H < 1 || bs < 1 || bp < 1 ||
-      (D != 64 && D != 128) || dtype != ptt::kFloat32 ||
+      !ptt::head_dim_ok(D) || dtype != ptt::kFloat32 ||
       (pool != ptt::kFloat32 && pool != ptt::kInt8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -626,10 +629,10 @@ extern "C" int ptt_paged_decode_fwd(const void* q, const void* k_pool,
                                     int dtype, int pool, void* stream) {
   if (b < 1 || s < 1 || H < 1 || static_cast<int64_t>(b) * H > 65535 ||
       (s + kMaxRows - 1) / kMaxRows > 65535 || bs < 1 || bp < 1 ||
-      (D != 64 && D != 128) ||
+      !ptt::head_dim_ok(D) ||
       (dtype != ptt::kBFloat16 && dtype != ptt::kFloat16) ||
       (pool != dtype && pool != ptt::kInt8) ||
-      !decode_aligned(q, k_pool, v_pool, k_scale, v_scale, out, pool, H, D))
+      !decode_aligned(q, k_pool, v_pool, k_scale, v_scale, out, pool))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ks = static_cast<const float*>(k_scale);

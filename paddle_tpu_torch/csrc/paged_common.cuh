@@ -7,13 +7,24 @@
 // plain version.
 //
 // Layouts (all contiguous, checked by the Python wrappers):
-//   q, out   (b, s, H, D)             query row r of slot n at (n*s + r)
-//   k/v pool (num_blocks, bs, H, D)   one block of one head is bs rows
-//                                     strided by H*D, never a dense tile
+//   q, out   (b, s, H, dh)            query row r of slot n at (n*s + r)
+//   k/v pool (num_blocks, bs, H, dh)  one block of one head is bs rows
+//                                     strided by H*dh, never a dense tile
 //   k/v scale (num_blocks, H) fp32    quantized pools only: the absmax
 //                                     scale of each (block, head)
 //   table    (b, bp) int32            logical block j -> physical block
 //   t        (b,) int32               absolute position of q row 0
+//
+// Head dims. Every body (this one, K4's and K5's tensor-core bodies) is
+// instantiated at a padded head dim D, 64 or 128, and takes the real
+// one, dh (8 to 128 in steps of 8, common.cuh head_dim_ok), at run
+// time. A key row's chunks past dh are zero-filled in shared memory
+// (cp_row_chunk), q's columns past dh are staged as 0, so the padded
+// columns add 0 to q.K^T, and every store past dh is predicated off: the
+// pools and the arena stay at dh, and nothing is copied. A 16-bit row of
+// dh elements is whole 16-byte chunks, an fp32 row too; an int8 code row
+// is 8-byte aligned only where dh is no multiple of 16 (dh 8, 24, ...),
+// and is staged there by 8-byte copies.
 //
 // Bound on the H100: K4 reads each slot's committed K and V once and does
 // ~4 flops an element read, so bytes bind it; K5's chunk of 128 rows over
@@ -38,8 +49,8 @@
 //  - Key tiles of KT rows (64 at D 64, 32 at D 128) come through a
 //    two-stage cp.async ring, both stages issued before the first is
 //    read, gathered row by row through the table: key row col of the
-//    slot sits at (table[col / bs] * bs + col % bs) * H * D + h * D, D
-//    contiguous elements, so 16-byte chunks. Rows past the reach are
+//    slot sits at (table[col / bs] * bs + col % bs) * H * dh + h * dh,
+//    dh contiguous elements, so 16-byte chunks (cp_row_chunk). Rows past the reach are
 //    zero-filled from the address of row `reach` (src-size 0): no row,
 //    table entry or scale past the reach is ever read. int8 codes land at
 //    a byte an element beside each row's (block, head) scales (one
@@ -98,6 +109,30 @@ struct IsCode<int8_t> {
   static constexpr bool value = true;
 };
 
+// 16-byte chunk c of one pool row of head dim dh into `dst`, zero-filled
+// past dh or where !valid (src-size 0; `row` is a row inside the pool,
+// the caller's clamped one, so no address past the tensor is formed). A
+// 16-bit or fp32 row is whole 16-byte chunks (dh % 8 == 0); an int8 row
+// of dh % 16 != 0 starts 8-byte aligned only, so its chunks go as two
+// 8-byte copies.
+template <typename TP>
+__device__ __forceinline__ void cp_row_chunk(TP* dst, const TP* row, int c,
+                                             int dh, bool valid) {
+  constexpr int EPC = 16 / sizeof(TP);  // elements a chunk
+  if (IsCode<TP>::value && dh % 16 != 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int e = c * EPC + half * 8;
+      const bool ok = valid && e < dh;
+      mma::cp_async_8(dst + half * 8, row + (ok ? e : 0), ok);
+    }
+  } else {
+    const int e = c * EPC;
+    const bool ok = valid && e < dh;
+    mma::cp_async_16(dst, row + (ok ? e : 0), ok);
+  }
+}
+
 constexpr int kF32Threads = 256;
 constexpr int kF32Lanes = 16;   // lanes of a row group
 constexpr int kF32Groups = kF32Threads / kF32Lanes;
@@ -147,7 +182,8 @@ __global__ void __launch_bounds__(kF32Threads, F32Occupancy<D, RT>::value)
                      const float* __restrict__ vsp,
                      const int* __restrict__ table,
                      const int* __restrict__ tv, float* __restrict__ out,
-                     int s, int ntile, int H, int bs, int bp, float scale) {
+                     int s, int ntile, int H, int dh, int bs, int bp,
+                     float scale) {
   namespace cg = cooperative_groups;
   using L = F32Smem<TP, D, RT>;
   constexpr bool kCode = L::kCode;
@@ -173,7 +209,7 @@ __global__ void __launch_bounds__(kF32Threads, F32Occupancy<D, RT>::value)
   const int slot = unit / ntile;
   const int tile = ntile - 1 - unit % ntile;  // the deepest tile first
   const int row0 = tile * RT, nrows = min(RT, s - row0);
-  const int64_t rs = static_cast<int64_t>(H) * D;  // row stride, elements
+  const int64_t rs = static_cast<int64_t>(H) * dh;  // row stride, elements
   const int64_t q_row0 = static_cast<int64_t>(slot) * s + row0;
   const int base = tv[slot] + row0;  // position of this tile's row 0
   const int reach = min(base + nrows - 1, bp * bs - 1);
@@ -201,9 +237,9 @@ __global__ void __launch_bounds__(kF32Threads, F32Occupancy<D, RT>::value)
         const int col = j * KT + r, cl = min(col, reach);
         const int64_t off =
             (static_cast<int64_t>(trow[cl / bs]) * bs + cl % bs) * rs +
-            h * D + c * 4;
-        mma::cp_async_16(kd + r * KP + c * 4, kp + off, col <= reach);
-        mma::cp_async_16(vd + r * D + c * 4, vp + off, col <= reach);
+            h * dh;
+        cp_row_chunk(kd + r * KP + c * 4, kp + off, c, dh, col <= reach);
+        cp_row_chunk(vd + r * D + c * 4, vp + off, c, dh, col <= reach);
       }
     } else {
       int8_t* kd = reinterpret_cast<int8_t*>(sb);
@@ -218,9 +254,9 @@ __global__ void __launch_bounds__(kF32Threads, F32Occupancy<D, RT>::value)
         const int col = j * KT + r, cl = min(col, reach);
         const int64_t off =
             (static_cast<int64_t>(trow[cl / bs]) * bs + cl % bs) * rs +
-            h * D + c * 16;
-        mma::cp_async_16(kd + r * D + c * 16, kp + off, col <= reach);
-        mma::cp_async_16(vd + r * D + c * 16, vp + off, col <= reach);
+            h * dh;
+        cp_row_chunk(kd + r * D + c * 16, kp + off, c, dh, col <= reach);
+        cp_row_chunk(vd + r * D + c * 16, vp + off, c, dh, col <= reach);
       }
       if (tid < 2 * KT) {  // the k scales, then the v scales, one a row
         const int r = tid % KT, col = j * KT + r, cl = min(col, reach);
@@ -238,7 +274,8 @@ __global__ void __launch_bounds__(kF32Threads, F32Occupancy<D, RT>::value)
     const float sl = scale * 1.4426950408889634f;
     for (int e = tid; e < RT * D; e += NT) {
       const int i = e / D, d = e % D;
-      qs[i * KP + d] = i < nrows ? q[(q_row0 + i) * rs + h * D + d] * sl : 0.f;
+      qs[i * KP + d] =
+          i < nrows && d < dh ? q[(q_row0 + i) * rs + h * dh + d] * sl : 0.f;
     }
   }
   // groups in flight: this rank's first two tiles (empty past its last)
@@ -423,8 +460,9 @@ __global__ void __launch_bounds__(kF32Threads, F32Occupancy<D, RT>::value)
   // every rank's partial is in its shared memory
   cluster.sync();
   // rank r merges the float4 chunks idx = r, r + C, ... of the tile's
-  // rows. Some rank reads column 0 of every row, so l > 0.
-  constexpr int OC = D / 4;
+  // rows, the head dim's only. Some rank reads column 0 of every row, so
+  // l > 0.
+  const int OC = dh / 4;
   for (int idx = rank + nsplit * tid; idx < nrows * OC;
        idx += nsplit * NT) {
     const int row = idx / OC, c = idx % OC;
@@ -451,7 +489,7 @@ __global__ void __launch_bounds__(kF32Threads, F32Occupancy<D, RT>::value)
         o.w += x.w * a;
       }
     const float inv = 1.f / ls;
-    *reinterpret_cast<float4*>(out + (q_row0 + row) * rs + h * D + c * 4) =
+    *reinterpret_cast<float4*>(out + (q_row0 + row) * rs + h * dh + c * 4) =
         make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
   }
   // no CTA leaves while another still reads its shared memory
@@ -473,7 +511,9 @@ inline int f32_splits(int64_t units, int RT, int max_tiles, int sms) {
   return c;
 }
 
-// cp.async and the float4 stores: 16-byte aligned pools and out.
+// cp.async and the float4 stores: 16-byte aligned pools and out (an
+// fp32 row of dh % 8 == 0 elements keeps every row 16-byte aligned; an
+// int8 row only 8-byte, which cp_row_chunk's 8-byte copies take).
 inline bool f32_aligned(const void* kp, const void* vp, const void* out) {
   const auto al = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -486,8 +526,8 @@ inline bool f32_aligned(const void* kp, const void* vp, const void* out) {
 template <typename TP, int D, int RT>
 cudaError_t launch_f32(const void* q, const void* kp, const void* vp,
                        const float* ksp, const float* vsp, const int* table,
-                       const int* tv, void* out, int b, int s, int H, int bs,
-                       int bp, float scale, cudaStream_t stream) {
+                       const int* tv, void* out, int b, int s, int H, int dh,
+                       int bs, int bp, float scale, cudaStream_t stream) {
   if ((IsCode<TP>::value && (ksp == nullptr || vsp == nullptr)) ||
       !f32_aligned(kp, vp, out))
     return cudaErrorInvalidValue;
@@ -521,7 +561,7 @@ cudaError_t launch_f32(const void* q, const void* kp, const void* vp,
   e = cudaLaunchKernelEx(&cfg, kern, static_cast<const float*>(q),
                          static_cast<const TP*>(kp),
                          static_cast<const TP*>(vp), ksp, vsp, table, tv,
-                         static_cast<float*>(out), s, ntile, H, bs, bp,
+                         static_cast<float*>(out), s, ntile, H, dh, bs, bp,
                          scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -534,32 +574,33 @@ inline int f32_rows(int s) { return s <= 16 ? 16 : s <= 32 ? 32 : 64; }
 template <typename TP, int D>
 cudaError_t f32_by_rows(const void* q, const void* kp, const void* vp,
                         const float* ks, const float* vs, const int* table,
-                        const int* t, void* out, int b, int s, int H, int bs,
-                        int bp, float scale, cudaStream_t st) {
+                        const int* t, void* out, int b, int s, int H, int dh,
+                        int bs, int bp, float scale, cudaStream_t st) {
   switch (f32_rows(s)) {
     case 16:
       return launch_f32<TP, D, 16>(q, kp, vp, ks, vs, table, t, out, b, s, H,
-                                   bs, bp, scale, st);
+                                   dh, bs, bp, scale, st);
     case 32:
       return launch_f32<TP, D, 32>(q, kp, vp, ks, vs, table, t, out, b, s, H,
-                                   bs, bp, scale, st);
+                                   dh, bs, bp, scale, st);
     default:
       return launch_f32<TP, D, 64>(q, kp, vp, ks, vs, table, t, out, b, s, H,
-                                   bs, bp, scale, st);
+                                   dh, bs, bp, scale, st);
   }
 }
 
-// The fp32 body on b slots of s query rows at head dim D (64 or 128).
+// The fp32 body on b slots of s query rows at head dim dh (head_dim_ok),
+// instantiated at its padded head dim.
 template <typename TP>
 cudaError_t f32_by_dim(const void* q, const void* kp, const void* vp,
                        const float* ks, const float* vs, const int* table,
-                       const int* t, void* out, int b, int s, int H, int D,
+                       const int* t, void* out, int b, int s, int H, int dh,
                        int bs, int bp, float scale, cudaStream_t st) {
-  if (D == 64)
-    return f32_by_rows<TP, 64>(q, kp, vp, ks, vs, table, t, out, b, s, H, bs,
-                               bp, scale, st);
-  return f32_by_rows<TP, 128>(q, kp, vp, ks, vs, table, t, out, b, s, H, bs,
-                              bp, scale, st);
+  if (padded_head_dim(dh) == 64)
+    return f32_by_rows<TP, 64>(q, kp, vp, ks, vs, table, t, out, b, s, H, dh,
+                               bs, bp, scale, st);
+  return f32_by_rows<TP, 128>(q, kp, vp, ks, vs, table, t, out, b, s, H, dh,
+                              bs, bp, scale, st);
 }
 
 }  // namespace ptt

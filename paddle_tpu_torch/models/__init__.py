@@ -5,9 +5,11 @@ from paddle_tpu_torch.models.ernie import (ErnieConfig,
                                            ErnieForSequenceClassification,
                                            ErnieModel, ernie_1_0)
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM, GPTModel,
-                                        gpt2_small, gpt_tiny)
+                                        gpt2_small, gpt3_13b, gpt3_1p3b,
+                                        gpt_tiny, gpt_tiny8)
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
-           "gpt2_small", "BertConfig", "BertModel", "BertForPretraining",
+           "gpt_tiny8", "gpt2_small", "gpt3_1p3b", "gpt3_13b", "BertConfig",
+           "BertModel", "BertForPretraining",
            "BertForSequenceClassification", "ErnieConfig", "ErnieModel",
            "ErnieForSequenceClassification", "ernie_1_0"]

@@ -77,7 +77,7 @@ from paddle_tpu_torch.ops.kernels.chunk_prefill import chunk_prefill
 from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
-           "gpt2_small"]
+           "gpt_tiny8", "gpt2_small", "gpt3_1p3b", "gpt3_13b"]
 
 _INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.int32,
                torch.int64)
@@ -796,7 +796,26 @@ def gpt_tiny() -> GPTConfig:
                      hidden_dropout=0.0, attention_dropout=0.0)
 
 
+def gpt_tiny8() -> GPTConfig:
+    """gpt_tiny with EIGHT heads of 8 (``gpt.py:1095``)."""
+    return GPTConfig(vocab_size=256, hidden_size=64, num_layers=2,
+                     num_heads=8, max_position_embeddings=128,
+                     hidden_dropout=0.0, attention_dropout=0.0)
+
+
 def gpt2_small() -> GPTConfig:
     """GPT-2 small (``gpt.py:1124``)."""
     return GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
                      num_heads=12, max_position_embeddings=1024)
+
+
+def gpt3_1p3b() -> GPTConfig:
+    """GPT-3 XL (``gpt.py:1129``): 24 layers, 16 heads of 128."""
+    return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
+                     num_heads=16, max_position_embeddings=2048)
+
+
+def gpt3_13b() -> GPTConfig:
+    """GPT-3 13B (``gpt.py:1135``): 40 layers, 40 heads of 128."""
+    return GPTConfig(vocab_size=50304, hidden_size=5120, num_layers=40,
+                     num_heads=40, max_position_embeddings=2048)

@@ -23,6 +23,13 @@ first by
 :func:`kernel_layout`. ``launches`` counts kernel launches, per
 kernel, and nothing else.
 
+Head dims: every wrapper takes :data:`HEAD_DIMS` (8 to 128 in steps of
+8) and refuses any other with a ``ValueError`` naming them. The forward
+kernel takes each as it is (its body runs at 64 or 128 columns, those
+past the head dim zero-filled in shared memory, its stores cut at the
+head dim); the backward kernels take 64 and 128, and their wrappers pad
+the others with zero columns (:data:`BWD_HEAD_DIMS`).
+
 :class:`FlashAttentionFn` is the autograd Function: its forward saves
 ``(o, lse)``; its backward computes ``delta = rowsum(dO * O)`` in torch
 (as JAX does in XLA, :522) and takes JAX's route: the fused kernel up to
@@ -40,7 +47,8 @@ from paddle_tpu_torch.ops.kernels import _build
 
 __all__ = ["flash_fwd", "flash_fwd_ref", "flash_bwd_fused", "flash_bwd_dkv",
            "flash_bwd_dq", "flash_bwd_ref", "FlashAttentionFn", "kernel_layout",
-           "launches", "reset_launches"]
+           "launches", "reset_launches", "HEAD_DIMS", "BWD_HEAD_DIMS",
+           "check_head_dim"]
 
 # beyond this sequence length the JAX package streams K/V and splits the
 # backward in two (flash_attention.py:38); the port keeps the same route
@@ -53,7 +61,27 @@ launches = {"fwd": 0, "bwd_fused": 0, "bwd_dkv": 0, "bwd_dq": 0}
 # the C entry points' type codes (csrc/common.cuh); bf16 and fp16 run
 # the tensor-core bodies, fp32 the CUDA-core ones
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
-_HEAD_DIMS = (64, 128)
+
+# the head dims every attention wrapper (K1, K3, K4, K5) takes: 8 to 128
+# in steps of 8, the predicate of the forward's and the paged kernels' C
+# entry points (csrc/common.cuh head_dim_ok), whose bodies run at a
+# padded head dim, 64 or 128, with the columns past the real one
+# zero-filled in shared memory
+HEAD_DIMS = tuple(range(8, 129, 8))
+# the head dims the backward's C entry points take (its bodies hold 64 or
+# 128 columns of dK and dV in registers, with no room for a run-time
+# bound): the backward wrappers pad any other head dim to the next of
+# them with zero columns of q, k, v and dO, which add 0 to every product
+# over the head dim, and cut the gradients back
+BWD_HEAD_DIMS = (64, 128)
+
+
+def check_head_dim(name: str, d: int):
+    """Raise a ``ValueError`` naming the accepted set unless the kernels
+    take head dim ``d``."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not supported by the CUDA "
+                         "kernels (8 to 128 in steps of 8)")
 
 
 def reset_launches():
@@ -72,6 +100,21 @@ def _pick_block(seq: int, preferred: int) -> int:
 
 def _use_streaming(sq: int, sk: int) -> bool:
     return max(sq, sk) > _STREAM_THRESHOLD
+
+
+def _bwd_padded(*ts):
+    """q, k, v and dO padded with zero columns to the backward kernels'
+    next head dim (:data:`BWD_HEAD_DIMS`); as they are at 64 and 128."""
+    d = ts[0].shape[-1]
+    pad = next(p for p in BWD_HEAD_DIMS if p >= d)
+    if pad == d:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, pad - d)) for t in ts)
+
+
+def _cut(t, d: int):
+    """A gradient at the backward kernels' head dim cut back to ``d``."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 # ------------------------------------------------------------ plain versions
@@ -131,9 +174,7 @@ def _cuda_args(name: str, q, k, v):
         raise ValueError(f"{name}: q (B, Sq, H, D) and k, v (B, Sk, H, D) "
                          f"expected, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {q.shape[-1]} not supported by "
-                         f"the CUDA kernels (one of {_HEAD_DIMS})")
+    check_head_dim(name, q.shape[-1])
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError(f"{name}: batch * heads must be <= 65535")
     return kernel_layout(q, k, v)
@@ -218,6 +259,8 @@ def flash_bwd_fused(q, k, v, do, lse, delta, scale: float, causal: bool):
         return flash_bwd_ref(q, k, v, do, lse, delta, scale, causal)
     q, k, v, do, lse, delta = _grad_args("flash_bwd_fused", q, k, v, do,
                                          lse, delta)
+    d = q.shape[-1]
+    q, k, v, do = _bwd_padded(q, k, v, do)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -227,7 +270,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, scale: float, causal: bool):
         dv.data_ptr(), *_tail(q, k, scale, causal))
     _build.check(err, "flash fused backward kernel")
     launches["bwd_fused"] += 1
-    return dq.to(q.dtype), dk, dv
+    return _cut(dq.to(q.dtype), d), _cut(dk, d), _cut(dv, d)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
@@ -236,6 +279,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
         return flash_bwd_ref(q, k, v, do, lse, delta, scale, causal)[1:]
     q, k, v, do, lse, delta = _grad_args("flash_bwd_dkv", q, k, v, do, lse,
                                          delta)
+    d = q.shape[-1]
+    q, k, v, do = _bwd_padded(q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     err = _build.load_library().ptt_flash_bwd_dkv(
@@ -244,7 +289,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
         *_tail(q, k, scale, causal))
     _build.check(err, "flash dK/dV backward kernel")
     launches["bwd_dkv"] += 1
-    return dk, dv
+    return _cut(dk, d), _cut(dv, d)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
@@ -254,6 +299,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
         return flash_bwd_ref(q, k, v, do, lse, delta, scale, causal)[0]
     q, k, v, do, lse, delta = _grad_args("flash_bwd_dq", q, k, v, do, lse,
                                          delta)
+    d = q.shape[-1]
+    q, k, v, do = _bwd_padded(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = _build.load_library().ptt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -261,7 +308,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
         *_tail(q, k, scale, causal))
     _build.check(err, "flash dQ backward kernel")
     launches["bwd_dq"] += 1
-    return dq
+    return _cut(dq, d)
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -36,6 +36,7 @@ import torch
 
 from paddle_tpu_torch.nn.functional.attention import _sdpa
 from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels.flash_attention import check_head_dim
 
 __all__ = ["paged_attention", "paged_attention_ref", "launches",
            "launches_q", "reset_launches", "check_paged_args",
@@ -109,8 +110,7 @@ def check_paged_args(what, q, k_pool, v_pool, table, k_scale=None,
         raise ValueError(f"{what}: pool shapes {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q heads "
                          f"{(h, d)}")
-    if d not in (64, 128):
-        raise ValueError(f"{what}: head_dim {d} not supported (64, 128)")
+    check_head_dim(what, d)
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: q must be float32, bfloat16 or float16, "
                         f"got {q.dtype}")

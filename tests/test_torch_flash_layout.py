@@ -216,3 +216,38 @@ def test_scripts_name_only_declared_entry_points(script):
     text = (CSRC.parents[1] / script).read_text()
     named = set(re.findall(r"\bptt_\w+", text))
     assert named <= set(_build._SIGNATURES), named - set(_build._SIGNATURES)
+
+
+def test_wrappers_take_the_head_dims_the_c_entry_points_admit():
+    """The wrappers' accepted head dims (``HEAD_DIMS``) are what
+    ``head_dim_ok`` in ``csrc/common.cuh`` admits, which the forward's
+    (``valid_args``), K4's and K5's C entry points apply; the backward's
+    entry points admit ``BWD_HEAD_DIMS``, to which its wrappers pad; any
+    other head dim raises a ``ValueError`` naming the accepted set."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    common = (CSRC / "common.cuh").read_text()
+    lo, hi, step = map(int, re.search(
+        r"inline bool head_dim_ok\(int d\) \{ return d >= (\d+) && "
+        r"d <= (\d+) && d % (\d+) == 0; \}", common).groups())
+    assert fa.HEAD_DIMS == tuple(d for d in range(1, 1025)
+                                 if lo <= d <= hi and d % step == 0)
+    flash_common = (CSRC / "flash_common.cuh").read_text()
+    assert "head_dim_ok(a.dh)" in re.search(
+        r"inline bool valid_args\(const Args& a\) \{(.*?)\}", flash_common,
+        re.S).group(1)
+    assert "valid_args(a)" in (CSRC / "flash_fwd.cu").read_text()
+    bwd = (CSRC / "flash_bwd.cu").read_text()
+    admitted = re.search(r"if \(!valid_args\(a\) \|\| \(D != (\d+) && "
+                         r"D != (\d+)\)\)", bwd).groups()
+    assert tuple(sorted(map(int, admitted))) == fa.BWD_HEAD_DIMS
+    assert set(fa.BWD_HEAD_DIMS) <= set(fa.HEAD_DIMS)
+    for name, n in (("paged_attention.cu", 2), ("chunk_prefill.cu", 1)):
+        text = (CSRC / name).read_text()
+        assert text.count("!ptt::head_dim_ok(D)") == n, name
+        assert "D != 64" not in text, name
+    for d in (1, 4, 12, 136, 256):
+        with pytest.raises(ValueError, match="8 to 128 in steps of 8"):
+            fa.check_head_dim("flash_fwd", d)
+    for d in fa.HEAD_DIMS:
+        fa.check_head_dim("flash_fwd", d)

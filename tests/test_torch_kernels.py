@@ -208,3 +208,34 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(k2.layer_norm_fwd(x, None, None, 1e-5)[0],
                        k2.layer_norm_ref(x, None, None, 1e-5)[0])
     assert (k2.launches, k4.launches, k5.launches) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_paged_kernels_at_small_head_dims_match_pallas(kernel, d):
+    """gpt_tiny8's and gpt_tiny's head dims (8, 16), which the card's K4
+    and K5 take at their run-time head dim: the plain versions against
+    the Pallas kernels in interpret mode, K4 at a verify of 4 rows and
+    per-slot offsets, K5 at a chunk of 12 from row 24."""
+    rs = np.random.RandomState(40 + d)
+    kp = rs.randn(NBLK, BS, H, d).astype(np.float32)
+    vp = rs.randn(NBLK, BS, H, d).astype(np.float32)
+    tbl = rs.randint(1, 13, size=(B, BP)).astype(np.int32)
+    if kernel == "K4":
+        q = rs.randn(B, 4, H, d).astype(np.float32)
+        t = np.asarray([5, 17, 36], np.int32)
+        ref = paged_attention_pallas(jnp.asarray(q), jnp.asarray(kp),
+                                     jnp.asarray(vp), None, None,
+                                     jnp.asarray(tbl), jnp.asarray(t),
+                                     interpret=True)
+        out = k4.paged_attention(_t(q), _t(kp), _t(vp), _t(tbl), _t(t))
+    else:
+        tbl = tbl[:1]
+        q = rs.randn(1, 12, H, d).astype(np.float32)
+        ref = chunk_prefill_pallas(jnp.asarray(q), jnp.asarray(kp),
+                                   jnp.asarray(vp), None, None,
+                                   jnp.asarray(tbl), jnp.asarray(24),
+                                   interpret=True)
+        out = k5.chunk_prefill(_t(q), _t(kp), _t(vp), _t(tbl),
+                               torch.tensor(24, dtype=torch.int32))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)

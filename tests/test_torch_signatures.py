@@ -382,6 +382,10 @@ ABSENT = {
         "groups by exclude_from_weight_decay_fn; the port's rule zeroes "
         "the decay of each parameter it excludes (Optimizer.step "
         "inherited)",
+    "core/place.py::Place.torch_device": "the port's resolution of a "
+        "place: gpu:i is cuda:i, cpu the CPU",
+    "core/dtype.py::to_jax_dtype": "a JAX dtype: the port's dtypes are "
+        "torch's (dtype() normalises a name or numpy dtype to one)",
 }
 # port modules that carry every public callable of their reference but
 # the ``ABSENT`` entries named there
@@ -404,7 +408,86 @@ WHOLE = ["core/flags.py", "testing/fault_injection.py",
          "nn/layers/container.py", "nn/layers/transformer.py",
          "models/bert.py", "models/ernie.py", "regularizer.py",
          "inference/adaptive.py", "optimizer/optimizers.py",
-         "distributed/fleet/meta_optimizers.py", "incubate/asp.py"]
+         "distributed/fleet/meta_optimizers.py", "incubate/asp.py",
+         "core/dtype.py", "core/memory.py",
+         "device/__init__.py", "device/cuda.py", "framework/io.py",
+         "framework/__init__.py"]
+# public names of the reference's top level (``import paddle_tpu``) that
+# the port's (``import paddle_tpu_torch``) lacks, each with its reason and
+# its ROADMAP Queue 1 item (tests/test_torch_surface.py holds the two
+# namespaces to it)
+_UNPORTED_OPS = {
+    "controlflow": ["case", "cond", "switch_case", "while_loop"],
+    "dispatch": ["apply_op", "get_op", "register_op", "unwrap"],
+    "linalg": ["bmm", "cholesky", "cholesky_solve", "cross", "det", "dot",
+               "eig", "eigh", "eigvals", "eigvalsh", "einsum", "histogram",
+               "inv", "lstsq", "lu", "lu_unpack", "matrix_power",
+               "matrix_rank", "multi_dot", "mv", "norm", "outer", "pinv",
+               "qr", "slogdet", "solve", "svd", "t", "triangular_solve"],
+    "manip_ext": ["as_strided", "atleast_1d", "atleast_2d", "atleast_3d",
+                  "column_stack", "diag_embed", "diagflat", "diagonal",
+                  "dsplit", "dstack", "fill_diagonal", "hsplit", "hstack",
+                  "index_add", "index_fill", "index_put", "masked_fill",
+                  "masked_scatter", "rot90", "row_stack", "swapaxes",
+                  "swapdims", "take_along_dim", "tensor_split",
+                  "unflatten", "unfold", "view", "view_as", "vsplit",
+                  "vstack"],
+    "math_ext": ["addmm", "angle", "bernoulli", "bincount", "bucketize",
+                 "conj", "copysign", "corrcoef", "cov", "cummax", "cummin",
+                 "cumulative_trapezoid", "deg2rad", "diff", "digamma",
+                 "erfinv", "fmax", "fmin", "frexp", "gcd", "heaviside",
+                 "hypot", "i0", "i0e", "i1", "i1e", "imag", "inner",
+                 "isclose", "isneginf", "isposinf", "kron", "kthvalue",
+                 "lcm", "ldexp", "lgamma", "logaddexp", "logcumsumexp",
+                 "logit", "mode", "multinomial", "nan_to_num", "nanmean",
+                 "nanmedian", "nanquantile", "nansum", "nextafter",
+                 "poisson", "polygamma", "quantile", "rad2deg", "real",
+                 "remainder", "renorm", "searchsorted", "sgn", "signbit",
+                 "sinc", "take", "tensordot", "trapezoid", "vander"],
+    "misc_tail": ["acosh", "asinh", "atanh", "batch", "broadcast_shape",
+                  "broadcast_tensors", "broadcast_to_shape", "check_shape",
+                  "complex", "create_parameter", "disable_signal_handler",
+                  "disable_static", "dist", "enable_static", "equal_all",
+                  "floor_mod", "flops", "get_cuda_rng_state",
+                  "get_default_dtype", "in_dynamic_mode", "increment",
+                  "is_complex", "is_empty", "is_floating_point",
+                  "is_integer", "is_tensor", "mm", "multiplex",
+                  "randint_like", "rank", "reshape_", "reverse", "scatter_",
+                  "scatter_nd", "set_cuda_rng_state", "set_default_dtype",
+                  "set_grad_enabled", "set_printoptions", "shape",
+                  "squeeze_", "standard_gamma", "standard_normal", "tanh_",
+                  "tolist", "trace", "unique_consecutive", "unsqueeze_"],
+    "quant": ["dequantize_linear",
+              "fake_channel_wise_quantize_dequantize_abs_max",
+              "fake_quantize_abs_max", "fake_quantize_dequantize_abs_max",
+              "fake_quantize_dequantize_moving_average_abs_max",
+              "moving_average_abs_max_scale", "quantize_linear"],
+    "sequence": ["sequence_mask", "sequence_pad", "sequence_unpad"],
+}
+ABSENT_TOP = {
+    name: f"paddle_tpu/ops/{mod}.py is not ported yet (the op library's "
+          "rest): ROADMAP Queue 1 item 7"
+    for mod, names in _UNPORTED_OPS.items() for name in names + [mod]}
+ABSENT_TOP.update({
+    "autotune": "paddle_tpu/ops/autotune.py, the dispatch registry's "
+                "autotuner: the port calls each op directly; ROADMAP Queue "
+                "1 item 7",
+    "enforce": "paddle_tpu/core/enforce.py, the reference's error types, "
+               "is not ported yet: ROADMAP Queue 1 item 7",
+    "errors": "paddle_tpu/core/enforce.py's error types are not ported "
+              "yet: ROADMAP Queue 1 item 7",
+    "hapi": "the high-level API (hapi/) is not ported yet: ROADMAP Queue 1 "
+            "item 7",
+    "Model": "hapi.Model is not ported yet: ROADMAP Queue 1 item 7",
+    "summary": "hapi.summary is not ported yet: ROADMAP Queue 1 item 7",
+    "metric": "paddle_tpu/metric/ is not ported yet: ROADMAP Queue 1 item "
+              "7",
+    "DataParallel": "distributed/parallel.py needs the mesh over "
+                    "torch.distributed: ROADMAP Queue 1 item 6",
+    "jax_compat": "paddle_tpu/core/jax_compat.py shims JAX versions: JAX "
+                  "only, no Queue 1 item",
+})
+
 # port modules with no reference file at their path
 ABSENT_MODULES = {
     "ops/kernels/_build.py": "nvcc build and ctypes binding of csrc/",
