@@ -24,8 +24,10 @@ gradients into fp32 accumulators, one per parameter, and every
 ``avg``) and steps the optimizer (clip, decay, update) with the
 learning rate read at that call; the step counter counts micro-steps.
 ``sharding`` is a no-op on one device, as in the reference (its
-``sharding`` axis has one member). Pipelines, MoE and a mesh of more
-than one device are later work and raise ``NotImplementedError``.
+``sharding`` axis has one member), and so is ``moe``: the reference's
+trainer never reads it, and a GPT-MoE model trains through its own
+``loss_with_aux``. Pipelines and a mesh of more than one device are
+later work and raise ``NotImplementedError``.
 
 ZeRO offload (``sharding=True, sharding_configs={"offload": True}``):
 every non-scalar optimizer slot (``moment1``, ``moment2``, ``velocity``,
@@ -102,11 +104,10 @@ class ShardedTrainer:
         refuse_unported("ShardedTrainer", batch_spec=(batch_spec, None))
         self.strategy = strategy or DistributedStrategy()
         st = self.strategy
-        for feature in ("pipeline", "moe"):
-            if getattr(st, feature):
-                raise NotImplementedError(
-                    f"ShardedTrainer: strategy.{feature} is not ported yet "
-                    "(the port trains one model on one card)")
+        if st.pipeline:
+            raise NotImplementedError(
+                "ShardedTrainer: strategy.pipeline is not ported yet (the "
+                "port trains one model on one card)")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn

@@ -7,6 +7,14 @@ and the LM head tied to the token embedding (``gpt.py:637``). Weights are
 paddle's (in, out) layout, so ``set_state_dict`` copies a ``paddle_tpu``
 model's arrays by name with no transposes.
 
+A GPT-MoE config (``num_experts > 0``) puts a ``GPTMoEMLP`` in every
+``moe_every_k``-th block: the experts stacked by ``incubate``'s
+``MoELayer`` under the reference's names (``mlp.moe.htoh4__weight``,
+...), the gate at ``mlp.moe.gate.gate``. A MoE block routes whatever
+rows it is given, so every forward mode below serves it unchanged; its
+capacity follows from the rows of the call (a prefill chunk's pad tail
+and idle decode slots included, as in the reference).
+
 Forward modes:
 
 - no cache: causal attention over the whole sequence through
@@ -65,7 +73,6 @@ from paddle_tpu_torch.amp.auto_cast import maybe_cast_inputs
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.core.random import LANE_DRAW, position_uniforms
 from paddle_tpu_torch.core.random import generator as make_generator
-from paddle_tpu_torch.core.unported import refuse_unported
 from paddle_tpu_torch.distributed.fleet.utils import recompute
 from paddle_tpu_torch.distributed.meta_parallel import (ColumnParallelLinear,
                                                         RowParallelLinear,
@@ -77,7 +84,8 @@ from paddle_tpu_torch.ops.kernels.chunk_prefill import chunk_prefill
 from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
-           "gpt_tiny8", "gpt2_small", "gpt3_1p3b", "gpt3_13b"]
+           "gpt_tiny8", "gpt_moe_tiny", "gpt_moe_1p3b", "gpt2_small",
+           "gpt3_1p3b", "gpt3_13b"]
 
 _INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.int32,
                torch.int64)
@@ -99,13 +107,22 @@ class GPTConfig:
     # per-block activation recompute: None | "full" (gpt.py:59-62): each
     # block rematerializes its forward in the backward
     recompute_granularity: Optional[str] = None
+    # GPT-MoE (gpt.py:63-69): a MoE FFN every moe_every_k-th block
+    num_experts: int = 0           # 0 = dense
+    moe_top_k: int = 2
+    moe_gate: str = "gshard"       # naive | gshard | switch
+    moe_every_k: int = 2
+    moe_aux_weight: float = 0.01   # load-balance loss coefficient
+    moe_capacity_factor: Optional[float] = None  # None = the gate's
 
     @property
     def ffn_size(self) -> int:
         return self.intermediate_size or 4 * self.hidden_size
 
     def num_params(self) -> int:
-        """Parameter count of the tied model (``gpt.py:75``)."""
+        """Parameter count of the tied DENSE model (``gpt.py:75``; a
+        MoE config's experts and gates are not in it, as in the
+        reference)."""
         h, l, v = self.hidden_size, self.num_layers, self.vocab_size
         return v * h + self.max_position_embeddings * h + l * (
             4 * h * h + 2 * h * self.ffn_size + 13 * h) + 2 * h
@@ -405,18 +422,48 @@ class GPTMLP(Layer):
         return self.dropout(out)
 
 
+class GPTMoEMLP(Layer):
+    """The MoE FFN block (``gpt.py:462``): ``num_experts`` routed
+    ``ExpertLayer``s stacked by ``MoELayer`` (bmm over the (E, C, d)
+    buffers), the gate of ``moe_gate`` at ``moe_top_k``."""
+
+    def __init__(self, config: GPTConfig, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        from paddle_tpu_torch.incubate.distributed.models.moe import (
+            ExpertLayer, MoELayer)
+        from paddle_tpu_torch.nn import initializer as I
+
+        h = config.hidden_size
+        std = config.initializer_range
+        experts = [ExpertLayer(
+            h, config.ffn_size, weight_attr=I.Normal(0.0, std),
+            out_weight_attr=I.Normal(
+                0.0, std / math.sqrt(2 * config.num_layers)),
+            device=device, dtype=dtype)
+            for _ in range(config.num_experts)]
+        gate_cfg = {"type": config.moe_gate, "top_k": config.moe_top_k}
+        if config.moe_capacity_factor is not None:
+            gate_cfg["capacity"] = config.moe_capacity_factor
+        self.moe = MoELayer(d_model=h, experts=experts, gate=gate_cfg)
+        self.dropout = Dropout(config.hidden_dropout)
+
+    def forward(self, x):
+        return self.dropout(self.moe(x))
+
+
 class GPTBlock(Layer):
     def __init__(self, config: GPTConfig, use_moe: bool = False, *,
                  device=None, dtype=torch.float32):
         super().__init__()
-        refuse_unported("GPTBlock", use_moe=(use_moe, False))
         eps = config.layer_norm_epsilon
         self.ln_1 = LayerNorm(config.hidden_size, epsilon=eps, device=device,
                               dtype=dtype)
         self.attn = GPTAttention(config, device=device, dtype=dtype)
         self.ln_2 = LayerNorm(config.hidden_size, epsilon=eps, device=device,
                               dtype=dtype)
-        self.mlp = GPTMLP(config, device=device, dtype=dtype)
+        self.mlp = (GPTMoEMLP if use_moe else GPTMLP)(
+            config, device=device, dtype=dtype)
 
     def forward(self, x, cache=None, lora=None, *, write_rows=None):
         if cache is None:
@@ -425,7 +472,14 @@ class GPTBlock(Layer):
             a, cache = self.attn(self.ln_1(x), cache=cache, lora=lora,
                                  write_rows=write_rows)
             x = x + a
-        x = x + self.mlp(self.ln_2(x), lora=lora)
+        h = self.ln_2(x)
+        if isinstance(self.mlp, GPTMLP):
+            x = x + self.mlp(h, lora=lora)
+        else:
+            # a MoE block carries no MLP adapter (the routed experts are
+            # not one projection to perturb); attention deltas still
+            # apply (gpt.py:505-511)
+            x = x + self.mlp(h)
         return x if cache is None else (x, cache)
 
 
@@ -440,8 +494,13 @@ class GPTModel(Layer):
         self.wpe = Embedding(config.max_position_embeddings,
                              config.hidden_size, device=device, dtype=dtype)
         self.drop = Dropout(config.hidden_dropout)
-        self.h = LayerList([GPTBlock(config, device=device, dtype=dtype)
-                            for _ in range(config.num_layers)])
+        # a MoE FFN in every moe_every_k-th block (gpt.py:527-529)
+        self.h = LayerList([
+            GPTBlock(config, use_moe=(
+                config.num_experts > 0
+                and i % config.moe_every_k == config.moe_every_k - 1),
+                device=device, dtype=dtype)
+            for i in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_epsilon,
                               device=device, dtype=dtype)
@@ -533,8 +592,23 @@ class GPTForCausalLM(Layer):
             for blk in self.gpt.h:
                 blk.attn.qkv_proj.weight.normal_(0.0, std, generator=gen)
                 blk.attn.out_proj.weight.normal_(0.0, out_std, generator=gen)
-                blk.mlp.fc_in.weight.normal_(0.0, std, generator=gen)
-                blk.mlp.fc_out.weight.normal_(0.0, out_std, generator=gen)
+                if isinstance(blk.mlp, GPTMLP):
+                    blk.mlp.fc_in.weight.normal_(0.0, std, generator=gen)
+                    blk.mlp.fc_out.weight.normal_(0.0, out_std,
+                                                  generator=gen)
+                    continue
+                # the stacked experts as GPTMoEMLP's initializers draw
+                # them; the gate XavierUniform, its bias 0 (the
+                # reference's Linear defaults)
+                moe = blk.mlp.moe
+                moe.htoh4__weight.normal_(0.0, std, generator=gen)
+                moe.h4toh__weight.normal_(0.0, out_std, generator=gen)
+                moe.htoh4__bias.zero_()
+                moe.h4toh__bias.zero_()
+                w = moe.gate.gate.weight
+                lim = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+                w.uniform_(-lim, lim, generator=gen)
+                moe.gate.gate.bias.zero_()
 
     def forward(self, input_ids, labels=None, position_ids=None,
                 caches=None, adapters=None, output_hidden=False):
@@ -574,6 +648,22 @@ class GPTForCausalLM(Layer):
         """Functional LM loss (``gpt.py:656``): shift-by-one causal CE."""
         return F.cross_entropy(logits[:, :-1], labels[:, 1:],
                                reduction="mean")
+
+    def loss_with_aux(self, logits, labels):
+        """The LM loss plus ``moe_aux_weight`` times each MoE gate's
+        load-balance loss recorded in the same forward (``gpt.py:663``;
+        the ``ShardedTrainer`` loss_fn of a GPT-MoE model). Reading a
+        gate's loss clears it."""
+        from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+        loss = GPTForCausalLM.loss(logits, labels)
+        w = self.config.moe_aux_weight
+        for sub in self.modules():
+            if isinstance(sub, MoELayer):
+                aux = sub.gate.get_loss()
+                if aux is not None:
+                    loss = loss + aux * w
+        return loss
 
     # -- generation ---------------------------------------------------------
     def generate(self, input_ids, max_new_tokens: int = 20,
@@ -789,6 +879,19 @@ class GPTForCausalLM(Layer):
                 "max_position_embeddings": cfg.max_position_embeddings}
 
 
+class GPTForCausalLMPipe(Layer):
+    """Pipeline-parallel GPT on the 1F1B schedule (``gpt.py:1011``), the
+    MoE pipeline included: not ported, it needs ``Pipeline1F1B``."""
+
+    def __init__(self, config: GPTConfig, num_stages: int = 1,
+                 num_microbatches: int = 1,
+                 virtual_pipeline_degree: int = 1):
+        raise NotImplementedError(
+            "GPTForCausalLMPipe needs Pipeline1F1B, which the port does not "
+            "have yet (ROADMAP.md Queue 1 item 6); train GPTForCausalLM "
+            "(a GPT-MoE config included) on one card instead")
+
+
 def gpt_tiny() -> GPTConfig:
     """CI-sized config (``gpt.py:1088``)."""
     return GPTConfig(vocab_size=256, hidden_size=64, num_layers=2,
@@ -801,6 +904,25 @@ def gpt_tiny8() -> GPTConfig:
     return GPTConfig(vocab_size=256, hidden_size=64, num_layers=2,
                      num_heads=8, max_position_embeddings=128,
                      hidden_dropout=0.0, attention_dropout=0.0)
+
+
+def gpt_moe_tiny() -> GPTConfig:
+    """CI-sized GPT-MoE (``gpt.py:1106``): gshard top-2, 4 experts in
+    every other block."""
+    return GPTConfig(vocab_size=256, hidden_size=64, num_layers=2,
+                     num_heads=4, max_position_embeddings=128,
+                     hidden_dropout=0.0, attention_dropout=0.0,
+                     num_experts=4, moe_top_k=2, moe_gate="gshard",
+                     moe_every_k=2)
+
+
+def gpt_moe_1p3b() -> GPTConfig:
+    """GPT-MoE on the GPT-3 XL backbone (``gpt.py:1115``): 16 gshard
+    top-2 experts in every other block."""
+    return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
+                     num_heads=16, max_position_embeddings=2048,
+                     num_experts=16, moe_top_k=2, moe_gate="gshard",
+                     moe_every_k=2)
 
 
 def gpt2_small() -> GPTConfig:

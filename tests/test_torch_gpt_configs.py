@@ -1,11 +1,11 @@
 """The port's GPT configs against the reference's
 (``paddle_tpu/models/gpt.py``), and ``gpt_tiny8`` served by both.
 
-``gpt_tiny8``, ``gpt3_1p3b`` and ``gpt3_13b`` (and the two configs of
-earlier slices) must equal the reference's field for field, over every
-field of the port's ``GPTConfig`` (the reference's MoE fields wait for
-ROADMAP Queue 1 item 7 with the MoE configs), with the same
-``num_params``. Then ``gpt_tiny8`` (8 heads of 8, the head dim the
+Every config (``gpt_tiny``, ``gpt_tiny8``, ``gpt_moe_tiny``,
+``gpt_moe_1p3b``, ``gpt2_small``, ``gpt3_1p3b``, ``gpt3_13b``) must equal
+the reference's field for field, over every field of the port's
+``GPTConfig`` (the MoE fields included), with the same ``num_params``
+(the dense count for a MoE config, as the reference counts it). Then ``gpt_tiny8`` (8 heads of 8, the head dim the
 card's K4 and K5 take at run time since this slice) serves greedy
 requests through the paged engine of each framework on the CPU (the
 port's plain versions, JAX's paged attention) from the same weights:
@@ -33,14 +33,10 @@ from paddle_tpu_torch.models import gpt as port_gpt
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-CONFIGS = ["gpt_tiny", "gpt_tiny8", "gpt2_small", "gpt3_1p3b", "gpt3_13b"]
-# the reference's configs the port lacks, with the reason
-ABSENT_CONFIGS = {
-    "gpt_moe_tiny": "GPT-MoE (GPTMoEMLP, the MoE fields of GPTConfig): "
-                    "ROADMAP Queue 1 item 7",
-    "gpt_moe_1p3b": "GPT-MoE (GPTMoEMLP, the MoE fields of GPTConfig): "
-                    "ROADMAP Queue 1 item 7",
-}
+CONFIGS = ["gpt_tiny", "gpt_tiny8", "gpt_moe_tiny", "gpt_moe_1p3b",
+           "gpt2_small", "gpt3_1p3b", "gpt3_13b"]
+# the reference's configs the port lacks, with the reason (none left)
+ABSENT_CONFIGS = {}
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -70,7 +66,8 @@ def test_every_reference_config_is_ported_or_stated_absent():
 def test_head_dims_of_the_configs():
     dims = {n: getattr(port_gpt, n)().hidden_size
             // getattr(port_gpt, n)().num_heads for n in CONFIGS}
-    assert dims == {"gpt_tiny": 16, "gpt_tiny8": 8, "gpt2_small": 64,
+    assert dims == {"gpt_tiny": 16, "gpt_tiny8": 8, "gpt_moe_tiny": 16,
+                    "gpt_moe_1p3b": 128, "gpt2_small": 64,
                     "gpt3_1p3b": 128, "gpt3_13b": 128}
     from paddle_tpu_torch.ops.kernels.flash_attention import HEAD_DIMS
 

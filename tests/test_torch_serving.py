@@ -326,7 +326,8 @@ def test_port_never_imports_jax_or_the_jax_package():
               REPO / "k5_fault_check.py", REPO / "k5_variants.py",
               REPO / "k2_fault_check.py", REPO / "k2_variants.py",
               REPO / "k45_f32_fault_check.py", REPO / "k45_f32_variants.py",
-              REPO / "offload_fault_check.py"]
+              REPO / "offload_fault_check.py",
+              REPO / "fused_fault_check.py"]
     assert len(files) > 10
     for module in ("observability/__init__.py", "observability/metrics.py",
                    "observability/ops_plane.py", "inference/program_set.py",
@@ -345,7 +346,15 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "incubate/__init__.py", "core/place.py",
                    "core/dtype.py", "core/memory.py", "core/autograd.py",
                    "device/__init__.py", "device/cuda.py",
-                   "framework/__init__.py", "framework/io.py"):
+                   "framework/__init__.py", "framework/io.py",
+                   "incubate/extras.py", "incubate/nn/__init__.py",
+                   "incubate/nn/fused_transformer.py",
+                   "incubate/distributed/__init__.py",
+                   "incubate/distributed/models/__init__.py",
+                   "incubate/distributed/models/moe/__init__.py",
+                   "incubate/distributed/models/moe/gate.py",
+                   "incubate/distributed/models/moe/moe_layer.py",
+                   "incubate/distributed/models/moe/grad_clip.py"):
         assert REPO / "paddle_tpu_torch" / module in files
     bad = []
     for f in files:

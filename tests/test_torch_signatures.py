@@ -42,9 +42,9 @@ from paddle_tpu_torch.inference.frontend import SamplingParams
 from paddle_tpu_torch.inference.prefix_cache import PrefixCacheNode
 from paddle_tpu_torch.inference.program_set import ProgramSet
 from paddle_tpu_torch.inference.serving import DecodeEngine, ServingMetrics
-from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+from paddle_tpu_torch.models import GPTForCausalLM, gpt_moe_tiny, gpt_tiny
 from paddle_tpu_torch.models.gpt import (GPTAttention, GPTBlock, GPTMLP,
-                                         GPTModel)
+                                         GPTModel, GPTMoEMLP)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
 
@@ -187,8 +187,7 @@ CASES = {
         {"axis": None, "mode": "upscale_in_train", "name": None}, None),
     "GPTBlock": (
         "models/gpt.py", "GPTBlock", GPTBlock,
-        lambda **kw: GPTBlock(gpt_tiny(), device="cpu", **kw),
-        {"use_moe": False}, None),
+        lambda **kw: GPTBlock(gpt_tiny(), device="cpu", **kw), {}, None),
     "GPTAttention": ("models/gpt.py", "GPTAttention", GPTAttention, None,
                      {}, None),
     "GPTMLP": ("models/gpt.py", "GPTMLP", GPTMLP, None, {}, None),
@@ -339,7 +338,9 @@ KW_ONLY = {
     "device": "entry points run on the card unless the caller asks for "
               "the CPU",
     "dtype": "layers are built at a torch dtype (bf16 serving)",
-    "seed": "GPTForCausalLM draws its weights from a seeded generator",
+    "seed": "GPTForCausalLM draws its weights from a seeded generator; "
+            "the graph samplers draw from a seeded numpy stream (the "
+            "reference's is unseeded)",
     "write_rows": "the commit plan one forward's layers share",
     "op_name": "the op name AMP casts the tensor-parallel layers by",
     "seconds": "the host step time behind decode_step_ms_p50",
@@ -411,7 +412,13 @@ WHOLE = ["core/flags.py", "testing/fault_injection.py",
          "distributed/fleet/meta_optimizers.py", "incubate/asp.py",
          "core/dtype.py", "core/memory.py",
          "device/__init__.py", "device/cuda.py", "framework/io.py",
-         "framework/__init__.py"]
+         "framework/__init__.py", "incubate/__init__.py",
+         "incubate/extras.py", "incubate/nn/__init__.py",
+         "incubate/nn/fused_transformer.py",
+         "incubate/distributed/models/moe/__init__.py",
+         "incubate/distributed/models/moe/gate.py",
+         "incubate/distributed/models/moe/moe_layer.py",
+         "incubate/distributed/models/moe/grad_clip.py"]
 # public names of the reference's top level (``import paddle_tpu``) that
 # the port's (``import paddle_tpu_torch``) lacks, each with its reason and
 # its ROADMAP Queue 1 item (tests/test_torch_surface.py holds the two
@@ -696,8 +703,10 @@ BINDS = {
     "VocabParallelEmbedding(10, 4, 1)": (
         lambda: _type_error("ParamAttr", VocabParallelEmbedding, 10, 4, 1),
         None),
-    "GPTBlock(config, True)": (lambda: GPTBlock(gpt_tiny(), True),
-                               "use_moe"),
+    # use_moe, second: the block's FFN is the routed experts
+    "GPTBlock(config, True)": (
+        lambda: isinstance(GPTBlock(gpt_moe_tiny(), True, device="cpu").mlp,
+                           GPTMoEMLP), None),
     # sampling, 7th: the SamplingParams bundle submit() folds in
     "Request(prompt, 4, 1.0, True, None, None, sampling)": (
         lambda: Request([1], 4, 1.0, True, None, None, _SP).sampling is _SP,

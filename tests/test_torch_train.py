@@ -354,9 +354,10 @@ def test_three_train_steps_match_jax_trainer(amp, rtol):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """A mesh of more than one device, pipelines, MoE and a batch spec
-    are later work; a one-device mesh is accepted (ZeRO offload is
-    ported: tests/test_torch_offload.py)."""
+    """A mesh of more than one device, pipelines and a batch spec are
+    later work; a one-device mesh is accepted (ZeRO offload is ported:
+    tests/test_torch_offload.py; ``strategy.moe`` trains a GPT-MoE:
+    tests/test_torch_moe.py)."""
     from paddle_tpu_torch.distributed import DistributedStrategy
 
     pm = GPTForCausalLM(gpt_tiny(), device="cpu")
@@ -364,7 +365,6 @@ def test_trainer_refuses_what_is_not_ported():
     for kw, match in ((dict(mesh=np.zeros(4)), "more than one device"),
                       (dict(strategy=DistributedStrategy(pipeline=True)),
                        "pipeline"),
-                      (dict(strategy=DistributedStrategy(moe=True)), "moe"),
                       (dict(batch_spec=("dp",)), "batch_spec")):
         with pytest.raises(NotImplementedError, match=match):
             ShardedTrainer(pm, opt, None, **kw)
