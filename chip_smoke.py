@@ -359,9 +359,20 @@ Phases, in order (any failure exits non-zero and prints no result):
    stack in fp32: the flash route's distances (output, worst gradient,
    worst q/k/v gradient) within FUSED_RATIO times the plain route's
    (``fused_fault_check.py`` plants K1 and K3a faults against it);
+8e. ``gpt2_small`` at full width and depth trained over meshes of ranks
+   (global batch 8 x 1024, AdamW with a global-norm clip, 3 steps):
+   (a) one rank on NCCL through ``fleet.init`` and
+   ``ShardedTrainer(mesh=)``, bitwise the one-process run given the same
+   gradients; (b) dp 2, (c) mp 2, (d) ZeRO-2 and ZeRO-3 over sharding 2
+   and (e) dp 2 x mp 2, gangs of ranks on this card over gloo started by
+   the port's launcher (``mesh_gang.py``), each in fp32 held to the
+   one-process run (MESH_LOSS_RTOL, MESH_PARAM_ATOL), each rank's K1,
+   K3a and K2 launches exact, and the bf16 AMP step printed (gloo through
+   host, not a measure of NCCL); (e)'s checkpoint loaded into one
+   process gives (e)'s next loss;
 9. the ``kernels`` JSON line (K1's, K3a's and K2's launches include
-   phases 6e, 6f, 6g, 7 and 8's; K2's, K4's and K5's 5m's, 5n's, 5o's
-   and 8's), then the ``ok`` line.
+   phases 6e, 6f, 6g, 7 and 8's, and every rank's of 8e; K2's, K4's and
+   K5's 5m's, 5n's, 5o's and 8's), then the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -6582,6 +6593,179 @@ def fused_phase(torch, card):
     return r["launches"]["flash"]
 
 
+# -- phase 8e: gpt2_small trained over a mesh of ranks ---------------------------
+
+# fp32 parity of the mesh runs (8e (b)-(e)) against the one-process run
+# on the same card, weights and batch: the losses relatively, every
+# parameter after 3 AdamW steps absolutely (Adam's first steps are ~lr
+# whatever the gradient's scale, so a parameter whose gradient sums to
+# ~0 may step either way when the sums run in another order). Over two
+# runs on an H100 the sound meshes' worst are a loss 9.26e-8 off (one
+# fp32 ulp at ~10) and a parameter 1.29e-5 off (dp 2; the others 7.6e-6
+# to 1.13e-5), PERF.md: the limits sit 4.3x and 3.9x above. The
+# CPU tests' planted faults (tests/test_torch_mesh_trainer.py) move the
+# parameters by ~6 lr in 3 steps, 6e-4 at this lr.
+MESH_LOSS_RTOL = 4e-7
+MESH_PARAM_ATOL = 5e-5
+MESH_GANGS = ((2, ("b", "c", "d2", "d3")), (4, ("e",)))
+MESH_GANG_TIMEOUT_S = 300.0
+
+
+def _run_gang(nproc, out, cases):
+    """``mesh_gang.py`` in ``nproc`` ranks through the port's launcher,
+    its workers in a session of their own, killed whole past the
+    timeout."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(nproc), "--log_dir",
+           os.path.join(out, f"logs{nproc}"),
+           os.path.join(root, "mesh_gang.py"), out, *cases]
+    proc = subprocess.Popen(cmd, cwd=root, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=MESH_GANG_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    if rc != 0:
+        logs = "".join(open(os.path.join(out, f"logs{nproc}", f)).read()[-3000:]
+                       for f in sorted(os.listdir(os.path.join(
+                           out, f"logs{nproc}"))))
+        fail(f"8e: the {nproc}-rank gang {cases} ended {rc}:\n{logs}")
+
+
+def mesh_phase(torch, card):
+    """Phase 8e: ``gpt2_small`` at full width and depth over meshes of
+    ranks (``mesh_gang.py``). (a) One rank on NCCL through
+    ``fleet.init`` and ``ShardedTrainer(mesh=)``, in lockstep with the
+    one-process run (``mesh=None``), the same gradients fed to both
+    updates (``_GradTap``): losses and parameters bitwise. (b)-(e) gangs
+    of 2 and 4 ranks on this card over gloo (dp 2, mp 2, ZeRO-2 and
+    ZeRO-3 over sharding 2, dp 2 x mp 2): 3 fp32 steps held to the
+    one-process run (MESH_LOSS_RTOL, MESH_PARAM_ATOL), each rank's K1,
+    K3a and K2 launches exact, and the bf16 AMP step time. Then (e)'s
+    checkpoint loads into one process, whose next loss must be (e)'s.
+    Returns the launches of every rank's counted steps."""
+    import gc
+    import tempfile
+
+    import mesh_gang
+    from paddle_tpu_torch.distributed import env, fleet, gloo_release
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+
+    cfg = gpt2_small()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    L, steps = cfg.num_layers, mesh_gang.STEPS
+    ids = torch.from_numpy(mesh_gang.batch_ids(cfg.vocab_size)).cuda()
+    out = tempfile.mkdtemp(prefix="mesh-8e-")
+    total = {"K1": 0, "K3a": 0, "K2": 0}
+
+    def want(n):
+        return {"K1": L * n, "K3a": L * n, "K3b": 0, "K2": (2 * L + 1) * n}
+
+    # (a): one-rank NCCL beside mesh=None, fp32, in lockstep
+    fa.reset_launches()
+    k2.reset_launches()
+    ref = mesh_gang.make_trainer(torch, cfg, wrap=_GradTap)
+    init_parallel_env(f"file://{out}/nccl-store", 1, 0, backend="nccl")
+    fleet.init(is_collective=True)
+    check(fleet.get_mesh().size == 1 and torch.distributed.get_backend()
+          == "nccl", "8e (a): not a one-rank NCCL mesh")
+    one = mesh_gang.make_trainer(
+        torch, cfg, mesh=fleet.get_mesh(),
+        wrap=lambda o: _GradTap(o, source=ref.optimizer))
+    ref_losses = []
+    for i in range(steps):
+        lr_, la = ref.train_step(ids, ids), one.train_step(ids, ids)
+        check(torch.equal(lr_, la), f"8e (a): step {i + 1} loss "
+              f"{float(la)!r} != mesh=None {float(lr_)!r}")
+        ref_losses.append(float(lr_))
+    for (n, p), q in zip(ref.model.named_parameters(),
+                         one.model.parameters()):
+        check(torch.equal(p, q), f"8e (a): parameter {n} differs")
+    got = _counts(fa, k2)
+    check(got == want(2 * steps), f"8e (a) launches {got} != "
+          f"{want(2 * steps)}")
+    for k in total:
+        total[k] += got[k]
+    torch.save({"losses": ref_losses,
+                "params": {n: p.detach().cpu() for n, p in
+                           ref.model.named_parameters()}},
+               os.path.join(out, "ref.pt"))
+    print(f"8e (a) one-rank NCCL mesh through fleet.init on {card}: losses "
+          f"{ref_losses} bitwise mesh=None's, every parameter bitwise",
+          flush=True)
+    del ref, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b)-(e): gloo gangs on this card
+    results = {}
+    for nproc, cases in MESH_GANGS:
+        t0 = time.perf_counter()
+        _run_gang(nproc, out, cases)
+        print(f"8e: the {nproc}-rank gang {cases}: "
+              f"{time.perf_counter() - t0:.1f} s wall", flush=True)
+        for name in cases:
+            results[name] = [json.load(open(os.path.join(
+                out, f"{name}.rank{r}.json"))) for r in range(nproc)]
+    for name, ranks in results.items():
+        r0 = ranks[0]
+        for r, res in enumerate(ranks):
+            check(res["fp32_launches"] == want(steps)
+                  and res["bf16_launches"] == want(mesh_gang.TIMED),
+                  f"8e ({name}) rank {r}: launches {res['fp32_launches']} "
+                  f"(fp32), {res['bf16_launches']} (bf16) != "
+                  f"{want(steps)}, {want(mesh_gang.TIMED)}")
+            check(res["losses"] == r0["losses"],
+                  f"8e ({name}): rank {r}'s losses differ from rank 0's")
+            for k in total:
+                total[k] += res["fp32_launches"][k] + res["bf16_launches"][k]
+        print(f"8e ({name}) mesh {r0['mesh']} ZeRO {r0['stage']}, "
+              f"{len(ranks)} ranks on {card}, fp32: losses {r0['losses']}; "
+              f"distance from one process: loss {r0['loss_rel']:.3g} "
+              f"(limit {MESH_LOSS_RTOL}), parameters {r0['param_abs']:.3g} "
+              f"(limit {MESH_PARAM_ATOL}); bf16 AMP step "
+              f"{float(np.median(r0['bf16_step_ms'])):.1f} ms p50 of "
+              f"{[round(x, 1) for x in r0['bf16_step_ms']]} (gloo through "
+              f"host, not a measure of NCCL), peak {max(x['peak_gib'] for x in ranks):.2f} "
+              f"GiB a rank; launches a rank fp32 {r0['fp32_launches']}, "
+              f"bf16 {r0['bf16_launches']}", flush=True)
+        check(r0["loss_rel"] <= MESH_LOSS_RTOL
+              and r0["param_abs"] <= MESH_PARAM_ATOL,
+              f"8e ({name}): fp32 distance from one process {r0['loss_rel']}"
+              f", {r0['param_abs']} over the limits")
+
+    # (e)'s checkpoint into one process: the same next loss
+    fa.reset_launches()
+    k2.reset_launches()
+    back = mesh_gang.make_trainer(torch, cfg)
+    back.load_checkpoint(os.path.join(out, "ckpt_e"))
+    nxt = float(back.train_step(ids, ids))
+    e_next = results["e"][0]["next_loss"]
+    rel = abs(nxt - e_next) / abs(e_next)
+    print(f"8e: (e)'s 4-rank checkpoint in one process: next loss {nxt!r} "
+          f"against (e)'s {e_next!r}, relative {rel:.3g} (limit "
+          f"{MESH_LOSS_RTOL})", flush=True)
+    check(back.step_count == steps + 1 and rel <= MESH_LOSS_RTOL,
+          f"8e: (e)'s checkpoint gives next loss {nxt} != {e_next}")
+    got = _counts(fa, k2)
+    for k in total:
+        total[k] += got[k]
+    del back
+    gloo_release()
+    fleet.fleet_state().__init__()
+    env.set_mesh(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def _profile_step(torch, run, step_ms):
     """Device time of one more training step (``run()``) by kernel, from
     ``torch.profiler`` (CUPTI): the largest kernels, and the device's
@@ -6807,12 +6991,14 @@ def main():
     lap("gpt_moe_tiny on the card against the CPU (8c)")
     fused = fused_phase(torch, card)
     lap("the fused encoder layers (8d)")
+    mesh = mesh_phase(torch, card)
+    lap("gpt2_small over a mesh of ranks (8e)")
     launches["K2"] += (enc_launches["K2"] + offload_launches["K2"]
                        + opt_launches["K2"] + gpt3_launches["K2"]
                        + n5_launches["K2"] + n5_q_launches["K2"]
                        + moe_train["K2"] + moe_serve["K2"]
                        + moe_serve_q["K2"] + moe_serve_fp32["K2"]
-                       + moe_tiny["K2"] + fused["K2"])
+                       + moe_tiny["K2"] + fused["K2"] + mesh["K2"])
     for k, n in (("K4-bf16", n5_launches["K4"] + moe_serve["K4"]),
                  ("K5-bf16", n5_launches["K5"] + moe_serve["K5"]),
                  ("K4-int8-bf16", n5_q_launches["K4-int8"]
@@ -6825,11 +7011,11 @@ def main():
     launches.update({"K1": train_launches["K1"] + enc_launches["K1"]
                      + offload_launches["K1"] + opt_launches["K1"]
                      + gpt3_launches["K1"] + moe_train["K1"]
-                     + moe_tiny["K1"] + fused["K1"],
+                     + moe_tiny["K1"] + fused["K1"] + mesh["K1"],
                      "K3a": train_launches["K3a"] + enc_launches["K3a"]
                      + offload_launches["K3a"] + opt_launches["K3a"]
                      + gpt3_launches["K3a"] + moe_train["K3a"]
-                     + moe_tiny["K3a"] + fused["K3a"],
+                     + moe_tiny["K3a"] + fused["K3a"] + mesh["K3a"],
                      "K3b-dkv": long_launches["bwd_dkv"],
                      "K3b-dq": long_launches["bwd_dq"],
                      "K1-fp16": fp16_launches["K1"],

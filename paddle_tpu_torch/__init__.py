@@ -100,6 +100,11 @@ _LAZY_SUBMODULES = (
 
 
 def __getattr__(name):
+    if name == "DataParallel":
+        from paddle_tpu_torch.distributed.parallel import DataParallel
+
+        globals()[name] = DataParallel
+        return DataParallel
     if name in _LAZY_SUBMODULES:
         module = _importlib.import_module(f"paddle_tpu_torch.{name}")
         globals()[name] = module

@@ -13,7 +13,9 @@ the count of skipped steps. The protocol is paddle's:
 that all of them are finite in one fused pass over each dtype's
 gradients (``torch._amp_foreach_non_finite_check_and_unscale_``: the
 reference's check_finite_and_unscale), reading one flag back to the host
-once a step. A step whose gradients are not all finite is skipped: the
+once a step. Over a process group of more than one rank the flag is
+max-reduced over the whole world first, so every rank skips the same
+step. A step whose gradients are not all finite is skipped: the
 optimizer is not called, so the parameters and its state stay bit for
 bit what they were, and the skip is counted and warned about with
 ``distributed.resilience.TransientFailureWarning``, as the reference
@@ -28,6 +30,22 @@ from typing import Dict
 import torch
 
 __all__ = ["GradScaler", "AmpScaler"]
+
+
+def _found_anywhere(found):
+    """The non-finite flag, max-reduced over every rank of the process
+    group, so every rank skips the same step."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return found
+    if found is None:
+        dev = torch.device("cuda", torch.cuda.current_device()) \
+            if dist.get_backend() == "nccl" else torch.device("cpu")
+        found = torch.zeros((), dtype=torch.float32, device=dev)
+    dist.all_reduce(found, op=dist.ReduceOp.MAX)
+    return found
 
 
 class GradScaler:
@@ -82,6 +100,7 @@ class GradScaler:
                                  device=dev)
             torch._amp_foreach_non_finite_check_and_unscale_(grads, found,
                                                              inv)
+        found = _found_anywhere(found)
         self._found_inf = bool(found is not None and found.item() != 0.0)
         self._unscaled = True
 

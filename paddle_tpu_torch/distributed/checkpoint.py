@@ -1,5 +1,5 @@
 """Checkpoint save/resume — the port of
-``paddle_tpu/distributed/checkpoint.py``, for one process.
+``paddle_tpu/distributed/checkpoint.py``.
 
 It writes the reference's on-disk format (``"format":
 "paddle_tpu.sharded.v1"``), so a checkpoint written by either package
@@ -13,13 +13,21 @@ loads in the other:
   both), ``meta.json`` (every array's shape and dtype name, the
   ``extra`` train state, ``"nprocs"``) and ``COMMIT-0``.
 
-The port's one process writes every array whole as one piece.
-:func:`load_state` assembles each array from every saved piece that
-overlaps it, so a checkpoint the JAX package wrote under a sharded mesh
-(one piece per shard, ``shard-<p>.npz`` per process) loads whole. It
-returns torch tensors on a keyword-only ``device`` (``"cuda"`` unless
-the caller asks for the CPU); ``mesh`` and ``specs`` are accepted at
-None or with a one-device mesh only.
+One process writes every tensor whole as one piece. Over a mesh of
+ranks (``torch.distributed``), the reference's multi-process layout:
+each rank writes ``shard-<rank>.npz`` and ``index-<rank>.json`` with
+the pieces it is the first replica of (a ``_Piece``: this rank's window
+of a tensor of a global shape, written when ``replica_id`` would be 0),
+its ``checksums-<rank>.json`` and ``COMMIT-<rank>``; rank 0 writes
+``meta.json`` (``"nprocs"``: the world size); then a barrier over the
+process group, the rename by rank 0, and a second barrier.
+:func:`load_state` assembles each array, or with a ``mesh`` and
+``specs`` each rank's window of it, from every saved piece that
+overlaps it, whatever mesh or package saved it. It returns torch
+tensors on a keyword-only ``device`` (``"cuda"`` unless the caller asks
+for the CPU). The async checkpointer's commit runs off the training
+thread, where no collective may run: over more than one rank it raises
+``NotImplementedError`` (ROADMAP.md Queue 1 item 6).
 
 bfloat16: numpy has no bfloat16 without ``ml_dtypes``. The reference
 writes a bf16 array's raw 2-byte elements (numpy reads them back as
@@ -55,7 +63,6 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.place import resolve_device
-from paddle_tpu_torch.core.unported import refuse_unported
 
 __all__ = ["save_state", "load_state", "load_meta", "save_rng_state",
            "load_rng_state", "AsyncCheckpointer", "CheckpointCorruptError",
@@ -76,9 +83,33 @@ class CheckpointCorruptError(RuntimeError):
     this to fall back to the previous committed version."""
 
 
+class _Piece:
+    """This rank's window ``bounds`` (``[[start, stop], ...]``) of a
+    tensor of global ``shape``, written when ``write`` (the first
+    replica of that window)."""
+
+    __slots__ = ("value", "shape", "bounds", "write")
+
+    def __init__(self, value, shape, bounds, write: bool):
+        self.value, self.shape = value, tuple(shape)
+        self.bounds, self.write = bounds, write
+
+
+def _rank_world() -> Tuple[int, int]:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def _barrier(tag: str):
-    """The device barrier of a multi-process save; one process has no
-    peer to wait for."""
+    """The barrier of a multi-process save, over the process group; one
+    process has no peer to wait for."""
+    import torch.distributed as dist
+
+    if _rank_world()[1] > 1:
+        dist.barrier()
 
 
 def _host_barrier(tag: str):
@@ -118,9 +149,16 @@ def _snapshot_to_host(state: Dict[str, Any]):
     index_map: Dict[str, Dict] = {}
     meta_arrays: Dict[str, Dict] = {}
     for name, value in state.items():
+        key = f"{name}#0"
+        if isinstance(value, _Piece):
+            meta_arrays[name] = {"shape": list(value.shape),
+                                 "dtype": _DTYPE_NAMES[value.value.dtype]}
+            if value.write:
+                shards[key] = _to_host(value.value)[0]
+                index_map[key] = {"name": name, "bounds": value.bounds}
+            continue
         arr, dtype = _to_host(value)
         meta_arrays[name] = {"shape": list(arr.shape), "dtype": dtype}
-        key = f"{name}#0"
         shards[key] = arr
         index_map[key] = {"name": name,
                           "bounds": [[0, d] for d in arr.shape]}
@@ -158,7 +196,7 @@ def _write_shards(path: str, version: int, shards, index_map, meta_arrays,
 
     final = os.path.join(path, f"v{version:012d}")
     staging = final + ".staging"
-    pid = 0
+    pid, nprocs = _rank_world()
     os.makedirs(staging, exist_ok=True)
 
     def write_data():
@@ -177,23 +215,26 @@ def _write_shards(path: str, version: int, shards, index_map, meta_arrays,
             for name in (f"shard-{pid}.npz", f"index-{pid}.json")}
     with open(os.path.join(staging, f"checksums-{pid}.json"), "w") as f:
         json.dump(sums, f)
-    with open(os.path.join(staging, "meta.json"), "w") as f:
-        json.dump({"arrays": meta_arrays, "extra": extra or {},
-                   "nprocs": 1, "format": "paddle_tpu.sharded.v1"}, f)
+    if pid == 0:
+        with open(os.path.join(staging, "meta.json"), "w") as f:
+            json.dump({"arrays": meta_arrays, "extra": extra or {},
+                       "nprocs": nprocs, "format": "paddle_tpu.sharded.v1"},
+                      f)
     # a crash here leaves a staging dir with full data and no COMMIT:
     # load_state ignores it and restores the previous committed version
     fi.fault_point("ckpt:pre_commit", version=version, process=pid)
     with open(os.path.join(staging, f"COMMIT-{pid}"), "w") as f:
         f.write("ok")
     barrier(f"save-{version}")
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(staging, final)
-    versions = sorted(d for d in os.listdir(path)
-                      if d.startswith("v") and not d.endswith(".staging")
-                      and os.path.isdir(os.path.join(path, d)))
-    for old in versions[:-keep_last] if keep_last else []:
-        shutil.rmtree(os.path.join(path, old), ignore_errors=True)
+    if pid == 0:
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(staging, final)
+        versions = sorted(d for d in os.listdir(path)
+                          if d.startswith("v") and not d.endswith(".staging")
+                          and os.path.isdir(os.path.join(path, d)))
+        for old in versions[:-keep_last] if keep_last else []:
+            shutil.rmtree(os.path.join(path, old), ignore_errors=True)
     barrier(f"commit-{version}")
 
 
@@ -223,6 +264,11 @@ class AsyncCheckpointer:
              extra: Optional[Dict[str, Any]] = None,
              version: Optional[int] = None, keep_last: int = 2) -> None:
         self.wait_until_finished()
+        if _rank_world()[1] > 1:
+            raise NotImplementedError(
+                "AsyncCheckpointer over more than one rank: its commit "
+                "needs a host barrier off the collectives (ROADMAP.md "
+                "Queue 1 item 6); use save_state")
         if version is None:
             version = int((extra or {}).get("step", 0))
         shards, index_map, meta_arrays = _snapshot_to_host(state)
@@ -344,13 +390,14 @@ def _host_dtype(name: str) -> np.dtype:
     return _RAW_BF16 if name == "bfloat16" else np.dtype(name)
 
 
-def _assemble(path, name, pieces, shape, dtype, npz) -> np.ndarray:
-    """The whole array ``name`` from every saved piece that overlaps
-    it; raises ValueError when the pieces do not cover it."""
-    want = [[0, d] for d in shape]
+def _assemble(path, name, pieces, want, dtype, npz) -> np.ndarray:
+    """The window ``want`` (``[[start, stop], ...]``) of array ``name``
+    from every saved piece that overlaps it; raises ValueError when the
+    pieces do not cover it."""
+    shape = tuple(b - a for a, b in want)
     if len(pieces) == 1 and pieces[0][2] == want:
-        data = npz(pieces[0][0])[pieces[0][1]]   # one whole piece
-        if data.shape == tuple(shape) and data.dtype == dtype:
+        data = npz(pieces[0][0])[pieces[0][1]]   # one piece, the window
+        if data.shape == shape and data.dtype == dtype:
             return data
     buf = np.empty(shape, dtype)
     filled = 0
@@ -362,7 +409,8 @@ def _assemble(path, name, pieces, shape, dtype, npz) -> np.ndarray:
         data = npz(pid)[key]
         src = tuple(slice(a - sb[0], b - sb[0])
                     for (a, b), sb in zip(inter, bounds))
-        dst = tuple(slice(a, b) for a, b in inter)
+        dst = tuple(slice(a - w[0], b - w[0]) for (a, b), w in zip(inter,
+                                                                 want))
         buf[dst] = data[src]
         filled += int(np.prod([b - a for a, b in inter]))
     if filled != int(np.prod(buf.shape)):
@@ -378,17 +426,24 @@ def load_state(path: str, mesh=None, specs=None,
     """Restore every array of a checkpoint as a tensor on ``device``.
 
     ``path`` may be the checkpoint root (the newest committed version is
-    used) or a version dir. Each array is assembled whole from the saved
-    pieces that overlap it, whatever mesh saved it. Returns
-    ``(tensors, extra)``.
+    used) or a version dir. Each array is assembled from the saved pieces
+    that overlap it, whatever mesh saved it: whole, or, with a ``mesh``
+    of ranks (``distributed.env.Mesh``), this rank's window of the spec
+    ``specs[name]`` gives it (replicated where ``specs`` has none).
+    Returns ``(tensors, extra)``.
 
     ``verify`` (default ``FLAGS_ckpt_verify``) checksums every shard
     before reading; corruption raises :class:`CheckpointCorruptError`.
     Fallback to an older version is the caller's decision
-    (``resilience.CheckpointManager.restore``). ``mesh`` of more than
-    one device is not ported (the port loads on one card)."""
-    if mesh is not None and getattr(mesh, "size", 1) != 1:
-        refuse_unported("load_state", mesh=(mesh, None))
+    (``resilience.CheckpointManager.restore``)."""
+    from paddle_tpu_torch.distributed.env import Mesh
+
+    if mesh is not None and getattr(mesh, "size", 1) != 1 \
+            and not isinstance(mesh, Mesh):
+        raise NotImplementedError(
+            "load_state: a mesh of more than one device is a "
+            "distributed.env Mesh over torch.distributed ranks")
+    ranked = isinstance(mesh, Mesh) and mesh.size > 1
     dev = resolve_device(device)
     path = _resolve_dir(path)
     if verify is None:
@@ -413,7 +468,10 @@ def load_state(path: str, mesh=None, specs=None,
             if not pieces:
                 raise FileNotFoundError(
                     f"checkpoint {path} has no data for array {name!r}")
-            arr = _assemble(path, name, pieces, tuple(info["shape"]),
+            shape = tuple(info["shape"])
+            want = (mesh.window((specs or {}).get(name, ()), shape)
+                    if ranked else [[0, d] for d in shape])
+            arr = _assemble(path, name, pieces, want,
                             _host_dtype(info["dtype"]), npz)
             if info["dtype"] == "bfloat16":
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)

@@ -1,17 +1,26 @@
-"""``fleet`` of the port: ``utils.recompute`` (activation
-rematerialization), the ``DistributedStrategy`` tree, and the optimizer
-side of the facade of ``paddle_tpu/distributed/fleet/__init__.py``:
-``distributed_optimizer``, ``HybridParallelOptimizer``, ``fleet_state``
-and the LocalSGD meta-optimizers (``meta_optimizers``).
+"""``fleet`` of the port — ``paddle_tpu/distributed/fleet/__init__.py``:
+``utils.recompute``, the ``DistributedStrategy`` tree, the LocalSGD
+meta-optimizers (``meta_optimizers``), and the facade: ``init`` builds
+the hybrid topology and its mesh, ``distributed_model`` and
+``distributed_optimizer`` wrap the model and the optimizer for it.
+
+``init`` joins the process group (``init_parallel_env``), reads the
+degrees of ``strategy.hybrid_configs`` (``dp``, ``pp``, ``sharding``,
+``mp``, and ``sep`` when above 1), lets dp absorb the ranks the others
+leave (``world % product == 0``, as at the reference's ``:66-79``), and
+builds the ``CommunicateTopology``, this rank's
+``HybridCommunicateGroup`` and the mesh ``[dp, pp, sharding, mp]``,
+which becomes the global mesh (``env.set_mesh``). A ``pp`` or ``sep``
+degree above 1 raises ``NotImplementedError``: the pipeline and the
+sequence axis are ROADMAP.md Queue 1 item 6.
 
 ``distributed_optimizer`` picks, in the reference's order: adaptive
 LocalSGD, then Lars in place of a ``Momentum``, then LocalSGD, then the
 plain wrapper. The wrappers delegate everything else to the optimizer
-they hold (``inner_opt``), so ``ShardedTrainer`` trains through them.
-
-``init``, ``distributed_model``, the topology and the process
-environment build a mesh: they are ROADMAP.md Queue 1 item 6 and raise
-``NotImplementedError``.
+they hold (``inner_opt``), so ``ShardedTrainer`` trains through them;
+``HybridParallelOptimizer`` adds nothing to the step itself: the
+trainer synchronises the gradients over the mesh and the clip takes
+the global norm over it.
 """
 
 from __future__ import annotations
@@ -22,11 +31,10 @@ from paddle_tpu_torch.distributed.fleet import meta_optimizers, utils
 from paddle_tpu_torch.distributed.strategy import DistributedStrategy
 
 __all__ = ["utils", "meta_optimizers", "DistributedStrategy", "init",
-           "is_initialized", "distributed_model", "distributed_optimizer",
-           "HybridParallelOptimizer", "fleet_state"]
-
-_MESH = ("the hybrid topology and its mesh are ROADMAP.md Queue 1 item 6; "
-         "the port trains on one card")
+           "is_initialized", "get_hybrid_communicate_group",
+           "distributed_model", "distributed_optimizer", "worker_index",
+           "worker_num", "get_mesh", "HybridParallelOptimizer",
+           "fleet_state"]
 
 
 class _FleetState:
@@ -47,19 +55,85 @@ def fleet_state() -> _FleetState:
 
 def init(role_maker=None, is_collective: bool = True,
          strategy: Optional[DistributedStrategy] = None, log_level="INFO"):
-    """``fleet.init`` builds the hybrid topology and its mesh: not ported
-    yet."""
-    raise NotImplementedError(f"fleet.init: {_MESH}")
+    """Join the process group and build the topology and the global mesh
+    from the strategy's hybrid degrees over the world's ranks."""
+    import copy
+
+    from paddle_tpu_torch.distributed import env as dist_env
+    from paddle_tpu_torch.distributed.topology import (
+        CommunicateTopology, HybridCommunicateGroup)
+
+    # work on a copy: the effective degrees (dp absorbing leftover ranks)
+    # must not rewrite the caller's config object
+    strategy = copy.deepcopy(strategy) if strategy is not None \
+        else DistributedStrategy()
+    hc = strategy.hybrid_configs
+    for name, deg in (("pp_degree", hc.pp_degree),
+                      ("sep_degree", hc.sep_degree)):
+        if deg > 1:
+            raise NotImplementedError(
+                f"fleet.init: {name}={deg}: the pipeline and the sequence "
+                "axis over ranks are ROADMAP.md Queue 1 item 6")
+    dist_env.init_parallel_env()
+    world = dist_env.get_world_size()
+    degrees = {"data": hc.dp_degree, "pipe": hc.pp_degree,
+               "sharding": hc.sharding_degree, "model": hc.mp_degree}
+    specified = 1
+    for v in degrees.values():
+        specified *= v
+    if specified < world and world % specified == 0:
+        # dp absorbs the remaining ranks (the reference launcher computes
+        # dp from world_size the same way)
+        degrees["data"] *= world // specified
+        hc.dp_degree = degrees["data"]
+    elif specified != world:
+        raise ValueError(
+            f"hybrid degrees {degrees} need {specified} ranks but the "
+            f"world has {world}")
+    names = list(degrees)
+    topo = CommunicateTopology(names, [degrees[n] for n in names])
+    _state.strategy = strategy
+    _state.topology = topo
+    _state.hcg = HybridCommunicateGroup(topo)
+    _state.mesh = _state.hcg.build_mesh()
+    dist_env.set_mesh(_state.mesh)
+    _state.initialized = True
+    return _state
 
 
 def is_initialized() -> bool:
     return _state.initialized
 
 
+def get_hybrid_communicate_group():
+    return _state.hcg
+
+
+def get_mesh():
+    return _state.mesh
+
+
+def worker_index() -> int:
+    from paddle_tpu_torch.distributed import env as dist_env
+
+    return dist_env.get_rank()
+
+
+def worker_num() -> int:
+    from paddle_tpu_torch.distributed import env as dist_env
+
+    return dist_env.get_world_size()
+
+
 def distributed_model(model, loss_fn=None):
-    """``fleet.distributed_model`` wraps a model for the mesh: not ported
-    yet."""
-    raise NotImplementedError(f"fleet.distributed_model: {_MESH}")
+    """Wrap ``model`` for the fleet's mesh: a ``DistributedModel`` whose
+    ``train_batch`` runs a ``ShardedTrainer`` over it once an optimizer
+    is attached (``prepare``)."""
+    from paddle_tpu_torch.distributed.parallel import DistributedModel
+
+    if not _state.initialized:
+        raise RuntimeError("call fleet.init() first")
+    return DistributedModel(model, _state, loss_fn=loss_fn)
 
 
 def distributed_optimizer(optimizer, strategy=None):
@@ -95,9 +169,10 @@ def distributed_optimizer(optimizer, strategy=None):
 
 
 class HybridParallelOptimizer:
-    """Holds the inner optimizer (``inner_opt``) and delegates to it; on
-    one card there is no gradient to synchronise across groups, and the
-    global-norm clip is the inner optimizer's own."""
+    """Holds the inner optimizer (``inner_opt``) and delegates to it; the
+    trainer synchronises the gradients over the mesh, and the inner
+    optimizer's global-norm clip takes its norm over the bound mesh
+    (``nn/clip.py``)."""
 
     def __init__(self, inner, state: _FleetState):
         self._inner = inner

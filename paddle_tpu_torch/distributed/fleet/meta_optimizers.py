@@ -4,12 +4,11 @@ cross-worker behavior: the port of
 ``fleet/meta_optimizers/localsgd_optimizer.py``).
 
 LocalSGD takes ``k_steps`` purely local optimizer steps, then averages
-the parameters across workers. The port trains on one card in one
-process: there ``sync_params`` counts and returns, as the reference's
-does in a one-process world (the mean over ``{self}``). Averaging across
-processes needs the mesh of ROADMAP.md Queue 1 item 6: with
-``torch.distributed`` initialised over more than one rank, ``sync_params``
-raises ``NotImplementedError``.
+the parameters across workers: ``sync_params`` all-reduces every
+trainable parameter over the data-parallel ranks (the fleet's ``dp``
+axis once ``fleet.init`` built a mesh, else the whole world) and divides
+by their count. In a one-process world it counts and returns, as the
+reference's does (the mean over ``{self}``).
 """
 
 from __future__ import annotations
@@ -22,11 +21,15 @@ import torch
 __all__ = ["LocalSGDOptimizer", "AdaptiveLocalSGDOptimizer"]
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+def _dp_group():
+    """The fleet's data-parallel group once its mesh exists, else None
+    (the whole world)."""
+    from paddle_tpu_torch.distributed import fleet
+
+    hcg = fleet.get_hybrid_communicate_group()
+    if hcg is None or fleet.get_mesh() is None:
+        return None
+    return hcg.get_data_parallel_group()
 
 
 class LocalSGDOptimizer:
@@ -63,14 +66,19 @@ class LocalSGDOptimizer:
         return [p for p in self._inner._parameter_list if p.requires_grad]
 
     def sync_params(self):
-        """Average the trainable parameters across processes: in a
-        one-process world the mean over ``{self}``, counted."""
+        """Average the trainable parameters over the data-parallel ranks
+        (in a one-process world the mean over ``{self}``), counted."""
+        from paddle_tpu_torch.distributed import collective
+
         self._sync_count += 1
-        if _world_size() <= 1:
+        group = _dp_group()
+        n = collective._comm(group).size
+        if n <= 1:
             return
-        raise NotImplementedError(
-            "LocalSGD parameter averaging across processes needs the mesh "
-            "of ROADMAP.md Queue 1 item 6; the port trains on one card")
+        with torch.no_grad():
+            for p in self._params():
+                collective.all_reduce(p.data, group=group)
+                p.data.div_(n)
 
 
 class AdaptiveLocalSGDOptimizer(LocalSGDOptimizer):

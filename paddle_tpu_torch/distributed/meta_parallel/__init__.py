@@ -1,5 +1,21 @@
-from paddle_tpu_torch.distributed.meta_parallel.mp_layers import (
-    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+"""Hybrid-parallel building blocks (reference
+python/paddle/distributed/fleet/meta_parallel/). The pipeline layers
+(``LayerDesc``, ``PipelineLayer``, ``SharedLayerDesc``) are ROADMAP.md
+Queue 1 item 6 and are not here."""
+
+from paddle_tpu_torch.distributed.meta_parallel.mp_layers import (  # noqa: F401
+    ColumnParallelLinear,
+    ParallelCrossEntropy,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)
+from paddle_tpu_torch.distributed.meta_parallel.random import (  # noqa: F401
+    RNGStatesTracker,
+    get_rng_state_tracker,
+    model_parallel_random_seed,
+)
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "ParallelCrossEntropy",
+           "RNGStatesTracker", "get_rng_state_tracker",
+           "model_parallel_random_seed"]

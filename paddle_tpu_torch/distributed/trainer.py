@@ -26,8 +26,47 @@ learning rate read at that call; the step counter counts micro-steps.
 ``sharding`` is a no-op on one device, as in the reference (its
 ``sharding`` axis has one member), and so is ``moe``: the reference's
 trainer never reads it, and a GPT-MoE model trains through its own
-``loss_with_aux``. Pipelines and a mesh of more than one device are
-later work and raise ``NotImplementedError``.
+``loss_with_aux``. Pipelines raise ``NotImplementedError``
+(ROADMAP.md Queue 1 item 6).
+
+Over a mesh of ranks (``mesh=``, a ``distributed.env.Mesh`` of more
+than one rank from ``build_mesh`` or ``fleet.init``; every rank runs the
+same script and builds the same whole model from the same seed): the
+reference is one process driving a GSPMD mesh, the port one process a
+rank, so the trainer does by hand what GSPMD does there.
+
+- At construction each parameter is cut to this rank's window of its
+  ``dist_spec`` (the tensor-parallel layers' ``mp`` entries), as the
+  reference's ``device_put`` with a ``NamedSharding`` places it. ZeRO
+  (``strategy.sharding`` with a ``sharding`` axis above 1) adds
+  ``sharding`` to a parameter's spec as ``_extend_with_sharding`` does:
+  on the largest free dim the degree divides, else sub-sharding a dim
+  already split, else replicated (warned for large tensors).
+- ``train_step`` takes the GLOBAL batch; each rank keeps its dim-0 slice
+  by its index on ``dp x sharding`` (dp slowest), runs the forward and
+  backward under the bound mesh (the tensor-parallel layers' collectives
+  run there), and returns the global mean loss, the same on every rank.
+- The gradients are averaged over ``dp x sharding``: all-reduced, or,
+  for a ZeRO parameter, reduce-scattered over ``sharding`` (then
+  all-reduced over ``dp``) so each rank holds its shard's gradient.
+- ZeRO-1 and 2: the optimizer's state (moments, masters) exists for this
+  rank's shard only; the step updates the shard in place inside the
+  whole parameter (a view), and the updated shards are all-gathered
+  back. ZeRO-3: between steps each parameter IS its shard; a forward
+  pre-hook on the layer that owns it all-gathers it at its first use in
+  each forward, and it is cut back to its shard once its gradient is
+  taken, so the gathered copy lives from its use in the forward to the
+  end of the backward. Offload moves each rank's own slot shards.
+- Gradient merge accumulates the raw local gradients and synchronises
+  the merged one; the clip's global norm and the anomaly policy's are
+  taken over the whole mesh (``nn/clip.py``), and ``ok`` and the loss
+  are the same on every rank, so every rank skips the same step.
+- Checkpoints are the reference's multi-process layout: each rank writes
+  the windows it is the first replica of, and ``load_checkpoint``
+  assembles each rank's windows from whatever mesh saved them.
+
+A mesh of one rank (or ``mesh=None``) is the one-card trainer above,
+unchanged.
 
 ZeRO offload (``sharding=True, sharding_configs={"offload": True}``):
 every non-scalar optimizer slot (``moment1``, ``moment2``, ``velocity``,
@@ -73,6 +112,8 @@ mode under no grad and the trainer's AMP, then restore every sublayer's
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import warnings
 from collections import deque
 from typing import Callable, Optional
@@ -83,11 +124,93 @@ import torch
 from paddle_tpu_torch.amp.auto_cast import auto_cast
 from paddle_tpu_torch.core.place import module_device
 from paddle_tpu_torch.core.unported import refuse_unported
+from paddle_tpu_torch.distributed import collective as _coll
+from paddle_tpu_torch.distributed import env as _env
 from paddle_tpu_torch.distributed.fleet.utils import recompute as _recompute
 from paddle_tpu_torch.optimizer.lr import LRScheduler
 from paddle_tpu_torch.testing import fault_injection as _fi
 
 __all__ = ["ShardedTrainer"]
+
+
+def _norm_spec(spec, ndim: int) -> tuple:
+    """A ``dist_spec`` as a tuple of ``ndim`` entries (None: replicated)."""
+    entries = tuple(spec) if spec is not None else ()
+    return entries + (None,) * (ndim - len(entries))
+
+
+def _extend_with_sharding(spec: tuple, shape, mesh, name: str) -> tuple:
+    """``spec`` with ``sharding`` added, as the reference's
+    ``_extend_with_sharding`` (``trainer.py:315-360``): on the largest
+    free dim the degree divides (ties to dim 0), else appended to an
+    occupied dim whose per-shard extent it divides, else none (a large
+    replicated tensor is warned about)."""
+    deg = mesh.shape["sharding"]
+    axes_of = [_env._spec_axes(e) for e in spec]
+    if any("sharding" in a for a in axes_of):
+        return spec
+    best_dim, best_n = None, 0
+    for dim, n in enumerate(shape):
+        if not axes_of[dim] and n % deg == 0 and n > best_n:
+            best_dim, best_n = dim, n
+    if best_dim is not None:
+        axes_of[best_dim] = ("sharding",)
+    else:
+        best_per = 0
+        for dim, n in enumerate(shape):
+            if not axes_of[dim]:
+                continue
+            held = int(np.prod([mesh.shape.get(a, 1) for a in axes_of[dim]]))
+            if n % (held * deg) == 0 and n // held > best_per:
+                best_dim, best_per = dim, n // held
+        if best_dim is not None:
+            axes_of[best_dim] = axes_of[best_dim] + ("sharding",)
+    if best_dim is None:
+        if shape and int(np.prod(shape)) >= 4096:
+            warnings.warn(
+                f"ZeRO: parameter {name} shape {tuple(shape)} (spec {spec}) "
+                f"has no dim divisible by sharding degree {deg}; it will be "
+                "REPLICATED on every shard rank", UserWarning)
+        return spec
+    return tuple(a[0] if len(a) == 1 else (a if a else None)
+                 for a in axes_of)
+
+
+class _Plan:
+    """How one parameter lies on the mesh: its global ``shape``, its
+    ``spec`` (the tensor-parallel entries) and ``zero_spec`` (with ZeRO's
+    ``sharding``), this rank's ``local`` window, and, under ZeRO, the dim
+    (``zero_dim``) and span of this rank's shard within it. ``axes``: the
+    mesh axes over which the tensor the optimizer steps (the shard under
+    ZeRO, else the local window) differs from rank to rank."""
+
+    def __init__(self, mesh, name: str, p, zero: int):
+        self.shape = tuple(p.shape)
+        self.spec = _norm_spec(getattr(p, "dist_spec", None), p.dim())
+        self.zero_spec = _extend_with_sharding(
+            self.spec, self.shape, mesh, name) if zero else self.spec
+        self.zero_dim = next(
+            (d for d, e in enumerate(self.zero_spec)
+             if "sharding" in _env._spec_axes(e)), None) if zero else None
+        win = mesh.window(self.spec, self.shape)
+        self.slices = tuple(slice(a, b) for a, b in win)
+        self.local_shape = tuple(b - a for a, b in win)
+        self.whole = self.local_shape == self.shape
+        if self.zero_dim is not None:
+            k = mesh.shape["sharding"]
+            self.shard_len = self.local_shape[self.zero_dim] // k
+            self.shard_start = mesh.coord["sharding"] * self.shard_len
+        step_spec = self.zero_spec if self.zero_dim is not None \
+            else self.spec
+        self.axes = tuple(a for e in step_spec for a in _env._spec_axes(e)
+                          if mesh.shape.get(a, 1) > 1)
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.whole else t[self.slices].clone()
+
+    def shard(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO shard of the local window ``t`` (a view)."""
+        return t.narrow(self.zero_dim, self.shard_start, self.shard_len)
 
 
 class ShardedTrainer:
@@ -97,17 +220,21 @@ class ShardedTrainer:
                  amp_dtype: str = "bfloat16"):
         from paddle_tpu_torch.distributed.strategy import DistributedStrategy
 
-        if mesh is not None and getattr(mesh, "size", 1) != 1:
+        from paddle_tpu_torch.distributed.env import Mesh
+
+        if mesh is not None and getattr(mesh, "size", 1) != 1 \
+                and not isinstance(mesh, Mesh):
             raise NotImplementedError(
-                "ShardedTrainer: meshes of more than one device are not "
-                "ported yet (the port trains on one card)")
+                "ShardedTrainer: a mesh of more than one device is a "
+                "distributed.env Mesh over torch.distributed ranks "
+                "(build_mesh or fleet.init)")
         refuse_unported("ShardedTrainer", batch_spec=(batch_spec, None))
         self.strategy = strategy or DistributedStrategy()
         st = self.strategy
         if st.pipeline:
             raise NotImplementedError(
-                "ShardedTrainer: strategy.pipeline is not ported yet (the "
-                "port trains one model on one card)")
+                "ShardedTrainer: strategy.pipeline, the pipeline over "
+                "ranks, is ROADMAP.md Queue 1 item 6")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -117,12 +244,18 @@ class ShardedTrainer:
         self.device = module_device(model)
         self.param_tensors = dict(model.named_parameters())
         self._names = {id(p): n for n, p in self.param_tensors.items()}
+        self.mesh = mesh
+        self._mesh = mesh if isinstance(mesh, Mesh) and mesh.size > 1 \
+            else None
+        if self._mesh is not None:
+            self._mesh_init()
         # every slot exists from the start, as the reference's state
         # pytree does: a checkpoint before the first step holds them all
         self._offload = bool(st.sharding and st.sharding_configs.offload)
         self._host_slots = {}
         self._copy_stream = self._out_done = None
-        live = self.optimizer._named_state(self._names)
+        with self._shard_views():
+            live = self.optimizer._named_state(self._names)
         if self._offload:
             self._offload_init(live)
         self._global_step = 0
@@ -132,7 +265,7 @@ class ShardedTrainer:
         if st.gradient_merge and gm.k_steps > 1:
             self._gm_k, self._gm_avg = int(gm.k_steps), bool(gm.avg)
             self._gm_accum = {
-                n: torch.zeros(p.shape, dtype=torch.float32,
+                n: torch.zeros(self._local_shape(n), dtype=torch.float32,
                                device=self.device)
                 for n, p in self.param_tensors.items() if p.requires_grad}
 
@@ -295,6 +428,8 @@ class ShardedTrainer:
         ``k_steps``-th call."""
         batch = _fi.transform("trainer:batch", tuple(batch),
                               step=self._global_step)
+        if self._mesh is not None:
+            return self._mesh_train_step(batch)
         batch = self._to_device(batch)
         buffers = None
         if self._anomaly is not None:
@@ -311,6 +446,238 @@ class ShardedTrainer:
         self._inner_optimizer()._global_step = self._global_step
         self.maybe_auto_checkpoint()
         return loss
+
+    # -- the mesh ---------------------------------------------------------------
+    _plans = None
+    _zero_stage = 0
+    _gathering = False
+
+    def _mesh_init(self):
+        """Cut every parameter to this rank's window (and, under ZeRO-3,
+        its shard); record each one's plan."""
+        mesh, st = self._mesh, self.strategy
+        for axis in ("pp", "sep"):
+            if mesh.shape.get(axis, 1) > 1:
+                raise NotImplementedError(
+                    f"ShardedTrainer: a {axis!r} axis of {mesh.shape[axis]} "
+                    "ranks: the pipeline and the sequence axis are "
+                    "ROADMAP.md Queue 1 item 6")
+        self._data_axes = tuple(a for a in ("dp", "sharding")
+                                if mesh.shape.get(a, 1) > 1)
+        self._zero_stage = int(st.sharding_configs.stage) if (
+            st.sharding and mesh.shape.get("sharding", 1) > 1) else 0
+        self._plans = {}
+        self._gathered = set()
+        with torch.no_grad():
+            for n, p in self.param_tensors.items():
+                plan = self._plans[n] = _Plan(mesh, n, p, self._zero_stage)
+                p.data = plan.local(p.data)
+                if self._zero_stage >= 3 and plan.zero_dim is not None:
+                    p.data = plan.shard(p.data).clone()
+                p._mesh_axes = plan.axes
+        if self._zero_stage >= 3:
+            for mod in self.model.modules():
+                own = [self._names[id(p)] for p in mod._parameters.values()
+                       if p is not None and id(p) in self._names
+                       and self._plans[self._names[id(p)]].zero_dim
+                       is not None]
+                if own:
+                    mod.register_forward_pre_hook(
+                        functools.partial(self._gather_hook, own))
+
+    def _local_shape(self, name: str):
+        plan = (self._plans or {}).get(name)
+        return plan.local_shape if plan is not None \
+            else tuple(self.param_tensors[name].shape)
+
+    def _gather_hook(self, names, module, args):
+        """ZeRO-3: all-gather the layer's own parameters at their first
+        use in this forward."""
+        if not self._gathering:
+            return
+        for n in names:
+            if n in self._gathered:
+                continue
+            p, plan = self.param_tensors[n], self._plans[n]
+            parts = []
+            _coll.all_gather(parts, p.data, axis_name="sharding")
+            p.data = torch.cat(parts, dim=plan.zero_dim)
+            self._gathered.add(n)
+
+    def _release(self):
+        """ZeRO-3: every gathered parameter back to its shard."""
+        for n in self._gathered:
+            p = self.param_tensors[n]
+            p.data = self._plans[n].shard(p.data).clone()
+        self._gathered.clear()
+
+    @contextlib.contextmanager
+    def _shard_views(self):
+        """ZeRO-1/2: each sharded parameter shows the optimizer its
+        shard, a view into the whole parameter, for the duration."""
+        if self._mesh is None or self._zero_stage not in (1, 2):
+            yield
+            return
+        whole = {}
+        for n, plan in self._plans.items():
+            if plan.zero_dim is not None:
+                p = self.param_tensors[n]
+                whole[n] = p.data
+                p.data = plan.shard(p.data)
+        try:
+            yield
+        finally:
+            for n, t in whole.items():
+                p = self.param_tensors[n]
+                p.grad = None
+                p.data = t
+
+    def _gather_shards(self):
+        """ZeRO-1/2: the updated shards all-gathered into every rank's
+        whole parameter."""
+        if self._zero_stage not in (1, 2):
+            return
+        with torch.no_grad():
+            for n, plan in self._plans.items():
+                if plan.zero_dim is None:
+                    continue
+                p = self.param_tensors[n]
+                parts = []
+                _coll.all_gather(parts, plan.shard(p.data).contiguous(),
+                                 axis_name="sharding")
+                p.data.copy_(torch.cat(parts, dim=plan.zero_dim))
+
+    def _local_batch(self, batch):
+        """This rank's dim-0 slice of every leaf of the global batch, by
+        its index on ``dp x sharding`` (dp slowest)."""
+        n = self._mesh.degree(self._data_axes)
+        i = self._mesh.index(self._data_axes)
+        out = []
+        for b in batch:
+            t = torch.as_tensor(b)
+            if t.shape[0] % n:
+                raise ValueError(
+                    f"the global batch's dim 0 ({t.shape[0]}) must divide "
+                    f"over dp x sharding ({n} ranks)")
+            out.append(t.chunk(n, 0)[i] if n > 1 else t)
+        return tuple(out)
+
+    def _data_mean(self, value: torch.Tensor) -> torch.Tensor:
+        """The mean of a per-rank value over ``dp x sharding``."""
+        n = self._mesh.degree(self._data_axes)
+        if n == 1:
+            return value
+        out = value.detach().clone()
+        with _env._mesh_scope(self._mesh):
+            _coll.all_reduce(out, axis_name=self._data_axes)
+        return out / n
+
+    def _sync_grads(self, grads):
+        """Average each raw local gradient over ``dp x sharding``: a ZeRO
+        parameter's reduce-scattered over ``sharding`` to its shard (then
+        all-reduced over ``dp``), the others all-reduced."""
+        n_data = self._mesh.degree(self._data_axes)
+        out = {}
+        for n, g in grads.items():
+            plan = self._plans[n]
+            if plan.zero_dim is not None:
+                g = _coll.reduce_scatter(g, axis_name="sharding",
+                                         scatter_dim=plan.zero_dim)
+                if self._mesh.shape.get("dp", 1) > 1:
+                    _coll.all_reduce(g, axis_name="dp")
+            elif n_data > 1:
+                _coll.all_reduce(g, axis_name=self._data_axes)
+            out[n] = g.div_(n_data) if n_data > 1 else g
+        return out
+
+    def _take_grads(self):
+        """The raw gradients, taken off the parameters; ZeRO-3's gathered
+        parameters then go back to their shards."""
+        grads = {}
+        for n, p in self.param_tensors.items():
+            if p.grad is not None:
+                grads[n] = p.grad
+                p.grad = None
+        self._release()
+        return grads
+
+    def _mesh_update(self, synced):
+        """The optimizer's step on the synchronised gradients, each
+        parameter seen as the tensor this rank steps (its shard under
+        ZeRO), then the ZeRO-1/2 shards gathered back."""
+        with self._shard_views():
+            for n, g in synced.items():
+                p = self.param_tensors[n]
+                p.grad = g.to(p.dtype)
+            self._optimizer_step()
+        self._gather_shards()
+
+    def _mesh_train_step(self, batch):
+        batch = self._to_device(self._local_batch(batch))
+        buffers = None
+        if self._anomaly is not None:
+            buffers = {n: b.clone() for n, b in self.model.named_buffers()}
+        with _env._mesh_scope(self._mesh):
+            self._gathering = True
+            try:
+                loss = self._forward_backward(batch)
+            finally:
+                self._gathering = False
+            grads = self._take_grads()
+            loss = self._data_mean(loss)
+            if self._gm_accum is not None:
+                with torch.no_grad():
+                    for n, g in grads.items():
+                        self._gm_accum[n].add_(g)
+                if (self._global_step + 1) % self._gm_k == 0:
+                    scale = 1.0 / self._gm_k if self._gm_avg else 1.0
+                    merged = {n: a * scale for n, a in self._gm_accum.items()}
+                    self._mesh_update(self._sync_grads(merged))
+                    torch._foreach_zero_(list(self._gm_accum.values()))
+            elif self._anomaly is not None:
+                if self._mesh_guarded_step(loss, buffers, grads):
+                    return loss
+            else:
+                self._mesh_update(self._sync_grads(grads))
+        self._global_step += 1
+        self._inner_optimizer()._global_step = self._global_step
+        self.maybe_auto_checkpoint()
+        return loss
+
+    def _mesh_guarded_step(self, loss, buffers, grads):
+        """The anomaly policy over the mesh: the global norm of the
+        synchronised gradients and the global loss decide ``ok``, the
+        same on every rank."""
+        from paddle_tpu_torch.nn.clip import _mesh_sq_sum
+
+        synced = self._sync_grads(grads)
+        pairs = [(self.param_tensors[n], g) for n, g in synced.items()]
+        gnorm = _mesh_sq_sum(pairs).sqrt()
+        cap = float(self._anomaly_cap())
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm) & (loss <= cap)
+        if not bool(ok):
+            with torch.no_grad():
+                for n, b in self.model.named_buffers():
+                    b.copy_(buffers[n])
+            return self._handle_anomaly(loss, gnorm)
+        self._mesh_update(synced)
+        self._bad_streak = 0
+        if self._anomaly.spike_window:
+            self._loss_history.append(float(loss))
+        return False
+
+    def _in_mesh(self, fn, *args, **kwargs):
+        """``fn`` under the bound mesh (ZeRO-3 gathering at use), then
+        the gathered parameters back to their shards."""
+        if self._mesh is None:
+            return fn(*args, **kwargs)
+        with _env._mesh_scope(self._mesh):
+            self._gathering = True
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._gathering = False
+                self._release()
 
     # -- step-level anomaly policies (distributed/resilience.py) --------------
     _anomaly = None
@@ -414,12 +781,31 @@ class ShardedTrainer:
                 m.training = flag
 
     def eval_step(self, *batch):
-        """Forward + loss in eval mode; returns the fp32 mean loss."""
-        return self._run_in_eval_mode(self._loss, *self._to_device(batch))
+        """Forward + loss in eval mode; returns the fp32 mean loss (over a
+        mesh: of the global batch, on every rank)."""
+        if self._mesh is None:
+            return self._run_in_eval_mode(self._loss,
+                                          *self._to_device(batch))
+        loss = self._run_in_eval_mode(
+            self._in_mesh, self._loss,
+            *self._to_device(self._local_batch(batch)))
+        return self._data_mean(loss)
 
     def predict_step(self, *batch):
-        """Forward in eval mode; returns the model's raw outputs."""
-        return self._run_in_eval_mode(self.model, *self._to_device(batch))
+        """Forward in eval mode; returns the model's raw outputs (over a
+        mesh: of the global batch, gathered on every rank)."""
+        if self._mesh is None:
+            return self._run_in_eval_mode(self.model,
+                                          *self._to_device(batch))
+        out = self._run_in_eval_mode(
+            self._in_mesh, self.model,
+            *self._to_device(self._local_batch(batch)))
+        with _env._mesh_scope(self._mesh):
+            gather = functools.partial(_coll.all_gather,
+                                       axis_name=self._data_axes, tiled=True)
+            if isinstance(out, (tuple, list)):
+                return type(out)(gather(o) for o in out)
+            return gather(out)
 
     @property
     def step_count(self):
@@ -427,27 +813,65 @@ class ShardedTrainer:
 
     def optimizer_state_bytes(self, predicate=None):
         """(per-device, total) bytes of the non-scalar optimizer state
-        (``predicate(name)`` filters parameters); on one card the two
-        are equal."""
-        total = sum(v.numel() * v.element_size()
-                    for n, slots in self._opt_states().items()
-                    if predicate is None or predicate(n)
-                    for v in slots.values() if v.dim() > 0)
-        return total, total
+        (``predicate(name)`` filters parameters): this rank's slots, and
+        what they would take whole; on one card the two are equal."""
+        per_dev = total = 0
+        for key, v, _, shape in self._entries():
+            n = key.split("/")[1] if key.startswith("opt/") else None
+            if n is None or v.dim() == 0 or (predicate is not None
+                                             and not predicate(n)):
+                continue
+            per_dev += v.numel() * v.element_size()
+            total += int(np.prod(shape)) * v.element_size()
+        return per_dev, total
 
     # -- checkpoints ----------------------------------------------------------
-    def _checkpoint_state(self):
-        state = {f"param/{n}": p.detach()
-                 for n, p in self.param_tensors.items()}
-        for n, slots in self._opt_states().items():
-            for slot, v in slots.items():
-                state[f"opt/{n}/{slot}"] = v
-        state.update({f"buf/{n}": b for n, b in self.model.named_buffers()})
+    def _entries(self):
+        """``(key, tensor, spec, global shape)`` of every checkpoint entry
+        as this rank holds it (spec ``()``: replicated)."""
+        out = []
+        plans = self._plans or {}
+        zero3 = self._zero_stage >= 3
+
+        def step_spec(n, t, sharded: bool):
+            """A ZeRO shard's spec, else the tensor-parallel one."""
+            plan = plans.get(n)
+            if plan is None:
+                return (), tuple(t.shape)
+            return (plan.zero_spec if sharded else plan.spec), plan.shape
+
+        for n, p in self.param_tensors.items():
+            out.append((f"param/{n}", p.detach(), *step_spec(n, p, zero3)))
+        with self._shard_views():
+            for n, slots in self._opt_states().items():
+                cur = tuple(self.param_tensors[n].shape)
+                for slot, v in slots.items():
+                    if v.dim() > 0 and tuple(v.shape) == cur:
+                        spec, shape = step_spec(n, v, True)
+                    else:
+                        spec, shape = (), tuple(v.shape)
+                    out.append((f"opt/{n}/{slot}", v, spec, shape))
+        out.extend((f"buf/{n}", b, (), tuple(b.shape))
+                   for n, b in self.model.named_buffers())
         if self._gm_accum is not None:
             # a mid-window resume must not drop accumulated gradients
-            state.update({f"gm_accum/{n}": v
-                          for n, v in self._gm_accum.items()})
-        return state
+            out.extend((f"gm_accum/{n}", v,
+                        plans[n].spec if n in plans else (),
+                        plans[n].shape if n in plans else tuple(v.shape))
+                       for n, v in self._gm_accum.items())
+        return out
+
+    def _checkpoint_state(self):
+        """The entries to save: whole tensors on one card; over a mesh,
+        each rank's windows (``checkpoint._Piece``), written by their
+        first replica."""
+        from paddle_tpu_torch.distributed import checkpoint as ckpt
+
+        if self._mesh is None:
+            return {key: t for key, t, _, _ in self._entries()}
+        return {key: ckpt._Piece(t, shape, self._mesh.window(spec, shape),
+                                 self._mesh.is_first_replica(spec))
+                for key, t, spec, shape in self._entries()}
 
     def _checkpoint_extra(self):
         """Host-side train state riding along with the tensors: the step
@@ -475,18 +899,22 @@ class ShardedTrainer:
         ``verify`` forwards to ``checkpoint.load_state`` (checksums)."""
         from paddle_tpu_torch.distributed import checkpoint as ckpt
 
-        arrays, extra = ckpt.load_state(path, verify=verify,
-                                        device=self.device)
+        specs = None
+        if self._mesh is not None:
+            specs = {key: spec for key, _, spec, _ in self._entries()}
+        arrays, extra = ckpt.load_state(path, self._mesh, specs,
+                                        verify=verify, device=self.device)
         with torch.no_grad():
             for n, p in self.param_tensors.items():
                 p.copy_(arrays[f"param/{n}"])
-            for n, slots in self._opt_states().items():
-                for slot, v in slots.items():
-                    key = f"opt/{n}/{slot}"
-                    if key in arrays:
-                        v.copy_(arrays[key])
-                    elif slot == "@master":
-                        v.copy_(self.param_tensors[n])
+            with self._shard_views():
+                for n, slots in self._opt_states().items():
+                    for slot, v in slots.items():
+                        key = f"opt/{n}/{slot}"
+                        if key in arrays:
+                            v.copy_(arrays[key])
+                        elif slot == "@master":
+                            v.copy_(self.param_tensors[n])
             for n, b in self.model.named_buffers():
                 b.copy_(arrays[f"buf/{n}"])
             for n, a in (self._gm_accum or {}).items():

@@ -77,6 +77,8 @@ from paddle_tpu_torch.distributed.fleet.utils import recompute
 from paddle_tpu_torch.distributed.meta_parallel import (ColumnParallelLinear,
                                                         RowParallelLinear,
                                                         VocabParallelEmbedding)
+from paddle_tpu_torch.distributed.meta_parallel.mp_layers import (
+    _gather_last, _pg, axis_in_scope, mp_identity)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Layer
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerList, LayerNorm
@@ -347,6 +349,11 @@ class GPTAttention(Layer):
         layer's ``{"ids": (b,), "qkv": (A, B), "out": (A, B), ...}``
         adapter slice (:func:`_lora_delta`)."""
         b, s = x.shape[0], x.shape[1]
+        if axis_in_scope(self.qkv_proj._axis) and \
+                self.num_heads % _pg(self.qkv_proj._axis)[1]:
+            raise ValueError(
+                f"{self.num_heads} heads do not split over "
+                f"{_pg(self.qkv_proj._axis)[1]} tensor-parallel ranks")
         qkv = self.qkv_proj(x)
         if lora is not None and lora.get("qkv") is not None:
             # delta BEFORE the head split, so an adapted K/V lands in
@@ -354,7 +361,9 @@ class GPTAttention(Layer):
             qkv = qkv + _lora_delta(x, lora["qkv"], lora["ids"])
         # the split is PER HEAD (gpt.py:276-277): each head's 3*D slice
         # holds its q, k, v — not three hidden-wide thirds
-        qkv = qkv.reshape(b, s, self.num_heads, 3 * self.head_dim)
+        # (under tensor parallelism the column shard holds whole heads:
+        # this rank's num_heads / mp of them)
+        qkv = qkv.reshape(b, s, -1, 3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
         mask, causal, out = None, True, None
         if cache is not None and len(cache) not in (2, 3, 4, 7):
@@ -394,7 +403,7 @@ class GPTAttention(Layer):
             out = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=causal,
                 dropout_p=self.attn_dropout_p, training=self.training)
-        out = out.reshape(b, s, self.num_heads * self.head_dim)
+        out = out.reshape(b, s, -1)
         proj = self.out_proj(out)
         if lora is not None and lora.get("out") is not None:
             proj = proj + _lora_delta(out, lora["out"], lora["ids"])
@@ -631,13 +640,22 @@ class GPTForCausalLM(Layer):
                 "position_ids=None, caches=None))")
         out = self.gpt(input_ids, position_ids, caches, adapters=adapters)
         hidden = out if caches is None else out[0]
+        axis = self.gpt.wte._axis
+        parallel = axis_in_scope(axis)
         if labels is not None:
-            return F.linear_cross_entropy(
+            # under tensor parallelism wte is this rank's vocab rows: the
+            # vocab-parallel online logsumexp (no gather of wte)
+            return F.loss._linear_cross_entropy(
                 hidden[:, :-1], self.gpt.wte.weight, labels[:, 1:],
-                reduction="mean", w_vocab_major=True)
+                reduction="mean", w_vocab_major=True,
+                axis=axis if parallel else None)
         # tied head: hidden @ wte^T, the white-listed op "matmul"
         h, w = maybe_cast_inputs("matmul", (hidden, self.gpt.wte.weight))
-        logits = torch.matmul(h, w.t())
+        if parallel:
+            logits = _gather_last(torch.matmul(mp_identity(h, axis), w.t()),
+                                  axis)
+        else:
+            logits = torch.matmul(h, w.t())
         if output_hidden:
             return (logits, hidden) if caches is None \
                 else (logits, hidden, out[1])

@@ -12,7 +12,13 @@ host, so a step still never waits for the card.
   the gradient's dtype as the reference takes it;
 - :class:`ClipGradByGlobalNorm`: every gradient by one L2 norm over all
   of them, summed in fp32 whatever the gradients' dtype, the scale cast
-  to each gradient's dtype;
+  to each gradient's dtype. Inside a bound mesh of ranks (the trainer
+  binds its mesh around the optimizer's step) the norm is the global
+  one, as the reference's compiled step takes it over the global
+  gradient tree (:func:`_mesh_sq_sum`): each parameter's square sum
+  counts once for each distinct slice of it (its ``_mesh_axes``: ``mp``
+  for a tensor-parallel shard, ``sharding`` for a ZeRO shard), and a
+  gradient replicated over an axis counts once, not once per rank;
 - :func:`clip_grad_norm_`: the torch-style utility on ``.grad`` in place.
 """
 
@@ -69,9 +75,12 @@ class ClipGradByGlobalNorm(ClipGradBase):
     def _global_norm_sq(self, params_grads):
         """The fp32 sum of squares over every clipped gradient (None if
         there is none): one multi-tensor norm launch for fp32 grads."""
-        grads = [g.float() for p, g in params_grads if not _skip(p, g)]
-        if not grads:
+        kept = [(p, g) for p, g in params_grads if not _skip(p, g)]
+        if not kept:
             return None
+        if _ranked_mesh() is not None:
+            return _mesh_sq_sum(kept)
+        grads = [g.float() for _, g in kept]
         return torch.stack(torch._foreach_norm(grads)).square().sum()
 
     def __call__(self, params_grads):
@@ -82,6 +91,36 @@ class ClipGradByGlobalNorm(ClipGradBase):
         scale = self.clip_norm / global_norm.clamp(min=self.clip_norm)
         return [(p, g) if _skip(p, g) else (p, g * scale.to(g.dtype))
                 for p, g in params_grads]
+
+
+def _ranked_mesh():
+    """The bound mesh when it spans more than one rank, else None."""
+    from paddle_tpu_torch.distributed import env
+
+    mesh = env._bound_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _mesh_sq_sum(params_grads):
+    """The fp32 sum of squares of the global gradients, over the bound
+    mesh: each rank weighs a gradient's square sum by the number of
+    distinct slices it is one of (the product of its ``_mesh_axes``'
+    degrees) over the mesh's size, and one all-reduce over the whole
+    mesh sums the weighted parts, so every slice counts once and a
+    replicated gradient once, not once per rank."""
+    from paddle_tpu_torch.distributed import collective
+
+    mesh = _ranked_mesh()
+    grads = [g.float() for _, g in params_grads]
+    sq = torch.stack(torch._foreach_norm(grads)).square()
+    if mesh is None:
+        return sq.sum()
+    weights = torch.tensor(
+        [mesh.degree(getattr(p, "_mesh_axes", ())) / mesh.size
+         for p, _ in params_grads], dtype=torch.float32, device=sq.device)
+    total = (sq * weights).sum()
+    collective.all_reduce(total, axis_name=mesh.axis_names)
+    return total
 
 
 def _stack(parts):

@@ -326,8 +326,17 @@ class _LinearCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, label, chunk: int, w_vocab_major: bool,
-                ignore_index: int):
+                ignore_index: int, axis=None):
         n = x.shape[0]
+        ctx.label_in = label
+        if axis is not None:
+            # this rank's vocab rows are [start, start + V_local) of the
+            # whole vocab: labels are taken relative to them
+            from paddle_tpu_torch.distributed import env
+
+            mesh = env._bound_mesh()
+            label = label - mesh.index(axis) * (
+                w.shape[0] if w_vocab_major else w.shape[1])
         v = w.shape[0] if w_vocab_major else w.shape[1]
         m = torch.full((n,), float("-inf"), dtype=torch.float32,
                        device=x.device)
@@ -345,8 +354,19 @@ class _LinearCE(torch.autograd.Function):
             idx = local.clamp(0, width - 1)
             got = torch.gather(logits, 1, idx[:, None])[:, 0]
             picked = torch.where(in_chunk, got, picked)
+        if axis is not None:
+            # the vocab-parallel online logsumexp: every rank's running
+            # max and sum joined over the axis, the true logit taken
+            # from the rank that owns it (the others hold 0)
+            from paddle_tpu_torch.distributed import collective as coll
+
+            gm = coll.all_reduce(m.clone(), coll.ReduceOp.MAX,
+                                 axis_name=axis)
+            s = coll.all_reduce(s * torch.exp(m - gm), axis_name=axis)
+            picked = coll.all_reduce(picked, axis_name=axis)
+            m = gm
         lse = m + torch.log(s)
-        loss = torch.where(label != ignore_index, lse - picked, 0.0)
+        loss = torch.where(ctx.label_in != ignore_index, lse - picked, 0.0)
         ctx.save_for_backward(x, w, label, lse)
         ctx.chunk, ctx.w_vocab_major = chunk, w_vocab_major
         ctx.ignore_index = ignore_index
@@ -360,7 +380,7 @@ class _LinearCE(torch.autograd.Function):
         v = w.shape[0] if wvm else w.shape[1]
         dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
         dw_chunks = []
-        valid = (label != ctx.ignore_index).float()
+        valid = (ctx.label_in != ctx.ignore_index).float()
         gcol = (g.float() * valid)[:, None]                 # (N, 1)
         for start, width in _lce_chunks(v, ctx.chunk):
             w_c = _slice_w(w, start, width, wvm)
@@ -377,7 +397,7 @@ class _LinearCE(torch.autograd.Function):
                 else torch.matmul(x.float().t(), dlogits)
             dw_chunks.append(dw_c.to(w.dtype))
         dw = torch.cat(dw_chunks, dim=0 if wvm else 1)
-        return dx.to(x.dtype), dw, None, None, None, None
+        return dx.to(x.dtype), dw, None, None, None, None, None
 
 
 def linear_cross_entropy(x, weight, label, reduction: str = "mean",
@@ -387,12 +407,32 @@ def linear_cross_entropy(x, weight, label, reduction: str = "mean",
     weight (E, V), or (V, E) with ``w_vocab_major=True`` (a tied input
     embedding, consumed as it is); label (...,) int. Leading dims are
     flattened; ``reduction="mean"`` averages over rows not ignored."""
+    return _linear_cross_entropy(x, weight, label, reduction, vocab_chunk,
+                                 w_vocab_major, ignore_index)
+
+
+def _linear_cross_entropy(x, weight, label, reduction="mean",
+                          vocab_chunk=8192, w_vocab_major=False,
+                          ignore_index=-100, axis=None):
+    """:func:`linear_cross_entropy`; with ``axis`` (a bound mesh axis,
+    ``models/gpt.py`` under tensor parallelism) ``weight`` is this
+    rank's shard of the vocab and the loss is the vocab-parallel one:
+    each rank runs the chunked online logsumexp over its own rows, the
+    running max, the sum of exponentials and the true logit are
+    all-reduced over the axis (three (N,) fp32 vectors: no rank gathers
+    the weight or the (N, V) logits), and the input's gradient, partial
+    on each rank, is all-reduced in the backward (``mp_identity``)."""
     x, weight = maybe_cast_inputs("linear_cross_entropy", (x, weight))
+    if axis is not None:
+        from paddle_tpu_torch.distributed.meta_parallel.mp_layers import \
+            mp_identity
+
+        x = mp_identity(x, axis)
     lead = x.shape[:-1]
     flat_label = label.reshape(-1).long()
     loss = _LinearCE.apply(x.reshape(-1, x.shape[-1]), weight, flat_label,
                            int(vocab_chunk), bool(w_vocab_major),
-                           int(ignore_index))
+                           int(ignore_index), axis)
     if reduction == "mean":
         count = (flat_label != ignore_index).float().sum().clamp(min=1.0)
         return loss.sum() / count

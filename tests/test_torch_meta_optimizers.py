@@ -9,7 +9,8 @@
   wrapper: adaptive LocalSGD, Lars in place of a ``Momentum`` (carrying
   its rate, momentum and the strategy's Lars settings), LocalSGD, else
   ``HybridParallelOptimizer``; ``fleet.init`` and ``distributed_model``
-  refuse (ROADMAP.md Queue 1 item 6).
+  train in one process (over four ranks: ``test_torch_mesh_trainer.py``),
+  and a pipeline degree refuses (ROADMAP.md Queue 1 item 6).
 - ASP's 1-D and 2-D greedy masks equal the reference's bitwise on the
   same arrays, ``prune_model`` prunes the reference's parameters of a
   port GPT with the same masks, and ``decorate`` keeps the pattern
@@ -171,13 +172,52 @@ def test_distributed_optimizer_picks_the_reference_wrapper(which, inner):
         assert pw.inner_opt is po
 
 
-def test_fleet_init_and_distributed_model_refuse():
+def test_fleet_init_and_distributed_model_refuse(tmp_path):
+    """``fleet.init`` and ``distributed_model`` are ported (the mesh over
+    ``torch.distributed``; ``test_torch_mesh_trainer.py`` drives them
+    over four ranks). What still refuses: ``distributed_model`` before
+    ``init``, and a pipeline degree (ROADMAP.md Queue 1 item 6). In one
+    process on a one-rank gloo group, ``init`` builds the ``[1, 1, 1,
+    1]`` topology and mesh, and the wrapped model trains like the
+    reference's ``train_batch`` (``tests/test_distributed.py:364-387``)."""
+    from paddle_tpu_torch.distributed import env, gloo_release, \
+        init_parallel_env
+    from paddle_tpu_torch.nn import functional as F
+
     assert not fleet.is_initialized()
     assert fleet.fleet_state() is fleet.fleet_state()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        fleet.init(is_collective=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(RuntimeError, match="fleet.init"):
         fleet.distributed_model(Linear(2, 2, device="cpu"))
+    strategy = DistributedStrategy()
+    strategy.hybrid_configs = {"pp_degree": 2}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        fleet.init(is_collective=True, strategy=strategy)
+    init_parallel_env(f"file://{tmp_path}/store", 1, 0, backend="gloo",
+                      timeout=60)
+    try:
+        fleet.init(is_collective=True)
+        assert fleet.is_initialized()
+        hcg = fleet.get_hybrid_communicate_group()
+        assert hcg.get_data_parallel_world_size() == 1
+        assert (fleet.worker_index(), fleet.worker_num()) == (0, 1)
+        assert fleet.get_mesh().shape == {"dp": 1, "pp": 1, "sharding": 1,
+                                          "mp": 1}
+        torch.manual_seed(30)
+        net = torch.nn.Sequential(Linear(8, 16, device="cpu"),
+                                  torch.nn.ReLU(),
+                                  Linear(16, 1, device="cpu"))
+        model = fleet.distributed_model(net, loss_fn=F.mse_loss)
+        model.prepare(fleet.distributed_optimizer(
+            SGD(learning_rate=0.05, parameters=net.parameters())))
+        rs = np.random.RandomState(6)
+        x = rs.randn(32, 8).astype(np.float32)
+        y = x @ rs.randn(8, 1).astype(np.float32)
+        losses = [float(model.train_batch((x, y))) for _ in range(6)]
+        assert losses[-1] < losses[0]
+    finally:
+        gloo_release()
+        fleet.fleet_state().__init__()
+        env.set_mesh(None)
 
 
 # -- ASP ------------------------------------------------------------------------

@@ -327,7 +327,8 @@ def test_port_never_imports_jax_or_the_jax_package():
               REPO / "k2_fault_check.py", REPO / "k2_variants.py",
               REPO / "k45_f32_fault_check.py", REPO / "k45_f32_variants.py",
               REPO / "offload_fault_check.py",
-              REPO / "fused_fault_check.py"]
+              REPO / "fused_fault_check.py", REPO / "mesh_gang.py",
+              REPO / "gloo_probe.py"]
     assert len(files) > 10
     for module in ("observability/__init__.py", "observability/metrics.py",
                    "observability/ops_plane.py", "inference/program_set.py",
@@ -354,7 +355,14 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "incubate/distributed/models/moe/__init__.py",
                    "incubate/distributed/models/moe/gate.py",
                    "incubate/distributed/models/moe/moe_layer.py",
-                   "incubate/distributed/models/moe/grad_clip.py"):
+                   "incubate/distributed/models/moe/grad_clip.py",
+                   "distributed/env.py", "distributed/collective.py",
+                   "distributed/topology.py", "distributed/compat.py",
+                   "distributed/parallel.py", "distributed/launch/__init__.py",
+                   "distributed/launch/__main__.py",
+                   "distributed/launch/main.py",
+                   "distributed/meta_parallel/mp_layers.py",
+                   "distributed/meta_parallel/random.py"):
         assert REPO / "paddle_tpu_torch" / module in files
     bad = []
     for f in files:
