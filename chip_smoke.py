@@ -6611,17 +6611,16 @@ MESH_GANGS = ((2, ("b", "c", "d2", "d3")), (4, ("e",)))
 MESH_GANG_TIMEOUT_S = 300.0
 
 
-def _run_gang(nproc, out, cases):
-    """``mesh_gang.py`` in ``nproc`` ranks through the port's launcher,
-    its workers in a session of their own, killed whole past the
-    timeout."""
+def _run_gang(script, nproc, out, cases, phase):
+    """``script`` in ``nproc`` ranks through the port's launcher, its
+    workers in a session of their own, killed whole past the timeout."""
     import signal
 
     root = os.path.dirname(os.path.abspath(__file__))
+    logs = os.path.join(out, f"logs{nproc}")
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-           "--nproc_per_node", str(nproc), "--log_dir",
-           os.path.join(out, f"logs{nproc}"),
-           os.path.join(root, "mesh_gang.py"), out, *cases]
+           "--nproc_per_node", str(nproc), "--log_dir", logs,
+           os.path.join(root, script), out, *cases]
     proc = subprocess.Popen(cmd, cwd=root, start_new_session=True)
     try:
         rc = proc.wait(timeout=MESH_GANG_TIMEOUT_S)
@@ -6630,10 +6629,9 @@ def _run_gang(nproc, out, cases):
         proc.wait()
         rc = "timeout"
     if rc != 0:
-        logs = "".join(open(os.path.join(out, f"logs{nproc}", f)).read()[-3000:]
-                       for f in sorted(os.listdir(os.path.join(
-                           out, f"logs{nproc}"))))
-        fail(f"8e: the {nproc}-rank gang {cases} ended {rc}:\n{logs}")
+        text = "".join(open(os.path.join(logs, f)).read()[-3000:]
+                       for f in sorted(os.listdir(logs)))
+        fail(f"{phase}: the {nproc}-rank gang {cases} ended {rc}:\n{text}")
 
 
 def mesh_phase(torch, card):
@@ -6708,7 +6706,7 @@ def mesh_phase(torch, card):
     results = {}
     for nproc, cases in MESH_GANGS:
         t0 = time.perf_counter()
-        _run_gang(nproc, out, cases)
+        _run_gang("mesh_gang.py", nproc, out, cases, "8e")
         print(f"8e: the {nproc}-rank gang {cases}: "
               f"{time.perf_counter() - t0:.1f} s wall", flush=True)
         for name in cases:
@@ -6763,6 +6761,259 @@ def mesh_phase(torch, card):
     env.set_mesh(None)
     gc.collect()
     torch.cuda.empty_cache()
+    return total
+
+
+# Phase 8f's limits. The pipelined and sequence-cut runs sum in other
+# orders than the one-process run (microbatch means, the pp sum of the
+# tied embedding's gradient, the ring's per-block merge), so a loss and
+# the clip's global norm are held relatively and a parameter after the
+# SGD steps absolutely. SGD, and a clip that never engages, keep a
+# gradient's scale in the parameters (AdamW's step is blind to it), so
+# a gradient off by a factor of 2 (sep averaged, a dp average dropped)
+# moves a parameter by about half the reference's largest move (on an
+# H100 80GB HBM3 at 700.00 W, PERF.md: gpt2_small 8.79e-3 in 3 steps,
+# bert-base 8.05e-3 in 2). The worst sound readings there: losses
+# 9.17e-8, norms 5.75e-7, parameters 1.19e-7; the limits sit 10.9x,
+# 7.0x and 8.4x above. The ring's and Ulysses' bf16 outputs and gradients are held to
+# one rank's flash attention, max |difference| over max |reference|.
+# PIPE_MEM_RATIO bounds a rank's peak memory at M 8 over M 4
+# (microbatches of 2 rows): the 1F1B schedule keeps 2W - 1 boundary
+# activations whatever M is.
+PIPE_LOSS_RTOL = 1e-6
+PIPE_PARAM_ATOL = 1e-6
+PIPE_NORM_RTOL = 4e-6
+PIPE_ATTN_RTOL = 2e-2
+PIPE_MEM_RATIO = 1.10
+PIPE_GANGS = ((2, ("attn", "mem", "b", "c", "e_ring", "e_ulysses",
+                   "e_ulysses_rc", "f")),
+              (4, ("d",)))
+
+
+def _pipe_want(case, r, nproc, L, M, V, n, first_step):
+    """Each rank's K1, K3a and K2 launches over ``n`` steps of a phase
+    8f case. 1F1B on pp rank s of S = 2 (``Lc = L / (S V)`` blocks a
+    chunk): a chunk's blocks run forward twice a microbatch (the forward
+    sub-tick, without a graph, and the recompute) and backward once,
+    but the loss chunk (the last virtual stage, on rank S-1) runs only
+    its recompute, so K1 = M Lc (2V - [s = S-1]), K3a = M Lc V; K2 =
+    2 K1 for the two norms a block, plus ``last``'s norm once a
+    microbatch on rank S-1 (GPT's ``ln_f``, BERT's MLM head's) and, for
+    BERT, the embeddings' norm twice a microbatch on rank 0, and once
+    more on every rank in a model's first step (``first`` run on one
+    row to learn the activation's shape; GPT's ``first`` has no norm).
+    Ring attention on sep rank r (causal): K1 and K3a once a visible
+    block, (r + 1) L; Ulysses: L; K2 2L + 1 either way; the per-block
+    recompute (``_rc``) runs each block's forward twice: K1 2L, K2
+    4L + 1."""
+    if case in ("b", "c", "d", "f"):
+        S, s = 2, r % 2               # [dp, pp]: pp is the fast index
+        Lc, last = L // (S * V), s == S - 1
+        k1 = M * Lc * (2 * V - last)
+        k2 = 2 * k1 + (M if last else 0)
+        if case == "f":
+            k2 += 0 if last else 2 * M
+        return {"K1": k1 * n, "K3a": M * Lc * V * n, "K3b": 0,
+                "K2": k2 * n + (case == "f" and first_step)}
+    blocks = (r + 1) * L if case == "e_ring" else L
+    rc = 2 if case.endswith("_rc") else 1
+    return {"K1": rc * blocks * n, "K3a": blocks * n, "K3b": 0,
+            "K2": (2 * rc * L + 1) * n}
+
+
+def pipe_phase(torch, card):
+    """Phase 8f: the pipeline and the sequence axis over ranks
+    (``pipe_gang.py``), ``gpt2_small`` at full width and depth. (a) One
+    NCCL rank: ``GPTForCausalLMPipe(num_stages=1)`` through
+    ``fleet.init``, in lockstep with ``mesh=None`` (the same gradients
+    fed to both updates, ``_GradTap``): losses and parameters bitwise.
+    Then the one-process references (``GPTForCausalLM`` from the same
+    seed, the Pipe models' weights; bert-base's Pipe on one rank) and
+    gangs of 2 and 4 ranks on this card over gloo: (b) pp 2, M 4; (c)
+    pp 2, V 2, M 4; (d) dp 2 x pp 2; (e) sep 2 ring, Ulysses, and
+    Ulysses with every block recomputed; (f) bert-base pp 2, M 4. Their
+    fp32 SGD steps' losses, global norms and parameters within
+    PIPE_LOSS_RTOL, PIPE_NORM_RTOL and PIPE_PARAM_ATOL of the reference
+    (SGD, and a clip that never engages, so a gradient off by a factor
+    shows; the reference's parameter movement says by how much), every
+    rank's
+    K1, K3a and K2 launches as ``_pipe_want`` says, the bf16 AMP step
+    times printed; ring's and Ulysses' attention within PIPE_ATTN_RTOL
+    of the flash attention; the peak memory flat in M. Returns the
+    launches of the counted steps."""
+    import gc
+    import tempfile
+
+    import pipe_gang
+    from paddle_tpu_torch.distributed import (ShardedTrainer, env, fleet,
+                                              gloo_release,
+                                              init_parallel_env)
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as k2
+
+    cfg = gpt2_small()
+    cfg.hidden_dropout = cfg.attention_dropout = 0.0
+    L, steps = cfg.num_layers, pipe_gang.STEPS
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ids = torch.from_numpy(pipe_gang.batch_ids(cfg.vocab_size)).cuda()
+    out = tempfile.mkdtemp(prefix="pipe-8f-")
+    total = {"K1": 0, "K3a": 0, "K2": 0}
+
+    def add(got):
+        for k in total:
+            total[k] += got[k]
+
+    dense = {"K1": L, "K3a": L, "K3b": 0, "K2": 2 * L + 1}
+    # (a): a one-stage Pipe on one NCCL rank beside mesh=None, in lockstep
+    fa.reset_launches()
+    k2.reset_launches()
+    ref_pipe = pipe_gang.gpt_pipe(torch, cfg, 1, 1, 1)
+    ref = ShardedTrainer(ref_pipe, _GradTap(pipe_gang.adamw(ref_pipe)),
+                         type(ref_pipe).loss)
+    init_parallel_env(f"file://{out}/nccl-store", 1, 0, backend="nccl")
+    fleet.init(is_collective=True)
+    check(fleet.get_mesh().size == 1 and torch.distributed.get_backend()
+          == "nccl", "8f (a): not a one-rank NCCL mesh")
+    one_pipe = pipe_gang.gpt_pipe(torch, cfg, 1, 1, 1)
+    one = ShardedTrainer(one_pipe, _GradTap(pipe_gang.adamw(one_pipe),
+                                            source=ref.optimizer),
+                         type(one_pipe).loss, mesh=fleet.get_mesh())
+    pipe_losses = []
+    for i in range(steps):
+        lr_, la = ref.train_step(ids, ids), one.train_step(ids, ids)
+        check(torch.equal(lr_, la), f"8f (a): step {i + 1} loss "
+              f"{float(la)!r} != mesh=None {float(lr_)!r}")
+        pipe_losses.append(float(lr_))
+    for (n, p), q in zip(ref_pipe.named_parameters(), one_pipe.parameters()):
+        check(torch.equal(p, q), f"8f (a): parameter {n} differs")
+    got = _counts(fa, k2)
+    want = {k: v * 2 * steps for k, v in dense.items()}
+    check(got == want, f"8f (a) launches {got} != {want}")
+    add(got)
+    print(f"8f (a) GPTForCausalLMPipe(num_stages=1) on one NCCL rank "
+          f"through fleet.init on {card}: losses {pipe_losses} bitwise "
+          f"mesh=None's, every parameter bitwise", flush=True)
+    del ref, one, ref_pipe, one_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the one-process references the gangs are held to
+    fa.reset_launches()
+    k2.reset_launches()
+    def reference(model, loss_fn, batch, n, path):
+        """One process's SGD steps: losses, the clip's global norms, the
+        parameters, and the largest distance a parameter moved."""
+        start = {k: p.detach().clone() for k, p in model.named_parameters()}
+        opt = pipe_gang.sgd(model)
+        tr = ShardedTrainer(model, opt, loss_fn)
+        losses = [float(tr.train_step(*batch)) for _ in range(n)]
+        norms = pipe_gang.norms_of(opt)
+        moved = max(float((p.detach() - start[k]).abs().max())
+                    for k, p in model.named_parameters())
+        check(max(norms) < pipe_gang.SGD_CLIP, f"8f reference: the clip "
+              f"engaged (global norms {norms})")
+        torch.save({"losses": losses, "norms": norms,
+                    "params": {k: p.detach().cpu() for k, p in
+                               model.named_parameters()}}, path)
+        return losses, norms, moved
+
+    model = GPTForCausalLM(cfg, device=dev, seed=0)
+    model.train()
+    ref_losses, ref_norms, moved = reference(
+        model, None, (ids, ids), steps, os.path.join(out, "ref.pt"))
+    del model
+    bert = pipe_gang.bert_pipe(torch, 2, 4)
+    bids, blabels = (torch.from_numpy(a).cuda()
+                     for a in pipe_gang.bert_batch(30522))
+    bert_losses, bert_norms, bert_moved = reference(
+        bert, bert.mlm_loss, (bids, blabels), pipe_gang.BERT_STEPS,
+        os.path.join(out, "bert_ref.pt"))
+    add(_counts(fa, k2))
+    # a gradient off by a factor of 2 moves the parameters about half
+    # their whole movement away from the reference
+    sens = min(moved, bert_moved) / 2 / PIPE_PARAM_ATOL
+    print(f"8f references on {card}: SGD lr {pipe_gang.SGD_LR}, the clip "
+          f"at {pipe_gang.SGD_CLIP:g} never engaged; gpt2_small one process,"
+          f" fp32 losses {ref_losses}, global norms {ref_norms}, largest "
+          f"parameter move {moved:.4g}; bert-base Pipe one process (32 x "
+          f"512), fp32 losses {bert_losses}, global norms {bert_norms}, "
+          f"largest move {bert_moved:.4g}; a gradient off by a factor of 2 "
+          f"would put a parameter about {sens:.3g}x PIPE_PARAM_ATOL off",
+          flush=True)
+    check(sens >= 10, f"8f: PIPE_PARAM_ATOL {PIPE_PARAM_ATOL} cannot see a "
+          f"gradient off by a factor of 2 ({sens:.3g}x)")
+    del bert
+    gloo_release()
+    fleet.fleet_state().__init__()
+    env.set_mesh(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b)-(f): gloo gangs on this card
+    results = {}
+    for nproc, cases in PIPE_GANGS:
+        t0 = time.perf_counter()
+        _run_gang("pipe_gang.py", nproc, out, cases, "8f")
+        print(f"8f: the {nproc}-rank gang {cases}: "
+              f"{time.perf_counter() - t0:.1f} s wall", flush=True)
+        for name in cases:
+            results[name] = [json.load(open(os.path.join(
+                out, f"{name}.rank{r}.json"))) for r in range(nproc)]
+    attn = results.pop("attn")[0]
+    attn.pop("wall_s")
+    for name, errs in attn.items():
+        print(f"8f attention: {name} (sep 2, (2, 1024, 12, 64) bf16, "
+              f"causal) against one rank's flash attention, max |diff| / "
+              f"max |ref| of out, dq, dk, dv: "
+              f"{[float(f'{e:.3g}') for e in errs]} (limit "
+              f"{PIPE_ATTN_RTOL})", flush=True)
+        check(max(errs) <= PIPE_ATTN_RTOL,
+              f"8f attention: {name} off the flash attention by {errs}")
+    mem = results.pop("mem")
+    for r, m in enumerate(mem):
+        ratio = m["M8"] / m["M4"]
+        print(f"8f memory: pp rank {r} peak over one fp32 1F1B step, "
+              f"microbatches of 2 rows: M 4 {m['M4']:.3f} GiB, M 8 "
+              f"{m['M8']:.3f} GiB, ratio {ratio:.4f} (limit "
+              f"{PIPE_MEM_RATIO})", flush=True)
+        check(ratio <= PIPE_MEM_RATIO, f"8f memory: pp rank {r}'s peak "
+              f"grows {ratio:.3f}x from M 4 to M 8")
+    for name, ranks in results.items():
+        r0 = ranks[0]
+        n_steps = pipe_gang.BERT_STEPS if name == "f" else steps
+        Lc = 12
+        for r, res in enumerate(ranks):
+            w = _pipe_want(name, r, len(ranks), Lc, r0["M"], r0["V"],
+                           n_steps, True)
+            wb = _pipe_want(name, r, len(ranks), Lc, r0["M"], r0["V"],
+                            pipe_gang.TIMED, False)
+            check(res["fp32_launches"] == w and res["bf16_launches"] == wb,
+                  f"8f ({name}) rank {r}: launches {res['fp32_launches']} "
+                  f"(fp32), {res['bf16_launches']} (bf16) != {w}, {wb}")
+            check(res["losses"] == r0["losses"]
+                  and res["norms"] == r0["norms"],
+                  f"8f ({name}): rank {r}'s losses or norms differ from "
+                  f"rank 0's")
+            add(res["fp32_launches"])
+            add(res["bf16_launches"])
+        print(f"8f ({name}) mesh {r0['mesh']} M {r0['M']} V {r0['V']}, "
+              f"{len(ranks)} ranks on {card}, fp32: losses {r0['losses']}; "
+              f"distance from one process: loss {r0['loss_rel']:.3g} "
+              f"(limit {PIPE_LOSS_RTOL}), global norm {r0['norm_rel']:.3g} "
+              f"(limit {PIPE_NORM_RTOL}), parameters {r0['param_abs']:.3g} "
+              f"(limit {PIPE_PARAM_ATOL}); bf16 AMP step "
+              f"{float(np.median(r0['bf16_step_ms'])):.1f} ms p50 of "
+              f"{[round(x, 1) for x in r0['bf16_step_ms']]} (gloo through "
+              f"the host, not a measure of NCCL), peak "
+              f"{max(x['peak_gib'] for x in ranks):.2f} GiB a rank; "
+              f"launches a rank fp32 {[x['fp32_launches'] for x in ranks]}"
+              f"; {r0['wall_s']:.1f} s wall", flush=True)
+        check(r0["loss_rel"] <= PIPE_LOSS_RTOL
+              and r0["norm_rel"] <= PIPE_NORM_RTOL
+              and r0["param_abs"] <= PIPE_PARAM_ATOL,
+              f"8f ({name}): fp32 distance from one process {r0['loss_rel']}"
+              f", {r0['norm_rel']}, {r0['param_abs']} over the limits")
     return total
 
 
@@ -6993,6 +7244,10 @@ def main():
     lap("the fused encoder layers (8d)")
     mesh = mesh_phase(torch, card)
     lap("gpt2_small over a mesh of ranks (8e)")
+    pipe = pipe_phase(torch, card)
+    lap("the pipeline and the sequence axis over ranks (8f)")
+    for k in ("K1", "K3a", "K2"):
+        mesh[k] += pipe[k]
     launches["K2"] += (enc_launches["K2"] + offload_launches["K2"]
                        + opt_launches["K2"] + gpt3_launches["K2"]
                        + n5_launches["K2"] + n5_q_launches["K2"]

@@ -4,15 +4,17 @@ meta-optimizers (``meta_optimizers``), and the facade: ``init`` builds
 the hybrid topology and its mesh, ``distributed_model`` and
 ``distributed_optimizer`` wrap the model and the optimizer for it.
 
-``init`` joins the process group (``init_parallel_env``), reads the
-degrees of ``strategy.hybrid_configs`` (``dp``, ``pp``, ``sharding``,
-``mp``, and ``sep`` when above 1), lets dp absorb the ranks the others
-leave (``world % product == 0``, as at the reference's ``:66-79``), and
-builds the ``CommunicateTopology``, this rank's
-``HybridCommunicateGroup`` and the mesh ``[dp, pp, sharding, mp]``,
-which becomes the global mesh (``env.set_mesh``). A ``pp`` or ``sep``
-degree above 1 raises ``NotImplementedError``: the pipeline and the
-sequence axis are ROADMAP.md Queue 1 item 6.
+``init`` reads the degrees of ``strategy.hybrid_configs`` (``dp``,
+``pp``, ``sharding``, ``mp``, and ``sep`` as a fifth axis when above
+1), lets dp absorb the ranks the others leave (``world % product ==
+0``, as at the reference's ``:66-79``), joins the process group
+(``init_parallel_env``; degrees the world cannot hold raise first, so
+no group is left behind), and builds the ``CommunicateTopology``, this
+rank's ``HybridCommunicateGroup`` and the mesh ``[dp, pp, sharding,
+mp(, sep)]``, which becomes the global mesh (``env.set_mesh``).
+``distributed_model`` wraps any model, a pipeline included: its
+``train_batch`` runs the ``ShardedTrainer`` step, which drives the
+pipeline's schedule over ``pp``.
 
 ``distributed_optimizer`` picks, in the reference's order: adaptive
 LocalSGD, then Lars in place of a ``Momentum``, then LocalSGD, then the
@@ -68,16 +70,12 @@ def init(role_maker=None, is_collective: bool = True,
     strategy = copy.deepcopy(strategy) if strategy is not None \
         else DistributedStrategy()
     hc = strategy.hybrid_configs
-    for name, deg in (("pp_degree", hc.pp_degree),
-                      ("sep_degree", hc.sep_degree)):
-        if deg > 1:
-            raise NotImplementedError(
-                f"fleet.init: {name}={deg}: the pipeline and the sequence "
-                "axis over ranks are ROADMAP.md Queue 1 item 6")
-    dist_env.init_parallel_env()
-    world = dist_env.get_world_size()
+    # the world init_parallel_env will join (the launcher's, else one)
+    world = dist_env.ParallelEnv().world_size
     degrees = {"data": hc.dp_degree, "pipe": hc.pp_degree,
                "sharding": hc.sharding_degree, "model": hc.mp_degree}
+    if hc.sep_degree > 1:
+        degrees["sep"] = hc.sep_degree
     specified = 1
     for v in degrees.values():
         specified *= v
@@ -90,6 +88,7 @@ def init(role_maker=None, is_collective: bool = True,
         raise ValueError(
             f"hybrid degrees {degrees} need {specified} ranks but the "
             f"world has {world}")
+    dist_env.init_parallel_env()
     names = list(degrees)
     topo = CommunicateTopology(names, [degrees[n] for n in names])
     _state.strategy = strategy

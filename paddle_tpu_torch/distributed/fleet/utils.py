@@ -13,7 +13,10 @@ the forward exactly:
   the replay draws the same masks;
 - the AMP state (``amp.auto_cast``) in force at the forward is put back
   around the replay, which runs during the backward, after the user's
-  ``auto_cast`` block has closed, so it casts as the forward cast.
+  ``auto_cast`` block has closed, so it casts as the forward cast;
+- so is the sequence-parallel schedule (``sequence_parallel_mode``): a
+  forward run under Ulysses replays under Ulysses, and saves tensors of
+  the shapes the forward saved.
 
 The reference lowers the segment through ``jax.checkpoint`` in a traced
 step and is the identity on its eager tape; the port always runs
@@ -35,12 +38,21 @@ __all__ = ["recompute"]
 
 def _amp_replay():
     """``checkpoint``'s context_fn: nothing around the forward, and the
-    forward's AMP state around the replay."""
+    forward's AMP state and sequence-parallel schedule around the
+    replay."""
+    from paddle_tpu_torch.distributed import ulysses
     st = amp_state()
-    replay = auto_cast(enable=st.enabled, custom_white_list=st.custom_white,
-                       custom_black_list=st.custom_black, level=st.level,
-                       dtype=st.dtype)
-    return contextlib.nullcontext(), replay
+    amp = auto_cast(enable=st.enabled, custom_white_list=st.custom_white,
+                    custom_black_list=st.custom_black, level=st.level,
+                    dtype=st.dtype)     # reads the state now, not at replay
+    mode = ulysses.get_sequence_parallel_mode()
+
+    @contextlib.contextmanager
+    def replay():
+        with amp, ulysses.sequence_parallel_mode(mode):
+            yield
+
+    return contextlib.nullcontext(), replay()
 
 
 def recompute(function, *args, **kwargs):

@@ -26,8 +26,9 @@ learning rate read at that call; the step counter counts micro-steps.
 ``sharding`` is a no-op on one device, as in the reference (its
 ``sharding`` axis has one member), and so is ``moe``: the reference's
 trainer never reads it, and a GPT-MoE model trains through its own
-``loss_with_aux``. Pipelines raise ``NotImplementedError``
-(ROADMAP.md Queue 1 item 6).
+``loss_with_aux``. A ``Pipeline1F1B`` model with ``loss_fn=None`` trains
+on its class's ``loss`` (else its own ``loss_fn``) over its sequential
+forward.
 
 Over a mesh of ranks (``mesh=``, a ``distributed.env.Mesh`` of more
 than one rank from ``build_mesh`` or ``fleet.init``; every rank runs the
@@ -64,6 +65,30 @@ rank, so the trainer does by hand what GSPMD does there.
 - Checkpoints are the reference's multi-process layout: each rank writes
   the windows it is the first replica of, and ``load_checkpoint``
   assembles each rank's windows from whatever mesh saved them.
+- ``pp``: the trainer attaches its mesh to every ``PipelineParallel``
+  and ``Pipeline1F1B`` in the model (``trainer.py:96-109``); their
+  stacked parameters' ``("pp", ...)`` specs give each pp rank its
+  stage. A ``Pipeline1F1B`` model with ``pp`` above 1 owns its loss and
+  gradients (:meth:`Pipeline1F1B.loss_and_grads`, the 1F1B schedule,
+  under the trainer's AMP; ``:495-515``): a ``loss_fn`` other than its
+  own warns, as the reference does, and is used for ``eval_step`` only.
+  Under ZeRO-3 every parameter is gathered before the schedule. A
+  ``PipelineParallel`` runs GPipe inside the model's forward.
+- ``sep``: the trainer cuts dim 1 of each token leaf of the batch (the
+  leaves whose dim 1 is the sequence, ``_spec_for_leaf``, :285-300;
+  with a ``loss_fn``, the label stays whole) by the rank's ``sep``
+  coordinate, and runs the step in ``ring_attention.sep_sharded_scope``:
+  attention runs ring or Ulysses, the embeddings offset their positions.
+  With a ``loss_fn`` the model's output is gathered over ``sep`` on dim
+  1 before it (every rank computes the same loss; the gather's backward
+  keeps this rank's chunk). Gathered logits are large: gpt2_small at 8 x
+  1024 in fp32 is 1.65 GB a rank; ``GPTForCausalLM``'s own loss
+  (``loss_fn=None``) gathers only the label ids. Parameter gradients are
+  SUMMED over ``sep`` (each rank holds its chunk's part of the same
+  loss's gradient), then averaged over ``dp x sharding``. A sequence
+  ``sep`` does not divide, or a pipelined 1F1B model, warns as the
+  reference does (``:120-132``), and every sep rank then runs the whole
+  sequence: the same function.
 
 A mesh of one rank (or ``mesh=None``) is the one-card trainer above,
 unchanged.
@@ -229,14 +254,14 @@ class ShardedTrainer:
                 "distributed.env Mesh over torch.distributed ranks "
                 "(build_mesh or fleet.init)")
         refuse_unported("ShardedTrainer", batch_spec=(batch_spec, None))
+        from paddle_tpu_torch.distributed.pipeline_1f1b import Pipeline1F1B
+
         self.strategy = strategy or DistributedStrategy()
         st = self.strategy
-        if st.pipeline:
-            raise NotImplementedError(
-                "ShardedTrainer: strategy.pipeline, the pipeline over "
-                "ranks, is ROADMAP.md Queue 1 item 6")
         self.model = model
         self.optimizer = optimizer
+        if loss_fn is None and isinstance(model, Pipeline1F1B):
+            loss_fn = getattr(type(model), "loss", model.loss_fn)
         self.loss_fn = loss_fn
         self.recompute = recompute or st.recompute
         self.amp = amp or st.amp
@@ -249,6 +274,7 @@ class ShardedTrainer:
             else None
         if self._mesh is not None:
             self._mesh_init()
+        self._pipe_init(loss_fn)
         # every slot exists from the start, as the reference's state
         # pytree does: a checkpoint before the first step holds them all
         self._offload = bool(st.sharding and st.sharding_configs.offload)
@@ -271,13 +297,35 @@ class ShardedTrainer:
 
     # -- the step -------------------------------------------------------------
     def _loss(self, *batch) -> torch.Tensor:
-        """The loss closure: the forward and the fp32 mean loss."""
+        """The loss closure: the forward and the fp32 mean loss (the
+        model's output gathered over ``sep`` first when the step cut the
+        sequence)."""
         if self.loss_fn is not None:
             *xs, label = batch
-            res = self.loss_fn(self.model(*xs), label)
+            res = self.loss_fn(self._sep_gathered(self.model(*xs), xs),
+                               label)
         else:
             res = self.model(*batch)
         return res.float().mean()
+
+    def _sep_gathered(self, out, xs):
+        """``out`` with each tensor whose dim 1 is the local sequence
+        chunk gathered over ``sep`` (``ring_attention._sep_gather``)."""
+        if not self._sep_cut:
+            return out
+        from paddle_tpu_torch.distributed.ring_attention import _sep_gather
+
+        local = next(t.shape[1] for t in xs if t.dim() >= 2)
+
+        def one(t):
+            if isinstance(t, torch.Tensor) and t.dim() >= 2 \
+                    and t.shape[1] == local:
+                return _sep_gather(t, self._mesh)
+            return t
+
+        if isinstance(out, (tuple, list)):
+            return type(out)(one(t) for t in out)
+        return one(out)
 
     def _to_device(self, batch):
         return tuple(torch.as_tensor(b).to(self.device, non_blocking=True)
@@ -452,16 +500,43 @@ class ShardedTrainer:
     _zero_stage = 0
     _gathering = False
 
+    _pipe_1f1b = None
+    _sep = False          # the mesh has a sep axis above 1
+    _sep_cut = False      # this step cuts the sequence over it
+
+    def _pipe_init(self, loss_fn):
+        """Attach the mesh to the model's pipelines; a pipelined 1F1B
+        model owns its gradients, and then the sequence stays whole."""
+        from paddle_tpu_torch.distributed.pipeline import PipelineParallel
+        from paddle_tpu_torch.distributed.pipeline_1f1b import Pipeline1F1B
+
+        for sub in self.model.modules():
+            if isinstance(sub, (PipelineParallel, Pipeline1F1B)):
+                sub.attach_mesh(self._mesh)
+        model = self.model
+        if not (isinstance(model, Pipeline1F1B) and model.pipelined()):
+            return
+        self._pipe_1f1b = model
+        if loss_fn is not None and loss_fn is not model.loss_fn \
+                and loss_fn is not getattr(type(model), "loss", None):
+            warnings.warn(
+                "ShardedTrainer: the training objective of a pipelined "
+                "Pipeline1F1B model is its OWN loss_fn (baked into the "
+                "1F1B schedule); the loss_fn passed here is used only "
+                "for eval_step. Make sure they agree.", UserWarning)
+        if self._sep:
+            warnings.warn(
+                "ShardedTrainer: 'sep' is not composed with the 1F1B "
+                "pipeline schedule; attention inside pipeline stages "
+                "runs the local kernel (sequence gathered per stage). "
+                "Use sep with non-pipelined models.", UserWarning)
+            self._sep = False
+
     def _mesh_init(self):
         """Cut every parameter to this rank's window (and, under ZeRO-3,
         its shard); record each one's plan."""
         mesh, st = self._mesh, self.strategy
-        for axis in ("pp", "sep"):
-            if mesh.shape.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f"ShardedTrainer: a {axis!r} axis of {mesh.shape[axis]} "
-                    "ranks: the pipeline and the sequence axis are "
-                    "ROADMAP.md Queue 1 item 6")
+        self._sep = mesh.shape.get("sep", 1) > 1
         self._data_axes = tuple(a for a in ("dp", "sharding")
                                 if mesh.shape.get(a, 1) > 1)
         self._zero_stage = int(st.sharding_configs.stage) if (
@@ -484,6 +559,13 @@ class ShardedTrainer:
                 if own:
                     mod.register_forward_pre_hook(
                         functools.partial(self._gather_hook, own))
+
+    def _gather_all(self):
+        """ZeRO-3: every sharded parameter gathered (before a pipeline's
+        schedule, which calls its stages' layers on some ranks only)."""
+        if self._zero_stage >= 3:
+            self._gather_hook([n for n, plan in self._plans.items()
+                               if plan.zero_dim is not None], None, ())
 
     def _local_shape(self, name: str):
         plan = (self._plans or {}).get(name)
@@ -547,9 +629,11 @@ class ShardedTrainer:
                                  axis_name="sharding")
                 p.data.copy_(torch.cat(parts, dim=plan.zero_dim))
 
-    def _local_batch(self, batch):
+    def _local_batch(self, batch, labelled: bool = True):
         """This rank's dim-0 slice of every leaf of the global batch, by
-        its index on ``dp x sharding`` (dp slowest)."""
+        its index on ``dp x sharding`` (dp slowest); under ``sep``, also
+        its dim-1 chunk of each token leaf (:meth:`_sep_leaves`;
+        ``labelled``: the batch ends with the label)."""
         n = self._mesh.degree(self._data_axes)
         i = self._mesh.index(self._data_axes)
         out = []
@@ -560,7 +644,54 @@ class ShardedTrainer:
                     f"the global batch's dim 0 ({t.shape[0]}) must divide "
                     f"over dp x sharding ({n} ranks)")
             out.append(t.chunk(n, 0)[i] if n > 1 else t)
+        cut = self._sep_leaves(out, labelled)
+        if cut:
+            k, r = self._mesh.degree("sep"), self._mesh.index("sep")
+            out = [t.chunk(k, 1)[r].contiguous() if j in cut else t
+                   for j, t in enumerate(out)]
         return tuple(out)
+
+    _sep_warned = False
+
+    def _sep_leaves(self, batch, labelled: bool):
+        """The indices of the leaves ``sep`` cuts on dim 1 (sets
+        ``_sep_cut``): those whose dim 1 is the sequence length (the
+        first integer leaf's dim 1, else the first 2-D leaf's), the
+        label excluded when a ``loss_fn`` takes it whole. None when the
+        sequence does not divide over ``sep``, which warns."""
+        self._sep_cut = False
+        if not self._sep:
+            return None
+        leaves = list(batch[:-1] if labelled and self.loss_fn is not None
+                      else batch)
+        seq = next((t.shape[1] for t in leaves if t.dim() >= 2
+                    and not t.is_floating_point()), None)
+        if seq is None:
+            seq = next((t.shape[1] for t in leaves if t.dim() >= 2), None)
+        k = self._mesh.degree("sep")
+        if seq is None or seq % k:
+            if not self._sep_warned:
+                warnings.warn(
+                    f"sequence-parallel scope: a sequence length ({seq}) "
+                    f"not divisible by the 'sep' axis ({k}): every sep "
+                    "rank runs the whole sequence (correct but not "
+                    "sep-scheduled)", UserWarning, stacklevel=4)
+                self._sep_warned = True
+            return None
+        self._sep_cut = True
+        return {j for j, t in enumerate(leaves)
+                if t.dim() >= 2 and t.shape[1] == seq}
+
+    def _sep_scope(self):
+        """The step's ``sep_sharded_scope``: the mesh when this step cuts
+        the sequence, a whole-sequence scope when the mesh has ``sep``
+        but it does not, nothing without ``sep``."""
+        from paddle_tpu_torch.distributed.ring_attention import \
+            sep_sharded_scope
+
+        if self._mesh is None or self._mesh.shape.get("sep", 1) <= 1:
+            return contextlib.nullcontext()
+        return sep_sharded_scope(self._mesh if self._sep_cut else None)
 
     def _data_mean(self, value: torch.Tensor) -> torch.Tensor:
         """The mean of a per-rank value over ``dp x sharding``."""
@@ -573,20 +704,25 @@ class ShardedTrainer:
         return out / n
 
     def _sync_grads(self, grads):
-        """Average each raw local gradient over ``dp x sharding``: a ZeRO
+        """Average each raw local gradient over ``dp x sharding``, after
+        summing it over ``sep`` when the step cut the sequence: a ZeRO
         parameter's reduce-scattered over ``sharding`` to its shard (then
-        all-reduced over ``dp``), the others all-reduced."""
+        all-reduced over ``dp`` and ``sep``), the others all-reduced."""
         n_data = self._mesh.degree(self._data_axes)
+        sep = ("sep",) if self._sep_cut else ()
+        rest = tuple(a for a in ("dp",) + sep
+                     if self._mesh.shape.get(a, 1) > 1)
+        summed = self._data_axes + sep
         out = {}
         for n, g in grads.items():
             plan = self._plans[n]
             if plan.zero_dim is not None:
                 g = _coll.reduce_scatter(g, axis_name="sharding",
                                          scatter_dim=plan.zero_dim)
-                if self._mesh.shape.get("dp", 1) > 1:
-                    _coll.all_reduce(g, axis_name="dp")
-            elif n_data > 1:
-                _coll.all_reduce(g, axis_name=self._data_axes)
+                if rest:
+                    _coll.all_reduce(g, axis_name=rest)
+            elif self._mesh.degree(summed) > 1:
+                _coll.all_reduce(g, axis_name=summed)
             out[n] = g.div_(n_data) if n_data > 1 else g
         return out
 
@@ -612,15 +748,25 @@ class ShardedTrainer:
             self._optimizer_step()
         self._gather_shards()
 
+    def _pipe_forward_backward(self, batch) -> torch.Tensor:
+        """The 1F1B schedule's loss, its gradients on the parameters."""
+        self._gather_all()
+        with auto_cast(enable=self.amp, dtype=self.amp_dtype):
+            loss, _ = self._pipe_1f1b.loss_and_grads(
+                None, (batch[0], batch[-1]), None)
+        return loss.detach()
+
     def _mesh_train_step(self, batch):
         batch = self._to_device(self._local_batch(batch))
         buffers = None
         if self._anomaly is not None:
             buffers = {n: b.clone() for n, b in self.model.named_buffers()}
-        with _env._mesh_scope(self._mesh):
+        with _env._mesh_scope(self._mesh), self._sep_scope():
             self._gathering = True
             try:
-                loss = self._forward_backward(batch)
+                loss = (self._pipe_forward_backward(batch)
+                        if self._pipe_1f1b is not None
+                        else self._forward_backward(batch))
             finally:
                 self._gathering = False
             grads = self._take_grads()
@@ -671,7 +817,7 @@ class ShardedTrainer:
         the gathered parameters back to their shards."""
         if self._mesh is None:
             return fn(*args, **kwargs)
-        with _env._mesh_scope(self._mesh):
+        with _env._mesh_scope(self._mesh), self._sep_scope():
             self._gathering = True
             try:
                 return fn(*args, **kwargs)
@@ -797,9 +943,11 @@ class ShardedTrainer:
         if self._mesh is None:
             return self._run_in_eval_mode(self.model,
                                           *self._to_device(batch))
-        out = self._run_in_eval_mode(
-            self._in_mesh, self.model,
-            *self._to_device(self._local_batch(batch)))
+        xs = self._to_device(self._local_batch(batch, labelled=False))
+        out = self._run_in_eval_mode(self._in_mesh, self.model, *xs)
+        if self._sep_cut:
+            with _env._mesh_scope(self._mesh), torch.no_grad():
+                out = self._sep_gathered(out, xs)
         with _env._mesh_scope(self._mesh):
             gather = functools.partial(_coll.all_gather,
                                        axis_name=self._data_axes, tiled=True)

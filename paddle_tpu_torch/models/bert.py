@@ -17,9 +17,12 @@ at ``layer_norm_eps`` (1e-12).
 The models take the port's keyword-only ``device`` (``"cuda"`` unless
 the caller asks for the CPU), ``dtype``, and ``seed``: with a seed every
 weight is drawn from one generator seeded with it on the device, else
-from the device's default generator. The pipeline variants
-(``BertMLMHeadStage``, ``BertForPretrainingPipe``) need ``Pipeline1F1B``,
-which is not ported: they raise (ROADMAP.md Queue 1 item 6).
+from the device's default generator. ``BertForPretrainingPipe`` is the
+MLM objective on the 1F1B pipeline (``distributed/pipeline_1f1b.py``):
+the embeddings inside stage 0, the encoder layers stage-stacked over
+``pp``, ``BertMLMHeadStage`` (tied to the word embeddings) inside stage
+S-1. Under ``ring_attention.sep_sharded_scope`` the embeddings add the
+sequence chunk's offset to their positions.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import torch
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.core.random import generator as make_generator
+from paddle_tpu_torch.distributed.pipeline_1f1b import Pipeline1F1B
+from paddle_tpu_torch.distributed.ring_attention import _sep_position_offset
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn.layer import Layer
@@ -41,11 +46,8 @@ from paddle_tpu_torch.nn.layers.transformer import (TransformerEncoder,
                                                     TransformerEncoderLayer)
 
 __all__ = ["BertConfig", "BertModel", "BertForPretraining",
-           "BertForSequenceClassification"]
-
-PIPELINE_UNPORTED = (
-    "needs Pipeline1F1B, which the port does not have yet (ROADMAP.md "
-    "Queue 1 item 6); train BertForPretraining on one card instead")
+           "BertForSequenceClassification", "BertMLMHeadStage",
+           "BertForPretrainingPipe"]
 
 
 def _build(device, seed: Optional[int]):
@@ -93,7 +95,8 @@ class BertEmbeddings(Layer):
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         s = input_ids.shape[1]
         if position_ids is None:
-            position_ids = ops.arange(0, s, dtype="int32",
+            off = _sep_position_offset(s)
+            position_ids = ops.arange(off, off + s, dtype="int32",
                                       device=input_ids.device)
         if token_type_ids is None:
             token_type_ids = ops.zeros_like(input_ids)
@@ -189,18 +192,61 @@ class BertForSequenceClassification(Layer):
 
 
 class BertMLMHeadStage(Layer):
-    """The pipeline's tail stage (MLM transform, norm, tied decode):
-    not ported, it needs ``Pipeline1F1B``."""
+    """The pipeline's tail stage (``bert.py:132``): MLM transform, norm
+    and the decode against the tied word embeddings (the embedding
+    stage's ``Embedding`` object itself, so its gradient sums both
+    uses)."""
 
-    def __init__(self, c: BertConfig, tied_embeddings: Embedding):
-        raise NotImplementedError(f"BertMLMHeadStage {PIPELINE_UNPORTED}")
+    def __init__(self, c: BertConfig, tied_embeddings: Embedding, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.mlm_transform = Linear(c.hidden_size, c.hidden_size, **kw)
+        self.mlm_norm = LayerNorm(c.hidden_size, epsilon=c.layer_norm_eps,
+                                  **kw)
+        self.word_embeddings = tied_embeddings
+
+    def forward(self, seq):
+        h = self.mlm_norm(F.gelu(self.mlm_transform(seq)))
+        return ops.matmul(
+            h, ops.transpose(self.word_embeddings.weight, [1, 0]))
 
 
-class BertForPretrainingPipe(Layer):
-    """Pipeline-parallel BERT pretraining on the 1F1B schedule: not
-    ported, it needs ``Pipeline1F1B``."""
+def _encoder_layers(c: BertConfig, kw):
+    return [TransformerEncoderLayer(
+        c.hidden_size, c.num_attention_heads, c.intermediate_size,
+        dropout=c.hidden_dropout_prob, activation=c.hidden_act,
+        attn_dropout=c.attention_probs_dropout_prob, act_dropout=0.0, **kw)
+        for _ in range(c.num_hidden_layers)]
+
+
+class BertForPretrainingPipe(Pipeline1F1B):
+    """Pipeline-parallel BERT pretraining (the MLM objective,
+    ``bert.py:152``) on the 1F1B schedule. The NSP head and attention
+    masks are not part of the pipelined variant (the per-microbatch
+    carry is the hidden sequence alone), as in the reference."""
+
+    embeddings_cls = BertEmbeddings
 
     def __init__(self, config: BertConfig, num_stages: int = 1,
-                 num_microbatches: int = 1):
-        raise NotImplementedError(
-            f"BertForPretrainingPipe {PIPELINE_UNPORTED}")
+                 num_microbatches: int = 1, *, device=None,
+                 dtype=torch.float32, seed: Optional[int] = None):
+        c = config
+        dev, scope = _build(device, seed)
+        kw = dict(device=dev, dtype=dtype)
+        with scope:
+            emb = self.embeddings_cls(c, **kw)
+            blocks = _encoder_layers(c, kw)
+            head = BertMLMHeadStage(c, emb.word_embeddings, **kw)
+        super().__init__(first=emb, blocks=blocks, last=head,
+                         loss_fn=BertForPretrainingPipe.mlm_loss,
+                         num_stages=num_stages,
+                         num_microbatches=num_microbatches)
+        self.config = config
+
+    @staticmethod
+    def mlm_loss(logits, labels):
+        """Masked-LM cross entropy; label -100 marks the unmasked
+        positions (the reference's ignore_index contract)."""
+        return F.cross_entropy(logits, labels, ignore_index=-100,
+                               reduction="mean")

@@ -4,8 +4,8 @@ ERNIE-1.0 is the BERT trunk (``models/bert.py``) plus a task-type
 embedding table; the reference's structure and parameter names, so a
 JAX model's ``state_dict()`` loads by name. The models take the port's
 keyword-only ``device``, ``dtype`` and ``seed``, as BERT's do.
-``ErnieForPretrainingPipe`` needs ``Pipeline1F1B`` and raises
-(ROADMAP.md Queue 1 item 6).
+``ErnieForPretrainingPipe`` is ``BertForPretrainingPipe`` with the ERNIE
+embeddings (task type 0 inside the embedding stage).
 """
 
 from __future__ import annotations
@@ -16,8 +16,9 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch import ops
-from paddle_tpu_torch.models.bert import (PIPELINE_UNPORTED, BertConfig,
-                                          BertEmbeddings, BertModel,
+from paddle_tpu_torch.distributed.ring_attention import _sep_position_offset
+from paddle_tpu_torch.models.bert import (BertConfig, BertEmbeddings,
+                                          BertForPretrainingPipe, BertModel,
                                           _additive_mask, _build)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as I
@@ -25,7 +26,7 @@ from paddle_tpu_torch.nn.layer import Layer
 from paddle_tpu_torch.nn.layers.common import Dropout, Embedding, Linear
 
 __all__ = ["ErnieConfig", "ErnieModel", "ErnieForSequenceClassification",
-           "ernie_1_0"]
+           "ernie_1_0", "ErnieForPretrainingPipe"]
 
 
 @dataclass
@@ -52,7 +53,8 @@ class ErnieEmbeddings(BertEmbeddings):
                 task_type_ids=None):
         s = input_ids.shape[1]
         if position_ids is None:
-            position_ids = ops.arange(0, s, dtype="int32",
+            off = _sep_position_offset(s)
+            position_ids = ops.arange(off, off + s, dtype="int32",
                                       device=input_ids.device)
         if token_type_ids is None:
             token_type_ids = ops.zeros_like(input_ids)
@@ -104,11 +106,14 @@ def ernie_1_0() -> ErnieConfig:
     return ErnieConfig()
 
 
-class ErnieForPretrainingPipe(Layer):
-    """ERNIE MLM pretraining on the 1F1B schedule: not ported, it needs
-    ``Pipeline1F1B``."""
+class ErnieForPretrainingPipe(BertForPretrainingPipe):
+    """ERNIE MLM pretraining on the 1F1B schedule (``ernie.py:98``):
+    ``BertForPretrainingPipe``'s shape with ``ErnieEmbeddings``."""
+
+    embeddings_cls = ErnieEmbeddings
 
     def __init__(self, config: ErnieConfig, num_stages: int = 1,
-                 num_microbatches: int = 1):
-        raise NotImplementedError(
-            f"ErnieForPretrainingPipe {PIPELINE_UNPORTED}")
+                 num_microbatches: int = 1, *, device=None,
+                 dtype=torch.float32, seed: Optional[int] = None):
+        super().__init__(config, num_stages, num_microbatches, device=device,
+                         dtype=dtype, seed=seed)

@@ -78,14 +78,19 @@ from paddle_tpu_torch.distributed.meta_parallel import (ColumnParallelLinear,
                                                         RowParallelLinear,
                                                         VocabParallelEmbedding)
 from paddle_tpu_torch.distributed.meta_parallel.mp_layers import (
-    _gather_last, _pg, axis_in_scope, mp_identity)
+    MP_AXIS, ParallelCrossEntropy, _gather_last, _pg, axis_in_scope,
+    mp_identity)
+from paddle_tpu_torch.distributed.pipeline_1f1b import Pipeline1F1B
+from paddle_tpu_torch.distributed.ring_attention import (
+    _sep_position_offset, get_sep_sharded_scope)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Layer
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerList, LayerNorm
 from paddle_tpu_torch.ops.kernels.chunk_prefill import chunk_prefill
 from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
 
-__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
+__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "GPTEmbeddingStage",
+           "GPTHeadStage", "GPTForCausalLMPipe", "gpt_tiny",
            "gpt_tiny8", "gpt_moe_tiny", "gpt_moe_1p3b", "gpt2_small",
            "gpt3_1p3b", "gpt3_13b"]
 
@@ -525,7 +530,9 @@ class GPTModel(Layer):
         steps = torch.arange(s, device=input_ids.device)
         if position_ids is None:
             if caches is None:
-                position_ids = steps
+                # a sequence chunk (ring_attention.sep_sharded_scope)
+                # starts at its global offset
+                position_ids = steps + _sep_position_offset(s)
             elif len(caches[0]) == 2:
                 # the concat cache: its rows so far (gpt.py:557-558)
                 position_ids = caches[0][0].shape[1] + steps
@@ -572,6 +579,38 @@ class GPTModel(Layer):
         return lora
 
 
+def _draw_weights(config: GPTConfig, gen, wte, wpe, blocks):
+    """GPT's weights from ``gen``: normal(0, initializer_range), output
+    projections scaled by 1/sqrt(2 * num_layers), in the order
+    ``GPTForCausalLM`` and ``GPTForCausalLMPipe`` share, so one seed
+    gives both the same weights."""
+    std = config.initializer_range
+    out_std = std / math.sqrt(2 * config.num_layers)
+    with torch.no_grad():
+        wte.weight.normal_(0.0, std, generator=gen)
+        wpe.weight.normal_(0.0, std, generator=gen)
+        for blk in blocks:
+            blk.attn.qkv_proj.weight.normal_(0.0, std, generator=gen)
+            blk.attn.out_proj.weight.normal_(0.0, out_std, generator=gen)
+            if isinstance(blk.mlp, GPTMLP):
+                blk.mlp.fc_in.weight.normal_(0.0, std, generator=gen)
+                blk.mlp.fc_out.weight.normal_(0.0, out_std,
+                                              generator=gen)
+                continue
+            # the stacked experts as GPTMoEMLP's initializers draw
+            # them; the gate XavierUniform, its bias 0 (the
+            # reference's Linear defaults)
+            moe = blk.mlp.moe
+            moe.htoh4__weight.normal_(0.0, std, generator=gen)
+            moe.h4toh__weight.normal_(0.0, out_std, generator=gen)
+            moe.htoh4__bias.zero_()
+            moe.h4toh__bias.zero_()
+            w = moe.gate.gate.weight
+            lim = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+            w.uniform_(-lim, lim, generator=gen)
+            moe.gate.gate.bias.zero_()
+
+
 class GPTForCausalLM(Layer):
     """GPT with the tied LM head. ``device`` defaults to ``"cuda"``
     (raising on a host without a card — pass ``device="cpu"`` to opt
@@ -593,31 +632,8 @@ class GPTForCausalLM(Layer):
         self._init_weights(make_generator(seed, dev))
 
     def _init_weights(self, gen):
-        std = self.config.initializer_range
-        out_std = std / math.sqrt(2 * self.config.num_layers)
-        with torch.no_grad():
-            self.gpt.wte.weight.normal_(0.0, std, generator=gen)
-            self.gpt.wpe.weight.normal_(0.0, std, generator=gen)
-            for blk in self.gpt.h:
-                blk.attn.qkv_proj.weight.normal_(0.0, std, generator=gen)
-                blk.attn.out_proj.weight.normal_(0.0, out_std, generator=gen)
-                if isinstance(blk.mlp, GPTMLP):
-                    blk.mlp.fc_in.weight.normal_(0.0, std, generator=gen)
-                    blk.mlp.fc_out.weight.normal_(0.0, out_std,
-                                                  generator=gen)
-                    continue
-                # the stacked experts as GPTMoEMLP's initializers draw
-                # them; the gate XavierUniform, its bias 0 (the
-                # reference's Linear defaults)
-                moe = blk.mlp.moe
-                moe.htoh4__weight.normal_(0.0, std, generator=gen)
-                moe.h4toh__weight.normal_(0.0, out_std, generator=gen)
-                moe.htoh4__bias.zero_()
-                moe.h4toh__bias.zero_()
-                w = moe.gate.gate.weight
-                lim = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
-                w.uniform_(-lim, lim, generator=gen)
-                moe.gate.gate.bias.zero_()
+        _draw_weights(self.config, gen, self.gpt.wte, self.gpt.wpe,
+                      self.gpt.h)
 
     def forward(self, input_ids, labels=None, position_ids=None,
                 caches=None, adapters=None, output_hidden=False):
@@ -643,6 +659,10 @@ class GPTForCausalLM(Layer):
         axis = self.gpt.wte._axis
         parallel = axis_in_scope(axis)
         if labels is not None:
+            sep = get_sep_sharded_scope()
+            if sep is not None and caches is None:
+                return self._sep_loss(hidden, labels, sep,
+                                      axis if parallel else None)
             # under tensor parallelism wte is this rank's vocab rows: the
             # vocab-parallel online logsumexp (no gather of wte)
             return F.loss._linear_cross_entropy(
@@ -660,6 +680,33 @@ class GPTForCausalLM(Layer):
             return (logits, hidden) if caches is None \
                 else (logits, hidden, out[1])
         return logits if caches is None else (logits, out[1])
+
+    def _sep_loss(self, hidden, labels, sep, axis):
+        """The mean next-token loss of the WHOLE sequence when this rank
+        holds one chunk of it (``sep_sharded_scope``): row ``j`` of chunk
+        ``r`` predicts the label at global position ``r*S + j + 1`` (the
+        next chunk's first label for the last row; the last chunk's last
+        row predicts nothing), so the labels are gathered (ids only) and
+        this rank's rows go through the fused head. The value is the
+        global mean (the ranks' sums all-reduced); the gradient is this
+        rank's part only, which the trainer's sum over ``sep`` completes.
+        No rank gathers the hidden states or the logits."""
+        from paddle_tpu_torch.distributed import collective
+        from paddle_tpu_torch.distributed import env as dist_env
+        from paddle_tpu_torch.distributed.ring_attention import _gather_seq
+
+        mesh, sep_axis = sep
+        c, r = hidden.shape[1], mesh.index(sep_axis)
+        whole = _gather_seq(labels, mesh, sep_axis)
+        tgt = whole[:, r * c + 1:(r + 1) * c + 1]
+        part = F.loss._linear_cross_entropy(
+            hidden[:, :tgt.shape[1]], self.gpt.wte.weight, tgt,
+            reduction="sum", w_vocab_major=True, axis=axis)
+        total = part.detach().float().clone()
+        with dist_env._mesh_scope(mesh):
+            collective.all_reduce(total, axis_name=sep_axis)
+        count = (whole[:, 1:] != -100).float().sum().clamp(min=1.0)
+        return (part.float() + (total - part.detach().float())) / count
 
     @staticmethod
     def loss(logits, labels):
@@ -897,17 +944,129 @@ class GPTForCausalLM(Layer):
                 "max_position_embeddings": cfg.max_position_embeddings}
 
 
-class GPTForCausalLMPipe(Layer):
-    """Pipeline-parallel GPT on the 1F1B schedule (``gpt.py:1011``), the
-    MoE pipeline included: not ported, it needs ``Pipeline1F1B``."""
+class GPTEmbeddingStage(Layer):
+    """The pipeline's stage-0 head-end (``gpt.py:944``): token and
+    position embeddings and the embedding dropout, inside stage 0 of the
+    1F1B schedule."""
+
+    def __init__(self, config: GPTConfig, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.wte = VocabParallelEmbedding(config.vocab_size,
+                                          config.hidden_size, device=device,
+                                          dtype=dtype)
+        self.wpe = Embedding(config.max_position_embeddings,
+                             config.hidden_size, device=device, dtype=dtype)
+        self.drop = Dropout(config.hidden_dropout)
+
+    def forward(self, input_ids):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device) \
+            + _sep_position_offset(s)
+        return self.drop(self.wte(input_ids) + self.wpe(pos))
+
+
+class GPTHeadStage(Layer):
+    """The pipeline's last-stage tail (``gpt.py:966``): the final norm
+    and the LM head. Tied, it holds the embedding stage's
+    ``VocabParallelEmbedding`` object itself, so the weight is one
+    parameter whose gradient sums both uses (the schedule's sum over
+    ``pp``). Under tensor parallelism it returns this rank's vocab
+    columns of the logits (the tied matmul behind ``mp_identity``, or
+    the untied column-parallel head without its gather), which
+    ``GPTForCausalLMPipe.pipe_loss`` reduces vocab-parallel."""
+
+    def __init__(self, config: GPTConfig, tied_embedding=None, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.ln_f = LayerNorm(config.hidden_size,
+                              epsilon=config.layer_norm_epsilon,
+                              device=device, dtype=dtype)
+        if tied_embedding is not None:
+            self.wte = tied_embedding
+            self.lm_head = None
+        else:
+            self.wte = None
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, has_bias=False,
+                gather_output=False, device=device, dtype=dtype)
+
+    def forward(self, h):
+        h = self.ln_f(h)
+        if self.lm_head is not None:
+            return self.lm_head(h)
+        h, w = maybe_cast_inputs("matmul", (h, self.wte.weight))
+        if axis_in_scope(MP_AXIS):
+            return torch.matmul(mp_identity(h, MP_AXIS), w.t())
+        return torch.matmul(h, w.t())
+
+
+class GPTForCausalLMPipe(Pipeline1F1B):
+    """Pipeline-parallel GPT (``gpt.py:1011``): the embedding inside
+    stage 0, the blocks stage-stacked over ``pp``, the head (tied or
+    not) and the loss inside stage S-1, on the 1F1B schedule
+    (``distributed/pipeline_1f1b.py``). The weights are drawn as
+    ``GPTForCausalLM``'s from ``seed``, so the two hold the same values
+    under one seed (an untied head's weight is drawn last). A GPT-MoE
+    config refuses: the MoE pipeline is ROADMAP.md Queue 1 item 6 (6d).
+
+    ``forward`` returns whole-vocabulary logits (gathered over ``mp``
+    under tensor parallelism), for ``loss`` and evaluation; the schedule
+    runs ``pipe_loss`` on the head's own output."""
 
     def __init__(self, config: GPTConfig, num_stages: int = 1,
                  num_microbatches: int = 1,
-                 virtual_pipeline_degree: int = 1):
-        raise NotImplementedError(
-            "GPTForCausalLMPipe needs Pipeline1F1B, which the port does not "
-            "have yet (ROADMAP.md Queue 1 item 6); train GPTForCausalLM "
-            "(a GPT-MoE config included) on one card instead")
+                 virtual_pipeline_degree: int = 1, *, device=None,
+                 seed: int = 0, dtype=torch.float32):
+        if config.num_experts > 0:
+            raise NotImplementedError(
+                "GPTForCausalLMPipe with a GPT-MoE config: the MoE pipeline "
+                "over ranks is ROADMAP.md Queue 1 item 6 (6d); train "
+                "GPTForCausalLM with the MoE config instead")
+        dev = resolve_device(device)
+        embed = GPTEmbeddingStage(config, device=dev, dtype=dtype)
+        head = GPTHeadStage(
+            config,
+            tied_embedding=embed.wte if config.tie_word_embeddings else None,
+            device=dev, dtype=dtype)
+        blocks = [GPTBlock(config, device=dev, dtype=dtype)
+                  for _ in range(config.num_layers)]
+        gen = make_generator(seed, dev)
+        _draw_weights(config, gen, embed.wte, embed.wpe, blocks)
+        if head.lm_head is not None:
+            with torch.no_grad():
+                head.lm_head.weight.normal_(0.0, config.initializer_range,
+                                            generator=gen)
+        super().__init__(first=embed, blocks=blocks, last=head,
+                         loss_fn=GPTForCausalLMPipe.pipe_loss,
+                         num_stages=num_stages,
+                         num_microbatches=num_microbatches,
+                         virtual_pipeline_degree=virtual_pipeline_degree)
+        self.config = config
+
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is not None:
+            raise NotImplementedError(
+                "GPTForCausalLMPipe derives position ids inside its "
+                "embedding stage (arange over the sequence); explicit "
+                "position_ids are not supported on the pipelined path — "
+                "use GPTForCausalLM for custom positions")
+        logits = super().forward(input_ids)
+        if axis_in_scope(MP_AXIS) and _pg(MP_AXIS)[1] > 1:
+            logits = _gather_last(logits, MP_AXIS)
+        return logits
+
+    @staticmethod
+    def pipe_loss(logits, labels):
+        """Shift-by-one causal CE; under tensor parallelism the logits
+        are this rank's vocab columns and the loss is
+        ``ParallelCrossEntropy``'s."""
+        shifted, targets = logits[:, :-1], labels[:, 1:]
+        if axis_in_scope(MP_AXIS):
+            return ParallelCrossEntropy()(shifted, targets).mean()
+        return F.cross_entropy(shifted, targets, reduction="mean")
+
+    loss = GPTForCausalLM.loss
 
 
 def gpt_tiny() -> GPTConfig:

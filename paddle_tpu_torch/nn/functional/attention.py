@@ -14,7 +14,13 @@ Counterpart of ``paddle_tpu/nn/functional/attention.py``, in paddle's
 - ``_local_attention`` picks between them with the gate of JAX
   ``_local_attention`` (:101-123), copied exactly: flash only with no
   mask and no active dropout, not for causal sq != sk, and only where
-  sq, sk >= 128 and both tile into blocks of at least 64.
+  sq, sk >= 128 and both tile into blocks of at least 64;
+- the sequence-parallel routing of ``_sdpa_kernel`` (:55-197): inside
+  the trainer's ``sep_sharded_scope`` attention runs ring or Ulysses
+  (``distributed/ring_attention.py``, ``distributed/ulysses.py``), a
+  mask or active dropout warning and running locally on the gathered
+  sequence; where a bound mesh carries ``sep`` outside any such scope,
+  the same schedules run and a mask or dropout raises.
 
 :func:`scaled_dot_product_attention` has the JAX function's signature
 (:209-213). Attention dropout (p > 0 while training) keeps the plain
@@ -114,6 +120,87 @@ def _local_attention(query, key, value, attn_mask, dropout_p: float = 0.0,
                  scale=scale, dropout_p=dropout_p)
 
 
+_sep_hooks = None
+
+
+def _get_sep_hooks():
+    """The sequence-parallel modules, imported once (the distributed
+    package imports this one)."""
+    global _sep_hooks
+    if _sep_hooks is None:
+        import importlib
+
+        _sep_hooks = tuple(importlib.import_module(
+            f"paddle_tpu_torch.distributed.{m}")
+            for m in ("env", "ring_attention", "ulysses"))
+    return _sep_hooks
+
+
+def _sep_bound() -> bool:
+    """A bound mesh carries a ``sep`` axis above 1 and no
+    ``sep_sharded_scope`` says how the sequence lies: the caller's
+    tensors are its chunks (the reference's ``shard_map`` binding)."""
+    env, ring, _ = _get_sep_hooks()
+    if ring._SCOPES:
+        return False
+    mesh = env._bound_mesh()
+    return mesh is not None and mesh.shape.get(ring.SEP_AXIS, 1) > 1
+
+
+def _sep_schedule(query, key, value, is_causal, scale):
+    """Ring (the default) or Ulysses, by ``sequence_parallel_mode``."""
+    _, ring, ulysses = _get_sep_hooks()
+    if ulysses.get_sequence_parallel_mode() == "ulysses":
+        return ulysses.ulysses_attention(query, key, value,
+                                         is_causal=is_causal, scale=scale)
+    return ring.ring_attention(query, key, value, is_causal=is_causal,
+                               scale=scale)
+
+
+def _sep_attention(query, key, value, attn_mask, dropout_p, is_causal,
+                   scale):
+    """The bound case (``_sdpa_kernel``'s ``_sep_bound`` arm, :77-97):
+    the tensors are sequence chunks, so attention MUST run a
+    sequence-parallel schedule; a mask or active dropout raises, since
+    chunk-local attention would be another function."""
+    if attn_mask is not None or dropout_p > 0.0:
+        raise NotImplementedError(
+            "attention with attn_mask/dropout is not sequence-parallel-"
+            "lowered; disable attention dropout (or masks) under sequence "
+            "parallelism")
+    return _sep_schedule(query, key, value, is_causal, scale)
+
+
+def _sep_scope_attention(query, key, value, attn_mask, dropout_p,
+                         is_causal, scale, ctx):
+    """The trainer's sequence-cut region (``_sep_gspmd_attention``,
+    :126-167): ring or Ulysses; a mask, active dropout or
+    cross-attention warns and runs the local attention on the gathered
+    sequence (the same function, not sep-scheduled), this rank's rows
+    kept."""
+    mesh, axis = ctx
+    if attn_mask is None and dropout_p <= 0.0 \
+            and query.shape[1] == key.shape[1]:
+        return _sep_schedule(query, key, value, is_causal, scale)
+    import warnings
+
+    warnings.warn(
+        "sequence-parallel scope: attention with attn_mask/dropout or "
+        "cross-attention falls back to the local kernel on the gathered "
+        f"sequence over '{axis}' (correct but not sep-scheduled)",
+        UserWarning, stacklevel=3)
+    _, ring, _ = _get_sep_hooks()
+    n, r = mesh.degree(axis), mesh.index(axis)
+    q, k, v = (ring._SeqGatherSum.apply(t, mesh, axis)
+               for t in (query, key, value))
+    if attn_mask is not None and attn_mask.shape[-1] == key.shape[1] \
+            and n > 1:
+        attn_mask = ring._gather_seq(attn_mask.movedim(-1, 1), mesh,
+                                     axis).movedim(1, -1)
+    out = _local_attention(q, k, v, attn_mask, dropout_p, is_causal, scale)
+    return out.chunk(n, dim=1)[r]
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
@@ -123,9 +210,21 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     defaults. Under AMP q, k and v are cast as the white-listed op
     ``scaled_dot_product_attention`` (the mask is not). ``dropout_p``
     applies while ``training``; with ``training=False`` it is the
-    identity."""
+    identity. In a sequence-cut region (``ring_attention.
+    sep_sharded_scope``) or where a bound mesh carries a ``sep`` axis,
+    the tensors are sequence chunks and the sequence-parallel routing
+    above applies."""
     drop = dropout_p if training else 0.0
     query, key, value = maybe_cast_inputs("scaled_dot_product_attention",
                                           (query, key, value))
+    env, ring, _ = _get_sep_hooks()
+    if ring._SCOPES:
+        ctx = ring.get_sep_sharded_scope()
+        if ctx is not None:
+            return _sep_scope_attention(query, key, value, attn_mask, drop,
+                                        is_causal, scale, ctx)
+    elif env._BOUND and _sep_bound():
+        return _sep_attention(query, key, value, attn_mask, drop, is_causal,
+                              scale)
     return _local_attention(query, key, value, attn_mask, drop, is_causal,
                             scale)

@@ -301,13 +301,45 @@ def test_seeded_builds_repeat_and_ernie_defaults_are_the_reference():
 
 
 def test_pipeline_variants_raise_naming_the_roadmap_item():
-    cfg = BertConfig(**TINY)
-    for build in (lambda: port_bert.BertForPretrainingPipe(cfg, 2, 2),
-                  lambda: port_bert.BertMLMHeadStage(cfg, None),
-                  lambda: port_ernie.ErnieForPretrainingPipe(
-                      ErnieConfig(**TINY))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            build()
+    """The pipeline variants, refusals (ROADMAP.md Queue 1 item 6) until
+    the pipeline was ported: ``BertForPretrainingPipe`` and
+    ``ErnieForPretrainingPipe`` at 2 stages take the JAX models' weights
+    by name (the stacked ``stage__*`` layout, the tied decode stored
+    once) and their sequential forward gives the JAX MLM logits; the
+    mean MLM loss of ``loss_and_grads`` over 2 microbatches equals the
+    JAX ``mlm_loss`` of those logits."""
+    from paddle_tpu.models import BertForPretrainingPipe as JaxBertPipe
+    from paddle_tpu.models import ErnieForPretrainingPipe as JaxErniePipe
+
+    rs = np.random.RandomState(4)
+    ids = rs.randint(0, 64, (2, 16)).astype(np.int32)
+    labels = np.where(rs.rand(2, 16) < 0.3, ids, -100).astype(np.int32)
+    for jax_cls, port_cls, cfg_cls in (
+            (JaxBertPipe, port_bert.BertForPretrainingPipe, BertConfig),
+            (JaxErniePipe, port_ernie.ErnieForPretrainingPipe,
+             ErnieConfig)):
+        paddle.seed(2)
+        ref = jax_cls(getattr(importlib.import_module(
+            "paddle_tpu.models"), cfg_cls.__name__)(**TINY), 2, 2)
+        ref.eval()
+        mine = port_cls(cfg_cls(**TINY), 2, 2, device="cpu")
+        mine.set_state_dict({k: np.asarray(v.value)
+                             for k, v in ref.state_dict().items()})
+        mine.eval()
+        assert isinstance(mine.last, port_bert.BertMLMHeadStage)
+        assert mine.last.word_embeddings is mine.first.word_embeddings
+        want = np.asarray(ref(Tensor(jnp.asarray(ids))).value)
+        got = mine(torch.as_tensor(ids, dtype=torch.long))
+        np.testing.assert_allclose(got.detach().numpy(), want, atol=ATOL)
+        loss, _ = mine.loss_and_grads(
+            None, (torch.as_tensor(ids, dtype=torch.long),
+                   torch.as_tensor(labels, dtype=torch.long)), 0)
+        with _no_tape():
+            halves = [float(np.asarray(jax_cls.mlm_loss(
+                Tensor(jnp.asarray(want[i:i + 1])),
+                Tensor(jnp.asarray(labels[i:i + 1]))).value))
+                for i in range(2)]
+        np.testing.assert_allclose(loss.item(), np.mean(halves), rtol=1e-5)
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

@@ -13,7 +13,11 @@ process, inside the tests. Every collective's result is exact (small
 integers in fp32).
 
 ``run_gang`` is shared with the other gang tests
-(``test_torch_mp_layers.py``, ``test_torch_mesh_trainer.py``).
+(``test_torch_mp_layers.py``, ``test_torch_mesh_trainer.py``,
+``test_torch_pipeline.py``, ``test_torch_sep.py``), and so are
+``start_gang`` (the same in a thread, beside the JAX references) and
+``once_per_session``, which builds each module's gang once per test
+session under xdist.
 """
 
 import json
@@ -54,6 +58,71 @@ def _rank_entry(target, rank, world, store, args):
         raise
 
 
+def _alive(pid: int) -> bool:
+    """Whether process ``pid`` runs (a zombie does not)."""
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return True
+    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+
+
+def once_per_session(tmp_path_factory, name, build,
+                     timeout=2 * GANG_TIMEOUT_S):
+    """``build(work_dir)``'s value, computed once per test session. Under
+    xdist a module's tests spread over the workers and each would build
+    its own module fixture (a gang of ranks and the JAX runs); here the
+    first worker to ask builds it in the session's shared temp dir and
+    pickles the value, and the others wait for that file (at most
+    ``timeout`` seconds) and load it. The lock holds the builder's pid: a
+    waiter fails at once when the builder is gone without a result (a
+    worker that crashed mid-build)."""
+    import pickle
+    import time
+
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return build(tmp_path_factory.mktemp(name))
+    root = tmp_path_factory.getbasetemp().parent
+    done = root / f"{name}.pkl"
+    lock = root / f"{name}.lock"
+    try:
+        fd = os.open(lock, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+    except FileExistsError:
+        deadline = time.monotonic() + timeout
+        while not done.exists():
+            assert time.monotonic() < deadline, \
+                f"{name}: the worker building it did not finish"
+            pid = lock.read_text().strip()
+            assert not pid or _alive(int(pid)) or done.exists(), \
+                f"{name}: the worker building it (pid {pid}) died"
+            time.sleep(0.5)
+        ok, value = pickle.loads(done.read_bytes())
+        assert ok, f"{name}: its build failed in another worker:\n{value}"
+        return value
+    os.write(fd, str(os.getpid()).encode())
+    os.close(fd)
+    work = root / name
+    work.mkdir()
+    try:
+        value = build(work)
+    except BaseException:
+        result = (False, traceback.format_exc())
+        raise
+    else:
+        result = (True, value)
+    finally:
+        tmp = root / f"{name}.pkl.tmp"
+        tmp.write_bytes(pickle.dumps(result))
+        tmp.rename(done)
+    return value
+
+
 def run_gang(target, world, tmp, *args, timeout=GANG_TIMEOUT_S):
     """Run ``target(rank, *args)`` in ``world`` spawned gloo ranks; every
     rank must exit 0 within ``timeout`` seconds."""
@@ -79,6 +148,41 @@ def run_gang(target, world, tmp, *args, timeout=GANG_TIMEOUT_S):
     assert not hung, f"gang timed out after {timeout} s\n{errs}"
     assert all(p.exitcode == 0 for p in procs), \
         f"exit codes {[p.exitcode for p in procs]}\n{errs}"
+
+
+def wait_for(path, timeout=GANG_TIMEOUT_S):
+    """In a rank: wait until the test process has written ``path``."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        assert time.monotonic() < deadline, f"{path} never came"
+        time.sleep(0.2)
+
+
+def start_gang(target, world, tmp, *args, timeout=GANG_TIMEOUT_S):
+    """``run_gang`` in a thread, so the test process computes its JAX
+    references while the ranks run; returns a function that waits for
+    the gang and raises its failure."""
+    import threading
+
+    failed = []
+
+    def body():
+        try:
+            run_gang(target, world, tmp, *args, timeout=timeout)
+        except BaseException as e:     # re-raised by wait()
+            failed.append(e)
+
+    thread = threading.Thread(target=body, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if failed:
+            raise failed[0]
+
+    return wait
 
 
 # -- the gang -----------------------------------------------------------------
@@ -153,12 +257,16 @@ def _collectives(rank, out):
     (Path(out) / f"coll{rank}.json").write_text(json.dumps(res))
 
 
-@pytest.fixture(scope="module")
-def gang(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("collective_gang")
+def _build_gang(tmp):
     run_gang(_collectives, WORLD, tmp, str(tmp))
     return [json.loads((tmp / f"coll{r}.json").read_text())
             for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def gang(tmp_path_factory):
+    return once_per_session(tmp_path_factory, "collective_gang",
+                            _build_gang)
 
 
 X = np.stack([_x(r).numpy() for r in range(WORLD)])       # (4, 8, 2)
@@ -253,7 +361,9 @@ def test_collectives_match_jax_shard_map(gang):
 def test_launch_runs_a_two_rank_gang(tmp_path):
     """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node
     2`` writes each worker's environment and log; the workers join over
-    gloo and all-reduce."""
+    gloo and all-reduce. The gang meets at a ``file://`` store named by
+    ``--master``: a free TCP port picked and then released could be
+    taken by another test process's gang before rank 0 binds it."""
     script = tmp_path / "job.py"
     script.write_text(
         "import sys, torch\n"
@@ -267,7 +377,8 @@ def test_launch_runs_a_two_rank_gang(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run(
         [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-         "--nproc_per_node", "2", "--log_dir", str(logs), str(script),
+         "--nproc_per_node", "2", "--log_dir", str(logs),
+         "--master", f"file://{tmp_path / 'store'}", str(script),
          str(tmp_path)], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=GANG_TIMEOUT_S)
     assert res.returncode == 0, res.stdout + res.stderr + "".join(
@@ -311,3 +422,24 @@ def test_spawn_and_the_gloo_shims(tmp_path):
     assert not hung and [p.exitcode for p in procs] == [0, 0]
     for r in range(2):
         assert (tmp_path / f"spawn{r}").read_text() == f"{r} 2 3.0"
+
+
+def test_once_per_session_fails_at_once_when_the_builder_died(
+        tmp_path_factory, monkeypatch):
+    """A waiter reads the builder's pid from the lock and stops waiting
+    when that process is gone without a result."""
+    import time
+
+    dead = subprocess.Popen([sys.executable, "-c", "pass"])
+    dead.wait()
+    name = f"dead_builder_{os.getpid()}"
+    lock = tmp_path_factory.getbasetemp().parent / f"{name}.lock"
+    lock.write_text(str(dead.pid))
+    monkeypatch.setenv("PYTEST_XDIST_WORKER", "gw0")
+    t0 = time.monotonic()
+    try:
+        with pytest.raises(AssertionError, match="died"):
+            once_per_session(tmp_path_factory, name, lambda work: 0)
+    finally:
+        lock.unlink()
+    assert time.monotonic() - t0 < 5

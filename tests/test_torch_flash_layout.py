@@ -205,7 +205,8 @@ SCRIPTS = ["chip_smoke.py", "k1_fault_check.py", "k3_fault_check.py",
            "k5_fault_check.py", "k5_variants.py", "k2_fault_check.py",
            "k2_variants.py", "k45_f32_fault_check.py",
            "k45_f32_variants.py", "offload_fault_check.py",
-           "fused_fault_check.py", "mesh_gang.py", "gloo_probe.py"]
+           "fused_fault_check.py", "mesh_gang.py", "pipe_gang.py",
+           "gloo_probe.py"]
 
 
 @pytest.mark.parametrize("script", SCRIPTS)

@@ -52,7 +52,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_collective import WORLD, run_gang
+from test_torch_collective import WORLD, once_per_session, run_gang
 
 # one torch intra-op thread a test process (test_torch_cpu_threads.py)
 torch.set_num_threads(1)
@@ -248,12 +248,15 @@ def _jax_run(dims, stage, state, steps=STEPS, ckpt=None):
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
+    return once_per_session(tmp_path_factory, "mesh_trainer_gang", _build)
+
+
+def _build(work):
     """The JAX weights and checkpoint, the gang, and the JAX mesh runs."""
     import paddle_tpu as paddle
     from paddle_tpu.models import GPTForCausalLM as JaxGPT
     from paddle_tpu.models import gpt_tiny as jax_gpt_tiny
 
-    work = tmp_path_factory.mktemp("mesh_trainer_gang")
     paddle.seed(0)
     state = {k: np.asarray(v.value)
              for k, v in JaxGPT(jax_gpt_tiny()).state_dict().items()}

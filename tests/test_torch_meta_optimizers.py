@@ -10,7 +10,8 @@
   its rate, momentum and the strategy's Lars settings), LocalSGD, else
   ``HybridParallelOptimizer``; ``fleet.init`` and ``distributed_model``
   train in one process (over four ranks: ``test_torch_mesh_trainer.py``),
-  and a pipeline degree refuses (ROADMAP.md Queue 1 item 6).
+  and a pipeline degree above the world's ranks raises the reference's
+  ``ValueError``.
 - ASP's 1-D and 2-D greedy masks equal the reference's bitwise on the
   same arrays, ``prune_model`` prunes the reference's parameters of a
   port GPT with the same masks, and ``decorate`` keeps the pattern
@@ -175,8 +176,8 @@ def test_distributed_optimizer_picks_the_reference_wrapper(which, inner):
 def test_fleet_init_and_distributed_model_refuse(tmp_path):
     """``fleet.init`` and ``distributed_model`` are ported (the mesh over
     ``torch.distributed``; ``test_torch_mesh_trainer.py`` drives them
-    over four ranks). What still refuses: ``distributed_model`` before
-    ``init``, and a pipeline degree (ROADMAP.md Queue 1 item 6). In one
+    over four ranks). What refuses: ``distributed_model`` before
+    ``init``, and a pipeline degree above the world's ranks. In one
     process on a one-rank gloo group, ``init`` builds the ``[1, 1, 1,
     1]`` topology and mesh, and the wrapped model trains like the
     reference's ``train_batch`` (``tests/test_distributed.py:364-387``)."""
@@ -190,7 +191,9 @@ def test_fleet_init_and_distributed_model_refuse(tmp_path):
         fleet.distributed_model(Linear(2, 2, device="cpu"))
     strategy = DistributedStrategy()
     strategy.hybrid_configs = {"pp_degree": 2}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # pp 2 in a world of one rank: the JAX fleet.init's ValueError for
+    # too few devices, raised before any process group is joined
+    with pytest.raises(ValueError, match="need 2 ranks"):
         fleet.init(is_collective=True, strategy=strategy)
     init_parallel_env(f"file://{tmp_path}/store", 1, 0, backend="gloo",
                       timeout=60)

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_collective import WORLD, run_gang
+from test_torch_collective import WORLD, once_per_session, run_gang
 
 # one torch intra-op thread a test process (test_torch_cpu_threads.py)
 torch.set_num_threads(1)
@@ -156,11 +156,14 @@ def _layers(rank, out):
              **{k: v.detach().numpy() for k, v in res.items()})
 
 
-@pytest.fixture(scope="module")
-def gang(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("mp_layers_gang")
+def _build_gang(tmp):
     run_gang(_layers, WORLD, tmp, str(tmp))
     return [dict(np.load(tmp / f"mp{r}.npz")) for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def gang(tmp_path_factory):
+    return once_per_session(tmp_path_factory, "mp_layers_gang", _build_gang)
 
 
 def _cat(gang, key, dim):

@@ -328,7 +328,7 @@ def test_port_never_imports_jax_or_the_jax_package():
               REPO / "k45_f32_fault_check.py", REPO / "k45_f32_variants.py",
               REPO / "offload_fault_check.py",
               REPO / "fused_fault_check.py", REPO / "mesh_gang.py",
-              REPO / "gloo_probe.py"]
+              REPO / "pipe_gang.py", REPO / "gloo_probe.py"]
     assert len(files) > 10
     for module in ("observability/__init__.py", "observability/metrics.py",
                    "observability/ops_plane.py", "inference/program_set.py",

@@ -4,8 +4,9 @@ and comm lists and ``HybridCommunicateGroup``'s view equal the
 reference's for several shapes (``tests/test_distributed.py:24-69``);
 the port's ``Mesh`` slices, windows and first replicas follow the same
 rank order; ``ShardedTrainer``'s ZeRO layout (``_extend_with_sharding``)
-picks the dims the JAX trainer picks; ``fleet.init`` refuses ``pp`` and
-``sep`` naming ROADMAP.md Queue 1 item 6. All exact.
+picks the dims the JAX trainer picks; ``fleet.init``'s ``pp`` and
+``sep`` topologies equal the reference's, and a world too small for its
+degrees raises before joining. All exact.
 """
 
 import itertools
@@ -157,12 +158,35 @@ def test_zero_layout_matches_the_jax_trainer(dims, shape, spec):
 @pytest.mark.parametrize("configs,name", [
     ({"pp_degree": 2}, "pp_degree"), ({"sep_degree": 2}, "sep_degree")])
 def test_fleet_init_refuses_the_pipeline_and_sep(configs, name):
+    """``fleet.init`` with ``pp_degree`` or ``sep_degree`` 2 (refused
+    until the pipeline and the sequence axis were ported): over eight
+    ranks it lays out the topology the JAX ``fleet.init`` builds on
+    eight devices (dp absorbing the rest; ``sep`` the fifth axis), whose
+    stage ids, first and last stages and p2p neighbours equal the
+    reference's on every rank; in a world of one rank it raises the
+    reference's ``ValueError`` before joining any process group."""
+    from paddle_tpu.distributed import CommunicateTopology as JaxTopology
+    from paddle_tpu.distributed import HybridCommunicateGroup as JaxHcg
+
     strategy = DistributedStrategy()
     strategy.hybrid_configs = configs
-    with pytest.raises(NotImplementedError,
-                       match=f"{name}.*ROADMAP.md Queue 1 item 6"):
+    names, dims = ((NAMES, [4, 2, 1, 1]) if name == "pp_degree"
+                   else (NAMES + ["sep"], [4, 1, 1, 1, 2]))
+    mine, ref = CommunicateTopology(names, dims), JaxTopology(names, dims)
+    assert mine.get_hybrid_group_names() == ref.get_hybrid_group_names()
+    for r in range(8):
+        assert mine.get_coord(r) == ref.get_coord(r)
+        a, b = HybridCommunicateGroup(mine, r), JaxHcg(ref, r)
+        for m in ("get_stage_id", "is_first_stage", "is_last_stage",
+                  "get_p2p_groups", "get_pipe_parallel_world_size",
+                  "get_data_parallel_world_size"):
+            assert getattr(a, m)() == getattr(b, m)(), m
+        assert a.get_pipe_parallel_group().ranks == \
+            b.get_pipe_parallel_group().ranks
+    with pytest.raises(ValueError, match="need 2 ranks but the world has 1"):
         fleet.init(is_collective=True, strategy=strategy)
     assert not fleet.is_initialized()
+    assert not torch.distributed.is_initialized()
 
 
 def test_comm_list_orders_every_axis_set_like_the_reference():

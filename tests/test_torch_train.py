@@ -354,18 +354,23 @@ def test_three_train_steps_match_jax_trainer(amp, rtol):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """A mesh of more than one device, pipelines and a batch spec are
-    later work; a one-device mesh is accepted (ZeRO offload is ported:
-    tests/test_torch_offload.py; ``strategy.moe`` trains a GPT-MoE:
-    tests/test_torch_moe.py)."""
+    """A mesh of more than one device that is not the port's ``Mesh``
+    of ranks, and a batch spec, are refused; a one-device mesh is
+    accepted (ZeRO offload is ported: tests/test_torch_offload.py;
+    ``strategy.moe`` trains a GPT-MoE: tests/test_torch_moe.py), and so
+    is ``strategy.pipeline``, which the reference's trainer does not
+    read either: the pipeline over ranks comes from the mesh's ``pp``
+    axis (tests/test_torch_pipeline.py)."""
     from paddle_tpu_torch.distributed import DistributedStrategy
 
     pm = GPTForCausalLM(gpt_tiny(), device="cpu")
     opt = AdamW(parameters=pm.parameters())
     for kw, match in ((dict(mesh=np.zeros(4)), "more than one device"),
-                      (dict(strategy=DistributedStrategy(pipeline=True)),
-                       "pipeline"),
                       (dict(batch_spec=("dp",)), "batch_spec")):
         with pytest.raises(NotImplementedError, match=match):
             ShardedTrainer(pm, opt, None, **kw)
     assert ShardedTrainer(pm, opt, None, mesh=np.zeros(1)).step_count == 0
+    piped = ShardedTrainer(pm, opt, None,
+                           strategy=DistributedStrategy(pipeline=True))
+    ids = torch.zeros(2, 8, dtype=torch.long)
+    assert torch.isfinite(piped.train_step(ids, ids))
